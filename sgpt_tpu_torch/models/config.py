@@ -1,0 +1,113 @@
+"""Decoder architecture configs (counterpart of `sgpt_tpu/models/config.py`).
+
+Same fields as the JAX `DecoderConfig`; only `dtype` differs: a `torch.dtype`
+here, a `jnp.dtype` there. The decoder implements the GPT-Neo path and raises
+`NotImplementedError` for the flags of the other families.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """Static architecture description of a causal decoder-only transformer."""
+
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    max_position_embeddings: int = 2048
+    intermediate_size: Optional[int] = None  # default: 4 * hidden_size
+    head_dim: Optional[int] = None           # default: hidden_size // num_heads
+    position_embedding: str = "learned"      # "learned" | "rotary" | "alibi" | "none"
+    rotary_dim: Optional[int] = None
+    attention_layout: str = "global"         # "global" | "alternating"
+    local_window: int = 256
+    scale_attn: bool = True                  # GPT-Neo: False (unscaled scores)
+    parallel_residual: bool = False
+    embedding_layernorm: bool = False
+    qkv_bias: bool = False
+    out_bias: bool = True
+    layer_norm_eps: float = 1e-5
+    bidirectional: bool = False
+    post_layernorm: bool = False
+    token_type_vocab: int = 0
+    gelu_exact: bool = False
+    norm_style: str = "layer"
+    relative_attention: bool = False
+    relative_attention_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    mlp_activation: Optional[str] = None
+    mlp_bias: bool = True
+    dtype: torch.dtype = torch.float32       # activation/compute dtype
+    matmul_precision: str = "highest"
+    use_flash: bool = False
+    fused_attention: bool = False
+
+    @property
+    def head_size(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.hidden_size // self.num_heads
+
+    @property
+    def mlp_size(self) -> int:
+        return self.intermediate_size if self.intermediate_size is not None else 4 * self.hidden_size
+
+    def local_flags(self) -> Tuple[bool, ...]:
+        """Per-layer is-local-attention flags: odd layers are local."""
+        if self.attention_layout == "alternating":
+            return tuple(i % 2 == 1 for i in range(self.num_layers))
+        return tuple(False for _ in range(self.num_layers))
+
+    def replace(self, **kw) -> "DecoderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def gpt_neo(size: str = "125m", **kw) -> DecoderConfig:
+    dims = {
+        "125m": dict(hidden_size=768, num_layers=12, num_heads=12),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=16),
+        "2.7b": dict(hidden_size=2560, num_layers=32, num_heads=20),
+    }[size]
+    return DecoderConfig(
+        vocab_size=50257,
+        position_embedding="learned",
+        attention_layout="alternating",
+        local_window=256,
+        scale_attn=False,
+        qkv_bias=False,
+        out_bias=True,
+        **dims,
+        **kw,
+    )
+
+
+def tiny(family: str = "neo", vocab_size: int = 257, **kw) -> DecoderConfig:
+    """Small configs for tests; same structural flags as the full family."""
+    if family != "neo":
+        raise NotImplementedError(
+            f"tiny({family!r}): only the GPT-Neo family is ported "
+            "(ROADMAP Queue 1 item 3 lists GPT-J and BLOOM next)")
+    base = dict(vocab_size=vocab_size, hidden_size=64, num_layers=4, num_heads=4,
+                max_position_embeddings=128)
+    base.update(kw)
+    return DecoderConfig(position_embedding="learned", attention_layout="alternating",
+                         local_window=8, scale_attn=False, **base)
+
+
+def from_jax_config(cfg) -> DecoderConfig:
+    """Build the port's config from a JAX `DecoderConfig` (duck-typed: reads
+    the same field names; the dtype goes through its numpy name, so this
+    module needs no jax)."""
+    import numpy as np
+
+    kw = {}
+    for f in dataclasses.fields(DecoderConfig):
+        val = getattr(cfg, f.name)
+        if f.name == "dtype":
+            val = getattr(torch, np.dtype(val).name)
+        kw[f.name] = val
+    return DecoderConfig(**kw)
