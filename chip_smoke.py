@@ -5,16 +5,25 @@
 
 Phases, each of which asserts; any failure exits non-zero:
   1. build   — compile the CUDA kernels from `sgpt_tpu_torch/csrc/` with nvcc (sm_90a)
-  2. kernel  — the fused short-T attention kernel against its plain PyTorch
-               version on the card, at the encode path's shape and variants
-  3. slice   — bulk encode with full-width GPT-Neo-125M (random weights from a
+  2. kernel  — the fused short-T attention kernel (K1) against its plain
+               PyTorch version on the card, at the encode path's shape and
+               variants, and at the train slice's (fp32, B=32)
+  3. bwd     — the short-attention backward kernel (K2) against its plain
+               version, same variants, with a random output gradient
+  4. slice   — bulk encode with full-width GPT-Neo-125M (random weights from a
                seed, bf16) through `EmbeddingEngine`, documents and queries;
                the kernel's launch count must be 12 × the number of batches
-  4. parity  — the same weights in fp32 on the card (kernel) against fp32 on
+  5. parity  — the same weights in fp32 on the card (kernel) against fp32 on
                the CPU (plain path), and bf16-card against fp32-CPU cosines
-  5. report  — kernel and plain-version times, encode rate, the card's name
-               and power limit, one `{"kernels": [...]}` line, and last
-               `{"ok": true, "device": {...}}`
+  6. train   — MS MARCO contrastive training (SGPT-BE: BitFit, SPECB, MNRL,
+               batch 32, max_seq_len 300, fp32) of full-width GPT-Neo-125M
+               through `ContrastiveTrainer.fit`: K1 and K2 counted
+               12 × 3 towers × steps, only biases move, the loss of a
+               repeated batch falls, GradCache's loss equals the direct one
+  7. tparity — one training step's loss and bias gradients, card against CPU
+  8. report  — kernel and plain-version times, encode and train rates, the
+               card's name and power limit, one `{"kernels": [...]}` line,
+               and last `{"ok": true, "device": {...}}`
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -84,25 +93,27 @@ def attention_inputs(torch, rng, B, T, H, Dh, dtype, *, alibi=False, segments=Fa
     return (q, k, v, km, slopes), extra
 
 
+CASES = [  # name, B, T, H, Dh, scale, window, alibi, segments
+    ("main-global", 64, 300, 12, 64, 1.0, 0, False, False),
+    ("main-local256", 64, 300, 12, 64, 1.0, 256, False, False),
+    ("scale", 8, 300, 12, 64, 0.125, 0, False, False),
+    ("alibi-kpos", 8, 300, 12, 64, 1.0, 256, True, False),
+    ("segments", 8, 300, 12, 64, 0.125, 0, False, True),
+    ("odd-T77", 5, 77, 12, 64, 1.0, 16, False, False),
+    ("T2048", 2, 2048, 12, 64, 1.0, 256, False, False),
+    ("Dh128-T2048", 1, 2048, 16, 128, 1.0, 256, True, True),  # GPT-Neo 1.3B/2.7B heads
+    ("Dh32", 4, 100, 4, 32, 0.25, 0, False, False),
+    ("Dh16", 4, 100, 4, 16, 1.0, 8, True, False),
+    ("Dh48-scalar", 4, 130, 4, 48, 1.0, 0, False, True),  # bf16 off the tensor cores
+]
+
+
 def phase_kernel(torch, sa, rng):
     """K1 against its plain version; returns the main-path error and times."""
-    cases = [  # name, B, T, H, Dh, scale, window, alibi, segments
-        ("main-global", 64, 300, 12, 64, 1.0, 0, False, False),
-        ("main-local256", 64, 300, 12, 64, 1.0, 256, False, False),
-        ("scale", 8, 300, 12, 64, 0.125, 0, False, False),
-        ("alibi-kpos", 8, 300, 12, 64, 1.0, 256, True, False),
-        ("segments", 8, 300, 12, 64, 0.125, 0, False, True),
-        ("odd-T77", 5, 77, 12, 64, 1.0, 16, False, False),
-        ("T2048", 2, 2048, 12, 64, 1.0, 256, False, False),
-        ("Dh128-T2048", 1, 2048, 16, 128, 1.0, 256, True, True),  # GPT-Neo 1.3B/2.7B heads
-        ("Dh32", 4, 100, 4, 32, 0.25, 0, False, False),
-        ("Dh16", 4, 100, 4, 16, 1.0, 8, True, False),
-        ("Dh48-scalar", 4, 130, 4, 48, 1.0, 0, False, True),  # bf16 off the tensor cores
-    ]
     main_err = 0.0
     for dtype, atol, rtol in ((torch.bfloat16, BF16_ATOL, BF16_RTOL),
                               (torch.float32, FP32_ATOL, FP32_RTOL)):
-        for name, B, T, H, Dh, scale, window, alibi, segments in cases:
+        for name, B, T, H, Dh, scale, window, alibi, segments in CASES:
             args, extra = attention_inputs(torch, rng, B, T, H, Dh, dtype,
                                            alibi=alibi, segments=segments)
             got = sa.short_attention(*args, scale, window, H, alibi, **extra)
@@ -136,7 +147,200 @@ def phase_kernel(torch, sa, rng):
         log(f"time K1 B=64 T=300 H=12 Dh=64 bf16 window={window}: kernel "
             f"{times[window][0]:.4f} ms, plain {times[window][1]:.4f} ms "
             f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+    # the train slice's shape: fp32, B=32
+    args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, torch.float32)
+
+    def kernel32():
+        return sa.short_attention(*args, 1.0, 0, 12, False)
+
+    def plain32():
+        return sa.short_attention_reference(*args, scale=1.0, window=0, H=12, use_alibi=False)
+
+    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain32, kernel32, kernel32, plain32))
+    times["fp32"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    log(f"time K1 B=32 T=300 H=12 Dh=64 fp32 window=0: kernel {times['fp32'][0]:.4f} ms, "
+        f"plain {times['fp32'][1]:.4f} ms (runs: kernel {k1:.4f} {k2:.4f}, "
+        f"plain {p1:.4f} {p2:.4f})")
     return main_err, times
+
+
+def phase_bwd_kernel(torch, sa, rng):
+    """K2 against its plain version over K1's variants (the main shapes at
+    the train slice's B=32) with a random output gradient. fp32: only the
+    summation order differs, |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref|; bf16: K1's
+    2e-2 + 1e-2·|ref|. Returns the largest fp32 main-shape error (the train
+    slice runs fp32) and the times at B=32, T=300, H=12, Dh=64."""
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, T, H, Dh, scale, window, alibi, segments in CASES:
+            B = 32 if name.startswith("main") else B
+            args, extra = attention_inputs(torch, rng, B, T, H, Dh, dtype,
+                                           alibi=alibi, segments=segments)
+            g = torch.from_numpy(rng.normal(0.0, 1.0, (B, T, H * Dh)).astype(np.float32)
+                                 ).to("cuda", dtype)
+            kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, **extra)
+            got = sa.short_attention_bwd(*args, g, **kw)
+            want = sa.short_attention_bwd_reference(*args, g, **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for part, gg, ww in zip(("dq", "dk", "dv"), got, want):
+                assert gg.shape == ww.shape and gg.dtype == ww.dtype == dtype, (name, part)
+                gg, ww = gg.float(), ww.float()
+                assert torch.isfinite(gg).all(), f"bwd {name} {part}: non-finite output"
+                err = (gg - ww).abs()
+                if dtype == torch.float32:
+                    atol, rtol = FP32_ATOL * ww.abs().max().item(), FP32_RTOL
+                else:
+                    atol, rtol = BF16_ATOL, BF16_RTOL
+                assert (err - rtol * ww.abs()).max().item() <= atol, \
+                    f"bwd {name} {dtype} {part}: exceeds tolerance"
+                errs.append(err.max().item())
+                if name.startswith("main") and dtype == torch.float32:
+                    main_err = max(main_err, err.max().item())
+            log(f"bwd    {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} max_abs_err "
+                f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (0, 256):
+            args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, dtype)
+            g = torch.from_numpy(rng.normal(0.0, 1.0, (32, 300, 768)).astype(np.float32)
+                                 ).to("cuda", dtype)
+            kw = dict(scale=1.0, window=window, H=12, use_alibi=False)
+
+            def kernel():
+                return sa.short_attention_bwd(*args, g, **kw)
+
+            def plain():
+                return sa.short_attention_bwd_reference(*args, g, **kw)
+
+            p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
+            dt = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+            times[(dt, window)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            log(f"time K2 B=32 T=300 H=12 Dh=64 {dt} window={window}: kernel "
+                f"{times[(dt, window)][0]:.4f} ms, plain {times[(dt, window)][1]:.4f} ms "
+                f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+    return main_err, times
+
+
+def synthetic_triplets(rng, n: int) -> list:
+    """(query, positive, hard negative) triples: queries of 3-11 words,
+    documents of 40-450 words, so that some truncate at 300 SPECB tokens."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi))))
+
+    return [(text(3, 12), text(40, 451), text(40, 451)) for _ in range(n)]
+
+
+def phase_train(torch, sa, rng, tok):
+    """The train slice: the MS MARCO CLI's configuration (train_msmarco
+    --train_batch_size 32 --specb --freezenonbias --lr 2e-4, max_seq_len 300,
+    weightedmean, MNRL at scale 20, warmuplinear) on full-width
+    GPT-Neo-125M in fp32, through `ContrastiveTrainer.fit`."""
+    import dataclasses
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
+
+    steps, B = 5, 32
+    cfg = gpt_neo("125m")
+    model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=300, specb=True,
+                     freeze_nonbias=True, pooling="weightedmean", scheduler="warmuplinear")
+    triplets = synthetic_triplets(rng, B * (steps + 1))
+    batches = [triplets[i * B:(i + 1) * B] for i in range(steps)]
+    trainer = ContrastiveTrainer(model, cfg, tok, tc)
+    _, n_trunc, _ = trainer.codec.encode_rows([t[1] for t in triplets])
+    assert n_trunc > 0, "no document reached truncation"
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.log_fn = lambda rec: stamps.append(time.perf_counter())  # float(loss) synchronises
+    sa.launches = sa.bwd_launches = 0
+    t0 = time.perf_counter()
+    out = trainer.fit(lambda: iter(batches), steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd_launches, bwd_launches = sa.launches, sa.bwd_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in out["history"]]
+    log(f"train: {steps} steps in {wall:.2f} s, losses {[round(x, 5) for x in losses]}, "
+        f"{n_trunc} docs truncated; K1 launches {fwd_launches}, K2 launches {bwd_launches}")
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    want = cfg.num_layers * 3 * steps
+    assert bwd_launches == want, f"K2 launched {bwd_launches} times, expected {want}"
+    assert fwd_launches == want, f"K1 launched {fwd_launches} times, expected {want}"
+    for name, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), before[name])
+        assert moved == (name.rsplit(".", 1)[-1] in BIAS_NAMES), \
+            f"{name}: {'moved' if moved else 'did not move'} under BitFit"
+    intervals = np.diff(stamps)  # step 1 carries the first launches' set-up
+    ms_per_step = 1e3 * float(np.median(intervals))
+    seq_per_s = 3 * B / (ms_per_step / 1e3)
+
+    # one batch repeated at a constant lr: the loss falls
+    const = dataclasses.replace(tc, scheduler="constantlr", log_fn=None)
+    rep = ContrastiveTrainer(model, cfg, tok, const).fit(
+        lambda: iter([triplets[-B:]] * 4), steps_per_epoch=4)
+    rep_losses = [h["loss"] for h in rep["history"]]
+    log(f"train: one batch repeated at constant lr 2e-4: losses "
+        f"{[round(x, 5) for x in rep_losses]}")
+    assert rep_losses[-1] < rep_losses[0], rep_losses
+
+    # one GradCache step (chunks of 8) against one direct step, same weights
+    snap = {n: p.detach().clone() for n, p in model.state_dict().items()}
+    direct = ContrastiveTrainer(model, cfg, tok, const).fit(
+        lambda: iter([batches[0]]), steps_per_epoch=1)["history"][0]["loss"]
+    model.load_state_dict(snap)
+    sa.launches = sa.bwd_launches = 0
+    gc = ContrastiveTrainer(model, cfg, tok, dataclasses.replace(
+        const, use_gradcache=True, chunk_size=8)).fit(
+        lambda: iter([batches[0]]), steps_per_epoch=1)["history"][0]["loss"]
+    n_chunks = B // 8
+    log(f"train: GradCache (chunk 8) loss {gc:.7f}, direct {direct:.7f}, "
+        f"|diff| {abs(gc - direct):.3e}; K1 {sa.launches}, K2 {sa.bwd_launches} launches")
+    assert abs(gc - direct) <= 1e-5 * abs(direct)
+    assert sa.bwd_launches == cfg.num_layers * 3 * n_chunks
+    assert sa.launches == 2 * cfg.num_layers * 3 * n_chunks  # pass 1 (no grad) and pass 2
+    return {"ms_per_step": ms_per_step, "seq_per_s": seq_per_s, "peak_gib": peak_gib,
+            "fwd_launches": fwd_launches, "bwd_launches": bwd_launches}
+
+
+def phase_train_parity(torch, rng, tok):
+    """One BitFit step on the same weights and batch (3 triplets, T=300,
+    full width, fp32): the card (K1, K2) against the CPU (plain versions).
+    Loss within 1e-5 relative; each bias gradient within 1e-4 of its
+    leaf's norm."""
+    import copy
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
+
+    cfg = gpt_neo("125m")
+    cpu = Decoder(cfg, generator=torch.Generator().manual_seed(SEED + 1))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    tc = TrainConfig(lr=2e-4, batch_size=3, max_seq_len=300, specb=True, freeze_nonbias=True)
+    batch = synthetic_triplets(rng, 3)
+    res = []
+    for model in (cpu, gpu):
+        trainer = ContrastiveTrainer(model, cfg, tok, tc)
+        trainer._opt, trainer._sched = trainer._build_optimizer(1)
+        loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+        res.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
+                           if p.requires_grad}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = res
+    worst = max(((g_gpu[n] - g).abs().max() / g.norm().clamp_min(1e-12)).item()
+                for n, g in g_cpu.items())
+    log(f"tparity: loss card {loss_gpu:.7f} CPU {loss_cpu:.7f} (|diff| "
+        f"{abs(loss_gpu - loss_cpu):.3e}, tolerance 1e-5 relative); {len(g_cpu)} bias "
+        f"gradients, worst max|diff|/norm {worst:.3e} (tolerance 1e-4)")
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert worst <= 1e-4
 
 
 def cosine(a, b):
@@ -186,11 +390,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
 
-    # 2. kernel against its plain version
+    # 2. K1 and 3. K2 against their plain versions
     rng = np.random.default_rng(SEED)
     main_err, times = phase_kernel(torch, sa, rng)
+    bwd_err, bwd_times = phase_bwd_kernel(torch, sa, rng)
 
-    # 3. the slice: full-width GPT-Neo-125M bulk encode through the engine
+    # 4. the slice: full-width GPT-Neo-125M bulk encode through the engine
     cfg = gpt_neo("125m", dtype=torch.bfloat16)
     model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     tok = SimpleTokenizer(cfg.vocab_size)
@@ -237,7 +442,7 @@ def main() -> int:
     log(f"encode: {emb_per_s:.1f} emb/s ({tokens / doc_s:.0f} tokens/s), "
         f"{len(texts)} docs in {doc_s:.3f} s, bf16, batch_size 64, max_seq_len 300 ({card})")
 
-    # 4. card (kernel) against CPU (plain path) on the same weights
+    # 5. card (kernel) against CPU (plain path) on the same weights
     idx = np.argsort([len(t) for t in texts])[:: len(texts) // 32][:32]
     small = [texts[i] for i in idx]
     cfg32 = gpt_neo("125m")
@@ -256,16 +461,37 @@ def main() -> int:
     assert err32 < 1e-4
     assert cos16.min() > 0.99
 
-    # 5. report
+    # 6. the train slice, and 7. its card-against-CPU parity
+    del model, engine, cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    train = phase_train(torch, sa, rng, tok)
+    phase_train_parity(torch, rng, tok)
+
+    # 8. report
+    log(f"train: {train['ms_per_step']:.1f} ms/step, {train['seq_per_s']:.1f} seq/s "
+        f"(96 sequences per step), peak {train['peak_gib']:.2f} GiB, fp32, "
+        f"batch 32, max_seq_len 300 ({card})")
     log(card)
     print(json.dumps({"kernels": [{
         "name": "short_attention_fwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
-        "launches": main_launches, "max_abs_err": main_err,
+        "launches": main_launches + train["fwd_launches"],
+        "launches_encode": main_launches, "launches_train": train["fwd_launches"],
+        "max_abs_err": main_err,
         "ms": times[0][0], "plain_ms": times[0][1],
         "ms_local256": times[256][0], "plain_ms_local256": times[256][1],
-        "build_s": build_s, "encode_emb_per_s": emb_per_s}]}), flush=True)
+        "ms_fp32_b32": times["fp32"][0], "plain_ms_fp32_b32": times["fp32"][1],
+        "build_s": build_s, "encode_emb_per_s": emb_per_s}, {
+        "name": "short_attention_bwd", "route": "cuda",
+        "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",
+        "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
+        "launches": train["bwd_launches"], "max_abs_err": bwd_err,
+        "ms": bwd_times[("fp32", 0)][0], "plain_ms": bwd_times[("fp32", 0)][1],
+        **{f"{k}_{dt}_w{w}": bwd_times[(dt, w)][i] for dt, w in bwd_times
+           for i, k in enumerate(("ms", "plain_ms"))},
+        "train_ms_per_step": train["ms_per_step"], "train_seq_per_s": train["seq_per_s"],
+        "train_peak_gib": train["peak_gib"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,211 @@
+"""MS MARCO contrastive training on the PyTorch port (counterpart of
+`sgpt_tpu/cli/train_msmarco.py`).
+
+Same flags as the JAX CLI, less `--dp`/`--tp` (meshes are not ported,
+ROADMAP Queue 1 item 12), plus `--device`. Hard negatives with CE-score
+margin filtering, SPECB brackets (`--specb`), BitFit (`--freezenonbias`),
+per-epoch checkpoints, optional MS MARCO dev IR eval. Expects the
+reference's data files in `--data_folder`: collection.tsv (pid\\ttext),
+queries.tsv (qid\\ttext), hard-negatives.jsonl ({qid, pos: [pid], neg:
+{system: [pid]}}) and optionally ce-scores.json ({qid: {pid: score}}).
+
+    python -m sgpt_tpu_torch.cli.train_msmarco --data_folder data/msmarco \\
+        --randominit --train_batch_size 32 --specb --freezenonbias --lr 2e-4
+
+Only random-init GPT-Neo presets load so far (`--randominit`); a real
+checkpoint needs the HF loader (ROADMAP Queue 1 item 2).
+"""
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import logging
+import os
+
+logger = logging.getLogger(__name__)
+
+
+def setup_logging():
+    logging.basicConfig(format="%(asctime)s - %(message)s", datefmt="%Y-%m-%d %H:%M:%S",
+                        level=logging.INFO)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--model_name", default="EleutherAI/gpt-neo-125M")
+    p.add_argument("--data_folder", required=True)
+    p.add_argument("--train_batch_size", type=int, default=64)
+    p.add_argument("--max_seq_length", type=int, default=300)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--scheduler", default="warmuplinear",
+                   choices=["constantlr", "warmupconstant", "warmuplinear",
+                            "warmupcosine", "warmupcosinewithhardrestarts"])
+    p.add_argument("--pooling", default="weightedmean")
+    p.add_argument("--specb", action="store_true")
+    p.add_argument("--freezenonbias", action="store_true")
+    p.add_argument("--unfreezewte", action="store_true")
+    p.add_argument("--gradcache", action="store_true")
+    p.add_argument("--chunksize", type=int, default=8)
+    p.add_argument("--ce_score_margin", type=float, default=3.0)
+    p.add_argument("--num_negs_per_system", type=int, default=5)
+    p.add_argument("--model_save_path", default="output/msmarco")
+    p.add_argument("--randominit", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on: cuda (the kernels) or cpu "
+                   "(their plain versions)")
+    # final dev-set IR eval (train_bi-encoder_mnrl.py:520-527): expects
+    # dev-queries.tsv + dev-qrels.tsv (qid\tpid) in data_folder
+    p.add_argument("--eval_dev", action="store_true")
+    p.add_argument("--dev_corpus_sample", type=int, default=10000)
+    return p.parse_args(argv)
+
+
+def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "float32",
+                device="cpu", seed: int = 0):
+    """(model, cfg, tokenizer): a random-init GPT-Neo preset (`--randominit`,
+    the reference's `--reinit` debugging flag and the zero-egress smoke
+    path), with weights from `seed` and the hash tokenizer bounded by the
+    model's vocab."""
+    import torch
+
+    from sgpt_tpu.tokenization import get_tokenizer
+
+    from ..models import Decoder, gpt_neo
+
+    if not random_init:
+        raise NotImplementedError(
+            f"loading checkpoint {model_name!r} needs the HF state-dict loader "
+            "(hf_loader) — ROADMAP Queue 1 item 2; pass --randominit")
+    low = model_name.lower()
+    if any(s in low for s in ("6b", "5.8b", "6.1b", "bert", "bloom", "t5")):
+        raise NotImplementedError(f"{model_name!r}: only GPT-Neo is ported "
+                                  "(ROADMAP Queue 1 items 3, 14)")
+    size = "1.3b" if "1.3b" in low else "2.7b" if "2.7b" in low else "125m"
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_str]
+    cfg = gpt_neo(size, dtype=dtype)
+    model = Decoder(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    return model, cfg, get_tokenizer(None, vocab_size=cfg.vocab_size)
+
+
+def _open(path):
+    return gzip.open(path, "rt") if path.endswith(".gz") else open(path)
+
+
+def load_msmarco(folder: str, ce_margin: float, negs_per_system: int):
+    from sgpt_tpu.data.msmarco import filter_hard_negatives
+
+    corpus = {}
+    with _open(os.path.join(folder, "collection.tsv")) as f:
+        for line in f:
+            pid, text = line.rstrip("\n").split("\t", 1)
+            corpus[pid] = text
+    queries = {}
+    with _open(os.path.join(folder, "queries.tsv")) as f:
+        for line in f:
+            qid, text = line.rstrip("\n").split("\t", 1)
+            queries[qid] = text
+
+    ce_path = os.path.join(folder, "ce-scores.json")
+    ce_scores = json.load(_open(ce_path)) if os.path.exists(ce_path) else {}
+
+    qrels = {}
+    with _open(os.path.join(folder, "hard-negatives.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            qid, pos = str(row["qid"]), [str(p) for p in row["pos"]]
+            if not pos:
+                continue
+            neg_ids = []
+            for system_negs in row.get("neg", {}).values():
+                sys_negs = [str(p) for p in system_negs]
+                if ce_scores.get(qid):
+                    kept = filter_hard_negatives(
+                        [(p, ce_scores[qid].get(p, -1e9)) for p in sys_negs],
+                        [ce_scores[qid].get(p, 0.0) for p in pos],
+                        ce_margin=ce_margin, max_negs=negs_per_system)
+                else:
+                    kept = sys_negs[:negs_per_system]
+                neg_ids.extend(kept)
+            if neg_ids:
+                qrels[qid] = {"pos": pos, "neg": list(dict.fromkeys(neg_ids))}
+    return corpus, queries, qrels
+
+
+def main(args=None):
+    setup_logging()
+    args = args or parse_args()
+
+    from sgpt_tpu.data import MSMARCOTriplets
+
+    from ..training import ContrastiveTrainer, TrainConfig
+
+    corpus, queries, qrels = load_msmarco(args.data_folder, args.ce_score_margin,
+                                          args.num_negs_per_system)
+    logger.info("%d train queries with hard negatives", len(qrels))
+    dataset = MSMARCOTriplets(queries, corpus, qrels, seed=args.seed)
+
+    model, cfg, tokenizer = build_model(args.model_name, random_init=args.randominit,
+                                        dtype_str="float32", device=args.device,
+                                        seed=args.seed)
+    tc = TrainConfig(
+        lr=args.lr, epochs=args.epochs, batch_size=args.train_batch_size,
+        max_seq_len=args.max_seq_length, scheduler=args.scheduler,
+        pooling=args.pooling, specb=args.specb,
+        freeze_nonbias=args.freezenonbias, train_wte=args.unfreezewte,
+        use_gradcache=args.gradcache, chunk_size=args.chunksize,
+        output_dir=args.model_save_path, seed=args.seed,
+        checkpoint_steps=max(1, len(dataset) // args.train_batch_size),  # per epoch
+    )
+    trainer = ContrastiveTrainer(model, cfg, tokenizer, tc)
+
+    B = args.train_batch_size
+
+    def batches():
+        epoch = dataset.epoch()
+        for s in range(0, len(epoch) - B + 1, B):
+            yield [ex.texts for ex in epoch[s: s + B]]
+
+    steps = max(1, len(dataset) // B)
+    out = trainer.fit(batches, steps_per_epoch=steps)
+    trainer.save_model(args.model_save_path)
+    logger.info("done; final loss %.4f", out["history"][-1].get("loss", -1))
+
+    if args.eval_dev:
+        import random
+
+        from sgpt_tpu.evaluation.ir import InformationRetrievalEvaluator
+
+        from ..encoder import EmbeddingEngine
+
+        dev_queries, dev_rel = {}, {}
+        with _open(os.path.join(args.data_folder, "dev-queries.tsv")) as f:
+            for line in f:
+                qid, text = line.rstrip("\n").split("\t", 1)
+                dev_queries[qid] = text
+        with _open(os.path.join(args.data_folder, "dev-qrels.tsv")) as f:
+            for line in f:
+                qid, pid = line.rstrip("\n").split("\t")[:2]
+                dev_rel.setdefault(qid, set()).add(pid)
+        needed = {p for s in dev_rel.values() for p in s}
+        pool_ids = list(needed)
+        rng = random.Random(args.seed)
+        extra = [p for p in corpus if p not in needed]
+        pool_ids += rng.sample(extra, min(args.dev_corpus_sample, len(extra)))
+        dev_corpus = {p: corpus[p] for p in pool_ids if p in corpus}
+
+        engine = EmbeddingEngine(model, cfg, tokenizer, device=args.device,
+                                 method=args.pooling, specb=args.specb,
+                                 max_seq_len=args.max_seq_length)
+        ev = InformationRetrievalEvaluator(dev_queries, dev_corpus, dev_rel,
+                                           main_metric="mrr@10", name="ms-dev")
+        score = ev(lambda texts: engine.encode(texts, is_query=True),
+                   lambda texts: engine.encode(texts))
+        logger.info("MSMARCO dev MRR@10: %.4f", score)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -21,7 +21,9 @@
 // softmaxes to uniform 1/T over all T keys, as in the TPU kernel and its
 // plain reference.
 //
-// Two kernels share that design and the masking and softmax code:
+// Two kernels share that design and the masking and softmax code, which live
+// in short_attention.cuh so that the backward (short_attention_bwd.cu)
+// recomputes the same scores and probabilities:
 //   * wmma_kernel (bf16, Dh in {16, 32, 64, 128}): Q·Kᵀ and P·V on the
 //     tensor cores through warp-level WMMA 16x16x16 bf16 tiles with fp32
 //     accumulators; tiles move global→shared as 16-byte vectors. At T=2048,
@@ -32,83 +34,13 @@
 //     the CUDA cores. fp32 stays off the tensor cores (TF32 would round q, k).
 // wgmma, TMA, online softmax and tile pruning are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "short_attention.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 16;        // query rows per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_DH = 256;
 constexpr int MAX_ACC = BQ * MAX_DH / THREADS;  // scalar P·V outputs per thread
-constexpr float NEG = -1e9f;  // the TPU kernel's mask constant
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename scalar_t> __device__ __forceinline__ scalar_t from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-struct Mask {
-  const int* key_mask;   // (B, T)
-  const float* slopes;   // (H,), read when use_alibi
-  const int* segments;   // (B, T) or null
-  const int* kpos;       // (B, T) or null: ALiBi key positions (default: key index)
-  float scale;
-  int window;
-  int use_alibi;
-};
-
-// where(mask, dot·scale [+ slope·kpos], -1e9) for query qi and key ki < T of
-// the batch row whose first token is row0, in the TPU kernel's order.
-__device__ __forceinline__ float masked_score(const Mask m, float dot, int64_t row0, int h,
-                                              int qi, int ki, int T) {
-  float s = dot;
-  if (m.scale != 1.f) s *= m.scale;
-  if (m.use_alibi)  // two roundings, as the plain version: no contraction into one FMA
-    s = __fadd_rn(s, __fmul_rn(m.slopes[h], (float)(m.kpos ? m.kpos[row0 + ki] : ki)));
-  bool ok = qi < T && ki <= qi && m.key_mask[row0 + ki] > 0;
-  if (m.window > 0) ok = ok && ki > qi - m.window;
-  if (m.segments != nullptr && qi < T) ok = ok && m.segments[row0 + ki] == m.segments[row0 + qi];
-  return ok ? s : NEG;
-}
-
-// where(mask, …) over the BQ x BK tile of raw dot products at keys k0.. of
-// the strip s (row stride Tpad); the block synchronises before and after.
-__device__ __forceinline__ void mask_tile(float* s, const Mask m, int Tpad, int k0, int q0,
-                                          int64_t row0, int h, int T, int tid) {
-  for (int e = tid; e < BQ * BK; e += THREADS) {
-    const int r = e / BK, ki = k0 + (e - r * BK);
-    if (ki < T) s[r * Tpad + ki] = masked_score(m, s[r * Tpad + ki], row0, h, q0 + r, ki, T);
-  }
-}
-
-// One warp: exact fp32 softmax of sr[0:T] in place (max, exp, sum, divide).
-__device__ __forceinline__ void softmax_row(float* sr, int T, int lane) {
-  float mx = -INFINITY;
-  for (int j = lane; j < T; j += 32) mx = fmaxf(mx, sr[j]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  float sum = 0.f;
-  for (int j = lane; j < T; j += 32) {
-    const float e = expf(sr[j] - mx);
-    sr[j] = e;
-    sum += e;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  for (int j = lane; j < T; j += 32) sr[j] = sr[j] / sum;
-}
 
 template <typename scalar_t>
 __global__ void __launch_bounds__(THREADS)
@@ -168,7 +100,7 @@ scalar_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < BQ; r += WARPS) {
     float* sr = s + r * Tpad;
-    softmax_row(sr, T, lane);
+    softmax_row(sr, 0, T, T, lane);
     for (int j = lane; j < T; j += 32) sr[j] = to_float(from_float<scalar_t>(sr[j]));
   }
 
@@ -271,7 +203,7 @@ wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   for (int r = warp; r < BQ; r += WARPS) {
     float* sr = s + r * Tpad;
     bf16* pr = p + r * Tpad;
-    softmax_row(sr, T, lane);
+    softmax_row(sr, 0, T, T, lane);
     for (int j = lane; j < Tpad; j += 32) pr[j] = __float2bfloat16(j < T ? sr[j] : 0.f);
   }
 
@@ -306,11 +238,6 @@ wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     for (int j = 0; j < nsplit; ++j) a += s[(j * nct + c) * 256 + r * 16 + dc];
     oh[(row0 + qi) * HD + d] = __float2bfloat16(a);
   }
-}
-
-template <typename KernelT>
-cudaError_t set_smem(KernelT kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 bool wmma_ok(const void* q, const void* k, const void* v, const void* out, int Dh) {

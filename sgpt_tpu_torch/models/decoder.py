@@ -5,8 +5,9 @@ What the port implements is the GPT-Neo path of the JAX `_forward_impl`:
 learned positions, pre-LN blocks (LayerNorm with fp32 statistics), causal
 attention alternating global and local (windowed) layers, tanh-GELU MLP,
 `ln_f`, and `output_hidden_states` with HF semantics. Every attention call
-goes through `ops.short_attention`: the CUDA kernel on a CUDA tensor, its
-plain version on a CPU tensor. The flags of the other families raise
+goes through `ops.short_attention`: the CUDA kernels on a CUDA tensor (K2
+for the backward when a gradient is needed), their plain versions on a CPU
+tensor. The flags of the other families raise
 `NotImplementedError`.
 """
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-On first use, `nvcc` compiles every `sgpt_tpu_torch/csrc/*.cu` into one
-shared library with a plain C interface, for `sm_90a` (Hopper). The library
-goes to `build/kernels/<hash>/` beside the package, keyed by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads
-the cached build. It is loaded with ctypes; nothing here imports PyTorch's
+On first use, `nvcc` compiles each `sgpt_tpu_torch/csrc/*.cu` (they share
+the `*.cuh` headers) for `sm_90a` (Hopper), one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface. The library goes to `build/kernels/<hash>/` beside the
+package, keyed by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads the cached build. It is loaded with ctypes; nothing here imports PyTorch's
 C++ headers, which keeps a build to seconds.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libsgpt_kernels.so"
 
 
@@ -54,15 +55,32 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    compiles = []
+    for src in _sources():
+        if src.suffix == ".cu":
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / f".{src.stem}.{tag}.o"), str(src)]
+            compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+    log = []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for _, other in compiles:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *[c[-2] for c, _ in compiles]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    for c, _ in compiles:
+        os.remove(c[-2])
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text("".join(log))
     return lib
 
 
@@ -75,6 +93,9 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.sgpt_short_attention_fwd
     fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+    fn.restype = i
+    fn = lib.sgpt_short_attention_bwd
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     fn.restype = i
     lib.sgpt_cuda_error_string.argtypes = [i]
     lib.sgpt_cuda_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,13 @@
+from .bitfit import BIAS_NAMES, bitfit_mask, trainable_count
+from .checkpoint import load_checkpoint, prune_checkpoints, save_checkpoint
+from .gradcache import chunk_tree, gradcache_backward
+from .schedules import make_schedule, warmup_linear
+from .trainer import ContrastiveTrainer, TrainConfig
+
+__all__ = [
+    "BIAS_NAMES", "bitfit_mask", "trainable_count",
+    "chunk_tree", "gradcache_backward",
+    "make_schedule", "warmup_linear",
+    "ContrastiveTrainer", "TrainConfig",
+    "save_checkpoint", "load_checkpoint", "prune_checkpoints",
+]

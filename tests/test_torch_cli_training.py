@@ -1,0 +1,72 @@
+"""The port's MS MARCO training CLI end to end on the CPU: a synthetic
+`data/msmarco` folder, `build_model` patched to a tiny GPT-Neo (as
+tests/test_cli_training.py does for the JAX CLI), and a checkpoint that
+loads back into the model."""
+import json
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from sgpt_tpu_torch.cli import train_msmarco  # noqa: E402
+from sgpt_tpu_torch.training import load_checkpoint  # noqa: E402
+
+
+def _tiny_build(model_name, random_init=False, dtype_str="float32", device="cpu", seed=0):
+    from sgpt_tpu.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.models import Decoder, tiny
+    cfg = tiny("neo", num_layers=1, hidden_size=32, num_heads=2, vocab_size=256)
+    return (Decoder(cfg, device=device, generator=torch.Generator().manual_seed(seed)),
+            cfg, SimpleTokenizer(vocab_size=256))
+
+
+def _write_msmarco(data, n_queries=10, n_passages=20):
+    data.mkdir()
+    with open(data / "collection.tsv", "w") as f:
+        for i in range(n_passages):
+            f.write(f"p{i}\tpassage number {i} words here\n")
+    with open(data / "queries.tsv", "w") as f:
+        for i in range(n_queries):
+            f.write(f"q{i}\tquery number {i}\n")
+    with open(data / "ce-scores.json", "w") as f:
+        json.dump({f"q{i}": {f"p{j}": float(10 - j) for j in range(n_passages)}
+                   for i in range(n_queries)}, f)
+    with open(data / "hard-negatives.jsonl", "w") as f:
+        for i in range(n_queries):
+            f.write(json.dumps({"qid": f"q{i}", "pos": [f"p{i}"],
+                                "neg": {"bm25": [f"p{(i + j) % n_passages}"
+                                                 for j in range(5, 10)]}}) + "\n")
+    with open(data / "dev-queries.tsv", "w") as f:
+        f.write("d0\tquery number 3\n")
+    with open(data / "dev-qrels.tsv", "w") as f:
+        f.write("d0\tp3\n")
+
+
+def test_train_msmarco_cli_writes_a_checkpoint_that_loads(tmp_path, monkeypatch):
+    monkeypatch.setattr(train_msmarco, "build_model", _tiny_build)
+    monkeypatch.chdir(tmp_path)
+    _write_msmarco(tmp_path / "msmarco")
+    out_dir = tmp_path / "out"
+    monkeypatch.setattr(sys, "argv", [
+        "x", "--model_name", "tiny", "--randominit", "--device", "cpu",
+        "--data_folder", str(tmp_path / "msmarco"), "--train_batch_size", "4",
+        "--max_seq_length", "16", "--epochs", "1", "--lr", "1e-3", "--specb",
+        "--freezenonbias", "--eval_dev", "--dev_corpus_sample", "5",
+        "--model_save_path", str(out_dir)])
+    out = train_msmarco.main()
+    assert len(out["history"]) == 2 and all("loss" in h for h in out["history"])
+    assert (out_dir / "meta.json").exists()
+    assert sorted(p.name for p in (out_dir / "checkpoints").iterdir()) == ["2"]
+    model, _, _ = _tiny_build("tiny", seed=5)
+    tree = load_checkpoint(str(out_dir))
+    model.load_state_dict(tree["model"])
+    for name, p in model.state_dict().items():
+        assert torch.equal(p, out["params"][name]), name
+
+
+def test_build_model_refuses_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        train_msmarco.build_model("EleutherAI/gpt-neo-125M")
+    with pytest.raises(NotImplementedError, match="GPT-Neo"):
+        train_msmarco.build_model("bigscience/bloom-1b7", random_init=True)

@@ -61,3 +61,109 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     km = torch.ones(1, 2049, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="T=2049"):
         sa.short_attention(x, x, x, km, None, 1.0, 0, 2, False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,Dh,window,alibi,segments", [
+    (40, 64, 0, False, False), (77, 64, 16, False, False), (300, 64, 256, True, False),
+    (300, 64, 0, False, True), (130, 128, 0, False, False), (33, 16, 8, True, True),
+    (90, 48, 0, False, False)])
+def test_backward_kernel_matches_plain_version(cuda, dtype, T, Dh, window, alibi, segments):
+    """K2 == `short_attention_bwd_reference`. fp32: |Δ| ≤ 1e-5·max|ref| +
+    1e-5·|ref| (summation order only); bf16: 2e-2 + 1e-2·|ref| (a flipped
+    rounding of P or of an output)."""
+    rng = np.random.default_rng(T + window + 1)
+    B, H = 3, 4
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+                  .to(cuda, dt) for _ in range(4))
+    km = np.ones((B, T), np.int32)
+    km[-1, T // 3:] = 0
+    km = torch.from_numpy(km).to(cuda)
+    slopes = torch.from_numpy(rng.random(H).astype(np.float32)).to(cuda)
+    seg = torch.from_numpy((np.arange(T) >= T // 2).astype(np.int32)).expand(B, T).to(cuda)
+    extra = dict(segments=seg if segments else None,
+                 positions=seg * 0 + torch.arange(T, device=cuda) if alibi else None)
+    kw = dict(scale=0.125, window=window, H=H, use_alibi=alibi, **extra)
+    before = sa.bwd_launches
+    got = sa.short_attention_bwd(q, k, v, km, slopes, g, **kw)
+    torch.cuda.synchronize()
+    assert sa.bwd_launches == before + 1
+    want = sa.short_attention_bwd_reference(q, k, v, km, slopes, g, **kw)
+    for gg, ww in zip(got, want):
+        assert gg.dtype == dt
+        gg, ww = gg.float(), ww.float()
+        atol = 1e-5 * ww.abs().max().item() if dtype == "float32" else 2e-2
+        rtol = 1e-5 if dtype == "float32" else 1e-2
+        assert ((gg - ww).abs() <= atol + rtol * ww.abs()).all()
+
+
+def test_autograd_on_the_card_launches_the_backward_kernel(cuda):
+    rng = np.random.default_rng(0)
+    B, T, H, Dh = 2, 50, 2, 32
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda).requires_grad_() for _ in range(3))
+    km = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    launches, bwd = sa.launches, sa.bwd_launches
+    out = sa.short_attention(q, k, v, km, None, 1.0, 16, H, False)
+    assert out.grad_fn is not None and sa.launches == launches + 1
+    g = torch.from_numpy(rng.normal(size=(B, T, H * Dh)).astype(np.float32)).to(cuda)
+    out.backward(g.mT.contiguous().mT)  # a non-contiguous gradient
+    assert sa.bwd_launches == bwd + 1
+    want = sa.short_attention_bwd_reference(q.detach(), k.detach(), v.detach(), km, None, g,
+                                            scale=1.0, window=16, H=H, use_alibi=False)
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad, w, atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        assert sa.short_attention(q, k, v, km, None, 1.0, 16, H, False).grad_fn is None
+    assert sa.bwd_launches == bwd + 1
+
+
+def test_backward_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 16, device=cuda, dtype=torch.float16)
+    km = torch.ones(1, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sa.short_attention_bwd(x, x, x, km, None, x, scale=1.0, window=0, H=2,
+                               use_alibi=False)
+    x = torch.zeros(1, 2049, 16, device=cuda)
+    km = torch.ones(1, 2049, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="T=2049"):
+        sa.short_attention_bwd(x, x, x, km, None, x, scale=1.0, window=0, H=2,
+                               use_alibi=False)
+
+
+def test_train_step_on_the_card_equals_the_cpu_step(cuda):
+    """One BitFit step of a 2-layer model at GPT-Neo-125M's width: the card
+    (K1, K2) against the CPU (plain versions), same weights and batch. Loss
+    within 1e-5 relative; each bias gradient within 1e-4 of its leaf's norm
+    (fp32 on both; cuBLAS and the kernels sum in another order)."""
+    import copy
+
+    from sgpt_tpu.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
+
+    cfg = gpt_neo("125m").replace(num_layers=2)
+    cpu = Decoder(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    tok = SimpleTokenizer(cfg.vocab_size)
+    tc = TrainConfig(lr=2e-4, batch_size=4, max_seq_len=64, specb=True,
+                     freeze_nonbias=True)
+    batch = [(f"query {i} about topic {i % 3}", f"document {i} " + "words " * (10 + 9 * i),
+              f"other document {i + 5} " + "text " * (20 + 5 * i)) for i in range(4)]
+    results = []
+    for model in (cpu, gpu):
+        trainer = ContrastiveTrainer(model, cfg, tok, tc)
+        trainer._opt, trainer._sched = trainer._build_optimizer(1)
+        bwd = sa.bwd_launches
+        loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+        if model is gpu:
+            assert sa.bwd_launches == bwd + cfg.num_layers * 3
+        results.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
+                               if p.requires_grad}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert g_cpu and set(g_cpu) == set(g_gpu)
+    for name, want in g_cpu.items():
+        tol = 1e-4 * max(want.norm().item(), 1e-12)
+        assert (g_gpu[name] - want).abs().max().item() <= tol, name
