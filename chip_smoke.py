@@ -15,15 +15,28 @@ Phases, each of which asserts; any failure exits non-zero:
                the kernel's launch count must be 12 × the number of batches
   5. parity  — the same weights in fp32 on the card (kernel) against fp32 on
                the CPU (plain path), and bf16-card against fp32-CPU cosines
-  6. train   — MS MARCO contrastive training (SGPT-BE: BitFit, SPECB, MNRL,
+  6. mips    — the streaming MIPS top-k kernel (K5) against its plain
+               version: NQ's corpus size (2,681,468 × 768 bf16), Q = 64,
+               k = 10, and variants (Q 1 and 1024, k 1 and 16, fp32, D 2048
+               and 2560, valid_count < N, duplicate rows, valid_count < k)
+  7. search  — 4,096 synthetic documents encoded with the engine of phase 4
+               into `index_corpus(kernel="pallas")` and a blockmax index: the
+               same top-10 for the texts as queries, K5 launched once per
+               search dispatch; an index of 2^20 rows answers Q = 64 via K5
+  8. serve   — `SearchService(kernel="pallas")` behind `make_server` on
+               127.0.0.1: POST /documents, POST /search from 8 threads;
+               answers equal a direct search; p50/p99 latency, queries/s
+  9. train   — MS MARCO contrastive training (SGPT-BE: BitFit, SPECB, MNRL,
                batch 32, max_seq_len 300, fp32) of full-width GPT-Neo-125M
                through `ContrastiveTrainer.fit`: K1 and K2 counted
                12 × 3 towers × steps, only biases move, the loss of a
                repeated batch falls, GradCache's loss equals the direct one
-  7. tparity — one training step's loss and bias gradients, card against CPU
-  8. report  — kernel and plain-version times, encode and train rates, the
-               card's name and power limit, one `{"kernels": [...]}` line,
-               and last `{"ok": true, "device": {...}}`
+ 10. tparity — one training step's loss and bias gradients, card against CPU
+ 11. beir    — the port's `cli.beir_retriever` on a synthetic BEIR folder
+               (2,000 docs, 100 queries) with full-width GPT-Neo-125M
+ 12. report  — kernel and plain-version times, encode, train and serve
+               rates, the card's name and power limit, one
+               `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -361,6 +374,327 @@ def synthetic_texts(rng) -> list:
     return [" ".join(rng.choice(words, int(m))) for m in lengths]
 
 
+NQ_ROWS = 2_681_468  # BEIR NQ's corpus: a real one-card index, 4.1 GB in bf16
+
+
+def unit_rows(torch, gen, n, d, dtype, chunk=1 << 20):
+    """n random unit vectors (n, d) made on the card from `gen`, in chunks."""
+    out = torch.empty((n, d), dtype=dtype, device="cuda")
+    for s in range(0, n, chunk):
+        x = torch.randn((min(chunk, n - s), d), generator=gen, device="cuda")
+        out[s:s + x.shape[0]] = (x / x.norm(dim=1, keepdim=True)).to(dtype)
+    return out
+
+
+def check_topk(torch, q, c, got, want, what):
+    """K5's rule against its plain version: values within 1e-5 (unit-norm
+    rows; only the summation order differs) and ids equal in every slot above
+    -1e29, except where two candidates' plain scores lie within 1e-5 of each
+    other: there the kernel's ids, scored as the plain version scores, lie
+    within 1e-5 of the plain top-k. Returns (max_abs_err, near-tie slots)."""
+    (gv, gi), (wv, wi) = got, want
+    assert gv.shape == wv.shape and gv.dtype == torch.float32 and gi.dtype == torch.int32, what
+    err = (gv - wv).abs().max().item()
+    assert err <= 1e-5, f"{what}: max_abs_err {err:.3e} > 1e-5"
+    real = wv > -1e29
+    assert torch.equal(gv > -1e29, real), f"{what}: filler slots differ"
+    assert (gi[~real] == 0).all(), f"{what}: filler index is not 0"
+    diff = real & (gi != wi)
+    if diff.any():
+        rescored = torch.einsum("qd,qkd->qk", q.float(), c[gi.long()].float())
+        assert ((rescored - wv).abs()[diff] <= 1e-5).all(), f"{what}: ids differ off a near-tie"
+    return err, int(diff.sum().item())
+
+
+def phase_mips(torch, mips, gen):
+    """K5 against `mips_topk_reference` at the main shape (NQ-sized corpus,
+    768 bf16, Q = 64, k = 10) and the variants; then the times."""
+    N, D = NQ_ROWS, 768
+    c = unit_rows(torch, gen, N, D, torch.bfloat16)
+    q = unit_rows(torch, gen, 1024, D, torch.bfloat16)
+    main_err = None
+
+    def run(name, qq, cc, valid, k):
+        nonlocal main_err
+        got = mips.mips_topk(qq, cc, valid, k)
+        torch.cuda.synchronize()
+        want = mips.mips_topk_reference(qq, cc, valid, k)
+        err, near = check_topk(torch, qq, cc, got, want, name)
+        log(f"mips {name:12s} Q={qq.shape[0]} N={cc.shape[0]} D={cc.shape[1]} k={k} "
+            f"{str(cc.dtype)[6:]} valid={valid}: max_abs_err {err:.3e}, near-tie slots {near}")
+        if name == "main":
+            main_err = err
+        return got
+
+    run("main", q[:64], c, N, 10)
+    run("Q1", q[:1], c, N, 10)
+    run("Q1024", q, c, N, 10)
+    run("k1", q[:64], c, N, 1)
+    run("k16", q[:64], c, N, 16)
+    valid = N - 12_345  # rows past valid_count hold a large value: never seen
+    saved = c[valid:].clone()
+    c[valid:] = 10.0
+    got = run("valid<N", q[:64], c, valid, 10)
+    assert (got[1] < valid).all()
+    c[valid:] = saved
+    dup = c[:200_000].clone()  # duplicate rows: an exact tie goes to the lower row
+    dup[150_000:151_000] = dup[:1000]
+    qd = dup[[3, 500, 999]].clone()
+    got = run("duplicates", qd, dup, dup.shape[0], 10)
+    assert got[1][:, :2].tolist() == [[3, 150_003], [500, 150_500], [999, 150_999]], got[1][:, :2]
+    got = run("valid<k", q[:64], c, 5, 10)
+    assert (got[0][:, 5:] == mips.NEG).all()
+    del dup, saved
+    for n, d, dt in ((65_536, 768, torch.float32), (500_000, 2048, torch.bfloat16),
+                     (500_000, 2560, torch.bfloat16)):
+        cc = unit_rows(torch, gen, n, d, dt)
+        run(f"{str(dt)[6:]}-D{d}", unit_rows(torch, gen, 64, d, dt), cc, n, 10)
+        del cc
+
+    qm = q[:64].contiguous()
+
+    def kernel():
+        return mips.mips_topk(qm, c, N, 10)
+
+    def plain():
+        return mips.mips_topk_reference(qm, c, N, 10)
+
+    p1, k1, k2, p2 = (cuda_ms(torch, f, iters=n, warmup=1)
+                      for f, n in ((plain, 3), (kernel, 20), (kernel, 20), (plain, 3)))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    qb = mips.query_block(64, D, torch.bfloat16)
+    read = c.numel() * c.element_size() * -(-64 // qb)
+    log(f"time K5 N={N} D={D} bf16 Q=64 k=10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f}); query block {qb}, "
+        f"corpus bytes read per search {read} = {read / (ms / 1e3) / 1e9:.1f} GB/s")
+    del c, q
+    torch.cuda.empty_cache()
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, "query_block": qb,
+            "bytes_per_search": read, "gb_per_s": read / (ms / 1e3) / 1e9}
+
+
+def synthetic_corpus(rng, n: int) -> dict:
+    """n BEIR-shaped documents ({id: {title, text}}) of 20-400 words."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+    return {f"doc{i}": {"title": "" if i % 3 else " ".join(rng.choice(words, 4)),
+                        "text": " ".join(rng.choice(words, int(rng.integers(20, 401))))}
+            for i in range(n)}
+
+
+def rescore(torch, index, qrow, doc_ids):
+    """The plain scores of doc_ids for one query row, as the index scores:
+    the query rounded to the index dtype and normalised, fp32 products."""
+    from sgpt_tpu_torch.ops.pooling import normalize
+
+    pos = [index._id_positions()[d] for d in doc_ids]
+    q = normalize(torch.from_numpy(np.asarray(qrow, np.float32)[None]).to(index.device,
+                                                                          index.dtype))
+    return (q.float() @ index._corpus[pos].float().T)[0].cpu().numpy()
+
+
+def phase_search(torch, mips, sa, engine, corpus, gen):
+    """The search slice: index_corpus with kernel="pallas" (K5) and with
+    blockmax over the encoded documents, searched with the documents' texts
+    as queries in dispatches of 64; then an index of 2^20 rows through
+    add/build answering Q = 64 through K5."""
+    from sgpt_tpu_torch.index import DenseIndex, index_corpus
+    from sgpt_tpu_torch.ops.pooling import normalize
+
+    mips.launches = sa.launches = 0
+    t0 = time.perf_counter()
+    idx_k5 = index_corpus(engine, corpus, kernel="pallas")
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    idx_bm = index_corpus(engine, corpus)
+    ids = list(corpus)
+    texts = [(corpus[i]["title"] + " " + corpus[i]["text"]).strip() for i in ids]
+    qemb = engine.encode(texts, is_query=True)
+    hits = {}
+    for name, index in (("pallas", idx_k5), ("blockmax", idx_bm)):
+        vals, got = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, len(ids), 64):
+            v, i = index.search_embeddings(qemb[s:s + 64], k=10)
+            vals += v
+            got += i
+        torch.cuda.synchronize()
+        hits[name] = (np.stack(vals), got, time.perf_counter() - t0)
+    dispatches = -(-len(ids) // 64)
+    k5_launches, k1_launches = mips.launches, sa.launches
+    (va, ia, ta), (vb, ib, tb) = hits["pallas"], hits["blockmax"]
+    err = float(np.abs(va - vb).max())
+    same = sum(a == b for a, b in zip(ia, ib))
+    first = np.mean([row[0] == d for row, d in zip(ia, ids)])
+    corpus_equal = torch.equal(idx_k5._corpus, idx_bm._corpus)
+    log(f"search: {len(ids)} docs indexed in {index_s:.2f} s (kernel=pallas); "
+        f"{len(ids)} queries in {dispatches} dispatches of 64: pallas {ta:.3f} s, blockmax "
+        f"{tb:.3f} s; top-10 lists equal {same}/{len(ids)}, max |score diff| {err:.3e}; "
+        f"own document first for {first:.4f} of queries; K5 launches {k5_launches}, "
+        f"K1 launches {k1_launches}; the two encodes equal bit for bit: {corpus_equal}")
+    assert k5_launches == dispatches, (k5_launches, dispatches)
+    assert k1_launches > 0 and err <= 1e-5
+    for n in range(len(ids)):  # a differing id sits on a near-tie (K5's rule)
+        if ia[n] != ib[n]:
+            assert corpus_equal, "the two encodes of the corpus differ"
+            np.testing.assert_allclose(rescore(torch, idx_bm, qemb[n], ia[n]), vb[n],
+                                       atol=1e-5, rtol=0, err_msg=f"query {n}")
+    # 2^20 rows: the encoded documents plus unit-norm filler, through add/build
+    big = DenseIndex(engine.out_dim, kernel="pallas", device="cuda")
+    big.add(idx_k5._corpus[: len(ids)].float().cpu().numpy(), ids=idx_k5._ids)
+    filler = unit_rows(torch, gen, (1 << 20) - len(ids), engine.out_dim, torch.float32)
+    big.add(filler.cpu().numpy(), ids=[f"fill{i}" for i in range(filler.shape[0])])
+    del filler
+    big.build()
+    assert len(big) == 1 << 20
+    q = normalize(torch.from_numpy(qemb[:64]).to("cuda", torch.bfloat16))
+    mips.launches = 0
+    v, i = big.search_embeddings(qemb[:64], k=10)
+    assert mips.launches == 1
+    got = mips.mips_topk(q, big._corpus, big._built_count, 10)
+    want = mips.mips_topk_reference(q, big._corpus, big._built_count, 10)
+    err2, _ = check_topk(torch, q, big._corpus, got, want, "index 2^20")
+    assert [[big._ids[j] for j in row] for row in got[1].tolist()] == i
+    log(f"search: index of {len(big)} rows ({big._corpus.shape[0]} padded), Q=64 k=10 "
+        f"through K5: max_abs_err {err2:.3e} against the plain version")
+    del big
+    torch.cuda.empty_cache()
+    return {"k5_launches": k5_launches, "k1_launches": k1_launches,
+            "lists_equal": same / len(ids), "own_first": float(first)}
+
+
+def phase_serve(torch, mips, engine, corpus):
+    """SearchService(kernel="pallas") behind make_server on 127.0.0.1:
+    POST /documents with the documents, then POST /search from 8 threads, 8
+    one-query requests each; the answers equal a direct search_embeddings."""
+    import http.client
+    import threading
+
+    from sgpt_tpu_torch.serving import SearchService, make_server
+
+    def post(addr, path, payload):
+        conn = http.client.HTTPConnection(*addr, timeout=120)
+        try:
+            conn.request("POST", path, json.dumps(payload), {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read().decode())
+        finally:
+            conn.close()
+
+    service = SearchService(engine, index_kw={"kernel": "pallas"})
+    server = make_server(service, "127.0.0.1", 0, model_name="gpt-neo-125m")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        addr = server.server_address[:2]
+        ids = list(corpus)
+        docs = [{"id": i, "text": (corpus[i]["title"] + " " + corpus[i]["text"]).strip()}
+                for i in ids]
+        status, body = post(addr, "/documents", {"documents": docs, "build": True})
+        assert status == 200 and body["documents"] == len(ids), (status, body)
+        service.warm_search()
+        # short queries (one length bucket): an embedding does not depend on
+        # which requests it is coalesced with
+        queries = [" ".join(d["text"].split()[:8]) for d in docs[::len(docs) // 64]][:64]
+        lat, answers, errors = {}, {}, []
+
+        def client(t):
+            try:
+                for j in range(8):
+                    n = t * 8 + j
+                    t0 = time.perf_counter()
+                    status, body = post(addr, "/search", {"queries": [queries[n]], "k": 10})
+                    lat[n] = time.perf_counter() - t0
+                    assert status == 200, body
+                    answers[n] = body["results"][0]
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        mips.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        launches = mips.launches
+        assert not errors, errors
+        qemb = engine.encode(queries, is_query=True)
+        vals, want = service.index.search_embeddings(qemb, k=10)
+        differ = 0
+        for n in range(len(queries)):
+            got_ids = [h["id"] for h in answers[n]]
+            got_v = np.array([h["score"] for h in answers[n]], np.float32)
+            assert np.abs(got_v - vals[n]).max() <= 1e-5, n
+            if got_ids != want[n]:  # only on a near-tie (K5's rule)
+                differ += 1
+                np.testing.assert_allclose(rescore(torch, service.index, qemb[n], got_ids),
+                                           vals[n], atol=1e-5, rtol=0, err_msg=f"query {n}")
+        ms = 1e3 * np.array([lat[n] for n in range(len(queries))])
+        p50, p99 = float(np.median(ms)), float(np.percentile(ms, 99))
+        qps = len(queries) / wall
+        log(f"serve: {len(ids)} documents via POST /documents; {len(queries)} POST /search "
+            f"from 8 threads: p50 {p50:.2f} ms, p99 {p99:.2f} ms, {qps:.1f} queries/s, "
+            f"{service._s_batcher.dispatches} search dispatches in all; K5 launches "
+            f"{launches}; answers equal a direct search_embeddings ({differ} of "
+            f"{len(queries)} lists differ on a near-tie)")
+        assert launches > 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=10)
+    return {"p50_ms": p50, "p99_ms": p99, "qps": qps, "k5_launches": launches}
+
+
+def phase_beir(rng, card):
+    """The port's BEIR CLI end to end on a synthetic BEIR folder: 2,000
+    documents, 100 queries copied from documents, qrels to those documents;
+    full-width GPT-Neo-125M, random weights, SPECB, max_seq_len 300."""
+    import os
+    import tempfile
+
+    from sgpt_tpu_torch.cli import beir_retriever
+
+    corpus = synthetic_corpus(rng, 2000)
+    ids = list(corpus)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        os.makedirs(os.path.join(data, "qrels"))
+        with open(os.path.join(data, "corpus.jsonl"), "w") as f:
+            for i in ids:
+                f.write(json.dumps({"_id": i, **corpus[i]}) + "\n")
+        with open(os.path.join(data, "queries.jsonl"), "w") as f, \
+                open(os.path.join(data, "qrels", "test.tsv"), "w") as g:
+            g.write("query-id\tcorpus-id\tscore\n")
+            for n in range(100):
+                d = ids[n * 20]
+                f.write(json.dumps({"_id": f"q{n}", "text": corpus[d]["text"]}) + "\n")
+                g.write(f"q{n}\t{d}\t1\n")
+        t0 = time.perf_counter()
+        os.chdir(tmp)
+        try:
+            ndcg = beir_retriever.main(beir_retriever.parse_args([
+                "--modelname", "EleutherAI/gpt-neo-125M", "--dataset", "synth", "--datapath",
+                tmp, "--randominit", "--specb", "--maxseqlen", "300", "--device", "cuda",
+                "--batchsize", "64"]))
+            wall = time.perf_counter() - t0
+            with open("results_EleutherAI_gpt-neo-125M_weightedmean_synth.json") as f:
+                results = json.load(f)
+            assert os.path.exists("beir_embeddings_ndcgs.json")
+        finally:
+            os.chdir(cwd)
+    assert len(results) == 100 and all(0 < len(r) <= 1000 for r in results.values())
+    assert all(np.isfinite(v) for r in results.values() for v in r.values())
+    assert 0.0 <= ndcg["NDCG@10"] <= 1.0
+    log(f"beir: 2000 docs, 100 queries in {wall:.2f} s; nDCG@10 {ndcg['NDCG@10']:.5f} "
+        f"(random weights) ({card})")
+    return ndcg["NDCG@10"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -373,7 +707,7 @@ def main() -> int:
     from sgpt_tpu.tokenization import SimpleTokenizer
     from sgpt_tpu_torch.encoder import EmbeddingEngine
     from sgpt_tpu_torch.models import Decoder, gpt_neo
-    from sgpt_tpu_torch.ops import _build
+    from sgpt_tpu_torch.ops import _build, mips
     from sgpt_tpu_torch.ops import short_attention as sa
 
     card = card_line()
@@ -461,13 +795,24 @@ def main() -> int:
     assert err32 < 1e-4
     assert cos16.min() > 0.99
 
-    # 6. the train slice, and 7. its card-against-CPU parity
-    del model, engine, cpu_model, gpu_model
+    # 6. K5 against its plain version; 7. the search slice; 8. serving
+    del cpu_model, gpu_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k5 = phase_mips(torch, mips, gen)
+    corpus = synthetic_corpus(rng, 4096)
+    search = phase_search(torch, mips, sa, engine, corpus, gen)
+    serve = phase_serve(torch, mips, engine, corpus)
+
+    # 9. the train slice, and 10. its card-against-CPU parity
+    del model, engine
     torch.cuda.empty_cache()
     train = phase_train(torch, sa, rng, tok)
     phase_train_parity(torch, rng, tok)
 
-    # 8. report
+    # 11. the BEIR CLI
+    ndcg10 = phase_beir(rng, card)
+
+    # 12. report
     log(f"train: {train['ms_per_step']:.1f} ms/step, {train['seq_per_s']:.1f} seq/s "
         f"(96 sequences per step), peak {train['peak_gib']:.2f} GiB, fp32, "
         f"batch 32, max_seq_len 300 ({card})")
@@ -491,7 +836,17 @@ def main() -> int:
         **{f"{k}_{dt}_w{w}": bwd_times[(dt, w)][i] for dt, w in bwd_times
            for i, k in enumerate(("ms", "plain_ms"))},
         "train_ms_per_step": train["ms_per_step"], "train_seq_per_s": train["seq_per_s"],
-        "train_peak_gib": train["peak_gib"]}]}), flush=True)
+        "train_peak_gib": train["peak_gib"]}, {
+        "name": "mips_topk", "route": "cuda", "source": "sgpt_tpu_torch/csrc/mips.cu",
+        "replaces": "sgpt_tpu/ops/pallas/mips.py:44",
+        "launches": search["k5_launches"] + serve["k5_launches"],
+        "launches_search": search["k5_launches"], "launches_serve": serve["k5_launches"],
+        "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "shape": f"Q=64 N={NQ_ROWS} D=768 bf16 k=10", "query_block": k5["query_block"],
+        "bytes_per_search": k5["bytes_per_search"], "gb_per_s": k5["gb_per_s"],
+        "search_lists_equal": search["lists_equal"], "search_own_first": search["own_first"],
+        "serve_p50_ms": serve["p50_ms"], "serve_p99_ms": serve["p99_ms"],
+        "serve_qps": serve["qps"], "beir_ndcg10": ndcg10}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""sgpt_tpu_torch — SGPT's bulk encode and contrastive training in PyTorch, with CUDA kernels for Hopper.
+"""sgpt_tpu_torch — SGPT's bulk encode, contrastive training, search and serving in PyTorch, with CUDA kernels for Hopper.
 
 A port of `sgpt_tpu` (JAX) that grows beside it. Module names mirror the JAX
 package so each counterpart is easy to find:
@@ -8,13 +8,21 @@ package so each counterpart is easy to find:
     models.decoder       GPT-Neo forward (nn.Module, layers in a ModuleList)
     ops.short_attention  fused short-T attention: CUDA forward and backward
                          kernels, their plain versions, the autograd function
+    ops.mips             streaming exact MIPS top-k: CUDA kernel, plain version
+    ops.topk             merge / chunked / block-max exact top-k (plain torch)
     ops.pooling          weighted-mean / mean / last-token pooling, normalize
     ops.similarity       dot / cosine scores in fp32
     encoder              EmbeddingEngine: tokenize, bucket, forward, pool
+    index                DenseIndex (exact; pending adds, tombstones, int8,
+                         save/load in the JAX format), index_corpus
+    retrieval            DenseRetriever: BEIR-shaped exact search
+    serving              MicroBatcher, SearchService, the HTTP server
     losses               MNRL (MultipleNegativesRankingLoss)
     training             ContrastiveTrainer, BitFit, schedules, GradCache,
                          checkpoints
     cli.train_msmarco    the MS MARCO training command line
+    cli.beir_retriever   BEIR evaluation command line
+    cli.serve            the HTTP search server command line
 
 The package imports torch and never jax. Host code that imports no JAX
 (`sgpt_tpu.tokenization`, `sgpt_tpu.data`, `sgpt_tpu.evaluation`) is

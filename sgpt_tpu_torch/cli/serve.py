@@ -1,0 +1,185 @@
+"""Serve embeddings and semantic search over HTTP from one process and one
+card (counterpart of `sgpt_tpu/cli/serve.py`).
+
+    python -m sgpt_tpu_torch.cli.serve --modelname gpt-neo-125m --randominit \\
+        --device cuda --port 8080 --corpus corpus.jsonl --quantize-index int8
+
+The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
+plus `--device`. Not ported yet, and raising: `--index ivf` (item 13),
+`--rerank`/`--rerank-model` (item 8), `--quantize` (item 9), and checkpoints
+other than random-init GPT-Neo presets (item 2). The exact index searches
+with the block-max scan; `--quantize-index int8` stores the corpus in int8.
+
+corpus.jsonl rows: {"_id": ..., "title": ..., "text": ...} (BEIR shape) or
+{"id": ..., "text": ...}; omit --corpus to start empty and POST /documents.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+
+from .common import build_model, setup_logging
+
+logger = logging.getLogger(__name__)
+
+
+def load_jsonl_corpus(path: str):
+    """(ids, texts) from a BEIR-shaped jsonl file, title and text joined as
+    the BEIR scripts join them (the JAX `load_jsonl_corpus`)."""
+    from sgpt_tpu.data.jsonl_native import extract_fields
+
+    ids, texts = [], []
+    rows = extract_fields(path, ("_id", "id", "title", "text"))
+    if rows is not None:  # native one-pass extraction
+        for _id, id_, title, text in rows:
+            doc_id = _id if _id is not None else id_
+            ids.append(str(doc_id) if doc_id is not None else str(len(ids)))
+            title, text = title or "", text or ""
+            texts.append((title + " " + text).strip() if title else text)
+        return ids, texts
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            row = json.loads(line)
+            doc_id = str(row.get("_id", row.get("id", len(ids))))
+            title = row.get("title", "")
+            text = row.get("text", "")
+            ids.append(doc_id)
+            texts.append((title + " " + text).strip() if title else text)
+    return ids, texts
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--modelname", required=True)
+    ap.add_argument("--randominit", action="store_true",
+                    help="random weights (zero-egress smoke serving)")
+    ap.add_argument("--method", default="weightedmean")
+    ap.add_argument("--specb", action="store_true")
+    ap.add_argument("--maxseqlen", type=int, default=300)
+    ap.add_argument("--batchsize", type=int, default=64)
+    ap.add_argument("--quantize", choices=["int8"], default=None,
+                    help="int8 model weights (not ported yet: ROADMAP Queue 1 item 9)")
+    ap.add_argument("--quantize-index", choices=["int8"], default=None,
+                    help="int8 corpus storage")
+    ap.add_argument("--index", choices=["exact", "ivf"], default="exact",
+                    help="exact scan, or balanced-IVF ANN (not ported yet: "
+                    "ROADMAP Queue 1 item 13)")
+    ap.add_argument("--clusters", default="auto",
+                    type=lambda s: s if s == "auto" else int(s),
+                    help="IVF cluster count, or 'auto' (with --index ivf)")
+    ap.add_argument("--nprobe", type=int, default=32,
+                    help="IVF clusters probed per query (with --index ivf)")
+    ap.add_argument("--corpus", default=None, help="jsonl corpus to index at start")
+    ap.add_argument("--index-path", default=None,
+                    help="persisted-index directory: loaded at startup if it "
+                    "exists (skips the corpus re-encode), target of POST "
+                    "/save, and auto-saved after an initial --corpus build")
+    ap.add_argument("--allow-save-path", action="store_true",
+                    help="let POST /save clients pass {\"path\": ...} (writes "
+                    "server-side files wherever the client says; off by "
+                    "default — /save targets --index-path)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--max-wait-ms", type=float, default=3.0,
+                    help="micro-batcher coalescing window")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip running the encode buckets and search shapes "
+                    "once at startup (the first requests then build the kernels)")
+    ap.add_argument("--rerank", action="store_true",
+                    help="enable POST /rerank with the encoder's weights (not "
+                    "ported yet: ROADMAP Queue 1 item 8)")
+    ap.add_argument("--rerank-model", default=None,
+                    help="separate causal-LM checkpoint for /rerank (not ported yet: "
+                    "ROADMAP Queue 1 item 8)")
+    ap.add_argument("--rerank-maxlen", type=int, default=2048,
+                    help="max context tokens per (query, doc) rerank pair")
+    ap.add_argument("--rerank-prompt", default="G",
+                    help="CE prompt ablation id (ce_prompts registry)")
+    ap.add_argument("--rerank-pack-t", type=int, default=None,
+                    help="CE sequence packing length")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to encode and search on: cuda (the kernels) "
+                    "or cpu (their plain versions)")
+    args = ap.parse_args(argv)
+    if args.index == "ivf":
+        raise NotImplementedError("--index ivf: IVFIndex is not ported yet "
+                                  "(ROADMAP Queue 1 item 13)")
+    if args.rerank or args.rerank_model:
+        raise NotImplementedError("--rerank/--rerank-model: the cross-encoder is not "
+                                  "ported yet (ROADMAP Queue 1 item 8)")
+    if args.quantize:
+        raise NotImplementedError("--quantize: int8 inference is not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
+    return args
+
+
+def build_server(args):
+    """(server, service) from parsed flags: the model and engine on
+    --device, the index (loaded from --index-path, or filled from --corpus),
+    warmed unless --no-warmup; the caller runs serve_forever()."""
+    from ..encoder import EmbeddingEngine
+    from ..index import DenseIndex
+    from ..serving import SearchService, make_server
+
+    model, cfg, tokenizer = build_model(args.modelname, random_init=args.randominit,
+                                        dtype_str="bfloat16", device=args.device)
+    engine = EmbeddingEngine(
+        model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
+        max_seq_len=args.maxseqlen, batch_size=args.batchsize, normalize_embeddings=True)
+
+    loaded = False
+    if args.index_path and os.path.exists(os.path.join(args.index_path, "index.npz")):
+        index, documents = SearchService.load_index(args.index_path, device=engine.device)
+        if index.dim != engine.out_dim:
+            raise SystemExit(f"--index-path holds dim={index.dim} embeddings "
+                             f"but the model produces {engine.out_dim}")
+        logger.info("loaded %d docs from %s", len(index), args.index_path)
+        service = SearchService(engine, index, documents=documents,
+                                max_wait_ms=args.max_wait_ms)
+        loaded = True
+    else:
+        index = DenseIndex(engine.out_dim, normalize_embeddings=True,
+                           quantize=args.quantize_index, device=engine.device)
+        service = SearchService(engine, index, max_wait_ms=args.max_wait_ms)
+
+    if args.corpus and not loaded:
+        ids, texts = load_jsonl_corpus(args.corpus)
+        logger.info("indexing %d docs from %s ...", len(texts), args.corpus)
+        service.add_documents(texts, ids=ids, build=True)
+        if args.index_path:
+            logger.info("saving index to %s", args.index_path)
+            service.save(args.index_path)
+
+    if not args.no_warmup:
+        logger.info("warming encode buckets and search shapes ...")
+        engine.warmup()
+        service.warm_search()
+
+    server = make_server(service, args.host, args.port, model_name=args.modelname,
+                         index_path=args.index_path, allow_save_path=args.allow_save_path)
+    return server, service
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    setup_logging()
+    server, service = build_server(args)
+    logger.info("serving %s on http://%s:%d (docs=%d)", args.modelname,
+                *server.server_address[:2], len(service.index))
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        service.close()
+
+
+if __name__ == "__main__":
+    main()

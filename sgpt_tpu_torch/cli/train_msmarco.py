@@ -23,12 +23,9 @@ import json
 import logging
 import os
 
+from .common import build_model, setup_logging
+
 logger = logging.getLogger(__name__)
-
-
-def setup_logging():
-    logging.basicConfig(format="%(asctime)s - %(message)s", datefmt="%Y-%m-%d %H:%M:%S",
-                        level=logging.INFO)
 
 
 def parse_args(argv=None):
@@ -61,33 +58,6 @@ def parse_args(argv=None):
     p.add_argument("--eval_dev", action="store_true")
     p.add_argument("--dev_corpus_sample", type=int, default=10000)
     return p.parse_args(argv)
-
-
-def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "float32",
-                device="cpu", seed: int = 0):
-    """(model, cfg, tokenizer): a random-init GPT-Neo preset (`--randominit`,
-    the reference's `--reinit` debugging flag and the zero-egress smoke
-    path), with weights from `seed` and the hash tokenizer bounded by the
-    model's vocab."""
-    import torch
-
-    from sgpt_tpu.tokenization import get_tokenizer
-
-    from ..models import Decoder, gpt_neo
-
-    if not random_init:
-        raise NotImplementedError(
-            f"loading checkpoint {model_name!r} needs the HF state-dict loader "
-            "(hf_loader) — ROADMAP Queue 1 item 2; pass --randominit")
-    low = model_name.lower()
-    if any(s in low for s in ("6b", "5.8b", "6.1b", "bert", "bloom", "t5")):
-        raise NotImplementedError(f"{model_name!r}: only GPT-Neo is ported "
-                                  "(ROADMAP Queue 1 items 3, 14)")
-    size = "1.3b" if "1.3b" in low else "2.7b" if "2.7b" in low else "125m"
-    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_str]
-    cfg = gpt_neo(size, dtype=dtype)
-    model = Decoder(cfg, device=device, generator=torch.Generator().manual_seed(seed))
-    return model, cfg, get_tokenizer(None, vocab_size=cfg.vocab_size)
 
 
 def _open(path):

@@ -97,6 +97,12 @@ def library() -> ctypes.CDLL:
     fn = lib.sgpt_short_attention_bwd
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     fn.restype = i
+    fn = lib.sgpt_mips_topk
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.sgpt_mips_query_block
+    fn.argtypes = [i, i, i, i]
+    fn.restype = i
     lib.sgpt_cuda_error_string.argtypes = [i]
     lib.sgpt_cuda_error_string.restype = ctypes.c_char_p
     return lib

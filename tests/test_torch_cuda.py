@@ -167,3 +167,92 @@ def test_train_step_on_the_card_equals_the_cpu_step(cuda):
     for name, want in g_cpu.items():
         tol = 1e-4 * max(want.norm().item(), 1e-12)
         assert (g_gpu[name] - want).abs().max().item() <= tol, name
+
+
+def _unit(rng, n, d, device, dtype):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def _check_mips(q, c, got, want):
+    """K5 against `mips_topk_reference`: values within 1e-5 (unit-norm rows;
+    the sums run in another order) and ids equal in every slot above -1e29,
+    except where two candidates' plain scores lie within 1e-5 of each other:
+    there the kernel's ids, scored by the plain version, lie within 1e-5 of
+    the plain top-k."""
+    (gv, gi), (wv, wi) = got, want
+    assert gv.dtype == torch.float32 and gi.dtype == torch.int32
+    assert (gv - wv).abs().max().item() <= 1e-5
+    real = wv > -1e29
+    assert torch.equal(gv > -1e29, real)
+    assert (gi[~real] == 0).all()
+    diff = real & (gi != wi)
+    if diff.any():
+        rescored = torch.einsum("qd,qkd->qk", q.float(), c[gi.long()].float())
+        assert ((rescored - wv).abs()[diff] <= 1e-5).all(), "ids differ away from a near-tie"
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Q,N,D,k,valid,dup", [
+    (64, 20_011, 768, 10, None, False), (1, 5000, 768, 1, None, False),
+    (300, 9000, 768, 16, None, False), (16, 3000, 2560, 10, None, False),
+    (8, 4096, 768, 10, 3001, False), (4, 4096, 768, 10, 5, False),
+    (5, 4096, 768, 10, None, True), (7, 3000, 100, 5, None, False)])
+def test_mips_kernel_matches_plain_version(cuda, dtype, Q, N, D, k, valid, dup):
+    from sgpt_tpu_torch.ops import mips
+
+    rng = np.random.default_rng(N + k)
+    dt = getattr(torch, dtype)
+    c = _unit(rng, N, D, cuda, dt)
+    q = _unit(rng, Q, D, cuda, dt)
+    if dup:  # exact ties: copied rows, and a query equal to one of them
+        c[N // 2: N // 2 + 40] = c[10:50].clone()
+        q[0] = c[10]
+    valid = N if valid is None else valid
+    c[valid:] = 10.0  # rows past valid_count must be invisible
+    before = mips.launches
+    got = mips.mips_topk(q, c, valid, k)
+    torch.cuda.synchronize()
+    assert mips.launches == before + 1
+    _check_mips(q, c, got, mips.mips_topk_reference(q, c, valid, k))
+    if dup:
+        assert got[1][0, :2].tolist() == [10, N // 2]
+
+
+def test_mips_kernel_rejects_what_it_does_not_take(cuda):
+    from sgpt_tpu_torch.ops import mips
+
+    q = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="k=17"):
+        mips.mips_topk(q, torch.zeros(100, 64, device=cuda), 100, 17)
+    with pytest.raises(TypeError):
+        mips.mips_topk(q, torch.zeros(100, 64, device=cuda, dtype=torch.bfloat16), 100, 5)
+    with pytest.raises(ValueError):
+        mips.mips_topk(q, torch.zeros(100, 32, device=cuda), 100, 5)
+
+
+def test_cuda_index_launches_the_mips_kernel_per_search(cuda):
+    """DenseIndex on the card with kernel="pallas": one K5 launch per search
+    dispatch (the pending slab goes through blockmax_topk), and the same ids
+    as the block-max index."""
+    from sgpt_tpu_torch.index import DenseIndex
+    from sgpt_tpu_torch.ops import mips
+
+    rng = np.random.default_rng(0)
+    corpus = rng.normal(size=(5000, 768)).astype(np.float32)
+    queries = rng.normal(size=(32, 768)).astype(np.float32)
+    idx = {}
+    for kernel in ("pallas", "blockmax"):
+        idx[kernel] = DenseIndex(768, kernel=kernel, device=cuda)
+        idx[kernel].add(corpus[:4000])
+        idx[kernel].build()
+        idx[kernel].add(corpus[4000:])
+    before = mips.launches
+    va, ia = idx["pallas"].search_embeddings(queries, k=10)
+    vb, ib = idx["pallas"].search_embeddings(queries[:3], k=16)
+    assert mips.launches == before + 2
+    vc, ic = idx["blockmax"].search_embeddings(queries, k=10)
+    assert mips.launches == before + 2
+    assert ia == ic
+    np.testing.assert_allclose(np.stack(va), np.stack(vc), atol=1e-5)

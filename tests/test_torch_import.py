@@ -1,5 +1,7 @@
 """`sgpt_tpu_torch` never imports jax: in a process where jax cannot be
-imported, the whole package imports and a tiny CPU encode runs."""
+imported, the whole package imports (serving and the CLIs included), and a
+tiny CPU encode, two index searches, a DenseRetriever search and a
+SearchService search run."""
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +32,27 @@ engine = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), specb=True
 emb = engine.encode(["a short text", "a longer text " * 20, "x"])
 assert emb.shape == (3, 32), emb.shape
 assert abs(float((emb ** 2).sum(1).max()) - 1) < 1e-5
+
+# search: a "pallas" (K5's plain version on the CPU) and a blockmax index
+from sgpt_tpu_torch.index import DenseIndex
+from sgpt_tpu_torch.retrieval import DenseRetriever
+from sgpt_tpu_torch.serving import SearchService
+
+hits = []
+for kernel in ("pallas", "blockmax"):
+    index = DenseIndex(32, kernel=kernel, dtype=torch.float32)
+    index.add(emb, ids=["a", "b", "c"])
+    index.build()
+    hits.append(index.search_embeddings(emb[1:2], k=2)[1])
+assert hits[0] == hits[1] and hits[0][0][0] == "b", hits
+docs = {"a": {"title": "", "text": "a short text"}, "b": {"title": "t", "text": "words " * 9},
+        "c": {"title": "", "text": "x"}}
+res = DenseRetriever(engine, device_chunk=128).search(docs, {"q": "a short text"}, top_k=2)
+assert list(res["q"])[0] == "a", res
+svc = SearchService(engine, index_kw={"kernel": "pallas"})
+svc.add_documents(["a short text", "x"], ids=["a", "c"])
+assert svc.search(["x"], k=1)[0][0]["id"] == "c"
+svc.close()
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             if sys.modules[m] is not None]
 print("OK")
