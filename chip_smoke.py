@@ -34,9 +34,22 @@ Phases, each of which asserts; any failure exits non-zero:
  10. tparity — one training step's loss and bias gradients, card against CPU
  11. beir    — the port's `cli.beir_retriever` on a synthetic BEIR folder
                (2,000 docs, 100 queries) with full-width GPT-Neo-125M
- 12. report  — kernel and plain-version times, encode, train and serve
-               rates, the card's name and power limit, one
-               `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`
+ 12. flash   — the flash attention forward kernel (K3) against its plain
+               version: B=64, T=2048, H=12, Dh=64 in bf16, global and window
+               256, on the decoder's projection views; variants T 128-1024,
+               block_kv 128 and 256, scale 1/8, ALiBi, Dh 32 and 128, fp32;
+               key padding with fully masked rows; output and lse
+ 13. long    — long-context encode: full-width GPT-Neo-125M with use_flash
+               (bf16, max_seq_len 2048, batch_size 64) over 512 documents of
+               300-3,000 words (buckets 512, 1024, 2048; 154 truncated) and
+               short queries: K3 in every layer of every T % 128 == 0 batch,
+               K1 in the others; against the non-flash engine (K1 at every
+               T), card fp32 against CPU fp32 on 8 documents, and an index of
+               the documents (K5) in which each finds itself first
+ 14. report  — kernel, plain-version and library times beside each
+               kernel's bound, encode, long-context, train and serve rates,
+               the card's name and power limit, one `{"kernels": [...]}`
+               line, and last `{"ok": true, "device": {...}}`
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -53,10 +66,21 @@ import numpy as np
 SEED = 0
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2   # bf16 outputs: a flipped rounding of P or O
 FP32_ATOL, FP32_RTOL = 1e-5, 1e-5   # fp32, TF32 off: summation order only
+# the card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the peak
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}  # tensor cores; fp32 on the CUDA cores
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    log(f"== {name} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def card_line() -> str:
@@ -78,6 +102,41 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the least time the card could take to move
+    nbytes and do ops at the datasheet peaks, and which of the two binds."""
+    mem, comp = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS_PER_S[kind]
+    return (mem, "bytes") if mem >= comp else (comp, "operations")
+
+
+def attention_pairs(torch, key_mask, window: int) -> int:
+    """(query, key) pairs the mask leaves: key ≤ query, inside the window,
+    key not padded — the pairs this run's data needs, summed over rows."""
+    B, T = key_mask.shape
+    cs = torch.cat([torch.zeros(B, 1, dtype=torch.long, device=key_mask.device),
+                    (key_mask > 0).long().cumsum(1)], 1)
+    i = torch.arange(T, device=key_mask.device)
+    lo = (i - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(i)
+    return int((cs[:, i + 1] - cs[:, lo]).sum().item())
+
+
+def sdpa_mask(torch, key_mask, window: int):
+    """The boolean (B, 1, T, T) mask of causal ∧ [window] ∧ key padding, for
+    the library yardstick `F.scaled_dot_product_attention`."""
+    T = key_mask.shape[1]
+    i = torch.arange(T, device=key_mask.device)
+    m = i[None, :] <= i[:, None]
+    if window > 0:
+        m = m & (i[None, :] > i[:, None] - window)
+    return m[None, None] & (key_mask > 0)[:, None, None, :]
+
+
+def heads(t, H):
+    """(B, T, H·Dh) → the (B, H, T, Dh) view the decoder hands the flash kernel."""
+    B, T, HD = t.shape
+    return t.view(B, T, H, HD // H).transpose(1, 2)
 
 
 def attention_inputs(torch, rng, B, T, H, Dh, dtype, *, alibi=False, segments=False):
@@ -155,10 +214,23 @@ def phase_kernel(torch, sa, rng):
             return sa.short_attention_reference(*args, scale=1.0, window=window, H=12,
                                                 use_alibi=False)
 
+        q, k, v, km, _ = args
+        mask = sdpa_mask(torch, km, window)
+        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                    scale=1.0)
+
         p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kernel, kernel, plain))
-        times[window] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        lib = cuda_ms(torch, library)
+        nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
+        ops = 4 * 64 * 12 * attention_pairs(torch, km, window)
+        times[window] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, "bf16"))
         log(f"time K1 B=64 T=300 H=12 Dh=64 bf16 window={window}: kernel "
-            f"{times[window][0]:.4f} ms, plain {times[window][1]:.4f} ms "
+            f"{times[window][0]:.4f} ms, plain {times[window][1]:.4f} ms, library (SDPA, "
+            f"boolean mask) {lib:.4f} ms, bound {times[window][3]:.4f} ms "
+            f"({times[window][4]}: {nbytes} bytes, {ops} operations) "
             f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
     # the train slice's shape: fp32, B=32
     args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, torch.float32)
@@ -227,12 +299,29 @@ def phase_bwd_kernel(torch, sa, rng):
             def plain():
                 return sa.short_attention_bwd_reference(*args, g, **kw)
 
+            q, k, v, km, _ = args
+            qh, kh, vh = (heads(t, 12).detach().contiguous().requires_grad_() for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=sdpa_mask(torch, km, window), scale=1.0)
+            gh = heads(g, 12).contiguous()
+
+            def library():  # the library's backward of the same attention
+                return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+
             p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
+            lib = cuda_ms(torch, library, iters=10)
+            del out
             dt = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-            times[(dt, window)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            # read q, k, v, g once, write dq, dk, dv; 10·Dh operations a pair:
+            # Q·Kᵀ again, dP = g·Vᵀ, dV = Pᵀ·g, dQ = dS·K, dK = dSᵀ·Q
+            nbytes = 7 * q.numel() * q.element_size() + km.numel() * 4
+            ops = 10 * 64 * 12 * attention_pairs(torch, km, window)
+            times[(dt, window)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, dt))
             log(f"time K2 B=32 T=300 H=12 Dh=64 {dt} window={window}: kernel "
-                f"{times[(dt, window)][0]:.4f} ms, plain {times[(dt, window)][1]:.4f} ms "
-                f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+                f"{times[(dt, window)][0]:.4f} ms, plain {times[(dt, window)][1]:.4f} ms, "
+                f"library (SDPA backward) {lib:.4f} ms, bound {times[(dt, window)][3]:.4f} ms "
+                f"({times[(dt, window)][4]}) (runs: kernel {k1:.4f} {k2:.4f}, "
+                f"plain {p1:.4f} {p2:.4f})")
     return main_err, times
 
 
@@ -335,7 +424,7 @@ def phase_train_parity(torch, rng, tok):
     from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
 
     cfg = gpt_neo("125m")
-    cpu = Decoder(cfg, generator=torch.Generator().manual_seed(SEED + 1))
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 1))
     gpu = copy.deepcopy(cpu).to("cuda")
     tc = TrainConfig(lr=2e-4, batch_size=3, max_seq_len=300, specb=True, freeze_nonbias=True)
     batch = synthetic_triplets(rng, 3)
@@ -459,17 +548,25 @@ def phase_mips(torch, mips, gen):
     def plain():
         return mips.mips_topk_reference(qm, c, N, 10)
 
+    def library():  # two library calls: bf16 scores, then their top 10
+        return torch.topk(torch.mm(qm, c.T), 10)
+
     p1, k1, k2, p2 = (cuda_ms(torch, f, iters=n, warmup=1)
                       for f, n in ((plain, 3), (kernel, 20), (kernel, 20), (plain, 3)))
+    lib = cuda_ms(torch, library, iters=5, warmup=1)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     qb = mips.query_block(64, D, torch.bfloat16)
     read = c.numel() * c.element_size() * -(-64 // qb)
-    log(f"time K5 N={N} D={D} bf16 Q=64 k=10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+    nbytes = (c.numel() + qm.numel()) * 2 + 64 * 10 * 8  # corpus, queries once; (value, id) out
+    bound_ms, bound_by = bound(nbytes, 2 * 64 * N * D, "bf16")
+    log(f"time K5 N={N} D={D} bf16 Q=64 k=10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (torch.mm + torch.topk) {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
         f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f}); query block {qb}, "
         f"corpus bytes read per search {read} = {read / (ms / 1e3) / 1e9:.1f} GB/s")
     del c, q
     torch.cuda.empty_cache()
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, "query_block": qb,
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+            "bound_ms": bound_ms, "bound_by": bound_by, "query_block": qb,
             "bytes_per_search": read, "gb_per_s": read / (ms / 1e3) / 1e9}
 
 
@@ -649,6 +746,243 @@ def phase_serve(torch, mips, engine, corpus):
     return {"p50_ms": p50, "p99_ms": p99, "qps": qps, "k5_launches": launches}
 
 
+FLASH_CASES = [  # name, B, T, H, Dh, block_kv, scale, window, alibi
+    ("main-global", 64, 2048, 12, 64, 256, 1.0, 0, False),
+    ("main-local256", 64, 2048, 12, 64, 256, 1.0, 256, False),
+    ("T128", 8, 128, 12, 64, 256, 1.0, 256, False),   # block_kv clamps to 128
+    ("T256", 8, 256, 12, 64, 256, 1.0, 256, False),
+    ("T512-bkv128", 8, 512, 12, 64, 128, 1.0, 256, False),
+    ("T1024-global", 8, 1024, 12, 64, 256, 1.0, 0, False),
+    ("scale", 8, 512, 12, 64, 256, 0.125, 0, False),
+    ("alibi", 8, 1024, 12, 64, 256, 1.0, 256, True),
+    ("Dh128-T2048", 2, 2048, 16, 128, 256, 1.0, 256, True),  # GPT-Neo 1.3B/2.7B heads
+    ("Dh32-w64", 4, 384, 4, 32, 128, 0.25, 64, False),
+]
+
+
+def phase_flash(torch, fa, rng):
+    """K3 against `flash_attention_reference` on the decoder's (B, T, H·Dh)
+    projection views, output and lse on every row (each case has a short row
+    that a window leaves fully masked): bf16 within 2e-2 + 1e-2·|ref|, fp32
+    within 1e-5 + 1e-5·|ref|; fully masked rows' lse equal -1e30 on both
+    sides. Then the times at the main shape, global and window 256: kernel,
+    plain version, the library's SDPA with the same boolean mask, and the
+    bound from this run's pairs and bytes."""
+    main_err = 0.0
+    for dtype, atol, rtol in ((torch.bfloat16, BF16_ATOL, BF16_RTOL),
+                              (torch.float32, FP32_ATOL, FP32_RTOL)):
+        for name, B, T, H, Dh, block_kv, scale, window, alibi in FLASH_CASES:
+            if dtype == torch.float32:  # the main path runs bf16: fp32 at a smaller batch
+                B = min(B, 8)
+            (q, k, v, km, slopes), _ = attention_inputs(torch, rng, B, T, H, Dh, dtype,
+                                                        alibi=alibi)
+            if alibi:
+                slopes = slopes * 0.03  # BLOOM-sized slopes
+            qh, kh, vh = (heads(t, H) for t in (q, k, v))
+            kw = dict(scale=scale, window=window, block_kv=block_kv)
+            got, lse = fa.flash_attention(qh, kh, vh, km, slopes, return_residuals=True, **kw)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_reference(qh, kh, vh, km, slopes, **kw)
+            assert got.dtype == dtype and got.stride() == qh.stride(), name
+            g, w = got.float(), want.float()
+            assert torch.isfinite(g).all(), f"flash {name}: non-finite kernel output"
+            err = (g - w).abs()
+            assert (err - rtol * w.abs()).max().item() <= atol, f"flash {name} {dtype}: output"
+            dead = want_lse == fa.NEG_INF
+            assert torch.equal(lse == fa.NEG_INF, dead), f"flash {name}: masked rows differ"
+            lerr = (lse - want_lse).abs()[~dead]
+            assert (lerr - rtol * want_lse.abs()[~dead]).max().item() <= atol, f"flash {name} lse"
+            log(f"flash  {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} "
+                f"block_kv={min(block_kv, T)} window={window}: max_abs_err {err.max().item():.3e}, "
+                f"lse {lerr.max().item():.3e}, fully masked rows {int(dead.sum())}")
+            if name.startswith("main") and dtype == torch.bfloat16:
+                main_err = max(main_err, err.max().item())
+            del q, k, v, qh, kh, vh, got, want, lse, want_lse
+
+    times = {}
+    for window in (0, 256):
+        (q, k, v, km, _), _ = attention_inputs(torch, rng, 64, 2048, 12, 64, torch.bfloat16)
+        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+        mask = sdpa_mask(torch, km, window)
+
+        def kernel():
+            return fa.flash_attention(qh, kh, vh, km, window=window, block_kv=256)
+
+        def plain():
+            return fa.flash_attention_reference(qh, kh, vh, km, window=window, block_kv=256)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                    scale=1.0)
+
+        p1, k1, k2, p2 = (cuda_ms(torch, f, iters=n, warmup=1)
+                          for f, n in ((plain, 3), (kernel, 10), (kernel, 10), (plain, 3)))
+        lib = cuda_ms(torch, library, iters=5, warmup=1)
+        # q, k, v read once, out written once, fp32 lse written, int32 mask read
+        nbytes = 4 * q.numel() * 2 + 64 * 12 * 2048 * 4 + km.numel() * 4
+        pairs = attention_pairs(torch, km, window)
+        ops = 4 * 64 * 12 * pairs
+        times[window] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, "bf16"))
+        log(f"time K3 B=64 T=2048 H=12 Dh=64 bf16 window={window}: kernel {times[window][0]:.4f} "
+            f"ms, plain {times[window][1]:.4f} ms, library (SDPA, boolean mask) {lib:.4f} ms, "
+            f"bound {times[window][3]:.4f} ms ({times[window][4]}: {nbytes} bytes, {ops} "
+            f"operations over {pairs} pairs; {ops / (times[window][0] / 1e3) / 1e12:.1f} "
+            f"TFLOP/s) (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+        del q, k, v, qh, kh, vh, mask
+    torch.cuda.empty_cache()
+    return main_err, times
+
+
+def profile_batch(torch, engine, texts) -> dict:
+    """Where the time of one encode batch goes: device time by kernel family
+    under torch.profiler, and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.encode(texts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.encode(texts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    families = {"K3 flash": ("flash_fwd",), "K1 short": ("wmma_kernel", "scalar_kernel"),
+                "GEMM": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
+    ms = {name: 0.0 for name in (*families, "other")}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        name = next((f for f, keys in families.items()
+                     if any(k in ev.key.lower() for k in keys)), "other")
+        ms[name] += us / 1e3
+    total = sum(ms.values())
+    if total == 0:
+        log(f"long profile: the profiler saw no device time (wall {wall_ms:.1f} ms)")
+        return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None}
+    shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items())
+    log(f"long profile, one batch of 64 at T=2048: {total:.2f} ms of kernels in {wall_ms:.2f} "
+        f"ms wall (busy share {total / wall_ms:.3f}): {shares}")
+    return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total,
+            **{f"profile_{k.split()[0].lower()}_ms": v for k, v in ms.items()}}
+
+
+def long_texts(rng):
+    """512 documents of 300-3,000 words whose SPECB lengths fill the 2048
+    bucket with 5 batches of 64 (154 truncated), the 1024 bucket with one
+    batch of 128 and the 512 bucket with one batch; and 512 short queries
+    (3-60 words: the T=64 bucket, one batch of 512)."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(20000)]
+    # words: lo, hi, count; past 2046 words a document loses words to the budget
+    spans = [(2047, 3001, 154), (1023, 2047, 166), (511, 1023, 128), (300, 511, 64)]
+    lengths = np.concatenate([rng.integers(lo, hi, n) for lo, hi, n in spans])
+    rng.shuffle(lengths)
+    docs = [" ".join(rng.choice(words, int(m))) for m in lengths]
+    queries = [" ".join(d.split()[: int(rng.integers(3, 61))]) for d in docs]
+    return docs, queries
+
+
+def phase_long(torch, fa, sa, mips, model, tok, rng, card):
+    """The long-context slice: full-width GPT-Neo-125M with use_flash (the
+    weights of `model`, bf16) through EmbeddingEngine at max_seq_len 2048,
+    batch_size 64; documents then queries. K3 must run in every layer of
+    every batch at T % 128 == 0 and K1 in every layer of the others."""
+    import copy
+
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.index import index_corpus
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+
+    cfg = gpt_neo("125m", dtype=torch.bfloat16, use_flash=True)
+    flash_model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    assert all(torch.equal(a, b) for a, b in zip(flash_model.state_dict().values(),
+                                                 model.state_dict().values()))
+    kw = dict(specb=True, max_seq_len=2048, batch_size=64, normalize_embeddings=True)
+    engine = EmbeddingEngine(flash_model, cfg, tok, device="cuda", **kw)
+    docs, queries = long_texts(rng)
+    rows, n_trunc, _ = engine.codec.encode_rows(docs)
+    tokens = sum(len(r) for r in rows)
+    engine.warmup()
+    torch.cuda.synchronize()
+
+    shapes = []
+    hook = flash_model.register_forward_pre_hook(
+        lambda m, args: shapes.append(tuple(args[0].shape)))
+    fa.launches = sa.launches = 0
+    t0 = time.perf_counter()
+    demb = engine.encode(docs)
+    torch.cuda.synchronize()
+    doc_s = time.perf_counter() - t0
+    n_doc_batches = len(shapes)
+    qemb = engine.encode(queries, is_query=True)
+    k3, k1 = fa.launches, sa.launches
+    hook.remove()
+    flash_batches = sum(T % 128 == 0 for _, T in shapes)
+    log(f"long: {len(docs)} docs ({n_trunc} truncated at 2048) in {n_doc_batches} batches, "
+        f"{len(queries)} queries in {len(shapes) - n_doc_batches}; shapes {shapes}; "
+        f"K3 launches {k3}, K1 launches {k1}")
+    assert k3 == cfg.num_layers * flash_batches > 0, (k3, flash_batches)
+    assert k1 == cfg.num_layers * (len(shapes) - flash_batches) > 0, (k1, shapes)
+    assert {512, 1024, 2048} <= {T for _, T in shapes[:n_doc_batches]}, shapes
+    assert n_trunc == 154, n_trunc
+    for name, emb in (("docs", demb), ("queries", qemb)):
+        assert emb.shape == (len(docs), cfg.hidden_size) and np.isfinite(emb).all(), name
+        norms = np.linalg.norm(emb, axis=1)
+        assert np.abs(norms - 1).max() < 1e-2, (name, norms.min(), norms.max())
+    emb_per_s, tok_per_s = len(docs) / doc_s, tokens / doc_s
+    log(f"long encode: {emb_per_s:.1f} emb/s ({tok_per_s:.0f} tokens/s), {len(docs)} docs "
+        f"of {tokens} tokens in {doc_s:.3f} s, bf16, batch_size 64, max_seq_len 2048 ({card})")
+    order = np.argsort([len(r) for r in rows], kind="stable")
+    profile = profile_batch(torch, engine, [docs[i] for i in order[-64:]])
+
+    # the same weights without use_flash: K1 at every T
+    plain = EmbeddingEngine(model, model.cfg, tok, device="cuda", **kw)
+    sa.launches = 0
+    pemb = plain.encode(docs)
+    assert sa.launches > 0
+    cos = cosine(demb, pemb)
+    log(f"long: flash engine against the non-flash engine (K1 at every T), bf16: cosine min "
+        f"{cos.min():.6f} mean {cos.mean():.6f} (tolerance min 0.999)")
+    assert cos.min() > 0.999
+    del plain, pemb
+
+    # card fp32 (K3, K1) against CPU fp32 (plain versions) on 8 documents
+    pick = list(order[-3:]) + list(order[[70, 100, 150]]) + list(order[[5, 40]])
+    few = [docs[i] for i in pick]
+    cfg32 = gpt_neo("125m", use_flash=True)
+    cpu_model = Decoder(cfg32, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    kw32 = dict(specb=True, max_seq_len=2048, batch_size=1, normalize_embeddings=True)
+    t0 = time.perf_counter()
+    on_cpu = EmbeddingEngine(cpu_model, cfg32, tok, device="cpu", **kw32).encode(few)
+    cpu_s = time.perf_counter() - t0
+    fa.launches = 0
+    on_gpu = EmbeddingEngine(gpu_model, cfg32, tok, device="cuda", **kw32).encode(few)
+    assert fa.launches > 0
+    err32 = float(np.abs(on_gpu - on_cpu).max())
+    log(f"long: fp32 card against fp32 CPU, 8 docs of {sorted(len(rows[i]) for i in pick)} "
+        f"tokens: max abs diff {err32:.3e} (tolerance 1e-4; CPU took {cpu_s:.1f} s)")
+    assert err32 < 1e-4
+    del cpu_model, gpu_model
+
+    # index the documents with K5: each finds itself first
+    corpus = {f"long{i}": {"title": "", "text": d} for i, d in enumerate(docs)}
+    mips.launches = 0
+    index = index_corpus(engine, corpus, kernel="pallas")
+    _, hits = index.search_embeddings(demb, k=10)
+    own = np.mean([row[0] == f"long{i}" for i, row in enumerate(hits)])
+    log(f"long: index of {len(index)} documents (kernel=pallas): own document first for "
+        f"{own:.4f} of them; K5 launches {mips.launches}")
+    assert own == 1.0 and mips.launches > 0
+    del engine, flash_model, index
+    torch.cuda.empty_cache()
+    return {"k3_launches": k3, "k1_launches": k1, "emb_per_s": emb_per_s,
+            "tokens_per_s": tok_per_s, "flash_vs_plain_cos_min": float(cos.min()),
+            "fp32_err": err32, "batches": len(shapes), "flash_batches": flash_batches,
+            **profile}
+
+
 def phase_beir(rng, card):
     """The port's BEIR CLI end to end on a synthetic BEIR folder: 2,000
     documents, 100 queries copied from documents, qrels to those documents;
@@ -704,11 +1038,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from sgpt_tpu.tokenization import SimpleTokenizer
     from sgpt_tpu_torch.encoder import EmbeddingEngine
     from sgpt_tpu_torch.models import Decoder, gpt_neo
     from sgpt_tpu_torch.ops import _build, mips
+    from sgpt_tpu_torch.ops import flash_attention as fa
     from sgpt_tpu_torch.ops import short_attention as sa
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
 
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
@@ -724,12 +1059,17 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
 
-    # 2. K1 and 3. K2 against their plain versions
+    # 2. K1, 3. K2 and 12. K3 against their plain versions
     rng = np.random.default_rng(SEED)
+    phase("kernel")
     main_err, times = phase_kernel(torch, sa, rng)
+    phase("bwd")
     bwd_err, bwd_times = phase_bwd_kernel(torch, sa, rng)
+    phase("flash")
+    flash_err, flash_times = phase_flash(torch, fa, np.random.default_rng(SEED + 3))
 
     # 4. the slice: full-width GPT-Neo-125M bulk encode through the engine
+    phase("slice")
     cfg = gpt_neo("125m", dtype=torch.bfloat16)
     model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     tok = SimpleTokenizer(cfg.vocab_size)
@@ -777,10 +1117,11 @@ def main() -> int:
         f"{len(texts)} docs in {doc_s:.3f} s, bf16, batch_size 64, max_seq_len 300 ({card})")
 
     # 5. card (kernel) against CPU (plain path) on the same weights
+    phase("parity")
     idx = np.argsort([len(t) for t in texts])[:: len(texts) // 32][:32]
     small = [texts[i] for i in idx]
     cfg32 = gpt_neo("125m")
-    cpu_model = Decoder(cfg32, generator=torch.Generator().manual_seed(SEED))
+    cpu_model = Decoder(cfg32, device="cpu", generator=torch.Generator().manual_seed(SEED))
     gpu_model = copy.deepcopy(cpu_model)
     kw = dict(specb=True, max_seq_len=300, batch_size=8, normalize_embeddings=True)
     on_cpu = EmbeddingEngine(cpu_model, cfg32, tok, device="cpu", **kw).encode(small)
@@ -798,34 +1139,49 @@ def main() -> int:
     # 6. K5 against its plain version; 7. the search slice; 8. serving
     del cpu_model, gpu_model
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    phase("mips")
     k5 = phase_mips(torch, mips, gen)
     corpus = synthetic_corpus(rng, 4096)
+    phase("search")
     search = phase_search(torch, mips, sa, engine, corpus, gen)
+    phase("serve")
     serve = phase_serve(torch, mips, engine, corpus)
+
+    # 13. the long-context slice (flash engine), on the weights of phase 4
+    phase("long")
+    long = phase_long(torch, fa, sa, mips, model, tok, np.random.default_rng(SEED + 2), card)
 
     # 9. the train slice, and 10. its card-against-CPU parity
     del model, engine
     torch.cuda.empty_cache()
+    phase("train")
     train = phase_train(torch, sa, rng, tok)
+    phase("tparity")
     phase_train_parity(torch, rng, tok)
 
     # 11. the BEIR CLI
+    phase("beir")
     ndcg10 = phase_beir(rng, card)
+    phase("report")
 
-    # 12. report
+    # 14. report
     log(f"train: {train['ms_per_step']:.1f} ms/step, {train['seq_per_s']:.1f} seq/s "
         f"(96 sequences per step), peak {train['peak_gib']:.2f} GiB, fp32, "
         f"batch 32, max_seq_len 300 ({card})")
+    log(f"long: {long['emb_per_s']:.1f} emb/s, {long['tokens_per_s']:.0f} tokens/s, bf16, "
+        f"max_seq_len 2048, use_flash ({card})")
     log(card)
     print(json.dumps({"kernels": [{
         "name": "short_attention_fwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
-        "launches": main_launches + train["fwd_launches"],
+        "launches": main_launches + train["fwd_launches"] + long["k1_launches"],
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
-        "max_abs_err": main_err,
-        "ms": times[0][0], "plain_ms": times[0][1],
+        "launches_long": long["k1_launches"], "max_abs_err": main_err,
+        "ms": times[0][0], "plain_ms": times[0][1], "library_ms": times[0][2],
+        "bound_ms": times[0][3], "bound_by": times[0][4],
         "ms_local256": times[256][0], "plain_ms_local256": times[256][1],
+        "library_ms_local256": times[256][2], "bound_ms_local256": times[256][3],
         "ms_fp32_b32": times["fp32"][0], "plain_ms_fp32_b32": times["fp32"][1],
         "build_s": build_s, "encode_emb_per_s": emb_per_s}, {
         "name": "short_attention_bwd", "route": "cuda",
@@ -833,8 +1189,10 @@ def main() -> int:
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
         "launches": train["bwd_launches"], "max_abs_err": bwd_err,
         "ms": bwd_times[("fp32", 0)][0], "plain_ms": bwd_times[("fp32", 0)][1],
+        "library_ms": bwd_times[("fp32", 0)][2], "bound_ms": bwd_times[("fp32", 0)][3],
+        "bound_by": bwd_times[("fp32", 0)][4],
         **{f"{k}_{dt}_w{w}": bwd_times[(dt, w)][i] for dt, w in bwd_times
-           for i, k in enumerate(("ms", "plain_ms"))},
+           for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
         "train_ms_per_step": train["ms_per_step"], "train_seq_per_s": train["seq_per_s"],
         "train_peak_gib": train["peak_gib"]}, {
         "name": "mips_topk", "route": "cuda", "source": "sgpt_tpu_torch/csrc/mips.cu",
@@ -842,11 +1200,28 @@ def main() -> int:
         "launches": search["k5_launches"] + serve["k5_launches"],
         "launches_search": search["k5_launches"], "launches_serve": serve["k5_launches"],
         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "library_ms": k5["library_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "shape": f"Q=64 N={NQ_ROWS} D=768 bf16 k=10", "query_block": k5["query_block"],
         "bytes_per_search": k5["bytes_per_search"], "gb_per_s": k5["gb_per_s"],
         "search_lists_equal": search["lists_equal"], "search_own_first": search["own_first"],
         "serve_p50_ms": serve["p50_ms"], "serve_p99_ms": serve["p99_ms"],
-        "serve_qps": serve["qps"], "beir_ndcg10": ndcg10}]}), flush=True)
+        "serve_qps": serve["qps"], "beir_ndcg10": ndcg10}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "sgpt_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sgpt_tpu/ops/pallas/flash_attention.py:32",
+        "launches": long["k3_launches"], "max_abs_err": flash_err,
+        "ms": flash_times[0][0], "plain_ms": flash_times[0][1],
+        "library_ms": flash_times[0][2], "bound_ms": flash_times[0][3],
+        "bound_by": flash_times[0][4], "shape": "B=64 T=2048 H=12 Dh=64 bf16",
+        "ms_local256": flash_times[256][0], "plain_ms_local256": flash_times[256][1],
+        "library_ms_local256": flash_times[256][2], "bound_ms_local256": flash_times[256][3],
+        "bound_by_local256": flash_times[256][4], "long_emb_per_s": long["emb_per_s"],
+        "long_tokens_per_s": long["tokens_per_s"], "long_batches": long["batches"],
+        "long_flash_batches": long["flash_batches"],
+        "long_flash_vs_plain_cos_min": long["flash_vs_plain_cos_min"],
+        "long_fp32_card_vs_cpu": long["fp32_err"],
+        "long_profile": {k: v for k, v in long.items() if k.startswith("profile")}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

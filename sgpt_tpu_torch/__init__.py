@@ -24,9 +24,15 @@ package so each counterpart is easy to find:
     cli.beir_retriever   BEIR evaluation command line
     cli.serve            the HTTP search server command line
 
-The package imports torch and never jax. Host code that imports no JAX
-(`sgpt_tpu.tokenization`, `sgpt_tpu.data`, `sgpt_tpu.evaluation`) is
-imported from the reference, not copied.
+    ops.flash_attention  causal flash attention forward (long context):
+                         CUDA kernel, plain version, autograd function
+    tokenization         the port's copies of the host modules it needs:
+    data                 tokenizers and SPECB, MS MARCO triplets and the
+    evaluation           native jsonl reader, retrieval metrics and BEIR
+    baselines            IO, the BEIR dataset download
+
+The package imports torch, and never jax nor anything of the JAX package:
+the host code it shares with `sgpt_tpu` is copied, not imported.
 """
 
 __version__ = "0.1.0"

@@ -57,20 +57,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _fetch_beir_dataset(name: str, out_dir: str):
-    """`sgpt_tpu.baselines.openai_client.fetch_beir_dataset`, loaded from
-    its file: the `sgpt_tpu.baselines` package imports jax, that file only
-    the standard library."""
-    import importlib.util
-
-    pkg = importlib.util.find_spec("sgpt_tpu.baselines")
-    path = os.path.join(pkg.submodule_search_locations[0], "openai_client.py")
-    spec = importlib.util.spec_from_file_location("_sgpt_openai_client", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.fetch_beir_dataset(name, out_dir=out_dir)
-
-
 def main(args=None):
     setup_logging()
     args = args or parse_args()
@@ -81,7 +67,7 @@ def main(args=None):
         raise NotImplementedError("--layeridx: layer selection is not ported yet "
                                   "(ROADMAP Queue 1 item 5)")
 
-    from sgpt_tpu.evaluation.aggregate import ResultsStore
+    from ..evaluation.aggregate import ResultsStore
     store = ResultsStore()
     if args.computeavg:
         store.compute_model_avg()
@@ -93,15 +79,15 @@ def main(args=None):
             json.dump({"ndcgs": best}, f)
         return
 
-    from sgpt_tpu.evaluation import EvaluateRetrieval, load_beir_dataset
-
     from ..encoder import EmbeddingEngine
+    from ..evaluation import EvaluateRetrieval, load_beir_dataset
     from ..retrieval import DenseRetriever
 
     data_path = os.path.join(args.datapath, args.dataset)
     if args.download and not os.path.isdir(data_path):
         # egress-gated: nothing fetches unless this flag is passed explicitly
-        _fetch_beir_dataset(args.dataset, out_dir=args.datapath)
+        from ..baselines import fetch_beir_dataset
+        fetch_beir_dataset(args.dataset, out_dir=args.datapath)
     split = "dev" if args.dataset == "msmarco" else "test"
     corpus, queries, qrels = load_beir_dataset(data_path, split)
 

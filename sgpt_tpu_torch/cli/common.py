@@ -12,16 +12,15 @@ def setup_logging():
 
 
 def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "float32",
-                device="cpu", seed: int = 0):
+                device="cuda", seed: int = 0):
     """(model, cfg, tokenizer): a random-init GPT-Neo preset (`--randominit`,
     the reference's `--reinit` debugging flag and the zero-egress smoke
     path), with weights from `seed` and the hash tokenizer bounded by the
     model's vocab."""
     import torch
 
-    from sgpt_tpu.tokenization import get_tokenizer
-
     from ..models import Decoder, gpt_neo
+    from ..tokenization import get_tokenizer
 
     if not random_init:
         raise NotImplementedError(

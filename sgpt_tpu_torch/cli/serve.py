@@ -28,7 +28,7 @@ logger = logging.getLogger(__name__)
 def load_jsonl_corpus(path: str):
     """(ids, texts) from a BEIR-shaped jsonl file, title and text joined as
     the BEIR scripts join them (the JAX `load_jsonl_corpus`)."""
-    from sgpt_tpu.data.jsonl_native import extract_fields
+    from ..data.jsonl_native import extract_fields
 
     ids, texts = [], []
     rows = extract_fields(path, ("_id", "id", "title", "text"))

@@ -65,7 +65,7 @@ def _open(path):
 
 
 def load_msmarco(folder: str, ce_margin: float, negs_per_system: int):
-    from sgpt_tpu.data.msmarco import filter_hard_negatives
+    from ..data.msmarco import filter_hard_negatives
 
     corpus = {}
     with _open(os.path.join(folder, "collection.tsv")) as f:
@@ -108,7 +108,7 @@ def main(args=None):
     setup_logging()
     args = args or parse_args()
 
-    from sgpt_tpu.data import MSMARCOTriplets
+    from ..data import MSMARCOTriplets
 
     from ..training import ContrastiveTrainer, TrainConfig
 
@@ -146,7 +146,7 @@ def main(args=None):
     if args.eval_dev:
         import random
 
-        from sgpt_tpu.evaluation.ir import InformationRetrievalEvaluator
+        from ..evaluation.ir import InformationRetrievalEvaluator
 
         from ..encoder import EmbeddingEngine
 

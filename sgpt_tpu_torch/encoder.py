@@ -21,12 +21,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sgpt_tpu.tokenization.base import Tokenizer
-from sgpt_tpu.tokenization.specb import SpecbCodec, pick_bucket, row_bucket
-
 from .models.config import DecoderConfig
 from .models.decoder import Decoder
 from .ops.pooling import POOLERS, normalize
+from .tokenization.base import Tokenizer
+from .tokenization.specb import SpecbCodec, pick_bucket, row_bucket
 
 logger = logging.getLogger(__name__)
 
@@ -38,11 +37,12 @@ class EmbeddingEngine:
     """Batched sentence embedding over the port's GPT-Neo decoder."""
 
     def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
-                 device="cpu", method: str = "weightedmean", specb: bool = False,
+                 device="cuda", method: str = "weightedmean", specb: bool = False,
                  max_seq_len: Optional[int] = None, batch_size: int = 32,
                  normalize_embeddings: bool = False,
                  cache_dir: Optional[str] = None, **later):
-        """device: where the model runs; "cuda" without a card raises.
+        """device: where the model runs, the card by default; "cuda"
+        without a card raises, and CPU use passes device="cpu".
         Every other argument has the JAX engine's meaning."""
         unknown = set(later) - set(_LATER)
         if unknown:
@@ -167,7 +167,7 @@ class EmbeddingEngine:
             return None
         h = hashlib.sha1()
         h.update(f"torch|{self.method}|{self.codec.specb}|{is_query}|"
-                 f"{self.normalize}|{self.codec.max_seq_len}|"
+                 f"{self.normalize}|{self.codec.max_seq_len}|flash={self.cfg.use_flash}|"
                  f"{self._params_fingerprint()}|{len(texts)}".encode())
         for t in texts:  # full-text coverage: templated corpora sharing long
             h.update(str(len(t)).encode())  # prefixes must not collide

@@ -97,13 +97,14 @@ class DenseIndex:
     def __init__(self, dim: int, *, normalize_embeddings: bool = True,
                  mesh=None, block_size: int = 128, dtype=torch.bfloat16,
                  kernel: str = "blockmax", slab_size: int = 1 << 20,
-                 quantize: Optional[str] = None, device="cpu"):
+                 quantize: Optional[str] = None, device="cuda"):
         """kernel: 'blockmax' (block-max scan, any k) or 'pallas' (the
         streaming MIPS kernel K5, k <= 16). slab_size: max docs scored per
         matmul. quantize: 'int8' stores per-row symmetric int8 rows and fp32
         scales (blockmax only). dtype: of the stored corpus and the queries
         (a torch dtype, its name, or a numpy/JAX dtype). device: where the
-        corpus lives; 'cuda' without a card raises."""
+        corpus lives, the card by default; 'cuda' without a card raises, and
+        CPU use passes device='cpu'."""
         _no_mesh(mesh)
         if kernel not in ("blockmax", "pallas"):
             raise ValueError(f"unknown kernel {kernel!r}; supported: 'blockmax', 'pallas'")

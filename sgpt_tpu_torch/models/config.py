@@ -45,7 +45,7 @@ class DecoderConfig:
     mlp_bias: bool = True
     dtype: torch.dtype = torch.float32       # activation/compute dtype
     matmul_precision: str = "highest"
-    use_flash: bool = False
+    use_flash: bool = False                  # flash attention (K3) at T % 128 == 0
     fused_attention: bool = False
 
     @property

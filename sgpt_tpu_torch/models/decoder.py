@@ -4,11 +4,13 @@ Plain PyTorch: the layers are an `nn.ModuleList` walked by a Python loop.
 What the port implements is the GPT-Neo path of the JAX `_forward_impl`:
 learned positions, pre-LN blocks (LayerNorm with fp32 statistics), causal
 attention alternating global and local (windowed) layers, tanh-GELU MLP,
-`ln_f`, and `output_hidden_states` with HF semantics. Every attention call
-goes through `ops.short_attention`: the CUDA kernels on a CUDA tensor (K2
-for the backward when a gradient is needed), their plain versions on a CPU
-tensor. The flags of the other families raise
-`NotImplementedError`.
+`ln_f`, and `output_hidden_states` with HF semantics. Attention routes as
+the JAX decoder does: with `cfg.use_flash`, T % 128 == 0 and no packed rows
+(`segment_ids`), through `ops.flash_attention` (K3 on a CUDA tensor; its
+backward, K4, is not ported yet and raises); every other call through
+`ops.short_attention` (K1, and K2 for the backward when a gradient is
+needed). On a CPU tensor both take their plain versions. The flags of the
+other families raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_attention
 from ..ops.short_attention import short_attention
 from .config import DecoderConfig
 from .params import init_params, param_shapes
@@ -56,8 +59,6 @@ def _unsupported(cfg: DecoderConfig) -> list:
         later.append((f"norm_style={cfg.norm_style!r} (T5 RMSNorm)", "Queue 1 item 14"))
     if cfg.relative_attention:
         later.append(("relative_attention (T5)", "Queue 1 item 14"))
-    if cfg.use_flash:
-        later.append(("use_flash (flash kernel K3)", "Queue 1 item 11, Queue 2 K3"))
     return later
 
 
@@ -82,7 +83,8 @@ def _params(module: nn.Module, names, shapes: dict, prefix: str):
 
 class Attention(nn.Module):
     """Causal multi-head attention: projections in (B, T, H·Dh), then the
-    fused short-T attention, then the output projection."""
+    flash attention (`use_flash`, T % 128 == 0, rows not packed) or the fused
+    short-T attention, then the output projection."""
 
     def __init__(self, cfg: DecoderConfig, shapes: dict, prefix: str):
         super().__init__()
@@ -90,14 +92,26 @@ class Attention(nn.Module):
                 prefix + "attn.")
         self.H = cfg.num_heads
         self.scale = 1.0 / math.sqrt(cfg.head_size) if cfg.scale_attn else 1.0
+        self.use_flash = cfg.use_flash
 
     def forward(self, x, key_mask, window: int, segment_ids):
         q = F.linear(x, self.wq, self.bq)
         k = F.linear(x, self.wk, self.bk)
         v = F.linear(x, self.wv, self.bv)
+        B, T, HD = q.shape
         # GPT-Neo has no ALiBi: no slopes, use_alibi=False
-        out = short_attention(q, k, v, key_mask, None, self.scale, window,
-                              self.H, False, segments=segment_ids)
+        if self.use_flash and T % 128 == 0 and segment_ids is None:
+            # (B, H, T, Dh) views of the projections: the kernel reads them
+            # through their strides and writes the output in the same
+            # (B, T, H·Dh) layout, so neither side copies on the card
+            qh, kh, vh = (t.view(B, T, self.H, HD // self.H).transpose(1, 2)
+                          for t in (q, k, v))
+            out = flash_attention(qh, kh, vh, key_mask, None, scale=self.scale,
+                                  window=window, block_kv=256 if T % 256 == 0 else 128)
+            out = out.transpose(1, 2).reshape(B, T, HD)
+        else:
+            out = short_attention(q, k, v, key_mask, None, self.scale, window,
+                                  self.H, False, segments=segment_ids)
         return F.linear(out, self.wo, self.bo)
 
 
@@ -130,12 +144,17 @@ class Block(nn.Module):
 
 class Decoder(nn.Module):
     """GPT-Neo-style causal decoder. Parameters are created in `cfg.dtype`
-    on `device`, filled from `init_params(cfg, generator)`; load converted
-    weights with `load_state_dict(params_from_jax(...))`."""
+    on `device` (the card by default; "cuda" without one raises, and CPU use
+    passes device="cpu"), filled from `init_params(cfg, generator)`; load
+    converted weights with `load_state_dict(params_from_jax(...))`."""
 
-    def __init__(self, cfg: DecoderConfig, *, device="cpu",
+    def __init__(self, cfg: DecoderConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Decoder: device 'cuda' requested but "
+                               "torch.cuda.is_available() is False; pass device=\"cpu\"")
         later = _unsupported(cfg)
         if later:
             raise NotImplementedError(

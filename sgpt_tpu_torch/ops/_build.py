@@ -90,12 +90,15 @@ def library() -> ctypes.CDLL:
     (pointers and the stream as c_void_p: left undeclared, ctypes would pass
     them as 32-bit ints and cut the address)."""
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn = lib.sgpt_short_attention_fwd
     fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     fn.restype = i
     fn = lib.sgpt_short_attention_bwd
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+    fn.restype = i
+    fn = lib.sgpt_flash_attention_fwd
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, i, i, p]
     fn.restype = i
     fn = lib.sgpt_mips_topk
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]

@@ -34,13 +34,12 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sgpt_tpu.tokenization.base import Tokenizer
-from sgpt_tpu.tokenization.specb import SpecbCodec
-
 from ..losses import mnrl_loss
 from ..models.config import DecoderConfig
 from ..models.decoder import Decoder
 from ..ops.pooling import POOLERS
+from ..tokenization.base import Tokenizer
+from ..tokenization.specb import SpecbCodec
 from .bitfit import bitfit_mask
 from .gradcache import chunk_tree, gradcache_backward
 from .schedules import make_schedule
@@ -101,6 +100,11 @@ class ContrastiveTrainer:
                 f"{sorted(POOLERS)} (ROADMAP Queue 1 item 4)")
         if model.cfg != cfg:
             raise ValueError("ContrastiveTrainer: cfg differs from the model's config")
+        if cfg.use_flash and train_config.max_seq_len % 128 == 0:
+            # towers pad to max_seq_len, so every step would take the flash path
+            raise NotImplementedError(
+                "use_flash training at max_seq_len % 128 == 0 needs the flash "
+                "backward (K4a/K4b) — ROADMAP Queue 2 K4, Queue 1 item 11")
         self.model = model
         self.cfg = cfg
         self.tc = train_config

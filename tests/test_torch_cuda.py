@@ -139,12 +139,12 @@ def test_train_step_on_the_card_equals_the_cpu_step(cuda):
     (fp32 on both; cuBLAS and the kernels sum in another order)."""
     import copy
 
-    from sgpt_tpu.tokenization import SimpleTokenizer
     from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
     from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
 
     cfg = gpt_neo("125m").replace(num_layers=2)
-    cpu = Decoder(cfg, generator=torch.Generator().manual_seed(0))
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).to(cuda)
     tok = SimpleTokenizer(cfg.vocab_size)
     tc = TrainConfig(lr=2e-4, batch_size=4, max_seq_len=64, specb=True,
@@ -256,3 +256,95 @@ def test_cuda_index_launches_the_mips_kernel_per_search(cuda):
     assert mips.launches == before + 2
     assert ia == ic
     np.testing.assert_allclose(np.stack(va), np.stack(vc), atol=1e-5)
+
+
+FLASH_CASES = [  # T, Dh, block_kv, window, scale, alibi, projection-layout views
+    (128, 64, 128, 0, 1.0, False, False), (256, 64, 256, 256, 1.0, False, True),
+    (512, 64, 256, 0, 0.125, True, True), (512, 16, 128, 64, 1.0, True, False),
+    (384, 32, 128, 256, 0.125, False, False), (1024, 128, 256, 256, 1.0, False, True),
+    (2048, 64, 256, 256, 1.0, False, True)]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("T,Dh,block_kv,window,scale,alibi,views", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(cuda, dtype, atol, T, Dh, block_kv, window,
+                                            scale, alibi, views):
+    """K3 == `flash_attention_reference`, output and lse on every row: a
+    short row leaves fully masked rows under a window, and a fully padded
+    batch row masks every key. fp32: summation order only; bf16: a flipped
+    rounding of P or of the output."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(T + Dh + window)
+    B, H = 3, 4
+    dt = getattr(torch, dtype)
+    if views:  # the decoder's (B, T, H·Dh) projections seen as (B, H, T, Dh)
+        q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+                   .to(cuda, dt).view(B, T, H, Dh).transpose(1, 2) for _ in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, H, T, Dh)).astype(np.float32))
+                   .to(cuda, dt) for _ in range(3))
+    km = torch.from_numpy((np.arange(T)[None] < np.array([[20], [0], [T - 37]]))
+                          .astype(np.int32)).to(cuda)
+    slopes = torch.from_numpy((0.03 * rng.random(H)).astype(np.float32)).to(cuda)
+    kw = dict(scale=scale, window=window, block_kv=block_kv)
+    before = fa.launches
+    got, lse = fa.flash_attention(q, k, v, km, slopes if alibi else None,
+                                  return_residuals=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dt and got.stride() == q.stride()
+    want, want_lse = fa.flash_attention_reference(q, k, v, km, slopes if alibi else None, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    km = torch.ones(1, 256, dtype=torch.int32, device=cuda)
+    x = torch.zeros(1, 2, 256, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(x, x, x, km)
+    x = torch.zeros(1, 2, 256, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(x, x, x, km)
+    x = torch.zeros(1, 2, 256, 64, device=cuda)
+    with pytest.raises(ValueError, match="64-row"):
+        fa.flash_attention(x, x, x, km, block_q=32, block_kv=32)
+    with pytest.raises(ValueError, match="divide"):
+        fa.flash_attention(x[:, :, :200], x[:, :, :200], x[:, :, :200], km[:, :200])
+    with pytest.raises(NotImplementedError, match="K4"):
+        fa.flash_attention(x.requires_grad_(), x, x, km).sum().backward()
+
+
+def test_flash_engine_on_the_card_launches_k3_and_equals_the_cpu(cuda):
+    """A 2-layer model at GPT-Neo-125M's width with use_flash, fp32: batches
+    at T % 128 == 0 run K3 in every layer, the others K1, and the card's
+    embeddings equal the CPU's (plain versions) within 1e-4."""
+    import copy
+
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = gpt_neo("125m", use_flash=True).replace(num_layers=2)
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    texts = [" ".join(f"w{rng.integers(0, 9000)}" for _ in range(n))
+             for n in (5, 40, 100, 200, 250, 400, 600)]  # buckets 16, 64, 128, 256, 512
+    kw = dict(specb=True, max_seq_len=512, batch_size=2, normalize_embeddings=True)
+    tok = SimpleTokenizer(cfg.vocab_size)
+    want = EmbeddingEngine(cpu, cfg, tok, device="cpu", **kw).encode(texts)
+    engine = EmbeddingEngine(gpu, cfg, tok, device=cuda, **kw)
+    shapes = []
+    hook = gpu.register_forward_pre_hook(lambda m, a: shapes.append(a[0].shape[1]))
+    k3, k1 = fa.launches, sa.launches
+    got = engine.encode(texts)
+    hook.remove()
+    flash = sum(T % 128 == 0 for T in shapes)
+    assert 0 < flash < len(shapes)
+    assert fa.launches - k3 == cfg.num_layers * flash
+    assert sa.launches - k1 == cfg.num_layers * (len(shapes) - flash)
+    np.testing.assert_allclose(got, want, atol=1e-4)

@@ -31,7 +31,7 @@ def _pair(dtype=jnp.float32, **kw):
     jcfg = jax_tiny("neo", num_layers=3, **kw).replace(dtype=dtype)
     jparams = jax_init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     cfg = from_jax_config(jcfg)
-    model = Decoder(cfg)
+    model = Decoder(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     return jcfg, jparams, cfg, model
 
@@ -92,13 +92,13 @@ def test_packed_segments_and_positions_match_jax():
 @pytest.mark.parametrize("family", ["gptj", "bloom", "bert", "t5"])
 def test_other_families_raise(family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Decoder(from_jax_config(jax_tiny(family)))
+        Decoder(from_jax_config(jax_tiny(family)), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(inputs_embeds=torch.zeros(1)),
                                 dict(cond=torch.zeros(1))])
 def test_unported_forward_arguments_raise(kw):
-    model = Decoder(tiny("neo", num_layers=1))
+    model = Decoder(tiny("neo", num_layers=1), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(ids, torch.ones_like(ids), **kw)
@@ -131,8 +131,8 @@ def test_config_mirrors_jax():
 
 def test_init_distribution_and_seed():
     cfg = tiny("neo", num_layers=2, hidden_size=64, vocab_size=2000)
-    a = Decoder(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
-    b = Decoder(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
+    a = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
+    b = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert abs(a["wte"].std().item() - 0.02) < 1e-3
     assert torch.all(a["layers.0.ln1.scale"] == 1) and torch.all(a["layers.0.attn.bo"] == 0)

@@ -1,0 +1,58 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: `Decoder`, `EmbeddingEngine`, `DenseIndex` (and `DenseIndex.load`) and
+the CLIs' `build_model` default to device "cuda", and without a card they
+raise rather than fall back to the CPU."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from sgpt_tpu_torch.cli.common import build_model  # noqa: E402
+from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
+from sgpt_tpu_torch.index import DenseIndex  # noqa: E402
+from sgpt_tpu_torch.models import Decoder, tiny  # noqa: E402
+from sgpt_tpu_torch.tokenization import SimpleTokenizer  # noqa: E402
+
+CFG = tiny("neo", num_layers=1, hidden_size=32, num_heads=2)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+
+
+def _save_index(tmp_path):
+    idx = DenseIndex(8, device="cpu")
+    idx.add(np.ones((2, 8), np.float32))
+    idx.save(str(tmp_path / "i.npz"))
+    return str(tmp_path / "i.npz")
+
+
+ENTRY_POINTS = {
+    "Decoder": lambda tmp: Decoder(CFG),
+    "EmbeddingEngine": lambda tmp: EmbeddingEngine(Decoder(CFG, device="cpu"), CFG,
+                                                   SimpleTokenizer(CFG.vocab_size)),
+    "DenseIndex": lambda tmp: DenseIndex(16),
+    "DenseIndex.load": lambda tmp: DenseIndex.load(_save_index(tmp)),
+    "build_model": lambda tmp: build_model("gpt-neo-125m", random_init=True),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_default_device_is_the_card_and_raises_without_one(name, tmp_path):
+    _no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[name](tmp_path)
+
+
+@pytest.mark.parametrize("name", ["Decoder", "EmbeddingEngine", "DenseIndex"])
+def test_explicit_cpu_runs_on_the_cpu(name):
+    if name == "Decoder":
+        obj = Decoder(CFG, device="cpu")
+        assert next(obj.parameters()).device.type == "cpu"
+    elif name == "EmbeddingEngine":
+        obj = EmbeddingEngine(Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size),
+                              device="cpu")
+        assert obj.device.type == "cpu" and obj.encode(["a b c"]).shape == (1, 32)
+    else:
+        assert DenseIndex(16, device="cpu").device.type == "cpu"

@@ -31,7 +31,7 @@ def pair():
     jcfg = jax_tiny("neo", num_layers=2)
     jparams = jax_init_params(jcfg, jax.random.key(0))
     cfg = from_jax_config(jcfg)
-    model = Decoder(cfg)
+    model = Decoder(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     return jcfg, jparams, cfg, model
 
@@ -51,7 +51,7 @@ def test_embeddings_match_jax_engine(pair, specb, method):
     kw = dict(method=method, specb=specb, batch_size=2, max_seq_len=64,
               normalize_embeddings=True)
     want = JaxEngine(jparams, jcfg, tok, **kw).encode(texts)
-    engine = EmbeddingEngine(model, cfg, tok, **kw)
+    engine = EmbeddingEngine(model, cfg, tok, device="cpu", **kw)
     got = engine.encode(texts)
     assert got.shape == (len(texts), cfg.hidden_size) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-5)
@@ -63,7 +63,7 @@ def test_embeddings_match_jax_engine(pair, specb, method):
 
 def test_encode_corpus_dicts_and_empty(pair):
     _, _, cfg, model = pair
-    engine = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), batch_size=4)
+    engine = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu", batch_size=4)
     corpus = [{"title": "a b", "text": "c d e"}, "f g"]
     np.testing.assert_array_equal(engine.encode_corpus(corpus),
                                   engine.encode(["a b c d e", "f g"]))
@@ -73,7 +73,7 @@ def test_encode_corpus_dicts_and_empty(pair):
 def test_cache_hit_and_miss(pair, tmp_path, monkeypatch):
     _, _, cfg, model = pair
     tok = SimpleTokenizer(cfg.vocab_size)
-    engine = EmbeddingEngine(model, cfg, tok, batch_size=4, cache_dir=str(tmp_path))
+    engine = EmbeddingEngine(model, cfg, tok, device="cpu", batch_size=4, cache_dir=str(tmp_path))
     texts = _texts(7, seed=2)
     first = engine.encode(texts)
     assert len(list(tmp_path.glob("*.npy"))) == 1
@@ -88,14 +88,14 @@ def test_cache_hit_and_miss(pair, tmp_path, monkeypatch):
     with pytest.raises(AssertionError, match="cache hit"):
         engine.encode(texts[:-1])
     # other weights → another fingerprint → a miss
-    other = Decoder(cfg, generator=torch.Generator().manual_seed(9))
-    e2 = EmbeddingEngine(other, cfg, tok, batch_size=4, cache_dir=str(tmp_path))
+    other = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(9))
+    e2 = EmbeddingEngine(other, cfg, tok, device="cpu", batch_size=4, cache_dir=str(tmp_path))
     assert e2._cache_key(texts, False) != engine._cache_key(texts, False)
 
 
 def test_out_of_range_ids_raise_on_the_host(pair):
     _, _, cfg, model = pair
-    engine = EmbeddingEngine(model, cfg, SimpleTokenizer(10 * cfg.vocab_size))
+    engine = EmbeddingEngine(model, cfg, SimpleTokenizer(10 * cfg.vocab_size), device="cpu")
     with pytest.raises(ValueError, match="vocab"):
         engine.encode(["many different words so that some id lands high"] * 3)
 
@@ -106,16 +106,16 @@ def test_out_of_range_ids_raise_on_the_host(pair):
 def test_unported_options_raise(pair, kw):
     _, _, cfg, model = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), **kw)
+        EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu", **kw)
 
 
 def test_unknown_argument_and_config_mismatch(pair):
     _, _, cfg, model = pair
     tok = SimpleTokenizer(cfg.vocab_size)
     with pytest.raises(TypeError):
-        EmbeddingEngine(model, cfg, tok, batchsize=4)
+        EmbeddingEngine(model, cfg, tok, device="cpu", batchsize=4)
     with pytest.raises(ValueError, match="cfg"):
-        EmbeddingEngine(model, tiny("neo", num_layers=2, vocab_size=300), tok)
+        EmbeddingEngine(model, tiny("neo", num_layers=2, vocab_size=300), tok, device="cpu")
 
 
 def test_cuda_without_a_card_raises(pair):

@@ -1,0 +1,142 @@
+"""Port's flash attention (plain version on the CPU) == the JAX flash kernel.
+
+The JAX side runs the Pallas kernel in interpret mode on the CPU, as
+tests/test_flash_attention.py does. Inputs come from a numpy seed, with key
+padding that leaves fully masked query rows under a window (and one case
+with a fully padded batch row); output and lse are compared on ALL rows,
+those included. Tolerances: fp32 1e-5 absolute (summation order only),
+bf16 2e-2 (a flipped rounding of P or of the output).
+"""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the JAX reference runs on the CPU (as tests/conftest.py sets), also under
+# --noconftest on a machine whose JAX would otherwise take the GPU
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+pytest.importorskip("jax").config.update("jax_platforms", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+
+from sgpt_tpu.ops.pallas.flash_attention import flash_attention as jax_flash  # noqa: E402
+from sgpt_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+CASES = [  # T, Dh, block_kv, window, scale, alibi, lengths
+    (128, 64, 128, 0, 1.0, False, (20, 91)),
+    (128, 16, 256, 64, 0.125, True, (20, 128)),
+    (256, 64, 256, 0, 0.125, False, (0, 219)),      # a fully padded batch row
+    (256, 16, 128, 64, 1.0, False, (20, 219)),
+    (256, 64, 128, 256, 1.0, True, (20, 219)),
+    (512, 64, 256, 256, 1.0, False, (20, 475)),     # the decoder's local layers
+    (512, 16, 128, 64, 0.125, True, (20, 475)),
+    (512, 64, 256, 0, 1.0, True, (20, 475)),
+]
+
+
+def _inputs(seed, T, Dh, lengths, alibi, B=2, H=2):
+    """q/k/v (B, H, T, Dh) at the scale of real projections (std 0.5), a key
+    mask of right padding, and BLOOM-sized slopes."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(0.0, 0.5, (B, H, T, Dh)).astype(np.float32) for _ in range(3))
+    km = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
+    slopes = (0.03 * rng.random(H)).astype(np.float32) if alibi else None
+    return q, k, v, km, slopes
+
+
+def _jax(q, k, v, km, slopes, dtype, **kw):
+    jd = DTYPES[dtype][1]
+    out, lse = jax_flash(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                         jnp.asarray(km), None if slopes is None else jnp.asarray(slopes),
+                         return_residuals=True, **kw)
+    return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+
+
+def _torch(q, k, v, km, slopes, dtype, **kw):
+    td = DTYPES[dtype][0]
+    out, lse = fa.flash_attention(
+        *(torch.from_numpy(x).to(td) for x in (q, k, v)), torch.from_numpy(km),
+        None if slopes is None else torch.from_numpy(slopes), return_residuals=True, **kw)
+    assert out.dtype == td and lse.dtype == torch.float32
+    return out.float().numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "T{}-Dh{}-bkv{}-w{}-s{}-{}".format(
+    *c[:5], "alibi" if c[5] else "noalibi"))
+def test_plain_version_matches_jax_kernel(case, dtype):
+    T, Dh, block_kv, window, scale, alibi, lengths = case
+    q, k, v, km, slopes = _inputs(T + Dh + window, T, Dh, lengths, alibi)
+    kw = dict(scale=scale, window=window, block_kv=block_kv)
+    want_o, want_l = _jax(q, k, v, km, slopes, dtype, **kw)
+    launches = fa.launches
+    got_o, got_l = _torch(q, k, v, km, slopes, dtype, **kw)
+    assert fa.launches == launches  # a CPU tensor takes the plain version
+    assert got_o.shape == want_o.shape == q.shape and got_l.shape == want_l.shape == q.shape[:3]
+    np.testing.assert_allclose(got_o, want_o, atol=TOL[dtype], rtol=0)
+    np.testing.assert_allclose(got_l, want_l, atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("block_kv,window", [(128, 64), (256, 64), (128, 256), (256, 256)])
+def test_fully_masked_rows_average_v_over_the_visited_tiles(block_kv, window):
+    """A padded row that the window leaves with no valid key: m stays -1e30,
+    every key of the tiles its query tile visits gets p = 1, so the output is
+    the mean of V over those keys and lse = -1e30, as in the TPU kernel."""
+    T, L = 512, 20
+    q, k, v, km, _ = _inputs(7, T, 16, (L, T), False)
+    out, lse = fa.flash_attention_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(km),
+        window=window, block_kv=block_kv)
+    dead = [r for r in range(T) if r - window + 1 >= L]
+    assert dead
+    for r in dead:
+        qi = r // 128
+        keys = [j for ki in range(T // block_kv)
+                if fa._visited(qi, ki, 128, block_kv, window)
+                for j in range(ki * block_kv, (ki + 1) * block_kv)]
+        np.testing.assert_allclose(out[0, :, r].numpy(), v[0][:, keys].mean(axis=1), atol=1e-5)
+        assert (lse[0, :, r] == fa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("T,block_q,block_kv", [(200, 128, 128), (384, 128, 256)])
+def test_blocks_that_do_not_divide_t_raise(T, block_q, block_kv):
+    q, k, v, km, _ = _inputs(0, T, 16, (T, T), False)
+    with pytest.raises(AssertionError):  # the JAX function asserts
+        _jax(q, k, v, km, None, "float32", block_q=block_q, block_kv=block_kv)
+    with pytest.raises(ValueError, match="divide"):
+        _torch(q, k, v, km, None, "float32", block_q=block_q, block_kv=block_kv)
+
+
+def test_backward_raises_naming_k4():
+    q, k, v, km, _ = _inputs(1, 128, 16, (128, 60), False)
+    qt = torch.from_numpy(q).requires_grad_()
+    with pytest.raises(NotImplementedError, match="K4"):
+        fa.flash_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
+                           torch.from_numpy(km)).sum().backward()
+    with torch.no_grad():  # no graph: the forward alone, equal to the plain version
+        out = fa.flash_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
+                                 torch.from_numpy(km))
+    assert out.grad_fn is None
+
+
+def test_strided_views_equal_contiguous_inputs():
+    """The decoder passes (B, T, H·Dh) projections viewed as (B, H, T, Dh)."""
+    B, T, H, Dh = 2, 256, 2, 16
+    rng = np.random.default_rng(3)
+    q2, k2, v2 = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+                  for _ in range(3))
+    km = torch.from_numpy((np.arange(T)[None] < np.array([[100], [T]])).astype(np.int32))
+    views = [t.view(B, T, H, Dh).transpose(1, 2) for t in (q2, k2, v2)]
+    got = fa.flash_attention(*views, km, window=64)
+    want = fa.flash_attention(*(t.contiguous() for t in views), km, window=64)
+    assert torch.equal(got, want)
+
+
+def test_refuses_other_devices():
+    x = torch.zeros(1, 1, 128, 16, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fa.flash_attention(x, x, x, torch.ones(1, 128, dtype=torch.int32))

@@ -35,7 +35,7 @@ def _data(n=1000, d=32, q=7, seed=0):
 
 def _pair(dim, dtype="float32", **kw):
     t, j = DTYPES[dtype]
-    return DenseIndex(dim, dtype=t, **kw), JaxIndex(dim, dtype=j, **kw)
+    return DenseIndex(dim, dtype=t, device="cpu", **kw), JaxIndex(dim, dtype=j, **kw)
 
 
 def _same(a, b, queries, k):
@@ -82,7 +82,7 @@ def test_multislab_matches_jax():
         idx.build()
     assert port._corpus.shape[0] == ref._corpus.shape[0] and port._slab_eff == ref._slab_eff
     _same(port, ref, queries, 7)
-    whole = DenseIndex(16, dtype=torch.float32)
+    whole = DenseIndex(16, dtype=torch.float32, device="cpu")
     whole.add(corpus)
     whole.build()
     _same(port, whole, queries, 7)
@@ -165,7 +165,7 @@ def test_delete_then_compact_matches_jax(quantize):
 
 def test_delete_all_and_empty_batches():
     corpus, queries = _data(n=64, d=16, q=2, seed=24)
-    idx = DenseIndex(16)
+    idx = DenseIndex(16, device="cpu")
     idx.add(corpus[:4], ids=["a", "b", "c", "d"])
     idx.build()
     assert idx.search_embeddings(np.zeros((0, 16), np.float32)) == ([], [])
@@ -176,7 +176,7 @@ def test_delete_all_and_empty_batches():
 
 
 def test_search_before_build_raises():
-    idx = DenseIndex(8)
+    idx = DenseIndex(8, device="cpu")
     idx.add(np.ones((3, 8), np.float32))
     with pytest.raises(RuntimeError, match="build"):
         idx.search_embeddings(np.ones((1, 8), np.float32))
@@ -198,17 +198,17 @@ def test_fewer_docs_than_k_and_from_device_embeddings():
 
 def test_refusals():
     with pytest.raises(ValueError, match="pallas"):
-        DenseIndex(32, kernel="pallas", quantize="int8")
-    idx = DenseIndex(16, kernel="pallas")
+        DenseIndex(32, kernel="pallas", quantize="int8", device="cpu")
+    idx = DenseIndex(16, kernel="pallas", device="cpu")
     idx.add(np.ones((4, 16), np.float32), ids=list("abcd"))
     with pytest.raises(ValueError, match="blockmax"):
         idx.delete(["a"])
     with pytest.raises(NotImplementedError, match="item 12"):
-        DenseIndex(16, mesh=object())
+        DenseIndex(16, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="quantize"):
-        DenseIndex(16, quantize="int4")
+        DenseIndex(16, quantize="int4", device="cpu")
     with pytest.raises(ValueError, match="kernel"):
-        DenseIndex(16, kernel="faiss")
+        DenseIndex(16, kernel="faiss", device="cpu")
 
 
 def test_cuda_without_a_card_raises():
@@ -238,19 +238,19 @@ def test_save_load_across_packages(tmp_path, dtype, quantize):
     np.testing.assert_array_equal(a["rows"], b["rows"])
     np.testing.assert_array_equal(a["ids"], b["ids"])
     jax_from_port = JaxIndex.load(str(tmp_path / "port.npz"))
-    port_from_jax = DenseIndex.load(str(tmp_path / "jax.npz"))
+    port_from_jax = DenseIndex.load(str(tmp_path / "jax.npz"), device="cpu")
     assert port_from_jax.dtype == DTYPES[dtype][0] and len(port_from_jax) == 398
     assert _same(port_from_jax, jax_from_port, queries, 9) == want
 
 
 def test_unbuilt_save_load(tmp_path):
     corpus, _ = _data(n=10, d=8, q=1, seed=4)
-    idx = DenseIndex(8)
+    idx = DenseIndex(8, device="cpu")
     idx.add(corpus)
     idx.save(str(tmp_path / "u.npz"))
     back = JaxIndex.load(str(tmp_path / "u.npz"))
     assert not back.is_built and back._count == 10
-    back = DenseIndex.load(str(tmp_path / "u.npz"))
+    back = DenseIndex.load(str(tmp_path / "u.npz"), device="cpu")
     assert not back.is_built and back._count == 10 and back.dtype == torch.bfloat16
 
 
@@ -267,11 +267,11 @@ def test_index_corpus_matches_jax():
     jcfg = jax_tiny("neo", num_layers=2)
     jparams = jax_init_params(jcfg, jax.random.key(0))
     cfg = from_jax_config(jcfg)
-    model = Decoder(cfg)
+    model = Decoder(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     tok = SimpleTokenizer(cfg.vocab_size)
     kw = dict(batch_size=4, specb=True, max_seq_len=64)
-    engine = EmbeddingEngine(model, cfg, tok, **kw)
+    engine = EmbeddingEngine(model, cfg, tok, device="cpu", **kw)
     jengine = JaxEngine(jparams, jcfg, tok, **kw)
     corpus = {f"d{i}": {"title": "t" if i % 3 else "", "text": f"unique document {i} "
                         + "words " * (i % 7)} for i in range(12)}

@@ -32,11 +32,11 @@ def engines():
     jcfg = jax_tiny("neo", num_layers=2)
     jparams = jax_init_params(jcfg, jax.random.key(0))
     cfg = from_jax_config(jcfg)
-    model = Decoder(cfg)
+    model = Decoder(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     tok = SimpleTokenizer(cfg.vocab_size)
     kw = dict(method="weightedmean", specb=True, batch_size=4, max_seq_len=64)
-    return EmbeddingEngine(model, cfg, tok, **kw), JaxEngine(jparams, jcfg, tok, **kw)
+    return EmbeddingEngine(model, cfg, tok, device="cpu", **kw), JaxEngine(jparams, jcfg, tok, **kw)
 
 
 def _corpus(n=60, seed=0):

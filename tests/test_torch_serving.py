@@ -112,12 +112,12 @@ def engines():
     jcfg = jax_tiny("neo", num_layers=2)
     jparams = jax_init_params(jcfg, jax.random.key(0))
     cfg = from_jax_config(jcfg)
-    model = Decoder(cfg)
+    model = Decoder(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     tok = SimpleTokenizer(cfg.vocab_size)
     kw = dict(method="weightedmean", specb=True, batch_size=4, max_seq_len=64,
               normalize_embeddings=True)
-    return EmbeddingEngine(model, cfg, tok, **kw), JaxEngine(jparams, jcfg, tok, **kw)
+    return EmbeddingEngine(model, cfg, tok, device="cpu", **kw), JaxEngine(jparams, jcfg, tok, **kw)
 
 
 @pytest.fixture(scope="module", params=["blockmax", "pallas"])
@@ -270,7 +270,8 @@ def test_http_save_and_load_index(served, tmp_path):
     finally:
         srv2.shutdown()
         srv2.server_close()
-    index, documents = SearchService.load_index(str(tmp_path / "idx"), kernel=kernel)
+    index, documents = SearchService.load_index(str(tmp_path / "idx"), kernel=kernel,
+                                                device="cpu")
     assert documents == svc.documents and len(index) == len(svc.index)
     q = svc.embed(QUERIES, is_query=True)
     assert index.search_embeddings(q, k=3)[1] == svc.index.search_embeddings(q, k=3)[1]

@@ -74,7 +74,7 @@ def _pair(**overrides):
     kw = dict(lr=LR, epochs=1, batch_size=8, max_seq_len=16, **overrides)
     jt = JaxTrainer(jparams, jcfg, SimpleTokenizer(vocab_size=VOCAB), JaxTrainConfig(**kw))
     cfg = from_jax_config(jcfg)
-    model = Decoder(cfg)
+    model = Decoder(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     pt = ContrastiveTrainer(model, cfg, SimpleTokenizer(vocab_size=VOCAB), TrainConfig(**kw))
     return jt, pt, cfg

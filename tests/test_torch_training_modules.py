@@ -61,7 +61,7 @@ def test_bitfit_mask_selects_the_jax_leaves(train_wte):
                                    train_wte=train_wte)
     flat = {".".join(str(k.key) for k in path): bool(v)
             for path, v in jax.tree_util.tree_flatten_with_path(jmask)[0]}
-    model = Decoder(from_jax_config(jcfg))
+    model = Decoder(from_jax_config(jcfg), device="cpu")
     mask = bitfit_mask(model, train_wte=train_wte)
     assert set(mask) == {n for n, _ in model.named_parameters()}
     for name, trainable in mask.items():
@@ -114,7 +114,7 @@ def test_chunk_tree_reshapes_every_leaf():
 def test_checkpoint_round_trips_bf16_bit_for_bit(tmp_path):
     model = Decoder(tiny("neo", num_layers=1, hidden_size=32, num_heads=2,
                          vocab_size=64).replace(dtype=torch.bfloat16),
-                    generator=torch.Generator().manual_seed(1))
+                    device="cpu", generator=torch.Generator().manual_seed(1))
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
     sum(p.float().sum() for p in model.parameters()).backward()
     opt.step()
