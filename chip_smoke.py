@@ -31,7 +31,8 @@ Phases, each of which asserts; any failure exits non-zero:
                through `ContrastiveTrainer.fit`: K1 and K2 counted
                12 × 3 towers × steps, only biases move, the loss of a
                repeated batch falls, GradCache's loss equals the direct one
- 10. tparity — one training step's loss and bias gradients, card against CPU
+ 10. tparity — one training step's loss and bias gradients, card against CPU,
+               at T=300 (K1, K2) and with use_flash at T=512 (K3, K4a, K4b)
  11. beir    — the port's `cli.beir_retriever` on a synthetic BEIR folder
                (2,000 docs, 100 queries) with full-width GPT-Neo-125M
  12. flash   — the flash attention forward kernel (K3) against its plain
@@ -46,7 +47,24 @@ Phases, each of which asserts; any failure exits non-zero:
                K1 in the others; against the non-flash engine (K1 at every
                T), card fp32 against CPU fp32 on 8 documents, and an index of
                the documents (K5) in which each finds itself first
- 14. report  — kernel, plain-version and library times beside each
+ 14. fbwd    — the flash attention backward kernels (K4a dQ, K4b dK/dV)
+               against their plain version: B=8, T=2048, H=12, Dh=64 in
+               fp32, global and window 256, block_kv 256, on the decoder's
+               projection views with a random output gradient, key padding
+               and fully masked rows; variants T 128-1024, block_kv 128,
+               scale 1/8, ALiBi, Dh 32 and 128, bf16; times of each kernel,
+               the plain version and the library's SDPA backward
+ 15. ltrain  — long-context contrastive training: full-width GPT-Neo-125M
+               with use_flash, fp32, max_seq_len 2048, BitFit, SPECB,
+               GradCache (chunks of 8), batches of 16 triplets with documents
+               of 300-3,000 words, 4 steps on one batch at constant lr: K3
+               12 × 3 towers × (2 + 2) chunks a step, K4a = K4b = 12 × 3 × 2,
+               K1 = K2 = 0; only biases move, the loss falls; ms/step,
+               sequences/s, tokens/s, peak memory, one step under
+               torch.profiler; GradCache (chunks of 2) == direct on 4 triplets
+               (tparity also holds one use_flash step at max_seq_len 512,
+               card K3/K4 against the CPU's plain versions)
+ 16. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
                line, and last `{"ok": true, "device": {...}}`
@@ -413,36 +431,44 @@ def phase_train(torch, sa, rng, tok):
             "fwd_launches": fwd_launches, "bwd_launches": bwd_launches}
 
 
-def phase_train_parity(torch, rng, tok):
-    """One BitFit step on the same weights and batch (3 triplets, T=300,
-    full width, fp32): the card (K1, K2) against the CPU (plain versions).
-    Loss within 1e-5 relative; each bias gradient within 1e-4 of its
+def phase_train_parity(torch, fa, rng, tok):
+    """One BitFit step on the same weights and batch (3 triplets, full
+    width, fp32): the card against the CPU (plain versions), at max_seq_len
+    300 (K1, K2) and with use_flash at max_seq_len 512 (K3, K4a, K4b in every
+    layer). Loss within 1e-5 relative; each bias gradient within 1e-4 of its
     leaf's norm."""
     import copy
 
     from sgpt_tpu_torch.models import Decoder, gpt_neo
     from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
 
-    cfg = gpt_neo("125m")
-    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 1))
-    gpu = copy.deepcopy(cpu).to("cuda")
-    tc = TrainConfig(lr=2e-4, batch_size=3, max_seq_len=300, specb=True, freeze_nonbias=True)
     batch = synthetic_triplets(rng, 3)
-    res = []
-    for model in (cpu, gpu):
-        trainer = ContrastiveTrainer(model, cfg, tok, tc)
-        trainer._opt, trainer._sched = trainer._build_optimizer(1)
-        loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
-        res.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
-                           if p.requires_grad}))
-    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = res
-    worst = max(((g_gpu[n] - g).abs().max() / g.norm().clamp_min(1e-12)).item()
-                for n, g in g_cpu.items())
-    log(f"tparity: loss card {loss_gpu:.7f} CPU {loss_cpu:.7f} (|diff| "
-        f"{abs(loss_gpu - loss_cpu):.3e}, tolerance 1e-5 relative); {len(g_cpu)} bias "
-        f"gradients, worst max|diff|/norm {worst:.3e} (tolerance 1e-4)")
-    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
-    assert worst <= 1e-4
+    for use_flash, T in ((False, 300), (True, 512)):
+        cfg = gpt_neo("125m", use_flash=use_flash)
+        cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 1))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        tc = TrainConfig(lr=2e-4, batch_size=3, max_seq_len=T, specb=True, freeze_nonbias=True)
+        res = []
+        for model in (cpu, gpu):
+            trainer = ContrastiveTrainer(model, cfg, tok, tc)
+            trainer._opt, trainer._sched = trainer._build_optimizer(1)
+            fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+            loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+            res.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
+                               if p.requires_grad}))
+        counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        want = (cfg.num_layers * 3,) * 3 if use_flash else (0, 0, 0)
+        assert counts == want, (counts, want)
+        (loss_cpu, g_cpu), (loss_gpu, g_gpu) = res
+        worst = max(((g_gpu[n] - g).abs().max() / g.norm().clamp_min(1e-12)).item()
+                    for n, g in g_cpu.items())
+        log(f"tparity T={T} use_flash={use_flash}: loss card {loss_gpu:.7f} CPU "
+            f"{loss_cpu:.7f} (|diff| {abs(loss_gpu - loss_cpu):.3e}, tolerance 1e-5 relative); "
+            f"{len(g_cpu)} bias gradients, worst max|diff|/norm {worst:.3e} (tolerance 1e-4); "
+            f"K3, K4a, K4b launches on the card {counts}")
+        assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+        assert worst <= 1e-4
+        del cpu, gpu
 
 
 def cosine(a, b):
@@ -833,6 +859,25 @@ def phase_flash(torch, fa, rng):
     return main_err, times
 
 
+GEMM_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
+
+
+def device_ms(prof, families: dict) -> dict:
+    """Device time (ms) under a torch.profiler run, summed by kernel family
+    (the first family one of whose keys the kernel's name holds), the rest
+    under "other"."""
+    ms = {name: 0.0 for name in (*families, "other")}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        name = next((f for f, keys in families.items()
+                     if any(k in ev.key.lower() for k in keys)), "other")
+        ms[name] += us / 1e3
+    return ms
+
+
 def profile_batch(torch, engine, texts) -> dict:
     """Where the time of one encode batch goes: device time by kernel family
     under torch.profiler, and the device's busy share of the wall time."""
@@ -845,17 +890,8 @@ def profile_batch(torch, engine, texts) -> dict:
         engine.encode(texts)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    families = {"K3 flash": ("flash_fwd",), "K1 short": ("wmma_kernel", "scalar_kernel"),
-                "GEMM": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
-    ms = {name: 0.0 for name in (*families, "other")}
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
-        name = next((f for f, keys in families.items()
-                     if any(k in ev.key.lower() for k in keys)), "other")
-        ms[name] += us / 1e3
+    ms = device_ms(prof, {"K3 flash": ("flash_fwd",),
+                          "K1 short": ("wmma_kernel", "scalar_kernel"), "GEMM": GEMM_KEYS})
     total = sum(ms.values())
     if total == 0:
         log(f"long profile: the profiler saw no device time (wall {wall_ms:.1f} ms)")
@@ -1029,6 +1065,238 @@ def phase_beir(rng, card):
     return ndcg["NDCG@10"]
 
 
+FBWD_CASES = [  # name, B, T, H, Dh, block_kv, scale, window, alibi
+    ("main-global", 8, 2048, 12, 64, 256, 1.0, 0, False),
+    ("main-local256", 8, 2048, 12, 64, 256, 1.0, 256, False),
+    ("T128", 8, 128, 12, 64, 256, 1.0, 256, False),   # block_kv clamps to 128
+    ("T256", 8, 256, 12, 64, 256, 1.0, 256, False),
+    ("T512-bkv128", 8, 512, 12, 64, 128, 1.0, 256, False),
+    ("T1024-global", 8, 1024, 12, 64, 256, 1.0, 0, False),
+    ("scale", 8, 512, 12, 64, 256, 0.125, 0, False),
+    ("alibi", 8, 1024, 12, 64, 256, 1.0, 256, True),
+    ("Dh128-T2048", 2, 2048, 16, 128, 256, 1.0, 256, True),  # GPT-Neo 1.3B/2.7B heads
+    ("Dh32-w64", 4, 384, 4, 32, 128, 0.25, 64, False),
+]
+
+
+def phase_fbwd(torch, fa, rng):
+    """K4a/K4b against `flash_attention_bwd_reference` from K3's residuals
+    (out, lse), on the decoder's (B, T, H·Dh) projection views with a random
+    output gradient (std 1) in the same layout; each case has a short row
+    that a window leaves fully masked. fp32: |Δ| ≤ 1e-5·max|ref| +
+    1e-5·|ref| (summation order only); bf16: 2e-2 + 1e-2·|ref| (a flipped
+    rounding of an output cast to bf16). Fully masked rows' dq is 0 on both
+    sides. Then the times at the main shape (fp32, the slice's dtype),
+    global and window 256: each kernel, the plain version (dq, dk and dv
+    together), the library's SDPA backward with the same boolean mask, and
+    each kernel's bound from this run's pairs and bytes."""
+    main_err = {"dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, T, H, Dh, block_kv, scale, window, alibi in FBWD_CASES:
+            (q, k, v, km, slopes), _ = attention_inputs(torch, rng, B, T, H, Dh, dtype,
+                                                        alibi=alibi)
+            if alibi:
+                slopes = slopes * 0.03  # BLOOM-sized slopes
+            qh, kh, vh = (heads(t, H) for t in (q, k, v))
+            g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (B, T, H * Dh)).astype(np.float32))
+                      .to("cuda", dtype), H)
+            kw = dict(scale=scale, window=window, block_kv=block_kv)
+            out, lse = fa.flash_attention(qh, kh, vh, km, slopes, return_residuals=True, **kw)
+            got = fa.flash_attention_bwd(qh, kh, vh, km, slopes, g, out, lse, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_reference(qh, kh, vh, km, slopes, g, out, lse, **kw)
+            dead = lse == fa.NEG_INF
+            errs = []
+            for part, gg, ww in zip(("dq", "dk", "dv"), got, want):
+                assert gg.dtype == dtype and gg.stride() == qh.stride(), (name, part)
+                gg, ww = gg.float(), ww.float()
+                assert torch.isfinite(gg).all(), f"fbwd {name} {part}: non-finite output"
+                err = (gg - ww).abs()
+                if dtype == torch.float32:
+                    atol, rtol = FP32_ATOL * ww.abs().max().item(), FP32_RTOL
+                else:
+                    atol, rtol = BF16_ATOL, BF16_RTOL
+                assert (err - rtol * ww.abs()).max().item() <= atol, \
+                    f"fbwd {name} {dtype} {part}: exceeds tolerance"
+                errs.append(err.max().item())
+            assert (got[0][dead] == 0).all() and (want[0][dead] == 0).all(), name
+            if name.startswith("main") and dtype == torch.float32:
+                main_err["dq"] = max(main_err["dq"], errs[0])
+                main_err["dkv"] = max(main_err["dkv"], errs[1], errs[2])
+            log(f"fbwd   {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} "
+                f"block_kv={min(block_kv, T)} window={window}: max_abs_err dq {errs[0]:.3e} "
+                f"dk {errs[1]:.3e} dv {errs[2]:.3e}, fully masked rows {int(dead.sum())}")
+            del q, k, v, qh, kh, vh, g, out, lse, got, want
+
+    times = {}
+    for window in (0, 256):
+        B, T, H, Dh = 8, 2048, 12, 64
+        (q, k, v, km, _), _ = attention_inputs(torch, rng, B, T, H, Dh, torch.float32)
+        qh, kh, vh = (heads(t, H) for t in (q, k, v))
+        g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (B, T, H * Dh)).astype(np.float32))
+                  .cuda(), H)
+        kw = dict(window=window, block_kv=256)
+        out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, **kw)
+        args = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
+
+        def dq():
+            fa._launch_dq(args)
+
+        def dkv():  # reads the D that dq() wrote
+            fa._launch_dkv(args)
+
+        def plain():
+            return fa.flash_attention_bwd_reference(qh, kh, vh, km, None, g, out, lse, **kw)
+
+        qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (qh, kh, vh))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=sdpa_mask(torch, km, window), scale=1.0)
+        gs = g.contiguous()
+
+        def library():  # the library's backward of the same attention: dq, dk and dv
+            return torch.autograd.grad(lib_out, (qs, ks, vs), gs, retain_graph=True)
+
+        p1 = cuda_ms(torch, plain, iters=3, warmup=1)
+        a1, b1, a2, b2 = (cuda_ms(torch, f, iters=10, warmup=1) for f in (dq, dkv, dq, dkv))
+        p2 = cuda_ms(torch, plain, iters=3, warmup=1)
+        lib = cuda_ms(torch, library, iters=5, warmup=1)
+        pairs = attention_pairs(torch, km, window)
+        size = 4 * q.numel()  # bytes of one (B, T, H·Dh) fp32 tensor
+        rows = 4 * B * H * T  # bytes of one (B, H, T) fp32 row vector
+        # K4a reads q, k, v, g, out, lse and the mask, writes dq and D: 6·Dh a pair
+        bound_dq = bound(6 * size + 2 * rows + km.numel() * 4, 6 * Dh * H * pairs, "fp32")
+        # K4b reads q, k, v, g, lse, D and the mask, writes dk and dv: 8·Dh a pair
+        bound_dkv = bound(6 * size + 2 * rows + km.numel() * 4, 8 * Dh * H * pairs, "fp32")
+        t = {"dq": (a1 + a2) / 2, "dkv": (b1 + b2) / 2, "plain": (p1 + p2) / 2, "library": lib,
+             "bound_dq": bound_dq, "bound_dkv": bound_dkv, "pairs": pairs}
+        times[window] = t
+        log(f"time K4a/K4b B={B} T={T} H={H} Dh={Dh} fp32 window={window}: K4a {t['dq']:.4f} ms "
+            f"(bound {bound_dq[0]:.4f} ms, {bound_dq[1]}), K4b {t['dkv']:.4f} ms (bound "
+            f"{bound_dkv[0]:.4f} ms, {bound_dkv[1]}), together {t['dq'] + t['dkv']:.4f} ms; "
+            f"plain (dq, dk, dv) {t['plain']:.4f} ms, library (SDPA backward, boolean mask) "
+            f"{lib:.4f} ms; {pairs} pairs a head; {6 * Dh * H * pairs / (t['dq'] / 1e3) / 1e12:.1f}"
+            f" and {8 * Dh * H * pairs / (t['dkv'] / 1e3) / 1e12:.1f} TFLOP/s (runs: K4a "
+            f"{a1:.4f} {a2:.4f}, K4b {b1:.4f} {b2:.4f}, plain {p1:.4f} {p2:.4f})")
+        del q, k, v, qh, kh, vh, g, out, lse, args, qs, ks, vs, lib_out, gs
+    torch.cuda.empty_cache()
+    return main_err, times
+
+
+def long_triplets(rng, n: int) -> list:
+    """(query, positive, hard negative) with queries of 3-11 words and
+    documents of 300-3,000 words: past ~2,046 words a document truncates at
+    2,048 SPECB tokens."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(20000)]
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi))))
+
+    return [(text(3, 12), text(300, 3001), text(300, 3001)) for _ in range(n)]
+
+
+def phase_ltrain(torch, fa, sa, tok, card):
+    """The long-context training slice: full-width GPT-Neo-125M with
+    use_flash in fp32, TrainConfig(max_seq_len=2048, specb, freeze_nonbias,
+    weightedmean, lr 2e-4, GradCache with chunks of 8), MNRL at scale 20,
+    batches of 16 triplets, 4 steps on one batch at constant lr through
+    `ContrastiveTrainer.fit`. Every tower pads to 2048, so every layer runs
+    K3 in both GradCache passes and K4a/K4b in pass 2."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
+
+    rng = np.random.default_rng(SEED + 4)
+    steps, B = 4, 16
+    cfg = gpt_neo("125m", use_flash=True)
+    model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=2048, specb=True, freeze_nonbias=True,
+                     pooling="weightedmean", scheduler="constantlr", use_gradcache=True,
+                     chunk_size=8)
+    batch = long_triplets(rng, B)
+    trainer = ContrastiveTrainer(model, cfg, tok, tc)
+    _, n_trunc, _ = trainer.codec.encode_rows([d for t in batch for d in t[1:]])
+    assert n_trunc > 0, "no document reached truncation"
+    towers = trainer._prep_batch(batch)
+    valid = int(sum(t["mask"].sum().item() for t in towers))
+    padded = 3 * B * tc.max_seq_len
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    stamps = []
+    tc.log_fn = lambda rec: stamps.append(time.perf_counter())  # float(loss) synchronises
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    sa.launches = sa.bwd_launches = 0
+    t0 = time.perf_counter()
+    out = trainer.fit(lambda: iter([batch] * steps), steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k3": fa.launches, "k4a": fa.bwd_dq_launches, "k4b": fa.bwd_dkv_launches,
+              "k1": sa.launches, "k2": sa.bwd_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in out["history"]]
+    chunks = B // tc.chunk_size
+    log(f"ltrain: {steps} steps of {B} triplets at T=2048 in {wall:.2f} s, losses "
+        f"{[round(x, 5) for x in losses]}; {n_trunc} of {2 * B} documents truncated, {valid} "
+        f"valid of {padded} padded tokens a step; launches {counts}")
+    assert counts["k3"] == cfg.num_layers * 3 * 2 * chunks * steps, counts
+    assert counts["k4a"] == counts["k4b"] == cfg.num_layers * 3 * chunks * steps, counts
+    assert counts["k1"] == counts["k2"] == 0, counts
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    for name, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), before[name])
+        assert moved == (name.rsplit(".", 1)[-1] in BIAS_NAMES), \
+            f"{name}: {'moved' if moved else 'did not move'} under BitFit"
+    ms_per_step = 1e3 * float(np.median(np.diff(stamps)))  # step 1 left out
+    rates = {"ms_per_step": ms_per_step, "seq_per_s": 3 * B / (ms_per_step / 1e3),
+             "tokens_per_s": valid / (ms_per_step / 1e3),
+             "padded_tokens_per_s": padded / (ms_per_step / 1e3), "peak_gib": peak_gib}
+    log(f"ltrain: {ms_per_step:.1f} ms/step, {rates['seq_per_s']:.2f} sequences/s, "
+        f"{rates['tokens_per_s']:.0f} tokens/s ({rates['padded_tokens_per_s']:.0f} padded), "
+        f"peak {peak_gib:.2f} GiB, fp32, batch 16, max_seq_len 2048, GradCache chunk 8 ({card})")
+
+    # one more step under torch.profiler: device time by kernel family
+    tc.log_fn = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer._step(trainer._prep_batch(batch)))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ms = device_ms(prof, {"K3": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
+                          "K4b": ("flash_bwd_dkv",), "GEMM": GEMM_KEYS})
+    total = sum(ms.values())
+    profile_out = {"profile_wall_ms": wall_ms, "profile_kernel_ms": total or None}
+    if total == 0:
+        log(f"ltrain profile: the profiler saw no device time (wall {wall_ms:.1f} ms)")
+    else:
+        shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items())
+        log(f"ltrain profile, one step: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall "
+            f"(busy share {total / wall_ms:.3f}): {shares}")
+        profile_out.update({f"profile_{k.lower()}_ms": v for k, v in ms.items()})
+
+    # GradCache (chunks of 2) against one direct step on 4 triplets, same weights
+    snap = {n: p.detach().clone() for n, p in model.state_dict().items()}
+    four = dataclasses.replace(tc, batch_size=4, use_gradcache=False)
+    direct = ContrastiveTrainer(model, cfg, tok, four).fit(
+        lambda: iter([batch[:4]]), steps_per_epoch=1)["history"][0]["loss"]
+    model.load_state_dict(snap)
+    gc = ContrastiveTrainer(model, cfg, tok, dataclasses.replace(
+        four, use_gradcache=True, chunk_size=2)).fit(
+        lambda: iter([batch[:4]]), steps_per_epoch=1)["history"][0]["loss"]
+    log(f"ltrain: GradCache (chunk 2) loss {gc:.7f}, direct {direct:.7f}, |diff| "
+        f"{abs(gc - direct):.3e} (tolerance 1e-5 relative), 4 triplets at T=2048")
+    assert abs(gc - direct) <= 1e-5 * abs(direct)
+    del trainer, model, towers
+    torch.cuda.empty_cache()
+    return {**counts, **rates, **profile_out, "losses": losses, "gc_vs_direct": abs(gc - direct)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1059,7 +1327,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
 
-    # 2. K1, 3. K2 and 12. K3 against their plain versions
+    # 2. K1, 3. K2, 12. K3 and 14. K4a/K4b against their plain versions
     rng = np.random.default_rng(SEED)
     phase("kernel")
     main_err, times = phase_kernel(torch, sa, rng)
@@ -1067,6 +1335,8 @@ def main() -> int:
     bwd_err, bwd_times = phase_bwd_kernel(torch, sa, rng)
     phase("flash")
     flash_err, flash_times = phase_flash(torch, fa, np.random.default_rng(SEED + 3))
+    phase("fbwd")
+    fbwd_err, fbwd_times = phase_fbwd(torch, fa, np.random.default_rng(SEED + 5))
 
     # 4. the slice: full-width GPT-Neo-125M bulk encode through the engine
     phase("slice")
@@ -1157,19 +1427,26 @@ def main() -> int:
     phase("train")
     train = phase_train(torch, sa, rng, tok)
     phase("tparity")
-    phase_train_parity(torch, rng, tok)
+    phase_train_parity(torch, fa, rng, tok)
+
+    # 15. the long-context training slice
+    phase("ltrain")
+    ltrain = phase_ltrain(torch, fa, sa, tok, card)
 
     # 11. the BEIR CLI
     phase("beir")
     ndcg10 = phase_beir(rng, card)
     phase("report")
 
-    # 14. report
+    # 16. report
     log(f"train: {train['ms_per_step']:.1f} ms/step, {train['seq_per_s']:.1f} seq/s "
         f"(96 sequences per step), peak {train['peak_gib']:.2f} GiB, fp32, "
         f"batch 32, max_seq_len 300 ({card})")
     log(f"long: {long['emb_per_s']:.1f} emb/s, {long['tokens_per_s']:.0f} tokens/s, bf16, "
         f"max_seq_len 2048, use_flash ({card})")
+    log(f"ltrain: {ltrain['ms_per_step']:.1f} ms/step, {ltrain['seq_per_s']:.2f} seq/s, "
+        f"{ltrain['tokens_per_s']:.0f} tokens/s, peak {ltrain['peak_gib']:.2f} GiB, fp32, "
+        f"batch 16, max_seq_len 2048, use_flash, GradCache chunk 8 ({card})")
     log(card)
     print(json.dumps({"kernels": [{
         "name": "short_attention_fwd", "route": "cuda",
@@ -1209,7 +1486,9 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/flash_attention.py:32",
-        "launches": long["k3_launches"], "max_abs_err": flash_err,
+        "launches": long["k3_launches"] + ltrain["k3"],
+        "launches_long_encode": long["k3_launches"], "launches_long_train": ltrain["k3"],
+        "max_abs_err": flash_err,
         "ms": flash_times[0][0], "plain_ms": flash_times[0][1],
         "library_ms": flash_times[0][2], "bound_ms": flash_times[0][3],
         "bound_by": flash_times[0][4], "shape": "B=64 T=2048 H=12 Dh=64 bf16",
@@ -1220,8 +1499,21 @@ def main() -> int:
         "long_flash_batches": long["flash_batches"],
         "long_flash_vs_plain_cos_min": long["flash_vs_plain_cos_min"],
         "long_fp32_card_vs_cpu": long["fp32_err"],
-        "long_profile": {k: v for k, v in long.items() if k.startswith("profile")}}]}),
-        flush=True)
+        "long_profile": {k: v for k, v in long.items() if k.startswith("profile")}}, *[{
+        "name": f"flash_attention_bwd_{part}", "route": "cuda",
+        "source": "sgpt_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"sgpt_tpu/ops/pallas/flash_attention.py:{line}",
+        "launches": ltrain[key], "max_abs_err": fbwd_err[part],
+        "ms": fbwd_times[0][part], "plain_ms": fbwd_times[0]["plain"],
+        "library_ms": fbwd_times[0]["library"], "bound_ms": fbwd_times[0][f"bound_{part}"][0],
+        "bound_by": fbwd_times[0][f"bound_{part}"][1], "shape": "B=8 T=2048 H=12 Dh=64 fp32",
+        "plain_and_library_compute": "dq, dk and dv together",
+        "ms_local256": fbwd_times[256][part], "plain_ms_local256": fbwd_times[256]["plain"],
+        "library_ms_local256": fbwd_times[256]["library"],
+        "bound_ms_local256": fbwd_times[256][f"bound_{part}"][0],
+        "bound_by_local256": fbwd_times[256][f"bound_{part}"][1],
+        "ltrain": {k: v for k, v in ltrain.items() if k not in ("k1", "k2")}}
+        for part, key, line in (("dq", "k4a", 231), ("dkv", "k4b", 276))]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,16 +48,17 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TQ = 64;        // query rows per block
-constexpr int TK = 64;        // keys per sub-tile
+constexpr int TQ = SUB;       // query rows per block
+constexpr int TK = SUB;       // keys per sub-tile
 constexpr int WARPS = 4;      // each warp owns TQ / WARPS = 16 query rows
 constexpr int NTHREADS = 32 * WARPS;
 constexpr int WR = TQ / WARPS;
-constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask constant
 static_assert(TQ == TK, "load_tile moves 64-row tiles of Q, K and V alike");
 
 struct Params {
@@ -123,8 +124,7 @@ struct Walk {
   // the block-wide barrier that starts each sub-tile; false: skip it
   __device__ bool begin(const Params& p, int k0, int key_mask) const {
     const bool any_key = __syncthreads_or(key_mask != 0);
-    const bool masked = !any_key || k0 > q0 + TQ - 1 ||
-                        (p.window > 0 && k0 + TK - 1 <= q0 - p.window);
+    const bool masked = !any_key || !subtile_in_range(q0, k0, p.window);
     return !(all_live && masked);
   }
 };
@@ -146,11 +146,8 @@ __device__ __forceinline__ void online_softmax(const float* S, int lds, const in
 #pragma unroll
     for (int j = 0; j < TK / 32; ++j) {
       const int kk = lane + 32 * j, kpos = k0 + kk;
-      float x = S[r * lds + kk];
-      if (p.scale != 1.f) x = __fmul_rn(x, p.scale);
-      // two roundings, as the plain version: no contraction into one FMA
-      if (p.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope, (float)kpos));
-      const bool ok = kms[kk] != 0 && kpos <= qpos && (p.window <= 0 || kpos > qpos - p.window);
+      const float x = score(S[r * lds + kk], p.scale, p.slopes != nullptr, slope, kpos);
+      const bool ok = (kms[kk] != 0) & in_range(qpos, kpos, p.window);
       s[j] = ok ? x : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }

@@ -6,8 +6,8 @@ learned positions, pre-LN blocks (LayerNorm with fp32 statistics), causal
 attention alternating global and local (windowed) layers, tanh-GELU MLP,
 `ln_f`, and `output_hidden_states` with HF semantics. Attention routes as
 the JAX decoder does: with `cfg.use_flash`, T % 128 == 0 and no packed rows
-(`segment_ids`), through `ops.flash_attention` (K3 on a CUDA tensor; its
-backward, K4, is not ported yet and raises); every other call through
+(`segment_ids`), through `ops.flash_attention` (K3 on a CUDA tensor, and
+K4a/K4b for the backward when a gradient is needed); every other call through
 `ops.short_attention` (K1, and K2 for the backward when a gradient is
 needed). On a CPU tensor both take their plain versions. The flags of the
 other families raise `NotImplementedError`.

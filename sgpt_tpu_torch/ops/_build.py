@@ -100,6 +100,12 @@ def library() -> ctypes.CDLL:
     fn = lib.sgpt_flash_attention_fwd
     fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, i, i, p]
     fn.restype = i
+    fn = lib.sgpt_flash_attention_bwd_dq
+    fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 12 + [f, i, i, p]
+    fn.restype = i
+    fn = lib.sgpt_flash_attention_bwd_dkv
+    fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 9 + [f, i, i, p]
+    fn.restype = i
     fn = lib.sgpt_mips_topk
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     fn.restype = i

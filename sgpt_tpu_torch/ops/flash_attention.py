@@ -1,4 +1,4 @@
-"""Causal flash attention forward (counterpart of `sgpt_tpu/ops/pallas/flash_attention.py`).
+"""Causal flash attention (counterpart of `sgpt_tpu/ops/pallas/flash_attention.py`).
 
 `flash_attention` keeps the JAX signature and the (B, H, T, Dh) layout: an
 online softmax over key tiles with fp32 running max, sum and accumulator,
@@ -15,7 +15,10 @@ projections seen as (B, H, T, Dh): the kernel reads them through their
 strides, and the output has q's strides.
 
 When q, k or v requires grad, the call goes through `FlashAttention`, whose
-backward is the flash backward (K4a/K4b) and is not ported yet: it raises.
+backward is `flash_attention_bwd`, the JAX function of the same name: on a
+CUDA tensor the kernels of `csrc/flash_attention_bwd.cu`, K4a (dQ, and
+D = rowsum(dO∘O) in its prologue) then K4b (dK, dV); on a CPU tensor
+`flash_attention_bwd_reference`, their plain version and oracle.
 """
 from __future__ import annotations
 
@@ -27,12 +30,11 @@ NEG_INF = -1e30  # the TPU kernel's mask constant (the decoder and K1 use -1e9)
 TILE = 64        # the kernel's query and key sub-tile: block sizes must divide by it
 HEAD_DIMS = (16, 32, 64, 128)
 
-# kernel launches made by `flash_attention` (K3); reset and read by chip_smoke.py
+# kernel launches made by `flash_attention` (K3) and by `flash_attention_bwd`
+# (K4a, K4b); reset and read by chip_smoke.py
 launches = 0
-
-_NO_BACKWARD = ("flash_attention backward: the flash backward kernels (K4a/K4b, "
-                "sgpt_tpu/ops/pallas/flash_attention.py:231,276) are not ported yet "
-                "— ROADMAP Queue 2 K4, Queue 1 item 11 (long-context training)")
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
 
 def _blocks(T: int, block_q: int, block_kv: int):
@@ -111,6 +113,63 @@ def flash_attention_reference(q, k, v, key_mask, alibi_slopes=None, *, scale: fl
     return out, lse
 
 
+def flash_attention_bwd_reference(q, k, v, key_mask, alibi_slopes, g, out, lse, *,
+                                  scale: float = 1.0, window: int = 0, block_q: int = 128,
+                                  block_kv: int = 128):
+    """Plain PyTorch version of the TPU backward kernels, in fp32: D =
+    rowsum(g∘out); for each key tile, the query tiles that visit it
+    recompute s = q·k (× scale, + slope·kpos, rounded as the forward),
+    p = where(mask, exp(s − lse), 0) with the where outside the exp (a fully
+    masked row has lse = -1e30, so none of its pairs reaches a product),
+    dp = g·vᵀ and ds = p∘(dp − D); dq accumulates ds·k·scale over the key
+    tiles, dk = dsᵀ·q·scale and dv = pᵀ·g over the query tiles. A tile that
+    is not visited has every pair masked, so the visited set does not change
+    the values. Returns (dq, dk, dv) in the input dtypes."""
+    B, H, T, Dh = q.shape
+    block_q, block_kv = _blocks(T, block_q, block_kv)
+    n_q, n_kv = T // block_q, T // block_kv
+    dev, f32 = q.device, torch.float32
+    qf = q.float().reshape(B, H, n_q, block_q, Dh)
+    gf = g.to(device=dev, dtype=f32).reshape(B, H, n_q, block_q, Dh)
+    lse_t = lse.to(device=dev, dtype=f32).reshape(B, H, n_q, block_q, 1)
+    dsum = (gf * out.to(device=dev, dtype=f32).reshape(B, H, n_q, block_q, Dh)).sum(
+        -1, keepdim=True)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, H, T, Dh), dtype=f32, device=dev)
+    dv = torch.zeros((B, H, T, Dh), dtype=f32, device=dev)
+    keep = key_mask.to(device=dev) != 0
+    qpos = torch.arange(T, device=dev).reshape(n_q, block_q)
+    zero = torch.zeros((), device=dev)
+    for ki in range(n_kv):
+        tiles = [qi for qi in range(n_q) if _visited(qi, ki, block_q, block_kv, window)]
+        if not tiles:
+            continue
+        lo, hi = tiles[0], tiles[-1] + 1  # the visiting tiles are contiguous
+        k0 = ki * block_kv
+        kt = k[:, :, k0:k0 + block_kv].float()
+        vt = v[:, :, k0:k0 + block_kv].float()
+        kpos = torch.arange(k0, k0 + block_kv, device=dev)
+        s = torch.einsum("bhnqd,bhkd->bhnqk", qf[:, :, lo:hi], kt)
+        if scale != 1.0:
+            s = s * scale
+        qp = qpos[lo:hi, :, None]
+        mask = kpos <= qp
+        if window > 0:
+            mask = mask & (kpos > qp - window)
+        mask = mask & keep[:, None, None, None, k0:k0 + block_kv]
+        if alibi_slopes is not None:
+            slope = alibi_slopes.to(device=dev, dtype=f32)[None, :, None, None, None]
+            s = s + slope * kpos.to(f32)
+        p = torch.where(mask, torch.exp(s - lse_t[:, :, lo:hi]), zero)
+        dp = torch.einsum("bhnqd,bhkd->bhnqk", gf[:, :, lo:hi], vt)
+        ds = p * (dp - dsum[:, :, lo:hi])
+        dq[:, :, lo:hi] += torch.einsum("bhnqk,bhkd->bhnqd", ds, kt) * scale
+        dk[:, :, k0:k0 + block_kv] = torch.einsum("bhnqk,bhnqd->bhkd", ds,
+                                                  qf[:, :, lo:hi]) * scale
+        dv[:, :, k0:k0 + block_kv] = torch.einsum("bhnqk,bhnqd->bhkd", p, gf[:, :, lo:hi])
+    return dq.reshape(B, H, T, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_inputs(q, k, v, key_mask, alibi_slopes, block_q: int, block_kv: int):
     """Refuse what the kernel does not take; returns the int32 key mask and
     the fp32 slopes (or None) the C entry point reads."""
@@ -178,22 +237,112 @@ def _forward(q, k, v, key_mask, alibi_slopes, scale, window, block_q, block_kv):
     return out, lse
 
 
+def _kernel_layout(t, q, name: str):
+    """t as K4a/K4b read it: q's shape, dtype and device, unit stride along Dh
+    and 16-byte aligned rows; a tensor laid out otherwise (an expanded or
+    transposed gradient) is copied to a contiguous one."""
+    if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+        raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype} {t.device} "
+                         f"differs from q {tuple(q.shape)} {q.dtype} {q.device}")
+    esize = t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any((t.stride(i) * esize) % 16
+                                                     for i in range(3)):
+        t = t.contiguous()
+    return t
+
+
+def _bwd_args(q, k, v, key_mask, alibi_slopes, g, out, lse, scale, window, block_q,
+              block_kv) -> dict:
+    """Check what K4a/K4b take, allocate dq, dk and dv (q's strides) and D =
+    rowsum(g∘out) (a (B, H, T) fp32 buffer that K4a fills and K4b reads), and
+    build both C calls' arguments less the stream. The dict keeps every
+    tensor the kernels read or write alive."""
+    km, sl = _check_inputs(q, k, v, key_mask, alibi_slopes, block_q, block_kv)
+    g, out = _kernel_layout(g, q, "g"), _kernel_layout(out, q, "out")
+    B, H, T, Dh = q.shape
+    if lse.shape != (B, H, T):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, expected {(B, H, T)}")
+    lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+    dsum = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)  # q's strides when q is dense, else contiguous
+    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+    head = (km.data_ptr(), None if sl is None else sl.data_ptr(), B, H, T, Dh,
+            *q.stride()[:3], *g.stride()[:3])
+    tail = (*dq.stride()[:3], float(scale), int(window), int(q.dtype == torch.bfloat16))
+    return {"device": q.device, "grads": (dq, dk, dv), "keep": (q, k, v, g, out, km, sl, lse, dsum),
+            "dq": (*(t.data_ptr() for t in (q, k, v, g, out, lse, dsum, dq)), *head,
+                   *out.stride()[:3], *tail),
+            "dkv": (*(t.data_ptr() for t in (q, k, v, g, lse, dsum, dk, dv)), *head, *tail)}
+
+
+def _launch_dq(a) -> None:
+    """K4a: dq, and D in its prologue."""
+    global bwd_dq_launches
+    from ._build import check, library
+
+    with torch.cuda.device(a["device"]):
+        check(library().sgpt_flash_attention_bwd_dq(
+            *a["dq"], torch.cuda.current_stream(a["device"]).cuda_stream),
+            "flash_attention_bwd (K4a)")
+    bwd_dq_launches += 1
+
+
+def _launch_dkv(a) -> None:
+    """K4b: dk and dv, from the D that K4a wrote."""
+    global bwd_dkv_launches
+    from ._build import check, library
+
+    with torch.cuda.device(a["device"]):
+        check(library().sgpt_flash_attention_bwd_dkv(
+            *a["dkv"], torch.cuda.current_stream(a["device"]).cuda_stream),
+            "flash_attention_bwd (K4b)")
+    bwd_dkv_launches += 1
+
+
+def flash_attention_bwd(q, k, v, key_mask, alibi_slopes, g, out, lse, *, scale: float = 1.0,
+                        window: int = 0, block_q: int = 128, block_kv: int = 128):
+    """The flash backward (JAX `flash_attention_bwd`): (dq, dk, dv) in q's
+    dtype. g: the output's cotangent (B, H, T, Dh); out, lse: the forward's
+    output and (B, H, T) logsumexp. On a CUDA tensor it launches K4a (dQ, and
+    D = rowsum(g∘out) in its prologue) then K4b (dK, dV), and writes all
+    three with q's strides; on a CPU tensor it runs the plain version."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"flash_attention_bwd: no kernel for device {q.device}")
+    block_q, block_kv = _blocks(q.shape[2], block_q, block_kv)
+    window = window if window > 0 else 0
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, key_mask, alibi_slopes, g, out, lse,
+                                             scale=scale, window=window, block_q=block_q,
+                                             block_kv=block_kv)
+    a = _bwd_args(q, k, v, key_mask, alibi_slopes, g, out, lse, scale, window, block_q,
+                  block_kv)
+    _launch_dq(a)
+    _launch_dkv(a)
+    return a["grads"]
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with autograd (the JAX `flash_attention_trainable`
-    custom VJP). The forward is K3 or the plain version; the backward is the
-    flash backward (K4a/K4b), not ported yet: it raises on every device, and
-    no plain backward ever runs on the card."""
+    custom VJP): the forward is K3 or its plain version, the backward
+    `flash_attention_bwd` (K4a, K4b or their plain version) from the saved
+    q, k, v, output and logsumexp. The key mask, the slopes and the static
+    arguments get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, alibi_slopes, scale, window, block_q, block_kv):
         out, lse = _forward(q, k, v, key_mask, alibi_slopes, scale, window, block_q,
                             block_kv)
+        ctx.save_for_backward(q, k, v, out, lse, key_mask, alibi_slopes)
+        ctx.static = dict(scale=scale, window=window, block_q=block_q, block_kv=block_kv)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise NotImplementedError(_NO_BACKWARD)
+        q, k, v, out, lse, key_mask, slopes = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, slopes, g_out, out, lse,
+                                         **ctx.static)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, key_mask, alibi_slopes: Optional[torch.Tensor] = None, *,

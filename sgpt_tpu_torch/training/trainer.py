@@ -19,8 +19,12 @@ one device:
     tracking, step checkpoints with retention
 
 The model is the port's `Decoder`; it trains on the device its parameters
-are on. Meshes, dense heads, learned pooling weights and `export_model` are
-not ported yet and raise `NotImplementedError` naming their ROADMAP item.
+are on. Every tower pads to `max_seq_len`, so a `use_flash` model at
+`max_seq_len % 128 == 0` (long-context training) runs the flash attention
+in every layer of every step: K3 forward, K4a/K4b backward on the card
+(under GradCache, pass 1 runs K3 alone, without a graph). Meshes, dense
+heads, learned pooling weights and `export_model` are not ported yet and
+raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -100,11 +104,6 @@ class ContrastiveTrainer:
                 f"{sorted(POOLERS)} (ROADMAP Queue 1 item 4)")
         if model.cfg != cfg:
             raise ValueError("ContrastiveTrainer: cfg differs from the model's config")
-        if cfg.use_flash and train_config.max_seq_len % 128 == 0:
-            # towers pad to max_seq_len, so every step would take the flash path
-            raise NotImplementedError(
-                "use_flash training at max_seq_len % 128 == 0 needs the flash "
-                "backward (K4a/K4b) — ROADMAP Queue 2 K4, Queue 1 item 11")
         self.model = model
         self.cfg = cfg
         self.tc = train_config

@@ -313,8 +313,93 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(x, x, x, km, block_q=32, block_kv=32)
     with pytest.raises(ValueError, match="divide"):
         fa.flash_attention(x[:, :, :200], x[:, :, :200], x[:, :, :200], km[:, :200])
-    with pytest.raises(NotImplementedError, match="K4"):
-        fa.flash_attention(x.requires_grad_(), x, x, km).sum().backward()
+    lse = torch.zeros(1, 2, 256, device=cuda)
+    with pytest.raises(ValueError, match="differs from q"):  # g in another dtype
+        fa.flash_attention_bwd(x, x, x, km, None, x.bfloat16(), x, lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(x, x, x, km, None, x, x, lse[:, :, :128])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,Dh,block_kv,window,scale,alibi,views", FLASH_CASES)
+def test_flash_backward_kernels_match_plain_version(cuda, dtype, T, Dh, block_kv, window,
+                                                    scale, alibi, views):
+    """K4a/K4b == `flash_attention_bwd_reference` from the forward's own
+    residuals (a short row leaves fully masked rows under a window, and a
+    fully padded batch row masks every key). fp32: |Δ| ≤ 1e-5·max|ref| +
+    1e-5·|ref| (summation order only); bf16: 2e-2 + 1e-2·|ref| (a flipped
+    rounding of an output cast to bf16)."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(T + Dh + window + 1)
+    B, H = 3, 4
+    dt = getattr(torch, dtype)
+
+    def t(std):
+        if views:  # the decoder's (B, T, H·Dh) projections seen as (B, H, T, Dh)
+            x = torch.from_numpy(rng.normal(0, std, (B, T, H * Dh)).astype(np.float32))
+            return x.to(cuda, dt).view(B, T, H, Dh).transpose(1, 2)
+        return torch.from_numpy(rng.normal(0, std, (B, H, T, Dh)).astype(np.float32)).to(cuda, dt)
+
+    q, k, v, g = t(0.5), t(0.5), t(0.5), t(1.0)
+    km = torch.from_numpy((np.arange(T)[None] < np.array([[20], [0], [T - 37]]))
+                          .astype(np.int32)).to(cuda)
+    slopes = torch.from_numpy((0.03 * rng.random(H)).astype(np.float32)).to(cuda)
+    kw = dict(scale=scale, window=window, block_kv=block_kv)
+    sl = slopes if alibi else None
+    out, lse = fa.flash_attention(q, k, v, km, sl, return_residuals=True, **kw)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = fa.flash_attention_bwd(q, k, v, km, sl, g, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, km, sl, g, out, lse, **kw)
+    for gg, ww in zip(got, want):
+        assert gg.dtype == dt and gg.stride() == q.stride()
+        gg, ww = gg.float(), ww.float()
+        atol = 1e-5 * ww.abs().max().item() if dtype == "float32" else 2e-2
+        rtol = 1e-5 if dtype == "float32" else 1e-2
+        assert ((gg - ww).abs() <= atol + rtol * ww.abs()).all()
+
+
+def test_flash_train_step_on_the_card_equals_the_cpu_step(cuda):
+    """One BitFit step of a 2-layer use_flash model at GPT-Neo-125M's width,
+    max_seq_len 256: every layer of every tower launches K3, K4a and K4b once
+    (K1 and K2 never), and the loss and bias gradients equal the CPU's
+    (plain versions): loss within 1e-5 relative, each gradient within 1e-4
+    of its leaf's norm."""
+    import copy
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
+
+    cfg = gpt_neo("125m", use_flash=True).replace(num_layers=2)
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    tok = SimpleTokenizer(cfg.vocab_size)
+    tc = TrainConfig(lr=2e-4, batch_size=3, max_seq_len=256, specb=True, freeze_nonbias=True)
+    batch = [(f"query {i} about topic {i % 3}", f"document {i} " + "words " * (40 + 90 * i),
+              f"other document {i + 5} " + "text " * (20 + 60 * i)) for i in range(3)]
+    results = []
+    for model in (cpu, gpu):
+        trainer = ContrastiveTrainer(model, cfg, tok, tc)
+        trainer._opt, trainer._sched = trainer._build_optimizer(1)
+        counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, sa.launches,
+                  sa.bwd_launches)
+        loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+        n = cfg.num_layers * 3 if model is gpu else 0
+        assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, sa.launches,
+                sa.bwd_launches) == (counts[0] + n, counts[1] + n, counts[2] + n, counts[3],
+                                     counts[4])
+        results.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
+                               if p.requires_grad}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert g_cpu and set(g_cpu) == set(g_gpu)
+    for name, want in g_cpu.items():
+        tol = 1e-4 * max(want.norm().item(), 1e-12)
+        assert (g_gpu[name] - want).abs().max().item() <= tol, name
 
 
 def test_flash_engine_on_the_card_launches_k3_and_equals_the_cpu(cuda):

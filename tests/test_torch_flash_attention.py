@@ -112,11 +112,24 @@ def test_blocks_that_do_not_divide_t_raise(T, block_q, block_kv):
 
 
 def test_backward_raises_naming_k4():
+    """Named for the refusal it replaced (the backward, K4a/K4b, is ported
+    now): with a gradient the call goes through `FlashAttention`, whose
+    backward is `flash_attention_bwd` (its plain version on the CPU) from the
+    forward's own output and logsumexp; without one there is no graph."""
     q, k, v, km, _ = _inputs(1, 128, 16, (128, 60), False)
-    qt = torch.from_numpy(q).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K4"):
-        fa.flash_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
-                           torch.from_numpy(km)).sum().backward()
+    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    out, lse = fa.flash_attention(qt, kt, vt, torch.from_numpy(km), window=64,
+                                  return_residuals=True)
+    assert out.grad_fn is not None and not lse.requires_grad
+    out.backward(torch.from_numpy(g))
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == before  # CPU: the plain version
+    want = fa.flash_attention_bwd_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(km), None,
+        torch.from_numpy(g), out.detach(), lse, window=64)
+    for t, w in zip((qt, kt, vt), want):
+        assert torch.equal(t.grad, w)
     with torch.no_grad():  # no graph: the forward alone, equal to the plain version
         out = fa.flash_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
                                  torch.from_numpy(km))

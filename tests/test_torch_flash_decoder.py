@@ -5,8 +5,9 @@ positions) with the JAX `init_params` converted by `params_from_jax`. The
 JAX side runs its flash kernel in interpret mode. Decoder hidden states are
 compared at valid positions (tolerance 1e-4, as tests/test_torch_decoder.py),
 engine embeddings everywhere (1e-5, normalised). Also: which attention each
-shape takes, the trainer's refusal while the flash backward (K4) is not
-ported, warmup up to 2048, and the cache key's `use_flash`.
+shape takes, a trainer step whose gradients flow through the flash backward
+(K4's plain version) in every layer, warmup up to 2048, and the cache key's
+`use_flash`.
 """
 import os
 
@@ -152,10 +153,30 @@ def test_cache_key_separates_flash_from_plain(pair, tmp_path):
     assert flash._cache_load(texts, False) is None
 
 
-def test_trainer_with_use_flash_raises_naming_k4(pair):
+def test_trainer_with_use_flash_raises_naming_k4(pair, monkeypatch):
+    """Named for the refusal it replaced (the flash backward, K4, is ported
+    now): the trainer takes a `use_flash` model at max_seq_len 256, every
+    layer of every tower runs flash with a gradient, and one BitFit step's
+    gradients reach every bias leaf, the LayerNorm biases in front of each
+    attention included (their only path is the flash backward)."""
     from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
 
     _, _, cfg, model = pair
-    with pytest.raises(NotImplementedError, match="K4"):
-        ContrastiveTrainer(model, cfg, SimpleTokenizer(cfg.vocab_size),
-                           TrainConfig(batch_size=2, max_seq_len=256))
+    model = Decoder(cfg, device="cpu")
+    model.load_state_dict(pair[3].state_dict())
+    calls = _spy(monkeypatch)
+    trainer = ContrastiveTrainer(model, cfg, SimpleTokenizer(cfg.vocab_size),
+                                 TrainConfig(batch_size=2, max_seq_len=256, specb=True,
+                                             freeze_nonbias=True))
+    trainer._opt, trainer._sched = trainer._build_optimizer(1)
+    batch = list(zip(_texts((4, 6)), _texts((150, 300), 1), _texts((80, 20), 2)))
+    loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+    assert np.isfinite(loss)
+    assert calls == [("flash", 256, 0, 256), ("flash", 256, 64, 256)] * 3
+    trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    assert trained and all(n.rsplit(".", 1)[-1] in ("bias", "bi", "bo") for n in trained)
+    for i in range(cfg.num_layers):
+        assert f"layers.{i}.ln1.bias" in trained
+    for name, p in trained.items():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name
