@@ -11,12 +11,15 @@ def setup_logging():
                         level=logging.INFO)
 
 
-def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "float32",
+def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "bfloat16",
                 device="cuda", seed: int = 0):
     """(model, cfg, tokenizer): a random-init GPT-Neo preset (`--randominit`,
     the reference's `--reinit` debugging flag and the zero-egress smoke
     path), with weights from `seed` and the hash tokenizer bounded by the
-    model's vocab."""
+    model's vocab. As the JAX `build_model`, the dtype defaults to bf16 and
+    the config runs at `matmul_precision="default"` (TF32 float32 products
+    on the card); build a `Decoder` from a config at "highest" for strict
+    float32."""
     import torch
 
     from ..models import Decoder, gpt_neo
@@ -32,6 +35,6 @@ def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = 
                                   "(ROADMAP Queue 1 items 3, 14)")
     size = "1.3b" if "1.3b" in low else "2.7b" if "2.7b" in low else "125m"
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_str]
-    cfg = gpt_neo(size, dtype=dtype)
+    cfg = gpt_neo(size, dtype=dtype, matmul_precision="default")
     model = Decoder(cfg, device=device, generator=torch.Generator().manual_seed(seed))
     return model, cfg, get_tokenizer(None, vocab_size=cfg.vocab_size)

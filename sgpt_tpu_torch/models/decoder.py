@@ -25,6 +25,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.short_attention import short_attention
 from .config import DecoderConfig
 from .params import init_params, param_shapes
+from .precision import matmul_precision
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -182,7 +183,8 @@ class Decoder(nn.Module):
 
         position_ids: optional (T,) or (B, T); segment_ids: optional (B, T)
         for packed rows (block-diagonal attention), which needs position_ids
-        that restart at each segment."""
+        that restart at each segment. The whole forward runs under
+        `matmul_precision(cfg.matmul_precision)`, as the JAX decoder does."""
         if sp_mesh is not None or tp_mesh is not None:
             raise NotImplementedError("sp_mesh / tp_mesh — ROADMAP Queue 1 items 11, 12")
         if token_type_ids is not None:
@@ -199,16 +201,17 @@ class Decoder(nn.Module):
         B, T = input_ids.shape
         positions = (torch.arange(T, device=input_ids.device)
                      if position_ids is None else position_ids)
-        x = self.wte[input_ids].to(cfg.dtype) + self.wpe[positions].to(cfg.dtype)
-        key_mask = attention_mask.to(torch.int32).contiguous()
-        if segment_ids is not None:
-            segment_ids = segment_ids.to(torch.int32).contiguous()
+        with matmul_precision(cfg.matmul_precision):
+            x = self.wte[input_ids].to(cfg.dtype) + self.wpe[positions].to(cfg.dtype)
+            key_mask = attention_mask.to(torch.int32).contiguous()
+            if segment_ids is not None:
+                segment_ids = segment_ids.to(torch.int32).contiguous()
 
-        hidden = [x]
-        for layer in self.layers:
-            x = layer(x, key_mask, segment_ids)
-            hidden.append(x)
-        final = self.ln_f(x)
-        if output_hidden_states:
-            return torch.stack(hidden[:-1] + [final])
-        return final
+            hidden = [x]
+            for layer in self.layers:
+                x = layer(x, key_mask, segment_ids)
+                hidden.append(x)
+            final = self.ln_f(x)
+            if output_hidden_states:
+                return torch.stack(hidden[:-1] + [final])
+            return final

@@ -41,6 +41,7 @@ import torch
 from ..losses import mnrl_loss
 from ..models.config import DecoderConfig
 from ..models.decoder import Decoder
+from ..models.precision import matmul_precision
 from ..ops.pooling import POOLERS
 from ..tokenization.base import Tokenizer
 from ..tokenization.specb import SpecbCodec
@@ -157,13 +158,17 @@ class ContrastiveTrainer:
         return mnrl_loss(*reps, scale=self.tc.scale, similarity=self.tc.similarity)
 
     def _loss_and_grads(self, towers) -> torch.Tensor:
-        """Loss of one batch; its gradients accumulate into `.grad`."""
+        """Loss of one batch; its gradients accumulate into `.grad`. The
+        backward's products run outside `Decoder.forward`, so the whole call
+        takes the model's `matmul_precision` (JAX carries the forward's
+        precision into the transposed products)."""
         encode = self._encode_fn()
-        if self.tc.use_gradcache:
-            return gradcache_backward(encode, self._loss_fn, towers)
-        loss = self._loss_fn(*[encode(t) for t in towers])
-        loss.backward()
-        return loss.detach()
+        with matmul_precision(self.model.cfg.matmul_precision):
+            if self.tc.use_gradcache:
+                return gradcache_backward(encode, self._loss_fn, towers)
+            loss = self._loss_fn(*[encode(t) for t in towers])
+            loss.backward()
+            return loss.detach()
 
     def _trainable(self) -> List[torch.Tensor]:
         return [p for g in self._opt.param_groups for p in g["params"]]
