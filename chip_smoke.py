@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (`sgpt_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each of which asserts; any failure exits non-zero:
   1. build   — compile the CUDA kernels from `sgpt_tpu_torch/csrc/` with nvcc (sm_90a)
@@ -28,9 +28,11 @@ Phases, each of which asserts; any failure exits non-zero:
                answers equal a direct search; p50/p99 latency, queries/s
   9. train   — MS MARCO contrastive training (SGPT-BE: BitFit, SPECB, MNRL,
                batch 32, max_seq_len 300, fp32) of full-width GPT-Neo-125M
-               through `ContrastiveTrainer.fit`: K1 and K2 counted
-               12 × 3 towers × steps, only biases move, the loss of a
-               repeated batch falls, GradCache's loss equals the direct one
+               through `ContrastiveTrainer.fit` at the CLI's matmul_precision
+               "default" (TF32 products): K1 and K2 counted 12 × 3 towers ×
+               steps, only biases move, one step profiled; the same steps at
+               "highest" (strict fp32) for its rate; at "highest" the loss of
+               a repeated batch falls and GradCache's loss equals the direct one
  10. tparity — one training step's loss and bias gradients, card against CPU,
                at T=300 (K1, K2) and with use_flash at T=512 (K3, K4a, K4b)
  11. beir    — the port's `cli.beir_retriever` on a synthetic BEIR folder
@@ -39,7 +41,8 @@ Phases, each of which asserts; any failure exits non-zero:
                version: B=64, T=2048, H=12, Dh=64 in bf16, global and window
                256, on the decoder's projection views; variants T 128-1024,
                block_kv 128 and 256, scale 1/8, ALiBi, Dh 32 and 128, fp32;
-               key padding with fully masked rows; output and lse
+               key padding with fully masked rows; output and lse; times in
+               bf16 at B=64 and in fp32 at the long train's B=8
  13. long    — long-context encode: full-width GPT-Neo-125M with use_flash
                (bf16, max_seq_len 2048, batch_size 64) over 512 documents of
                300-3,000 words (buckets 512, 1024, 2048; 154 truncated) and
@@ -57,22 +60,34 @@ Phases, each of which asserts; any failure exits non-zero:
  15. ltrain  — long-context contrastive training: full-width GPT-Neo-125M
                with use_flash, fp32, max_seq_len 2048, BitFit, SPECB,
                GradCache (chunks of 8), batches of 16 triplets with documents
-               of 300-3,000 words, 4 steps on one batch at constant lr: K3
-               12 × 3 towers × (2 + 2) chunks a step, K4a = K4b = 12 × 3 × 2,
-               K1 = K2 = 0; only biases move, the loss falls; ms/step,
-               sequences/s, tokens/s, peak memory, one step under
-               torch.profiler; GradCache (chunks of 2) == direct on 4 triplets
-               (tparity also holds one use_flash step at max_seq_len 512,
-               card K3/K4 against the CPU's plain versions)
+               of 300-3,000 words, 4 steps on one batch at constant lr at the
+               CLI's "default" precision (TF32 products): K3 12 × 3 towers ×
+               (2 + 2) chunks a step, K4a = K4b = 12 × 3 × 2, K1 = K2 = 0;
+               only biases move, the loss falls; ms/step, sequences/s,
+               tokens/s, peak memory, one step under torch.profiler; 3 steps
+               at "highest" (strict fp32) for its rate; GradCache (chunks of
+               2) == direct on 4 triplets at "highest" (tparity also holds
+               one use_flash step at max_seq_len 512, card K3/K4 against the
+               CPU's plain versions)
  16. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
                line, and last `{"ok": true, "device": {...}}`
 
+With `--parent DIR` (another checkout of this repo, e.g. the parent commit
+unpacked by `git archive` into the git-ignored build/parent), it also builds
+that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
+K3, K4a and K4b from both builds in turns (parent, change, change, parent):
+phase `ab`. K2, K4a, K4b and the fp32 paths of K1 and K3 must give the
+parent's outputs bit for bit.
+
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
+import contextlib
 import copy
 import json
 import subprocess
@@ -120,6 +135,110 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def parent_build(path: str):
+    """The `_build` module of another checkout of this repo (the parent
+    commit unpacked into a git-ignored directory): it compiles that
+    checkout's `csrc/` into that checkout's own build directory."""
+    import importlib.util
+    from pathlib import Path
+
+    src = Path(path).resolve() / "sgpt_tpu_torch" / "ops" / "_build.py"
+    spec = importlib.util.spec_from_file_location("parent_kernels_build", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def kernels_of(lib):
+    """Run the port's wrappers on another kernel library (same C entry
+    points): they look `_build.library` up at each call."""
+    from sgpt_tpu_torch.ops import _build
+
+    saved = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = saved
+
+
+def phase_ab(torch, sa, fa, parent_lib, this_lib):
+    """K1, K2, K3, K4a and K4b built from the parent checkout and from this
+    tree, timed in one process on one card in turns (parent, change,
+    change, parent) at the main paths' shapes. K2, K4a, K4b, and the fp32
+    paths of K1 and K3, must give the parent's outputs bit for bit; the
+    bf16 K1 and K3 (redesigned) within the bf16 tolerance."""
+    rng = np.random.default_rng(SEED + 7)
+    cells = {}
+
+    def short(B, dtype, window, bwd=False):
+        args, _ = attention_inputs(torch, rng, B, 300, 12, 64, dtype)
+        if not bwd:
+            return lambda: sa.short_attention(*args, 1.0, window, 12, False)
+        g = torch.from_numpy(rng.normal(0.0, 1.0, (B, 300, 768)).astype(np.float32)).to(
+            "cuda", dtype)
+        return lambda: sa.short_attention_bwd(*args, g, scale=1.0, window=window, H=12,
+                                              use_alibi=False)
+
+    def flash(B, dtype, window):
+        (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, 12, 64, dtype)
+        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+        return lambda: fa.flash_attention(qh, kh, vh, km, window=window, block_kv=256)
+
+    (q, k, v, km, _), _ = attention_inputs(torch, rng, 8, 2048, 12, 64, torch.float32)
+    qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+    g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (8, 2048, 768)).astype(np.float32)).cuda(),
+              12)
+    out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, block_kv=256)
+    bwd = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, 0, 128, 256)
+
+    def k4(launch, grads):
+        def run():
+            launch(bwd)
+            return tuple(t.clone() for t in grads)
+        return run
+
+    runs = [  # name, function, whether the output must equal the parent's bit for bit
+        ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), False),
+        ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), False),
+        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), True),
+        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), True),
+        ("K2 bf16 B=32 T=300 window=0", short(32, torch.bfloat16, 0, bwd=True), True),
+        ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), False),
+        ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), False),
+        ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), True),
+        ("K4a fp32 B=8 T=2048 window=0", k4(fa._launch_dq, bwd["grads"][:1]), True),
+        ("K4b fp32 B=8 T=2048 window=0", k4(fa._launch_dkv, bwd["grads"][1:]), True),
+    ]
+    for name, fn, exact in runs:
+        outs = {}
+        for tag, lib in (("parent", parent_lib), ("change", this_lib)):
+            with kernels_of(lib):
+                got = fn()
+                torch.cuda.synchronize()
+            outs[tag] = [t.float() for t in (got if isinstance(got, tuple) else (got,))]
+        diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
+        if exact:
+            assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
+        else:
+            assert diff <= BF16_ATOL + BF16_RTOL * max(t.abs().max().item()
+                                                       for t in outs["parent"]), (name, diff)
+        times = []
+        for lib in (parent_lib, this_lib, this_lib, parent_lib):
+            with kernels_of(lib):
+                times.append(cuda_ms(torch, fn, iters=10, warmup=2))
+        p1, c1, c2, p2 = times
+        cells[name] = {"parent_ms": (p1 + p2) / 2, "ms": (c1 + c2) / 2,
+                       "runs": [p1, c1, c2, p2], "max_abs_diff": diff}
+        log(f"ab {name}: parent {p1:.4f} / {p2:.4f} ms, change {c1:.4f} / {c2:.4f} ms "
+            f"(change/parent {(c1 + c2) / (p1 + p2):.3f}); outputs "
+            f"{'equal bit for bit' if diff == 0 else f'differ by at most {diff:.3e}'}")
+    del q, k, v, qh, kh, vh, g, out, lse, bwd
+    torch.cuda.empty_cache()
+    return cells
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -213,10 +332,17 @@ def phase_kernel(torch, sa, rng):
             assert got.shape == want.shape and got.dtype == want.dtype, name
             g, w = got.float(), want.float()
             assert torch.isfinite(g).all(), f"{name}: non-finite kernel output"
-            err = (g - w).abs()
+            err = (g - w).abs()  # every row, fully masked ones included
             worst = (err - rtol * w.abs()).max().item()
+            _, allowed = sa._scores(args[0], args[1], args[3], args[4], scale=scale,
+                                    window=window, H=H, use_alibi=alibi,
+                                    segments=extra.get("segments"),
+                                    positions=extra.get("positions"))
+            dead = int((~allowed.any(-1)).sum().item()) * (H // allowed.shape[1])  # (b, h, q)
+            del allowed
             log(f"kernel {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} "
-                f"max_abs_err={err.max().item():.3e} (atol {atol}, rtol {rtol})")
+                f"max_abs_err={err.max().item():.3e} (atol {atol}, rtol {rtol}), "
+                f"fully masked rows {dead}")
             assert worst <= atol, f"kernel {name} {dtype}: exceeds tolerance"
             if name.startswith("main") and dtype == torch.bfloat16:
                 main_err = max(main_err, err.max().item())
@@ -259,11 +385,23 @@ def phase_kernel(torch, sa, rng):
     def plain32():
         return sa.short_attention_reference(*args, scale=1.0, window=0, H=12, use_alibi=False)
 
+    q, k, v, km, _ = args
+    mask = sdpa_mask(torch, km, 0)
+    qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+
+    def library32():  # fp32 SDPA, TF32 off
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                scale=1.0)
+
     p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain32, kernel32, kernel32, plain32))
-    times["fp32"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    lib = cuda_ms(torch, library32)
+    nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
+    ops = 4 * 64 * 12 * attention_pairs(torch, km, 0)
+    times["fp32"] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, "fp32"))
     log(f"time K1 B=32 T=300 H=12 Dh=64 fp32 window=0: kernel {times['fp32'][0]:.4f} ms, "
-        f"plain {times['fp32'][1]:.4f} ms (runs: kernel {k1:.4f} {k2:.4f}, "
-        f"plain {p1:.4f} {p2:.4f})")
+        f"plain {times['fp32'][1]:.4f} ms, library (SDPA fp32, boolean mask) {lib:.4f} ms, "
+        f"bound {times['fp32'][3]:.4f} ms ({times['fp32'][4]}) (runs: kernel {k1:.4f} "
+        f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
     return main_err, times
 
 
@@ -355,18 +493,45 @@ def synthetic_triplets(rng, n: int) -> list:
     return [(text(3, 12), text(40, 451), text(40, 451)) for _ in range(n)]
 
 
+def profile_step(torch, trainer, batch, label: str, families: dict) -> dict:
+    """One training step of `trainer` under torch.profiler: device time by
+    kernel family and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    towers = trainer._prep_batch(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer._step(towers))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ms = device_ms(prof, families)
+    total = sum(ms.values())
+    if total == 0:
+        log(f"{label}: the profiler saw no device time (wall {wall_ms:.1f} ms)")
+        return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None}
+    shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items())
+    log(f"{label}: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall (busy share "
+        f"{total / wall_ms:.3f}): {shares}")
+    return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total,
+            **{f"profile_{k.lower()}_ms": v for k, v in ms.items()}}
+
+
 def phase_train(torch, sa, rng, tok):
     """The train slice: the MS MARCO CLI's configuration (train_msmarco
     --train_batch_size 32 --specb --freezenonbias --lr 2e-4, max_seq_len 300,
     weightedmean, MNRL at scale 20, warmuplinear) on full-width
-    GPT-Neo-125M in fp32, through `ContrastiveTrainer.fit`."""
+    GPT-Neo-125M in fp32, through `ContrastiveTrainer.fit`, at the CLI's
+    matmul_precision "default" (TF32 products), one step profiled; then the
+    same steps at "highest" (strict fp32) for the rate, and the loss and
+    GradCache checks at "highest"."""
     import dataclasses
 
     from sgpt_tpu_torch.models import Decoder, gpt_neo
     from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
 
     steps, B = 5, 32
-    cfg = gpt_neo("125m")
+    cfg = gpt_neo("125m", matmul_precision="default")  # as cli.common.build_model
     model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=300, specb=True,
                      freeze_nonbias=True, pooling="weightedmean", scheduler="warmuplinear")
@@ -402,10 +567,26 @@ def phase_train(torch, sa, rng, tok):
     intervals = np.diff(stamps)  # step 1 carries the first launches' set-up
     ms_per_step = 1e3 * float(np.median(intervals))
     seq_per_s = 3 * B / (ms_per_step / 1e3)
+    log(f"train: {ms_per_step:.1f} ms/step, {seq_per_s:.1f} seq/s at matmul_precision "
+        f"\"default\" (TF32)")
+    prof = profile_step(torch, trainer, batches[0], "train profile, one step (TF32)",
+                        {"K1": K1_KEYS, "K2": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS})
+
+    # the same steps in strict fp32 ("highest"), on the same model
+    strict = cfg.replace(matmul_precision="highest")
+    model.cfg = strict
+    stamps_strict = []
+    ContrastiveTrainer(model, strict, tok, dataclasses.replace(
+        tc, log_fn=lambda rec: stamps_strict.append(time.perf_counter()))).fit(
+        lambda: iter(batches), steps_per_epoch=steps)
+    ms_highest = 1e3 * float(np.median(np.diff(stamps_strict)))
+    log(f"train: {ms_highest:.1f} ms/step, {3 * B / (ms_highest / 1e3):.1f} seq/s at "
+        f"matmul_precision \"highest\" (strict fp32); TF32 takes {ms_per_step / ms_highest:.3f} "
+        f"of it")
 
     # one batch repeated at a constant lr: the loss falls
     const = dataclasses.replace(tc, scheduler="constantlr", log_fn=None)
-    rep = ContrastiveTrainer(model, cfg, tok, const).fit(
+    rep = ContrastiveTrainer(model, strict, tok, const).fit(
         lambda: iter([triplets[-B:]] * 4), steps_per_epoch=4)
     rep_losses = [h["loss"] for h in rep["history"]]
     log(f"train: one batch repeated at constant lr 2e-4: losses "
@@ -414,11 +595,11 @@ def phase_train(torch, sa, rng, tok):
 
     # one GradCache step (chunks of 8) against one direct step, same weights
     snap = {n: p.detach().clone() for n, p in model.state_dict().items()}
-    direct = ContrastiveTrainer(model, cfg, tok, const).fit(
+    direct = ContrastiveTrainer(model, strict, tok, const).fit(
         lambda: iter([batches[0]]), steps_per_epoch=1)["history"][0]["loss"]
     model.load_state_dict(snap)
     sa.launches = sa.bwd_launches = 0
-    gc = ContrastiveTrainer(model, cfg, tok, dataclasses.replace(
+    gc = ContrastiveTrainer(model, strict, tok, dataclasses.replace(
         const, use_gradcache=True, chunk_size=8)).fit(
         lambda: iter([batches[0]]), steps_per_epoch=1)["history"][0]["loss"]
     n_chunks = B // 8
@@ -428,7 +609,8 @@ def phase_train(torch, sa, rng, tok):
     assert sa.bwd_launches == cfg.num_layers * 3 * n_chunks
     assert sa.launches == 2 * cfg.num_layers * 3 * n_chunks  # pass 1 (no grad) and pass 2
     return {"ms_per_step": ms_per_step, "seq_per_s": seq_per_s, "peak_gib": peak_gib,
-            "fwd_launches": fwd_launches, "bwd_launches": bwd_launches}
+            "ms_per_step_highest": ms_highest, "seq_per_s_highest": 3 * B / (ms_highest / 1e3),
+            "fwd_launches": fwd_launches, "bwd_launches": bwd_launches, **prof}
 
 
 def phase_train_parity(torch, fa, rng, tok):
@@ -825,9 +1007,11 @@ def phase_flash(torch, fa, rng):
                 main_err = max(main_err, err.max().item())
             del q, k, v, qh, kh, vh, got, want, lse, want_lse
 
+    # bf16 at the long encode's shape (B=64); fp32 at the long train's (B=8)
     times = {}
-    for window in (0, 256):
-        (q, k, v, km, _), _ = attention_inputs(torch, rng, 64, 2048, 12, 64, torch.bfloat16)
+    for dt, B, window in (("bf16", 64, 0), ("bf16", 64, 256), ("fp32", 8, 0), ("fp32", 8, 256)):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, 12, 64, dtype)
         qh, kh, vh = (heads(t, 12) for t in (q, k, v))
         mask = sdpa_mask(torch, km, window)
 
@@ -845,14 +1029,15 @@ def phase_flash(torch, fa, rng):
                           for f, n in ((plain, 3), (kernel, 10), (kernel, 10), (plain, 3)))
         lib = cuda_ms(torch, library, iters=5, warmup=1)
         # q, k, v read once, out written once, fp32 lse written, int32 mask read
-        nbytes = 4 * q.numel() * 2 + 64 * 12 * 2048 * 4 + km.numel() * 4
+        nbytes = 4 * q.numel() * q.element_size() + B * 12 * 2048 * 4 + km.numel() * 4
         pairs = attention_pairs(torch, km, window)
         ops = 4 * 64 * 12 * pairs
-        times[window] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, "bf16"))
-        log(f"time K3 B=64 T=2048 H=12 Dh=64 bf16 window={window}: kernel {times[window][0]:.4f} "
-            f"ms, plain {times[window][1]:.4f} ms, library (SDPA, boolean mask) {lib:.4f} ms, "
-            f"bound {times[window][3]:.4f} ms ({times[window][4]}: {nbytes} bytes, {ops} "
-            f"operations over {pairs} pairs; {ops / (times[window][0] / 1e3) / 1e12:.1f} "
+        t = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, dt))
+        times[window if dt == "bf16" else (dt, window)] = t
+        log(f"time K3 B={B} T=2048 H=12 Dh=64 {dt} window={window}: kernel {t[0]:.4f} "
+            f"ms, plain {t[1]:.4f} ms, library (SDPA {dt}, boolean mask) {lib:.4f} ms, "
+            f"bound {t[3]:.4f} ms ({t[4]}: {nbytes} bytes, {ops} "
+            f"operations over {pairs} pairs; {ops / (t[0] / 1e3) / 1e12:.1f} "
             f"TFLOP/s) (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
         del q, k, v, qh, kh, vh, mask
     torch.cuda.empty_cache()
@@ -878,7 +1063,7 @@ def device_ms(prof, families: dict) -> dict:
     return ms
 
 
-def profile_batch(torch, engine, texts) -> dict:
+def profile_batch(torch, engine, texts, label: str, families: dict) -> dict:
     """Where the time of one encode batch goes: device time by kernel family
     under torch.profiler, and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -890,17 +1075,19 @@ def profile_batch(torch, engine, texts) -> dict:
         engine.encode(texts)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    ms = device_ms(prof, {"K3 flash": ("flash_fwd",),
-                          "K1 short": ("wmma_kernel", "scalar_kernel"), "GEMM": GEMM_KEYS})
+    ms = device_ms(prof, families)
     total = sum(ms.values())
     if total == 0:
-        log(f"long profile: the profiler saw no device time (wall {wall_ms:.1f} ms)")
+        log(f"{label}: the profiler saw no device time (wall {wall_ms:.1f} ms)")
         return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None}
     shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items())
-    log(f"long profile, one batch of 64 at T=2048: {total:.2f} ms of kernels in {wall_ms:.2f} "
-        f"ms wall (busy share {total / wall_ms:.3f}): {shares}")
+    log(f"{label}: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall (busy share "
+        f"{total / wall_ms:.3f}): {shares}")
     return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total,
             **{f"profile_{k.split()[0].lower()}_ms": v for k, v in ms.items()}}
+
+
+K1_KEYS = ("mma_kernel", "scalar_kernel")  # K1's kernels (the parent's wmma_kernel too)
 
 
 def long_texts(rng):
@@ -970,7 +1157,9 @@ def phase_long(torch, fa, sa, mips, model, tok, rng, card):
     log(f"long encode: {emb_per_s:.1f} emb/s ({tok_per_s:.0f} tokens/s), {len(docs)} docs "
         f"of {tokens} tokens in {doc_s:.3f} s, bf16, batch_size 64, max_seq_len 2048 ({card})")
     order = np.argsort([len(r) for r in rows], kind="stable")
-    profile = profile_batch(torch, engine, [docs[i] for i in order[-64:]])
+    profile = profile_batch(torch, engine, [docs[i] for i in order[-64:]],
+                            "long profile, one batch of 64 at T=2048",
+                            {"K3 flash": ("flash_fwd",), "K1 short": K1_KEYS, "GEMM": GEMM_KEYS})
 
     # the same weights without use_flash: K1 at every T
     plain = EmbeddingEngine(model, model.cfg, tok, device="cuda", **kw)
@@ -1201,17 +1390,18 @@ def phase_ltrain(torch, fa, sa, tok, card):
     weightedmean, lr 2e-4, GradCache with chunks of 8), MNRL at scale 20,
     batches of 16 triplets, 4 steps on one batch at constant lr through
     `ContrastiveTrainer.fit`. Every tower pads to 2048, so every layer runs
-    K3 in both GradCache passes and K4a/K4b in pass 2."""
+    K3 in both GradCache passes and K4a/K4b in pass 2. The steps run at the
+    CLI's matmul_precision "default" (TF32 products), one more profiled;
+    then 3 steps at "highest" (strict fp32) for the rate, and GradCache
+    against a direct step at "highest"."""
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     from sgpt_tpu_torch.models import Decoder, gpt_neo
     from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
 
     rng = np.random.default_rng(SEED + 4)
     steps, B = 4, 16
-    cfg = gpt_neo("125m", use_flash=True)
+    cfg = gpt_neo("125m", use_flash=True, matmul_precision="default")  # as build_model
     model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=2048, specb=True, freeze_nonbias=True,
                      pooling="weightedmean", scheduler="constantlr", use_gradcache=True,
@@ -1258,35 +1448,35 @@ def phase_ltrain(torch, fa, sa, tok, card):
              "padded_tokens_per_s": padded / (ms_per_step / 1e3), "peak_gib": peak_gib}
     log(f"ltrain: {ms_per_step:.1f} ms/step, {rates['seq_per_s']:.2f} sequences/s, "
         f"{rates['tokens_per_s']:.0f} tokens/s ({rates['padded_tokens_per_s']:.0f} padded), "
-        f"peak {peak_gib:.2f} GiB, fp32, batch 16, max_seq_len 2048, GradCache chunk 8 ({card})")
+        f"peak {peak_gib:.2f} GiB, fp32 at TF32 products, batch 16, max_seq_len 2048, GradCache chunk 8 "
+        f"({card})")
 
-    # one more step under torch.profiler: device time by kernel family
-    tc.log_fn = None
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(trainer._step(trainer._prep_batch(batch)))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    ms = device_ms(prof, {"K3": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
-                          "K4b": ("flash_bwd_dkv",), "GEMM": GEMM_KEYS})
-    total = sum(ms.values())
-    profile_out = {"profile_wall_ms": wall_ms, "profile_kernel_ms": total or None}
-    if total == 0:
-        log(f"ltrain profile: the profiler saw no device time (wall {wall_ms:.1f} ms)")
-    else:
-        shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items())
-        log(f"ltrain profile, one step: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall "
-            f"(busy share {total / wall_ms:.3f}): {shares}")
-        profile_out.update({f"profile_{k.lower()}_ms": v for k, v in ms.items()})
+    profile_out = profile_step(torch, trainer, batch, "ltrain profile, one step (TF32)",
+                               {"K3": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
+                                "K4b": ("flash_bwd_dkv",), "GEMM": GEMM_KEYS})
+
+    # 3 steps in strict fp32 ("highest") on the same model: 2 timed intervals
+    strict = cfg.replace(matmul_precision="highest")
+    model.cfg = strict
+    stamps_strict = []
+    ContrastiveTrainer(model, strict, tok, dataclasses.replace(
+        tc, log_fn=lambda rec: stamps_strict.append(time.perf_counter()))).fit(
+        lambda: iter([batch] * 3), steps_per_epoch=3)
+    ms_highest = 1e3 * float(np.median(np.diff(stamps_strict)))
+    rates.update({"ms_per_step_highest": ms_highest,
+                  "seq_per_s_highest": 3 * B / (ms_highest / 1e3),
+                  "tokens_per_s_highest": valid / (ms_highest / 1e3)})
+    log(f"ltrain: {ms_highest:.1f} ms/step, {rates['seq_per_s_highest']:.2f} sequences/s, "
+        f"{rates['tokens_per_s_highest']:.0f} tokens/s at matmul_precision \"highest\" (strict "
+        f"fp32); TF32 takes {ms_per_step / ms_highest:.3f} of it")
 
     # GradCache (chunks of 2) against one direct step on 4 triplets, same weights
     snap = {n: p.detach().clone() for n, p in model.state_dict().items()}
     four = dataclasses.replace(tc, batch_size=4, use_gradcache=False)
-    direct = ContrastiveTrainer(model, cfg, tok, four).fit(
+    direct = ContrastiveTrainer(model, strict, tok, four).fit(
         lambda: iter([batch[:4]]), steps_per_epoch=1)["history"][0]["loss"]
     model.load_state_dict(snap)
-    gc = ContrastiveTrainer(model, cfg, tok, dataclasses.replace(
+    gc = ContrastiveTrainer(model, strict, tok, dataclasses.replace(
         four, use_gradcache=True, chunk_size=2)).fit(
         lambda: iter([batch[:4]]), steps_per_epoch=1)["history"][0]["loss"]
     log(f"ltrain: GradCache (chunk 2) loss {gc:.7f}, direct {direct:.7f}, |diff| "
@@ -1298,6 +1488,12 @@ def phase_ltrain(torch, fa, sa, tok, card):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout of this repo (e.g. the parent commit unpacked "
+                         "into build/parent): its kernels are built too and timed against "
+                         "this tree's in one A/B phase")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke runs "
@@ -1317,9 +1513,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; card: {card}")
 
-    # 1. build
+    # 1. build (and the parent checkout's kernels beside, in parallel)
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    parent = parent_build(args.parent) if args.parent else None
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        parent_built = pool.submit(parent.build) if parent else None
+        lib_path = _build.build()
+        if parent_built:
+            log(f"build: parent kernels -> {parent_built.result()}")
     _build.library()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.2f} s -> {lib_path.relative_to(_build.PKG.parent)}")
@@ -1337,6 +1538,10 @@ def main() -> int:
     flash_err, flash_times = phase_flash(torch, fa, np.random.default_rng(SEED + 3))
     phase("fbwd")
     fbwd_err, fbwd_times = phase_fbwd(torch, fa, np.random.default_rng(SEED + 5))
+    ab = {}
+    if parent:
+        phase("ab")
+        ab = phase_ab(torch, sa, fa, parent.library(), _build.library())
 
     # 4. the slice: full-width GPT-Neo-125M bulk encode through the engine
     phase("slice")
@@ -1385,6 +1590,10 @@ def main() -> int:
     tokens = sum(len(r) for r in engine.codec.encode_rows(texts)[0])
     log(f"encode: {emb_per_s:.1f} emb/s ({tokens / doc_s:.0f} tokens/s), "
         f"{len(texts)} docs in {doc_s:.3f} s, bf16, batch_size 64, max_seq_len 300 ({card})")
+    longest = np.argsort([len(t) for t in texts], kind="stable")[-64:]
+    encode_profile = profile_batch(torch, engine, [texts[i] for i in longest],
+                                   "encode profile, one batch of 64 at T=300",
+                                   {"K1 short": K1_KEYS, "GEMM": GEMM_KEYS})
 
     # 5. card (kernel) against CPU (plain path) on the same weights
     phase("parity")
@@ -1440,13 +1649,20 @@ def main() -> int:
 
     # 16. report
     log(f"train: {train['ms_per_step']:.1f} ms/step, {train['seq_per_s']:.1f} seq/s "
-        f"(96 sequences per step), peak {train['peak_gib']:.2f} GiB, fp32, "
-        f"batch 32, max_seq_len 300 ({card})")
+        f"(96 sequences per step), peak {train['peak_gib']:.2f} GiB, fp32 at TF32 products "
+        f"(\"default\"); strict fp32 (\"highest\") {train['ms_per_step_highest']:.1f} ms/step, "
+        f"{train['seq_per_s_highest']:.1f} seq/s; batch 32, max_seq_len 300 ({card})")
     log(f"long: {long['emb_per_s']:.1f} emb/s, {long['tokens_per_s']:.0f} tokens/s, bf16, "
         f"max_seq_len 2048, use_flash ({card})")
     log(f"ltrain: {ltrain['ms_per_step']:.1f} ms/step, {ltrain['seq_per_s']:.2f} seq/s, "
-        f"{ltrain['tokens_per_s']:.0f} tokens/s, peak {ltrain['peak_gib']:.2f} GiB, fp32, "
+        f"{ltrain['tokens_per_s']:.0f} tokens/s, peak {ltrain['peak_gib']:.2f} GiB, fp32 at "
+        f"TF32 products (\"default\"); strict fp32 (\"highest\") "
+        f"{ltrain['ms_per_step_highest']:.1f} ms/step, {ltrain['seq_per_s_highest']:.2f} seq/s; "
         f"batch 16, max_seq_len 2048, use_flash, GradCache chunk 8 ({card})")
+
+    def parent_ms(cell):  # the parent build's time in the A/B phase (--parent), else None
+        return ab[cell]["parent_ms"] if cell in ab else None
+
     log(card)
     print(json.dumps({"kernels": [{
         "name": "short_attention_fwd", "route": "cuda",
@@ -1460,7 +1676,12 @@ def main() -> int:
         "ms_local256": times[256][0], "plain_ms_local256": times[256][1],
         "library_ms_local256": times[256][2], "bound_ms_local256": times[256][3],
         "ms_fp32_b32": times["fp32"][0], "plain_ms_fp32_b32": times["fp32"][1],
-        "build_s": build_s, "encode_emb_per_s": emb_per_s}, {
+        "library_ms_fp32_b32": times["fp32"][2], "bound_ms_fp32_b32": times["fp32"][3],
+        "bound_by_fp32_b32": times["fp32"][4],
+        "parent_ms": parent_ms("K1 bf16 B=64 T=300 window=0"),
+        "parent_ms_local256": parent_ms("K1 bf16 B=64 T=300 window=256"),
+        "parent_ms_fp32_b32": parent_ms("K1 fp32 B=32 T=300 window=0"),
+        "build_s": build_s, "encode_emb_per_s": emb_per_s, "encode_profile": encode_profile}, {
         "name": "short_attention_bwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
@@ -1470,8 +1691,13 @@ def main() -> int:
         "bound_by": bwd_times[("fp32", 0)][4],
         **{f"{k}_{dt}_w{w}": bwd_times[(dt, w)][i] for dt, w in bwd_times
            for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
+        "parent_ms": parent_ms("K2 fp32 B=32 T=300 window=0"),
+        "parent_ms_bf16_w0": parent_ms("K2 bf16 B=32 T=300 window=0"),
         "train_ms_per_step": train["ms_per_step"], "train_seq_per_s": train["seq_per_s"],
-        "train_peak_gib": train["peak_gib"]}, {
+        "train_ms_per_step_highest": train["ms_per_step_highest"],
+        "train_seq_per_s_highest": train["seq_per_s_highest"],
+        "train_peak_gib": train["peak_gib"],
+        "train_profile": {k: v for k, v in train.items() if k.startswith("profile")}}, {
         "name": "mips_topk", "route": "cuda", "source": "sgpt_tpu_torch/csrc/mips.cu",
         "replaces": "sgpt_tpu/ops/pallas/mips.py:44",
         "launches": search["k5_launches"] + serve["k5_launches"],
@@ -1494,7 +1720,13 @@ def main() -> int:
         "bound_by": flash_times[0][4], "shape": "B=64 T=2048 H=12 Dh=64 bf16",
         "ms_local256": flash_times[256][0], "plain_ms_local256": flash_times[256][1],
         "library_ms_local256": flash_times[256][2], "bound_ms_local256": flash_times[256][3],
-        "bound_by_local256": flash_times[256][4], "long_emb_per_s": long["emb_per_s"],
+        "bound_by_local256": flash_times[256][4],
+        **{f"{key}_fp32_b8_w{w}": flash_times[("fp32", w)][i] for w in (0, 256)
+           for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))},
+        "parent_ms": parent_ms("K3 bf16 B=64 T=2048 window=0"),
+        "parent_ms_local256": parent_ms("K3 bf16 B=64 T=2048 window=256"),
+        "parent_ms_fp32_b8": parent_ms("K3 fp32 B=8 T=2048 window=0"),
+        "long_emb_per_s": long["emb_per_s"],
         "long_tokens_per_s": long["tokens_per_s"], "long_batches": long["batches"],
         "long_flash_batches": long["flash_batches"],
         "long_flash_vs_plain_cos_min": long["flash_vs_plain_cos_min"],
@@ -1508,6 +1740,7 @@ def main() -> int:
         "library_ms": fbwd_times[0]["library"], "bound_ms": fbwd_times[0][f"bound_{part}"][0],
         "bound_by": fbwd_times[0][f"bound_{part}"][1], "shape": "B=8 T=2048 H=12 Dh=64 fp32",
         "plain_and_library_compute": "dq, dk and dv together",
+        "parent_ms": parent_ms(f"K4{key[-1]} fp32 B=8 T=2048 window=0"),
         "ms_local256": fbwd_times[256][part], "plain_ms_local256": fbwd_times[256]["plain"],
         "library_ms_local256": fbwd_times[256]["library"],
         "bound_ms_local256": fbwd_times[256][f"bound_{part}"][0],

@@ -28,27 +28,34 @@
 // T=2048, H=12, Dh=64, bf16) a global layer needs 412.5 GFLOP for 805 MB of
 // q/k/v/o (compute bound, 0.417 ms at 989 TFLOP/s) and a window-256 layer
 // 96.7 GFLOP (memory bound, 0.242 ms at 3.35 TB/s). The design answers the
-// compute side with tensor cores and the memory side by reading each K/V
-// tile once per 64 query rows from L2-friendly order:
+// compute side with tensor cores fed from registers and the memory side by
+// reading each K/V sub-tile once per 64 query rows:
 //   * flash_fwd_bf16<D>: one block of 4 warps per (64 query rows, head, batch
-//     row); each warp owns 16 query rows. Q·Kᵀ and P·V run on the tensor
-//     cores (WMMA 16x16x16 bf16, fp32 accumulators); the scores go through
-//     shared memory for the masked online softmax (one warp per row group,
-//     m and l in registers); the fp32 accumulator lives in shared memory and
-//     is rescaled by exp(m_prev − m_new) per sub-tile, as acc·alpha + P·V.
-//   * flash_fwd_f32<D>: the same walk with exact fp32 products on the CUDA cores
-//     (no TF32), the accumulator in registers.
+//     row), longest rows first; each warp owns 16 query rows. Q·Kᵀ and P·V
+//     run as mma.sync m16n8k16 bf16 products (mma_attention.cuh): the Q
+//     fragments, the score tile S, the probabilities P and the fp32 output
+//     accumulator O stay in registers, and m, l and alpha are per-row quad
+//     values. The block first lists the sub-tiles Walk visits (a key-mask
+//     vote per candidate), then streams their K, V and key-mask values
+//     through a 2-stage cp.async ring, so the next sub-tile's copy overlaps
+//     this one's products. Sub-tiles whose every pair is in range and every
+//     key live skip the per-score mask. The rescale folds alpha into the
+//     accumulator (FA2): O = O·alpha, then the MMAs add P·V into O, where
+//     the plain version adds a whole sub-tile's P·V to acc·alpha; the
+//     outputs differ by fp32 summation order only. The output leaves
+//     through shared memory as 16-byte stores.
+//   * flash_fwd_f32<D>: the same walk with exact fp32 products on the CUDA
+//     cores (no TF32), scores through shared memory, the accumulator in
+//     registers.
 // Both skip the sub-tiles that cannot change any row of the block (see Walk).
-// wgmma, TMA, warp specialisation and keeping S and P in registers are later
-// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "flash_attention.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -77,7 +84,6 @@ struct Params {
 };
 
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(bf16* p, float x) { *p = __float2bfloat16(x); }
 
 // rows [0, 64) of one head starting at src (row stride st elements, D
 // contiguous values each) → shared tile dst (row stride ld), 16 bytes per load.
@@ -121,11 +127,14 @@ struct Walk {
   __device__ bool visits(const Params& p, int ki) const {
     return p.window <= 0 || ki * p.block_kv + p.block_kv - 1 > qs - p.window;
   }
-  // the block-wide barrier that starts each sub-tile; false: skip it
-  __device__ bool begin(const Params& p, int k0, int key_mask) const {
-    const bool any_key = __syncthreads_or(key_mask != 0);
+  // whether the sub-tile at k0 (any_key: some key of it is not padded) is visited
+  __device__ bool keeps(const Params& p, int k0, bool any_key) const {
     const bool masked = !any_key || !subtile_in_range(q0, k0, p.window);
     return !(all_live && masked);
+  }
+  // the block-wide barrier that starts each sub-tile; false: skip it
+  __device__ bool begin(const Params& p, int k0, int key_mask) const {
+    return keeps(p, k0, __syncthreads_or(key_mask != 0));
   }
 };
 
@@ -185,95 +194,163 @@ __device__ __forceinline__ void finalize(const Params& p, int b, int h, int qrow
   }
 }
 
+// whether every (row, key) pair of query rows [q0, q0 + 64) and keys
+// [k0, k0 + 64) is in range (causal ∧ window)
+__device__ __forceinline__ bool subtile_full(int q0, int k0, int window) {
+  return k0 + SUB - 1 <= q0 && (window <= 0 || k0 > q0 + SUB - 1 - window);
+}
+
+constexpr int NEEDS_MASK = 1 << 30;  // list entry flag: some pair of the sub-tile is masked
+
+// The block's sub-tiles, in key order, as `Walk` visits them: list[i] = k0,
+// | NEEDS_MASK unless every pair of the sub-tile is in range and every key
+// live. All four warps read the candidates' key masks (two 32-key votes
+// each); warp 0 compacts. Returns the count; the block synchronises.
+__device__ __forceinline__ int subtile_list(int* list, const Walk& walk, const Params& p,
+                                            const int* kmg) {
+  __shared__ int count;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int ki_lo = 0;
+  while (ki_lo <= walk.last && !walk.visits(p, ki_lo)) ++ki_lo;
+  const int per = p.block_kv / TK, t_lo = ki_lo * per, nc = (walk.last + 1) * per - t_lo;
+  for (int i = warp; i < nc; i += WARPS) {
+    const int k0 = (t_lo + i) * TK;
+    const bool a = kmg[k0 + lane] != 0, b = kmg[k0 + lane + 32] != 0;
+    const int any = __any_sync(0xffffffffu, a | b), all = __all_sync(0xffffffffu, a & b);
+    if (lane == 0) list[i] = any | (all << 1);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nc; base += 32) {
+      const int i = base + lane, k0 = (t_lo + i) * TK;
+      const int f = i < nc ? list[i] : 0;
+      const bool keep = i < nc && walk.keeps(p, k0, f & 1);
+      const int entry = k0 | ((f & 2) && subtile_full(walk.q0, k0, p.window) ? 0 : NEEDS_MASK);
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      __syncwarp();  // every lane has read its flag before any entry is written
+      if (keep) list[n + __popc(ballot & ((1u << lane) - 1u))] = entry;
+      n += __popc(ballot);
+    }
+    if (lane == 0) count = n;
+  }
+  __syncthreads();
+  return count;
+}
+
+// S of a warp's 16 rows (query positions qpos[r]) and the sub-tile at k0 →
+// scale, ALiBi, where(mask, s, -1e30); MASK = false: every pair is known to
+// be allowed. Returns the rows' maxima over the sub-tile.
+template <bool MASK>
+__device__ __forceinline__ float2 k3_scores(float (&s)[8][4], const Params& p, float slope,
+                                            const int (&qpos)[2], int k0, const int* kms,
+                                            int lane) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, kk = n * 8 + (lane & 3) * 2 + (e & 1), kpos = k0 + kk;
+      float x = score(s[n][e], p.scale, p.slopes != nullptr, slope, kpos);
+      if (MASK) x = (kms[kk] != 0) & in_range(qpos[r], kpos, p.window) ? x : NEG_INF;
+      s[n][e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  }
+  return make_float2(quad_max(mx[0]), quad_max(mx[1]));
+}
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(const Params p) {
-  using namespace nvcuda;
-  constexpr int LDH = D + 8;                     // bf16 tiles: 16-byte rows, staggered banks
-  constexpr int LDS = (TK > D ? TK : D) + 4;     // fp32 scores, later the P·V partials
-  constexpr int LDP = TK + 8;                    // bf16 probabilities
-  constexpr int LDO = D + 4;                     // fp32 accumulator
+__global__ void __launch_bounds__(NTHREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(const Params p) {
+  constexpr int LD = D + 8;
+  static_assert(TQ == MMA_TILE && NTHREADS == MMA_THREADS, "mma_attention.cuh's block shape");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TQ * LDH;
-  bf16* Vs = Ks + TK * LDH;
-  bf16* Ps = Vs + TK * LDH;
-  float* Ss = reinterpret_cast<float*>(Ps + TQ * LDP);
-  float* Os = Ss + TQ * LDS;
-  int* kms = reinterpret_cast<int*>(Os + TQ * LDO);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // the Q tile, later the output staging tile
+  bf16* Ks = Qs + TQ * LD;                       // two stages
+  bf16* Vs = Ks + 2 * TK * LD;                   // two stages
+  int* kms = reinterpret_cast<int*>(Vs + 2 * TK * LD);  // two stages of TK key-mask values
+  int* list = kms + 2 * TK;                             // T / 64 sub-tile entries
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ, h = blockIdx.y, b = blockIdx.z;
   const long long base = b * p.sb + h * p.sh;
   const bf16* qg = static_cast<const bf16*>(p.q) + base;
   const bf16* kg = static_cast<const bf16*>(p.k) + base;
   const bf16* vg = static_cast<const bf16*>(p.v) + base;
   const int* kmg = p.key_mask + (long long)b * p.T;
   const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const int qpos[2] = {q0 + warp * WR + (lane >> 2), q0 + warp * WR + (lane >> 2) + 8};
 
-  load_tile<bf16, D>(Qs, LDH, qg + q0 * p.st, p.st);
-  for (int e = threadIdx.x; e < TQ * LDO; e += NTHREADS) Os[e] = 0.f;
-  float m[WR], l[WR], alpha[WR];
-#pragma unroll
-  for (int r = 0; r < WR; ++r) m[r] = NEG_INF, l[r] = 0.f;
-
-  float* Sw = Ss + warp * WR * LDS;
-  bf16* Pw = Ps + warp * WR * LDP;
-  float* Ow = Os + warp * WR * LDO;
-  const int qrow0 = q0 + warp * WR;
+  load_tile_async<D>(Qs, qg, p.st, q0, p.T);
   const Walk walk(p, q0, kmg);
-  for (int ki = 0; ki <= walk.last; ++ki) {
-    if (!walk.visits(p, ki)) continue;
-    for (int k0 = ki * p.block_kv; k0 < (ki + 1) * p.block_kv; k0 += TK) {
-      const int km = threadIdx.x < TK ? kmg[k0 + threadIdx.x] : 0;
-      if (!walk.begin(p, k0, km)) continue;  // barrier: Q written / previous K, V consumed
-      load_tile<bf16, D>(Ks, LDH, kg + k0 * p.st, p.st);
-      load_tile<bf16, D>(Vs, LDH, vg + k0 * p.st, p.st);
-      if (threadIdx.x < TK) kms[threadIdx.x] = km;
-      __syncthreads();
-      // S (16 rows x TK keys of this warp) = Q Kᵀ
+  const int n = subtile_list(list, walk, p, kmg);
+
+  auto issue = [&](int i) {
+    const int k0 = list[i] & ~NEEDS_MASK, stage = i & 1;
+    load_tile_async<D>(Ks + stage * TK * LD, kg, p.st, k0, p.T);
+    load_tile_async<D>(Vs + stage * TK * LD, vg, p.st, k0, p.T);
+    if (threadIdx.x < TK / 4) cp_async16(kms + stage * TK + 4 * threadIdx.x, kmg + k0 + 4 * threadIdx.x, true);
+  };
+
+  uint32_t qf[D / 16][4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-      for (int j = 0; j < TK / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
+  for (int c = 0; c < D / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  if (n > 0) issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) issue(i + 1);  // the next sub-tile's copy overlaps this one's MMAs
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // sub-tile i (and at i = 0 the Q tile) has landed for every thread
+    if (i == 0) load_a_frags<D>(qf, Qs + warp * WR * LD, lane);
+    const int entry = list[i], k0 = entry & ~NEEDS_MASK, stage = i & 1;
+    float s[8][4];
+    qk_tile<D>(s, qf, Ks + stage * TK * LD, lane);
+    const float2 mx = entry & NEEDS_MASK
+                          ? k3_scores<true>(s, p, slope, qpos, k0, kms + stage * TK, lane)
+                          : k3_scores<false>(s, p, slope, qpos, k0, kms + stage * TK, lane);
+    // online softmax: m, l and alpha per row (a quad's values); O is
+    // rescaled in its registers and P·V accumulates into it (FA2)
+    const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+    const float alpha[2] = {expf(m[0] - m_new[0]), expf(m[1] - m_new[1])};
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int d = 0; d < D; d += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kt;
-          wmma::load_matrix_sync(a, Qs + warp * WR * LDH + d, LDH);
-          wmma::load_matrix_sync(kt, Ks + j * 16 * LDH + d, LDH);
-          wmma::mma_sync(acc, a, kt, acc);
-        }
-        wmma::store_matrix_sync(Sw + j * 16, acc, LDS, wmma::mem_row_major);
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[c][e] = __expf(s[c][e] - m_new[e >> 1]);
+        sum[e >> 1] += s[c][e];
       }
-      __syncwarp();
-      online_softmax(Sw, LDS, kms, p, slope, qrow0, k0, m, l, alpha, lane,
-                     [&](int r, int kk, float e) { Pw[r * LDP + kk] = __float2bfloat16(e); });
-      __syncwarp();
-      // P·V (P rounded to bf16) into the warp's score rows, then acc·alpha + P·V
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
-        wmma::fill_fragment(pv, 0.f);
-#pragma unroll
-        for (int ks = 0; ks < TK / 16; ++ks) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vt;
-          wmma::load_matrix_sync(a, Pw + ks * 16, LDP);
-          wmma::load_matrix_sync(vt, Vs + ks * 16 * LDH + c * 16, LDH);
-          wmma::mma_sync(pv, a, vt, pv);
-        }
-        wmma::store_matrix_sync(Sw + c * 16, pv, LDS, wmma::mem_row_major);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < WR; ++r)
-        for (int c = lane; c < D; c += 32)
-          Ow[r * LDO + c] = __fadd_rn(__fmul_rn(Ow[r * LDO + c], alpha[r]), Sw[r * LDS + c]);
+    for (int r = 0; r < 2; ++r) {
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), quad_sum(sum[r]));
+      m[r] = m_new[r];
     }
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      o[c][0] = __fmul_rn(o[c][0], alpha[0]), o[c][1] = __fmul_rn(o[c][1], alpha[0]);
+      o[c][2] = __fmul_rn(o[c][2], alpha[1]), o[c][3] = __fmul_rn(o[c][3], alpha[1]);
+    }
+    uint32_t pf[4][4];
+    p_frags(pf, s);  // p rounded to bf16 before P·V, as the TPU kernel casts p to v's dtype
+    pv_tile<D>(o, pf, Vs + stage * TK * LD, lane);
+    __syncthreads();  // stage i & 1 consumed before the next iteration refills it
   }
-  __syncwarp();
-  finalize<bf16>(p, b, h, qrow0, m, l, lane, D,
-                 [&](int r, int c) { return Ow[r * LDO + c]; });
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // out = acc / l (l == 0 → 1) through the (free) Q tile; lse = m + log(l)
+  const float l0 = l[0] == 0.f ? 1.f : l[0], l1 = l[1] == 0.f ? 1.f : l[1];
+  stage_rows<D>(Qs + warp * WR * LD, o, l0, l1, lane);
+  if ((lane & 3) == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.T;
+    lse[qpos[0]] = __fadd_rn(m[0], logf(l0));
+    lse[qpos[1]] = __fadd_rn(m[1], logf(l1));
+  }
+  __syncthreads();
+  store_tile<D>(static_cast<bf16*>(p.o) + b * p.ob + h * p.oh, p.ot, Qs, q0, p.T);
 }
 
 template <int D>
@@ -384,10 +461,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(const Params p) {
 }
 
 template <int D>
-size_t bf16_smem() {
-  constexpr int LDH = D + 8, LDS = (TK > D ? TK : D) + 4, LDP = TK + 8, LDO = D + 4;
-  return sizeof(bf16) * ((size_t)(TQ + 2 * TK) * LDH + (size_t)TQ * LDP) +
-         sizeof(float) * ((size_t)TQ * LDS + (size_t)TQ * LDO) + sizeof(int) * TK;
+size_t bf16_smem(int T) {
+  return mma_tiles_bytes<D>() + sizeof(int) * (2 * TK + T / TK);
 }
 
 template <int D>
@@ -407,7 +482,7 @@ cudaError_t launch(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st, cons
 
 template <int D>
 cudaError_t dispatch(int is_bf16, dim3 grid, cudaStream_t st, const Params& p) {
-  return is_bf16 ? launch(flash_fwd_bf16<D>, bf16_smem<D>(), grid, st, p)
+  return is_bf16 ? launch(flash_fwd_bf16<D>, bf16_smem<D>(p.T), grid, st, p)
                  : launch(flash_fwd_f32<D>, f32_smem<D>(), grid, st, p);
 }
 

@@ -9,33 +9,42 @@
 // fp32 and written in the input dtype. Layout stays (B, T, H·Dh): a head is a
 // contiguous Dh-wide column slice, so no transposes are needed.
 //
-// What bounds it on this card: the O(T²) score work per (row, head) and
-// shared-memory residency. The TPU kernel keeps one head's whole (T, T) fp32
-// score tile in VMEM; at T=300 that is 360 KB, more than the 227 KB of shared
-// memory a block may use. Design: one block per (batch row, head, BQ=16
-// query rows). The block keeps a BQ × T fp32 score strip in dynamic shared
-// memory (128 KB at T=2048), fills it by looping over *every* 64-key tile,
-// runs an exact fp32 softmax over each whole row, then accumulates P·V over
-// the key tiles again. The scores never leave the chip. No key tile is
-// pruned: a padded query row that the window leaves with no valid key
-// softmaxes to uniform 1/T over all T keys, as in the TPU kernel and its
-// plain reference.
-//
-// Two kernels share that design and the masking and softmax code, which live
-// in short_attention.cuh so that the backward (short_attention_bwd.cu)
-// recomputes the same scores and probabilities:
-//   * wmma_kernel (bf16, Dh in {16, 32, 64, 128}): Q·Kᵀ and P·V on the
-//     tensor cores through warp-level WMMA 16x16x16 bf16 tiles with fp32
-//     accumulators; tiles move global→shared as 16-byte vectors. At T=2048,
-//     Dh=128 it holds 213 KB of shared memory. Measured on an H100 80GB HBM3
-//     (700 W) at B=64, T=300, H=12, Dh=64: 0.99 ms, against 2.87 ms for the
-//     scalar kernel and 1.39 ms for the plain PyTorch version.
-//   * scalar_kernel (fp32, and bf16 at other head sizes): scalar fp32 FMAs on
-//     the CUDA cores. fp32 stays off the tensor cores (TF32 would round q, k).
-// wgmma, TMA, online softmax and tile pruning are later work.
+// What bounds it on this card. At the encode shape (B=64, T=300, H=12,
+// Dh=64, bf16) the kernel must read q, k, v and write out: 118 MB, 0.035 ms
+// at 3.35 TB/s, against ~0.009 ms of tensor-core work for the causal pairs;
+// so bytes bound it, and a block must not re-read K and V more than the
+// causal walk needs. The TPU kernel keeps one head's whole (T, T) fp32 score
+// tile in VMEM (360 KB at T=300, more than the 227 KB of shared memory a
+// block may use), so the design differs:
+//   * mma_kernel<Dh> (bf16, Dh in {16, 32, 64, 128}): one block of 4 warps
+//     per (64 query rows, head, batch row), longest rows first; each warp
+//     owns 16 rows and keeps their Q fragments, scores and output in
+//     mma.sync registers (mma_attention.cuh). 64-key K/V tiles stream
+//     through a 2-stage cp.async ring, with each tile's key padding, segment
+//     ids and ALiBi positions loaded into shared memory once a tile. The
+//     exact softmax takes two passes, and S never leaves registers: pass 1
+//     computes S = Q·Kᵀ, the mask and each row's running max m and sum l;
+//     pass 2 recomputes S, rounds p = exp(s − m) / l to bf16 and
+//     accumulates O = P·V in fp32. Both visit only the key tiles that hold a
+//     causal, in-window pair for the block; a pruned key is masked, and pass
+//     1 adds its exp(-1e9 − m) to l analytically, as softmax_row does. A row
+//     left with no valid key (m == -1e9) is uniform 1/T over all T keys, as
+//     in the TPU kernel and its plain reference: a block that holds one
+//     (a vote after pass 1) walks every key tile in pass 2. Tiles whose
+//     every pair is allowed skip the per-score mask. The output goes out
+//     through shared memory as 16-byte stores.
+//   * scalar_kernel (fp32, and bf16 at other head sizes): one block per
+//     (batch row, head, BQ=16 query rows) keeps a BQ × T fp32 score strip in
+//     shared memory (128 KB at T=2048), fills it over every 64-key tile, runs
+//     softmax_row over each whole row and accumulates P·V with scalar fp32
+//     FMAs. fp32 stays off the tensor cores (TF32 would round q, k). Its
+//     masking and softmax live in short_attention.cuh, which the backward
+//     (short_attention_bwd.cu) shares so that it recomputes the same scores
+//     and probabilities.
+// mma_kernel computes what scalar_kernel computes in another summation
+// order: its outputs differ by fp32 rounding before the bf16 cast.
 
-#include <mma.h>
-
+#include "mma_attention.cuh"
 #include "short_attention.cuh"
 
 namespace {
@@ -144,103 +153,234 @@ scalar_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
   }
 }
 
-// rows [r0, r0 + n) of one head (Dh bf16 values each) → shared tile with row
-// stride ld, 16 bytes per load; rows at or past T are zero.
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t row0, int64_t HD,
-                                          int r0, int n, int T, int Dh, int ld, int tid) {
-  const int nvec = Dh / 8;
-  for (int e = tid; e < n * nvec; e += THREADS) {
-    const int r = e / nvec, c = (e - r * nvec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) val = *reinterpret_cast<const uint4*>(src + (row0 + r0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+// One key tile's mask inputs in shared memory, loaded once per tile with
+// its K (and V) rows: key padding, and for the general variant segment ids
+// and ALiBi key positions. Keys at or past T load as 0: padded.
+struct KeyAux {
+  int km[MMA_TILE], seg[MMA_TILE], kpos[MMA_TILE];
+};
+
+template <bool GENERAL>
+__device__ __forceinline__ void load_aux_async(KeyAux* a, const Mask& m, int64_t row0, int k0,
+                                               int T) {
+  const int j = threadIdx.x % MMA_TILE;
+  const bool ok = k0 + j < T;
+  const int64_t at = row0 + (ok ? k0 + j : 0);
+  if (threadIdx.x < MMA_TILE) {
+    cp_async4(a->km + j, m.key_mask + at, ok);
+  } else if (GENERAL) {
+    if (m.segments != nullptr) cp_async4(a->seg + j, m.segments + at, ok);
+    if (m.kpos != nullptr) cp_async4(a->kpos + j, m.kpos + at, ok);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            bf16* __restrict__ out, Mask mask, int T, int H, int Dh, int Tpad, int s_floats) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = Dh + 8;  // bf16 tile row stride: 16-byte rows, staggered banks
-  float* s = reinterpret_cast<float*>(smem_raw);  // BQ x Tpad fp32 scores; later P·V partials
-  bf16* p = reinterpret_cast<bf16*>(s + s_floats);  // BQ x Tpad bf16 probabilities
-  bf16* qs = p + BQ * Tpad;                         // BQ x ld
-  bf16* kv = qs + BQ * ld;                          // BK x ld: the K tile, later the V tile
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int64_t row0 = (int64_t)blockIdx.z * T;
-  const int64_t HD = (int64_t)H * Dh;
-
-  load_rows(qs, q + h * Dh, row0, HD, q0, BQ, T, Dh, ld, tid);
-
-  // Scores: warp w < BK/16 computes the 16 x 16 tile of keys k0 + 16w.
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();  // query tile written / previous key tile consumed
-    load_rows(kv, k + h * Dh, row0, HD, k0, BK, T, Dh, ld, tid);
-    __syncthreads();
-    if (warp < BK / 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int d = 0; d < Dh; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;  // Kᵀ
-        wmma::load_matrix_sync(a, qs + d, ld);
-        wmma::load_matrix_sync(b, kv + warp * 16 * ld + d, ld);
-        wmma::mma_sync(acc, a, b, acc);
+// S of a warp's 16 rows and one 64-key tile at k0 → K1's masked scores
+// (masked_score of short_attention.cuh: × scale, exact when it is 1; ALiBi
+// with two roundings; where(mask, s, -1e9)) from the tile's shared mask
+// inputs. A key at or past T is padded, so masked; the caller corrects l
+// for it. MASK = false: every pair is known to be allowed. GENERAL = false:
+// no ALiBi and no segments. qi[r], segq[r]: the query position and segment
+// id of rows lane/4 and lane/4 + 8. Returns the rows' maxima.
+template <bool MASK, bool GENERAL>
+__device__ __forceinline__ float2 k1_scores(float (&s)[8][4], const Mask& m, float slope,
+                                            const int (&qi)[2], const int (&segq)[2], int k0,
+                                            const KeyAux* a, int lane) {
+  const int c0 = (lane & 3) * 2;  // the lane's first column in each 8-key n-tile
+  float ab[8][2];                  // per column: ALiBi term, liveness, segment id
+  bool live[8][2];
+  int sk[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kk = n * 8 + c0 + j;
+      if (GENERAL && m.use_alibi)  // two roundings, as the plain version: no FMA
+        ab[n][j] = __fmul_rn(slope, (float)(m.kpos ? a->kpos[kk] : k0 + kk));
+      if (MASK) live[n][j] = a->km[kk] > 0;
+      if (MASK && GENERAL && m.segments != nullptr) sk[n][j] = a->seg[kk];
+    }
+  }
+  // causal ∧ window as column bounds: allowed iff lo[r] < column - c0 ≤ hi[r]
+  int hi[2], lo[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    hi[r] = qi[r] - k0 - c0;
+    lo[r] = m.window > 0 ? qi[r] - m.window - k0 - c0 : -(1 << 30);
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, j = e & 1, c = n * 8 + j;
+      float x = s[n][e] * m.scale;
+      if (GENERAL && m.use_alibi) x = __fadd_rn(x, ab[n][j]);
+      if (MASK) {
+        bool ok = live[n][j] & (c <= hi[r]) & (c > lo[r]);
+        if (GENERAL && m.segments != nullptr) ok = ok & (sk[n][j] == segq[r]);
+        x = ok ? x : NEG;
       }
-      wmma::store_matrix_sync(s + k0 + warp * 16, acc, Tpad, wmma::mem_row_major);
-    }
-    __syncthreads();
-    mask_tile(s, mask, Tpad, k0, q0, row0, h, T, tid);
-  }
-  __syncthreads();
-
-  // Softmax, one warp per row; P rounded to bf16, zero past T (V is zero there too).
-  for (int r = warp; r < BQ; r += WARPS) {
-    float* sr = s + r * Tpad;
-    bf16* pr = p + r * Tpad;
-    softmax_row(sr, 0, T, T, lane);
-    for (int j = lane; j < Tpad; j += 32) pr[j] = __float2bfloat16(j < T ? sr[j] : 0.f);
-  }
-
-  // O = P·V: warp w owns output column tile w % nct and, when the Dh/16 column
-  // tiles leave warps spare, the 16-key steps ≡ w / nct (mod nsplit).
-  const int nct = Dh / 16, nsplit = WARPS / nct;
-  const int ct = warp % nct, sp = warp / nct;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-  wmma::fill_fragment(o, 0.f);
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();  // probabilities final / previous V tile consumed
-    load_rows(kv, v + h * Dh, row0, HD, k0, BK, T, Dh, ld, tid);
-    __syncthreads();
-    for (int ks = sp; ks < BK / 16; ks += nsplit) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, p + k0 + ks * 16, Tpad);
-      wmma::load_matrix_sync(b, kv + ks * 16 * ld + ct * 16, ld);
-      wmma::mma_sync(o, a, b, o);
+      s[n][e] = x;
+      mx[r] = fmaxf(mx[r], x);
     }
   }
-  __syncthreads();  // the fp32 score strip is free: reuse it for the partial sums
-  wmma::store_matrix_sync(s + warp * 256, o, 16, wmma::mem_row_major);
-  __syncthreads();
-  bf16* oh = out + h * Dh;
-  for (int e = tid; e < BQ * Dh; e += THREADS) {
-    const int r = e / Dh, d = e - r * Dh;
-    const int qi = q0 + r;
-    if (qi >= T) continue;
-    const int c = d / 16, dc = d - c * 16;
-    float a = 0.f;
-    for (int j = 0; j < nsplit; ++j) a += s[(j * nct + c) * 256 + r * 16 + dc];
-    oh[(row0 + qi) * HD + d] = __float2bfloat16(a);
-  }
+  return make_float2(quad_max(mx[0]), quad_max(mx[1]));
 }
 
-bool wmma_ok(const void* q, const void* k, const void* v, const void* out, int Dh) {
+// bf16 K1 on the tensor cores (D = Dh in {16, 32, 64, 128}); see the note at
+// the top. One block per (64 query rows, head, batch row), longest rows
+// first; warp w owns rows 16w .. 16w + 15 of the tile. GENERAL: ALiBi or
+// segments (the encode path has neither).
+template <int D, bool GENERAL>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 && !GENERAL ? 4 : 2)
+mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           bf16* __restrict__ out, const Mask mask, int T, int H) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // the Q tile, later the output staging tile
+  bf16* Ks = Qs + MMA_TILE * LD;                 // two stages
+  bf16* Vs = Ks + 2 * MMA_TILE * LD;             // two stages
+  KeyAux* aux = reinterpret_cast<KeyAux*>(Vs + 2 * MMA_TILE * LD);  // two stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const bf16* qh = q + row0 * HD + h * D;
+  const bf16* kh = k + row0 * HD + h * D;
+  const bf16* vh = v + row0 * HD + h * D;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  int qi[2], segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    segq[r] = GENERAL && mask.segments != nullptr && qi[r] < T ? mask.segments[row0 + qi[r]] : 0;
+  }
+
+  // The key tiles that hold a causal, in-window pair for some row of the
+  // block; every other key is masked for every row.
+  const int q_last = min(q0 + MMA_TILE - 1, T - 1);
+  const int kt_lo = mask.window > 0 ? max(0, q0 - mask.window + 1) / MMA_TILE : 0;
+  const int kt_hi = q_last / MMA_TILE;
+
+  auto issue = [&](int kt, int stage, bool with_v) {
+    load_tile_async<D>(Ks + stage * MMA_TILE * LD, kh, HD, kt * MMA_TILE, T);
+    if (with_v) load_tile_async<D>(Vs + stage * MMA_TILE * LD, vh, HD, kt * MMA_TILE, T);
+    load_aux_async<GENERAL>(aux + stage, mask, row0, kt * MMA_TILE, T);
+  };
+  // whether every pair of the block and tile kt is allowed (no per-score mask)
+  auto all_allowed = [&](int kt, const KeyAux* a) {
+    const int k0 = kt * MMA_TILE;
+    const bool in_range = k0 + MMA_TILE - 1 <= q0 &&
+                          (mask.window <= 0 || k0 > q0 + MMA_TILE - 1 - mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    return __all_sync(0xffffffffu, in_range & (a->km[lane] > 0) & (a->km[lane + 32] > 0));
+  };
+
+  // Pass 1: S = Q·Kᵀ, masked, and the running max m and sum l of each row.
+  uint32_t qf[D / 16][4];
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  load_tile_async<D>(Qs, qh, HD, q0, T);
+  issue(kt_lo, 0, false);
+  cp_async_commit();
+  for (int kt = kt_lo, i = 0; kt <= kt_hi; ++kt, ++i) {
+    // the next tile; during the last, pass 2's first (K and V of kt_lo)
+    issue(kt < kt_hi ? kt + 1 : kt_lo, (i + 1) & 1, kt == kt_hi);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and at i = 0 the Q tile) has landed for every thread
+    if (i == 0) load_a_frags<D>(qf, Qs + warp * 16 * LD, lane);
+    const KeyAux* a = aux + (i & 1);
+    float s[8][4];
+    qk_tile<D>(s, qf, Ks + (i & 1) * MMA_TILE * LD, lane);
+    const float2 mx =
+        all_allowed(kt, a)
+            ? k1_scores<false, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane)
+            : k1_scores<true, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane);
+    const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[e >> 1] += __expf(s[n][e] - m_new[e >> 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * expf(m[r] - m_new[r]) + quad_sum(sum[r]);
+      m[r] = m_new[r];
+    }
+    __syncthreads();  // stage i & 1 consumed before the next iteration refills it
+  }
+  // Every key pass 1 did not see counts as masked, expf(-1e9 − m) each, as
+  // softmax_row counts the entries it does not hold (1 for a row with no
+  // valid key, else 0); the padding past T that it saw does not count.
+  const int n_seen = (kt_hi + 1 - kt_lo) * MMA_TILE;
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += (float)(T - n_seen) * expf(NEG - m[r]);
+    inv_l[r] = 1.f / l[r];
+  }
+
+  // A row with no valid key among the visited ones is uniform 1/T over all T
+  // keys: a block that holds one walks every key tile in pass 2.
+  const bool dead = (qi[0] < T && m[0] == NEG) || (qi[1] < T && m[1] == NEG);
+  const bool walk_all = __syncthreads_or(dead);
+  const int lo = walk_all ? 0 : kt_lo, hi = walk_all ? (T - 1) / MMA_TILE : kt_hi;
+
+  // Pass 2: S again, p = bf16(exp(s − m) / l), O += P·V in fp32 (a padded
+  // key's V row is zero). Its first tile is in flight in stage s0 since pass
+  // 1's last iteration.
+  const int s0 = (kt_hi - kt_lo + 1) & 1;
+  if (lo != kt_lo) {  // a window-pruned block walks every tile: replace that tile
+    cp_async_wait<0>();
+    issue(lo, s0, true);
+    cp_async_commit();
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+    const int stage = (s0 + i) & 1;
+    if (kt < hi) issue(kt + 1, stage ^ 1, true);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const KeyAux* a = aux + stage;
+    float s[8][4];
+    qk_tile<D>(s, qf, Ks + stage * MMA_TILE * LD, lane);
+    if (all_allowed(kt, a))
+      k1_scores<false, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane);
+    else
+      k1_scores<true, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] - m[e >> 1]) * inv_l[e >> 1];
+    uint32_t pf[4][4];
+    p_frags(pf, s);
+    pv_tile<D>(o, pf, Vs + stage * MMA_TILE * LD, lane);
+    __syncthreads();
+  }
+
+  // Epilogue: O → bf16 through the (free) Q tile, 16-byte stores of rows < T.
+  stage_rows<D>(Qs + warp * 16 * LD, o, 1.f, 1.f, lane);
+  __syncthreads();
+  store_tile<D>(out + row0 * HD + h * D, HD, Qs, q0, T);
+}
+
+template <int D>
+cudaError_t launch_mma(dim3 grid, cudaStream_t st, const bf16* q, const bf16* k, const bf16* v,
+                       bf16* out, const Mask& mask, int T, int H) {
+  const size_t smem = mma_tiles_bytes<D>() + 2 * sizeof(KeyAux);
+  const bool general = mask.use_alibi || mask.segments != nullptr;
+  auto kernel = general ? mma_kernel<D, true> : mma_kernel<D, false>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, MMA_THREADS, smem, st>>>(q, k, v, out, mask, T, H);
+  return cudaGetLastError();
+}
+
+bool mma_ok(const void* q, const void* k, const void* v, const void* out, int Dh) {
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
   return (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128) && ptrs % 16 == 0;
 }
@@ -264,15 +404,17 @@ extern "C" int sgpt_short_attention_fwd(const void* q, const void* k, const void
   const int Tpad = (T + BK - 1) / BK * BK;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   cudaError_t err;
-  if (is_bf16 && wmma_ok(q, k, v, out, Dh)) {
-    const int s_floats = BQ * Tpad > WARPS * 256 ? BQ * Tpad : WARPS * 256;
-    const size_t smem = sizeof(float) * s_floats +
-                        sizeof(bf16) * ((size_t)BQ * Tpad + (size_t)(BQ + BK) * (Dh + 8));
-    if ((err = set_smem(wmma_kernel, smem)) != cudaSuccess) return (int)err;
-    wmma_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), mask, T, H, Dh, Tpad, s_floats);
-    return (int)cudaGetLastError();
+  if (is_bf16 && mma_ok(q, k, v, out, Dh)) {
+    const dim3 mgrid((T + MMA_TILE - 1) / MMA_TILE, H, B);
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v);
+    bf16* ob = static_cast<bf16*>(out);
+    switch (Dh) {
+      case 16: return (int)launch_mma<16>(mgrid, st, qb, kb, vb, ob, mask, T, H);
+      case 32: return (int)launch_mma<32>(mgrid, st, qb, kb, vb, ob, mask, T, H);
+      case 64: return (int)launch_mma<64>(mgrid, st, qb, kb, vb, ob, mask, T, H);
+      default: return (int)launch_mma<128>(mgrid, st, qb, kb, vb, ob, mask, T, H);
+    }
   }
   const size_t smem =
       sizeof(float) * ((size_t)BQ * Dh + (size_t)BK * (Dh + 1) + (size_t)BQ * Tpad);

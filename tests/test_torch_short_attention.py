@@ -87,6 +87,80 @@ def test_fully_masked_rows_are_uniform():
                                atol=ATOL)
 
 
+TILE = 64  # K1's query rows per block and keys per tile on the card
+
+
+def _visit_rule(q2, k2, v2, key_mask, slopes, *, scale, window, H, use_alibi,
+                segments=None, positions=None):
+    """K1's walk on the card, in plain PyTorch: per 64-row query tile, pass 1
+    takes the row max m and sum l over the key tiles that hold a causal,
+    in-window pair for the tile, plus exp(-1e9 − m) for each pruned key;
+    a tile with a row whose visited keys are all masked (m == -1e9) walks
+    every key in pass 2, the others only the visited tiles; p = exp(s − m)
+    / l, cast to the input dtype, then P·V. Returns the output and the
+    numbers of pruned keys and of tiles that walked every key."""
+    B, T, HD = q2.shape
+    s, _ = sa._scores(q2, k2, key_mask, slopes, scale=scale, window=window, H=H,
+                      use_alibi=use_alibi, segments=segments, positions=positions)
+    v = v2.reshape(B, T, H, HD // H).permute(0, 2, 1, 3).float()
+    out = torch.zeros(B, H, T, HD // H)
+    pruned = walked_all = 0
+    for q0 in range(0, T, TILE):
+        rows = slice(q0, min(q0 + TILE, T))
+        lo = max(0, q0 - window + 1) // TILE * TILE if window > 0 else 0
+        hi = min(T, (min(q0 + TILE - 1, T - 1) // TILE + 1) * TILE)
+        st = s[:, :, rows]
+        m = torch.clamp(st[..., lo:hi].amax(-1, keepdim=True), min=sa.NEG)
+        n_pruned = T - (hi - lo)
+        l = torch.exp(st[..., lo:hi] - m).sum(-1, keepdim=True) + n_pruned * torch.exp(sa.NEG - m)
+        dead = (m == sa.NEG).flatten(2).any(-1)[..., None, None]  # per (batch row, head)
+        keys = torch.zeros(T, dtype=torch.bool)
+        keys[lo:hi] = True
+        visit = dead | keys
+        p = torch.where(visit, torch.exp(st - m) / l, torch.zeros(()))
+        out[:, :, rows] = torch.einsum("bhqk,bhkd->bhqd", p.to(q2.dtype).float(), v)
+        pruned += n_pruned
+        walked_all += int(dead.sum())
+    return out.permute(0, 2, 1, 3).reshape(B, T, HD).to(q2.dtype), pruned, walked_all
+
+
+VISIT_CASES = {  # name: (T, scale, window, pad_at, alibi, segments)
+    "causal-T130": (130, 1.0, 0, 100, False, False),
+    "causal-T200-scale": (200, 0.25, 0, None, False, False),
+    "window16-T200-padded": (200, 1.0, 16, 100, False, False),      # rows 116.. fully masked
+    "window256-T300-padded": (300, 1.0, 256, 30, False, False),     # rows 286.. fully masked
+    "segments-T150": (150, 0.25, 0, 140, False, True),
+    "alibi-positions-window16-T190": (190, 1.0, 16, 170, True, False),
+    "segments-alibi-window16-T260": (260, 1.0, 16, 200, True, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VISIT_CASES))
+def test_k1_visit_rule_changes_no_value(name):
+    """The CPU witness that K1's pruning on the card changes no output:
+    restricting each 64-row tile to the key tiles it visits, counting the
+    pruned keys analytically and walking every key for a tile with a fully
+    masked row gives `short_attention_reference` in every row, fully masked
+    ones included."""
+    T, scale, window, pad_at, alibi, segments = VISIT_CASES[name]
+    B, H, Dh = 2, 2, 16
+    q, k, v, km, slopes, seg, pos = _inputs(T + window, B, T, H, Dh, pad_at, segments, alibi)
+    tt = (lambda a: None if a is None else torch.from_numpy(a))
+    kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, segments=tt(seg),
+              positions=tt(pos))
+    args = (tt(q), tt(k), tt(v), tt(km), tt(slopes))
+    want = sa.short_attention_reference(*args, **kw)
+    got, pruned, walked_all = _visit_rule(*args, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+    assert pruned > 0  # the rule does prune: T spans more than one tile
+    if "padded" in name:  # the window leaves the padded tail with no valid key
+        assert walked_all > 0
+        dead = pad_at + window
+        np.testing.assert_allclose(got[-1, dead:].numpy(),
+                                   np.broadcast_to(v[-1].mean(0), (T - dead, H * Dh)),
+                                   atol=ATOL)
+
+
 def test_cpu_tensor_takes_plain_version_without_counting():
     q, k, v, km, _, _, _ = _inputs(1, 2, 24, 2, 8)
     before = sa.launches
