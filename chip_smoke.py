@@ -12,7 +12,8 @@ Phases, each of which asserts; any failure exits non-zero:
                version, same variants, with a random output gradient
   4. slice   — bulk encode with full-width GPT-Neo-125M (random weights from a
                seed, bf16) through `EmbeddingEngine`, documents and queries;
-               the kernel's launch count must be 12 × the number of batches
+               the kernel's launch count must be 12 × the number of batches;
+               one batch of 64 at T=300 under torch.profiler
   5. parity  — the same weights in fp32 on the card (kernel) against fp32 on
                the CPU (plain path), and bf16-card against fp32-CPU cosines
   6. mips    — the streaming MIPS top-k kernel (K5) against its plain
