@@ -79,8 +79,9 @@ With `--parent DIR` (another checkout of this repo, e.g. the parent commit
 unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
 K3, K4a and K4b from both builds in turns (parent, change, change, parent):
-phase `ab`. K2, K4a, K4b and the fp32 paths of K1 and K3 must give the
-parent's outputs bit for bit.
+phase `ab`. K1's bf16 path, K2, K3, K4a and K4b must give the parent's
+outputs bit for bit; K1's fp32 path (redesigned) the parent's within the
+fp32 tolerance, each build's error against an fp64 evaluation logged.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -90,6 +91,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -103,7 +105,9 @@ FP32_ATOL, FP32_RTOL = 1e-5, 1e-5   # fp32, TF32 off: summation order only
 # the card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}  # tensor cores; fp32 on the CUDA cores
+# tensor cores (bf16; TF32, which K1's fp32 path issues three of for each fp32
+# product, 3xTF32); fp32 on the CUDA cores
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 
 T0 = time.perf_counter()
@@ -169,16 +173,17 @@ def kernels_of(lib):
 def phase_ab(torch, sa, fa, parent_lib, this_lib):
     """K1, K2, K3, K4a and K4b built from the parent checkout and from this
     tree, timed in one process on one card in turns (parent, change,
-    change, parent) at the main paths' shapes. K2, K4a, K4b, and the fp32
-    paths of K1 and K3, must give the parent's outputs bit for bit; the
-    bf16 K1 and K3 (redesigned) within the bf16 tolerance."""
+    change, parent) at the main paths' shapes. K1 bf16, K2, K3, K4a and
+    K4b must give the parent's outputs bit for bit; K1 fp32 (redesigned)
+    within the fp32 tolerance of the parent's, with both builds' errors
+    against an fp64 evaluation of K1's formula logged."""
     rng = np.random.default_rng(SEED + 7)
     cells = {}
 
     def short(B, dtype, window, bwd=False):
         args, _ = attention_inputs(torch, rng, B, 300, 12, 64, dtype)
-        if not bwd:
-            return lambda: sa.short_attention(*args, 1.0, window, 12, False)
+        if not bwd:  # a partial: the K1 fp32 check reads its arguments
+            return functools.partial(sa.short_attention, *args, 1.0, window, 12, False)
         g = torch.from_numpy(rng.normal(0.0, 1.0, (B, 300, 768)).astype(np.float32)).to(
             "cuda", dtype)
         return lambda: sa.short_attention_bwd(*args, g, scale=1.0, window=window, H=12,
@@ -203,13 +208,14 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
         return run
 
     runs = [  # name, function, whether the output must equal the parent's bit for bit
-        ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), False),
-        ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), False),
-        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), True),
+        ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), True),
+        ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), True),
+        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), False),
+        ("K1 fp32 B=32 T=300 window=256", short(32, torch.float32, 256), False),
         ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), True),
         ("K2 bf16 B=32 T=300 window=0", short(32, torch.bfloat16, 0, bwd=True), True),
-        ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), False),
-        ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), False),
+        ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), True),
+        ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), True),
         ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), True),
         ("K4a fp32 B=8 T=2048 window=0", k4(fa._launch_dq, bwd["grads"][:1]), True),
         ("K4b fp32 B=8 T=2048 window=0", k4(fa._launch_dkv, bwd["grads"][1:]), True),
@@ -224,9 +230,14 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
         diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
         if exact:
             assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
-        else:
-            assert diff <= BF16_ATOL + BF16_RTOL * max(t.abs().max().item()
-                                                       for t in outs["parent"]), (name, diff)
+        else:  # K1 fp32: the fp32 gate against the parent, and both against fp64
+            (a,), (b,) = outs["parent"], outs["change"]
+            assert ((a - b).abs() <= FP32_ATOL + FP32_RTOL * a.abs()).all(), (name, diff)
+            ref = k1_fp64(torch, fn.args[:5], fn.args[6])
+            log(f"ab {name}: max |out - fp64 evaluation| parent "
+                f"{(a.double() - ref).abs().max().item():.3e}, change "
+                f"{(b.double() - ref).abs().max().item():.3e}")
+            del ref
         times = []
         for lib in (parent_lib, this_lib, this_lib, parent_lib):
             with kernels_of(lib):
@@ -269,6 +280,20 @@ def sdpa_mask(torch, key_mask, window: int):
     if window > 0:
         m = m & (i[None, :] > i[:, None] - window)
     return m[None, None] & (key_mask > 0)[:, None, None, :]
+
+
+def k1_fp64(torch, args, window: int, scale: float = 1.0):
+    """K1's formula (no ALiBi, no segments) evaluated in fp64 on the card:
+    the yardstick of K1's fp32 error (the plain version evaluates it in
+    fp32). args: (q2, k2, v2, key_mask, slopes) with H = 12."""
+    q2, k2, v2, km, _ = args
+    B, T, HD = q2.shape
+    q, k, v = (t.reshape(B, T, 12, HD // 12).double() for t in (q2, k2, v2))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = torch.where(sdpa_mask(torch, km, window), s, torch.full((), -1e9, dtype=s.dtype,
+                                                                  device=s.device))
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    return o.reshape(B, T, HD)
 
 
 def heads(t, H):
@@ -377,32 +402,42 @@ def phase_kernel(torch, sa, rng):
             f"boolean mask) {lib:.4f} ms, bound {times[window][3]:.4f} ms "
             f"({times[window][4]}: {nbytes} bytes, {ops} operations) "
             f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
-    # the train slice's shape: fp32, B=32
-    args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, torch.float32)
+    # the train slice's shape: fp32, B=32; 3xTF32 products on the tensor cores
+    for window in (0, 256):
+        args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, torch.float32)
 
-    def kernel32():
-        return sa.short_attention(*args, 1.0, 0, 12, False)
+        def kernel32():
+            return sa.short_attention(*args, 1.0, window, 12, False)
 
-    def plain32():
-        return sa.short_attention_reference(*args, scale=1.0, window=0, H=12, use_alibi=False)
+        def plain32():
+            return sa.short_attention_reference(*args, scale=1.0, window=window, H=12,
+                                                use_alibi=False)
 
-    q, k, v, km, _ = args
-    mask = sdpa_mask(torch, km, 0)
-    qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+        q, k, v, km, _ = args
+        mask = sdpa_mask(torch, km, window)
+        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
 
-    def library32():  # fp32 SDPA, TF32 off
-        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                                scale=1.0)
+        def library32():  # fp32 SDPA, TF32 off
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                    scale=1.0)
 
-    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain32, kernel32, kernel32, plain32))
-    lib = cuda_ms(torch, library32)
-    nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
-    ops = 4 * 64 * 12 * attention_pairs(torch, km, 0)
-    times["fp32"] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, "fp32"))
-    log(f"time K1 B=32 T=300 H=12 Dh=64 fp32 window=0: kernel {times['fp32'][0]:.4f} ms, "
-        f"plain {times['fp32'][1]:.4f} ms, library (SDPA fp32, boolean mask) {lib:.4f} ms, "
-        f"bound {times['fp32'][3]:.4f} ms ({times['fp32'][4]}) (runs: kernel {k1:.4f} "
-        f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
+        p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain32, kernel32, kernel32, plain32))
+        lib = cuda_ms(torch, library32)
+        nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
+        ops = 4 * 64 * 12 * attention_pairs(torch, km, window)
+        key = "fp32" if window == 0 else "fp32_w256"
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, 3 * ops, "tf32"))
+        simt = bound(nbytes, ops, "fp32")
+        ref = k1_fp64(torch, args, window)
+        err64 = (kernel32().double() - ref).abs().max().item()
+        plain64 = (plain32().double() - ref).abs().max().item()
+        del ref
+        log(f"time K1 B=32 T=300 H=12 Dh=64 fp32 window={window}: kernel {times[key][0]:.4f} ms, "
+            f"plain {times[key][1]:.4f} ms, library (SDPA fp32, boolean mask) {lib:.4f} ms, "
+            f"bound {times[key][3]:.4f} ms ({times[key][4]}: {nbytes} bytes, 3 x {ops} TF32 "
+            f"operations at {PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s; on the CUDA cores "
+            f"{simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} "
+            f"{p2:.4f}); max |out - fp64 evaluation|: kernel {err64:.3e}, plain {plain64:.3e}")
     return main_err, times
 
 
@@ -570,8 +605,8 @@ def phase_train(torch, sa, rng, tok):
     seq_per_s = 3 * B / (ms_per_step / 1e3)
     log(f"train: {ms_per_step:.1f} ms/step, {seq_per_s:.1f} seq/s at matmul_precision "
         f"\"default\" (TF32)")
-    prof = profile_step(torch, trainer, batches[0], "train profile, one step (TF32)",
-                        {"K1": K1_KEYS, "K2": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS})
+    families = {"K1": K1_KEYS, "K2": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS}
+    prof = profile_step(torch, trainer, batches[0], "train profile, one step (TF32)", families)
 
     # the same steps in strict fp32 ("highest"), on the same model
     strict = cfg.replace(matmul_precision="highest")
@@ -584,6 +619,10 @@ def phase_train(torch, sa, rng, tok):
     log(f"train: {ms_highest:.1f} ms/step, {3 * B / (ms_highest / 1e3):.1f} seq/s at "
         f"matmul_precision \"highest\" (strict fp32); TF32 takes {ms_per_step / ms_highest:.3f} "
         f"of it")
+    strict_trainer = ContrastiveTrainer(model, strict, tok, tc)
+    strict_trainer._opt, strict_trainer._sched = strict_trainer._build_optimizer(1)
+    prof_highest = profile_step(torch, strict_trainer, batches[0],
+                                "train profile, one step (strict fp32)", families)
 
     # one batch repeated at a constant lr: the loss falls
     const = dataclasses.replace(tc, scheduler="constantlr", log_fn=None)
@@ -611,7 +650,8 @@ def phase_train(torch, sa, rng, tok):
     assert sa.launches == 2 * cfg.num_layers * 3 * n_chunks  # pass 1 (no grad) and pass 2
     return {"ms_per_step": ms_per_step, "seq_per_s": seq_per_s, "peak_gib": peak_gib,
             "ms_per_step_highest": ms_highest, "seq_per_s_highest": 3 * B / (ms_highest / 1e3),
-            "fwd_launches": fwd_launches, "bwd_launches": bwd_launches, **prof}
+            "fwd_launches": fwd_launches, "bwd_launches": bwd_launches, **prof,
+            **{k.replace("profile", "profile_highest", 1): v for k, v in prof_highest.items()}}
 
 
 def phase_train_parity(torch, fa, rng, tok):
@@ -1088,7 +1128,7 @@ def profile_batch(torch, engine, texts, label: str, families: dict) -> dict:
             **{f"profile_{k.split()[0].lower()}_ms": v for k, v in ms.items()}}
 
 
-K1_KEYS = ("mma_kernel", "scalar_kernel")  # K1's kernels (the parent's wmma_kernel too)
+K1_KEYS = ("mma_kernel", "tf32_kernel", "scalar_kernel")  # K1's kernels (and wmma_kernel)
 
 
 def long_texts(rng):
@@ -1679,6 +1719,10 @@ def main() -> int:
         "ms_fp32_b32": times["fp32"][0], "plain_ms_fp32_b32": times["fp32"][1],
         "library_ms_fp32_b32": times["fp32"][2], "bound_ms_fp32_b32": times["fp32"][3],
         "bound_by_fp32_b32": times["fp32"][4],
+        "ms_fp32_b32_w256": times["fp32_w256"][0], "plain_ms_fp32_b32_w256": times["fp32_w256"][1],
+        "library_ms_fp32_b32_w256": times["fp32_w256"][2],
+        "bound_ms_fp32_b32_w256": times["fp32_w256"][3],
+        "parent_ms_fp32_b32_w256": parent_ms("K1 fp32 B=32 T=300 window=256"),
         "parent_ms": parent_ms("K1 bf16 B=64 T=300 window=0"),
         "parent_ms_local256": parent_ms("K1 bf16 B=64 T=300 window=256"),
         "parent_ms_fp32_b32": parent_ms("K1 fp32 B=32 T=300 window=0"),

@@ -33,18 +33,30 @@
 //     (a vote after pass 1) walks every key tile in pass 2. Tiles whose
 //     every pair is allowed skip the per-score mask. The output goes out
 //     through shared memory as 16-byte stores.
-//   * scalar_kernel (fp32, and bf16 at other head sizes): one block per
-//     (batch row, head, BQ=16 query rows) keeps a BQ × T fp32 score strip in
-//     shared memory (128 KB at T=2048), fills it over every 64-key tile, runs
-//     softmax_row over each whole row and accumulates P·V with scalar fp32
-//     FMAs. fp32 stays off the tensor cores (TF32 would round q, k). Its
-//     masking and softmax live in short_attention.cuh, which the backward
-//     (short_attention_bwd.cu) shares so that it recomputes the same scores
-//     and probabilities.
-// mma_kernel computes what scalar_kernel computes in another summation
-// order: its outputs differ by fp32 rounding before the bf16 cast.
+//   * tf32_kernel<Dh> (fp32, the same head sizes): mma_kernel's blocks,
+//     tile walk, vote and tile skip with fp32 tiles, every product in
+//     3xTF32 (mma_tf32.cuh: each operand splits into a TF32 big and small
+//     part, and three m16n8k8 TF32 products keep about 22 significand bits,
+//     so the output stays within 1e-5 of the exact fp32 plain version, where
+//     one TF32 product would not), and one pass with an online softmax in
+//     place of two: P is not rounded (the input dtype is fp32), so the
+//     final m and l are not needed before P·V. At the train shape (B=32,
+//     T=300, H=12, Dh=64, fp32) q, k, v and out are 118 MB, 0.035 ms at
+//     3.35 TB/s, and the causal pairs' three TF32 products ~0.026 ms at 495
+//     TFLOP/s; the mma.sync instructions and the splits bound it in practice.
+//   * scalar_kernel (other head sizes, or pointers not 16-byte aligned): one
+//     block per (batch row, head, BQ=16 query rows) keeps a BQ × T fp32
+//     score strip in shared memory (128 KB at T=2048), fills it over every
+//     64-key tile, runs softmax_row over each whole row and accumulates P·V
+//     with scalar fp32 FMAs. Its masking and softmax live in
+//     short_attention.cuh, which the backward (short_attention_bwd.cu)
+//     shares so that it recomputes the same scores and probabilities.
+// mma_kernel and tf32_kernel compute what scalar_kernel computes in another
+// summation order: their outputs differ by fp32 rounding (before the bf16
+// cast, in mma_kernel) and, in tf32_kernel, by the ~2^-22 of 3xTF32.
 
 #include "mma_attention.cuh"
+#include "mma_tf32.cuh"
 #include "short_attention.cuh"
 
 namespace {
@@ -368,16 +380,199 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   store_tile<D>(out + row0 * HD + h * D, HD, Qs, q0, T);
 }
 
-template <int D>
-cudaError_t launch_mma(dim3 grid, cudaStream_t st, const bf16* q, const bf16* k, const bf16* v,
-                       bf16* out, const Mask& mask, int T, int H) {
-  const size_t smem = mma_tiles_bytes<D>() + 2 * sizeof(KeyAux);
-  const bool general = mask.use_alibi || mask.segments != nullptr;
-  auto kernel = general ? mma_kernel<D, true> : mma_kernel<D, false>;
+// fp32 K1 on the tensor cores in 3xTF32 (D = Dh in {16, 32, 64, 128}):
+// mma_kernel's blocks, causal/window tile walk, vote and tile skip, with fp32
+// tiles of row stride D + 4 and the products of mma_tf32.cuh. Three TF32
+// products for each fp32 one make the tensor-core instructions the cost, so
+// the walk is a single pass with an online softmax: a tile's scores are
+// computed once, O and l are rescaled by exp(m_old − m_new) when a row's max
+// rises, and O is divided by l at the end. mma_kernel takes two passes
+// because it rounds p to bf16, which needs the final m and l; P here stays
+// fp32 (the input dtype), and rescaling changes only fp32 rounding. A masked
+// key contributes exp(-1e9 − m) to l and P·V, which is 0 once a row has a
+// valid key (an earlier tile's weights are then rescaled by exactly 0);
+// the keys the walk did not visit are added to l analytically, the padding
+// past T that it did visit is taken off again; a block with a row left with
+// no valid key walks the remaining tiles too, whose weights are 1 for that
+// row and exactly 0 for the others, so such a row is uniform 1/T over all T
+// keys, as softmax_row makes it, and the other rows keep their bits.
+// Splitting an operand costs five instructions, so each K and V value is
+// split once for the block, by the thread that copied it, as soon as it
+// lands (split_own_chunks): the big part in place, the small part into a
+// tile of its own. K streams through two stages, V through one (loaded
+// during the tile's scores, waited for just before P·V); with Q that is 104
+// KB at D = 64, two blocks an SM. Each warp splits its Q fragments from the
+// shared Q tile at every k-step: holding them split in registers (D
+// registers) measured 6 % slower at D = 64.
+template <int D, bool GENERAL>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
+tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ out, const Mask mask, int T,
+            int H) {
+  constexpr int LD = D + 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // the Q tile, later the output staging tile
+  float* Ks = Qs + MMA_TILE * LD;                  // two stages (big parts once split)
+  float* Vs = Ks + 2 * MMA_TILE * LD;              // one stage (big parts once split)
+  float* Ksm = Vs + MMA_TILE * LD;                 // small parts of the current K tile
+  float* Vsm = Ksm + MMA_TILE * LD;                // small parts of the current V tile
+  KeyAux* aux = reinterpret_cast<KeyAux*>(Vsm + MMA_TILE * LD);  // two stages, with K's
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const float* qh = q + row0 * HD + h * D;
+  const float* kh = k + row0 * HD + h * D;
+  const float* vh = v + row0 * HD + h * D;
+  const float* qrows = Qs + warp * 16 * LD;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  int qi[2], segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    segq[r] = GENERAL && mask.segments != nullptr && qi[r] < T ? mask.segments[row0 + qi[r]] : 0;
+  }
+
+  const int q_last = min(q0 + MMA_TILE - 1, T - 1);
+  const int kt_lo = mask.window > 0 ? max(0, q0 - mask.window + 1) / MMA_TILE : 0;
+  const int kt_hi = q_last / MMA_TILE;
+
+  auto issue_k = [&](int kt, int stage) {
+    load_tile_async_f32<D>(Ks + stage * MMA_TILE * LD, kh, HD, kt * MMA_TILE, T);
+    load_aux_async<GENERAL>(aux + stage, mask, row0, kt * MMA_TILE, T);
+  };
+  auto issue_v = [&](int kt) { load_tile_async_f32<D>(Vs, vh, HD, kt * MMA_TILE, T); };
+  auto all_allowed = [&](int kt, const KeyAux* a) {
+    const int k0 = kt * MMA_TILE;
+    const bool in_range = k0 + MMA_TILE - 1 <= q0 &&
+                          (mask.window <= 0 || k0 > q0 + MMA_TILE - 1 - mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    return __all_sync(0xffffffffu, in_range & (a->km[lane] > 0) & (a->km[lane + 32] > 0));
+  };
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  // The walk, in up to three parts: the key tiles that hold a causal,
+  // in-window pair for some row of the block; then, for a block with a row
+  // left with no valid key, the tiles before and after them. A part's first
+  // tile (K and V) goes in flight as one cp.async group; then the groups,
+  // oldest first, are K of tile kt (issued an iteration ahead), V of kt
+  // (issued after the previous tile's P·V) and K of kt + 1 (issued now).
+  const int last = (T - 1) / MMA_TILE;
+  int n_walked = (kt_hi + 1 - kt_lo) * MMA_TILE;
+  load_tile_async_f32<D>(Qs, qh, HD, q0, T);  // joins the first part's first group
+#pragma unroll 1
+  for (int part = 0; part < 3; ++part) {
+    if (part == 1) {
+      const bool dead = (qi[0] < T && m[0] == NEG) || (qi[1] < T && m[1] == NEG);
+      if (!__syncthreads_or(dead)) break;
+      n_walked = (last + 1) * MMA_TILE;
+    }
+    const int lo = part == 0 ? kt_lo : part == 1 ? 0 : kt_hi + 1;
+    const int hi = part == 0 ? kt_hi : part == 1 ? kt_lo - 1 : last;
+    if (lo > hi) continue;
+    cp_async_wait<0>();
+    issue_k(lo, 0);
+    issue_v(lo);
+    cp_async_commit();
+    for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+      const int stage = i & 1;
+      if (kt < hi) issue_k(kt + 1, stage ^ 1);
+      cp_async_commit();
+      if (i == 0)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<2>();
+      split_own_chunks<D>(Ks + stage * MMA_TILE * LD, Ksm);
+      __syncthreads();  // K of tile kt (and the first time the Q tile) landed and split
+      // S = Q·Kᵀ, masked
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        uint32_t ab[4], as[4];
+        a_frag_3xtf32<D>(ab, as, qrows, d, lane);
+        qk_step_3xtf32<D>(s, ab, as, Ks + stage * MMA_TILE * LD, Ksm, d, lane);
+      }
+      const KeyAux* a = aux + stage;
+      const float2 mx =
+          all_allowed(kt, a)
+              ? k1_scores<false, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane)
+              : k1_scores<true, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane);
+      // the online softmax: P = exp(s − m_new); l and O rescaled to m_new
+      const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+      const float rescale[2] = {expf(m[0] - m_new[0]), expf(m[1] - m_new[1])};
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - m_new[e >> 1]);
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * rescale[r] + quad_sum(sum[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= rescale[e >> 1];
+      cp_async_wait<1>();
+      split_own_chunks<D>(Vs, Vsm);
+      __syncthreads();  // V of tile kt landed and split
+      pv_tile_3xtf32<D>(o, s, Vs, Vsm, lane);
+      __syncthreads();  // V and the K stage consumed
+      if (kt < hi) issue_v(kt + 1);
+      cp_async_commit();
+    }
+  }
+  // Every key the walk did not visit counts as masked, expf(-1e9 − m) each,
+  // as softmax_row counts the entries it does not hold; the padding past T
+  // that it did visit does not count.
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / (l[r] + (float)(T - n_walked) * expf(NEG - m[r]));
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= inv_l[e >> 1];
+
+  // Epilogue: O through the (free) Q tile, 16-byte stores of rows < T.
+  stage_rows_f32<D>(Qs + warp * 16 * LD, o, lane);
+  __syncthreads();
+  store_tile_f32<D>(out + row0 * HD + h * D, HD, Qs, q0, T);
+}
+
+template <typename scalar_t, typename KernelT>
+cudaError_t launch_tiles(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st,
+                         const void* q, const void* k, const void* v, void* out,
+                         const Mask& mask, int T, int H) {
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, MMA_THREADS, smem, st>>>(q, k, v, out, mask, T, H);
+  kernel<<<grid, MMA_THREADS, smem, st>>>(
+      static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
+      static_cast<const scalar_t*>(v), static_cast<scalar_t*>(out), mask, T, H);
   return cudaGetLastError();
+}
+
+// K1 on the tensor cores: mma_kernel (bf16) or tf32_kernel (fp32)
+template <int D>
+cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v,
+                       void* out, const Mask& mask, int T, int H, bool is_bf16) {
+  const bool general = mask.use_alibi || mask.segments != nullptr;
+  const size_t aux = 2 * sizeof(KeyAux);
+  if (is_bf16)
+    return launch_tiles<bf16>(general ? mma_kernel<D, true> : mma_kernel<D, false>,
+                              mma_tiles_bytes<D>() + aux, grid, st, q, k, v, out, mask, T, H);
+  return launch_tiles<float>(general ? tf32_kernel<D, true> : tf32_kernel<D, false>,
+                             tf32_tiles_bytes<D>() + aux, grid, st, q, k, v, out, mask, T, H);
 }
 
 bool mma_ok(const void* q, const void* k, const void* v, const void* out, int Dh) {
@@ -404,16 +599,13 @@ extern "C" int sgpt_short_attention_fwd(const void* q, const void* k, const void
   const int Tpad = (T + BK - 1) / BK * BK;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   cudaError_t err;
-  if (is_bf16 && mma_ok(q, k, v, out, Dh)) {
+  if (mma_ok(q, k, v, out, Dh)) {
     const dim3 mgrid((T + MMA_TILE - 1) / MMA_TILE, H, B);
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v);
-    bf16* ob = static_cast<bf16*>(out);
     switch (Dh) {
-      case 16: return (int)launch_mma<16>(mgrid, st, qb, kb, vb, ob, mask, T, H);
-      case 32: return (int)launch_mma<32>(mgrid, st, qb, kb, vb, ob, mask, T, H);
-      case 64: return (int)launch_mma<64>(mgrid, st, qb, kb, vb, ob, mask, T, H);
-      default: return (int)launch_mma<128>(mgrid, st, qb, kb, vb, ob, mask, T, H);
+      case 16: return (int)launch_mma<16>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
+      case 32: return (int)launch_mma<32>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
+      case 64: return (int)launch_mma<64>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
+      default: return (int)launch_mma<128>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
     }
   }
   const size_t smem =

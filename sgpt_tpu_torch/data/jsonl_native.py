@@ -21,8 +21,8 @@ Fail-safe by construction: ANY malformed row makes the native parse report
 an error, and `extract_fields` returns None — callers fall back to the
 json.loads loop, so the native path can never produce silently-different
 contents (the same never-silently-wrong rule as tokenization/base.py).
-Compiles on first use (g++ via native/Makefile), same lifecycle as
-evaluation/native.py.
+Compiles on first use (g++ via native/Makefile, into the port's own build
+directory: native_build.py), same lifecycle as evaluation/native.py.
 """
 from __future__ import annotations
 
@@ -30,12 +30,12 @@ import ctypes
 import importlib.util
 import logging
 import os
-import subprocess
 from typing import List, Optional, Sequence, Tuple
+
+from ..native_build import build
 
 logger = logging.getLogger(__name__)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _BACKEND = None          # "pymod" | "ctypes" | None
 _PYMOD = None
 _LIB: Optional[ctypes.CDLL] = None
@@ -54,27 +54,13 @@ class _JResult(ctypes.Structure):
     ]
 
 
-def _build(target: str) -> str:
-    """make the target if missing/stale; returns its path."""
-    so_path = os.path.join(_NATIVE_DIR, target)
-    deps = [os.path.join(_NATIVE_DIR, f)
-            for f in ("jsonl_core.h", "jsonl_fields.cpp", "jsonl_pymod.cpp")]
-    stale = os.path.exists(so_path) and any(
-        os.path.exists(d) and os.path.getmtime(d) > os.path.getmtime(so_path)
-        for d in deps)
-    if not os.path.exists(so_path) or stale:
-        subprocess.run(["make", "-C", _NATIVE_DIR, target, "-B"],
-                       check=True, capture_output=True)
-    return so_path
-
-
 def _load():
     global _BACKEND, _PYMOD, _LIB, _TRIED
     if _TRIED:
         return _BACKEND
     _TRIED = True
     try:  # preferred: the CPython extension
-        so = _build("_jsonl_native.so")
+        so = build("_jsonl_native.so")
         spec = importlib.util.spec_from_file_location("_jsonl_native", so)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
@@ -99,7 +85,7 @@ def _ensure_ctypes() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = _build("libjsonl_fields.so")
+    so = build("libjsonl_fields.so")
     lib = ctypes.CDLL(so)
     lib.jsonl_extract.argtypes = [ctypes.c_char_p,
                                   ctypes.POINTER(ctypes.c_char_p),

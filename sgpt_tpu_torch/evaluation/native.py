@@ -3,9 +3,10 @@
 The port's own copy of `sgpt_tpu/evaluation/native.py`, with the same behaviour: the
 port imports nothing of the JAX package.
 
-Compiles on first use (g++ via native/Makefile) and falls back to the pure-
-Python metrics if unavailable. `evaluate_retrieval_native` mirrors
-metrics.evaluate_retrieval's output; `available()` gates usage.
+Compiles on first use (g++ via native/Makefile, into the port's own build
+directory: native_build.py) and falls back to the pure-Python metrics if
+unavailable. `evaluate_retrieval_native` mirrors metrics.evaluate_retrieval's
+output; `available()` gates usage.
 
 Scores cross the C ABI as float64 (round-2 fix of the r1 float32 tie-break
 caveat): the native ranking is bit-identical to the Python path's, including
@@ -15,15 +16,14 @@ from __future__ import annotations
 
 import ctypes
 import logging
-import os
-import subprocess
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
+from ..native_build import build
+
 logger = logging.getLogger(__name__)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
@@ -33,17 +33,11 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    so_path = os.path.join(_NATIVE_DIR, "libtrec_eval.so")
-    cpp_path = os.path.join(_NATIVE_DIR, "trec_eval.cpp")
     try:
-        stale = (os.path.exists(so_path) and os.path.exists(cpp_path)
-                 and os.path.getmtime(cpp_path) > os.path.getmtime(so_path))
-        if not os.path.exists(so_path) or stale:
-            # a stale .so is worse than none: an ABI change (e.g. the r2
-            # float32→float64 scores) would silently misread every buffer
-            subprocess.run(["make", "-C", _NATIVE_DIR, "-B"], check=True,
-                           capture_output=True)
-        lib = ctypes.CDLL(so_path)
+        # keyed by a hash of the sources: a stale .so is worse than none, as
+        # an ABI change (e.g. the r2 float32→float64 scores) would silently
+        # misread every buffer
+        lib = ctypes.CDLL(build("libtrec_eval.so"))
         lib.evaluate_queries.argtypes = [
             ctypes.c_int32,
             np.ctypeslib.ndpointer(np.int64), np.ctypeslib.ndpointer(np.float64),

@@ -9,7 +9,10 @@ autograd function like the JAX custom VJP: the forward is the kernel of
 PyTorch versions of the same math, which are also the kernels' oracles on
 the card. Without a gradient (`no_grad`, `inference_mode`) it launches K1
 alone. A CUDA tensor never takes a plain version: a kernel launches or the
-call raises.
+call raises. K1 picks its kernel inside the C entry point: at head sizes 16,
+32, 64 and 128 with 16-byte-aligned tensors, `mma_kernel` (bf16) or
+`tf32_kernel` (fp32 in 3xTF32 tensor-core products, within 1e-5 of the
+exact fp32 plain version), else `scalar_kernel`.
 """
 from __future__ import annotations
 

@@ -28,7 +28,8 @@ def cuda():
 @pytest.mark.parametrize("T,Dh,window,alibi,segments", [
     (40, 64, 0, False, False), (77, 64, 16, False, False), (300, 64, 256, True, False),
     (300, 64, 0, False, True), (130, 128, 0, False, False), (33, 16, 8, True, True),
-    (90, 48, 0, False, False)])  # Dh 48: bf16 takes the scalar kernel, not the tensor cores
+    (90, 48, 0, False, False),  # Dh 48: the scalar kernel, not the tensor cores
+    (2048, 64, 256, False, False), (2048, 128, 0, False, True)])  # ALiBi at T=2048: below
 def test_kernel_matches_plain_version(cuda, dtype, atol, T, Dh, window, alibi, segments):
     rng = np.random.default_rng(T + window)
     B, H = 3, 4
@@ -50,6 +51,82 @@ def test_kernel_matches_plain_version(cuda, dtype, atol, T, Dh, window, alibi, s
                                         H=H, use_alibi=alibi, **extra)
     assert got.dtype == dt
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Dh,window,segments", [(128, 0, True), (64, 256, False)])
+def test_fp32_kernel_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plain_version(
+        cuda, Dh, window, segments):
+    """ALiBi at key positions up to 2,047 puts fp32 scores near 10^3, where
+    an fp32 ulp is 6e-5 and a 1e-6 change in q·k flips the rounding of the
+    ALiBi add: the plain version is itself ~9e-5 from an fp64 evaluation of
+    the formula, and any fp32 evaluation that sums q·k in another order than
+    its GEMM lands as far from it (the scalar kernel sums in the GEMM's
+    order and matches it bit for bit). The tensor-core kernel is held to
+    the exact formula instead: no farther from fp64 than the plain version,
+    plus the fp32 gate's 1e-5."""
+    T, H, B, scale = 2048, 4, 3, 0.125
+    rng = np.random.default_rng(T + window)
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    km = np.ones((B, T), np.int32)
+    km[-1, T // 3:] = 0
+    km = torch.from_numpy(km).to(cuda)
+    slopes = torch.from_numpy(rng.random(H).astype(np.float32)).to(cuda)
+    seg = torch.from_numpy((np.arange(T) >= T // 2).astype(np.int32)).expand(B, T).to(cuda)
+    pos = seg * 0 + torch.arange(T, device=cuda)
+    kw = dict(scale=scale, window=window, H=H, use_alibi=True,
+              segments=seg if segments else None, positions=pos)
+    got = sa.short_attention(q, k, v, km, slopes, scale, window, H, True,
+                             segments=kw["segments"], positions=pos)
+    want = sa.short_attention_reference(q, k, v, km, slopes, **kw)
+    _, mask = sa._scores(q, k, km, slopes, **kw)
+    qd, kd, vd = (t.reshape(B, T, H, Dh).double() for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    s = s + slopes.double()[None, :, None, None] * pos.double()[:, None, None, :]
+    s = torch.where(mask, s, torch.full((), -1e9, dtype=torch.float64, device=cuda))
+    exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vd).reshape(B, T, H * Dh)
+    plain_err = (want.double() - exact).abs().max().item()
+    assert plain_err > 1e-5  # the case is as ill-conditioned as the note says
+    assert (got.double() - exact).abs().max().item() <= plain_err + 1e-5
+
+
+def test_fp32_kernel_off_16_byte_alignment_matches_plain_version(cuda):
+    """fp32 tensors at a storage offset of one element are not 16-byte
+    aligned, so K1 takes its scalar kernel rather than the tensor-core one;
+    the output holds the same fp32 gate."""
+    rng = np.random.default_rng(11)
+    B, T, H, Dh = 2, 150, 4, 64
+    n = B * T * H * Dh
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, n + 1).astype(np.float32)).to(cuda)[1:]
+               .view(B, T, H * Dh) for _ in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    km = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    km[-1, 100:] = 0
+    before = sa.launches
+    got = sa.short_attention(q, k, v, km, None, 1.0, 16, H, False)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 1
+    want = sa.short_attention_reference(q, k, v, km, None, scale=1.0, window=16, H=H,
+                                        use_alibi=False)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fp32_kernel_row_does_not_depend_on_the_batch(cuda):
+    """A row's fp32 output is the same bits whether its batch row runs alone
+    (B=1) or among 32: GradCache's chunks and the direct step see one value."""
+    rng = np.random.default_rng(12)
+    B, T, H, Dh = 32, 300, 12, 64
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    km = np.ones((B, T), np.int32)
+    km[::3, 200:] = 0
+    km = torch.from_numpy(km).to(cuda)
+    for window in (0, 256):
+        full = sa.short_attention(q, k, v, km, None, 1.0, window, H, False)
+        for b in (0, 1, 31):
+            one = sa.short_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], km[b:b + 1], None,
+                                     1.0, window, H, False)
+            assert torch.equal(one[0], full[b]), (window, b)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

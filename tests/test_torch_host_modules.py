@@ -8,6 +8,7 @@ differ, and the native engines are the same C++ sources).
 """
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -125,7 +126,19 @@ def test_results_store_matches(tmp_path):
             == json.loads((tmp_path / "jax.json").read_text()))
 
 
-def test_extract_fields_and_beir_loader_match(tmp_path):
+def test_extract_fields_and_beir_loader_match(tmp_path, monkeypatch):
+    # The JAX module builds into native/ in place (`make -B`), as do other
+    # JAX modules that other test processes load at the same time; a load
+    # during such a rebuild finds a missing or partly written library and
+    # falls back to another backend. The reference therefore builds from a
+    # private copy of the sources here (the port builds into its own
+    # directory under a lock: sgpt_tpu_torch/native_build.py).
+    private = tmp_path / "native"
+    shutil.copytree(jjsonl._NATIVE_DIR, private,
+                    ignore=lambda d, names: [n for n in names if n.endswith(".so")])
+    monkeypatch.setattr(jjsonl, "_NATIVE_DIR", str(private))
+    for name, value in (("_TRIED", False), ("_BACKEND", None), ("_PYMOD", None), ("_LIB", None)):
+        monkeypatch.setattr(jjsonl, name, value)
     root = tmp_path / "ds"
     (root / "qrels").mkdir(parents=True)
     rows = [{"_id": "d1", "title": "T", "text": "a \"quoted\" text\nwith a newline"},
@@ -139,6 +152,22 @@ def test_extract_fields_and_beir_loader_match(tmp_path):
     assert got == jjsonl.extract_fields(str(root / "corpus.jsonl"), fields)
     assert pjsonl.backend() == jjsonl.backend()
     assert peval.load_beir_dataset(str(root)) == jeval.load_beir_dataset(str(root))
+
+
+def test_native_build_runs_once_for_concurrent_callers(tmp_path, monkeypatch):
+    """Builders racing on a fresh tree get one complete library, built once."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sgpt_tpu_torch import native_build
+
+    monkeypatch.setattr(native_build, "BUILD_ROOT", tmp_path)
+    with ThreadPoolExecutor(4) as pool:
+        paths = set(pool.map(lambda _: native_build.build("libjsonl_fields.so"), range(4)))
+    assert len(paths) == 1
+    (out_dir,) = tmp_path.iterdir()
+    assert sorted(p.name for p in out_dir.iterdir()) == [".lock", "libjsonl_fields.so"]
+    assert ctypes.CDLL(paths.pop()).jsonl_extract
 
 
 def test_serve_corpus_loader_reads_the_jsonl_as_the_jax_cli(tmp_path):

@@ -83,7 +83,7 @@ FORBIDDEN = re.compile(
     r"|sgpt_tpu\.baselines")
 
 
-@pytest.mark.parametrize("root", ["sgpt_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["sgpt_tpu_torch", "chip_smoke.py", "chip_variants.py"])
 def test_port_sources_import_no_jax_nor_the_jax_package(root):
     paths = [REPO / root] if root.endswith(".py") else sorted((REPO / root).rglob("*.py"))
     assert paths

@@ -184,3 +184,130 @@ def test_bf16_plain_version_casts_probabilities():
                          window=8, H=4, use_alibi=False)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)), atol=2e-2)
+
+
+def _tf32(x):
+    """`cvt.rna.tf32.f32` in plain PyTorch: round an fp32 tensor to nearest
+    at 10 stored mantissa bits, ties away from zero (a half unit of the kept
+    bits added to the magnitude, the 13 dropped bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mma_tf32(a, b, order, three):
+    """a (..., M, K) · b (..., K, N) as K1's fp32 kernel takes it on the
+    card: m16n8k8 steps of 8 along K; per step the TF32 products a_s·b_b,
+    a_b·b_s, a_b·b_b (3xTF32, the small terms first; `three=False`: a_b·b_b
+    alone), each product exact and added in turn, the step's 8 terms in
+    `order`, to a zeroed fp32 accumulator whose sum is then added to the
+    running one."""
+    (ab, asm), (bb, bsm) = _split(a), _split(b)
+    terms = ((asm, bb), (ab, bsm), (ab, bb)) if three else ((ab, bb),)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        step = torch.zeros_like(acc)
+        for x, y in terms:
+            for kk in order:
+                step = step + x[..., :, k0 + kk, None] * y[..., None, k0 + kk, :]
+        acc = acc + step
+    return acc
+
+
+# A column κ of a P·V step is key 2κ (κ < 4) or 2(κ − 4) + 1 of its 8-key
+# group: the S accumulator's columns taken as P's A fragment unshuffled.
+PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _k1_tf32(q2, k2, v2, key_mask, slopes, *, scale, window, H, use_alibi, segments=None,
+             positions=None, three=True):
+    """K1's fp32 formula with its products in (3x)TF32: S = Q·Kᵀ, scale, ALiBi
+    and where(mask, s, -1e9) as `_scores`, the fp32 softmax, P unrounded,
+    then P·V with each 8-key step in PV_ORDER (keys past T padded to a
+    multiple of 8 with p = 0)."""
+    B, T, HD = q2.shape
+    Dh = HD // H
+    q, k, v = (t.reshape(B, T, H, Dh).transpose(1, 2).float() for t in (q2, k2, v2))
+    s = _mma_tf32(q, k.transpose(-1, -2), range(8), three)
+    _, mask = sa._scores(q2, k2, key_mask, slopes, scale=scale, window=window, H=H,
+                         use_alibi=use_alibi, segments=segments, positions=positions)
+    if scale != 1.0:
+        s = s * scale
+    if use_alibi:
+        kp = positions if positions is not None else torch.arange(T).expand(B, T)
+        s = s + slopes.float()[None, :, None, None] * kp.float()[:, None, None, :]
+    p = torch.softmax(torch.where(mask, s, torch.full((), sa.NEG)), dim=-1)
+    pad = -T % 8
+    p = torch.nn.functional.pad(p, (0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    o = _mma_tf32(p, v, PV_ORDER, three)
+    return o.transpose(1, 2).reshape(B, T, HD)
+
+
+TF32_CASES = {  # name: (T, Dh, scale, window, pad_at, alibi, segments)
+    "causal-T300-Dh64": (300, 64, 1.0, 0, 200, False, False),
+    "window256-T300-Dh64": (300, 64, 1.0, 256, 20, False, False),  # rows 276.. fully masked
+    "window16-T77-Dh16-fully-masked": (77, 16, 1.0, 16, 30, False, False),  # rows 46..
+    "scale-T300-Dh32": (300, 32, 0.125, 0, None, False, False),
+    "alibi-window16-T77-Dh128": (77, 128, 1.0, 16, 60, True, False),
+    "segments-scale-T300-Dh128": (300, 128, 0.125, 0, 250, False, True),
+    "segments-alibi-T77-Dh32": (77, 32, 1.0, 0, None, True, True),
+}
+
+
+def _tf32_case(name):
+    T, Dh, scale, window, pad_at, alibi, segments = TF32_CASES[name]
+    B, H = 2, 2
+    q, k, v, km, slopes, seg, pos = _inputs(T + Dh, B, T, H, Dh, pad_at, segments, alibi)
+    q, k, v = (x * np.float32(0.5) for x in (q, k, v))  # std 0.5, as the card's checks use
+    tt = (lambda a: None if a is None else torch.from_numpy(a))
+    kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, segments=tt(seg),
+              positions=tt(pos))
+    return (tt(q), tt(k), tt(v), tt(km), tt(slopes)), kw, (q, k, v, km, slopes, seg, pos)
+
+
+def _gate(got, want):
+    """K1's fp32 gate: |Δ| ≤ 1e-5 + 1e-5·|ref| in every element; returns the
+    largest excess over the 1e-5 of the absolute part."""
+    return float(((got - want).abs() - 1e-5 * want.abs()).max())
+
+
+@pytest.mark.parametrize("name", sorted(TF32_CASES))
+def test_3xtf32_products_hold_the_fp32_gate(name):
+    """The CPU witness of K1's fp32 numerics on the card: 3xTF32 products
+    (cvt.rna splits, the permuted P·V key order, fp32 accumulation) stay
+    within the fp32 gate of the exact plain version and of the JAX oracle,
+    fully masked rows included."""
+    args, kw, (q, k, v, km, slopes, seg, pos) = _tf32_case(name)
+    got = _k1_tf32(*args, **kw)
+    want = sa.short_attention_reference(*args, **kw)
+    jj = (lambda a: None if a is None else jnp.asarray(a))
+    oracle = torch.from_numpy(np.array(_reference_hd(
+        jj(q), jj(k), jj(v), jj(km), jj(slopes), scale=kw["scale"], window=kw["window"],
+        H=kw["H"], use_alibi=kw["use_alibi"], segments=jj(seg), positions=jj(pos))))
+    assert _gate(got, want) <= 1e-5
+    assert _gate(got, oracle) <= 1e-5
+
+
+def test_single_tf32_product_fails_the_fp32_gate():
+    """Why K1 splits its operands: one TF32 product per pair (11 significand
+    bits) misses the fp32 gate at the train shape's T=300."""
+    args, kw, _ = _tf32_case("causal-T300-Dh64")
+    want = sa.short_attention_reference(*args, **kw)
+    assert _gate(_k1_tf32(*args, **kw, three=False), want) > 1e-5
+    assert _gate(_k1_tf32(*args, **kw), want) <= 1e-5
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 neighbour of 1
+    x = torch.tensor([1.0, 1 + 2.0 ** -11, 1 + 2.0 ** -11 - 2.0 ** -20, 1 + 3 * 2.0 ** -11,
+                      -(1 + 2.0 ** -11), 3.0e-3, -7.5], dtype=torch.float32)
+    want = [1.0, one, 1.0, 1 + 2 * 2.0 ** -10, -one]
+    assert _tf32(x)[:5].tolist() == want
+    big, small = _split(x)
+    assert torch.equal(big + small, x)  # these need no more than 22 bits
+    assert (_tf32(big) == big).all() and (_tf32(small) == small).all()
