@@ -402,8 +402,8 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 // tile of its own. K streams through two stages, V through one (loaded
 // during the tile's scores, waited for just before P·V); with Q that is 104
 // KB at D = 64, two blocks an SM. Each warp splits its Q fragments from the
-// shared Q tile at every k-step: holding them split in registers (D
-// registers) measured 6 % slower at D = 64.
+// shared Q tile at every k-step rather than holding them split in D
+// registers beside S and O.
 template <int D, bool GENERAL>
 __global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
 tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,

@@ -57,13 +57,13 @@ def test_kernel_matches_plain_version(cuda, dtype, atol, T, Dh, window, alibi, s
 def test_fp32_kernel_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plain_version(
         cuda, Dh, window, segments):
     """ALiBi at key positions up to 2,047 puts fp32 scores near 10^3, where
-    an fp32 ulp is 6e-5 and a 1e-6 change in q·k flips the rounding of the
-    ALiBi add: the plain version is itself ~9e-5 from an fp64 evaluation of
-    the formula, and any fp32 evaluation that sums q·k in another order than
-    its GEMM lands as far from it (the scalar kernel sums in the GEMM's
-    order and matches it bit for bit). The tensor-core kernel is held to
-    the exact formula instead: no farther from fp64 than the plain version,
-    plus the fp32 gate's 1e-5."""
+    an fp32 ulp is 6e-5, so a change in the last bits of q·k can flip the
+    rounding of the ALiBi add: the plain version is itself more than 1e-5
+    from an fp64 evaluation of the formula, and the tensor-core kernel,
+    which sums q·k in another order than the plain version's GEMM, is not
+    within 1e-5 of it there. The kernel is held to the exact formula
+    instead: no farther from fp64 than the plain version, plus the fp32
+    gate's 1e-5."""
     T, H, B, scale = 2048, 4, 3, 0.125
     rng = np.random.default_rng(T + window)
     q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
