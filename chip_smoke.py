@@ -79,9 +79,9 @@ With `--parent DIR` (another checkout of this repo, e.g. the parent commit
 unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
 K3, K4a and K4b from both builds in turns (parent, change, change, parent):
-phase `ab`. K1's bf16 path, K2, K3, K4a and K4b must give the parent's
-outputs bit for bit; K1's fp32 path (redesigned) the parent's within the
-fp32 tolerance, each build's error against an fp64 evaluation logged.
+phase `ab`. K1, K2's bf16 path, K3, K4a and K4b must give the parent's
+outputs bit for bit; K2's fp32 path (redesigned) the parent's within the
+fp32 gate, each build's error against an fp64 evaluation logged.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -173,10 +173,11 @@ def kernels_of(lib):
 def phase_ab(torch, sa, fa, parent_lib, this_lib):
     """K1, K2, K3, K4a and K4b built from the parent checkout and from this
     tree, timed in one process on one card in turns (parent, change,
-    change, parent) at the main paths' shapes. K1 bf16, K2, K3, K4a and
-    K4b must give the parent's outputs bit for bit; K1 fp32 (redesigned)
-    within the fp32 tolerance of the parent's, with both builds' errors
-    against an fp64 evaluation of K1's formula logged."""
+    change, parent) at the main paths' shapes. K1, K2 bf16, K3, K4a and
+    K4b must give the parent's outputs bit for bit; K2 fp32 (redesigned)
+    within K2's fp32 gate of the parent's (|Δ| ≤ 1e-5·max|ref| +
+    1e-5·|ref| in dq, dk and dv), with both builds' errors against an fp64
+    evaluation of K2's formula logged."""
     rng = np.random.default_rng(SEED + 7)
     cells = {}
 
@@ -186,8 +187,9 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
             return functools.partial(sa.short_attention, *args, 1.0, window, 12, False)
         g = torch.from_numpy(rng.normal(0.0, 1.0, (B, 300, 768)).astype(np.float32)).to(
             "cuda", dtype)
-        return lambda: sa.short_attention_bwd(*args, g, scale=1.0, window=window, H=12,
-                                              use_alibi=False)
+        # a partial: the K2 fp32 check reads its arguments
+        return functools.partial(sa.short_attention_bwd, *args, g, scale=1.0, window=window,
+                                 H=12, use_alibi=False)
 
     def flash(B, dtype, window):
         (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, 12, 64, dtype)
@@ -210,9 +212,10 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
     runs = [  # name, function, whether the output must equal the parent's bit for bit
         ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), True),
         ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), True),
-        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), False),
-        ("K1 fp32 B=32 T=300 window=256", short(32, torch.float32, 256), False),
-        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), True),
+        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), True),
+        ("K1 fp32 B=32 T=300 window=256", short(32, torch.float32, 256), True),
+        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), False),
+        ("K2 fp32 B=32 T=300 window=256", short(32, torch.float32, 256, bwd=True), False),
         ("K2 bf16 B=32 T=300 window=0", short(32, torch.bfloat16, 0, bwd=True), True),
         ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), True),
         ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), True),
@@ -230,14 +233,16 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
         diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
         if exact:
             assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
-        else:  # K1 fp32: the fp32 gate against the parent, and both against fp64
-            (a,), (b,) = outs["parent"], outs["change"]
-            assert ((a - b).abs() <= FP32_ATOL + FP32_RTOL * a.abs()).all(), (name, diff)
-            ref = k1_fp64(torch, fn.args[:5], fn.args[6])
-            log(f"ab {name}: max |out - fp64 evaluation| parent "
-                f"{(a.double() - ref).abs().max().item():.3e}, change "
-                f"{(b.double() - ref).abs().max().item():.3e}")
-            del ref
+        else:  # K2 fp32: the fp32 gate against the parent, and both against fp64
+            for part, a, b in zip(("dq", "dk", "dv"), outs["parent"], outs["change"]):
+                atol = FP32_ATOL * a.abs().max().item()
+                assert ((a - b).abs() <= atol + FP32_RTOL * a.abs()).all(), (name, part, diff)
+            refs = k2_fp64(torch, fn.args, fn.keywords["window"])
+            for tag in ("parent", "change"):
+                errs = ", ".join(f"{part} {(t.double() - r).abs().max().item():.3e}"
+                                 for part, t, r in zip(("dq", "dk", "dv"), outs[tag], refs))
+                log(f"ab {name}: max |out - fp64 evaluation| {tag}: {errs}")
+            del refs
         times = []
         for lib in (parent_lib, this_lib, this_lib, parent_lib):
             with kernels_of(lib):
@@ -294,6 +299,25 @@ def k1_fp64(torch, args, window: int, scale: float = 1.0):
                                                                   device=s.device))
     o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
     return o.reshape(B, T, HD)
+
+
+def k2_fp64(torch, args, window: int, scale: float = 1.0):
+    """K2's formula (no ALiBi, no segments) evaluated in fp64 on the card:
+    the yardstick of K2's fp32 error. args: (q2, k2, v2, key_mask, slopes,
+    g) with H = 12. Returns (dq, dk, dv)."""
+    q2, k2, v2, km, _, g2 = args
+    B, T, HD = q2.shape
+    q, k, v, g = (t.reshape(B, T, 12, HD // 12).double() for t in (q2, k2, v2, g2))
+    mask = sdpa_mask(torch, km, window)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(torch.where(mask, s, torch.full((), -1e9, dtype=s.dtype,
+                                                      device=s.device)), dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    ds = torch.where(mask, p * (dp - (dp * p).sum(-1, keepdim=True)), 0.0) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return tuple(t.reshape(B, T, HD) for t in (dq, dk, dv))
 
 
 def heads(t, H):
@@ -446,7 +470,10 @@ def phase_bwd_kernel(torch, sa, rng):
     the train slice's B=32) with a random output gradient. fp32: only the
     summation order differs, |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref|; bf16: K1's
     2e-2 + 1e-2·|ref|. Returns the largest fp32 main-shape error (the train
-    slice runs fp32) and the times at B=32, T=300, H=12, Dh=64."""
+    slice runs fp32) and the times at B=32, T=300, H=12, Dh=64: the pair, and
+    each pass alone under torch.profiler. The fp32 pair issues three TF32
+    products for each fp32 one, so its bound is 3 × its operations over the
+    TF32 peak (the CUDA-core bound logged beside it)."""
     main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, T, H, Dh, scale, window, alibi, segments in CASES:
@@ -503,18 +530,42 @@ def phase_bwd_kernel(torch, sa, rng):
             p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
             lib = cuda_ms(torch, library, iters=10)
             del out
+            passes = pass_ms(torch, kernel)
             dt = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
             # read q, k, v, g once, write dq, dk, dv; 10·Dh operations a pair:
             # Q·Kᵀ again, dP = g·Vᵀ, dV = Pᵀ·g, dQ = dS·K, dK = dSᵀ·Q
             nbytes = 7 * q.numel() * q.element_size() + km.numel() * 4
             ops = 10 * 64 * 12 * attention_pairs(torch, km, window)
-            times[(dt, window)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, dt))
+            simt = bound(nbytes, ops, "fp32")
+            b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, dt)
+            times[(dt, window)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *b, *passes, simt[0])
             log(f"time K2 B=32 T=300 H=12 Dh=64 {dt} window={window}: kernel "
-                f"{times[(dt, window)][0]:.4f} ms, plain {times[(dt, window)][1]:.4f} ms, "
-                f"library (SDPA backward) {lib:.4f} ms, bound {times[(dt, window)][3]:.4f} ms "
-                f"({times[(dt, window)][4]}) (runs: kernel {k1:.4f} {k2:.4f}, "
-                f"plain {p1:.4f} {p2:.4f})")
+                f"{times[(dt, window)][0]:.4f} ms (rows pass {passes[0]}, cols pass "
+                f"{passes[1]} ms), plain {times[(dt, window)][1]:.4f} ms, library (SDPA "
+                f"backward) {lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
+                + (f"3 x {ops} TF32 operations" if dt == "fp32" else f"{ops} operations")
+                + f"; on the CUDA cores {simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} "
+                f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
     return main_err, times
+
+
+def pass_ms(torch, kernel, iters: int = 10):
+    """K2's two passes timed apart: device time of the rows and the cols
+    kernels over `iters` calls of `kernel` under torch.profiler, per call
+    (None where the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kernel()
+        torch.cuda.synchronize()
+    ms = device_ms(prof, {"rows": ("tf32_rows", "rows_kernel"),
+                          "cols": ("tf32_cols", "cols_kernel")})
+    if ms["rows"] == 0 or ms["cols"] == 0:
+        return None, None
+    return ms["rows"] / iters, ms["cols"] / iters
 
 
 def synthetic_triplets(rng, n: int) -> list:
@@ -605,7 +656,9 @@ def phase_train(torch, sa, rng, tok):
     seq_per_s = 3 * B / (ms_per_step / 1e3)
     log(f"train: {ms_per_step:.1f} ms/step, {seq_per_s:.1f} seq/s at matmul_precision "
         f"\"default\" (TF32)")
-    families = {"K1": K1_KEYS, "K2": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS}
+    # K2's fp32 pair; its CUDA-core kernels (bf16, other head sizes) must not show
+    families = {"K1": K1_KEYS, "K2": ("tf32_rows", "tf32_cols"),
+                "K2scalar": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS}
     prof = profile_step(torch, trainer, batches[0], "train profile, one step (TF32)", families)
 
     # the same steps in strict fp32 ("highest"), on the same model
@@ -623,6 +676,10 @@ def phase_train(torch, sa, rng, tok):
     strict_trainer._opt, strict_trainer._sched = strict_trainer._build_optimizer(1)
     prof_highest = profile_step(torch, strict_trainer, batches[0],
                                 "train profile, one step (strict fp32)", families)
+    for pr in (prof, prof_highest):
+        if pr["profile_kernel_ms"] is not None:
+            assert pr["profile_k2_ms"] > 0 and pr["profile_k2scalar_ms"] == 0, \
+                "the fp32 train step did not run K2's tensor-core pair alone"
 
     # one batch repeated at a constant lr: the loss falls
     const = dataclasses.replace(tc, scheduler="constantlr", log_fn=None)
@@ -1735,8 +1792,10 @@ def main() -> int:
         "library_ms": bwd_times[("fp32", 0)][2], "bound_ms": bwd_times[("fp32", 0)][3],
         "bound_by": bwd_times[("fp32", 0)][4],
         **{f"{k}_{dt}_w{w}": bwd_times[(dt, w)][i] for dt, w in bwd_times
-           for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
+           for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                  "rows_ms", "cols_ms", "bound_ms_cuda_cores"))},
         "parent_ms": parent_ms("K2 fp32 B=32 T=300 window=0"),
+        "parent_ms_fp32_w256": parent_ms("K2 fp32 B=32 T=300 window=256"),
         "parent_ms_bf16_w0": parent_ms("K2 bf16 B=32 T=300 window=0"),
         "train_ms_per_step": train["ms_per_step"], "train_seq_per_s": train["seq_per_s"],
         "train_ms_per_step_highest": train["ms_per_step_highest"],

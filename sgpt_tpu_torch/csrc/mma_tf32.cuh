@@ -1,5 +1,6 @@
 // Warp-level tensor-core building blocks of K1's fp32 forward
-// (short_attention.cu, `tf32_kernel`): 3xTF32 products on
+// (short_attention.cu, `tf32_kernel`) and K2's fp32 backward
+// (short_attention_bwd.cu, `tf32_rows` and `tf32_cols`): 3xTF32 products on
 // `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`.
 //
 // 3xTF32. Each fp32 operand x splits into big = tf32(x) and small =
@@ -162,6 +163,66 @@ __device__ __forceinline__ void pv_tile_3xtf32(float (&o)[D / 8][4], const float
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int r0 = 8 * j * (D + 4) + 8 * n, r1 = r0 + D + 4;  // V rows 8j + 2t, 8j + 2t + 1
+      mma_3xtf32(o[n], ab, as, b[r0], b[r1], sm[r0], sm[r1]);
+    }
+  }
+}
+
+// K2's cols pass (short_attention_bwd.cu, `tf32_cols`) computes Sᵀ = K·Qᵀ
+// with K as A, where the rows pass and K1 compute S = Q·Kᵀ with Q as A. Its
+// three products take the same terms in the same order as mma_3xtf32 does
+// with the operands' roles swapped (q_s·k_b, q_b·k_s, q_b·k_b), so that
+// both passes add the same numbers in the same order into a score.
+__device__ __forceinline__ void mma_3xtf32_swapped(float (&d)[4], const uint32_t (&ab)[4],
+                                                   const uint32_t (&as)[4], uint32_t bb0,
+                                                   uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, ab, bs0, bs1);
+  mma_tf32(t, as, bb0, bb1);
+  mma_tf32(t, ab, bb0, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// qk_step_3xtf32 over 8N rows of the B tile instead of 64: S (16 rows x 8N)
+// += A · Bᵀ over k-step d, B split into big and small parts (row stride
+// D + 4). SWAPPED: the products in mma_3xtf32_swapped's order (K2's cols
+// pass, whose A is K and B is Q)
+template <int D, int N, bool SWAPPED = false>
+__device__ __forceinline__ void qk_part_3xtf32(float (&s)[N][4], const uint32_t (&ab)[4],
+                                               const uint32_t (&as)[4], const float* big,
+                                               const float* small, int d, int lane) {
+  const int at = (lane >> 2) * (D + 4) + 8 * d + (lane & 3);
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(big) + at;
+  const uint32_t* sm = reinterpret_cast<const uint32_t*>(small) + at;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int r = n * 8 * (D + 4);
+    if (SWAPPED)
+      mma_3xtf32_swapped(s[n], ab, as, b[r], b[r + 4], sm[r], sm[r + 4]);
+    else
+      mma_3xtf32(s[n], ab, as, b[r], b[r + 4], sm[r], sm[r + 4]);
+  }
+}
+
+// pv_tile_3xtf32 over 8J rows of the B tile (J k-steps) instead of 64: O
+// (16 rows x D) += P (16 x 8J, the accumulator layout) · V (8J rows)
+template <int D, int J>
+__device__ __forceinline__ void pv_part_3xtf32(float (&o)[D / 8][4], const float (&p)[J][4],
+                                               const float* vb, const float* vsm, int lane) {
+  const int at = 2 * (lane & 3) * (D + 4) + (lane >> 2);
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(vb) + at;
+  const uint32_t* sm = reinterpret_cast<const uint32_t*>(vsm) + at;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[j][0], ab[0], as[0]);
+    split_tf32(p[j][2], ab[1], as[1]);
+    split_tf32(p[j][1], ab[2], as[2]);
+    split_tf32(p[j][3], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int r0 = 8 * j * (D + 4) + 8 * n, r1 = r0 + D + 4;
       mma_3xtf32(o[n], ab, as, b[r0], b[r1], sm[r0], sm[r1]);
     }
   }

@@ -12,35 +12,81 @@
 // Fully masked padded rows softmax to uniform 1/T; the re-mask gives them
 // dS = 0, but their P still adds g/T to dV, as on the TPU.
 //
-// What bounds it on this card: one head's (T, T) fp32 tile is 360 KB at
-// T=300, more than the 227 KB of shared memory a block may use, so the TPU's
+// What bounds it on this card. At the train shape (B=32, T=300, H=12, Dh=64,
+// fp32) it must read q, k, v, g and write dq, dk, dv: 206 MB, 0.062 ms at
+// 3.35 TB/s; its five products over the causal pairs (10·Dh operations a
+// pair) issued as three TF32 products each take 0.065 ms at 495 TFLOP/s, so
+// the operations bind. One head's (T, T) fp32 tile is 360 KB at T=300, more
+// than the 227 KB of shared memory a block may use, so the TPU's
 // tile-per-head layout cannot carry over; dQ reduces along rows of P while
-// dK and dV reduce along its columns, and blocks share nothing; and, kept in
-// fp32 on the CUDA cores (TF32 would round q and k), the products are bound
-// by shared-memory loads rather than by the FMAs. The design is
-// deterministic, with no atomics, in two passes:
-//   * rows_kernel, one block per (batch row, head, BQ=16 query rows): the
-//     score strip and softmax over the key tiles the 16 rows can reach
-//     (causal, window; the rest of each row is masked and enters the softmax
-//     sum by count), then D = rowsum(dP∘P) in one sweep over those V tiles
-//     and dS in a second (dP is recomputed, not kept: a second BQ x T strip
-//     would not fit at T=2048), then dQ = dS·K. It stores each row's max m,
-//     sum l and D: 3·B·H·T floats (1.4 MB at B=32, T=300, H=12).
-//   * cols_kernel, one block per (batch row, head, BKB=16 keys): walks the
-//     query tiles, rebuilds P = expf(s − m) / l — the expression the row
-//     softmax evaluates, on scores summed in the same order, so both passes
-//     see the same P bit for bit — and accumulates dV and dK. A query tile
-//     none of whose rows can reach the key strip is skipped unless one of
-//     its rows is fully masked, since that row's P is not 0.
-// Head rows are zero-padded to Dhp, a multiple of 4, in shared memory, so
-// every inner product reads 128-bit vectors: 5 shared loads per 16 FMAs in
-// the score, dP and dQ sweeps, and 10 per 32 in the dK/dV accumulation.
-// wgmma, TMA, tensor-core fp32 emulation and a fused single pass are later work.
+// dK and dV reduce along its columns, and blocks share nothing. The design
+// is deterministic, with no atomics, in two passes, and comes in two forms:
+//   * fp32 at Dh in {16, 32, 64, 128} with 16-byte-aligned tensors (the
+//     train slice): tf32_rows, then tf32_cols, every product in 3xTF32 on
+//     mma.sync.m16n8k8 (mma_tf32.cuh: each operand splits into a TF32 big
+//     and small part, three products keep ~22 significand bits, each 8-deep
+//     step summed into a fresh accumulator), with K1's tensor-core blocks
+//     and masking (short_attention_mma.cuh: KeyAux, k1_scores), so that the
+//     backward masks as the forward does.
+//     - tf32_rows, one block of 4 warps per (64 query rows, head, batch row),
+//       longest rows first, each warp 16 rows; it walks the key tiles that
+//       hold a causal, in-window pair for the block twice. Walk 1: S = Q·Kᵀ
+//       and dP = g·Vᵀ (Q and g as A), the row max m, sum l and Σ exp(s −
+//       m)·dP online (rescaled as l is); each unvisited key enters l as
+//       exp(-1e9 − m), 1 for a row with no valid key, whose l is then T;
+//       D = that sum / l. Walk 2: S and dP again, P = exp(s − m)·(1/l), dS =
+//       P∘(dP − D), re-masked (a masked score is -1e9 exactly) and scaled,
+//       and dQ += dS·K with dS's accumulator registers as the A fragment in
+//       the permuted key order of pv_tile_3xtf32. It writes m, l and D.
+//     - tf32_cols, one block of 4 warps per (64 keys, head, batch row),
+//       each warp 16 keys: Sᵀ = K·Qᵀ and dPᵀ = V·gᵀ with K and V as A (the
+//       three products in the rows pass's term order, so that both passes
+//       add the same numbers into a score), P rebuilt from m and 1/l,
+//       dV += Pᵀ·g and dK += dSᵀ·Q with g and Q as B. It visits the query
+//       tiles that reach its keys and every tile with a fully masked row:
+//       such a row is uniform 1/T over all T keys, so its g/T reaches dV of
+//       every key, past its causal range and on padded keys too (its dS is
+//       0). In the query tower of MS MARCO training, every padded row from
+//       the query's length + 255 on is such a row in the window-256 layers.
+//     Budget (Dh=64): K, V, Q and g tiles of 64 rows at a row stride of Dh +
+//     4 floats (conflict-free fragment loads), the split operands' small
+//     parts beside their big ones: six tiles and the mask inputs, 104-106
+//     KB a block, two blocks an SM. A pass's A operands (Q and g, K and V)
+//     stay raw in shared memory and each warp splits its fragments at each
+//     k-step; B operands are split once a block, by the thread that copied
+//     them. Each pass takes its 64-wide tile in two halves of 32, which keeps
+//     S and dP (Sᵀ and dPᵀ) at 32 registers beside dQ (dK and dV): 64 keys
+//     at once spilled the cols pass. 1/l is taken once a row, not a division
+//     a score. Registers and spills of each variant: build.log.
+//   * bf16, other head sizes, or tensors off 16-byte alignment: rows_kernel
+//     and cols_kernel, fp32 on the CUDA cores (the mask, scale, ALiBi and
+//     row softmax of short_attention.cuh).
+//     - rows_kernel, one block per (batch row, head, BQ=16 query rows): the
+//       score strip and softmax over the key tiles the 16 rows can reach
+//       (causal, window; the rest of each row is masked and enters the
+//       softmax sum by count), then D = rowsum(dP∘P) in one sweep over
+//       those V tiles and dS in a second (dP is recomputed, not kept: a
+//       second BQ x T strip would not fit at T=2048), then dQ = dS·K.
+//     - cols_kernel, one block per (batch row, head, BKB=16 keys): walks
+//       the query tiles, rebuilds P = expf(s − m) / l — the expression the
+//       row softmax evaluates, on scores summed in the same order, so both
+//       passes see the same P bit for bit — and accumulates dV and dK. A
+//       query tile none of whose rows can reach the key strip is skipped
+//       unless one of its rows is fully masked, since that row's P is not 0.
+//     Head rows are zero-padded to Dhp, a multiple of 4, in shared memory,
+//     so every inner product reads 128-bit vectors.
+// Both forms keep each row's max m, sum l and D between the passes: 3·B·H·T
+// floats (1.4 MB at B=32, T=300, H=12). wgmma, TMA and a fused single pass
+// are later work.
 
+#include "mma_attention.cuh"
+#include "mma_tf32.cuh"
 #include "short_attention.cuh"
+#include "short_attention_mma.cuh"
 
 namespace {
 
+constexpr int MAX_T = 2048;  // the wrappers' bound on T (ops/short_attention.py)
 constexpr int BKB = 16;  // keys per cols_kernel block
 constexpr int BQB = 32;  // query rows per cols_kernel tile
 constexpr int LDT = BQB + 4;  // row stride of the transposed P / dS tiles
@@ -387,6 +433,396 @@ cols_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
   }
 }
 
+// fp32 K2 on the tensor cores, rows pass (D = Dh in {16, 32, 64, 128}); see
+// the note at the top. One block of 4 warps per (64 query rows, head, batch
+// row), longest rows first; warp w owns rows 16w .. 16w + 15. Walks the key
+// tiles that hold a causal, in-window pair for the block twice: walk 1 takes
+// each row's m, l and D online, walk 2 forms dS and accumulates dQ = dS·K.
+template <int D, bool GENERAL>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
+tf32_rows(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ stats,
+          const Mask mask, int T, int H) {
+  constexpr int LD = D + 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // the Q tile, later dQ's staging tile
+  float* Gs = Qs + MMA_TILE * LD;                  // the output gradient's tile
+  float* Kb = Gs + MMA_TILE * LD;                  // a K tile (big parts once split)
+  float* Ksm = Kb + MMA_TILE * LD;                 // its small parts
+  float* Vb = Ksm + MMA_TILE * LD;                 // a V tile (big parts once split)
+  float* Vsm = Vb + MMA_TILE * LD;                 // its small parts
+  KeyAux* aux = reinterpret_cast<KeyAux*>(Vsm + MMA_TILE * LD);  // with K's tile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const int64_t n_rows = (int64_t)gridDim.z * H * T;
+  const float* kh = k + row0 * HD + h * D;
+  const float* vh = v + row0 * HD + h * D;
+  const float* qrows = Qs + warp * 16 * LD;
+  const float* grows = Gs + warp * 16 * LD;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  int qi[2], segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    segq[r] = GENERAL && mask.segments != nullptr && qi[r] < T ? mask.segments[row0 + qi[r]] : 0;
+  }
+  const int q_last = min(q0 + MMA_TILE - 1, T - 1);
+  const int kt_lo = mask.window > 0 ? max(0, q0 - mask.window + 1) / MMA_TILE : 0;
+  const int kt_hi = q_last / MMA_TILE;
+
+  auto issue_k = [&](int kt) {
+    load_tile_async_f32<D>(Kb, kh, HD, kt * MMA_TILE, T);
+    load_aux_async<GENERAL>(aux, mask, row0, kt * MMA_TILE, T);
+  };
+  auto issue_v = [&](int kt) { load_tile_async_f32<D>(Vb, vh, HD, kt * MMA_TILE, T); };
+  auto all_allowed = [&](int kt) {
+    const int k0 = kt * MMA_TILE;
+    const bool in_range = k0 + MMA_TILE - 1 <= q0 &&
+                          (mask.window <= 0 || k0 > q0 + MMA_TILE - 1 - mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    return __all_sync(0xffffffffu, in_range & (aux->km[lane] > 0) & (aux->km[lane + 32] > 0));
+  };
+
+  // each row's max m, sum l and dd: Σ exp(s − m)·dP, then D = dd / l
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  float inv_l[2];
+  float o[D / 8][4];  // dQ
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  load_tile_async_f32<D>(Qs, q + row0 * HD + h * D, HD, q0, T);  // join walk 1's first group
+  load_tile_async_f32<D>(Gs, g + row0 * HD + h * D, HD, q0, T);
+#pragma unroll 1
+  for (int walk = 0; walk < 2; ++walk) {
+    issue_v(kt_lo);  // one cp.async group a tile: V, K and K's mask inputs
+    issue_k(kt_lo);
+    cp_async_commit();
+    for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+      cp_async_wait<0>();
+      split_own_chunks<D>(Vb, Vsm);
+      split_own_chunks<D>(Kb, Ksm);
+      __syncthreads();  // V and K of tile kt (the first time also Q and g) landed and split
+      const int k0 = kt * MMA_TILE;
+      const bool unmasked = all_allowed(kt);
+      // the tile's 64 keys in two halves of 32, to keep S and dP at 32
+      // registers beside dQ
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int at = 32 * half;  // the half's first key in the tile
+        float dp[4][4], s[4][4];  // dP = g·Vᵀ, S = Q·Kᵀ
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] = 0.f;
+#pragma unroll
+        for (int d = 0; d < D / 8; ++d) {
+          uint32_t ab[4], as[4];
+          a_frag_3xtf32<D>(ab, as, grows, d, lane);
+          qk_part_3xtf32<D, 4>(dp, ab, as, Vb + at * LD, Vsm + at * LD, d, lane);
+          a_frag_3xtf32<D>(ab, as, qrows, d, lane);
+          qk_part_3xtf32<D, 4>(s, ab, as, Kb + at * LD, Ksm + at * LD, d, lane);
+        }
+        const float2 mx =
+            unmasked
+                ? k1_scores<false, GENERAL>(s, mask, slope, qi, segq, k0 + at, aux, lane, at)
+                : k1_scores<true, GENERAL>(s, mask, slope, qi, segq, k0 + at, aux, lane, at);
+        if (walk == 0) {
+          // online: l and Σ exp(s − m)·dP rescaled to m_new as a row's max rises
+          const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+          const float rescale[2] = {expf(m[0] - m_new[0]), expf(m[1] - m_new[1])};
+          float sum[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float w = expf(s[n][e] - m_new[e >> 1]);
+              sum[e >> 1] += w;
+              dsum[e >> 1] += w * dp[n][e];
+            }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            l[r] = l[r] * rescale[r] + quad_sum(sum[r]);
+            dd[r] = dd[r] * rescale[r] + quad_sum(dsum[r]);
+            m[r] = m_new[r];
+          }
+        } else {
+          // dS = P∘(dP − D), re-masked (a masked score is -1e9 exactly),
+          // scaled; then dQ += dS·K with dS's registers as the A fragment
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const float p = expf(s[n][e] - m[r]) * inv_l[r];
+              const float x = s[n][e] == NEG ? 0.f : p * (dp[n][e] - dd[r]);
+              s[n][e] = x * mask.scale;
+            }
+          pv_part_3xtf32<D, 4>(o, s, Kb + at * LD, Ksm + at * LD, lane);
+        }
+      }
+      __syncthreads();  // K, V and K's aux consumed
+      if (kt < kt_hi) {
+        issue_v(kt + 1);
+        issue_k(kt + 1);
+        cp_async_commit();
+      }
+    }
+    if (walk == 0) {
+      // Every key the walk did not visit counts as masked, exp(-1e9 − m)
+      // each (1 for a row with no valid key, whose l is then T); the padding
+      // past T that it did visit does not count.
+      const int n_walked = (kt_hi + 1 - kt_lo) * MMA_TILE;
+      const int64_t srow = ((int64_t)blockIdx.z * H + h) * T;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += (float)(T - n_walked) * expf(NEG - m[r]);
+        inv_l[r] = 1.f / l[r];
+        dd[r] /= l[r];
+        if ((lane & 3) == 0 && qi[r] < T) {
+          stats[srow + qi[r]] = m[r];
+          stats[n_rows + srow + qi[r]] = l[r];
+          stats[2 * n_rows + srow + qi[r]] = dd[r];
+        }
+      }
+    }
+  }
+  // dQ through the (free) Q tile: each warp stages its own rows
+  stage_rows_f32<D>(Qs + warp * 16 * LD, o, lane);
+  __syncthreads();
+  store_tile_f32<D>(dq + row0 * HD + h * D, HD, Qs, q0, T);
+}
+
+// One query tile's side of the cols pass in shared memory: the rows pass's
+// m, 1/l and D of each query (1/l = 1 past T, so that a padded query's p is
+// 0, not 0/0) and, for the general variant, its segment id.
+struct QueryAux {
+  float m[MMA_TILE], inv_l[MMA_TILE], d[MMA_TILE];
+  int seg[MMA_TILE];
+};
+
+// Sᵀ of a warp's 16 keys and 8N queries from q0 → the masked scores, as
+// k1_scores masks S: × scale, ALiBi with two roundings (slope × the key's
+// position), where(mask, s, -1e9). A query at or past T is masked. MASK =
+// false: every pair is known to be allowed. kr[r]: the tile rows of the
+// lane's keys (rows lane/4 and lane/4 + 8 of the warp's 16); segq: the
+// queries' segment ids.
+template <bool MASK, bool GENERAL, int N>
+__device__ __forceinline__ void k2_scores_t(float (&s)[N][4], const Mask& m, float slope,
+                                            const int (&kr)[2], int k0, int q0, int T,
+                                            const KeyAux* a, const int* segq, int lane) {
+  const int c0 = (lane & 3) * 2;  // the lane's first column in each 8-query n-tile
+  float ab[2];
+  bool live[2];
+  int sk[2], lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ki = k0 + kr[r];
+    if (GENERAL && m.use_alibi) ab[r] = __fmul_rn(slope, (float)(m.kpos ? a->kpos[kr[r]] : ki));
+    if (MASK) {
+      live[r] = a->km[kr[r]] > 0;
+      if (GENERAL && m.segments != nullptr) sk[r] = a->seg[kr[r]];
+      // allowed iff lo[r] ≤ column − c0 ≤ hi[r]: ki ≤ query < min(T, ki + window)
+      lo[r] = ki - q0 - c0;
+      hi[r] = (m.window > 0 ? min(T - 1, ki + m.window - 1) : T - 1) - q0 - c0;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, j = e & 1, c = n * 8 + j;
+      float x = s[n][e] * m.scale;
+      if (GENERAL && m.use_alibi) x = __fadd_rn(x, ab[r]);
+      if (MASK) {
+        bool ok = live[r] & (c >= lo[r]) & (c <= hi[r]);
+        if (GENERAL && m.segments != nullptr) ok = ok & (segq[c + c0] == sk[r]);
+        x = ok ? x : NEG;
+      }
+      s[n][e] = x;
+    }
+  }
+}
+
+// fp32 K2 on the tensor cores, cols pass (D = Dh in {16, 32, 64, 128}); see
+// the note at the top. One block of 4 warps per (64 keys, head, batch row),
+// natural order (longest first under a causal mask); warp w owns keys
+// 16w .. 16w + 15 and keeps their dK and dV in registers while the query
+// tiles that reach them, and every tile with a fully masked row, stream by.
+template <int D, bool GENERAL>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
+tf32_cols(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ g, float* __restrict__ dk, float* __restrict__ dv,
+          const float* __restrict__ stats, const Mask mask, int T, int H) {
+  constexpr int LD = D + 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // the block's keys, later dK's staging tile
+  float* Vs = Ks + MMA_TILE * LD;                  // their values, later dV's staging tile
+  float* Qb = Vs + MMA_TILE * LD;                  // a Q tile (big parts once split)
+  float* Qsm = Qb + MMA_TILE * LD;                 // its small parts
+  float* Gb = Qsm + MMA_TILE * LD;                 // its output gradients (big parts)
+  float* Gsm = Gb + MMA_TILE * LD;                 // their small parts
+  KeyAux* aux = reinterpret_cast<KeyAux*>(Gsm + MMA_TILE * LD);
+  QueryAux* qa = reinterpret_cast<QueryAux*>(aux + 1);  // with Q's tile
+  __shared__ int dead[MAX_T / MMA_TILE];  // query tiles that hold a row with no valid key
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const int64_t n_rows = (int64_t)gridDim.z * H * T;
+  const int64_t srow = ((int64_t)blockIdx.z * H + h) * T;
+  const float* qh = q + row0 * HD + h * D;
+  const float* gh = g + row0 * HD + h * D;
+  const float* krows = Ks + warp * 16 * LD;
+  const float* vrows = Vs + warp * 16 * LD;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  const int kr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+
+  load_tile_async_f32<D>(Ks, k + row0 * HD + h * D, HD, k0, T);
+  load_tile_async_f32<D>(Vs, v + row0 * HD + h * D, HD, k0, T);
+  load_aux_async<GENERAL>(aux, mask, row0, k0, T);  // joins the first tile's group
+
+  // A fully masked query row is uniform 1/T over every key: its tile
+  // reaches every key block (its g/T goes to dV; its dS is 0).
+  const int last = (T - 1) / MMA_TILE;
+  if (threadIdx.x <= last) dead[threadIdx.x] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < T; r += MMA_THREADS)
+    if (stats[srow + r] == NEG) dead[r / MMA_TILE] = 1;
+  __syncthreads();
+  // the query tiles that hold a causal, in-window pair for the block's keys
+  const int qt_lo = blockIdx.x;
+  const int qt_hi = mask.window > 0 ? min(last, (k0 + MMA_TILE - 2 + mask.window) / MMA_TILE)
+                                    : last;
+  auto next_tile = [&](int qt) {  // the first tile at or after qt to visit, or -1
+    for (; qt <= last; ++qt)
+      if ((qt >= qt_lo && qt <= qt_hi) || dead[qt]) return qt;
+    return -1;
+  };
+  auto issue_q = [&](int qt) {
+    const int j = threadIdx.x % MMA_TILE, qi = qt * MMA_TILE + j;
+    const bool ok = qi < T;
+    load_tile_async_f32<D>(Qb, qh, HD, qt * MMA_TILE, T);
+    if (threadIdx.x < MMA_TILE) {
+      const float* st = stats + srow + (ok ? qi : 0);
+      cp_async4(qa->m + j, st, ok);
+      cp_async4(qa->inv_l + j, st + n_rows, ok);
+      cp_async4(qa->d + j, st + 2 * n_rows, ok);
+    } else if (GENERAL && mask.segments != nullptr) {
+      cp_async4(qa->seg + j, mask.segments + row0 + (ok ? qi : 0), ok);
+    }
+  };
+  auto issue_g = [&](int qt) { load_tile_async_f32<D>(Gb, gh, HD, qt * MMA_TILE, T); };
+
+  float ak[D / 8][4], av[D / 8][4];  // dK, dV
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  int qt = next_tile(0);
+  issue_q(qt);  // one cp.async group a tile: Q, g and the query side
+  issue_g(qt);
+  cp_async_commit();
+  while (qt >= 0) {
+    const int nxt = next_tile(qt + 1);
+    cp_async_wait<0>();
+    if (threadIdx.x < MMA_TILE)  // l → 1/l, once a query, by the thread that copied it
+      qa->inv_l[threadIdx.x] =
+          qt * MMA_TILE + threadIdx.x < T ? 1.f / qa->inv_l[threadIdx.x] : 1.f;
+    split_own_chunks<D>(Qb, Qsm);
+    split_own_chunks<D>(Gb, Gsm);
+    __syncthreads();  // Q and g of tile qt (the first time also K, V) landed and split
+    const int q0 = qt * MMA_TILE;
+    const bool in_range = q0 >= k0 + MMA_TILE - 1 && q0 + MMA_TILE <= T &&
+                          (mask.window <= 0 || q0 + MMA_TILE - 1 < k0 + mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    const bool unmasked =
+        __all_sync(0xffffffffu, in_range & (aux->km[lane] > 0) & (aux->km[lane + 32] > 0));
+    // the tile's 64 queries in two halves of 32, to keep Sᵀ and dPᵀ at 32
+    // registers beside dK and dV
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int c_at = 32 * half;  // the half's first query in the tile
+      const float* qb = Qb + c_at * LD;
+      const float* qsm = Qsm + c_at * LD;
+      const float* gb = Gb + c_at * LD;
+      const float* gsm = Gsm + c_at * LD;
+      float s[4][4], dp[4][4];  // Sᵀ = K·Qᵀ, dPᵀ = V·gᵀ
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        uint32_t ab[4], as[4];
+        a_frag_3xtf32<D>(ab, as, krows, d, lane);
+        qk_part_3xtf32<D, 4, true>(s, ab, as, qb, qsm, d, lane);
+        a_frag_3xtf32<D>(ab, as, vrows, d, lane);
+        qk_part_3xtf32<D, 4, true>(dp, ab, as, gb, gsm, d, lane);
+      }
+      if (unmasked)
+        k2_scores_t<false, GENERAL, 4>(s, mask, slope, kr, k0, q0 + c_at, T, aux,
+                                       qa->seg + c_at, lane);
+      else
+        k2_scores_t<true, GENERAL, 4>(s, mask, slope, kr, k0, q0 + c_at, T, aux,
+                                      qa->seg + c_at, lane);
+      // Pᵀ = exp(s − m) / l from the rows pass's statistics; dSᵀ as in tf32_rows
+      const int c0 = c_at + (lane & 3) * 2;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + c0 + (e & 1);
+          const float p = expf(s[n][e] - qa->m[c]) * qa->inv_l[c];
+          const float x = s[n][e] == NEG ? 0.f : p * (dp[n][e] - qa->d[c]);
+          s[n][e] = p;
+          dp[n][e] = x * mask.scale;
+        }
+      pv_part_3xtf32<D, 4>(ak, dp, qb, qsm, lane);  // dK += dSᵀ·Q
+      pv_part_3xtf32<D, 4>(av, s, gb, gsm, lane);   // dV += Pᵀ·g
+    }
+    __syncthreads();  // Q, g and the query side consumed
+    if (nxt >= 0) {
+      issue_q(nxt);
+      issue_g(nxt);
+      cp_async_commit();
+    }
+    qt = nxt;
+  }
+  // dK and dV through the (free) K and V tiles: each warp stages its own rows
+  stage_rows_f32<D>(Ks + warp * 16 * LD, ak, lane);
+  stage_rows_f32<D>(Vs + warp * 16 * LD, av, lane);
+  __syncthreads();
+  store_tile_f32<D>(dk + row0 * HD + h * D, HD, Ks, k0, T);
+  store_tile_f32<D>(dv + row0 * HD + h * D, HD, Vs, k0, T);
+}
+
+// the fp32 pair: tf32_rows, then tf32_cols, on one stream
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* g, void* dq,
+                        void* dk, void* dv, float* stats, const Mask& mask, int B, int T, int H,
+                        cudaStream_t st) {
+  const bool general = mask.use_alibi || mask.segments != nullptr;
+  const dim3 grid((T + MMA_TILE - 1) / MMA_TILE, H, B);
+  const float *q_ = static_cast<const float*>(q), *k_ = static_cast<const float*>(k),
+              *v_ = static_cast<const float*>(v), *g_ = static_cast<const float*>(g);
+  const size_t smem_rows = tf32_tiles_bytes<D>() + sizeof(KeyAux);
+  const size_t smem_cols = smem_rows + sizeof(QueryAux);
+  auto rows = general ? tf32_rows<D, true> : tf32_rows<D, false>;
+  auto cols = general ? tf32_cols<D, true> : tf32_cols<D, false>;
+  cudaError_t err;
+  if ((err = set_smem(rows, smem_rows)) != cudaSuccess) return err;
+  rows<<<grid, MMA_THREADS, smem_rows, st>>>(q_, k_, v_, g_, static_cast<float*>(dq), stats,
+                                             mask, T, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = set_smem(cols, smem_cols)) != cudaSuccess) return err;
+  cols<<<grid, MMA_THREADS, smem_cols, st>>>(q_, k_, v_, g_, static_cast<float*>(dk),
+                                             static_cast<float*>(dv), stats, mask, T, H);
+  return cudaGetLastError();
+}
+
 template <typename scalar_t>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g, void* dq,
                    void* dk, void* dv, float* stats, const Mask mask, int B, int T, int H,
@@ -428,10 +864,20 @@ extern "C" int sgpt_short_attention_bwd(const void* q, const void* k, const void
                                         const int* segments, const int* kpos, int B, int T,
                                         int H, int Dh, float scale, int window, int use_alibi,
                                         int is_bf16, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || Dh < 1 || Dh > MAX_DH || B > 65535 || H > 65535)
+  if (B < 1 || T < 1 || T > MAX_T || H < 1 || Dh < 1 || Dh > MAX_DH || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Mask mask{key_mask, slopes, segments, kpos, scale, window, use_alibi};
   if (is_bf16) return (int)launch<bf16>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, Dh, st);
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
+                         (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
+  if (ptrs % 16 == 0) {  // the fp32 pair copies and stores 16 bytes at a time
+    switch (Dh) {
+      case 16: return (int)launch_tf32<16>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
+      case 32: return (int)launch_tf32<32>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
+      case 64: return (int)launch_tf32<64>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
+      case 128: return (int)launch_tf32<128>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
+    }
+  }
   return (int)launch<float>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, Dh, st);
 }

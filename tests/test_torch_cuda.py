@@ -144,7 +144,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("T,Dh,window,alibi,segments", [
     (40, 64, 0, False, False), (77, 64, 16, False, False), (300, 64, 256, True, False),
     (300, 64, 0, False, True), (130, 128, 0, False, False), (33, 16, 8, True, True),
-    (90, 48, 0, False, False)])
+    (100, 32, 16, False, False), (90, 48, 0, False, False)])
 def test_backward_kernel_matches_plain_version(cuda, dtype, T, Dh, window, alibi, segments):
     """K2 == `short_attention_bwd_reference`. fp32: |Δ| ≤ 1e-5·max|ref| +
     1e-5·|ref| (summation order only); bf16: 2e-2 + 1e-2·|ref| (a flipped
@@ -173,6 +173,89 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, T, Dh, window, alibi
         atol = 1e-5 * ww.abs().max().item() if dtype == "float32" else 2e-2
         rtol = 1e-5 if dtype == "float32" else 1e-2
         assert ((gg - ww).abs() <= atol + rtol * ww.abs()).all()
+
+
+def _bwd_inputs(rng, B, T, H, Dh, device, lengths=None):
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+                  .to(device) for _ in range(4))
+    km = np.ones((B, T), np.int32)
+    if lengths is None:
+        km[-1, T // 3:] = 0
+    else:
+        km = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
+    return q, k, v, torch.from_numpy(km).to(device), g
+
+
+def _check_bwd_gate(got, want):
+    """K2's fp32 gate: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in dq, dk and dv."""
+    for gg, ww in zip(got, want):
+        atol = 1e-5 * ww.abs().max().item()
+        assert ((gg - ww).abs() <= atol + 1e-5 * ww.abs()).all()
+
+
+def _bwd_kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key for ev in prof.key_averages()
+            if any(n in ev.key for n in ("tf32_rows", "tf32_cols", "rows_kernel", "cols_kernel"))}
+
+
+@pytest.mark.parametrize("Dh,offset,pair", [
+    (16, 0, True), (32, 0, True), (64, 0, True), (128, 0, True),
+    (48, 0, False),  # a head size the tensor-core pair does not take
+    (64, 1, False)])  # tensors one element off 16-byte alignment
+def test_fp32_backward_routing_and_gate(cuda, Dh, offset, pair):
+    """fp32 K2 takes the 3xTF32 pair (`tf32_rows`, `tf32_cols`) at head
+    sizes 16, 32, 64 and 128 with 16-byte-aligned tensors, and the CUDA-core
+    `rows_kernel`/`cols_kernel` otherwise; both hold the fp32 gate."""
+    rng = np.random.default_rng(Dh + offset)
+    B, T, H = 3, 150, 4
+    n = B * T * H * Dh
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 0.5, n + offset).astype(np.float32))
+                  .to(cuda)[offset:].view(B, T, H * Dh) for _ in range(4))
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    km = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    km[-1, 100:] = 0
+    kw = dict(scale=0.125, window=16, H=H, use_alibi=False)
+    names = _bwd_kernel_names(lambda: sa.short_attention_bwd(q, k, v, km, None, g, **kw))
+    assert names and all(("tf32_" in n) == pair for n in names), names
+    _check_bwd_gate(sa.short_attention_bwd(q, k, v, km, None, g, **kw),
+                    sa.short_attention_bwd_reference(q, k, v, km, None, g, **kw))
+
+
+def test_fp32_backward_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits (no atomics):
+    GradCache's check against the direct step depends on it."""
+    rng = np.random.default_rng(13)
+    q, k, v, km, g = _bwd_inputs(rng, 32, 300, 12, 64, cuda)
+    for window in (0, 256):
+        kw = dict(scale=1.0, window=window, H=12, use_alibi=False)
+        a = sa.short_attention_bwd(q, k, v, km, None, g, **kw)
+        b = sa.short_attention_bwd(q, k, v, km, None, g, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), window
+
+
+def test_fp32_backward_at_the_msmarco_query_tower(cuda):
+    """The query tower of MS MARCO training: 3-11-word queries padded to
+    T=300, B=32, H=12, Dh=64, in a window-256 layer. Rows from a query's
+    length + 255 on have no valid key: dQ is 0 there, and their g/T reaches
+    dV of every key, the padded ones included."""
+    rng = np.random.default_rng(14)
+    B, T, H, window = 32, 300, 12, 256
+    lengths = rng.integers(5, 14, B)
+    q, k, v, km, g = _bwd_inputs(rng, B, T, H, 64, cuda, lengths)
+    kw = dict(scale=1.0, window=window, H=H, use_alibi=False)
+    got = sa.short_attention_bwd(q, k, v, km, None, g, **kw)
+    _check_bwd_gate(got, sa.short_attention_bwd_reference(q, k, v, km, None, g, **kw))
+    dq, _, dv = got
+    for b, n in enumerate(lengths):
+        dead = int(n) + window - 1
+        assert torch.all(dq[b, dead:] == 0)
+        want = (g[b, dead:].sum(0) / T).expand(T - int(n), -1)
+        torch.testing.assert_close(dv[b, int(n):], want, atol=1e-5, rtol=1e-5)
 
 
 def test_autograd_on_the_card_launches_the_backward_kernel(cuda):

@@ -199,15 +199,20 @@ def _split(x):
     return big, _tf32(x - big)
 
 
-def _mma_tf32(a, b, order, three):
+def _mma_tf32(a, b, order, three, swapped=False):
     """a (..., M, K) · b (..., K, N) as K1's fp32 kernel takes it on the
     card: m16n8k8 steps of 8 along K; per step the TF32 products a_s·b_b,
-    a_b·b_s, a_b·b_b (3xTF32, the small terms first; `three=False`: a_b·b_b
-    alone), each product exact and added in turn, the step's 8 terms in
-    `order`, to a zeroed fp32 accumulator whose sum is then added to the
-    running one."""
+    a_b·b_s, a_b·b_b (3xTF32, the small terms first; `swapped`, K2's cols
+    pass: a_b·b_s, a_s·b_b, a_b·b_b; `three=False`: a_b·b_b alone), each
+    product exact and added in turn, the step's 8 terms in `order`, to a
+    zeroed fp32 accumulator whose sum is then added to the running one."""
     (ab, asm), (bb, bsm) = _split(a), _split(b)
-    terms = ((asm, bb), (ab, bsm), (ab, bb)) if three else ((ab, bb),)
+    if not three:
+        terms = ((ab, bb),)
+    elif swapped:
+        terms = ((ab, bsm), (asm, bb), (ab, bb))
+    else:
+        terms = ((asm, bb), (ab, bsm), (ab, bb))
     acc = torch.zeros(*a.shape[:-1], b.shape[-1])
     for k0 in range(0, a.shape[-1], 8):
         step = torch.zeros_like(acc)

@@ -24,7 +24,8 @@ from sgpt_tpu.ops.pallas.short_attention import (_seg_kpos_blocks,  # noqa: E402
                                                  _short_attention_bwd_impl)
 from sgpt_tpu_torch.ops import short_attention as sa  # noqa: E402
 
-from test_torch_short_attention import CASES, _inputs  # noqa: E402
+from test_torch_short_attention import (CASES, PV_ORDER, _inputs,  # noqa: E402
+                                        _mma_tf32)
 
 ATOL, RTOL = 1e-5, 1e-5
 
@@ -110,3 +111,196 @@ def test_no_grad_path_launches_forward_only_and_builds_no_graph():
     out.sum().backward()
     assert qa.grad is not None and qa.grad.abs().sum() > 0
     assert (sa.launches, sa.bwd_launches) == before  # CPU: plain versions, not counted
+
+
+TILE = 64  # K2's fp32 pair on the card: query rows and keys per block and tile
+
+
+def _k2_tf32(q2, k2, v2, key_mask, slopes, g, *, scale, window, H, use_alibi, segments=None,
+             positions=None, three=True, visit_dead=True):
+    """K2's fp32 pair on the card, in plain PyTorch: its (3x)TF32 products
+    in the card's order and its tile walks. Rows pass, per 64-row query
+    tile over the key tiles that hold a causal, in-window pair for it: walk
+    1 takes m, l and Σ exp(s − m)·dP online, 32 keys at a time (S = Q·Kᵀ
+    and dP = g·Vᵀ with Q and g as A), adds each unvisited key to l as
+    exp(-1e9 − m), D = that sum / l; walk 2 forms P = exp(s − m)·(1/l) and
+    dS = P∘(dP − D), re-masked and scaled, and dQ = dS·K with each 8-key
+    step in PV_ORDER. Cols pass, per 64-key block over the
+    query tiles that reach it and (`visit_dead`) every tile with a fully
+    masked row: Sᵀ = K·Qᵀ and dPᵀ = V·gᵀ with K and V as A (the swapped
+    product order), P = exp(s − m)·(1/l) from the rows pass's statistics,
+    dV = Pᵀ·g and dK = dSᵀ·Q in PV_ORDER. Returns (dq, dk, dv) and whether
+    both passes saw the same P bit for bit."""
+    B, T, HD = q2.shape
+    Dh = HD // H
+    Tp = -(-T // TILE) * TILE  # padded to whole tiles: zero rows, masked
+    pad = (lambda t: torch.nn.functional.pad(t, (0, 0, 0, Tp - T)))
+    q, k, v, gh = (pad(t.reshape(B, T, H, Dh).transpose(1, 2).float())
+                   for t in (q2, k2, v2, g))
+    _, mask = sa._scores(q2, k2, key_mask, slopes, scale=scale, window=window, H=H,
+                         use_alibi=use_alibi, segments=segments, positions=positions)
+    mask = torch.nn.functional.pad(mask, (0, Tp - T, 0, Tp - T))
+
+    def masked(dots):  # raw q·k (B, H, Tp, Tp) → K1's masked scores
+        s = dots * scale
+        if use_alibi:
+            kp = positions if positions is not None else torch.arange(T).expand(B, T)
+            kp = torch.nn.functional.pad(kp.float(), (0, Tp - T))
+            s = s + slopes.float()[None, :, None, None] * kp[:, None, None, :]
+        return torch.where(mask, s, torch.full((), sa.NEG))
+
+    # rows pass
+    s = masked(_mma_tf32(q, k.transpose(-1, -2), range(8), three))
+    dp = _mma_tf32(gh, v.transpose(-1, -2), range(8), three)
+    m = torch.zeros(B, H, Tp, 1)
+    l, dd = torch.ones_like(m), torch.zeros_like(m)  # past T: as the cols pass reads them
+    seen = torch.zeros(B, H, Tp, Tp, dtype=torch.bool)
+    for q0 in range(0, T, TILE):
+        rows = slice(q0, q0 + TILE)
+        kt_lo = max(0, q0 - window + 1) // TILE if window > 0 else 0
+        kt_hi = min(q0 + TILE - 1, T - 1) // TILE
+        mr, lr, dr = (torch.full((B, H, TILE, 1), x) for x in (sa.NEG, 0.0, 0.0))
+        for c in range(kt_lo * TILE, (kt_hi + 1) * TILE, TILE // 2):  # in halves of a tile
+            cols = slice(c, c + TILE // 2)
+            st, dpt = s[:, :, rows, cols], dp[:, :, rows, cols]
+            m_new = torch.maximum(mr, st.amax(-1, keepdim=True))
+            w, rescale = torch.exp(st - m_new), torch.exp(mr - m_new)
+            lr = lr * rescale + w.sum(-1, keepdim=True)
+            dr = dr * rescale + (w * dpt).sum(-1, keepdim=True)
+            mr = m_new
+        lr = lr + (T - (kt_hi + 1 - kt_lo) * TILE) * torch.exp(sa.NEG - mr)
+        n = min(TILE, T - q0)
+        m[:, :, q0:q0 + n], l[:, :, q0:q0 + n] = mr[:, :, :n], lr[:, :, :n]
+        dd[:, :, q0:q0 + n] = (dr / lr)[:, :, :n]
+        seen[:, :, rows, kt_lo * TILE:(kt_hi + 1) * TILE] = True
+    p_rows = torch.exp(s - m) * (1 / l)
+    ds = torch.where(s == sa.NEG, torch.zeros(()), p_rows * (dp - dd)) * scale
+    dq = _mma_tf32(torch.where(seen, ds, torch.zeros(())), k, PV_ORDER, three)
+
+    # cols pass
+    st = masked(_mma_tf32(k, q.transpose(-1, -2), range(8), three, swapped=True)
+                .transpose(-1, -2)).transpose(-1, -2)
+    dpt = _mma_tf32(v, gh.transpose(-1, -2), range(8), three, swapped=True)
+    mt, lt, dt = (x.transpose(-1, -2) for x in (m, l, dd))  # per query: a column
+    p_cols = torch.exp(st - mt) * (1 / lt)
+    dst = torch.where(st == sa.NEG, torch.zeros(()), p_cols * (dpt - dt)) * scale
+    dead = (m[..., 0] == sa.NEG).reshape(B, H, Tp // TILE, TILE).any(-1)  # (B, H, tiles)
+    visit = torch.zeros(B, H, Tp, Tp, dtype=torch.bool)
+    last = (T - 1) // TILE
+    for kb in range(Tp // TILE):
+        k0 = kb * TILE
+        qt_hi = min(last, (k0 + TILE - 2 + window) // TILE) if window > 0 else last
+        for qt in range(last + 1):
+            keys, qs = slice(k0, k0 + TILE), slice(qt * TILE, (qt + 1) * TILE)
+            if kb <= qt <= qt_hi:
+                visit[:, :, keys, qs] = True
+            elif visit_dead:
+                visit[:, :, keys, qs] = dead[:, :, qt, None, None]
+    zero = torch.zeros(())
+    dv = _mma_tf32(torch.where(visit, p_cols, zero), gh, PV_ORDER, three)
+    dk = _mma_tf32(torch.where(visit, dst, zero), q, PV_ORDER, three)
+    same_p = torch.equal(p_rows[:, :, :T, :T], p_cols.transpose(-1, -2)[:, :, :T, :T])
+    out = tuple(t[:, :, :T].transpose(1, 2).reshape(B, T, HD) for t in (dq, dk, dv))
+    return out, same_p
+
+
+def _k2_gate(got, want):
+    """K2's fp32 gate on the card: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in every
+    element; returns the largest |Δ| − 1e-5·|ref| over 1e-5·max|ref| (≤ 1
+    holds)."""
+    return float(((got - want).abs() - 1e-5 * want.abs()).max() / (1e-5 * want.abs().max()))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k2_3xtf32_holds_the_fp32_gate_against_the_jax_kernel(name):
+    """The CPU witness of K2's fp32 pair on the card (3xTF32 products in
+    the card's order, the online D, dQ in the permuted key order, the cols
+    pass's Sᵀ/dPᵀ/dV/dK with K and V as A, both tile walks) over the JAX
+    `_bwd_kernel` in interpret mode and over the plain version; both passes
+    see the same P bit for bit."""
+    T, scale, window, pad_at, alibi, segments = CASES[name]
+    B, H, Dh = 2, 4, 16
+    q, k, v, km, slopes, seg, pos = _inputs(len(name), B, T, H, Dh, pad_at, segments, alibi)
+    q, k, v = (x * np.float32(0.5) for x in (q, k, v))  # std 0.5, as the card's checks use
+    g = np.random.default_rng(len(name) + 100).normal(size=q.shape).astype(np.float32)
+    kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, segments=_torch(seg)[0],
+              positions=_torch(pos)[0])
+    args = _torch(q, k, v, km, slopes, g)
+    got, same_p = _k2_tf32(*args, **kw)
+    plain = sa.short_attention_bwd_reference(*args, **kw)
+    jseg, jkpos = _seg_kpos_blocks(jnp.asarray(km), None if seg is None else jnp.asarray(seg),
+                                   None if pos is None else jnp.asarray(pos), B, T)
+    jax_kernel = _short_attention_bwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km), jnp.asarray(slopes),
+        jseg, jkpos, jnp.asarray(g), scale, window, H, alibi, seg is not None,
+        interpret=True)
+    for part, gg, pp, jj in zip(("dq", "dk", "dv"), got, plain, jax_kernel):
+        assert _k2_gate(gg, pp) <= 1, part
+        assert _k2_gate(gg, torch.from_numpy(np.array(jj))) <= 1, part
+    assert same_p
+
+
+K2_TF32_CASES = {  # name: (T, Dh, scale, window, pad_at, alibi, segments)
+    "causal-T300-Dh64": (300, 64, 1.0, 0, 200, False, False),
+    "window256-T300-Dh64": (300, 64, 1.0, 256, 20, False, False),  # rows 275.. fully masked
+    "window16-T200-Dh32-fully-masked": (200, 32, 1.0, 16, 100, False, False),  # rows 115..
+    "alibi-window16-T130-Dh128": (130, 128, 1.0, 16, 110, True, False),
+    "segments-scale-T150-Dh16": (150, 16, 0.125, 0, 140, False, True),
+}
+
+
+def _k2_case(name, seed_offset=0):
+    T, Dh, scale, window, pad_at, alibi, segments = K2_TF32_CASES[name]
+    B, H = 2, 2
+    q, k, v, km, slopes, seg, pos = _inputs(T + Dh + seed_offset, B, T, H, Dh, pad_at,
+                                            segments, alibi)
+    q, k, v = (x * np.float32(0.5) for x in (q, k, v))
+    g = np.random.default_rng(T + 1).normal(size=q.shape).astype(np.float32)
+    kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, segments=_torch(seg)[0],
+              positions=_torch(pos)[0])
+    return _torch(q, k, v, km, slopes, g), kw
+
+
+@pytest.mark.parametrize("name", sorted(K2_TF32_CASES))
+def test_k2_3xtf32_tile_walks_hold_the_fp32_gate_over_several_tiles(name):
+    """The same witness where T spans several 64-row tiles, so that the
+    online D rescales, the rows pass prunes key tiles, and the cols pass
+    skips query tiles or visits them only for their fully masked rows."""
+    args, kw = _k2_case(name)
+    got, same_p = _k2_tf32(*args, **kw)
+    want = sa.short_attention_bwd_reference(*args, **kw)
+    for part, gg, ww in zip(("dq", "dk", "dv"), got, want):
+        assert _k2_gate(gg, ww) <= 1, part
+    assert same_p
+
+
+def test_k2_single_tf32_product_fails_the_fp32_gate():
+    """Why K2 splits its operands: one TF32 product per pair misses the
+    fp32 gate at the train shape's T=300."""
+    args, kw = _k2_case("causal-T300-Dh64")
+    want = sa.short_attention_bwd_reference(*args, **kw)
+    one, _ = _k2_tf32(*args, **kw, three=False)
+    assert max(_k2_gate(gg, ww) for gg, ww in zip(one, want)) > 1
+
+
+@pytest.mark.parametrize("name", ["window256-T300-Dh64", "window16-T200-Dh32-fully-masked"])
+def test_k2_fully_masked_rows_reach_every_key(name):
+    """Padded query rows that the window leaves with no valid key (the
+    query tower's tail in a local layer) softmax to 1/T over all T keys:
+    dQ is 0 there, yet their g/T reaches dV of every key, past their causal
+    range and on padded keys too. The cols pass must visit their tiles for
+    every key block: without that (window 16) dV misses it."""
+    args, kw = _k2_case(name)
+    T, window, pad_at = args[0].shape[1], kw["window"], K2_TF32_CASES[name][4]
+    dead = pad_at + window - 1  # first row of the last batch row with no valid key
+    (dq, dk, dv), _ = _k2_tf32(*args, **kw)
+    want = sa.short_attention_bwd_reference(*args, **kw)
+    assert torch.all(dq[-1, dead:] == 0) and torch.all(want[0][-1, dead:] == 0)
+    assert _k2_gate(dv, want[2]) <= 1
+    g = args[5]
+    np.testing.assert_allclose(dv[-1, pad_at:].numpy(),
+                               (g[-1, dead:].sum(0) / T).expand(T - pad_at, -1).numpy(),
+                               atol=1e-5)
+    (_, _, dv_skip), _ = _k2_tf32(*args, **kw, visit_dead=False)
+    if window < TILE:  # with window 256 at T=300 every query tile reaches every key block
+        assert _k2_gate(dv_skip, want[2]) > 1
