@@ -43,7 +43,9 @@ Phases, each of which asserts; any failure exits non-zero:
                256, on the decoder's projection views; variants T 128-1024,
                block_kv 128 and 256, scale 1/8, ALiBi, Dh 32 and 128, fp32;
                key padding with fully masked rows; output and lse; times in
-               bf16 at B=64 and in fp32 at the long train's B=8
+               bf16 at B=64 and in fp32 at the long train's B=8 (fp32 bound:
+               3 × its operations at the TF32 peak, the CUDA cores' beside
+               it; kernel and plain errors against an fp64 evaluation)
  13. long    — long-context encode: full-width GPT-Neo-125M with use_flash
                (bf16, max_seq_len 2048, batch_size 64) over 512 documents of
                300-3,000 words (buckets 512, 1024, 2048; 154 truncated) and
@@ -66,10 +68,11 @@ Phases, each of which asserts; any failure exits non-zero:
                (2 + 2) chunks a step, K4a = K4b = 12 × 3 × 2, K1 = K2 = 0;
                only biases move, the loss falls; ms/step, sequences/s,
                tokens/s, peak memory, one step under torch.profiler; 3 steps
-               at "highest" (strict fp32) for its rate; GradCache (chunks of
-               2) == direct on 4 triplets at "highest" (tparity also holds
-               one use_flash step at max_seq_len 512, card K3/K4 against the
-               CPU's plain versions)
+               at "highest" (strict fp32) for its rate, one more profiled;
+               GradCache (chunks of 2) == direct on 4 triplets at "highest"
+               (tparity also holds one use_flash step at max_seq_len 512,
+               card K3/K4 against the CPU's plain versions); both profiles
+               name `flash_fwd_tf32` for K3
  16. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -79,9 +82,11 @@ With `--parent DIR` (another checkout of this repo, e.g. the parent commit
 unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
 K3, K4a and K4b from both builds in turns (parent, change, change, parent):
-phase `ab`. K1, K2's bf16 path, K3, K4a and K4b must give the parent's
-outputs bit for bit; K2's fp32 path (redesigned) the parent's within the
-fp32 gate, each build's error against an fp64 evaluation logged.
+phase `ab`. K1, K2's bf16 path, K3's bf16 path, K4a and K4b must give the
+parent's outputs bit for bit; the redesigned fp32 paths of K2 and K3 the
+parent's within their fp32 gates (K3 at window 0 and 256, on all rows),
+each build's error against an fp64 evaluation logged (K3: on the rows that
+hold a valid key). K4's inputs come from this tree's K3.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -105,8 +110,8 @@ FP32_ATOL, FP32_RTOL = 1e-5, 1e-5   # fp32, TF32 off: summation order only
 # the card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 HBM_BYTES_PER_S = 3.35e12
-# tensor cores (bf16; TF32, which K1's fp32 path issues three of for each fp32
-# product, 3xTF32); fp32 on the CUDA cores
+# tensor cores (bf16; TF32, which the fp32 paths of K1, K2 and K3 issue three
+# of for each fp32 product, 3xTF32); fp32 on the CUDA cores
 PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 
@@ -173,11 +178,12 @@ def kernels_of(lib):
 def phase_ab(torch, sa, fa, parent_lib, this_lib):
     """K1, K2, K3, K4a and K4b built from the parent checkout and from this
     tree, timed in one process on one card in turns (parent, change,
-    change, parent) at the main paths' shapes. K1, K2 bf16, K3, K4a and
-    K4b must give the parent's outputs bit for bit; K2 fp32 (redesigned)
-    within K2's fp32 gate of the parent's (|Δ| ≤ 1e-5·max|ref| +
-    1e-5·|ref| in dq, dk and dv), with both builds' errors against an fp64
-    evaluation of K2's formula logged."""
+    change, parent) at the main paths' shapes. K1, K2 bf16, K3 bf16, K4a
+    and K4b must give the parent's outputs bit for bit; the redesigned fp32
+    paths within their gates of the parent's: K2 |Δ| ≤ 1e-5·max|ref| +
+    1e-5·|ref| in dq, dk and dv, K3 |Δ| ≤ 1e-5 + 1e-5·|ref| in the output,
+    on all rows; both builds' errors against an fp64 evaluation of the
+    kernel's formula are logged (K3's on the rows that hold a valid key)."""
     rng = np.random.default_rng(SEED + 7)
     cells = {}
 
@@ -194,7 +200,8 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
     def flash(B, dtype, window):
         (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, 12, 64, dtype)
         qh, kh, vh = (heads(t, 12) for t in (q, k, v))
-        return lambda: fa.flash_attention(qh, kh, vh, km, window=window, block_kv=256)
+        # a partial: the K3 fp32 check reads its arguments
+        return functools.partial(fa.flash_attention, qh, kh, vh, km, window=window, block_kv=256)
 
     (q, k, v, km, _), _ = attention_inputs(torch, rng, 8, 2048, 12, 64, torch.float32)
     qh, kh, vh = (heads(t, 12) for t in (q, k, v))
@@ -209,21 +216,23 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
             return tuple(t.clone() for t in grads)
         return run
 
-    runs = [  # name, function, whether the output must equal the parent's bit for bit
-        ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), True),
-        ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), True),
-        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), True),
-        ("K1 fp32 B=32 T=300 window=256", short(32, torch.float32, 256), True),
-        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), False),
-        ("K2 fp32 B=32 T=300 window=256", short(32, torch.float32, 256, bwd=True), False),
-        ("K2 bf16 B=32 T=300 window=0", short(32, torch.bfloat16, 0, bwd=True), True),
-        ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), True),
-        ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), True),
-        ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), True),
-        ("K4a fp32 B=8 T=2048 window=0", k4(fa._launch_dq, bwd["grads"][:1]), True),
-        ("K4b fp32 B=8 T=2048 window=0", k4(fa._launch_dkv, bwd["grads"][1:]), True),
+    runs = [  # name, function, how the output is held to the parent's: "exact" (bit for
+        # bit), or "k2"/"k3" (a redesigned fp32 path: within its gate, fp64 errors logged)
+        ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), "exact"),
+        ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), "exact"),
+        ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), "exact"),
+        ("K1 fp32 B=32 T=300 window=256", short(32, torch.float32, 256), "exact"),
+        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), "k2"),
+        ("K2 fp32 B=32 T=300 window=256", short(32, torch.float32, 256, bwd=True), "k2"),
+        ("K2 bf16 B=32 T=300 window=0", short(32, torch.bfloat16, 0, bwd=True), "exact"),
+        ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), "exact"),
+        ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), "exact"),
+        ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), "k3"),
+        ("K3 fp32 B=8 T=2048 window=256", flash(8, torch.float32, 256), "k3"),
+        ("K4a fp32 B=8 T=2048 window=0", k4(fa._launch_dq, bwd["grads"][:1]), "exact"),
+        ("K4b fp32 B=8 T=2048 window=0", k4(fa._launch_dkv, bwd["grads"][1:]), "exact"),
     ]
-    for name, fn, exact in runs:
+    for name, fn, held in runs:
         outs = {}
         for tag, lib in (("parent", parent_lib), ("change", this_lib)):
             with kernels_of(lib):
@@ -231,8 +240,17 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
                 torch.cuda.synchronize()
             outs[tag] = [t.float() for t in (got if isinstance(got, tuple) else (got,))]
         diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
-        if exact:
+        if held == "exact":
             assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
+        elif held == "k3":  # K3 fp32: the fp32 gate against the parent, both against fp64
+            a, b = outs["parent"][0], outs["change"][0]
+            assert ((a - b).abs() <= FP32_ATOL + FP32_RTOL * a.abs()).all(), (name, diff)
+            ref, valid = k3_fp64(torch, fn.args, fn.keywords["window"])
+            for tag in ("parent", "change"):
+                err = torch.where(valid, (outs[tag][0].double() - ref).abs(), 0.0).max().item()
+                log(f"ab {name}: max |out - fp64 evaluation| {tag} {err:.3e} (rows with a "
+                    f"valid key)")
+            del ref, valid
         else:  # K2 fp32: the fp32 gate against the parent, and both against fp64
             for part, a, b in zip(("dq", "dk", "dv"), outs["parent"], outs["change"]):
                 atol = FP32_ATOL * a.abs().max().item()
@@ -318,6 +336,24 @@ def k2_fp64(torch, args, window: int, scale: float = 1.0):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
     return tuple(t.reshape(B, T, HD) for t in (dq, dk, dv))
+
+
+def k3_fp64(torch, args, window: int):
+    """K3's formula (scale 1, no ALiBi) evaluated in fp64 on the card, one
+    batch row at a time: the yardstick of K3's fp32 error. args: (q, k, v,
+    key_mask) as the kernel takes them, q/k/v (B, H, T, Dh). Returns the
+    fp64 output and the (B, 1, T, 1) mask of the rows that hold a valid key
+    (a row without one is the mean of V over the TPU tiles' visited keys, a
+    property of the walk and not of the formula; it is 0 here)."""
+    q, k, v, km = args[:4]
+    mask = sdpa_mask(torch, km, window)
+    out = []
+    for b in range(q.shape[0]):
+        s = torch.einsum("hqd,hkd->hqk", q[b].double(), k[b].double())
+        p = torch.softmax(s.masked_fill(~mask[b], float("-inf")), dim=-1).nan_to_num(0.0)
+        out.append(torch.einsum("hqk,hkd->hqd", p, v[b].double()))
+        del s, p
+    return torch.stack(out), mask.any(-1, keepdim=True)
 
 
 def heads(t, H):
@@ -1073,7 +1109,9 @@ def phase_flash(torch, fa, rng):
     within 1e-5 + 1e-5·|ref|; fully masked rows' lse equal -1e30 on both
     sides. Then the times at the main shape, global and window 256: kernel,
     plain version, the library's SDPA with the same boolean mask, and the
-    bound from this run's pairs and bytes."""
+    bound from this run's pairs and bytes (fp32: 3 × the operations at the
+    TF32 peak, as 3xTF32 issues them, with the CUDA cores' bound and the
+    kernel's and plain version's errors against fp64 beside it)."""
     main_err = 0.0
     for dtype, atol, rtol in ((torch.bfloat16, BF16_ATOL, BF16_RTOL),
                               (torch.float32, FP32_ATOL, FP32_RTOL)):
@@ -1130,13 +1168,28 @@ def phase_flash(torch, fa, rng):
         nbytes = 4 * q.numel() * q.element_size() + B * 12 * 2048 * 4 + km.numel() * 4
         pairs = attention_pairs(torch, km, window)
         ops = 4 * 64 * 12 * pairs
-        t = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, dt))
-        times[window if dt == "bf16" else (dt, window)] = t
+        if dt == "bf16":
+            t = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, dt))
+            times[window] = t
+            extra = ""
+        else:  # 3xTF32: three TF32 products for each fp32 one
+            simt = bound(nbytes, ops, "fp32")
+            ref, valid = k3_fp64(torch, (qh, kh, vh, km), window)
+            errs = [torch.where(valid, (o.double() - ref).abs(), 0.0).max().item()
+                    for o in (kernel(), plain()[0])]
+            del ref, valid
+            t = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, 3 * ops, "tf32"),
+                 simt[0], *errs)
+            times[(dt, window)] = t
+            extra = (f"; 3 x {ops} TF32 operations at {PEAK_OPS_PER_S['tf32'] / 1e12:.0f} "
+                     f"TFLOP/s; on the CUDA cores {simt[0]:.4f} ms, {simt[1]}; max |out - fp64 "
+                     f"evaluation| on rows with a valid key: kernel {errs[0]:.3e}, plain "
+                     f"{errs[1]:.3e}")
         log(f"time K3 B={B} T=2048 H=12 Dh=64 {dt} window={window}: kernel {t[0]:.4f} "
             f"ms, plain {t[1]:.4f} ms, library (SDPA {dt}, boolean mask) {lib:.4f} ms, "
             f"bound {t[3]:.4f} ms ({t[4]}: {nbytes} bytes, {ops} "
             f"operations over {pairs} pairs; {ops / (t[0] / 1e3) / 1e12:.1f} "
-            f"TFLOP/s) (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+            f"TFLOP/s{extra}) (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
         del q, k, v, qh, kh, vh, mask
     torch.cuda.empty_cache()
     return main_err, times
@@ -1490,8 +1543,8 @@ def phase_ltrain(torch, fa, sa, tok, card):
     `ContrastiveTrainer.fit`. Every tower pads to 2048, so every layer runs
     K3 in both GradCache passes and K4a/K4b in pass 2. The steps run at the
     CLI's matmul_precision "default" (TF32 products), one more profiled;
-    then 3 steps at "highest" (strict fp32) for the rate, and GradCache
-    against a direct step at "highest"."""
+    then 3 steps at "highest" (strict fp32) for the rate, one more
+    profiled, and GradCache against a direct step at "highest"."""
     import dataclasses
 
     from sgpt_tpu_torch.models import Decoder, gpt_neo
@@ -1549,9 +1602,9 @@ def phase_ltrain(torch, fa, sa, tok, card):
         f"peak {peak_gib:.2f} GiB, fp32 at TF32 products, batch 16, max_seq_len 2048, GradCache chunk 8 "
         f"({card})")
 
-    profile_out = profile_step(torch, trainer, batch, "ltrain profile, one step (TF32)",
-                               {"K3": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
-                                "K4b": ("flash_bwd_dkv",), "GEMM": GEMM_KEYS})
+    families = {"K3": ("flash_fwd_tf32",), "K3other": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
+                "K4b": ("flash_bwd_dkv",), "GEMM": GEMM_KEYS}
+    profile_out = profile_step(torch, trainer, batch, "ltrain profile, one step (TF32)", families)
 
     # 3 steps in strict fp32 ("highest") on the same model: 2 timed intervals
     strict = cfg.replace(matmul_precision="highest")
@@ -1567,6 +1620,15 @@ def phase_ltrain(torch, fa, sa, tok, card):
     log(f"ltrain: {ms_highest:.1f} ms/step, {rates['seq_per_s_highest']:.2f} sequences/s, "
         f"{rates['tokens_per_s_highest']:.0f} tokens/s at matmul_precision \"highest\" (strict "
         f"fp32); TF32 takes {ms_per_step / ms_highest:.3f} of it")
+    strict_trainer = ContrastiveTrainer(model, strict, tok, tc)
+    strict_trainer._opt, strict_trainer._sched = strict_trainer._build_optimizer(1)
+    prof_highest = profile_step(torch, strict_trainer, batch,
+                                "ltrain profile, one step (strict fp32)", families)
+    for pr in (profile_out, prof_highest):
+        if pr["profile_kernel_ms"] is not None:  # fp32 K3 is flash_fwd_tf32, and only it
+            assert pr["profile_k3_ms"] > 0 == pr["profile_k3other_ms"], pr
+    profile_out.update({k.replace("profile", "profile_highest", 1): v
+                        for k, v in prof_highest.items()})
 
     # GradCache (chunks of 2) against one direct step on 4 triplets, same weights
     snap = {n: p.detach().clone() for n, p in model.state_dict().items()}
@@ -1580,7 +1642,7 @@ def phase_ltrain(torch, fa, sa, tok, card):
     log(f"ltrain: GradCache (chunk 2) loss {gc:.7f}, direct {direct:.7f}, |diff| "
         f"{abs(gc - direct):.3e} (tolerance 1e-5 relative), 4 triplets at T=2048")
     assert abs(gc - direct) <= 1e-5 * abs(direct)
-    del trainer, model, towers
+    del trainer, strict_trainer, model, towers
     torch.cuda.empty_cache()
     return {**counts, **rates, **profile_out, "losses": losses, "gc_vs_direct": abs(gc - direct)}
 
@@ -1826,10 +1888,12 @@ def main() -> int:
         "library_ms_local256": flash_times[256][2], "bound_ms_local256": flash_times[256][3],
         "bound_by_local256": flash_times[256][4],
         **{f"{key}_fp32_b8_w{w}": flash_times[("fp32", w)][i] for w in (0, 256)
-           for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))},
+           for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "bound_ms_cuda_cores", "fp64_err", "plain_fp64_err"))},
         "parent_ms": parent_ms("K3 bf16 B=64 T=2048 window=0"),
         "parent_ms_local256": parent_ms("K3 bf16 B=64 T=2048 window=256"),
         "parent_ms_fp32_b8": parent_ms("K3 fp32 B=8 T=2048 window=0"),
+        "parent_ms_fp32_b8_w256": parent_ms("K3 fp32 B=8 T=2048 window=256"),
         "long_emb_per_s": long["emb_per_s"],
         "long_tokens_per_s": long["tokens_per_s"], "long_batches": long["batches"],
         "long_flash_batches": long["flash_batches"],

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Build variants of K1's or K2's source on one NVIDIA card, check and time them in turns.
+"""Build variants of K1's, K2's or K3's source on one NVIDIA card, check and time them in turns.
 
     python3 chip_variants.py [NAME ...]
 
-Each variant is this tree's `sgpt_tpu_torch/csrc/short_attention.cu` and
-`short_attention_bwd.cu` and their headers with a few text substitutions
-(VARIANTS below; "tree" is the source as it stands), and names the kernel it
-is about: K1's fp32 forward (`tf32_kernel`) or K2's fp32 backward
-(`tf32_rows`, `tf32_cols`; `k2_p_probe` instead prints whether both passes
-compute the same P bit for bit). All variants build at once, one `nvcc` each,
-into `build/variants/<name>/`; the port's wrappers then run on each library
-in turn (`chip_smoke.kernels_of`). For every variant the script prints the
-registers and spills of its kernels at Dh=64 without ALiBi or segments, the
-fp32 error against the plain version over `chip_smoke.CASES` with the fp32
-gate (K1: |Δ| ≤ 1e-5 + 1e-5·|ref|; K2: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in
-dq, dk and dv), and the time at the train shape (B=32, T=300, H=12, Dh=64,
-fp32; window 0 and 256) over two rounds in alternating order (K2: also each
-pass alone, under torch.profiler), beside SDPA fp32 (K2: SDPA's backward)
-and the card's name and power limit. A variant is a measurement, never a
-second path: the tree keeps one kernel.
+Each variant is this tree's `sgpt_tpu_torch/csrc/short_attention.cu`,
+`short_attention_bwd.cu` and `flash_attention.cu` and their headers with a
+few text substitutions (VARIANTS below; "tree" is the source as it stands),
+and names the kernel it is about: K1's fp32 forward (`tf32_kernel`), K2's
+fp32 backward (`tf32_rows`, `tf32_cols`; `k2_p_probe` instead prints whether
+both passes compute the same P bit for bit) or K3's fp32 forward
+(`flash_fwd_tf32`, the `k3_` names). All variants build at once, one `nvcc`
+each, into `build/variants/<name>/`; the port's wrappers then run on each
+library in turn (`chip_smoke.kernels_of`). For every variant the script
+prints the registers and spills of its kernels (K1, K2 at Dh=64 without
+ALiBi or segments; K3 at Dh 64 and 128), the fp32 error against the plain
+version with the fp32 gate (K1 over `chip_smoke.CASES`: |Δ| ≤ 1e-5 +
+1e-5·|ref|; K2 over the same: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in dq, dk
+and dv; K3 over `chip_smoke.FLASH_CASES`, output and lse: |Δ| ≤ 1e-5 +
+1e-5·|ref|), and the time at the main path's shape over two rounds in
+alternating order (K1, K2: the train shape B=32, T=300, H=12, Dh=64, fp32,
+window 0 and 256, K2 also each pass alone under torch.profiler; K3: the
+long train's B=8, T=2048, H=12, Dh=64, fp32, block_kv 256, window 0 and
+256), beside SDPA fp32 (K2: SDPA's backward) and the card's name and power
+limit. A variant is a measurement, never a second path: the tree keeps one
+kernel.
 """
 from __future__ import annotations
 
@@ -60,6 +65,24 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
                      ""),
                     ("mma_tf32.cuh", "mma_tf32(t, ab, bs0, bs1);\n  mma_tf32(t, as, bb0, bb1);\n",
                      "")],
+    # K3: Q split once a block, each warp's A fragments held split in
+    # registers across the walk (the tree splits them at every k-step)
+    "k3_q_in_regs": [
+        ("flash_attention.cu", "  for (int i = 0; i < n; ++i) {\n    const int entry = list[i], "
+         "k0 = entry & ~NEEDS_MASK, stage = i & 1;\n    float* kb",
+         "  uint32_t qf[D / 8][2][4];\n  for (int i = 0; i < n; ++i) {\n    const int entry = "
+         "list[i], k0 = entry & ~NEEDS_MASK, stage = i & 1;\n    float* kb"),
+        ("flash_attention.cu", "// K of sub-tile i (and at i = 0 the Q tile) landed and split\n",
+         "// K of sub-tile i (and at i = 0 the Q tile) landed and split\n    if (i == 0)\n"
+         "#pragma unroll\n      for (int d = 0; d < D / 8; ++d) a_frag_3xtf32<D>(qf[d][0], "
+         "qf[d][1], qrows, d, lane);\n"),
+        ("flash_attention.cu", "      uint32_t ab[4], as[4];\n      a_frag_3xtf32<D>(ab, as, "
+         "qrows, d, lane);  // Q's fragments, split at every k-step\n      qk_step_3xtf32<D>(s, "
+         "ab, as, kb, Ksm, d, lane);",
+         "      qk_step_3xtf32<D>(s, qf[d][0], qf[d][1], kb, Ksm, d, lane);")],
+    # K3: the fast exponential for p
+    "k3_fast_exp": [("flash_attention.cu", "s[c][e] = expf(s[c][e] - m_new[e >> 1]);",
+                     "s[c][e] = __expf(s[c][e] - m_new[e >> 1]);")],
     # K2, a probe (not timed): at T ≤ 64 and Dh = 64 the rows pass writes its
     # P into dq (row q, column key) and the cols pass its P into dk (row
     # key, column q), to see whether both passes compute the same P
@@ -75,6 +98,20 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
 }
 
 
+def group(name: str) -> str:
+    """The kernel a variant is about: "k2", "k3" or (the rest) "k1"."""
+    return name[:2] if name[:3] in ("k2_", "k3_") else "k1"
+
+
+def sources(name: str) -> list:
+    """The sources a variant's library is built from: the kernel it is about
+    (short_attention.cu also holds the error-string entry point)."""
+    if name == "tree":
+        return ["short_attention.cu", "short_attention_bwd.cu", "flash_attention.cu"]
+    return {"k1": ["short_attention.cu"], "k2": ["short_attention.cu", "short_attention_bwd.cu"],
+            "k3": ["short_attention.cu", "flash_attention.cu"]}[group(name)]
+
+
 def build(names):
     nvcc = _build._nvcc()
     procs = {}
@@ -82,8 +119,7 @@ def build(names):
         d = OUT / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for f in list(CSRC.glob("*.cuh")) + [CSRC / "short_attention.cu",
-                                             CSRC / "short_attention_bwd.cu"]:
+        for f in list(CSRC.glob("*.cuh")) + [CSRC / c for c in sources(name)]:
             text = f.read_text()
             for fname, old, new in VARIANTS[name]:
                 if fname == f.name:
@@ -92,7 +128,7 @@ def build(names):
                     text = text.replace(old, new)
             (d / f.name).write_text(text)
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-               str(d / "short_attention.cu"), str(d / "short_attention_bwd.cu")]
+               *(str(d / c) for c in sources(name))]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
@@ -102,16 +138,25 @@ def build(names):
             raise SystemExit(f"variant {name}: nvcc failed\n{out[-4000:]}")
         lines = out.splitlines()
         for i, line in enumerate(lines):
-            for kernel in ("tf32_kernel", "tf32_rows", "tf32_cols"):
-                if re.search(rf"Compiling entry function '.*{kernel}ILi64ELb0", line):
-                    print(f"{name}: {kernel}<64, false>: "
+            for kernel, inst, args in (("tf32_kernel", "ILi64ELb0", "64, false"),
+                                       ("tf32_rows", "ILi64ELb0", "64, false"),
+                                       ("tf32_cols", "ILi64ELb0", "64, false"),
+                                       ("flash_fwd_tf32", "ILi64E", "64"),
+                                       ("flash_fwd_tf32", "ILi128E", "128")):
+                if re.search(rf"Compiling entry function '.*{kernel}{inst}", line):
+                    print(f"{name}: {kernel}<{args}>: "
                           + " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        p, i_, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i_, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        if "short_attention_bwd.cu" in sources(name):
+            lib.sgpt_short_attention_bwd.argtypes = [p] * 12 + [i_] * 4 + [f] + [i_] * 3 + [p]
+            lib.sgpt_short_attention_bwd.restype = i_
+        if "flash_attention.cu" in sources(name):
+            lib.sgpt_flash_attention_fwd.argtypes = ([p] * 7 + [i_] * 4 + [ll] * 6 + [f]
+                                                     + [i_] * 4 + [p])
+            lib.sgpt_flash_attention_fwd.restype = i_
         lib.sgpt_short_attention_fwd.argtypes = [p] * 8 + [i_] * 4 + [f] + [i_] * 3 + [p]
         lib.sgpt_short_attention_fwd.restype = i_
-        lib.sgpt_short_attention_bwd.argtypes = [p] * 12 + [i_] * 4 + [f] + [i_] * 3 + [p]
-        lib.sgpt_short_attention_bwd.restype = i_
         lib.sgpt_cuda_error_string.argtypes = [i_]
         lib.sgpt_cuda_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -124,18 +169,22 @@ def main() -> int:
         print("chip_variants: needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    from sgpt_tpu_torch.ops import flash_attention as fa
     from sgpt_tpu_torch.ops import short_attention as sa
 
     names = sys.argv[1:] or list(VARIANTS)
     print(cs.card_line(), flush=True)
     libs = build(names)
-    k1 = {n: lib for n, lib in libs.items() if not n.startswith("k2_")}  # K1's variants
+    k1 = {n: lib for n, lib in libs.items() if group(n) == "k1"}  # "tree" among them
     k2 = {n: lib for n, lib in libs.items()
-          if n == "tree" or (n.startswith("k2_") and n != "k2_p_probe")}
+          if n == "tree" or (group(n) == "k2" and n != "k2_p_probe")}
+    k3 = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k3"}
     if len(k1) > 1 or names == ["tree"]:
         run_k1(torch, sa, k1)
     if len(k2) > 1 or names == ["tree"]:
         run_k2(torch, sa, k2)
+    if len(k3) > 1 or names == ["tree"]:
+        run_k3(torch, fa, k3)
     if "k2_p_probe" in libs:
         probe_p(torch, sa, libs["k2_p_probe"])
     return 0
@@ -246,6 +295,51 @@ def run_k2(torch, sa, libs):
         print(f"K2 fp32 B=32 T=300 window={window}: SDPA backward {sdpa:.4f} ms; " + "; ".join(
             f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)}; rows pass "
             f"{passes[n][0]}, cols pass {passes[n][1]})" for n, t in times.items()), flush=True)
+
+
+def run_k3(torch, fa, libs):
+    for name, lib in libs.items():
+        errs, bad = [], []
+        with cs.kernels_of(lib):
+            for case, B, T, H, Dh, block_kv, scale, window, alibi in cs.FLASH_CASES:
+                B = min(B, 8)  # fp32 at the long train's batch, as phase flash takes it
+                (q, k, v, km, slopes), _ = cs.attention_inputs(
+                    torch, np.random.default_rng(len(case)), B, T, H, Dh, torch.float32,
+                    alibi=alibi)
+                slopes = slopes * 0.03 if alibi else None  # BLOOM-sized slopes
+                qh, kh, vh = (cs.heads(t, H) for t in (q, k, v))
+                kw = dict(scale=scale, window=window, block_kv=block_kv)
+                got, lse = fa.flash_attention(qh, kh, vh, km, slopes, return_residuals=True,
+                                              **kw)
+                want, want_lse = fa.flash_attention_reference(qh, kh, vh, km, slopes, **kw)
+                dead = want_lse == fa.NEG_INF
+                err = (got - want).abs()
+                lerr = (lse - want_lse).abs()[~dead]
+                errs.append(f"{case} {err.max().item():.2e}/{lerr.max().item():.2e}")
+                if (((err - cs.FP32_RTOL * want.abs()).max().item() > cs.FP32_ATOL)
+                        or (lerr - cs.FP32_RTOL * want_lse.abs()[~dead]).max().item()
+                        > cs.FP32_ATOL or not torch.equal(lse == fa.NEG_INF, dead)):
+                    bad.append(case)
+                del q, k, v, qh, kh, vh, got, want, lse, want_lse
+        print(f"{name}: K3 fp32 gate {'FAILS in ' + ', '.join(bad) if bad else 'holds'}; "
+              f"max |Δ| output/lse: {', '.join(errs)}", flush=True)
+    (q, k, v, km, _), _ = cs.attention_inputs(torch, np.random.default_rng(cs.SEED), 8, 2048,
+                                              12, 64, torch.float32)
+    qh, kh, vh = (cs.heads(t, 12) for t in (q, k, v))
+    for window in (0, 256):
+        def run():
+            return fa.flash_attention(qh, kh, vh, km, window=window, block_kv=256)
+        times = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            with cs.kernels_of(libs[name]):
+                times[name].append(cs.cuda_ms(torch, run, iters=10))
+        mask = cs.sdpa_mask(torch, km, window)
+        sdpa = cs.cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=1.0), iters=5)
+        print(f"K3 fp32 B=8 T=2048 window={window}: SDPA {sdpa:.4f} ms; " + "; ".join(
+            f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
+            for n, t in times.items()), flush=True)
+        del mask
 
 
 if __name__ == "__main__":

@@ -24,12 +24,17 @@
 // contiguous and whose rows are 16-byte aligned; the decoder passes views of
 // its (B, T, H·Dh) projections, so no head transposes are copied.
 //
-// What bounds it on this card: at the long-context encode shape (B=64,
-// T=2048, H=12, Dh=64, bf16) a global layer needs 412.5 GFLOP for 805 MB of
+// What bounds it on this card. The long-context encode runs bf16 (B=64,
+// T=2048, H=12, Dh=64): a global layer needs 412.5 GFLOP for 805 MB of
 // q/k/v/o (compute bound, 0.417 ms at 989 TFLOP/s) and a window-256 layer
-// 96.7 GFLOP (memory bound, 0.242 ms at 3.35 TB/s). The design answers the
-// compute side with tensor cores fed from registers and the memory side by
-// reading each K/V sub-tile once per 64 query rows:
+// 96.7 GFLOP (memory bound, 0.242 ms at 3.35 TB/s). The long-context train
+// step runs fp32 (B=8, same T, H and Dh; twice a layer, tower and chunk):
+// 201 MB of q/k/v/o (0.060 ms) against 4.53e10 operations in a global layer
+// and 1.06e10 in a window-256 one, which 3xTF32 (below) issues three times
+// over on the TF32 tensor cores: 0.275 and 0.064 ms at 495 TFLOP/s, where
+// the CUDA cores' 67 TFLOP/s would take 0.676 and 0.158. Both paths answer
+// the compute side with tensor cores fed from registers and the memory side
+// by reading each K/V sub-tile once per 64 query rows:
 //   * flash_fwd_bf16<D>: one block of 4 warps per (64 query rows, head, batch
 //     row), longest rows first; each warp owns 16 query rows. Q·Kᵀ and P·V
 //     run as mma.sync m16n8k16 bf16 products (mma_attention.cuh): the Q
@@ -44,9 +49,17 @@
 //     the plain version adds a whole sub-tile's P·V to acc·alpha; the
 //     outputs differ by fp32 summation order only. The output leaves
 //     through shared memory as 16-byte stores.
-//   * flash_fwd_f32<D>: the same walk with exact fp32 products on the CUDA
-//     cores (no TF32), scores through shared memory, the accumulator in
-//     registers.
+//   * flash_fwd_tf32<D>: the same blocks, sub-tile list, masks and online
+//     softmax with fp32 tiles, every product in 3xTF32 on mma.sync m16n8k8
+//     (mma_tf32.cuh: each operand splits into a TF32 big and small part, and
+//     three TF32 products keep about 22 significand bits, so the output
+//     stays within 1e-5 + 1e-5·|ref| of the exact fp32 plain version, where
+//     one TF32 product would not). P is not rounded (v is fp32) and goes
+//     from the score registers into P·V as they stand (keys permuted within
+//     each 8-key step). Each K and V value is split once for the block, by
+//     the thread that copied it, as it lands; K streams through two stages,
+//     V through one (copied during the sub-tile's scores), which keeps the
+//     block at 6 fp32 tiles, two blocks an SM at Dh ≤ 64.
 // Both skip the sub-tiles that cannot change any row of the block (see Walk).
 
 #include <cuda_bf16.h>
@@ -56,6 +69,7 @@
 
 #include "flash_attention.cuh"
 #include "mma_attention.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -66,7 +80,7 @@ constexpr int TK = SUB;       // keys per sub-tile
 constexpr int WARPS = 4;      // each warp owns TQ / WARPS = 16 query rows
 constexpr int NTHREADS = 32 * WARPS;
 constexpr int WR = TQ / WARPS;
-static_assert(TQ == TK, "load_tile moves 64-row tiles of Q, K and V alike");
+static_assert(TQ == TK, "the tile loads move 64-row tiles of Q, K and V alike");
 
 struct Params {
   const void* q;
@@ -82,27 +96,6 @@ struct Params {
   float scale;
   int window, block_q, block_kv;
 };
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-
-// rows [0, 64) of one head starting at src (row stride st elements, D
-// contiguous values each) → shared tile dst (row stride ld), 16 bytes per load.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long st) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int NV = D / VEC;
-  for (int e = threadIdx.x; e < TQ * NV; e += NTHREADS) {
-    const int r = e / NV, c = (e - r * NV) * VEC;
-    const uint4 val = *reinterpret_cast<const uint4*>(src + r * st + c);
-    if ((ld * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    } else {
-      const T* x = reinterpret_cast<const T*>(&val);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) dst[r * ld + c + i] = x[i];
-    }
-  }
-}
 
 // The block_kv tiles the enclosing block_q tile of query rows [q0, q0+64)
 // visits: [0, last] less those a window ends before (TPU tile pruning).
@@ -132,67 +125,7 @@ struct Walk {
     const bool masked = !any_key || !subtile_in_range(q0, k0, p.window);
     return !(all_live && masked);
   }
-  // the block-wide barrier that starts each sub-tile; false: skip it
-  __device__ bool begin(const Params& p, int k0, int key_mask) const {
-    return keeps(p, k0, __syncthreads_or(key_mask != 0));
-  }
 };
-
-// One warp, its 16 query rows (query position qrow0 + r), one sub-tile of TK
-// keys at k0: raw dot products S (row stride lds) → scale, ALiBi, mask →
-// online-softmax update of m and l (registers, the same in every lane).
-// alpha[r] = exp(m_prev − m_new); p goes to put(r, key, p).
-template <typename Put>
-__device__ __forceinline__ void online_softmax(const float* S, int lds, const int* kms,
-                                               const Params& p, float slope, int qrow0, int k0,
-                                               float (&m)[WR], float (&l)[WR], float (&alpha)[WR],
-                                               int lane, Put put) {
-#pragma unroll
-  for (int r = 0; r < WR; ++r) {
-    const int qpos = qrow0 + r;
-    float s[TK / 32];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < TK / 32; ++j) {
-      const int kk = lane + 32 * j, kpos = k0 + kk;
-      const float x = score(S[r * lds + kk], p.scale, p.slopes != nullptr, slope, kpos);
-      const bool ok = (kms[kk] != 0) & in_range(qpos, kpos, p.window);
-      s[j] = ok ? x : NEG_INF;
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(m[r], mx);
-    alpha[r] = expf(m[r] - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < TK / 32; ++j) {
-      const float e = expf(s[j] - m_new);
-      sum += e;
-      put(r, lane + 32 * j, e);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), sum);
-    m[r] = m_new;
-  }
-}
-
-// out rows of this warp = acc / l (l == 0 → 1), lse = m + log(l).
-template <typename T, typename Acc>
-__device__ __forceinline__ void finalize(const Params& p, int b, int h, int qrow0,
-                                         const float (&m)[WR], const float (&l)[WR], int lane,
-                                         int D, Acc acc) {
-  T* ob = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
-#pragma unroll
-  for (int r = 0; r < WR; ++r) {
-    const float lr = l[r] == 0.f ? 1.f : l[r];
-    T* orow = ob + (qrow0 + r) * p.ot;
-    for (int c = lane; c < D; c += 32) store_out(orow + c, acc(r, c) / lr);
-    if (lane == 0)
-      p.lse[((long long)b * p.H + h) * p.T + qrow0 + r] = __fadd_rn(m[r], logf(lr));
-  }
-}
 
 // whether every (row, key) pair of query rows [q0, q0 + 64) and keys
 // [k0, k0 + 64) is in range (causal ∧ window)
@@ -353,111 +286,132 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(cons
   store_tile<D>(static_cast<bf16*>(p.o) + b * p.ob + h * p.oh, p.ot, Qs, q0, p.T);
 }
 
+// K3's fp32 path: flash_fwd_bf16's blocks, sub-tile list and online
+// softmax, with fp32 tiles of row stride D + 4 and every product in 3xTF32
+// (mma_tf32.cuh). Per sub-tile, oldest cp.async group first: K (issued a
+// sub-tile ahead, into the other of two stages, with its key-mask values),
+// V (issued after the previous sub-tile's P·V, one stage) and the next K.
+// Each thread splits the K and V chunks it copied once they land: the big
+// part in place, the small part into Ksm or Vsm. Each warp splits its Q
+// fragments from the shared Q tile at every k-step, as K1's tf32_kernel
+// does: held split in registers across the walk (D more a thread), they
+// spilled and cost 10 % at Dh 64 on the H100 (chip_variants.py
+// k3_q_in_regs). P = exp(s − m_new) stays in the score registers,
+// unrounded, as P·V's A fragments.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(const Params p) {
-  constexpr int LDQ = D;          // read as a broadcast: no padding needed
-  constexpr int LDK = D + 1;      // lanes read 32 different keys: odd stride
-  constexpr int LDV = D;          // lanes read consecutive columns
-  constexpr int LDS = TK + 1;
-  constexpr int NC = (D + 31) / 32;  // accumulator columns per lane
+__global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(const Params p) {
+  constexpr int LD = D + 4;
+  static_assert(TQ == MMA_TILE && NTHREADS == MMA_THREADS, "mma_tf32.cuh's block shape");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Qs + TQ * LDQ;
-  float* Ks = Vs + TK * LDV;
-  float* Ss = Ks + TK * LDK;
-  int* kms = reinterpret_cast<int*>(Ss + TQ * LDS);
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // the Q tile, later the output staging tile
+  float* Ks = Qs + TQ * LD;                        // two stages (big parts once split)
+  float* Vs = Ks + 2 * TK * LD;                    // one stage (big parts once split)
+  float* Ksm = Vs + TK * LD;                       // small parts of the current K sub-tile
+  float* Vsm = Ksm + TK * LD;                      // small parts of the current V sub-tile
+  int* kms = reinterpret_cast<int*>(Vsm + TK * LD);  // two stages of TK key-mask values
+  int* list = kms + 2 * TK;                           // T / 64 sub-tile entries
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ, h = blockIdx.y, b = blockIdx.z;
   const long long base = b * p.sb + h * p.sh;
   const float* qg = static_cast<const float*>(p.q) + base;
   const float* kg = static_cast<const float*>(p.k) + base;
   const float* vg = static_cast<const float*>(p.v) + base;
   const int* kmg = p.key_mask + (long long)b * p.T;
   const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const int qpos[2] = {q0 + warp * WR + (lane >> 2), q0 + warp * WR + (lane >> 2) + 8};
+  const float* qrows = Qs + warp * WR * LD;
 
-  load_tile<float, D>(Qs, LDQ, qg + q0 * p.st, p.st);
-  float m[WR], l[WR], alpha[WR], o[WR][NC];
-#pragma unroll
-  for (int r = 0; r < WR; ++r) {
-    m[r] = NEG_INF, l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) o[r][j] = 0.f;
-  }
-
-  float* Sw = Ss + warp * WR * LDS;
-  const float* Qw = Qs + warp * WR * LDQ;
-  const int qrow0 = q0 + warp * WR;
+  load_tile_async_f32<D>(Qs, qg, p.st, q0, p.T);
   const Walk walk(p, q0, kmg);
-  for (int ki = 0; ki <= walk.last; ++ki) {
-    if (!walk.visits(p, ki)) continue;
-    for (int k0 = ki * p.block_kv; k0 < (ki + 1) * p.block_kv; k0 += TK) {
-      const int km = threadIdx.x < TK ? kmg[k0 + threadIdx.x] : 0;
-      if (!walk.begin(p, k0, km)) continue;
-      load_tile<float, D>(Ks, LDK, kg + k0 * p.st, p.st);
-      load_tile<float, D>(Vs, LDV, vg + k0 * p.st, p.st);
-      if (threadIdx.x < TK) kms[threadIdx.x] = km;
-      __syncthreads();
-      // S: lane -> keys lane and lane + 32 of the warp's 16 rows, fp32 FMAs
-      float s[WR][TK / 32];
+  const int n = subtile_list(list, walk, p, kmg);
+
+  auto issue_k = [&](int i) {
+    const int k0 = list[i] & ~NEEDS_MASK, stage = i & 1;
+    load_tile_async_f32<D>(Ks + stage * TK * LD, kg, p.st, k0, p.T);
+    if (threadIdx.x < TK / 4) cp_async16(kms + stage * TK + 4 * threadIdx.x, kmg + k0 + 4 * threadIdx.x, true);
+  };
+  auto issue_v = [&](int i) { load_tile_async_f32<D>(Vs, vg, p.st, list[i] & ~NEEDS_MASK, p.T); };
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-      for (int r = 0; r < WR; ++r)
-#pragma unroll
-        for (int j = 0; j < TK / 32; ++j) s[r][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kd[TK / 32];
-#pragma unroll
-        for (int j = 0; j < TK / 32; ++j) kd[j] = Ks[(lane + 32 * j) * LDK + d];
-#pragma unroll
-        for (int r = 0; r < WR; ++r) {
-          const float qv = Qw[r * LDQ + d];
-#pragma unroll
-          for (int j = 0; j < TK / 32; ++j) s[r][j] = fmaf(qv, kd[j], s[r][j]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < WR; ++r)
-#pragma unroll
-        for (int j = 0; j < TK / 32; ++j) Sw[r * LDS + lane + 32 * j] = s[r][j];
-      __syncwarp();
-      online_softmax(Sw, LDS, kms, p, slope, qrow0, k0, m, l, alpha, lane,
-                     [&](int r, int kk, float e) { Sw[r * LDS + kk] = e; });
-      __syncwarp();
-      // P·V: lane -> columns lane + 32 j of the warp's 16 rows
-      float pv[WR][NC];
-#pragma unroll
-      for (int r = 0; r < WR; ++r)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) pv[r][j] = 0.f;
-      for (int kk = 0; kk < TK; ++kk) {
-        float vk[NC];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int c = lane + 32 * j;
-          vk[j] = c < D ? Vs[kk * LDV + c] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < WR; ++r) {
-          const float pr = Sw[r * LDS + kk];
-#pragma unroll
-          for (int j = 0; j < NC; ++j) pv[r][j] = fmaf(pr, vk[j], pv[r][j]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < WR; ++r)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) o[r][j] = __fadd_rn(__fmul_rn(o[r][j], alpha[r]), pv[r][j]);
-      __syncwarp();
-    }
+  for (int c = 0; c < D / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  if (n > 0) {
+    issue_k(0);
+    issue_v(0);
   }
-  finalize<float>(p, b, h, qrow0, m, l, lane, D,
-                  [&](int r, int c) {
-                    float x = 0.f;
+  cp_async_commit();  // with the Q tile's copies
+  for (int i = 0; i < n; ++i) {
+    const int entry = list[i], k0 = entry & ~NEEDS_MASK, stage = i & 1;
+    float* kb = Ks + stage * TK * LD;
+    if (i + 1 < n) issue_k(i + 1);  // the next K sub-tile's copy overlaps this one's products
+    cp_async_commit();
+    if (i == 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<2>();
+    split_own_chunks<D>(kb, Ksm);
+    __syncthreads();  // K of sub-tile i (and at i = 0 the Q tile) landed and split
+    float s[8][4];
 #pragma unroll
-                    for (int j = 0; j < NC; ++j)
-                      if (c == lane + 32 * j) x = o[r][j];
-                    return x;
-                  });
+    for (int c = 0; c < 8; ++c) s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      uint32_t ab[4], as[4];
+      a_frag_3xtf32<D>(ab, as, qrows, d, lane);  // Q's fragments, split at every k-step
+      qk_step_3xtf32<D>(s, ab, as, kb, Ksm, d, lane);
+    }
+    const float2 mx = entry & NEEDS_MASK
+                          ? k3_scores<true>(s, p, slope, qpos, k0, kms + stage * TK, lane)
+                          : k3_scores<false>(s, p, slope, qpos, k0, kms + stage * TK, lane);
+    // online softmax as flash_fwd_bf16's, with P left in fp32
+    const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+    const float alpha[2] = {expf(m[0] - m_new[0]), expf(m[1] - m_new[1])};
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[c][e] = expf(s[c][e] - m_new[e >> 1]);
+        sum[e >> 1] += s[c][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), quad_sum(sum[r]));
+      m[r] = m_new[r];
+    }
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      o[c][0] = __fmul_rn(o[c][0], alpha[0]), o[c][1] = __fmul_rn(o[c][1], alpha[0]);
+      o[c][2] = __fmul_rn(o[c][2], alpha[1]), o[c][3] = __fmul_rn(o[c][3], alpha[1]);
+    }
+    cp_async_wait<1>();
+    split_own_chunks<D>(Vs, Vsm);
+    __syncthreads();  // V of sub-tile i landed and split
+    pv_tile_3xtf32<D>(o, s, Vs, Vsm, lane);
+    __syncthreads();  // V, Ksm and the K stage consumed
+    if (i + 1 < n) issue_v(i + 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // out = acc / l (l == 0 → 1) through the (free) Q tile; lse = m + log(l)
+  const float l0 = l[0] == 0.f ? 1.f : l[0], l1 = l[1] == 0.f ? 1.f : l[1];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    o[c][0] = o[c][0] / l0, o[c][1] = o[c][1] / l0;
+    o[c][2] = o[c][2] / l1, o[c][3] = o[c][3] / l1;
+  }
+  stage_rows_f32<D>(Qs + warp * WR * LD, o, lane);
+  if ((lane & 3) == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.T;
+    lse[qpos[0]] = __fadd_rn(m[0], logf(l0));
+    lse[qpos[1]] = __fadd_rn(m[1], logf(l1));
+  }
+  __syncthreads();
+  store_tile_f32<D>(static_cast<float*>(p.o) + b * p.ob + h * p.oh, p.ot, Qs, q0, p.T);
 }
 
 template <int D>
@@ -466,9 +420,8 @@ size_t bf16_smem(int T) {
 }
 
 template <int D>
-size_t f32_smem() {
-  return sizeof(float) * ((size_t)TQ * D + (size_t)TK * D + (size_t)TK * (D + 1) +
-                          (size_t)TQ * (TK + 1)) + sizeof(int) * TK;
+size_t tf32_smem(int T) {
+  return tf32_tiles_bytes<D>() + sizeof(int) * (2 * TK + T / TK);
 }
 
 template <typename KernelT>
@@ -483,7 +436,7 @@ cudaError_t launch(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st, cons
 template <int D>
 cudaError_t dispatch(int is_bf16, dim3 grid, cudaStream_t st, const Params& p) {
   return is_bf16 ? launch(flash_fwd_bf16<D>, bf16_smem<D>(p.T), grid, st, p)
-                 : launch(flash_fwd_f32<D>, f32_smem<D>(), grid, st, p);
+                 : launch(flash_fwd_tf32<D>, tf32_smem<D>(p.T), grid, st, p);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // Warp-level tensor-core building blocks of K1's fp32 forward
-// (short_attention.cu, `tf32_kernel`) and K2's fp32 backward
-// (short_attention_bwd.cu, `tf32_rows` and `tf32_cols`): 3xTF32 products on
+// (short_attention.cu, `tf32_kernel`), K2's fp32 backward
+// (short_attention_bwd.cu, `tf32_rows` and `tf32_cols`) and K3's fp32
+// forward (flash_attention.cu, `flash_fwd_tf32`): 3xTF32 products on
 // `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`.
 //
 // 3xTF32. Each fp32 operand x splits into big = tf32(x) and small =
@@ -15,7 +16,8 @@
 // at (row g, column t), (g + 8, t), (g, t + 4), (g + 8, t + 4), B at (row
 // t, column g) and (t + 4, g), and the accumulator at (g, 2t), (g, 2t + 1),
 // (g + 8, 2t), (g + 8, 2t + 1): the m16n8 layout of the bf16 m16n8k16
-// accumulator, so k1_scores, quad_max and quad_sum read it unchanged.
+// accumulator, so k1_scores, k3_scores, quad_max and quad_sum read it
+// unchanged.
 // `ldmatrix` moves 16-bit elements (its .trans would split an fp32 value),
 // so K and V fragments are plain 32-bit shared loads from tiles of row
 // stride D + 4 floats: for QKᵀ lane l reads K[g][t] and K[g][t + 4], for

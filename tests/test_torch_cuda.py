@@ -458,6 +458,79 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, atol, T, Dh, block_kv, 
     torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
 
 
+def _flash_fp32_inputs(rng, B, H, T, Dh, cuda):
+    """fp32 projections seen as (B, H, T, Dh), a key mask with a short row
+    (fully masked rows under a window) and a fully padded one, BLOOM-sized
+    slopes."""
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda).view(B, T, H, Dh).transpose(1, 2) for _ in range(3))
+    lengths = np.array([[20], [0], [T - 37]])[:B]
+    km = torch.from_numpy((np.arange(T)[None] < lengths).astype(np.int32)).to(cuda)
+    slopes = torch.from_numpy((0.03 * rng.random(H)).astype(np.float32)).to(cuda)
+    return q, k, v, km, slopes
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+def test_flash_fp32_launches_the_3xtf32_kernel(cuda, Dh):
+    """fp32 K3 is `flash_fwd_tf32` at every head size it takes (the CUDA-core
+    `flash_fwd_f32` is gone), named so by the profiler, and holds the fp32
+    gate |Δ| ≤ 1e-5 + 1e-5·|ref| of the plain version in output and lse."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, km, slopes = _flash_fp32_inputs(np.random.default_rng(Dh), 3, 4, 512, Dh, cuda)
+    kw = dict(scale=0.125, window=64, block_kv=128)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, lse = fa.flash_attention(q, k, v, km, slopes, return_residuals=True, **kw)
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages() if "flash_fwd" in ev.key}
+    assert names and all("flash_fwd_tf32" in n for n in names), names
+    want, want_lse = fa.flash_attention_reference(q, k, v, km, slopes, **kw)
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all()
+    dead = want_lse == fa.NEG_INF
+    assert torch.equal(lse == fa.NEG_INF, dead) and dead.any()
+    assert ((lse - want_lse).abs()[~dead] <= 1e-5 + 1e-5 * want_lse.abs()[~dead]).all()
+
+
+def test_flash_fp32_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits (no atomics):
+    GradCache runs the forward twice a chunk and checks against the direct
+    step."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, km, _ = _flash_fp32_inputs(np.random.default_rng(21), 3, 12, 2048, 64, cuda)
+    for window in (0, 256):
+        a = fa.flash_attention(q, k, v, km, window=window, block_kv=256, return_residuals=True)
+        b = fa.flash_attention(q, k, v, km, window=window, block_kv=256, return_residuals=True)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), window
+
+
+def test_flash_fp32_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plain_version(cuda):
+    """Dh 128 (GPT-Neo 1.3B/2.7B heads) at T=2048 with ALiBi at key
+    positions up to 2,047: on the rows that hold a valid key, K3's fp32
+    output (3xTF32 products) is no further from an fp64 evaluation of the
+    formula than twice the plain version's distance from it."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    T, Dh, window = 2048, 128, 256
+    q, k, v, km, slopes = _flash_fp32_inputs(np.random.default_rng(22), 3, 4, T, Dh, cuda)
+    kw = dict(window=window, block_kv=256)
+    got = fa.flash_attention(q, k, v, km, slopes, **kw)
+    want, _ = fa.flash_attention_reference(q, k, v, km, slopes, **kw)
+    i = torch.arange(T, device=cuda)
+    mask = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window))[None, None] \
+        & (km > 0)[:, None, None, :]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double())
+    s = s + slopes.double()[None, :, None, None] * i.double()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1).nan_to_num(0.0)
+    exact = torch.einsum("bhqk,bhkd->bhqd", p, v.double())
+    valid = mask.any(-1, keepdim=True)
+    kernel_err = torch.where(valid, (got.double() - exact).abs(), 0.0).max().item()
+    plain_err = torch.where(valid, (want.double() - exact).abs(), 0.0).max().item()
+    assert kernel_err <= 2 * plain_err, (kernel_err, plain_err)
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     from sgpt_tpu_torch.ops import flash_attention as fa
 

@@ -5,7 +5,9 @@ tests/test_flash_attention.py does. Inputs come from a numpy seed, with key
 padding that leaves fully masked query rows under a window (and one case
 with a fully padded batch row); output and lse are compared on ALL rows,
 those included. Tolerances: fp32 1e-5 absolute (summation order only),
-bf16 2e-2 (a flipped rounding of P or of the output).
+bf16 2e-2 (a flipped rounding of P or of the output). The fp32 kernel's
+arithmetic (3xTF32 products on the card's walk) is witnessed by an
+emulation held to the fp32 gate |Δ| ≤ 1e-5 + 1e-5·|ref|.
 """
 import os
 
@@ -22,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from sgpt_tpu.ops.pallas.flash_attention import flash_attention as jax_flash  # noqa: E402
 from sgpt_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from test_torch_short_attention import PV_ORDER, _mma_tf32  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -153,3 +156,119 @@ def test_refuses_other_devices():
     x = torch.zeros(1, 1, 128, 16, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         fa.flash_attention(x, x, x, torch.ones(1, 128, dtype=torch.int32))
+
+
+def _k3_tf32(q, k, v, key_mask, slopes, *, scale, window, block_kv, block_q=128, three=True):
+    """`flash_fwd_tf32`'s walk and arithmetic on the CPU: per batch row and
+    64-row query tile, the 64-key sub-tiles of the block_kv tiles its
+    block_q tile visits, less those `Walk` skips (every pair masked, in a
+    tile whose rows all hold a valid key); S = Q·Kᵀ in (3x)TF32 (`_mma_tf32`,
+    the card's term order), × scale, + slope·kpos, where(mask, s, -1e30);
+    per sub-tile the online softmax m_new, alpha, p = exp(s − m_new), l =
+    l·alpha + Σp and O = O·alpha, then O += P·V one 8-key step at a time in
+    PV_ORDER; out = O / l (l == 0 → 1), lse = m + log(l). Returns (out,
+    lse, number of sub-tiles skipped)."""
+    B, H, T, Dh = q.shape
+    block_q, block_kv = fa._blocks(T, block_q, block_kv)
+    s_all = _mma_tf32(q, k.transpose(-1, -2), range(8), three)
+    if scale != 1.0:
+        s_all = s_all * scale
+    if slopes is not None:
+        s_all = s_all + slopes[None, :, None, None] * torch.arange(T, dtype=torch.float32)
+    pos = torch.arange(T)
+    allowed = pos[None, :] <= pos[:, None]
+    if window > 0:
+        allowed = allowed & (pos[None, :] > pos[:, None] - window)
+    live = key_mask != 0
+    s_all = torch.where(allowed[None, None] & live[:, None, None, :], s_all,
+                        torch.full((), fa.NEG_INF))
+    out, lse, skipped = torch.zeros(B, H, T, Dh), torch.zeros(B, H, T), 0
+    sub = fa.TILE  # the card kernel's query rows and keys per sub-tile
+    for b in range(B):
+        for q0 in range(0, T, sub):
+            qs = q0 // block_q * block_q
+            last = min(T // block_kv - 1, (qs + block_q - 1) // block_kv)
+            all_live = all(bool(live[b, max(0, r - window + 1) if window > 0 else 0])
+                           for r in range(q0, q0 + sub))
+            subtiles = []
+            for ki in range(last + 1):
+                if window > 0 and not ki * block_kv + block_kv - 1 > qs - window:
+                    continue
+                for k0 in range(ki * block_kv, (ki + 1) * block_kv, sub):
+                    in_range = k0 <= q0 + sub - 1 and (window <= 0 or k0 + sub - 1 > q0 - window)
+                    masked = not bool(live[b, k0:k0 + sub].any()) or not in_range
+                    if all_live and masked:
+                        skipped += 1
+                    else:
+                        subtiles.append(k0)
+            m = torch.full((H, sub, 1), fa.NEG_INF)
+            l, o = torch.zeros(H, sub, 1), torch.zeros(H, sub, Dh)
+            for k0 in subtiles:
+                s = s_all[b, :, q0:q0 + sub, k0:k0 + sub]
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                o = o * alpha
+                for j in range(0, sub, 8):
+                    o = o + _mma_tf32(p[..., j:j + 8], v[b, :, k0 + j:k0 + j + 8], PV_ORDER,
+                                      three)
+                m = m_new
+            l = torch.where(l == 0, torch.ones(()), l)
+            out[b, :, q0:q0 + sub] = o / l
+            lse[b, :, q0:q0 + sub] = (m + torch.log(l))[..., 0]
+    return out, lse, skipped
+
+TF32_CASES = CASES + [  # T, Dh, block_kv, window, scale, alibi, lengths: Dh 128 (GPT-Neo 1.3B)
+    (256, 128, 128, 64, 0.125, True, (20, 219)),
+    (512, 128, 256, 0, 1.0, False, (0, 475)),        # a fully padded batch row
+]
+
+
+def _fp32_gate(got, want):
+    """|Δ| ≤ 1e-5 + 1e-5·|ref| in every element: the largest excess over the
+    1e-5 of the absolute part."""
+    return float(((got - want).abs() - 1e-5 * want.abs()).max())
+
+
+def _tf32_case(case, three=True):
+    T, Dh, block_kv, window, scale, alibi, lengths = case
+    q, k, v, km, slopes = _inputs(T + Dh + window, T, Dh, lengths, alibi)
+    kw = dict(scale=scale, window=window, block_kv=block_kv)
+    tt = [torch.from_numpy(x) for x in (q, k, v, km)]
+    sl = None if slopes is None else torch.from_numpy(slopes)
+    got = _k3_tf32(*tt, sl, three=three, **kw)
+    return got, fa.flash_attention_reference(*tt, sl, **kw), (q, k, v, km, slopes, kw)
+
+
+@pytest.mark.parametrize("case", TF32_CASES, ids=lambda c: "T{}-Dh{}-bkv{}-w{}-s{}-{}".format(
+    *c[:5], "alibi" if c[5] else "noalibi"))
+def test_3xtf32_walk_holds_the_fp32_gate(case):
+    """The CPU witness of K3's fp32 numerics on the card (`flash_fwd_tf32`):
+    3xTF32 products on the kernel's sub-tile walk, with its online softmax,
+    stay within the fp32 gate of the exact plain version and of the JAX
+    kernel in output and lse on every row; fully masked rows keep lse -1e30
+    on both sides."""
+    (got_o, got_l, skipped), (want_o, want_l), (q, k, v, km, slopes, kw) = _tf32_case(case)
+    jax_o, jax_l = _jax(q, k, v, km, slopes, "float32", **kw)
+    assert skipped > 0  # the walk does skip sub-tiles
+    for ref_o, ref_l in ((want_o, want_l), (torch.tensor(jax_o), torch.tensor(jax_l))):
+        dead = ref_l == fa.NEG_INF
+        assert torch.equal(got_l == fa.NEG_INF, dead)
+        assert _fp32_gate(got_o, ref_o) <= 1e-5
+        assert _fp32_gate(got_l[~dead], ref_l[~dead]) <= 1e-5
+    T, window, lengths = case[0], case[3], case[6]
+    rows = np.arange(T)[None, :]
+    no_key = [(n == 0) | ((window > 0) & (rows[0] - window + 1 >= n)) for n in lengths]
+    assert np.array_equal((want_l == fa.NEG_INF).numpy(),
+                          np.broadcast_to(np.stack(no_key)[:, None], want_l.shape))
+
+
+def test_single_tf32_product_fails_the_k3_fp32_gate():
+    """Why K3's fp32 path splits its operands: one TF32 product per pair (11
+    significand bits) misses the fp32 gate in the decoder's global layers."""
+    case = (512, 64, 256, 0, 1.0, False, (20, 475))
+    (one, _, _), (want, _), _ = _tf32_case(case, three=False)
+    assert _fp32_gate(one, want) > 1e-5
+    (three, _, _), _, _ = _tf32_case(case)
+    assert _fp32_gate(three, want) <= 1e-5
