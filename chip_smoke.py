@@ -59,7 +59,10 @@ Phases, each of which asserts; any failure exits non-zero:
                projection views with a random output gradient, key padding
                and fully masked rows; variants T 128-1024, block_kv 128,
                scale 1/8, ALiBi, Dh 32 and 128, bf16; times of each kernel,
-               the plain version and the library's SDPA backward
+               the plain version and the library's SDPA backward, beside
+               each kernel's bound (K4b: 3 × its operations at the TF32
+               peak, the CUDA cores' beside it; K4a: the CUDA cores', the
+               3xTF32 one beside it)
  15. ltrain  — long-context contrastive training: full-width GPT-Neo-125M
                with use_flash, fp32, max_seq_len 2048, BitFit, SPECB,
                GradCache (chunks of 8), batches of 16 triplets with documents
@@ -72,7 +75,8 @@ Phases, each of which asserts; any failure exits non-zero:
                GradCache (chunks of 2) == direct on 4 triplets at "highest"
                (tparity also holds one use_flash step at max_seq_len 512,
                card K3/K4 against the CPU's plain versions); both profiles
-               name `flash_fwd_tf32` for K3
+               name `flash_fwd_tf32` alone for K3 and `flash_bwd_dkv_tf32`
+               alone for K4b
  16. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -82,11 +86,10 @@ With `--parent DIR` (another checkout of this repo, e.g. the parent commit
 unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
 K3, K4a and K4b from both builds in turns (parent, change, change, parent):
-phase `ab`. K1, K2's bf16 path, K3's bf16 path, K4a and K4b must give the
-parent's outputs bit for bit; the redesigned fp32 paths of K2 and K3 the
-parent's within their fp32 gates (K3 at window 0 and 256, on all rows),
-each build's error against an fp64 evaluation logged (K3: on the rows that
-hold a valid key). K4's inputs come from this tree's K3.
+phase `ab`. K1, K2, K3 and K4a must give the parent's outputs bit for bit;
+K4b's redesigned fp32 path the parent's within K4's fp32 gate, at window 0
+and 256, each build's error against an fp64 evaluation of dK and dV logged.
+K4's inputs come from this tree's K3.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -110,8 +113,8 @@ FP32_ATOL, FP32_RTOL = 1e-5, 1e-5   # fp32, TF32 off: summation order only
 # the card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 HBM_BYTES_PER_S = 3.35e12
-# tensor cores (bf16; TF32, which the fp32 paths of K1, K2 and K3 issue three
-# of for each fp32 product, 3xTF32); fp32 on the CUDA cores
+# tensor cores (bf16; TF32, which the fp32 paths of K1, K2, K3 and K4b issue
+# three of for each fp32 product, 3xTF32); fp32 on the CUDA cores
 PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 
@@ -178,59 +181,63 @@ def kernels_of(lib):
 def phase_ab(torch, sa, fa, parent_lib, this_lib):
     """K1, K2, K3, K4a and K4b built from the parent checkout and from this
     tree, timed in one process on one card in turns (parent, change,
-    change, parent) at the main paths' shapes. K1, K2 bf16, K3 bf16, K4a
-    and K4b must give the parent's outputs bit for bit; the redesigned fp32
-    paths within their gates of the parent's: K2 |Δ| ≤ 1e-5·max|ref| +
-    1e-5·|ref| in dq, dk and dv, K3 |Δ| ≤ 1e-5 + 1e-5·|ref| in the output,
-    on all rows; both builds' errors against an fp64 evaluation of the
-    kernel's formula are logged (K3's on the rows that hold a valid key)."""
+    change, parent) at the main paths' shapes. K1, K2, K3 and K4a must give
+    the parent's outputs bit for bit; K4b's redesigned fp32 path (both
+    windows) within K4's fp32 gate of the parent's, |Δ| ≤ 1e-5·max|ref| +
+    1e-5·|ref| in dk and dv, with both builds' errors against an fp64
+    evaluation of dK and dV from the same q, k, v, dO, lse and D logged."""
     rng = np.random.default_rng(SEED + 7)
     cells = {}
 
     def short(B, dtype, window, bwd=False):
         args, _ = attention_inputs(torch, rng, B, 300, 12, 64, dtype)
-        if not bwd:  # a partial: the K1 fp32 check reads its arguments
+        if not bwd:
             return functools.partial(sa.short_attention, *args, 1.0, window, 12, False)
         g = torch.from_numpy(rng.normal(0.0, 1.0, (B, 300, 768)).astype(np.float32)).to(
             "cuda", dtype)
-        # a partial: the K2 fp32 check reads its arguments
         return functools.partial(sa.short_attention_bwd, *args, g, scale=1.0, window=window,
                                  H=12, use_alibi=False)
 
     def flash(B, dtype, window):
         (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, 12, 64, dtype)
         qh, kh, vh = (heads(t, 12) for t in (q, k, v))
-        # a partial: the K3 fp32 check reads its arguments
         return functools.partial(fa.flash_attention, qh, kh, vh, km, window=window, block_kv=256)
 
     (q, k, v, km, _), _ = attention_inputs(torch, rng, 8, 2048, 12, 64, torch.float32)
     qh, kh, vh = (heads(t, 12) for t in (q, k, v))
     g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (8, 2048, 768)).astype(np.float32)).cuda(),
               12)
-    out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, block_kv=256)
-    bwd = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, 0, 128, 256)
+    bwd = {}  # window: K4's arguments, from this tree's K3
+    for window in (0, 256):
+        out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, window=window,
+                                      block_kv=256)
+        bwd[window] = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
 
-    def k4(launch, grads):
-        def run():
-            launch(bwd)
+    def k4(launch, window, grads):
+        def run():  # K4b reads the D that the K4a cell of its window wrote before
+            launch(bwd[window])
             return tuple(t.clone() for t in grads)
+        run.window = window
         return run
 
     runs = [  # name, function, how the output is held to the parent's: "exact" (bit for
-        # bit), or "k2"/"k3" (a redesigned fp32 path: within its gate, fp64 errors logged)
+        # bit), or "k4b" (the redesigned fp32 K4b: within its gate, fp64 errors logged)
         ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), "exact"),
         ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), "exact"),
         ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), "exact"),
         ("K1 fp32 B=32 T=300 window=256", short(32, torch.float32, 256), "exact"),
-        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), "k2"),
-        ("K2 fp32 B=32 T=300 window=256", short(32, torch.float32, 256, bwd=True), "k2"),
+        ("K2 fp32 B=32 T=300 window=0", short(32, torch.float32, 0, bwd=True), "exact"),
+        ("K2 fp32 B=32 T=300 window=256", short(32, torch.float32, 256, bwd=True), "exact"),
         ("K2 bf16 B=32 T=300 window=0", short(32, torch.bfloat16, 0, bwd=True), "exact"),
         ("K3 bf16 B=64 T=2048 window=0", flash(64, torch.bfloat16, 0), "exact"),
         ("K3 bf16 B=64 T=2048 window=256", flash(64, torch.bfloat16, 256), "exact"),
-        ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), "k3"),
-        ("K3 fp32 B=8 T=2048 window=256", flash(8, torch.float32, 256), "k3"),
-        ("K4a fp32 B=8 T=2048 window=0", k4(fa._launch_dq, bwd["grads"][:1]), "exact"),
-        ("K4b fp32 B=8 T=2048 window=0", k4(fa._launch_dkv, bwd["grads"][1:]), "exact"),
+        ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), "exact"),
+        ("K3 fp32 B=8 T=2048 window=256", flash(8, torch.float32, 256), "exact"),
+        *[run for w in (0, 256) for run in (
+            (f"K4a fp32 B=8 T=2048 window={w}", k4(fa._launch_dq, w, bwd[w]["grads"][:1]),
+             "exact"),
+            (f"K4b fp32 B=8 T=2048 window={w}", k4(fa._launch_dkv, w, bwd[w]["grads"][1:]),
+             "k4b"))],
     ]
     for name, fn, held in runs:
         outs = {}
@@ -242,23 +249,14 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
         diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
         if held == "exact":
             assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
-        elif held == "k3":  # K3 fp32: the fp32 gate against the parent, both against fp64
-            a, b = outs["parent"][0], outs["change"][0]
-            assert ((a - b).abs() <= FP32_ATOL + FP32_RTOL * a.abs()).all(), (name, diff)
-            ref, valid = k3_fp64(torch, fn.args, fn.keywords["window"])
-            for tag in ("parent", "change"):
-                err = torch.where(valid, (outs[tag][0].double() - ref).abs(), 0.0).max().item()
-                log(f"ab {name}: max |out - fp64 evaluation| {tag} {err:.3e} (rows with a "
-                    f"valid key)")
-            del ref, valid
-        else:  # K2 fp32: the fp32 gate against the parent, and both against fp64
-            for part, a, b in zip(("dq", "dk", "dv"), outs["parent"], outs["change"]):
+        else:  # K4b fp32: K4's fp32 gate against the parent, both builds against fp64
+            for part, a, b in zip(("dk", "dv"), outs["parent"], outs["change"]):
                 atol = FP32_ATOL * a.abs().max().item()
                 assert ((a - b).abs() <= atol + FP32_RTOL * a.abs()).all(), (name, part, diff)
-            refs = k2_fp64(torch, fn.args, fn.keywords["window"])
+            refs = k4_fp64(torch, bwd[fn.window]["keep"], fn.window)
             for tag in ("parent", "change"):
                 errs = ", ".join(f"{part} {(t.double() - r).abs().max().item():.3e}"
-                                 for part, t, r in zip(("dq", "dk", "dv"), outs[tag], refs))
+                                 for part, t, r in zip(("dk", "dv"), outs[tag], refs))
                 log(f"ab {name}: max |out - fp64 evaluation| {tag}: {errs}")
             del refs
         times = []
@@ -319,23 +317,25 @@ def k1_fp64(torch, args, window: int, scale: float = 1.0):
     return o.reshape(B, T, HD)
 
 
-def k2_fp64(torch, args, window: int, scale: float = 1.0):
-    """K2's formula (no ALiBi, no segments) evaluated in fp64 on the card:
-    the yardstick of K2's fp32 error. args: (q2, k2, v2, key_mask, slopes,
-    g) with H = 12. Returns (dq, dk, dv)."""
-    q2, k2, v2, km, _, g2 = args
-    B, T, HD = q2.shape
-    q, k, v, g = (t.reshape(B, T, 12, HD // 12).double() for t in (q2, k2, v2, g2))
+def k4_fp64(torch, keep, window: int, scale: float = 1.0):
+    """K4b's formula (no ALiBi) evaluated in fp64 on the card, one batch row
+    at a time: dV = Σ Pᵀ·dO and dK = Σ dSᵀ·Q·scale with P = where(mask,
+    exp(s − lse), 0) and dS = P∘(dP − D), from the kernels' own lse and D
+    (the yardstick of K4b's fp32 error). keep: `_bwd_args`'s tensors (q, k,
+    v, g, out, key_mask, slopes, lse, D), q/k/v/g (B, H, T, Dh). Returns
+    (dk, dv)."""
+    q, k, v, g, _, km, _, lse, dsum = keep
     mask = sdpa_mask(torch, km, window)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    p = torch.softmax(torch.where(mask, s, torch.full((), -1e9, dtype=s.dtype,
-                                                      device=s.device)), dim=-1)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
-    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
-    ds = torch.where(mask, p * (dp - (dp * p).sum(-1, keepdim=True)), 0.0) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    return tuple(t.reshape(B, T, HD) for t in (dq, dk, dv))
+    dk, dv = [], []
+    for b in range(q.shape[0]):
+        qb, kb, vb, gb = (t[b].double() for t in (q, k, v, g))
+        s = torch.einsum("hqd,hkd->hqk", qb, kb) * scale
+        p = torch.where(mask[b], torch.exp(s - lse[b].double()[..., None]), 0.0)
+        ds = p * (torch.einsum("hqd,hkd->hqk", gb, vb) - dsum[b].double()[..., None])
+        dv.append(torch.einsum("hqk,hqd->hkd", p, gb))
+        dk.append(torch.einsum("hqk,hqd->hkd", ds, qb) * scale)
+        del s, p, ds
+    return torch.stack(dk), torch.stack(dv)
 
 
 def k3_fp64(torch, args, window: int):
@@ -1504,15 +1504,22 @@ def phase_fbwd(torch, fa, rng):
         size = 4 * q.numel()  # bytes of one (B, T, H·Dh) fp32 tensor
         rows = 4 * B * H * T  # bytes of one (B, H, T) fp32 row vector
         # K4a reads q, k, v, g, out, lse and the mask, writes dq and D: 6·Dh a pair
-        bound_dq = bound(6 * size + 2 * rows + km.numel() * 4, 6 * Dh * H * pairs, "fp32")
-        # K4b reads q, k, v, g, lse, D and the mask, writes dk and dv: 8·Dh a pair
-        bound_dkv = bound(6 * size + 2 * rows + km.numel() * 4, 8 * Dh * H * pairs, "fp32")
+        # on the CUDA cores (3 × that in 3xTF32, beside it)
+        nbytes = 6 * size + 2 * rows + km.numel() * 4
+        bound_dq = bound(nbytes, 6 * Dh * H * pairs, "fp32")
+        bound_dq_tf32 = bound(nbytes, 3 * 6 * Dh * H * pairs, "tf32")
+        # K4b reads q, k, v, g, lse, D and the mask, writes dk and dv: 8·Dh a
+        # pair, in 3xTF32 (the CUDA cores' bound beside it)
+        bound_dkv = bound(nbytes, 3 * 8 * Dh * H * pairs, "tf32")
+        bound_dkv_cc = bound(nbytes, 8 * Dh * H * pairs, "fp32")
         t = {"dq": (a1 + a2) / 2, "dkv": (b1 + b2) / 2, "plain": (p1 + p2) / 2, "library": lib,
-             "bound_dq": bound_dq, "bound_dkv": bound_dkv, "pairs": pairs}
+             "bound_dq": bound_dq, "bound_dkv": bound_dkv, "bound_dq_tf32": bound_dq_tf32,
+             "bound_dkv_cuda_cores": bound_dkv_cc, "pairs": pairs}
         times[window] = t
         log(f"time K4a/K4b B={B} T={T} H={H} Dh={Dh} fp32 window={window}: K4a {t['dq']:.4f} ms "
-            f"(bound {bound_dq[0]:.4f} ms, {bound_dq[1]}), K4b {t['dkv']:.4f} ms (bound "
-            f"{bound_dkv[0]:.4f} ms, {bound_dkv[1]}), together {t['dq'] + t['dkv']:.4f} ms; "
+            f"(bound {bound_dq[0]:.4f} ms, {bound_dq[1]}; in 3xTF32 {bound_dq_tf32[0]:.4f}), "
+            f"K4b {t['dkv']:.4f} ms (3xTF32 bound {bound_dkv[0]:.4f} ms, {bound_dkv[1]}; "
+            f"CUDA cores {bound_dkv_cc[0]:.4f}), together {t['dq'] + t['dkv']:.4f} ms; "
             f"plain (dq, dk, dv) {t['plain']:.4f} ms, library (SDPA backward, boolean mask) "
             f"{lib:.4f} ms; {pairs} pairs a head; {6 * Dh * H * pairs / (t['dq'] / 1e3) / 1e12:.1f}"
             f" and {8 * Dh * H * pairs / (t['dkv'] / 1e3) / 1e12:.1f} TFLOP/s (runs: K4a "
@@ -1603,7 +1610,8 @@ def phase_ltrain(torch, fa, sa, tok, card):
         f"({card})")
 
     families = {"K3": ("flash_fwd_tf32",), "K3other": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
-                "K4b": ("flash_bwd_dkv",), "GEMM": GEMM_KEYS}
+                "K4b": ("flash_bwd_dkv_tf32",), "K4bother": ("flash_bwd_dkv",),
+                "GEMM": GEMM_KEYS}
     profile_out = profile_step(torch, trainer, batch, "ltrain profile, one step (TF32)", families)
 
     # 3 steps in strict fp32 ("highest") on the same model: 2 timed intervals
@@ -1625,8 +1633,9 @@ def phase_ltrain(torch, fa, sa, tok, card):
     prof_highest = profile_step(torch, strict_trainer, batch,
                                 "ltrain profile, one step (strict fp32)", families)
     for pr in (profile_out, prof_highest):
-        if pr["profile_kernel_ms"] is not None:  # fp32 K3 is flash_fwd_tf32, and only it
+        if pr["profile_kernel_ms"] is not None:  # fp32 K3 and K4b: the tf32 kernels alone
             assert pr["profile_k3_ms"] > 0 == pr["profile_k3other_ms"], pr
+            assert pr["profile_k4b_ms"] > 0 == pr["profile_k4bother_ms"], pr
     profile_out.update({k.replace("profile", "profile_highest", 1): v
                         for k, v in prof_highest.items()})
 
@@ -1909,10 +1918,15 @@ def main() -> int:
         "bound_by": fbwd_times[0][f"bound_{part}"][1], "shape": "B=8 T=2048 H=12 Dh=64 fp32",
         "plain_and_library_compute": "dq, dk and dv together",
         "parent_ms": parent_ms(f"K4{key[-1]} fp32 B=8 T=2048 window=0"),
+        "parent_ms_local256": parent_ms(f"K4{key[-1]} fp32 B=8 T=2048 window=256"),
         "ms_local256": fbwd_times[256][part], "plain_ms_local256": fbwd_times[256]["plain"],
         "library_ms_local256": fbwd_times[256]["library"],
         "bound_ms_local256": fbwd_times[256][f"bound_{part}"][0],
         "bound_by_local256": fbwd_times[256][f"bound_{part}"][1],
+        **({"bound_ms_tf32": fbwd_times[0]["bound_dq_tf32"][0],  # K4a: 3xTF32 beside
+            "bound_ms_tf32_local256": fbwd_times[256]["bound_dq_tf32"][0]} if part == "dq" else
+           {"bound_ms_cuda_cores": fbwd_times[0]["bound_dkv_cuda_cores"][0],
+            "bound_ms_cuda_cores_local256": fbwd_times[256]["bound_dkv_cuda_cores"][0]}),
         "ltrain": {k: v for k, v in ltrain.items() if k not in ("k1", "k2")}}
         for part, key, line in (("dq", "k4a", 231), ("dkv", "k4b", 276))]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

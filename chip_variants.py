@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build variants of K1's, K2's or K3's source on one NVIDIA card, check and time them in turns.
+"""Build variants of K1's, K2's, K3's or K4b's source on one NVIDIA card, check and time them in turns.
 
     python3 chip_variants.py [NAME ...]
 
@@ -8,21 +8,25 @@ Each variant is this tree's `sgpt_tpu_torch/csrc/short_attention.cu`,
 few text substitutions (VARIANTS below; "tree" is the source as it stands),
 and names the kernel it is about: K1's fp32 forward (`tf32_kernel`), K2's
 fp32 backward (`tf32_rows`, `tf32_cols`; `k2_p_probe` instead prints whether
-both passes compute the same P bit for bit) or K3's fp32 forward
-(`flash_fwd_tf32`, the `k3_` names). All variants build at once, one `nvcc`
+both passes compute the same P bit for bit), K3's fp32 forward
+(`flash_fwd_tf32`, the `k3_` names) or K4b's fp32 backward
+(`flash_bwd_dkv_tf32`, the `k4b_` names: its query ring's stages, tile
+rows, queries a warp takes at once, and K and V split once in shared
+memory or at each k-step). All variants build at once, one `nvcc`
 each, into `build/variants/<name>/`; the port's wrappers then run on each
 library in turn (`chip_smoke.kernels_of`). For every variant the script
 prints the registers and spills of its kernels (K1, K2 at Dh=64 without
-ALiBi or segments; K3 at Dh 64 and 128), the fp32 error against the plain
-version with the fp32 gate (K1 over `chip_smoke.CASES`: |Δ| ≤ 1e-5 +
-1e-5·|ref|; K2 over the same: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in dq, dk
-and dv; K3 over `chip_smoke.FLASH_CASES`, output and lse: |Δ| ≤ 1e-5 +
-1e-5·|ref|), and the time at the main path's shape over two rounds in
-alternating order (K1, K2: the train shape B=32, T=300, H=12, Dh=64, fp32,
-window 0 and 256, K2 also each pass alone under torch.profiler; K3: the
-long train's B=8, T=2048, H=12, Dh=64, fp32, block_kv 256, window 0 and
-256), beside SDPA fp32 (K2: SDPA's backward) and the card's name and power
-limit. A variant is a measurement, never a second path: the tree keeps one
+ALiBi or segments; K3 and K4b at Dh 64 and 128), the fp32 error against
+the plain version with the fp32 gate (K1 over `chip_smoke.CASES`: |Δ| ≤
+1e-5 + 1e-5·|ref|; K2 over the same: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in
+dq, dk and dv; K3 over `chip_smoke.FLASH_CASES`, output and lse: |Δ| ≤
+1e-5 + 1e-5·|ref|; K4b over `chip_smoke.FBWD_CASES`: |Δ| ≤ 1e-5·max|ref| +
+1e-5·|ref| in dk and dv), and the time at the main path's shape over two
+rounds in alternating order (K1, K2: the train shape B=32, T=300, H=12,
+Dh=64, fp32, window 0 and 256, K2 also each pass alone under
+torch.profiler; K3 and K4b: the long train's B=8, T=2048, H=12, Dh=64,
+fp32, block_kv 256, window 0 and 256), beside SDPA fp32 (K2, K4b: SDPA's
+backward, which computes dq too) and the card's name and power limit. A variant is a measurement, never a second path: the tree keeps one
 kernel.
 """
 from __future__ import annotations
@@ -83,6 +87,55 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     # K3: the fast exponential for p
     "k3_fast_exp": [("flash_attention.cu", "s[c][e] = expf(s[c][e] - m_new[e >> 1]);",
                      "s[c][e] = __expf(s[c][e] - m_new[e >> 1]);")],
+    # K4b: one stage of the query ring (the next tile copies after this one)
+    "k4b_one_stage": [("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
+                       "constexpr int DKV_STAGES = 1;")],
+    # K4b: 16-row stages
+    "k4b_qt16": [("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
+                  "constexpr int DKV_QT = 16;")],
+    # K4b: one stage of 64 query rows (K2's tf32_cols tile)
+    "k4b_tile64": [("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
+                    "constexpr int DKV_QT = 64;"),
+                   ("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
+                    "constexpr int DKV_STAGES = 1;")],
+    # K4b: 32 queries a warp at a time (Sᵀ and dPᵀ in 32 registers)
+    "k4b_n4": [("flash_attention_bwd.cu", "constexpr int DKV_N = 2;", "constexpr int DKV_N = 4;")],
+    # K4b: one stage of 64 query rows taken whole (Sᵀ and dPᵀ in 64 registers)
+    "k4b_full64": [("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
+                    "constexpr int DKV_QT = 64;"),
+                   ("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
+                    "constexpr int DKV_STAGES = 1;"),
+                   ("flash_attention_bwd.cu", "constexpr int DKV_N = 2;",
+                    "constexpr int DKV_N = 8;")],
+    # K4b: K and V split once a block into shared big and small parts in
+    # fragment order (one 16-byte load a fragment part), beside two 16-row
+    # stages at two blocks an SM
+    "k4b_kv_split": [("flash_attention_bwd.cu", "constexpr bool DKV_KV_SPLIT = false;",
+                      "constexpr bool DKV_KV_SPLIT = true;"),
+                     ("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
+                      "constexpr int DKV_QT = 16;")],
+    # K4b: the same with one 32-row stage
+    "k4b_kv_split_one_stage": [("flash_attention_bwd.cu", "constexpr bool DKV_KV_SPLIT = false;",
+                                "constexpr bool DKV_KV_SPLIT = true;"),
+                               ("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
+                                "constexpr int DKV_STAGES = 1;")],
+    # K4b: the chunks of a stage unrolled
+    "k4b_unroll_chunks": [("flash_attention_bwd.cu", "#pragma unroll 1\n    for (int qc = 0;",
+                           "#pragma unroll\n    for (int qc = 0;")],
+    # K4b, a measurement: the fast exponential
+    "k4b_fast_exp": [("flash_attention_bwd.cu",
+                      "expf(score(s[n][e], p.scale, alibi, slope, kpos[r]) - lse[qi])",
+                      "__expf(score(s[n][e], p.scale, alibi, slope, kpos[r]) - lse[qi])")],
+    # K4b, a measurement: the raw score (right only at scale 1 without ALiBi)
+    "k4b_raw_score": [("flash_attention_bwd.cu",
+                       "expf(score(s[n][e], p.scale, alibi, slope, kpos[r]) - lse[qi])",
+                       "expf(s[n][e] - lse[qi])")],
+    # K4b, a measurement: the three products of a step straight into the
+    # running sum (no fresh accumulator)
+    "k4b_running_sum": [("mma_tf32.cuh", "float t[4] = {0.f, 0.f, 0.f, 0.f};",
+                         "float (&t)[4] = d;"),
+                        ("mma_tf32.cuh", "for (int e = 0; e < 4; ++e) d[e] += t[e];",
+                         "for (int e = 0; e < 0; ++e) d[e] += t[e];")],
     # K2, a probe (not timed): at T ≤ 64 and Dh = 64 the rows pass writes its
     # P into dq (row q, column key) and the cols pass its P into dk (row
     # key, column q), to see whether both passes compute the same P
@@ -99,17 +152,20 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
 
 
 def group(name: str) -> str:
-    """The kernel a variant is about: "k2", "k3" or (the rest) "k1"."""
-    return name[:2] if name[:3] in ("k2_", "k3_") else "k1"
+    """The kernel a variant is about: "k2", "k3", "k4b" or (the rest) "k1"."""
+    return name.split("_")[0] if name.split("_")[0] in ("k2", "k3", "k4b") else "k1"
 
 
 def sources(name: str) -> list:
     """The sources a variant's library is built from: the kernel it is about
     (short_attention.cu also holds the error-string entry point)."""
     if name == "tree":
-        return ["short_attention.cu", "short_attention_bwd.cu", "flash_attention.cu"]
+        return ["short_attention.cu", "short_attention_bwd.cu", "flash_attention.cu",
+                "flash_attention_bwd.cu"]
     return {"k1": ["short_attention.cu"], "k2": ["short_attention.cu", "short_attention_bwd.cu"],
-            "k3": ["short_attention.cu", "flash_attention.cu"]}[group(name)]
+            "k3": ["short_attention.cu", "flash_attention.cu"],
+            "k4b": ["short_attention.cu", "flash_attention.cu",
+                    "flash_attention_bwd.cu"]}[group(name)]
 
 
 def build(names):
@@ -142,10 +198,14 @@ def build(names):
                                        ("tf32_rows", "ILi64ELb0", "64, false"),
                                        ("tf32_cols", "ILi64ELb0", "64, false"),
                                        ("flash_fwd_tf32", "ILi64E", "64"),
-                                       ("flash_fwd_tf32", "ILi128E", "128")):
+                                       ("flash_fwd_tf32", "ILi128E", "128"),
+                                       ("flash_bwd_dkv_tf32", "ILi64E", "64"),
+                                       ("flash_bwd_dkv_tf32", "ILi128E", "128")):
                 if re.search(rf"Compiling entry function '.*{kernel}{inst}", line):
                     print(f"{name}: {kernel}<{args}>: "
                           + " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
+        if group(name) == "k4b" or name == "tree":
+            sass_mix(OUT / name / "lib.so", "flash_bwd_dkv_tf32ILi64E", name)
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         p, i_, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         if "short_attention_bwd.cu" in sources(name):
@@ -155,12 +215,35 @@ def build(names):
             lib.sgpt_flash_attention_fwd.argtypes = ([p] * 7 + [i_] * 4 + [ll] * 6 + [f]
                                                      + [i_] * 4 + [p])
             lib.sgpt_flash_attention_fwd.restype = i_
+        if "flash_attention_bwd.cu" in sources(name):
+            lib.sgpt_flash_attention_bwd_dq.argtypes = [p] * 10 + [i_] * 4 + [ll] * 12 + [f, i_, i_, p]
+            lib.sgpt_flash_attention_bwd_dq.restype = i_
+            lib.sgpt_flash_attention_bwd_dkv.argtypes = [p] * 10 + [i_] * 4 + [ll] * 9 + [f, i_, i_, p]
+            lib.sgpt_flash_attention_bwd_dkv.restype = i_
         lib.sgpt_short_attention_fwd.argtypes = [p] * 8 + [i_] * 4 + [f] + [i_] * 3 + [p]
         lib.sgpt_short_attention_fwd.restype = i_
         lib.sgpt_cuda_error_string.argtypes = [i_]
         lib.sgpt_cuda_error_string.restype = ctypes.c_char_p
         libs[name] = lib
     return libs
+
+
+def sass_mix(lib, kernel: str, name: str) -> None:
+    """The static instruction mix of one kernel of a built library
+    (`cuobjdump -sass`): opcodes counted by their first name, the largest
+    first; skipped where the toolkit has no cuobjdump."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
+    for func in out.split("Function : ")[1:]:
+        if kernel in func.splitlines()[0]:
+            ops = {}
+            for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9]*)", func):
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+            top = sorted(ops.items(), key=lambda kv: -kv[1])
+            print(f"{name}: {kernel} SASS: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {v}" for k, v in top[:16]), flush=True)
 
 
 def main() -> int:
@@ -179,12 +262,15 @@ def main() -> int:
     k2 = {n: lib for n, lib in libs.items()
           if n == "tree" or (group(n) == "k2" and n != "k2_p_probe")}
     k3 = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k3"}
+    k4b = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4b"}
     if len(k1) > 1 or names == ["tree"]:
         run_k1(torch, sa, k1)
     if len(k2) > 1 or names == ["tree"]:
         run_k2(torch, sa, k2)
     if len(k3) > 1 or names == ["tree"]:
         run_k3(torch, fa, k3)
+    if len(k4b) > 1 or names == ["tree"]:
+        run_k4b(torch, fa, k4b)
     if "k2_p_probe" in libs:
         probe_p(torch, sa, libs["k2_p_probe"])
     return 0
@@ -340,6 +426,73 @@ def run_k3(torch, fa, libs):
             f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
             for n, t in times.items()), flush=True)
         del mask
+
+
+def run_k4b(torch, fa, libs):
+    """K4b's fp32 gate over `chip_smoke.FBWD_CASES` (fp32, B ≤ 8; the
+    residuals and D from the first library's K3 and K4a, which no k4b_
+    variant changes), then its time alone at B=8, T=2048, window 0 and 256,
+    in turns."""
+    base = next(iter(libs.values()))
+    cases = []
+    for case, B, T, H, Dh, block_kv, scale, window, alibi in cs.FBWD_CASES:
+        rng = np.random.default_rng(len(case))
+        (q, k, v, km, slopes), _ = cs.attention_inputs(torch, rng, min(B, 8), T, H, Dh,
+                                                       torch.float32, alibi=alibi)
+        slopes = slopes * 0.03 if alibi else None  # BLOOM-sized slopes
+        qh, kh, vh = (cs.heads(t, H) for t in (q, k, v))
+        g = cs.heads(torch.from_numpy(rng.normal(0.0, 1.0, q.shape).astype(np.float32)).cuda(),
+                     H)
+        kw = dict(scale=scale, window=window, block_kv=block_kv)
+        with cs.kernels_of(base):
+            out, lse = fa.flash_attention(qh, kh, vh, km, slopes, return_residuals=True, **kw)
+            args = fa._bwd_args(qh, kh, vh, km, slopes, g, out, lse, scale, window, 128,
+                                min(block_kv, T))
+            fa._launch_dq(args)  # D for K4b
+        want = fa.flash_attention_bwd_reference(qh, kh, vh, km, slopes, g, out, lse, **kw)
+        cases.append((case, args, want[1:]))
+    for name, lib in libs.items():
+        errs, bad = [], []
+        with cs.kernels_of(lib):
+            for case, args, want in cases:
+                fa._launch_dkv(args)
+                torch.cuda.synchronize()
+                worst = 0.0
+                for gg, ww in zip(args["grads"][1:], want):
+                    err = (gg - ww).abs()
+                    worst = max(worst, ((err - cs.FP32_RTOL * ww.abs()).max()
+                                        / (cs.FP32_ATOL * ww.abs().max())).item())
+                errs.append(f"{case} {worst:.2f}")
+                if worst > 1:
+                    bad.append(case)
+        print(f"{name}: K4b fp32 gate {'FAILS in ' + ', '.join(bad) if bad else 'holds'}; "
+              f"worst |Δ| − 1e-5·|ref| over 1e-5·max|ref| in dk, dv: {', '.join(errs)}",
+              flush=True)
+    del cases
+    rng = np.random.default_rng(cs.SEED)
+    (q, k, v, km, _), _ = cs.attention_inputs(torch, rng, 8, 2048, 12, 64, torch.float32)
+    qh, kh, vh = (cs.heads(t, 12) for t in (q, k, v))
+    g = cs.heads(torch.from_numpy(rng.normal(0.0, 1.0, q.shape).astype(np.float32)).cuda(), 12)
+    for window in (0, 256):
+        with cs.kernels_of(base):
+            out, lse = fa.flash_attention(qh, kh, vh, km, window=window, block_kv=256,
+                                          return_residuals=True)
+            args = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
+            fa._launch_dq(args)
+        times = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            with cs.kernels_of(libs[name]):
+                times[name].append(cs.cuda_ms(torch, lambda: fa._launch_dkv(args), iters=10))
+        qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (qh, kh, vh))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=cs.sdpa_mask(torch, km, window), scale=1.0)
+        gs = g.contiguous()
+        sdpa = cs.cuda_ms(torch, lambda: torch.autograd.grad(lib_out, (qs, ks, vs), gs,
+                                                             retain_graph=True), iters=5)
+        print(f"K4b fp32 B=8 T=2048 window={window}: SDPA backward (dq, dk, dv) {sdpa:.4f} ms; "
+              + "; ".join(f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
+                          for n, t in times.items()), flush=True)
+        del out, lse, args, qs, ks, vs, lib_out, gs
 
 
 if __name__ == "__main__":

@@ -32,27 +32,64 @@
 //
 // What bounds it on this card: at the long-context training shape (B=8,
 // T=2048, H=12, Dh=64, fp32) a global layer needs 6·Dh FLOP a valid pair in
-// K4a (S, dP, dQ: 77.4 GFLOP, 1.15 ms at 67 TFLOP/s) and 8·Dh in K4b (S, dP,
-// dV, dK: 103.1 GFLOP, 1.54 ms), against ~0.08 ms of bytes: operations bind.
-// The design answers with register tiling on the CUDA cores in exact fp32
-// (no TF32): 256 threads as a 16 × 16 grid, each owning a 4 × 4 block of a
-// 64 × 64 score tile (rows and columns in steps of 16, so a warp's 16-byte
-// shared loads hit distinct banks) and 4 rows × Dh/16 columns of each
-// accumulator; 16 fp32 FMAs per two 16-byte shared loads in the score
-// products. Shared memory holds four 64 × Dh fp32 tiles and one (K4a) or two
-// (K4b) 64 × 64 score tiles: 86 KB and 103 KB at Dh=64, 150 KB and 167 KB at
-// Dh=128, where 32-row tiles are not needed since the accumulators live in
-// registers. bf16 inputs are widened to fp32 on their way into shared memory
-// and take the same fp32 path. Tensor cores (bf16 S and dP), wgmma,
-// cp.async/TMA prefetch of the next tile and larger register tiles are later
-// work.
+// K4a (S, dP, dQ: 77.4 GFLOP, 1.15 ms at 67 TFLOP/s on the CUDA cores) and
+// 8·Dh in K4b (S, dP, dV, dK: 90.6 GFLOP of this run's pairs), against
+// ~0.08 ms of bytes: operations bind.
+//
+// K4a (flash_bwd_dq) and bf16 K4b (flash_bwd_dkv) are register tiles on the
+// CUDA cores in exact fp32: 256 threads as a 16 × 16 grid, each owning a
+// 4 × 4 block of a 64 × 64 score tile (rows and columns in steps of 16, so a
+// warp's 16-byte shared loads hit distinct banks) and 4 rows × Dh/16
+// columns of each accumulator; 16 fp32 FMAs per two 16-byte shared loads.
+// Shared memory holds four 64 × Dh fp32 tiles and one (K4a) or two (K4b)
+// 64 × 64 score tiles. bf16 inputs are widened to fp32 on their way into
+// shared memory. They use no helper beyond flash_attention.cuh's.
+//
+// fp32 K4b (flash_bwd_dkv_tf32) runs on the tensor cores: every product in
+// 3xTF32 on mma.sync m16n8k8 (mma_tf32.cuh, which K4b's tf32 kernel also
+// includes), so its bound is 3 × its operations over the 495 TFLOP/s TF32
+// peak (0.549 ms at the shape above, where the CUDA cores' is 1.35 ms). What
+// the CUDA-core kernel lost, and what this one does about it:
+//   1. fp32 FMAs at 43 % of the CUDA cores' peak, tensor cores idle: Sᵀ =
+//      K·Qᵀ and dPᵀ = V·dOᵀ with K and V as A and Q and dO as B, then dV +=
+//      Pᵀ·dO and dK += dSᵀ·Q with P and dS straight from the accumulator
+//      registers as A (no shared tile, no barrier: item 3 of the old design).
+//      Each warp owns 16 keys and keeps their dK and dV in registers; it
+//      takes each query tile 16 queries at a time (Sᵀ and dPᵀ in 16
+//      registers: 32 at a time spilled and ran 7 % slower on the H100,
+//      chip_variants.py k4b_n4).
+//   2. No prefetch: the query tiles (32 rows of Q and dO with their lse and
+//      D) stream through a two-stage cp.async ring, the next tile copying
+//      while this one computes, one barrier a tile. Each thread splits the
+//      Q and dO chunks it copied into big and small parts in shared memory
+//      once they land; K's and V's A fragments are split at each k-step.
+//   3. Shared loads: tiles of row stride Dh + 8 floats, and fragments read 8
+//      bytes a lane, conflict-free: each k-step of Sᵀ and dPᵀ takes the Dh
+//      columns in the order 2t, 2t + 1 (slots t and t + 4 of lane t), and
+//      the queries of each 8-query n-tile of Sᵀ are permuted (column c is
+//      query c ^ (c >> 2 & 1)) so that dV's and dK's B rows π(2t) and
+//      π(2t + 1) fall in distinct banks; their Dh columns are paired
+//      (n-tile 2m, 2m + 1 at columns 16m + 2g, + 1), so a lane's dK and dV
+//      leave as 16-byte stores.
+//   4. Causal imbalance: blocks launch in key-block order over all heads and
+//      batch rows, so the longest walks (k0 = 0: every query) go first and
+//      the shortest (the last 64 keys: 64 queries) last.
+// Term order: Sᵀ and dPᵀ take K3's (q_s·k_b, q_b·k_s, q_b·k_b:
+// mma_3xtf32_swapped with K and V as A), dV and dK mma_3xtf32's (p_s·g_b,
+// p_b·g_s, p_b·g_b), each 8-deep step into a fresh accumulator. No atomics:
+// two launches give the same bits. The CPU emulation is `_k4b_tf32` in
+// tests/test_torch_flash_backward.py; chip_variants.py's k4b_* variants
+// time the knobs at DKV_QT below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_attention.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -349,6 +386,327 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
   store_rows<T, D>(static_cast<T*>(p.dv) + out, p.rt, k0, adv, 1.f, ty, tx);
 }
 
+// ---- fp32 K4b on the tensor cores (see the note at the top) ----
+
+// The query ring and the warps' share of it. chip_variants.py's k4b_*
+// variants substitute these lines to time the alternatives.
+constexpr int DKV_QT = 32;            // query rows of a stage
+constexpr int DKV_STAGES = 2;         // stages: tile i + 1 copies while tile i computes
+constexpr int DKV_N = 2;              // 8-query n-tiles a warp takes at once
+constexpr bool DKV_KV_SPLIT = false;  // K and V split once a block, in fragment order
+static_assert(SUB % DKV_QT == 0 && DKV_QT % (8 * DKV_N) == 0, "whole n-tiles a stage");
+static_assert(MMA_THREADS == 128 && MMA_TILE == SUB, "4 warps of 16 keys");
+
+// Shared memory of flash_bwd_dkv_tf32: K and V (as tiles, or with
+// DKV_KV_SPLIT the big and small parts of every warp's A fragments), then
+// DKV_STAGES stages of Q's and dO's big and small parts with the tile's lse
+// and D. Tile rows of D + 8 floats: ≡ 8 (mod 32) words (24 at D = 16), so
+// rows whose index differs mod 4 start 8 banks apart.
+template <int D>
+struct DkvSmem {
+  static constexpr int LD = D + 8;
+  static constexpr int KV = DKV_KV_SPLIT ? 4 * SUB * D : 2 * SUB * LD;
+  static constexpr int STAGE = 4 * DKV_QT * LD + 2 * DKV_QT;
+  static constexpr size_t BYTES = sizeof(float) * ((size_t)KV + (size_t)DKV_STAGES * STAGE);
+  // DKV_KV_SPLIT: K and V land raw (rows of D) in the ring before it runs
+  static_assert(!DKV_KV_SPLIT || DKV_STAGES * STAGE >= 2 * SUB * D, "raw K, V fit the ring");
+};
+
+// rows [0, R) of one head from src (row stride `stride` elements) → a shared
+// tile of row stride LD, 16 bytes a copy; the caller commits the group
+template <int D, int R, int LD = D + 8>
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* src, long long stride) {
+  constexpr int C = D / 4;
+#pragma unroll
+  for (int i = 0; i < (R * C + MMA_THREADS - 1) / MMA_THREADS; ++i) {
+    const int e = threadIdx.x + i * MMA_THREADS, r = e / C, c = (e - r * C) * 4;
+    if (R * C % MMA_THREADS == 0 || e < R * C)
+      cp_async16(dst + r * LD + c, src + r * stride + c, true);
+  }
+}
+
+// the chunks this thread copied with copy_rows_async<D, R>, once landed:
+// x → big in place and small into the same place of `small`
+template <int D, int R>
+__device__ __forceinline__ void split_rows(float* tile, float* small) {
+  constexpr int C = D / 4, LD = D + 8;
+#pragma unroll
+  for (int i = 0; i < (R * C + MMA_THREADS - 1) / MMA_THREADS; ++i) {
+    const int e = threadIdx.x + i * MMA_THREADS, r = e / C, at = r * LD + (e - r * C) * 4;
+    if (R * C % MMA_THREADS != 0 && e >= R * C) break;
+    const float4 v = *reinterpret_cast<const float4*>(tile + at);
+    uint4 big, sm;
+    split_tf32(v.x, big.x, sm.x);
+    split_tf32(v.y, big.y, sm.y);
+    split_tf32(v.z, big.z, sm.z);
+    split_tf32(v.w, big.w, sm.w);
+    *reinterpret_cast<uint4*>(tile + at) = big;
+    *reinterpret_cast<uint4*>(small + at) = sm;
+  }
+}
+
+// (DKV_KV_SPLIT) K or V, landed raw in `raw` (64 rows of D floats) → the
+// big and small parts of every warp's A fragments in fragment order: entry
+// (warp, k-step d, lane) holds the lane's four values as kv_frag reads them
+template <int D>
+__device__ __forceinline__ void split_frags(uint4* big, uint4* small, const float* raw) {
+  for (int e = threadIdx.x; e < SUB / 16 * (D / 8) * 32; e += MMA_THREADS) {
+    const int lane = e % 32, d = e / 32 % (D / 8), w = e / 32 / (D / 8);
+    const float* x = raw + (w * 16 + (lane >> 2)) * D + 8 * d + 2 * (lane & 3);
+    uint4 b, sm;
+    split_tf32(x[0], b.x, sm.x);
+    split_tf32(x[8 * D], b.y, sm.y);
+    split_tf32(x[1], b.z, sm.z);
+    split_tf32(x[8 * D + 1], b.w, sm.w);
+    big[e] = b;
+    small[e] = sm;
+  }
+}
+
+// the split A fragments of k-step d of warp w's 16 rows of K (which = 0)
+// or V (which = 1): slot t is column 8d + 2t, slot t + 4 column 8d + 2t + 1.
+// From the tiles: one 8-byte load a row and a split; with DKV_KV_SPLIT one
+// 16-byte load each of the big and small parts.
+template <int D>
+__device__ __forceinline__ void kv_frag(uint32_t (&big)[4], uint32_t (&small)[4],
+                                        const float* kv, int which, int w, int lane, int d) {
+  if constexpr (DKV_KV_SPLIT) {
+    const uint4* f = reinterpret_cast<const uint4*>(kv) + which * SUB * D / 2;
+    const int e = (w * (D / 8) + d) * 32 + lane;
+    const uint4 b = f[e], sm = f[SUB * D / 4 + e];
+    big[0] = b.x, big[1] = b.y, big[2] = b.z, big[3] = b.w;
+    small[0] = sm.x, small[1] = sm.y, small[2] = sm.z, small[3] = sm.w;
+  } else {
+    constexpr int LD = D + 8;
+    const float* at = kv + (which * SUB + w * 16 + (lane >> 2)) * LD + 8 * d + 2 * (lane & 3);
+    const float2 lo = *reinterpret_cast<const float2*>(at);
+    const float2 hi = *reinterpret_cast<const float2*>(at + 8 * LD);
+    split_tf32(lo.x, big[0], small[0]);
+    split_tf32(hi.x, big[1], small[1]);
+    split_tf32(lo.y, big[2], small[2]);
+    split_tf32(hi.y, big[3], small[3]);
+  }
+}
+
+// Sᵀ (16 keys x 8N queries) += A · Bᵀ over k-step d, B the split Q or dO
+// rows of the chunk (row stride D + 8): n-tile n's column g is query 8n +
+// π(g), π(g) = g ^ (g >> 2 & 1); the products in K3's term order
+template <int D, int N>
+__device__ __forceinline__ void st_step(float (&s)[N][4], const uint32_t (&ab)[4],
+                                        const uint32_t (&as)[4], const float* big,
+                                        const float* small, int d, int g, int t) {
+  constexpr int LD = D + 8;
+  const int at = (g ^ (g >> 2 & 1)) * LD + 8 * d + 2 * t;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const uint2 b = *reinterpret_cast<const uint2*>(big + at + 8 * n * LD);
+    const uint2 sm = *reinterpret_cast<const uint2*>(small + at + 8 * n * LD);
+    mma_3xtf32_swapped(s[n], ab, as, b.x, b.y, sm.x, sm.y);
+  }
+}
+
+// acc (16 keys x D) += X (16 keys x 8N queries, fp32 in Sᵀ's accumulator
+// layout) · B (the split Q or dO rows of the chunk): k-step j's slot t is
+// query 8j + π(2t), slot t + 4 query 8j + π(2t + 1), so X's registers are
+// the A fragment as they stand; acc's n-tiles 2m and 2m + 1 hold columns
+// 16m + 2g and 16m + 2g + 1, one 8-byte load a row and pair
+template <int D, int N>
+__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4], const float (&x)[N][4],
+                                         const float* big, const float* small, int g, int t) {
+  constexpr int LD = D + 8;
+  const int r0 = (2 * t + (t >> 1)) * LD + 2 * g, r1 = (2 * t + 1 - (t >> 1)) * LD + 2 * g;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(x[j][0], ab[0], as[0]);  // (key g, slot t)
+    split_tf32(x[j][2], ab[1], as[1]);  // (key g + 8, slot t)
+    split_tf32(x[j][1], ab[2], as[2]);  // (key g, slot t + 4)
+    split_tf32(x[j][3], ab[3], as[3]);  // (key g + 8, slot t + 4)
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const int o = 8 * j * LD + 16 * m;
+      const uint2 b0 = *reinterpret_cast<const uint2*>(big + r0 + o);
+      const uint2 b1 = *reinterpret_cast<const uint2*>(big + r1 + o);
+      const uint2 s0 = *reinterpret_cast<const uint2*>(small + r0 + o);
+      const uint2 s1 = *reinterpret_cast<const uint2*>(small + r1 + o);
+      mma_3xtf32(acc[2 * m], ab, as, b0.x, b1.x, s0.x, s1.x);
+      mma_3xtf32(acc[2 * m + 1], ab, as, b0.y, b1.y, s0.y, s1.y);
+    }
+  }
+}
+
+// Sᵀ, dPᵀ → Pᵀ = where(mask, exp(s − lse), 0) and dSᵀ = where(mask,
+// Pᵀ∘(dPᵀ − D), 0) in place, s the score as the forward rounds it. The
+// lane's element (n, e) is key kpos[e >> 1] and chunk query qc + 8n + 2t +
+// ((e & 1) ^ (t >> 1)). MASK = false: every pair is known to be allowed.
+template <bool MASK, int N>
+__device__ __forceinline__ void p_ds(float (&s)[N][4], float (&dp)[N][4], const Params& p,
+                                     bool alibi, float slope, const int (&kpos)[2],
+                                     const bool (&live)[2], int q0, int qc, const float* lse,
+                                     const float* dd, int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, qi = qc + 8 * n + 2 * t + ((e & 1) ^ (t >> 1));
+      bool ok = true;
+      if (MASK) ok = live[r] & in_range(q0 + qi, kpos[r], p.window);
+      const float pr = expf(score(s[n][e], p.scale, alibi, slope, kpos[r]) - lse[qi]);
+      s[n][e] = ok ? pr : 0.f;
+      dp[n][e] = ok ? pr * (dp[n][e] - dd[qi]) : 0.f;
+    }
+}
+
+// fp32 K4b (D = Dh in {16, 32, 64, 128}): one block of 4 warps per (64
+// keys, head, batch row), key blocks in the slow grid order; warp w owns
+// keys 16w .. 16w + 15 and keeps their dK and dV in registers while the
+// query tiles in causal and window range stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
+flash_bwd_dkv_tf32(const Params p) {
+  using S = DkvSmem<D>;
+  constexpr int LD = S::LD, QT = DKV_QT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* kv = reinterpret_cast<float*>(smem_raw);  // the block's keys and values
+  float* ring = kv + S::KV;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int HB = gridDim.x / (p.T / SUB);  // heads × batch rows
+  const int kb = blockIdx.x / HB, hb = blockIdx.x - kb * HB, h = hb % p.H, b = hb / p.H;
+  const int k0 = kb * SUB, kr = warp * 16 + g;  // kr, kr + 8: the lane's keys in the block
+  const long long base = b * p.sb + h * p.sh;
+  const float* qg = static_cast<const float*>(p.q) + base;
+  const float* gg = static_cast<const float*>(p.g) + b * p.gb + h * p.gh;
+  const long long rows = ((long long)b * p.H + h) * p.T;  // into lse and dsum
+  const int* kmg = p.key_mask + (long long)b * p.T + k0;
+  const bool alibi = p.slopes != nullptr;
+  const float slope = alibi ? p.slopes[h] : 0.f;
+  const int kpos[2] = {k0 + kr, k0 + kr + 8};
+  const bool live[2] = {kmg[kr] != 0, kmg[kr + 8] != 0};
+  float* dk = static_cast<float*>(p.dk) + b * p.rb + h * p.rh;
+  float* dv = static_cast<float*>(p.dv) + b * p.rb + h * p.rh;
+
+  const bool key_live = threadIdx.x >= SUB || kmg[threadIdx.x] != 0;
+  const bool all_live = __syncthreads_and(key_live);
+  if (!__syncthreads_or(threadIdx.x < SUB && kmg[threadIdx.x] != 0)) {
+    // all 64 keys padded: p = 0 on every pair, dK = dV = 0
+    constexpr int C = D / 4;
+    for (int e = threadIdx.x; e < SUB * C; e += MMA_THREADS) {
+      const long long at = (k0 + e / C) * p.rt + (e % C) * 4;
+      *reinterpret_cast<float4*>(dk + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dv + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  // the query tiles [k0 + i·QT, + QT) that hold a pair in range: queries
+  // below k0 + 63 + window see a key of the block
+  const int q_end = p.window > 0 ? min(p.T, k0 + SUB - 1 + p.window) : p.T;
+  const int n_tiles = (q_end - k0 + QT - 1) / QT;
+
+  auto issue = [&](int i) {  // tile i into stage i % DKV_STAGES: Q, dO, lse, D
+    float* st = ring + (i % DKV_STAGES) * S::STAGE;
+    const int q0 = k0 + i * QT;
+    copy_rows_async<D, QT>(st, qg + q0 * p.st, p.st);
+    copy_rows_async<D, QT>(st + 2 * QT * LD, gg + q0 * p.gt, p.gt);
+    float* aux = st + 4 * QT * LD;
+    if (threadIdx.x < QT / 4)
+      cp_async16(aux + 4 * threadIdx.x, p.lse + rows + q0 + 4 * threadIdx.x, true);
+    else if (threadIdx.x < QT / 2)
+      cp_async16(aux + 4 * threadIdx.x, p.dsum + rows + q0 + 4 * threadIdx.x - QT, true);
+  };
+
+  const float* kg = static_cast<const float*>(p.k) + base + k0 * p.st;
+  const float* vg = static_cast<const float*>(p.v) + base + k0 * p.st;
+  if constexpr (DKV_KV_SPLIT) {  // K and V raw into the ring, then split into fragments
+    copy_rows_async<D, SUB, D>(ring, kg, p.st);
+    copy_rows_async<D, SUB, D>(ring + SUB * D, vg, p.st);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    uint4* f = reinterpret_cast<uint4*>(kv);
+    split_frags<D>(f, f + SUB * D / 4, ring);
+    split_frags<D>(f + SUB * D / 2, f + 3 * SUB * D / 4, ring + SUB * D);
+    __syncthreads();  // the fragments written, the ring free
+  } else {  // K and V tiles, in tile 0's group
+    copy_rows_async<D, SUB>(kv, kg, p.st);
+    copy_rows_async<D, SUB>(kv + SUB * LD, vg, p.st);
+  }
+  issue(0);
+  cp_async_commit();
+
+  float ak[D / 8][4], av[D / 8][4];  // dK, dV
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    float* st = ring + (i % DKV_STAGES) * S::STAGE;
+    float *Qb = st, *Qsm = st + QT * LD, *Gb = st + 2 * QT * LD, *Gsm = st + 3 * QT * LD;
+    const float* lse = st + 4 * QT * LD;
+    const float* dd = lse + QT;
+    cp_async_wait<0>();
+    split_rows<D, QT>(Qb, Qsm);
+    split_rows<D, QT>(Gb, Gsm);
+    __syncthreads();  // tile i landed and split (at i = 0 also K, V); tile i - 1 consumed
+    if (DKV_STAGES == 2 && i + 1 < n_tiles) {
+      issue(i + 1);
+      cp_async_commit();
+    }
+    const int q0 = k0 + i * QT;
+    // every pair of the tile allowed: all keys live, every query at or past
+    // the last key and (window) before the first key's window ends
+    const bool unmasked =
+        all_live & (q0 >= k0 + SUB - 1) & ((p.window <= 0) | (q0 + QT - 1 < k0 + p.window));
+#pragma unroll 1
+    for (int qc = 0; qc < QT; qc += 8 * DKV_N) {
+      const int at = qc * LD;
+      float s[DKV_N][4], dp[DKV_N][4];  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+#pragma unroll
+      for (int n = 0; n < DKV_N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        uint32_t ab[4], as[4];
+        kv_frag<D>(ab, as, kv, 0, warp, lane, d);
+        st_step<D, DKV_N>(s, ab, as, Qb + at, Qsm + at, d, g, t);
+        kv_frag<D>(ab, as, kv, 1, warp, lane, d);
+        st_step<D, DKV_N>(dp, ab, as, Gb + at, Gsm + at, d, g, t);
+      }
+      if (unmasked)
+        p_ds<false, DKV_N>(s, dp, p, alibi, slope, kpos, live, q0, qc, lse, dd, t);
+      else
+        p_ds<true, DKV_N>(s, dp, p, alibi, slope, kpos, live, q0, qc, lse, dd, t);
+      acc_tile<D, DKV_N>(av, s, Gb + at, Gsm + at, g, t);   // dV += Pᵀ·dO
+      acc_tile<D, DKV_N>(ak, dp, Qb + at, Qsm + at, g, t);  // dK += dSᵀ·Q
+    }
+    if (DKV_STAGES == 1) {
+      __syncthreads();  // tile i consumed
+      if (i + 1 < n_tiles) {
+        issue(i + 1);
+        cp_async_commit();
+      }
+    }
+  }
+  // a lane's dK and dV: rows kr and kr + 8, columns 16m + 4t .. 16m + 4t + 3
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* krow = dk + (long long)kpos[r] * p.rt + 4 * t;
+    float* vrow = dv + (long long)kpos[r] * p.rt + 4 * t;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const int e = 2 * r;
+      *reinterpret_cast<float4*>(krow + 16 * m) =
+          make_float4(ak[2 * m][e] * p.scale, ak[2 * m + 1][e] * p.scale,
+                      ak[2 * m][e + 1] * p.scale, ak[2 * m + 1][e + 1] * p.scale);
+      *reinterpret_cast<float4*>(vrow + 16 * m) =
+          make_float4(av[2 * m][e], av[2 * m + 1][e], av[2 * m][e + 1], av[2 * m + 1][e + 1]);
+    }
+  }
+}
+
 template <int D>
 constexpr size_t dq_smem() {
   return sizeof(float) * ((size_t)4 * SUB * (D + 4) + (size_t)SUB * LDT + 3 * SUB);
@@ -368,19 +726,36 @@ cudaError_t launch(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st, cons
   return cudaGetLastError();
 }
 
+// K4a in fp32 or bf16; K4b in bf16 (fp32 K4b is flash_bwd_dkv_tf32)
+template <typename T, int D>
+cudaError_t launch_cuda_cores(bool dkv, dim3 grid, cudaStream_t s, const Params& p) {
+  if constexpr (std::is_same_v<T, bf16>)
+    if (dkv) return launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), grid, s, p);
+  return launch(flash_bwd_dq<T, D>, dq_smem<D>(), grid, s, p);
+}
+
 template <typename T>
 cudaError_t dispatch(bool dkv, int Dh, dim3 grid, cudaStream_t s, const Params& p) {
   switch (Dh) {
-    case 16: return dkv ? launch(flash_bwd_dkv<T, 16>, dkv_smem<16>(), grid, s, p)
-                        : launch(flash_bwd_dq<T, 16>, dq_smem<16>(), grid, s, p);
-    case 32: return dkv ? launch(flash_bwd_dkv<T, 32>, dkv_smem<32>(), grid, s, p)
-                        : launch(flash_bwd_dq<T, 32>, dq_smem<32>(), grid, s, p);
-    case 64: return dkv ? launch(flash_bwd_dkv<T, 64>, dkv_smem<64>(), grid, s, p)
-                        : launch(flash_bwd_dq<T, 64>, dq_smem<64>(), grid, s, p);
-    case 128: return dkv ? launch(flash_bwd_dkv<T, 128>, dkv_smem<128>(), grid, s, p)
-                         : launch(flash_bwd_dq<T, 128>, dq_smem<128>(), grid, s, p);
+    case 16: return launch_cuda_cores<T, 16>(dkv, grid, s, p);
+    case 32: return launch_cuda_cores<T, 32>(dkv, grid, s, p);
+    case 64: return launch_cuda_cores<T, 64>(dkv, grid, s, p);
+    case 128: return launch_cuda_cores<T, 128>(dkv, grid, s, p);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// fp32 K4b: one block per (key block, head, batch row), key blocks slowest
+template <int D>
+cudaError_t launch_dkv_tf32(int B, cudaStream_t st, const Params& p) {
+  constexpr size_t smem = DkvSmem<D>::BYTES;
+  const long long blocks = (long long)(p.T / SUB) * p.H * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_tf32<D><<<(unsigned)blocks, MMA_THREADS, smem, st>>>(p);
+  return cudaGetLastError();
 }
 
 int run(bool dkv, int B, int Dh, int is_bf16, void* stream, const Params& p) {
@@ -388,6 +763,15 @@ int run(bool dkv, int B, int Dh, int is_bf16, void* stream, const Params& p) {
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.T / SUB, p.H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dkv && !is_bf16) {  // fp32 K4b: the tensor-core kernel, at every head size K4 takes
+    switch (Dh) {
+      case 16: return (int)launch_dkv_tf32<16>(B, s, p);
+      case 32: return (int)launch_dkv_tf32<32>(B, s, p);
+      case 64: return (int)launch_dkv_tf32<64>(B, s, p);
+      case 128: return (int)launch_dkv_tf32<128>(B, s, p);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   return (int)(is_bf16 ? dispatch<bf16>(dkv, Dh, grid, s, p)
                        : dispatch<float>(dkv, Dh, grid, s, p));
 }

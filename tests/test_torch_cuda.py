@@ -635,6 +635,133 @@ def test_flash_train_step_on_the_card_equals_the_cpu_step(cuda):
         assert (g_gpu[name] - want).abs().max().item() <= tol, name
 
 
+def _fbwd_fp32_args(rng, B, H, T, Dh, cuda, window, alibi=False):
+    """q, k, v and a cotangent g as the decoder's projection views, the
+    forward's residuals (K3) and K4's arguments, with a short row (fully
+    masked rows under a window) and a fully padded one."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, km, slopes = _flash_fp32_inputs(rng, B, H, T, Dh, cuda)
+    g = torch.from_numpy(rng.normal(0, 1, (B, T, H * Dh)).astype(np.float32)).to(cuda).view(
+        B, T, H, Dh).transpose(1, 2)
+    sl = slopes if alibi else None
+    kw = dict(window=window, block_kv=256)
+    out, lse = fa.flash_attention(q, k, v, km, sl, return_residuals=True, **kw)
+    return (q, k, v, km, sl, g, out, lse), kw
+
+
+@pytest.mark.parametrize("Dh,dtype", [(16, "float32"), (32, "float32"), (64, "float32"),
+                                      (128, "float32"), (64, "bfloat16")])
+def test_flash_backward_dkv_routing(cuda, Dh, dtype):
+    """K4b in fp32 is `flash_bwd_dkv_tf32` (3xTF32 on the tensor cores) at
+    every head size K4 takes, and in bf16 the CUDA-core `flash_bwd_dkv`,
+    named so by the profiler; both hold K4's gate against the plain
+    version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v, km, sl, g, out, lse), kw = _fbwd_fp32_args(np.random.default_rng(Dh), 3, 4, 512,
+                                                         Dh, cuda, 64, alibi=True)
+    dt = getattr(torch, dtype)
+    q, k, v, g, out = (t.to(dt) for t in (q, k, v, g, out))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fa.flash_attention_bwd(q, k, v, km, sl, g, out, lse, scale=0.125, **kw)
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages() if "flash_bwd_dkv" in ev.key}
+    assert names and all(("flash_bwd_dkv_tf32" in n) == (dtype == "float32") for n in names), \
+        names
+    want = fa.flash_attention_bwd_reference(q, k, v, km, sl, g, out, lse, scale=0.125, **kw)
+    for gg, ww in zip(got[1:], want[1:]):
+        gg, ww = gg.float(), ww.float()
+        atol = 1e-5 * ww.abs().max().item() if dtype == "float32" else 2e-2
+        rtol = 1e-5 if dtype == "float32" else 1e-2
+        assert ((gg - ww).abs() <= atol + rtol * ww.abs()).all()
+
+
+def test_flash_fp32_backward_is_deterministic(cuda):
+    """Two launches of K4 on the same inputs give the same bits (no
+    atomics): GradCache's check against the direct step depends on it."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    for window in (0, 256):
+        args, kw = _fbwd_fp32_args(np.random.default_rng(23), 3, 12, 2048, 64, cuda, window)
+        a = fa.flash_attention_bwd(*args, **kw)
+        b = fa.flash_attention_bwd(*args, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), window
+
+
+def test_flash_fp32_backward_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plain_version(
+        cuda):
+    """Dh 128 at T=2048 with ALiBi (slopes ≤ 0.03) and window 256: K4b's dk
+    and dv (3xTF32 products) are no further from an fp64 evaluation of the
+    formula, from the same lse, than twice the plain version's distance."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    T, Dh, window = 2048, 128, 256
+    args, kw = _fbwd_fp32_args(np.random.default_rng(24), 3, 4, T, Dh, cuda, window,
+                               alibi=True)
+    q, k, v, km, sl, g, out, lse = args
+    got = fa.flash_attention_bwd(*args, **kw)
+    want = fa.flash_attention_bwd_reference(*args, **kw)
+    i = torch.arange(T, device=cuda)
+    mask = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window))[None, None] \
+        & (km > 0)[:, None, None, :]
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) + sl.double()[None, :, None, None] * i.double()
+    p = torch.where(mask, torch.exp(s - lse.double()[..., None]), 0.0)
+    dsum = (gd * out.double()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gd, vd) - dsum)
+    exact = (torch.einsum("bhqk,bhqd->bhkd", ds, qd), torch.einsum("bhqk,bhqd->bhkd", p, gd))
+    for name, a, b, e in zip(("dk", "dv"), got[1:], want[1:], exact):
+        kernel_err = (a.double() - e).abs().max().item()
+        plain_err = (b.double() - e).abs().max().item()
+        assert kernel_err <= 2 * plain_err, (name, kernel_err, plain_err)
+
+
+def test_flash_train_step_with_local_layers_runs_k4b_tf32_and_equals_the_cpu_step(cuda):
+    """One BitFit step of a 2-layer use_flash model at GPT-Neo-125M's width
+    (a global and a window-256 layer), max_seq_len 512: K4b runs as
+    `flash_bwd_dkv_tf32` alone, once a layer and tower, and the loss and
+    bias gradients equal the CPU's (plain versions): loss within 1e-5
+    relative, each gradient within 1e-4 of its leaf's norm."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
+
+    cfg = gpt_neo("125m", use_flash=True).replace(num_layers=2)
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    tok = SimpleTokenizer(cfg.vocab_size)
+    tc = TrainConfig(lr=2e-4, batch_size=3, max_seq_len=512, specb=True, freeze_nonbias=True)
+    batch = [(f"query {i} on subject {i % 2}", f"passage {i} " + "words " * (100 + 150 * i),
+              f"unrelated passage {i + 7} " + "text " * (60 + 120 * i)) for i in range(3)]
+    results = []
+    for model in (cpu, gpu):
+        trainer = ContrastiveTrainer(model, cfg, tok, tc)
+        trainer._opt, trainer._sched = trainer._build_optimizer(1)
+        before = fa.bwd_dkv_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+        assert fa.bwd_dkv_launches - before == (cfg.num_layers * 3 if model is gpu else 0)
+        if model is gpu:
+            names = {ev.key for ev in prof.key_averages() if "flash_bwd_dkv" in ev.key}
+            assert names and all("flash_bwd_dkv_tf32" in n for n in names), names
+        results.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
+                               if p.requires_grad}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert g_cpu and set(g_cpu) == set(g_gpu)
+    for name, want in g_cpu.items():
+        tol = 1e-4 * max(want.norm().item(), 1e-12)
+        assert (g_gpu[name] - want).abs().max().item() <= tol, name
+
+
 def test_flash_engine_on_the_card_launches_k3_and_equals_the_cpu(cuda):
     """A 2-layer model at GPT-Neo-125M's width with use_flash, fp32: batches
     at T % 128 == 0 run K3 in every layer, the others K1, and the card's

@@ -7,7 +7,9 @@ forward residuals (out, lse of the JAX kernel). Inputs come from a numpy
 seed, with key padding that leaves fully masked query rows. Tolerances:
 fp32 |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| (all three sum the same fp32
 products in another order); bf16 2e-2 + 1e-2·|ref| (a flipped rounding of
-an output cast to bf16; the arithmetic is fp32 on both sides).
+an output cast to bf16; the arithmetic is fp32 on both sides). The 3xTF32
+emulation of K4b's fp32 kernel (`_k4b_tf32`) is held to the same fp32 gate
+of both.
 """
 import os
 
@@ -28,6 +30,7 @@ from sgpt_tpu.ops.pallas.flash_attention import flash_attention as jax_flash  # 
 from sgpt_tpu.ops.pallas.flash_attention import flash_attention_bwd as jax_bwd  # noqa: E402
 from sgpt_tpu.ops.pallas.flash_attention import flash_attention_trainable  # noqa: E402
 from sgpt_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from test_torch_short_attention import PV_ORDER, _mma_tf32  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -231,3 +234,106 @@ def test_backward_refuses_mismatched_cotangent_and_other_devices():
     with pytest.raises(RuntimeError, match="no kernel"):
         fa.flash_attention_bwd(x, x, x, torch.ones(1, 128, dtype=torch.int32), None, x, x,
                                torch.zeros(1, 1, 128, device="meta"))
+
+
+# A dV/dK k-step's 8 queries in the order of its slots on the card: slot t
+# is the query of Sᵀ's accumulator column 2t, slot t + 4 that of column
+# 2t + 1, and column c of an 8-query n-tile holds query c ^ (c >> 2 & 1).
+K4B_Q_ORDER = (0, 2, 5, 7, 1, 3, 4, 6)
+K4B_QT = 32  # query rows of a stage of the kernel's ring
+
+
+def _k4b_tf32(q, k, v, g, key_mask, slopes, lse, dsum, *, scale, window, three=True):
+    """`flash_bwd_dkv_tf32`'s walk and arithmetic on the CPU: Sᵀ = K·Qᵀ and
+    dPᵀ = V·gᵀ in (3x)TF32 (`_mma_tf32`, K and V as A, the products in
+    K3's term order, each 8-deep step's Dh columns in PV_ORDER), × scale,
+    + slope·kpos; P = where(mask, exp(s − lse), 0) and dS = where(mask,
+    P∘(dP − D), 0), the where outside the exp; then per batch row and
+    64-key block, unless all its keys are padded, over the 32-row query
+    tiles from the block's first key to the last query that sees one of its
+    keys: dV = Pᵀ·g and dK = dSᵀ·Q·scale, one 8-query step at a time in
+    K4B_Q_ORDER. Returns (dk, dv) and the number of key blocks skipped."""
+    B, H, T, Dh = q.shape
+    st = _mma_tf32(k, q.transpose(-1, -2), PV_ORDER, three, swapped=True)  # (B, H, keys, queries)
+    dpt = _mma_tf32(v, g.transpose(-1, -2), PV_ORDER, three, swapped=True)
+    pos = torch.arange(T)
+    if scale != 1.0:
+        st = st * scale
+    if slopes is not None:
+        st = st + slopes[None, :, None, None] * pos.float()[:, None]
+    allowed = pos[:, None] <= pos[None, :]  # key ≤ query
+    if window > 0:
+        allowed = allowed & (pos[:, None] > pos[None, :] - window)
+    mask = allowed[None, None] & (key_mask != 0)[:, None, :, None]
+    zero = torch.zeros(())
+    p = torch.where(mask, torch.exp(st - lse[:, :, None, :]), zero)
+    ds = torch.where(mask, p * (dpt - dsum[:, :, None, :]), zero)
+    dk, dv, skipped = torch.zeros(B, H, T, Dh), torch.zeros(B, H, T, Dh), 0
+    for b in range(B):
+        for k0 in range(0, T, fa.TILE):
+            keys = slice(k0, k0 + fa.TILE)
+            if not bool((key_mask[b, keys] != 0).any()):
+                skipped += 1
+                continue
+            q_end = min(T, k0 + fa.TILE - 1 + window) if window > 0 else T
+            qs = slice(k0, k0 + -(-(q_end - k0) // K4B_QT) * K4B_QT)
+            dv[b, :, keys] = _mma_tf32(p[b, :, keys, qs], g[b, :, qs], K4B_Q_ORDER, three)
+            dk[b, :, keys] = _mma_tf32(ds[b, :, keys, qs], q[b, :, qs], K4B_Q_ORDER,
+                                       three) * scale
+    return (dk, dv), skipped
+
+
+K4B_CASES = CASES + [  # Dh 128 (GPT-Neo 1.3B/2.7B heads)
+    (256, 128, 128, 64, 0.125, True, (20, 219)),
+    (512, 128, 256, 0, 1.0, False, (0, 475)),          # a fully padded batch row
+]
+
+
+def _k4b_case(case, three=True):
+    """The JAX kernels' and the plain version's (dk, dv) on one case, and
+    the emulation's from the same forward residuals and D."""
+    T, Dh, block_kv, window, scale, alibi, lengths = case
+    q, k, v, g, km, slopes = _inputs(T + Dh + window + int(alibi), T, Dh, lengths, alibi)
+    kw = dict(scale=scale, window=window, block_kv=block_kv)
+    out, lse, kern, _ = _jax_all(q, k, v, g, km, slopes, "float32", **kw)
+    plain = _port(q, k, v, g, km, slopes, out, lse, "float32", **kw)
+    tq, tk, tv, tg, tout = (torch.from_numpy(x) for x in (q, k, v, g, out))
+    dsum = (tg * tout).sum(-1)  # D = rowsum(dO∘O), as the plain version takes it
+    got, skipped = _k4b_tf32(tq, tk, tv, tg, torch.from_numpy(km),
+                             None if slopes is None else torch.from_numpy(slopes),
+                             torch.from_numpy(lse), dsum, scale=scale, window=window,
+                             three=three)
+    return [x.numpy() for x in got], kern[1:], plain[1:], skipped, lse
+
+
+@pytest.mark.parametrize("case", K4B_CASES, ids=_ids)
+def test_k4b_3xtf32_walk_holds_the_fp32_gate(case):
+    """The CPU witness of K4b's fp32 numerics on the card
+    (`flash_bwd_dkv_tf32`): 3xTF32 products on the kernel's key blocks and
+    query-tile walk stay within K4's fp32 gate of the JAX kernels
+    (interpret mode) and of the plain version in dk and dv, fully masked
+    rows (lse -1e30) and fully padded key blocks included."""
+    got, kern, plain, skipped, lse = _k4b_case(case)
+    lengths = case[6]
+    assert (skipped > 0) == (min(lengths) < case[0] - fa.TILE + 1)
+    if case[3] > 0 and min(lengths) < case[0] - case[3]:
+        assert (lse == fa.NEG_INF).any()  # a window leaves rows with no valid key
+    for name, a, b, c in zip(("dk", "dv"), got, kern, plain):
+        _close(a, b, "float32", f"{name} against the TPU kernels (interpret mode)")
+        _close(a, c, "float32", f"{name} against the plain version")
+
+
+def _gate_excess(got, want):
+    """The largest |Δ| − 1e-5·|ref| over 1e-5·max|ref|: above 1 fails K4's
+    fp32 gate."""
+    return float(((np.abs(got - want) - 1e-5 * np.abs(want)) / (1e-5 * np.abs(want).max())).max())
+
+
+def test_single_tf32_product_fails_the_k4b_fp32_gate():
+    """Why K4b's fp32 path splits its operands: one TF32 product per pair
+    misses K4's fp32 gate in the decoder's global layers."""
+    case = (512, 64, 256, 0, 1.0, False, (20, 475))
+    one, _, plain, _, _ = _k4b_case(case, three=False)
+    assert max(_gate_excess(a, b) for a, b in zip(one, plain)) > 1
+    three, _, plain, _, _ = _k4b_case(case)
+    assert max(_gate_excess(a, b) for a, b in zip(three, plain)) <= 1
