@@ -47,6 +47,60 @@ CSRC = Path("sgpt_tpu_torch/csrc")
 OUT = Path("build/variants")
 K2_EXP = [("short_attention_bwd.cu", f"expf(s[n][e] - {m})", f"__expf(s[n][e] - {m})")
           for m in ("m_new[e >> 1]", "m[r]", "qa->m[c]")]
+BWD = "flash_attention_bwd.cu"
+K4B_QT16 = (BWD, "constexpr int DKV_QT = 32;", "constexpr int DKV_QT = 16;")
+K4B_QT64 = (BWD, "constexpr int DKV_QT = 32;", "constexpr int DKV_QT = 64;")
+# K4b's ring in one stage: tile i + 1 is issued after tile i is consumed
+K4B_ONE_STAGE = [
+    (BWD, "((size_t)KV + 2 * (size_t)STAGE)", "((size_t)KV + (size_t)STAGE)"),
+    (BWD, "ring + (i % 2) * S::STAGE", "ring"),
+    (BWD, "    if (i + 1 < n_tiles) {  // tile i + 1 copies while this one computes\n"
+          "      issue(i + 1);\n      cp_async_commit();\n    }\n", ""),
+    (BWD, "      acc_tile<D, DKV_N>(ak, dp, Qb + at, Qsm + at, g, t);  // dK += dSᵀ·Q\n    }\n",
+     "      acc_tile<D, DKV_N>(ak, dp, Qb + at, Qsm + at, g, t);  // dK += dSᵀ·Q\n    }\n"
+     "    __syncthreads();  // tile i consumed\n    if (i + 1 < n_tiles) {\n"
+     "      issue(i + 1);\n      cp_async_commit();\n    }\n")]
+# K4b's K and V split once a block: they land raw (rows of Dh) in the ring,
+# and each warp's A fragments are stored split in fragment order (entry
+# (warp, k-step d, lane) holds the lane's four values as kv_frag reads them)
+K4B_KV_SPLIT = [
+    (BWD, "static constexpr int KV = 2 * SUB * LD;", "static constexpr int KV = 4 * SUB * D;"),
+    (BWD, "template <int D, int R>\n__device__ __forceinline__ void copy_rows_async(float* dst, "
+          "const float* src, long long stride) {\n  constexpr int C = D / 4, LD = D + 8;\n",
+     "template <int D, int R, int LD = D + 8>\n__device__ __forceinline__ void copy_rows_async("
+     "float* dst, const float* src, long long stride) {\n  constexpr int C = D / 4;\n"),
+    (BWD, "// the split A fragments of k-step d",
+     "template <int D>\n"
+     "__device__ __forceinline__ void split_frags(uint4* big, uint4* small, const float* raw) {\n"
+     "  for (int e = threadIdx.x; e < SUB / 16 * (D / 8) * 32; e += MMA_THREADS) {\n"
+     "    const int lane = e % 32, d = e / 32 % (D / 8), w = e / 32 / (D / 8);\n"
+     "    const float* x = raw + (w * 16 + (lane >> 2)) * D + 8 * d + 2 * (lane & 3);\n"
+     "    uint4 b, sm;\n"
+     "    split_tf32(x[0], b.x, sm.x);\n    split_tf32(x[8 * D], b.y, sm.y);\n"
+     "    split_tf32(x[1], b.z, sm.z);\n    split_tf32(x[8 * D + 1], b.w, sm.w);\n"
+     "    big[e] = b;\n    small[e] = sm;\n  }\n}\n\n// the split A fragments of k-step d"),
+    (BWD, "  constexpr int LD = D + 8;\n  const float* at = kv + (which * SUB + w * 16 + (lane >> 2))"
+          " * LD + 8 * d + 2 * (lane & 3);\n  const float2 lo = *reinterpret_cast<const float2*>(at);"
+          "\n  const float2 hi = *reinterpret_cast<const float2*>(at + 8 * LD);\n"
+          "  split_tf32(lo.x, big[0], small[0]);\n  split_tf32(hi.x, big[1], small[1]);\n"
+          "  split_tf32(lo.y, big[2], small[2]);\n  split_tf32(hi.y, big[3], small[3]);\n",
+     "  const uint4* f = reinterpret_cast<const uint4*>(kv) + which * SUB * D / 2;\n"
+     "  const int e = (w * (D / 8) + d) * 32 + lane;\n"
+     "  const uint4 b = f[e], sm = f[SUB * D / 4 + e];\n"
+     "  big[0] = b.x, big[1] = b.y, big[2] = b.z, big[3] = b.w;\n"
+     "  small[0] = sm.x, small[1] = sm.y, small[2] = sm.z, small[3] = sm.w;\n"),
+    (BWD, "  // K and V tiles, in tile 0's group\n"
+          "  copy_rows_async<D, SUB>(kv, static_cast<const float*>(p.k) + base + k0 * p.st, p.st);\n"
+          "  copy_rows_async<D, SUB>(kv + SUB * LD, static_cast<const float*>(p.v) + base + k0 * "
+          "p.st, p.st);\n",
+     "  static_assert(S::BYTES / sizeof(float) - S::KV >= 2 * SUB * D, \"raw K, V fit the ring\");\n"
+     "  copy_rows_async<D, SUB, D>(ring, static_cast<const float*>(p.k) + base + k0 * p.st, p.st);\n"
+     "  copy_rows_async<D, SUB, D>(ring + SUB * D, static_cast<const float*>(p.v) + base + k0 * "
+     "p.st, p.st);\n  cp_async_commit();\n  cp_async_wait<0>();\n  __syncthreads();\n"
+     "  uint4* f = reinterpret_cast<uint4*>(kv);\n"
+     "  split_frags<D>(f, f + SUB * D / 4, ring);\n"
+     "  split_frags<D>(f + SUB * D / 2, f + 3 * SUB * D / 4, ring + SUB * D);\n"
+     "  __syncthreads();  // the fragments written, the ring free\n")]
 VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     "tree": [],
     # the rounding as the PTX instruction rather than two integer operations
@@ -88,37 +142,23 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     "k3_fast_exp": [("flash_attention.cu", "s[c][e] = expf(s[c][e] - m_new[e >> 1]);",
                      "s[c][e] = __expf(s[c][e] - m_new[e >> 1]);")],
     # K4b: one stage of the query ring (the next tile copies after this one)
-    "k4b_one_stage": [("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
-                       "constexpr int DKV_STAGES = 1;")],
+    "k4b_one_stage": K4B_ONE_STAGE,
     # K4b: 16-row stages
-    "k4b_qt16": [("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
-                  "constexpr int DKV_QT = 16;")],
+    "k4b_qt16": [K4B_QT16],
     # K4b: one stage of 64 query rows (K2's tf32_cols tile)
-    "k4b_tile64": [("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
-                    "constexpr int DKV_QT = 64;"),
-                   ("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
-                    "constexpr int DKV_STAGES = 1;")],
+    "k4b_tile64": [K4B_QT64, *K4B_ONE_STAGE],
     # K4b: 32 queries a warp at a time (Sᵀ and dPᵀ in 32 registers)
     "k4b_n4": [("flash_attention_bwd.cu", "constexpr int DKV_N = 2;", "constexpr int DKV_N = 4;")],
     # K4b: one stage of 64 query rows taken whole (Sᵀ and dPᵀ in 64 registers)
-    "k4b_full64": [("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
-                    "constexpr int DKV_QT = 64;"),
-                   ("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
-                    "constexpr int DKV_STAGES = 1;"),
+    "k4b_full64": [K4B_QT64, *K4B_ONE_STAGE,
                    ("flash_attention_bwd.cu", "constexpr int DKV_N = 2;",
                     "constexpr int DKV_N = 8;")],
     # K4b: K and V split once a block into shared big and small parts in
     # fragment order (one 16-byte load a fragment part), beside two 16-row
     # stages at two blocks an SM
-    "k4b_kv_split": [("flash_attention_bwd.cu", "constexpr bool DKV_KV_SPLIT = false;",
-                      "constexpr bool DKV_KV_SPLIT = true;"),
-                     ("flash_attention_bwd.cu", "constexpr int DKV_QT = 32;",
-                      "constexpr int DKV_QT = 16;")],
+    "k4b_kv_split": [*K4B_KV_SPLIT, K4B_QT16],
     # K4b: the same with one 32-row stage
-    "k4b_kv_split_one_stage": [("flash_attention_bwd.cu", "constexpr bool DKV_KV_SPLIT = false;",
-                                "constexpr bool DKV_KV_SPLIT = true;"),
-                               ("flash_attention_bwd.cu", "constexpr int DKV_STAGES = 2;",
-                                "constexpr int DKV_STAGES = 1;")],
+    "k4b_kv_split_one_stage": [*K4B_KV_SPLIT, *K4B_ONE_STAGE],
     # K4b: the chunks of a stage unrolled
     "k4b_unroll_chunks": [("flash_attention_bwd.cu", "#pragma unroll 1\n    for (int qc = 0;",
                            "#pragma unroll\n    for (int qc = 0;")],

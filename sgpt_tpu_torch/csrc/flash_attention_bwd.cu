@@ -79,7 +79,8 @@
 // p_b·g_s, p_b·g_b), each 8-deep step into a fresh accumulator. No atomics:
 // two launches give the same bits. The CPU emulation is `_k4b_tf32` in
 // tests/test_torch_flash_backward.py; chip_variants.py's k4b_* variants
-// time the knobs at DKV_QT below.
+// time the alternatives (one stage, other tile rows and chunk widths, K and
+// V split once a block) as substitutions of this source.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -388,35 +389,29 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
 
 // ---- fp32 K4b on the tensor cores (see the note at the top) ----
 
-// The query ring and the warps' share of it. chip_variants.py's k4b_*
-// variants substitute these lines to time the alternatives.
-constexpr int DKV_QT = 32;            // query rows of a stage
-constexpr int DKV_STAGES = 2;         // stages: tile i + 1 copies while tile i computes
-constexpr int DKV_N = 2;              // 8-query n-tiles a warp takes at once
-constexpr bool DKV_KV_SPLIT = false;  // K and V split once a block, in fragment order
+// The query ring's tiles and the warps' share of them
+constexpr int DKV_QT = 32;  // query rows of a stage (two stages)
+constexpr int DKV_N = 2;    // 8-query n-tiles a warp takes at once
 static_assert(SUB % DKV_QT == 0 && DKV_QT % (8 * DKV_N) == 0, "whole n-tiles a stage");
 static_assert(MMA_THREADS == 128 && MMA_TILE == SUB, "4 warps of 16 keys");
 
-// Shared memory of flash_bwd_dkv_tf32: K and V (as tiles, or with
-// DKV_KV_SPLIT the big and small parts of every warp's A fragments), then
-// DKV_STAGES stages of Q's and dO's big and small parts with the tile's lse
-// and D. Tile rows of D + 8 floats: ≡ 8 (mod 32) words (24 at D = 16), so
-// rows whose index differs mod 4 start 8 banks apart.
+// Shared memory of flash_bwd_dkv_tf32: the K and V tiles, then two stages
+// of Q's and dO's big and small parts with the tile's lse and D. Tile rows
+// of D + 8 floats: ≡ 8 (mod 32) words (24 at D = 16), so rows whose index
+// differs mod 4 start 8 banks apart.
 template <int D>
 struct DkvSmem {
   static constexpr int LD = D + 8;
-  static constexpr int KV = DKV_KV_SPLIT ? 4 * SUB * D : 2 * SUB * LD;
+  static constexpr int KV = 2 * SUB * LD;
   static constexpr int STAGE = 4 * DKV_QT * LD + 2 * DKV_QT;
-  static constexpr size_t BYTES = sizeof(float) * ((size_t)KV + (size_t)DKV_STAGES * STAGE);
-  // DKV_KV_SPLIT: K and V land raw (rows of D) in the ring before it runs
-  static_assert(!DKV_KV_SPLIT || DKV_STAGES * STAGE >= 2 * SUB * D, "raw K, V fit the ring");
+  static constexpr size_t BYTES = sizeof(float) * ((size_t)KV + 2 * (size_t)STAGE);
 };
 
 // rows [0, R) of one head from src (row stride `stride` elements) → a shared
-// tile of row stride LD, 16 bytes a copy; the caller commits the group
-template <int D, int R, int LD = D + 8>
+// tile of row stride D + 8, 16 bytes a copy; the caller commits the group
+template <int D, int R>
 __device__ __forceinline__ void copy_rows_async(float* dst, const float* src, long long stride) {
-  constexpr int C = D / 4;
+  constexpr int C = D / 4, LD = D + 8;
 #pragma unroll
   for (int i = 0; i < (R * C + MMA_THREADS - 1) / MMA_THREADS; ++i) {
     const int e = threadIdx.x + i * MMA_THREADS, r = e / C, c = (e - r * C) * 4;
@@ -445,47 +440,20 @@ __device__ __forceinline__ void split_rows(float* tile, float* small) {
   }
 }
 
-// (DKV_KV_SPLIT) K or V, landed raw in `raw` (64 rows of D floats) → the
-// big and small parts of every warp's A fragments in fragment order: entry
-// (warp, k-step d, lane) holds the lane's four values as kv_frag reads them
-template <int D>
-__device__ __forceinline__ void split_frags(uint4* big, uint4* small, const float* raw) {
-  for (int e = threadIdx.x; e < SUB / 16 * (D / 8) * 32; e += MMA_THREADS) {
-    const int lane = e % 32, d = e / 32 % (D / 8), w = e / 32 / (D / 8);
-    const float* x = raw + (w * 16 + (lane >> 2)) * D + 8 * d + 2 * (lane & 3);
-    uint4 b, sm;
-    split_tf32(x[0], b.x, sm.x);
-    split_tf32(x[8 * D], b.y, sm.y);
-    split_tf32(x[1], b.z, sm.z);
-    split_tf32(x[8 * D + 1], b.w, sm.w);
-    big[e] = b;
-    small[e] = sm;
-  }
-}
-
 // the split A fragments of k-step d of warp w's 16 rows of K (which = 0)
-// or V (which = 1): slot t is column 8d + 2t, slot t + 4 column 8d + 2t + 1.
-// From the tiles: one 8-byte load a row and a split; with DKV_KV_SPLIT one
-// 16-byte load each of the big and small parts.
+// or V (which = 1): slot t is column 8d + 2t, slot t + 4 column 8d + 2t + 1;
+// one 8-byte load a row from the tiles, then a split
 template <int D>
 __device__ __forceinline__ void kv_frag(uint32_t (&big)[4], uint32_t (&small)[4],
                                         const float* kv, int which, int w, int lane, int d) {
-  if constexpr (DKV_KV_SPLIT) {
-    const uint4* f = reinterpret_cast<const uint4*>(kv) + which * SUB * D / 2;
-    const int e = (w * (D / 8) + d) * 32 + lane;
-    const uint4 b = f[e], sm = f[SUB * D / 4 + e];
-    big[0] = b.x, big[1] = b.y, big[2] = b.z, big[3] = b.w;
-    small[0] = sm.x, small[1] = sm.y, small[2] = sm.z, small[3] = sm.w;
-  } else {
-    constexpr int LD = D + 8;
-    const float* at = kv + (which * SUB + w * 16 + (lane >> 2)) * LD + 8 * d + 2 * (lane & 3);
-    const float2 lo = *reinterpret_cast<const float2*>(at);
-    const float2 hi = *reinterpret_cast<const float2*>(at + 8 * LD);
-    split_tf32(lo.x, big[0], small[0]);
-    split_tf32(hi.x, big[1], small[1]);
-    split_tf32(lo.y, big[2], small[2]);
-    split_tf32(hi.y, big[3], small[3]);
-  }
+  constexpr int LD = D + 8;
+  const float* at = kv + (which * SUB + w * 16 + (lane >> 2)) * LD + 8 * d + 2 * (lane & 3);
+  const float2 lo = *reinterpret_cast<const float2*>(at);
+  const float2 hi = *reinterpret_cast<const float2*>(at + 8 * LD);
+  split_tf32(lo.x, big[0], small[0]);
+  split_tf32(hi.x, big[1], small[1]);
+  split_tf32(lo.y, big[2], small[2]);
+  split_tf32(hi.y, big[3], small[3]);
 }
 
 // Sᵀ (16 keys x 8N queries) += A · Bᵀ over k-step d, B the split Q or dO
@@ -603,8 +571,8 @@ flash_bwd_dkv_tf32(const Params p) {
   const int q_end = p.window > 0 ? min(p.T, k0 + SUB - 1 + p.window) : p.T;
   const int n_tiles = (q_end - k0 + QT - 1) / QT;
 
-  auto issue = [&](int i) {  // tile i into stage i % DKV_STAGES: Q, dO, lse, D
-    float* st = ring + (i % DKV_STAGES) * S::STAGE;
+  auto issue = [&](int i) {  // tile i into stage i % 2: Q, dO, lse, D
+    float* st = ring + (i % 2) * S::STAGE;
     const int q0 = k0 + i * QT;
     copy_rows_async<D, QT>(st, qg + q0 * p.st, p.st);
     copy_rows_async<D, QT>(st + 2 * QT * LD, gg + q0 * p.gt, p.gt);
@@ -615,22 +583,9 @@ flash_bwd_dkv_tf32(const Params p) {
       cp_async16(aux + 4 * threadIdx.x, p.dsum + rows + q0 + 4 * threadIdx.x - QT, true);
   };
 
-  const float* kg = static_cast<const float*>(p.k) + base + k0 * p.st;
-  const float* vg = static_cast<const float*>(p.v) + base + k0 * p.st;
-  if constexpr (DKV_KV_SPLIT) {  // K and V raw into the ring, then split into fragments
-    copy_rows_async<D, SUB, D>(ring, kg, p.st);
-    copy_rows_async<D, SUB, D>(ring + SUB * D, vg, p.st);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    uint4* f = reinterpret_cast<uint4*>(kv);
-    split_frags<D>(f, f + SUB * D / 4, ring);
-    split_frags<D>(f + SUB * D / 2, f + 3 * SUB * D / 4, ring + SUB * D);
-    __syncthreads();  // the fragments written, the ring free
-  } else {  // K and V tiles, in tile 0's group
-    copy_rows_async<D, SUB>(kv, kg, p.st);
-    copy_rows_async<D, SUB>(kv + SUB * LD, vg, p.st);
-  }
+  // K and V tiles, in tile 0's group
+  copy_rows_async<D, SUB>(kv, static_cast<const float*>(p.k) + base + k0 * p.st, p.st);
+  copy_rows_async<D, SUB>(kv + SUB * LD, static_cast<const float*>(p.v) + base + k0 * p.st, p.st);
   issue(0);
   cp_async_commit();
 
@@ -642,7 +597,7 @@ flash_bwd_dkv_tf32(const Params p) {
 
 #pragma unroll 1
   for (int i = 0; i < n_tiles; ++i) {
-    float* st = ring + (i % DKV_STAGES) * S::STAGE;
+    float* st = ring + (i % 2) * S::STAGE;
     float *Qb = st, *Qsm = st + QT * LD, *Gb = st + 2 * QT * LD, *Gsm = st + 3 * QT * LD;
     const float* lse = st + 4 * QT * LD;
     const float* dd = lse + QT;
@@ -650,7 +605,7 @@ flash_bwd_dkv_tf32(const Params p) {
     split_rows<D, QT>(Qb, Qsm);
     split_rows<D, QT>(Gb, Gsm);
     __syncthreads();  // tile i landed and split (at i = 0 also K, V); tile i - 1 consumed
-    if (DKV_STAGES == 2 && i + 1 < n_tiles) {
+    if (i + 1 < n_tiles) {  // tile i + 1 copies while this one computes
       issue(i + 1);
       cp_async_commit();
     }
@@ -681,13 +636,6 @@ flash_bwd_dkv_tf32(const Params p) {
         p_ds<true, DKV_N>(s, dp, p, alibi, slope, kpos, live, q0, qc, lse, dd, t);
       acc_tile<D, DKV_N>(av, s, Gb + at, Gsm + at, g, t);   // dV += Pᵀ·dO
       acc_tile<D, DKV_N>(ak, dp, Qb + at, Qsm + at, g, t);  // dK += dSᵀ·Q
-    }
-    if (DKV_STAGES == 1) {
-      __syncthreads();  // tile i consumed
-      if (i + 1 < n_tiles) {
-        issue(i + 1);
-        cp_async_commit();
-      }
     }
   }
   // a lane's dK and dV: rows kr and kr + 8, columns 16m + 4t .. 16m + 4t + 3
@@ -726,25 +674,6 @@ cudaError_t launch(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st, cons
   return cudaGetLastError();
 }
 
-// K4a in fp32 or bf16; K4b in bf16 (fp32 K4b is flash_bwd_dkv_tf32)
-template <typename T, int D>
-cudaError_t launch_cuda_cores(bool dkv, dim3 grid, cudaStream_t s, const Params& p) {
-  if constexpr (std::is_same_v<T, bf16>)
-    if (dkv) return launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), grid, s, p);
-  return launch(flash_bwd_dq<T, D>, dq_smem<D>(), grid, s, p);
-}
-
-template <typename T>
-cudaError_t dispatch(bool dkv, int Dh, dim3 grid, cudaStream_t s, const Params& p) {
-  switch (Dh) {
-    case 16: return launch_cuda_cores<T, 16>(dkv, grid, s, p);
-    case 32: return launch_cuda_cores<T, 32>(dkv, grid, s, p);
-    case 64: return launch_cuda_cores<T, 64>(dkv, grid, s, p);
-    case 128: return launch_cuda_cores<T, 128>(dkv, grid, s, p);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // fp32 K4b: one block per (key block, head, batch row), key blocks slowest
 template <int D>
 cudaError_t launch_dkv_tf32(int B, cudaStream_t st, const Params& p) {
@@ -758,22 +687,35 @@ cudaError_t launch_dkv_tf32(int B, cudaStream_t st, const Params& p) {
   return cudaGetLastError();
 }
 
+// The one place a call meets its kernel: K4a (both dtypes) flash_bwd_dq,
+// bf16 K4b flash_bwd_dkv on the CUDA cores, fp32 K4b flash_bwd_dkv_tf32.
+// No fallback: a launch that fails returns its error.
+template <typename T, int D>
+cudaError_t launch_kernel(bool dkv, int B, cudaStream_t s, const Params& p) {
+  const dim3 grid(p.T / SUB, p.H, B);
+  if (!dkv) return launch(flash_bwd_dq<T, D>, dq_smem<D>(), grid, s, p);
+  if constexpr (std::is_same_v<T, bf16>)
+    return launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), grid, s, p);
+  else
+    return launch_dkv_tf32<D>(B, s, p);
+}
+
+template <typename T>
+cudaError_t dispatch(bool dkv, int B, int Dh, cudaStream_t s, const Params& p) {
+  switch (Dh) {
+    case 16: return launch_kernel<T, 16>(dkv, B, s, p);
+    case 32: return launch_kernel<T, 32>(dkv, B, s, p);
+    case 64: return launch_kernel<T, 64>(dkv, B, s, p);
+    case 128: return launch_kernel<T, 128>(dkv, B, s, p);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 int run(bool dkv, int B, int Dh, int is_bf16, void* stream, const Params& p) {
   if (B < 1 || p.H < 1 || p.T < SUB || B > 65535 || p.H > 65535 || p.T % SUB)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(p.T / SUB, p.H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dkv && !is_bf16) {  // fp32 K4b: the tensor-core kernel, at every head size K4 takes
-    switch (Dh) {
-      case 16: return (int)launch_dkv_tf32<16>(B, s, p);
-      case 32: return (int)launch_dkv_tf32<32>(B, s, p);
-      case 64: return (int)launch_dkv_tf32<64>(B, s, p);
-      case 128: return (int)launch_dkv_tf32<128>(B, s, p);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)(is_bf16 ? dispatch<bf16>(dkv, Dh, grid, s, p)
-                       : dispatch<float>(dkv, Dh, grid, s, p));
+  return (int)(is_bf16 ? dispatch<bf16>(dkv, B, Dh, s, p) : dispatch<float>(dkv, B, Dh, s, p));
 }
 
 }  // namespace
