@@ -60,9 +60,8 @@ Phases, each of which asserts; any failure exits non-zero:
                and fully masked rows; variants T 128-1024, block_kv 128,
                scale 1/8, ALiBi, Dh 32 and 128, bf16; times of each kernel,
                the plain version and the library's SDPA backward, beside
-               each kernel's bound (K4b: 3 × its operations at the TF32
-               peak, the CUDA cores' beside it; K4a: the CUDA cores', the
-               3xTF32 one beside it)
+               each kernel's bound (3 × its operations at the TF32 peak,
+               the CUDA cores' beside it)
  15. ltrain  — long-context contrastive training: full-width GPT-Neo-125M
                with use_flash, fp32, max_seq_len 2048, BitFit, SPECB,
                GradCache (chunks of 8), batches of 16 triplets with documents
@@ -75,8 +74,8 @@ Phases, each of which asserts; any failure exits non-zero:
                GradCache (chunks of 2) == direct on 4 triplets at "highest"
                (tparity also holds one use_flash step at max_seq_len 512,
                card K3/K4 against the CPU's plain versions); both profiles
-               name `flash_fwd_tf32` alone for K3 and `flash_bwd_dkv_tf32`
-               alone for K4b
+               name `flash_fwd_tf32` alone for K3, `flash_bwd_dq_tf32` alone
+               for K4a and `flash_bwd_dkv_tf32` alone for K4b
  16. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -86,10 +85,10 @@ With `--parent DIR` (another checkout of this repo, e.g. the parent commit
 unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
 K3, K4a and K4b from both builds in turns (parent, change, change, parent):
-phase `ab`. K1, K2, K3 and K4a must give the parent's outputs bit for bit;
-K4b's redesigned fp32 path the parent's within K4's fp32 gate, at window 0
-and 256, each build's error against an fp64 evaluation of dK and dV logged.
-K4's inputs come from this tree's K3.
+phase `ab`. K1, K2, K3, K4b and the D buffer that K4a writes must give the
+parent's outputs bit for bit; K4a's redesigned fp32 path the parent's dq
+within K4's fp32 gate, at window 0 and 256, each build's error against an
+fp64 evaluation of dQ logged. K4's inputs come from this tree's K3.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -113,7 +112,7 @@ FP32_ATOL, FP32_RTOL = 1e-5, 1e-5   # fp32, TF32 off: summation order only
 # the card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 HBM_BYTES_PER_S = 3.35e12
-# tensor cores (bf16; TF32, which the fp32 paths of K1, K2, K3 and K4b issue
+# tensor cores (bf16; TF32, which the fp32 paths of K1, K2, K3 and K4 issue
 # three of for each fp32 product, 3xTF32); fp32 on the CUDA cores
 PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
@@ -181,11 +180,12 @@ def kernels_of(lib):
 def phase_ab(torch, sa, fa, parent_lib, this_lib):
     """K1, K2, K3, K4a and K4b built from the parent checkout and from this
     tree, timed in one process on one card in turns (parent, change,
-    change, parent) at the main paths' shapes. K1, K2, K3 and K4a must give
-    the parent's outputs bit for bit; K4b's redesigned fp32 path (both
-    windows) within K4's fp32 gate of the parent's, |Δ| ≤ 1e-5·max|ref| +
-    1e-5·|ref| in dk and dv, with both builds' errors against an fp64
-    evaluation of dK and dV from the same q, k, v, dO, lse and D logged."""
+    change, parent) at the main paths' shapes. K1, K2, K3 and K4b must give
+    the parent's outputs bit for bit; K4a's redesigned fp32 path (both
+    windows) its D buffer bit for bit and its dq within K4's fp32 gate of
+    the parent's, |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref|, with both builds'
+    errors against an fp64 evaluation of dQ from the same q, k, v, dO, lse
+    and D logged."""
     rng = np.random.default_rng(SEED + 7)
     cells = {}
 
@@ -213,15 +213,16 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
                                       block_kv=256)
         bwd[window] = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
 
-    def k4(launch, window, grads):
+    def k4(launch, window, outs):
         def run():  # K4b reads the D that the K4a cell of its window wrote before
             launch(bwd[window])
-            return tuple(t.clone() for t in grads)
+            return tuple(t.clone() for t in outs)
         run.window = window
         return run
 
     runs = [  # name, function, how the output is held to the parent's: "exact" (bit for
-        # bit), or "k4b" (the redesigned fp32 K4b: within its gate, fp64 errors logged)
+        # bit), or "k4a" (the redesigned fp32 K4a: dq within its gate, fp64 errors
+        # logged, the D buffer bit for bit)
         ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), "exact"),
         ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), "exact"),
         ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), "exact"),
@@ -234,10 +235,10 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
         ("K3 fp32 B=8 T=2048 window=0", flash(8, torch.float32, 0), "exact"),
         ("K3 fp32 B=8 T=2048 window=256", flash(8, torch.float32, 256), "exact"),
         *[run for w in (0, 256) for run in (
-            (f"K4a fp32 B=8 T=2048 window={w}", k4(fa._launch_dq, w, bwd[w]["grads"][:1]),
-             "exact"),
+            (f"K4a fp32 B=8 T=2048 window={w}",
+             k4(fa._launch_dq, w, (bwd[w]["grads"][0], bwd[w]["keep"][8])), "k4a"),
             (f"K4b fp32 B=8 T=2048 window={w}", k4(fa._launch_dkv, w, bwd[w]["grads"][1:]),
-             "k4b"))],
+             "exact"))],
     ]
     for name, fn, held in runs:
         outs = {}
@@ -249,16 +250,17 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
         diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
         if held == "exact":
             assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
-        else:  # K4b fp32: K4's fp32 gate against the parent, both builds against fp64
-            for part, a, b in zip(("dk", "dv"), outs["parent"], outs["change"]):
-                atol = FP32_ATOL * a.abs().max().item()
-                assert ((a - b).abs() <= atol + FP32_RTOL * a.abs()).all(), (name, part, diff)
-            refs = k4_fp64(torch, bwd[fn.window]["keep"], fn.window)
-            for tag in ("parent", "change"):
-                errs = ", ".join(f"{part} {(t.double() - r).abs().max().item():.3e}"
-                                 for part, t, r in zip(("dk", "dv"), outs[tag], refs))
-                log(f"ab {name}: max |out - fp64 evaluation| {tag}: {errs}")
-            del refs
+        else:  # K4a fp32: D bit for bit, dq within K4's fp32 gate, both against fp64
+            (a, a_d), (b, b_d) = outs["parent"], outs["change"]
+            assert torch.equal(a_d, b_d), f"ab {name}: the change moved D"
+            atol = FP32_ATOL * a.abs().max().item()
+            assert ((a - b).abs() <= atol + FP32_RTOL * a.abs()).all(), (name, diff)
+            ref = k4_fp64(torch, bwd[fn.window]["keep"], fn.window)[0]
+            errs = {tag: (outs[tag][0].double() - ref).abs().max().item()
+                    for tag in ("parent", "change")}
+            log(f"ab {name}: max |dq - fp64 evaluation| parent {errs['parent']:.3e}, change "
+                f"{errs['change']:.3e}; D equal bit for bit")
+            del ref
         times = []
         for lib in (parent_lib, this_lib, this_lib, parent_lib):
             with kernels_of(lib):
@@ -318,24 +320,25 @@ def k1_fp64(torch, args, window: int, scale: float = 1.0):
 
 
 def k4_fp64(torch, keep, window: int, scale: float = 1.0):
-    """K4b's formula (no ALiBi) evaluated in fp64 on the card, one batch row
-    at a time: dV = Σ Pᵀ·dO and dK = Σ dSᵀ·Q·scale with P = where(mask,
-    exp(s − lse), 0) and dS = P∘(dP − D), from the kernels' own lse and D
-    (the yardstick of K4b's fp32 error). keep: `_bwd_args`'s tensors (q, k,
-    v, g, out, key_mask, slopes, lse, D), q/k/v/g (B, H, T, Dh). Returns
-    (dk, dv)."""
+    """K4's formula (no ALiBi) evaluated in fp64 on the card, one batch row
+    at a time: dQ = Σ dS·K·scale, dV = Σ Pᵀ·dO and dK = Σ dSᵀ·Q·scale with
+    P = where(mask, exp(s − lse), 0) and dS = P∘(dP − D), from the kernels'
+    own lse and D (the yardstick of K4's fp32 error). keep: `_bwd_args`'s
+    tensors (q, k, v, g, out, key_mask, slopes, lse, D), q/k/v/g (B, H, T,
+    Dh). Returns (dq, dk, dv)."""
     q, k, v, g, _, km, _, lse, dsum = keep
     mask = sdpa_mask(torch, km, window)
-    dk, dv = [], []
+    dq, dk, dv = [], [], []
     for b in range(q.shape[0]):
         qb, kb, vb, gb = (t[b].double() for t in (q, k, v, g))
         s = torch.einsum("hqd,hkd->hqk", qb, kb) * scale
         p = torch.where(mask[b], torch.exp(s - lse[b].double()[..., None]), 0.0)
         ds = p * (torch.einsum("hqd,hkd->hqk", gb, vb) - dsum[b].double()[..., None])
+        dq.append(torch.einsum("hqk,hkd->hqd", ds, kb) * scale)
         dv.append(torch.einsum("hqk,hqd->hkd", p, gb))
         dk.append(torch.einsum("hqk,hqd->hkd", ds, qb) * scale)
         del s, p, ds
-    return torch.stack(dk), torch.stack(dv)
+    return torch.stack(dq), torch.stack(dk), torch.stack(dv)
 
 
 def k3_fp64(torch, args, window: int):
@@ -1503,21 +1506,21 @@ def phase_fbwd(torch, fa, rng):
         pairs = attention_pairs(torch, km, window)
         size = 4 * q.numel()  # bytes of one (B, T, H·Dh) fp32 tensor
         rows = 4 * B * H * T  # bytes of one (B, H, T) fp32 row vector
-        # K4a reads q, k, v, g, out, lse and the mask, writes dq and D: 6·Dh a pair
-        # on the CUDA cores (3 × that in 3xTF32, beside it)
+        # K4a reads q, k, v, g, out, lse and the mask, writes dq and D: 6·Dh a
+        # pair; K4b reads q, k, v, g, lse, D and the mask, writes dk and dv:
+        # 8·Dh a pair. Both in 3xTF32 (the CUDA cores' bound beside it)
         nbytes = 6 * size + 2 * rows + km.numel() * 4
-        bound_dq = bound(nbytes, 6 * Dh * H * pairs, "fp32")
-        bound_dq_tf32 = bound(nbytes, 3 * 6 * Dh * H * pairs, "tf32")
-        # K4b reads q, k, v, g, lse, D and the mask, writes dk and dv: 8·Dh a
-        # pair, in 3xTF32 (the CUDA cores' bound beside it)
+        bound_dq = bound(nbytes, 3 * 6 * Dh * H * pairs, "tf32")
+        bound_dq_cc = bound(nbytes, 6 * Dh * H * pairs, "fp32")
         bound_dkv = bound(nbytes, 3 * 8 * Dh * H * pairs, "tf32")
         bound_dkv_cc = bound(nbytes, 8 * Dh * H * pairs, "fp32")
         t = {"dq": (a1 + a2) / 2, "dkv": (b1 + b2) / 2, "plain": (p1 + p2) / 2, "library": lib,
-             "bound_dq": bound_dq, "bound_dkv": bound_dkv, "bound_dq_tf32": bound_dq_tf32,
+             "bound_dq": bound_dq, "bound_dkv": bound_dkv, "bound_dq_cuda_cores": bound_dq_cc,
              "bound_dkv_cuda_cores": bound_dkv_cc, "pairs": pairs}
         times[window] = t
         log(f"time K4a/K4b B={B} T={T} H={H} Dh={Dh} fp32 window={window}: K4a {t['dq']:.4f} ms "
-            f"(bound {bound_dq[0]:.4f} ms, {bound_dq[1]}; in 3xTF32 {bound_dq_tf32[0]:.4f}), "
+            f"(3xTF32 bound {bound_dq[0]:.4f} ms, {bound_dq[1]}; CUDA cores "
+            f"{bound_dq_cc[0]:.4f}), "
             f"K4b {t['dkv']:.4f} ms (3xTF32 bound {bound_dkv[0]:.4f} ms, {bound_dkv[1]}; "
             f"CUDA cores {bound_dkv_cc[0]:.4f}), together {t['dq'] + t['dkv']:.4f} ms; "
             f"plain (dq, dk, dv) {t['plain']:.4f} ms, library (SDPA backward, boolean mask) "
@@ -1609,7 +1612,8 @@ def phase_ltrain(torch, fa, sa, tok, card):
         f"peak {peak_gib:.2f} GiB, fp32 at TF32 products, batch 16, max_seq_len 2048, GradCache chunk 8 "
         f"({card})")
 
-    families = {"K3": ("flash_fwd_tf32",), "K3other": ("flash_fwd",), "K4a": ("flash_bwd_dq",),
+    families = {"K3": ("flash_fwd_tf32",), "K3other": ("flash_fwd",),
+                "K4a": ("flash_bwd_dq_tf32",), "K4aother": ("flash_bwd_dq",),
                 "K4b": ("flash_bwd_dkv_tf32",), "K4bother": ("flash_bwd_dkv",),
                 "GEMM": GEMM_KEYS}
     profile_out = profile_step(torch, trainer, batch, "ltrain profile, one step (TF32)", families)
@@ -1633,8 +1637,9 @@ def phase_ltrain(torch, fa, sa, tok, card):
     prof_highest = profile_step(torch, strict_trainer, batch,
                                 "ltrain profile, one step (strict fp32)", families)
     for pr in (profile_out, prof_highest):
-        if pr["profile_kernel_ms"] is not None:  # fp32 K3 and K4b: the tf32 kernels alone
+        if pr["profile_kernel_ms"] is not None:  # fp32 K3, K4a and K4b: the tf32 kernels alone
             assert pr["profile_k3_ms"] > 0 == pr["profile_k3other_ms"], pr
+            assert pr["profile_k4a_ms"] > 0 == pr["profile_k4aother_ms"], pr
             assert pr["profile_k4b_ms"] > 0 == pr["profile_k4bother_ms"], pr
     profile_out.update({k.replace("profile", "profile_highest", 1): v
                         for k, v in prof_highest.items()})
@@ -1923,10 +1928,8 @@ def main() -> int:
         "library_ms_local256": fbwd_times[256]["library"],
         "bound_ms_local256": fbwd_times[256][f"bound_{part}"][0],
         "bound_by_local256": fbwd_times[256][f"bound_{part}"][1],
-        **({"bound_ms_tf32": fbwd_times[0]["bound_dq_tf32"][0],  # K4a: 3xTF32 beside
-            "bound_ms_tf32_local256": fbwd_times[256]["bound_dq_tf32"][0]} if part == "dq" else
-           {"bound_ms_cuda_cores": fbwd_times[0]["bound_dkv_cuda_cores"][0],
-            "bound_ms_cuda_cores_local256": fbwd_times[256]["bound_dkv_cuda_cores"][0]}),
+        "bound_ms_cuda_cores": fbwd_times[0][f"bound_{part}_cuda_cores"][0],
+        "bound_ms_cuda_cores_local256": fbwd_times[256][f"bound_{part}_cuda_cores"][0],
         "ltrain": {k: v for k, v in ltrain.items() if k not in ("k1", "k2")}}
         for part, key, line in (("dq", "k4a", 231), ("dkv", "k4b", 276))]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

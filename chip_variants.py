@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build variants of K1's, K2's, K3's or K4b's source on one NVIDIA card, check and time them in turns.
+"""Build variants of K1's, K2's, K3's, K4a's or K4b's source on one NVIDIA card, check and time them in turns.
 
     python3 chip_variants.py [NAME ...]
 
@@ -9,25 +9,32 @@ few text substitutions (VARIANTS below; "tree" is the source as it stands),
 and names the kernel it is about: K1's fp32 forward (`tf32_kernel`), K2's
 fp32 backward (`tf32_rows`, `tf32_cols`; `k2_p_probe` instead prints whether
 both passes compute the same P bit for bit), K3's fp32 forward
-(`flash_fwd_tf32`, the `k3_` names) or K4b's fp32 backward
+(`flash_fwd_tf32`, the `k3_` names), K4a's fp32 backward
+(`flash_bwd_dq_tf32`, the `k4a_` names: its key ring's stages, tile rows,
+keys a warp takes at once, and the grid order) or K4b's fp32 backward
 (`flash_bwd_dkv_tf32`, the `k4b_` names: its query ring's stages, tile
 rows, queries a warp takes at once, and K and V split once in shared
 memory or at each k-step). All variants build at once, one `nvcc`
 each, into `build/variants/<name>/`; the port's wrappers then run on each
 library in turn (`chip_smoke.kernels_of`). For every variant the script
 prints the registers and spills of its kernels (K1, K2 at Dh=64 without
-ALiBi or segments; K3 and K4b at Dh 64 and 128), the fp32 error against
+ALiBi or segments; K3, K4a and K4b at Dh 64 and 128), the fp32 error against
 the plain version with the fp32 gate (K1 over `chip_smoke.CASES`: |Δ| ≤
 1e-5 + 1e-5·|ref|; K2 over the same: |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| in
 dq, dk and dv; K3 over `chip_smoke.FLASH_CASES`, output and lse: |Δ| ≤
-1e-5 + 1e-5·|ref|; K4b over `chip_smoke.FBWD_CASES`: |Δ| ≤ 1e-5·max|ref| +
-1e-5·|ref| in dk and dv), and the time at the main path's shape over two
+1e-5 + 1e-5·|ref|; K4a and K4b over `chip_smoke.FBWD_CASES`: |Δ| ≤
+1e-5·max|ref| + 1e-5·|ref| in dq, or in dk and dv, K4a's D bit for bit
+against the first library's), and the time at the main path's shape over two
 rounds in alternating order (K1, K2: the train shape B=32, T=300, H=12,
 Dh=64, fp32, window 0 and 256, K2 also each pass alone under
-torch.profiler; K3 and K4b: the long train's B=8, T=2048, H=12, Dh=64,
-fp32, block_kv 256, window 0 and 256), beside SDPA fp32 (K2, K4b: SDPA's
-backward, which computes dq too) and the card's name and power limit. A variant is a measurement, never a second path: the tree keeps one
-kernel.
+torch.profiler; K3, K4a and K4b: the long train's B=8, T=2048, H=12,
+Dh=64, fp32, block_kv 256, window 0 and 256), beside SDPA fp32 (K2, K4:
+SDPA's backward, which computes dq, dk and dv) and the card's name and
+power limit. A variant is a measurement, never a second path: the tree
+keeps one kernel. A k4b_ variant's K4a, or a k4a_ variant's K4b, is not
+checked and may be wrong (the substitutions of shared helpers are made for
+the kernel the variant is about); the other kernel's runs take the first
+library's.
 """
 from __future__ import annotations
 
@@ -101,6 +108,16 @@ K4B_KV_SPLIT = [
      "  split_frags<D>(f, f + SUB * D / 4, ring);\n"
      "  split_frags<D>(f + SUB * D / 2, f + 3 * SUB * D / 4, ring + SUB * D);\n"
      "  __syncthreads();  // the fragments written, the ring free\n")]
+# K4a's ring in one stage: key tile i is issued once tile i - 1 is consumed
+K4A_ONE_STAGE = [
+    (BWD, "((size_t)QG + 2 * (size_t)RING + SUB)", "((size_t)QG + (size_t)RING + SUB)"),
+    (BWD, "float* d_s = ring + 2 * S::RING;", "float* d_s = ring + S::RING;"),
+    (BWD, "ring + (i & 1) * S::RING", "ring"),
+    (BWD, "    cp_async_wait<0>();\n    split_rows<D, KT>(Kb, Ksm);",
+     "    if (i > 0) {\n      __syncthreads();  // tile i - 1 consumed\n      issue(i);\n"
+     "      cp_async_commit();\n    }\n    cp_async_wait<0>();\n    split_rows<D, KT>(Kb, Ksm);"),
+    (BWD, "    if (i + 1 < n) {  // the next key tile copies while this one computes\n"
+          "      issue(i + 1);\n      cp_async_commit();\n    }\n", "")]
 VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     "tree": [],
     # the rounding as the PTX instruction rather than two integer operations
@@ -176,6 +193,29 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
                          "float (&t)[4] = d;"),
                         ("mma_tf32.cuh", "for (int e = 0; e < 4; ++e) d[e] += t[e];",
                          "for (int e = 0; e < 0; ++e) d[e] += t[e];")],
+    # K4a: 16 keys a warp at a time at every Dh (S and dP in 16 registers)
+    "k4a_n2": [(BWD, "constexpr int DQ_N = D <= 64 ? 4 : 2;", "constexpr int DQ_N = 2;")],
+    # K4a: 8 keys a warp at a time
+    "k4a_n1": [(BWD, "constexpr int DQ_N = D <= 64 ? 4 : 2;", "constexpr int DQ_N = 1;")],
+    # K4a: 32 keys a warp at a time at every Dh (spills at Dh 128)
+    "k4a_n4": [(BWD, "constexpr int DQ_N = D <= 64 ? 4 : 2;", "constexpr int DQ_N = 4;")],
+    # K4a: 16-key stages
+    "k4a_kt16": [(BWD, "constexpr int DQ_KT = 32;", "constexpr int DQ_KT = 16;"),
+                 (BWD, "constexpr int DQ_N = D <= 64 ? 4 : 2;", "constexpr int DQ_N = 2;")],
+    # K4a: 64-key stages (one block an SM at Dh 64)
+    "k4a_kt64": [(BWD, "constexpr int DQ_KT = 32;", "constexpr int DQ_KT = 64;")],
+    # K4a: one stage of the key ring
+    "k4a_one_stage": K4A_ONE_STAGE,
+    # K4a: the first query block (the shortest causal walk) first, as the
+    # CUDA-core kernel's grid ran
+    "k4a_short_first": [(BWD, "const int q0 = (NQ - 1 - slot) * SUB,", "const int q0 = slot * SUB,")],
+    # K4a: D from dO and O in device memory (the shared copy of O left out)
+    "k4a_d_global": [(BWD, "  copy_rows_async<D, SUB>(os, og, p.ot);\n", ""),
+                     (BWD, "x = fmaf(qgs[(SUB + r) * LD + c], os[r * LD + c], x);",
+                      "x = fmaf(gg[r * p.gt + c], og[r * p.ot + c], x);")],
+    # K4a, a measurement: the fast exponential
+    "k4a_fast_exp": [(BWD, "expf(score(s[n][e], p.scale, alibi, slope, kpos) - lse[r])",
+                      "__expf(score(s[n][e], p.scale, alibi, slope, kpos) - lse[r])")],
     # K2, a probe (not timed): at T ≤ 64 and Dh = 64 the rows pass writes its
     # P into dq (row q, column key) and the cols pass its P into dk (row
     # key, column q), to see whether both passes compute the same P
@@ -192,8 +232,8 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
 
 
 def group(name: str) -> str:
-    """The kernel a variant is about: "k2", "k3", "k4b" or (the rest) "k1"."""
-    return name.split("_")[0] if name.split("_")[0] in ("k2", "k3", "k4b") else "k1"
+    """The kernel a variant is about: "k2", "k3", "k4a", "k4b" or (the rest) "k1"."""
+    return name.split("_")[0] if name.split("_")[0] in ("k2", "k3", "k4a", "k4b") else "k1"
 
 
 def sources(name: str) -> list:
@@ -204,6 +244,7 @@ def sources(name: str) -> list:
                 "flash_attention_bwd.cu"]
     return {"k1": ["short_attention.cu"], "k2": ["short_attention.cu", "short_attention_bwd.cu"],
             "k3": ["short_attention.cu", "flash_attention.cu"],
+            "k4a": ["short_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu"],
             "k4b": ["short_attention.cu", "flash_attention.cu",
                     "flash_attention_bwd.cu"]}[group(name)]
 
@@ -239,11 +280,15 @@ def build(names):
                                        ("tf32_cols", "ILi64ELb0", "64, false"),
                                        ("flash_fwd_tf32", "ILi64E", "64"),
                                        ("flash_fwd_tf32", "ILi128E", "128"),
+                                       ("flash_bwd_dq_tf32", "ILi64E", "64"),
+                                       ("flash_bwd_dq_tf32", "ILi128E", "128"),
                                        ("flash_bwd_dkv_tf32", "ILi64E", "64"),
                                        ("flash_bwd_dkv_tf32", "ILi128E", "128")):
                 if re.search(rf"Compiling entry function '.*{kernel}{inst}", line):
                     print(f"{name}: {kernel}<{args}>: "
                           + " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
+        if group(name) == "k4a" or name == "tree":
+            sass_mix(OUT / name / "lib.so", "flash_bwd_dq_tf32ILi64E", name)
         if group(name) == "k4b" or name == "tree":
             sass_mix(OUT / name / "lib.so", "flash_bwd_dkv_tf32ILi64E", name)
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
@@ -302,6 +347,7 @@ def main() -> int:
     k2 = {n: lib for n, lib in libs.items()
           if n == "tree" or (group(n) == "k2" and n != "k2_p_probe")}
     k3 = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k3"}
+    k4a = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4a"}
     k4b = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4b"}
     if len(k1) > 1 or names == ["tree"]:
         run_k1(torch, sa, k1)
@@ -309,6 +355,8 @@ def main() -> int:
         run_k2(torch, sa, k2)
     if len(k3) > 1 or names == ["tree"]:
         run_k3(torch, fa, k3)
+    if len(k4a) > 1 or names == ["tree"]:
+        run_k4a(torch, fa, k4a)
     if len(k4b) > 1 or names == ["tree"]:
         run_k4b(torch, fa, k4b)
     if "k2_p_probe" in libs:
@@ -466,6 +514,80 @@ def run_k3(torch, fa, libs):
             f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
             for n, t in times.items()), flush=True)
         del mask
+
+
+def fbwd_cases(torch, fa, base):
+    """`chip_smoke.FBWD_CASES` in fp32 at B ≤ 8: (name, K4's arguments from
+    the base library's K3, the plain version's (dq, dk, dv))."""
+    cases = []
+    for case, B, T, H, Dh, block_kv, scale, window, alibi in cs.FBWD_CASES:
+        rng = np.random.default_rng(len(case))
+        (q, k, v, km, slopes), _ = cs.attention_inputs(torch, rng, min(B, 8), T, H, Dh,
+                                                       torch.float32, alibi=alibi)
+        slopes = slopes * 0.03 if alibi else None  # BLOOM-sized slopes
+        qh, kh, vh = (cs.heads(t, H) for t in (q, k, v))
+        g = cs.heads(torch.from_numpy(rng.normal(0.0, 1.0, q.shape).astype(np.float32)).cuda(),
+                     H)
+        kw = dict(scale=scale, window=window, block_kv=block_kv)
+        with cs.kernels_of(base):
+            out, lse = fa.flash_attention(qh, kh, vh, km, slopes, return_residuals=True, **kw)
+        args = fa._bwd_args(qh, kh, vh, km, slopes, g, out, lse, scale, window, 128,
+                            min(block_kv, T))
+        want = fa.flash_attention_bwd_reference(qh, kh, vh, km, slopes, g, out, lse, **kw)
+        cases.append((case, args, want))
+    return cases
+
+
+def gate_worst(got, want) -> float:
+    """The largest |Δ| − 1e-5·|ref| over 1e-5·max|ref|: above 1 fails K4's fp32 gate."""
+    return ((got - want).abs() - cs.FP32_RTOL * want.abs()).max().item() / (
+        cs.FP32_ATOL * want.abs().max().item())
+
+
+def run_k4a(torch, fa, libs):
+    """K4a's fp32 gate over `chip_smoke.FBWD_CASES` (fp32, B ≤ 8, the
+    residuals from the first library's K3) in dq, its D bit for bit against
+    the first library's, then its time alone at B=8, T=2048, window 0 and
+    256, in turns."""
+    base = next(iter(libs.values()))
+    cases = fbwd_cases(torch, fa, base)
+    d_base = {}
+    for name, lib in libs.items():
+        errs, bad = [], []
+        with cs.kernels_of(lib):
+            for case, args, want in cases:
+                try:
+                    fa._launch_dq(args)
+                except RuntimeError as e:  # e.g. more shared memory than a block may have
+                    bad.append(f"{case} ({e})")
+                    continue
+                torch.cuda.synchronize()
+                dsum = args["keep"][8].clone()
+                same_d = torch.equal(d_base.setdefault(case, dsum), dsum)
+                worst = gate_worst(args["grads"][0], want[0])
+                errs.append(f"{case} {worst:.2f}")
+                if worst > 1 or not same_d:
+                    bad.append(case + ("" if same_d else " (D moved)"))
+        print(f"{name}: K4a fp32 gate {'FAILS in ' + ', '.join(bad) if bad else 'holds'}; "
+              f"worst |Δ| − 1e-5·|ref| over 1e-5·max|ref| in dq: {', '.join(errs)}", flush=True)
+    del cases, d_base
+    rng = np.random.default_rng(cs.SEED)
+    (q, k, v, km, _), _ = cs.attention_inputs(torch, rng, 8, 2048, 12, 64, torch.float32)
+    qh, kh, vh = (cs.heads(t, 12) for t in (q, k, v))
+    g = cs.heads(torch.from_numpy(rng.normal(0.0, 1.0, q.shape).astype(np.float32)).cuda(), 12)
+    for window in (0, 256):
+        with cs.kernels_of(base):
+            out, lse = fa.flash_attention(qh, kh, vh, km, window=window, block_kv=256,
+                                          return_residuals=True)
+        args = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
+        times = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            with cs.kernels_of(libs[name]):
+                times[name].append(cs.cuda_ms(torch, lambda: fa._launch_dq(args), iters=10))
+        print(f"K4a fp32 B=8 T=2048 window={window}: "
+              + "; ".join(f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
+                          for n, t in times.items()), flush=True)
+        del out, lse, args
 
 
 def run_k4b(torch, fa, libs):

@@ -3,8 +3,10 @@
 // Replaces the two TPU kernels of sgpt_tpu/ops/pallas/flash_attention.py's
 // flash_attention_bwd, the backward of every attention layer when GPT-Neo
 // trains with use_flash at T % 128 == 0 (the long-context training path):
-//   * flash_bwd_dq (K4a) replaces :231 _flash_bwd_dq_kernel;
-//   * flash_bwd_dkv (K4b) replaces :276 _flash_bwd_dkv_kernel.
+//   * K4a (flash_bwd_dq_tf32, bf16 flash_bwd_dq) replaces :231
+//     _flash_bwd_dq_kernel;
+//   * K4b (flash_bwd_dkv_tf32, bf16 flash_bwd_dkv) replaces :276
+//     _flash_bwd_dkv_kernel.
 // They compute what the TPU kernels compute, in fp32 whatever the input
 // dtype: s = q·k (× scale, + slope·kpos, rounded as the forward: the score()
 // of flash_attention.cuh), p = where(mask, exp(s − lse), 0) with the where
@@ -16,13 +18,14 @@
 // to a (B, H, T) fp32 buffer that K4b reads.
 //
 // Tiles. The backward masks every pair exactly, so unlike the forward (K3)
-// it needs no TPU tile set: each block walks the 64 × 64 sub-tiles that hold
-// a pair in causal and window range, and skips a sub-tile whose 64 keys are
-// all padded. A skipped sub-tile has p = 0 on every pair: it adds nothing.
+// it needs no TPU tile set: each block walks the key (K4a) or query (K4b)
+// tiles that hold a pair in causal and window range, and K4a skips a key
+// tile whose keys are all padded. A skipped tile has p = 0 on every pair: it
+// adds nothing.
 //   * K4a: one block per (64 query rows, head, batch row), dQ accumulated in
-//     registers over the key sub-tiles the rows reach.
+//     registers over the key tiles the rows reach.
 //   * K4b: one block per (64 keys, head, batch row), dK and dV accumulated in
-//     registers over the query sub-tiles that reach the keys. Two kernels and
+//     registers over the query tiles that reach the keys. Two kernels and
 //     no atomics, split as the TPU splits them: the result is deterministic.
 //
 // Layout: q, k, v, out and dO are (B, H, T, Dh) with any strides whose Dh
@@ -32,55 +35,69 @@
 //
 // What bounds it on this card: at the long-context training shape (B=8,
 // T=2048, H=12, Dh=64, fp32) a global layer needs 6·Dh FLOP a valid pair in
-// K4a (S, dP, dQ: 77.4 GFLOP, 1.15 ms at 67 TFLOP/s on the CUDA cores) and
-// 8·Dh in K4b (S, dP, dV, dK: 90.6 GFLOP of this run's pairs), against
-// ~0.08 ms of bytes: operations bind.
+// K4a (S, dP, dQ: 68.0 GFLOP of chip_smoke.py's pairs) and 8·Dh in K4b (S,
+// dP, dV, dK: 90.6 GFLOP), against ~0.08 ms of bytes: operations bind. The fp32
+// kernels run every product in 3xTF32 on mma.sync m16n8k8 (mma_tf32.cuh), so
+// their bound is 3 × their operations over the 495 TFLOP/s TF32 peak: 0.412
+// ms for K4a and 0.549 ms for K4b at the shape above, where the CUDA cores'
+// 67 TFLOP/s would take 1.01 and 1.35 ms.
 //
-// K4a (flash_bwd_dq) and bf16 K4b (flash_bwd_dkv) are register tiles on the
+// bf16 K4a and K4b (flash_bwd_dq, flash_bwd_dkv) are register tiles on the
 // CUDA cores in exact fp32: 256 threads as a 16 × 16 grid, each owning a
 // 4 × 4 block of a 64 × 64 score tile (rows and columns in steps of 16, so a
 // warp's 16-byte shared loads hit distinct banks) and 4 rows × Dh/16
 // columns of each accumulator; 16 fp32 FMAs per two 16-byte shared loads.
 // Shared memory holds four 64 × Dh fp32 tiles and one (K4a) or two (K4b)
-// 64 × 64 score tiles. bf16 inputs are widened to fp32 on their way into
-// shared memory. They use no helper beyond flash_attention.cuh's.
+// 64 × 64 score tiles; bf16 inputs are widened to fp32 on their way into
+// shared memory. No main path runs them: long-context training is fp32.
 //
-// fp32 K4b (flash_bwd_dkv_tf32) runs on the tensor cores: every product in
-// 3xTF32 on mma.sync m16n8k8 (mma_tf32.cuh, which K4b's tf32 kernel also
-// includes), so its bound is 3 × its operations over the 495 TFLOP/s TF32
-// peak (0.549 ms at the shape above, where the CUDA cores' is 1.35 ms). What
-// the CUDA-core kernel lost, and what this one does about it:
-//   1. fp32 FMAs at 43 % of the CUDA cores' peak, tensor cores idle: Sᵀ =
-//      K·Qᵀ and dPᵀ = V·dOᵀ with K and V as A and Q and dO as B, then dV +=
-//      Pᵀ·dO and dK += dSᵀ·Q with P and dS straight from the accumulator
-//      registers as A (no shared tile, no barrier: item 3 of the old design).
-//      Each warp owns 16 keys and keeps their dK and dV in registers; it
-//      takes each query tile 16 queries at a time (Sᵀ and dPᵀ in 16
-//      registers: 32 at a time spilled and ran 7 % slower on the H100,
-//      chip_variants.py k4b_n4).
-//   2. No prefetch: the query tiles (32 rows of Q and dO with their lse and
-//      D) stream through a two-stage cp.async ring, the next tile copying
-//      while this one computes, one barrier a tile. Each thread splits the
-//      Q and dO chunks it copied into big and small parts in shared memory
-//      once they land; K's and V's A fragments are split at each k-step.
+// fp32 K4b (flash_bwd_dkv_tf32) and fp32 K4a (flash_bwd_dq_tf32) run on the
+// tensor cores. What the CUDA-core kernels lost, and what these do about it:
+//   1. fp32 FMAs at 43 % of the CUDA cores' peak, tensor cores idle. K4b:
+//      Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with K and V as A and Q and dO as B, then
+//      dV += Pᵀ·dO and dK += dSᵀ·Q with P and dS straight from the
+//      accumulator registers as A (no shared tile, no barrier). Each warp
+//      owns 16 keys and keeps their dK and dV in registers; it takes each
+//      query tile 16 queries at a time (Sᵀ and dPᵀ in 16 registers: 32 at a
+//      time spilled and ran 7 % slower on the H100, chip_variants.py
+//      k4b_n4). K4a is the same turned around: S = Q·Kᵀ and dP = dO·Vᵀ with
+//      Q and dO as A and K and V as B, then dQ += dS·K with dS from the
+//      accumulator registers as A; each warp owns 16 query rows and keeps
+//      their dQ in registers, and takes each 32-key tile whole at Dh ≤ 64
+//      (S and dP in 32 registers: 2-3 % faster than 16 keys at a time on the
+//      H100, chip_variants.py k4a_n2) and 16 keys at a time at Dh 128.
+//   2. No prefetch: K4b's query tiles (32 rows of Q and dO with their lse
+//      and D) and K4a's key tiles (32 rows of K and V with their key-mask
+//      values) stream through a two-stage cp.async ring, the next tile
+//      copying while this one computes, one barrier a tile. Each thread
+//      splits the chunks it copied into big and small parts in shared memory
+//      once they land; the A fragments (K and V in K4b, Q and dO in K4a) are
+//      split from fp32 tiles at each k-step. K4a lists the key tiles that
+//      hold a live key before its walk and copies only those, and copies O
+//      into the ring's second stage with Q and dO to compute D.
 //   3. Shared loads: tiles of row stride Dh + 8 floats, and fragments read 8
-//      bytes a lane, conflict-free: each k-step of Sᵀ and dPᵀ takes the Dh
+//      bytes a lane, conflict-free: each k-step of the scores takes the Dh
 //      columns in the order 2t, 2t + 1 (slots t and t + 4 of lane t), and
-//      the queries of each 8-query n-tile of Sᵀ are permuted (column c is
-//      query c ^ (c >> 2 & 1)) so that dV's and dK's B rows π(2t) and
-//      π(2t + 1) fall in distinct banks; their Dh columns are paired
-//      (n-tile 2m, 2m + 1 at columns 16m + 2g, + 1), so a lane's dK and dV
-//      leave as 16-byte stores.
-//   4. Causal imbalance: blocks launch in key-block order over all heads and
-//      batch rows, so the longest walks (k0 = 0: every query) go first and
-//      the shortest (the last 64 keys: 64 queries) last.
-// Term order: Sᵀ and dPᵀ take K3's (q_s·k_b, q_b·k_s, q_b·k_b:
-// mma_3xtf32_swapped with K and V as A), dV and dK mma_3xtf32's (p_s·g_b,
-// p_b·g_s, p_b·g_b), each 8-deep step into a fresh accumulator. No atomics:
-// two launches give the same bits. The CPU emulation is `_k4b_tf32` in
-// tests/test_torch_flash_backward.py; chip_variants.py's k4b_* variants
-// time the alternatives (one stage, other tile rows and chunk widths, K and
-// V split once a block) as substitutions of this source.
+//      the B rows of each 8-row n-tile of the scores are permuted (column c
+//      is row c ^ (c >> 2 & 1)) so that the B rows π(2t) and π(2t + 1) of
+//      the accumulating products fall in distinct banks; their Dh columns are
+//      paired (n-tile 2m, 2m + 1 at columns 16m + 2g, + 1), so a lane's
+//      output rows leave as 16-byte stores.
+//   4. Causal imbalance: blocks launch with the walk's own block slowest
+//      over all heads and batch rows, the longest walks first (K4b: the
+//      first key block, which every query sees; K4a: the last query block,
+//      which sees every key).
+// Term order: the scores take K3's (q_s·k_b, q_b·k_s, q_b·k_b:
+// mma_3xtf32_swapped with K and V as A in K4b, mma_3xtf32 with Q and dO as
+// A in K4a), the accumulating products mma_3xtf32's (p_s·g_b, p_b·g_s,
+// p_b·g_b; ds_s·k_b, ds_b·k_s, ds_b·k_b), each 8-deep step into a fresh
+// accumulator. No atomics: two launches give the same bits. fp32 K4a still
+// computes D = rowsum(dO∘O) in its prologue with the CUDA-core kernel's
+// arithmetic (one warp a row, lanes across Dh), so the D that K4b reads does
+// not depend on which K4a ran. The CPU emulations are `_k4a_tf32` and
+// `_k4b_tf32` in tests/test_torch_flash_backward.py; chip_variants.py's
+// k4a_* and k4b_* variants time the alternatives (one stage, other tile
+// rows and chunk widths, grid order) as substitutions of this source.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -440,9 +457,10 @@ __device__ __forceinline__ void split_rows(float* tile, float* small) {
   }
 }
 
-// the split A fragments of k-step d of warp w's 16 rows of K (which = 0)
-// or V (which = 1): slot t is column 8d + 2t, slot t + 4 column 8d + 2t + 1;
-// one 8-byte load a row from the tiles, then a split
+// the split A fragments of k-step d of warp w's 16 rows of the first
+// (which = 0) or second (which = 1) of two 64-row tiles (K4b: K and V; K4a:
+// Q and dO): slot t is column 8d + 2t, slot t + 4 column 8d + 2t + 1; one
+// 8-byte load a row from the tiles, then a split
 template <int D>
 __device__ __forceinline__ void kv_frag(uint32_t (&big)[4], uint32_t (&small)[4],
                                         const float* kv, int which, int w, int lane, int d) {
@@ -456,10 +474,12 @@ __device__ __forceinline__ void kv_frag(uint32_t (&big)[4], uint32_t (&small)[4]
   split_tf32(hi.y, big[3], small[3]);
 }
 
-// Sᵀ (16 keys x 8N queries) += A · Bᵀ over k-step d, B the split Q or dO
-// rows of the chunk (row stride D + 8): n-tile n's column g is query 8n +
-// π(g), π(g) = g ^ (g >> 2 & 1); the products in K3's term order
-template <int D, int N>
+// Scores (16 rows x 8N) += A · Bᵀ over k-step d, B the split rows of the
+// chunk (row stride D + 8; K4b: Sᵀ with Q or dO rows, K4a: S with K or V
+// rows): n-tile n's column g is B row 8n + π(g), π(g) = g ^ (g >> 2 & 1);
+// the products in K3's term order, which is mma_3xtf32_swapped's when K or
+// V is A (SWAPPED, K4b) and mma_3xtf32's when Q or dO is (K4a)
+template <int D, int N, bool SWAPPED>
 __device__ __forceinline__ void st_step(float (&s)[N][4], const uint32_t (&ab)[4],
                                         const uint32_t (&as)[4], const float* big,
                                         const float* small, int d, int g, int t) {
@@ -469,15 +489,18 @@ __device__ __forceinline__ void st_step(float (&s)[N][4], const uint32_t (&ab)[4
   for (int n = 0; n < N; ++n) {
     const uint2 b = *reinterpret_cast<const uint2*>(big + at + 8 * n * LD);
     const uint2 sm = *reinterpret_cast<const uint2*>(small + at + 8 * n * LD);
-    mma_3xtf32_swapped(s[n], ab, as, b.x, b.y, sm.x, sm.y);
+    if (SWAPPED)
+      mma_3xtf32_swapped(s[n], ab, as, b.x, b.y, sm.x, sm.y);
+    else
+      mma_3xtf32(s[n], ab, as, b.x, b.y, sm.x, sm.y);
   }
 }
 
-// acc (16 keys x D) += X (16 keys x 8N queries, fp32 in Sᵀ's accumulator
-// layout) · B (the split Q or dO rows of the chunk): k-step j's slot t is
-// query 8j + π(2t), slot t + 4 query 8j + π(2t + 1), so X's registers are
-// the A fragment as they stand; acc's n-tiles 2m and 2m + 1 hold columns
-// 16m + 2g and 16m + 2g + 1, one 8-byte load a row and pair
+// acc (16 rows x D) += X (16 rows x 8N, fp32 in st_step's accumulator
+// layout) · B (the split rows of the chunk; K4b: Q or dO, K4a: K): k-step
+// j's slot t is B row 8j + π(2t), slot t + 4 row 8j + π(2t + 1), so X's
+// registers are the A fragment as they stand; acc's n-tiles 2m and 2m + 1
+// hold columns 16m + 2g and 16m + 2g + 1, one 8-byte load a row and pair
 template <int D, int N>
 __device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4], const float (&x)[N][4],
                                          const float* big, const float* small, int g, int t) {
@@ -626,9 +649,9 @@ flash_bwd_dkv_tf32(const Params p) {
       for (int d = 0; d < D / 8; ++d) {
         uint32_t ab[4], as[4];
         kv_frag<D>(ab, as, kv, 0, warp, lane, d);
-        st_step<D, DKV_N>(s, ab, as, Qb + at, Qsm + at, d, g, t);
+        st_step<D, DKV_N, true>(s, ab, as, Qb + at, Qsm + at, d, g, t);
         kv_frag<D>(ab, as, kv, 1, warp, lane, d);
-        st_step<D, DKV_N>(dp, ab, as, Gb + at, Gsm + at, d, g, t);
+        st_step<D, DKV_N, true>(dp, ab, as, Gb + at, Gsm + at, d, g, t);
       }
       if (unmasked)
         p_ds<false, DKV_N>(s, dp, p, alibi, slope, kpos, live, q0, qc, lse, dd, t);
@@ -655,6 +678,230 @@ flash_bwd_dkv_tf32(const Params p) {
   }
 }
 
+// ---- fp32 K4a on the tensor cores (see the note at the top) ----
+
+// The key ring's tiles and the warps' share of them
+constexpr int DQ_KT = 32;  // keys of a stage (two stages)
+// 8-key n-tiles a warp takes at once: a whole stage at Dh ≤ 64 (S and dP in
+// 32 registers); at Dh 128 that spilled, so 16 keys at a time
+template <int D>
+constexpr int DQ_N = D <= 64 ? 4 : 2;
+constexpr int SOME_PADDED = 1 << 30;  // tile list entry flag: a key of the tile is padded
+static_assert(SUB % DQ_KT == 0 && DQ_KT % 16 == 0, "whole tiles a query block and a warp pass");
+
+// Shared memory of flash_bwd_dq_tf32: the Q and dO tiles, then two stages of
+// K's and V's big and small parts with the tile's key-mask values, the
+// block's D and its key tile list (T / DQ_KT entries). Row stride D + 8 as
+// in DkvSmem.
+template <int D>
+struct DqSmem {
+  static constexpr int LD = D + 8;
+  static constexpr int QG = 2 * SUB * LD;
+  static constexpr int RING = 4 * DQ_KT * LD + DQ_KT;
+  static size_t bytes(int T) {
+    return sizeof(float) * ((size_t)QG + 2 * (size_t)RING + SUB) + sizeof(int) * (T / DQ_KT);
+  }
+};
+
+// The key tiles [k0, k0 + DQ_KT) that hold a pair in causal and window range
+// of query rows [q0, q0 + 64) and a live key, in key order: list[i] = k0,
+// | SOME_PADDED unless every key of the tile is live. Each warp reads 128
+// of the candidates' key-mask values a pass (16 bytes a lane: DQ_KT / 4
+// lanes a tile) and votes; warp 0 compacts in place. Returns the count; the
+// block synchronises.
+__device__ __forceinline__ int key_tile_list(int* list, const int* kmg, int q0, int window) {
+  constexpr int L = DQ_KT / 4;                          // lanes a tile
+  constexpr unsigned BITS = L == 32 ? ~0u : (1u << L) - 1u;  // a tile's lanes in a ballot
+  static_assert(32 % L == 0, "whole tiles a warp pass");
+  __shared__ int count;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / DQ_KT * DQ_KT;
+  const int nk = q0 + SUB - k_lo, nc = nk / DQ_KT;  // candidate keys, tiles
+  for (int c0 = warp * 128; c0 < nk; c0 += MMA_THREADS * 4) {
+    const int c = c0 + 4 * lane;
+    const int4 m = c < nk ? *reinterpret_cast<const int4*>(kmg + k_lo + c) : make_int4(0, 0, 0, 0);
+    const unsigned some = __ballot_sync(0xffffffffu, (m.x | m.y | m.z | m.w) != 0);
+    const unsigned every =
+        __ballot_sync(0xffffffffu, (m.x != 0) & (m.y != 0) & (m.z != 0) & (m.w != 0));
+    if (lane < 32 / L && c0 + lane * DQ_KT < nk) {
+      const unsigned sm = some >> (lane * L) & BITS, ev = every >> (lane * L) & BITS;
+      list[c0 / DQ_KT + lane] = (sm != 0) | ((ev == BITS) << 1);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nc; base += 32) {
+      const int i = base + lane, f = i < nc ? list[i] : 0;
+      const unsigned ballot = __ballot_sync(0xffffffffu, f & 1);
+      __syncwarp();  // every lane has read its flags before any entry is written
+      if (f & 1)
+        list[n + __popc(ballot & ((1u << lane) - 1u))] =
+            (k_lo + i * DQ_KT) | (f & 2 ? 0 : SOME_PADDED);
+      n += __popc(ballot);
+    }
+    if (lane == 0) count = n;
+  }
+  __syncthreads();
+  return count;
+}
+
+// S, dP → dS = where(mask, P∘(dP − D), 0) with P = exp(s − lse) in place
+// (in dp), s the score as the forward rounds it. The lane's element (n, e)
+// is query qpos[e >> 1] and key k0 + 8n + 2t + ((e & 1) ^ (t >> 1)), k0 the
+// chunk's first key and km its key-mask values.
+// MASK = false: every pair is known to be allowed.
+template <bool MASK, int N>
+__device__ __forceinline__ void dq_ds(const float (&s)[N][4], float (&dp)[N][4], const Params& p,
+                                      bool alibi, float slope, const int (&qpos)[2],
+                                      const float (&lse)[2], const float (&dd)[2], int k0,
+                                      const int* km, int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, kk = 8 * n + 2 * t + ((e & 1) ^ (t >> 1)), kpos = k0 + kk;
+      bool ok = true;
+      if (MASK) ok = (km[kk] != 0) & in_range(qpos[r], kpos, p.window);
+      const float pr = expf(score(s[n][e], p.scale, alibi, slope, kpos) - lse[r]);
+      dp[n][e] = ok ? pr * (dp[n][e] - dd[r]) : 0.f;
+    }
+}
+
+// fp32 K4a (D = Dh in {16, 32, 64, 128}): one block of 4 warps per (64
+// query rows, head, batch row), query blocks in the slow grid order, the
+// last first; warp w owns rows 16w .. 16w + 15 and keeps their dQ in
+// registers while the listed key tiles stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
+flash_bwd_dq_tf32(const Params p) {
+  using S = DqSmem<D>;
+  constexpr int LD = S::LD, KT = DQ_KT, N = DQ_N<D>;
+  static_assert(KT % (8 * N) == 0, "whole n-tiles a stage");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* qgs = reinterpret_cast<float*>(smem_raw);  // the block's Q rows, then its dO rows
+  float* ring = qgs + S::QG;
+  float* d_s = ring + 2 * S::RING;
+  int* list = reinterpret_cast<int*>(d_s + SUB);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int NQ = p.T / SUB, HB = gridDim.x / NQ;  // query blocks; heads × batch rows
+  const int slot = blockIdx.x / HB, hb = blockIdx.x - slot * HB, h = hb % p.H, b = hb / p.H;
+  const int q0 = (NQ - 1 - slot) * SUB, qw = q0 + warp * 16;  // the last query block first
+  const long long base = b * p.sb + h * p.sh;
+  const float* kg = static_cast<const float*>(p.k) + base;
+  const float* vg = static_cast<const float*>(p.v) + base;
+  const float* gg = static_cast<const float*>(p.g) + b * p.gb + h * p.gh + q0 * p.gt;
+  const float* og = static_cast<const float*>(p.o) + b * p.ob + h * p.oh + q0 * p.ot;
+  const int* kmg = p.key_mask + (long long)b * p.T;
+  const long long row0 = ((long long)b * p.H + h) * p.T + q0;  // into lse and dsum
+  const bool alibi = p.slopes != nullptr;
+  const float slope = alibi ? p.slopes[h] : 0.f;
+  const int qpos[2] = {qw + g, qw + g + 8};
+
+  // Q and dO into their tiles and O into the second stage (free until key
+  // tile 1 is issued), in one group
+  static_assert(SUB * LD <= S::RING, "O fits a stage");
+  float* os = ring + S::RING;
+  copy_rows_async<D, SUB>(qgs, static_cast<const float*>(p.q) + base + q0 * p.st, p.st);
+  copy_rows_async<D, SUB>(qgs + SUB * LD, gg, p.gt);
+  copy_rows_async<D, SUB>(os, og, p.ot);
+  cp_async_commit();
+  const int n = key_tile_list(list, kmg, q0, p.window);
+
+  auto issue = [&](int i) {  // key tile i into stage i & 1: K, V, key-mask values
+    float* st = ring + (i & 1) * S::RING;
+    const int k0 = list[i] & ~SOME_PADDED;
+    copy_rows_async<D, KT>(st, kg + k0 * p.st, p.st);
+    copy_rows_async<D, KT>(st + 2 * KT * LD, vg + k0 * p.st, p.st);
+    if (threadIdx.x < KT / 4)
+      cp_async16(st + 4 * KT * LD + 4 * threadIdx.x, kmg + k0 + 4 * threadIdx.x, true);
+  };
+  if (n > 0) issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // Q, dO and O landed
+  // D = rowsum(dO∘O) as flash_bwd_dq computes it: one warp a row, lanes
+  // across Dh in column order, then the shuffle sum
+#pragma unroll 4
+  for (int j = 0; j < SUB / MMA_WARPS; ++j) {
+    const int r = warp + MMA_WARPS * j;
+    float x = 0.f;
+    for (int c = lane; c < D; c += 32) x = fmaf(qgs[(SUB + r) * LD + c], os[r * LD + c], x);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    if (lane == 0) {
+      d_s[r] = x;
+      p.dsum[row0 + r] = x;
+    }
+  }
+  __syncthreads();  // D visible, O's stage free
+
+  const float lse[2] = {p.lse[row0 + warp * 16 + g], p.lse[row0 + warp * 16 + g + 8]};
+  const float dd[2] = {d_s[warp * 16 + g], d_s[warp * 16 + g + 8]};
+  float acc[D / 8][4];  // dQ
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    float* st = ring + (i & 1) * S::RING;
+    float *Kb = st, *Ksm = st + KT * LD, *Vb = st + 2 * KT * LD, *Vsm = st + 3 * KT * LD;
+    const int* km = reinterpret_cast<const int*>(st + 4 * KT * LD);
+    cp_async_wait<0>();
+    split_rows<D, KT>(Kb, Ksm);
+    split_rows<D, KT>(Vb, Vsm);
+    __syncthreads();  // key tile i landed and split; tile i - 1 consumed
+    if (i + 1 < n) {  // the next key tile copies while this one computes
+      issue(i + 1);
+      cp_async_commit();
+    }
+    const int entry = list[i], k0 = entry & ~SOME_PADDED;
+    // the warp's rows see a key of the tile: not all before it, not all past its window
+    if ((k0 > qw + 15) | ((p.window > 0) & (k0 + KT - 1 <= qw - p.window))) continue;
+    // every pair of the warp's rows and the tile allowed: all keys live, the
+    // first row at or past the last key and (window) the last row before
+    // the first key's window ends
+    const bool unmasked = !(entry & SOME_PADDED) & (k0 + KT - 1 <= qw) &
+                          ((p.window <= 0) | (qw + 15 < k0 + p.window));
+#pragma unroll 1
+    for (int kc = 0; kc < KT; kc += 8 * N) {
+      const int at = kc * LD;
+      float s[N][4], dp[N][4];  // S = Q·Kᵀ, dP = dO·Vᵀ
+#pragma unroll
+      for (int c = 0; c < N; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        uint32_t ab[4], as[4];
+        kv_frag<D>(ab, as, qgs, 0, warp, lane, d);
+        st_step<D, N, false>(s, ab, as, Kb + at, Ksm + at, d, g, t);
+        kv_frag<D>(ab, as, qgs, 1, warp, lane, d);
+        st_step<D, N, false>(dp, ab, as, Vb + at, Vsm + at, d, g, t);
+      }
+      if (unmasked)
+        dq_ds<false, N>(s, dp, p, alibi, slope, qpos, lse, dd, k0 + kc, km + kc, t);
+      else
+        dq_ds<true, N>(s, dp, p, alibi, slope, qpos, lse, dd, k0 + kc, km + kc, t);
+      acc_tile<D, N>(acc, dp, Kb + at, Ksm + at, g, t);  // dQ += dS·K
+    }
+  }
+  // a lane's dQ: rows qpos[r], columns 16m + 4t .. 16m + 4t + 3
+  float* dq = static_cast<float*>(p.dq) + b * p.rb + h * p.rh + 4 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = dq + (long long)qpos[r] * p.rt;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const int e = 2 * r;
+      *reinterpret_cast<float4*>(row + 16 * m) =
+          make_float4(acc[2 * m][e] * p.scale, acc[2 * m + 1][e] * p.scale,
+                      acc[2 * m][e + 1] * p.scale, acc[2 * m + 1][e + 1] * p.scale);
+    }
+  }
+}
+
 template <int D>
 constexpr size_t dq_smem() {
   return sizeof(float) * ((size_t)4 * SUB * (D + 4) + (size_t)SUB * LDT + 3 * SUB);
@@ -674,30 +921,33 @@ cudaError_t launch(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st, cons
   return cudaGetLastError();
 }
 
-// fp32 K4b: one block per (key block, head, batch row), key blocks slowest
-template <int D>
-cudaError_t launch_dkv_tf32(int B, cudaStream_t st, const Params& p) {
-  constexpr size_t smem = DkvSmem<D>::BYTES;
+// fp32 K4a and K4b: one block of MMA_THREADS per (walk block, head, batch
+// row) on a 1-D grid, the walk's block slowest
+template <typename KernelT>
+cudaError_t launch_tf32(KernelT kernel, size_t smem, int B, cudaStream_t st, const Params& p) {
   const long long blocks = (long long)(p.T / SUB) * p.H * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_tf32<D><<<(unsigned)blocks, MMA_THREADS, smem, st>>>(p);
+  kernel<<<(unsigned)blocks, MMA_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// The one place a call meets its kernel: K4a (both dtypes) flash_bwd_dq,
-// bf16 K4b flash_bwd_dkv on the CUDA cores, fp32 K4b flash_bwd_dkv_tf32.
-// No fallback: a launch that fails returns its error.
+// The one place a call meets its kernel: fp32 K4a flash_bwd_dq_tf32 and K4b
+// flash_bwd_dkv_tf32 on the tensor cores, bf16 K4a flash_bwd_dq and K4b
+// flash_bwd_dkv on the CUDA cores. No fallback: a launch that fails returns
+// its error.
 template <typename T, int D>
 cudaError_t launch_kernel(bool dkv, int B, cudaStream_t s, const Params& p) {
-  const dim3 grid(p.T / SUB, p.H, B);
-  if (!dkv) return launch(flash_bwd_dq<T, D>, dq_smem<D>(), grid, s, p);
-  if constexpr (std::is_same_v<T, bf16>)
-    return launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), grid, s, p);
-  else
-    return launch_dkv_tf32<D>(B, s, p);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid(p.T / SUB, p.H, B);
+    return dkv ? launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), grid, s, p)
+               : launch(flash_bwd_dq<T, D>, dq_smem<D>(), grid, s, p);
+  } else {
+    return dkv ? launch_tf32(flash_bwd_dkv_tf32<D>, DkvSmem<D>::BYTES, B, s, p)
+               : launch_tf32(flash_bwd_dq_tf32<D>, DqSmem<D>::bytes(p.T), B, s, p);
+  }
 }
 
 template <typename T>

@@ -276,7 +276,8 @@ def _bwd_args(q, k, v, key_mask, alibi_slopes, g, out, lse, scale, window, block
 
 
 def _launch_dq(a) -> None:
-    """K4a: dq, and D in its prologue."""
+    """K4a (fp32 `flash_bwd_dq_tf32`, bf16 `flash_bwd_dq`): dq, and D in its
+    prologue."""
     global bwd_dq_launches
     from ._build import check, library
 

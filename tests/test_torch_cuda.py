@@ -559,9 +559,10 @@ def test_flash_backward_kernels_match_plain_version(cuda, dtype, T, Dh, block_kv
                                                     scale, alibi, views):
     """K4a/K4b == `flash_attention_bwd_reference` from the forward's own
     residuals (a short row leaves fully masked rows under a window, and a
-    fully padded batch row masks every key). fp32: |Δ| ≤ 1e-5·max|ref| +
-    1e-5·|ref| (summation order only); bf16: 2e-2 + 1e-2·|ref| (a flipped
-    rounding of an output cast to bf16)."""
+    fully padded batch row masks every key; their dq is exactly 0). fp32
+    (`flash_bwd_dq_tf32`, `flash_bwd_dkv_tf32`: 3xTF32): |Δ| ≤
+    1e-5·max|ref| + 1e-5·|ref|; bf16 (the CUDA-core kernels): 2e-2 +
+    1e-2·|ref| (a flipped rounding of an output cast to bf16)."""
     from sgpt_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(T + Dh + window + 1)
@@ -586,6 +587,8 @@ def test_flash_backward_kernels_match_plain_version(cuda, dtype, T, Dh, block_kv
     torch.cuda.synchronize()
     assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1, before[1] + 1)
     want = fa.flash_attention_bwd_reference(q, k, v, km, sl, g, out, lse, **kw)
+    dead = lse == fa.NEG_INF
+    assert dead[1].all() and (got[0][dead] == 0).all()
     for gg, ww in zip(got, want):
         assert gg.dtype == dt and gg.stride() == q.stride()
         gg, ww = gg.float(), ww.float()
@@ -635,10 +638,10 @@ def test_flash_train_step_on_the_card_equals_the_cpu_step(cuda):
         assert (g_gpu[name] - want).abs().max().item() <= tol, name
 
 
-def _fbwd_fp32_args(rng, B, H, T, Dh, cuda, window, alibi=False):
+def _fbwd_fp32_args(rng, B, H, T, Dh, cuda, window, alibi=False, scale=1.0):
     """q, k, v and a cotangent g as the decoder's projection views, the
-    forward's residuals (K3) and K4's arguments, with a short row (fully
-    masked rows under a window) and a fully padded one."""
+    forward's residuals (K3 at `scale`) and K4's arguments, with a short row
+    (fully masked rows under a window) and a fully padded one."""
     from sgpt_tpu_torch.ops import flash_attention as fa
 
     q, k, v, km, slopes = _flash_fp32_inputs(rng, B, H, T, Dh, cuda)
@@ -646,7 +649,7 @@ def _fbwd_fp32_args(rng, B, H, T, Dh, cuda, window, alibi=False):
         B, T, H, Dh).transpose(1, 2)
     sl = slopes if alibi else None
     kw = dict(window=window, block_kv=256)
-    out, lse = fa.flash_attention(q, k, v, km, sl, return_residuals=True, **kw)
+    out, lse = fa.flash_attention(q, k, v, km, sl, return_residuals=True, scale=scale, **kw)
     return (q, k, v, km, sl, g, out, lse), kw
 
 
@@ -679,9 +682,40 @@ def test_flash_backward_dkv_routing(cuda, Dh, dtype):
         assert ((gg - ww).abs() <= atol + rtol * ww.abs()).all()
 
 
+@pytest.mark.parametrize("Dh,dtype", [(16, "float32"), (32, "float32"), (64, "float32"),
+                                      (128, "float32"), (64, "bfloat16")])
+def test_flash_backward_dq_routing(cuda, Dh, dtype):
+    """K4a in fp32 is `flash_bwd_dq_tf32` (3xTF32 on the tensor cores) at
+    every head size K4 takes, and in bf16 the CUDA-core `flash_bwd_dq`,
+    named so by the profiler; dq holds K4's gate against the plain version,
+    from the residuals of a forward at the backward's scale (as training
+    has them: p ≤ 1)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v, km, sl, g, out, lse), kw = _fbwd_fp32_args(np.random.default_rng(Dh + 1), 3, 4,
+                                                         512, Dh, cuda, 64, alibi=True,
+                                                         scale=0.125)
+    dt = getattr(torch, dtype)
+    q, k, v, g, out = (t.to(dt) for t in (q, k, v, g, out))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fa.flash_attention_bwd(q, k, v, km, sl, g, out, lse, scale=0.125, **kw)
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages() if "flash_bwd_dq" in ev.key}
+    assert names and all(("flash_bwd_dq_tf32" in n) == (dtype == "float32") for n in names), \
+        names
+    want = fa.flash_attention_bwd_reference(q, k, v, km, sl, g, out, lse, scale=0.125, **kw)
+    gg, ww = got[0].float(), want[0].float()
+    atol = 1e-5 * ww.abs().max().item() if dtype == "float32" else 2e-2
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    assert ((gg - ww).abs() <= atol + rtol * ww.abs()).all()
+
+
 def test_flash_fp32_backward_is_deterministic(cuda):
-    """Two launches of K4 on the same inputs give the same bits (no
-    atomics): GradCache's check against the direct step depends on it."""
+    """Two launches of K4 (K4a's dq and D, K4b's dk and dv) on the same
+    inputs give the same bits (no atomics): GradCache's check against the
+    direct step depends on it."""
     from sgpt_tpu_torch.ops import flash_attention as fa
 
     for window in (0, 256):
@@ -693,9 +727,10 @@ def test_flash_fp32_backward_is_deterministic(cuda):
 
 def test_flash_fp32_backward_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plain_version(
         cuda):
-    """Dh 128 at T=2048 with ALiBi (slopes ≤ 0.03) and window 256: K4b's dk
-    and dv (3xTF32 products) are no further from an fp64 evaluation of the
-    formula, from the same lse, than twice the plain version's distance."""
+    """Dh 128 at T=2048 with ALiBi (slopes ≤ 0.03) and window 256: K4a's dq
+    and K4b's dk and dv (3xTF32 products) are no further from an fp64
+    evaluation of the formula, from the same lse, than twice the plain
+    version's distance."""
     from sgpt_tpu_torch.ops import flash_attention as fa
 
     T, Dh, window = 2048, 128, 256
@@ -712,8 +747,9 @@ def test_flash_fp32_backward_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plai
     p = torch.where(mask, torch.exp(s - lse.double()[..., None]), 0.0)
     dsum = (gd * out.double()).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", gd, vd) - dsum)
-    exact = (torch.einsum("bhqk,bhqd->bhkd", ds, qd), torch.einsum("bhqk,bhqd->bhkd", p, gd))
-    for name, a, b, e in zip(("dk", "dv"), got[1:], want[1:], exact):
+    exact = (torch.einsum("bhqk,bhkd->bhqd", ds, kd), torch.einsum("bhqk,bhqd->bhkd", ds, qd),
+             torch.einsum("bhqk,bhqd->bhkd", p, gd))
+    for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
         kernel_err = (a.double() - e).abs().max().item()
         plain_err = (b.double() - e).abs().max().item()
         assert kernel_err <= 2 * plain_err, (name, kernel_err, plain_err)
@@ -722,7 +758,8 @@ def test_flash_fp32_backward_with_alibi_at_t2048_is_as_close_to_fp64_as_the_plai
 def test_flash_train_step_with_local_layers_runs_k4b_tf32_and_equals_the_cpu_step(cuda):
     """One BitFit step of a 2-layer use_flash model at GPT-Neo-125M's width
     (a global and a window-256 layer), max_seq_len 512: K4b runs as
-    `flash_bwd_dkv_tf32` alone, once a layer and tower, and the loss and
+    `flash_bwd_dkv_tf32` alone and K4a as `flash_bwd_dq_tf32` alone, once a
+    layer and tower, and the loss and
     bias gradients equal the CPU's (plain versions): loss within 1e-5
     relative, each gradient within 1e-4 of its leaf's norm."""
     import copy
@@ -750,8 +787,9 @@ def test_flash_train_step_with_local_layers_runs_k4b_tf32_and_equals_the_cpu_ste
             loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
         assert fa.bwd_dkv_launches - before == (cfg.num_layers * 3 if model is gpu else 0)
         if model is gpu:
-            names = {ev.key for ev in prof.key_averages() if "flash_bwd_dkv" in ev.key}
-            assert names and all("flash_bwd_dkv_tf32" in n for n in names), names
+            for family in ("flash_bwd_dkv", "flash_bwd_dq"):
+                names = {ev.key for ev in prof.key_averages() if family in ev.key}
+                assert names and all(f"{family}_tf32" in n for n in names), names
         results.append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()
                                if p.requires_grad}))
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results

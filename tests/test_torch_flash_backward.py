@@ -8,9 +8,10 @@ seed, with key padding that leaves fully masked query rows. Tolerances:
 fp32 |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| (all three sum the same fp32
 products in another order); bf16 2e-2 + 1e-2·|ref| (a flipped rounding of
 an output cast to bf16; the arithmetic is fp32 on both sides). The 3xTF32
-emulation of K4b's fp32 kernel (`_k4b_tf32`) is held to the same fp32 gate
-of both.
+emulations of K4a's and K4b's fp32 kernels (`_k4a_tf32`, `_k4b_tf32`) are
+held to the same fp32 gate of both.
 """
+import functools
 import os
 
 import numpy as np
@@ -283,15 +284,60 @@ def _k4b_tf32(q, k, v, g, key_mask, slopes, lse, dsum, *, scale, window, three=T
     return (dk, dv), skipped
 
 
+K4A_KT = 32  # keys of a stage of K4a's ring
+
+
+def _k4a_tf32(q, k, v, g, key_mask, slopes, lse, dsum, *, scale, window, three=True):
+    """`flash_bwd_dq_tf32`'s walk and arithmetic on the CPU: S = Q·Kᵀ and
+    dP = g·Vᵀ in (3x)TF32 (`_mma_tf32`, Q and g as A, the products in K3's
+    term order, each 8-deep step's Dh columns in PV_ORDER), × scale,
+    + slope·kpos; dS = where(mask, exp(s − lse)∘(dP − D), 0), the where
+    outside the exp; then per batch row and 64-row query block, over the
+    32-key tiles from the first row's window start to the block's last row,
+    less those whose keys are all padded: dQ = dS·K·scale, one 8-key step
+    at a time in K4B_Q_ORDER (the key permutation of S's n-tiles is K4b's
+    query permutation). Returns dq and the number of key tiles skipped."""
+    B, H, T, Dh = q.shape
+    s = _mma_tf32(q, k.transpose(-1, -2), PV_ORDER, three)  # (B, H, queries, keys)
+    dp = _mma_tf32(g, v.transpose(-1, -2), PV_ORDER, three)
+    pos = torch.arange(T)
+    if scale != 1.0:
+        s = s * scale
+    if slopes is not None:
+        s = s + slopes[None, :, None, None] * pos.float()
+    allowed = pos[None, :] <= pos[:, None]  # key ≤ query
+    if window > 0:
+        allowed = allowed & (pos[None, :] > pos[:, None] - window)
+    mask = allowed[None, None] & (key_mask != 0)[:, None, None, :]
+    zero = torch.zeros(())
+    ds = torch.where(mask, torch.exp(s - lse[..., None]) * (dp - dsum[..., None]), zero)
+    dq, skipped = torch.zeros(B, H, T, Dh), 0
+    for b in range(B):
+        for q0 in range(0, T, fa.TILE):
+            lo = max(0, q0 - window + 1) if window > 0 else 0
+            tiles = range(lo // K4A_KT * K4A_KT, q0 + fa.TILE, K4A_KT)
+            live = [k0 for k0 in tiles if bool((key_mask[b, k0:k0 + K4A_KT] != 0).any())]
+            skipped += len(tiles) - len(live)
+            if live:
+                keys = torch.cat([torch.arange(k0, k0 + K4A_KT) for k0 in live])
+                rows = slice(q0, q0 + fa.TILE)
+                dq[b, :, rows] = _mma_tf32(ds[b, :, rows][..., keys], k[b, :, keys], K4B_Q_ORDER,
+                                           three) * scale
+    return dq, skipped
+
+
 K4B_CASES = CASES + [  # Dh 128 (GPT-Neo 1.3B/2.7B heads)
     (256, 128, 128, 64, 0.125, True, (20, 219)),
     (512, 128, 256, 0, 1.0, False, (0, 475)),          # a fully padded batch row
 ]
 
 
-def _k4b_case(case, three=True):
-    """The JAX kernels' and the plain version's (dk, dv) on one case, and
-    the emulation's from the same forward residuals and D."""
+@functools.lru_cache(maxsize=None)
+def _k4_case(case, three=True):
+    """The JAX kernels' and the plain version's (dq, dk, dv) on one case, and
+    the emulations' (`_k4a_tf32`: dq; `_k4b_tf32`: dk, dv) from the same
+    forward residuals and D, with each emulation's count of skipped tiles
+    and the lse. Cached: the K4a and K4b tests of a case share one build."""
     T, Dh, block_kv, window, scale, alibi, lengths = case
     q, k, v, g, km, slopes = _inputs(T + Dh + window + int(alibi), T, Dh, lengths, alibi)
     kw = dict(scale=scale, window=window, block_kv=block_kv)
@@ -299,11 +345,11 @@ def _k4b_case(case, three=True):
     plain = _port(q, k, v, g, km, slopes, out, lse, "float32", **kw)
     tq, tk, tv, tg, tout = (torch.from_numpy(x) for x in (q, k, v, g, out))
     dsum = (tg * tout).sum(-1)  # D = rowsum(dO∘O), as the plain version takes it
-    got, skipped = _k4b_tf32(tq, tk, tv, tg, torch.from_numpy(km),
-                             None if slopes is None else torch.from_numpy(slopes),
-                             torch.from_numpy(lse), dsum, scale=scale, window=window,
-                             three=three)
-    return [x.numpy() for x in got], kern[1:], plain[1:], skipped, lse
+    args = (tq, tk, tv, tg, torch.from_numpy(km),
+            None if slopes is None else torch.from_numpy(slopes), torch.from_numpy(lse), dsum)
+    dq, skipped_a = _k4a_tf32(*args, scale=scale, window=window, three=three)
+    (dk, dv), skipped_b = _k4b_tf32(*args, scale=scale, window=window, three=three)
+    return [x.numpy() for x in (dq, dk, dv)], kern, plain, (skipped_a, skipped_b), lse
 
 
 @pytest.mark.parametrize("case", K4B_CASES, ids=_ids)
@@ -313,14 +359,32 @@ def test_k4b_3xtf32_walk_holds_the_fp32_gate(case):
     query-tile walk stay within K4's fp32 gate of the JAX kernels
     (interpret mode) and of the plain version in dk and dv, fully masked
     rows (lse -1e30) and fully padded key blocks included."""
-    got, kern, plain, skipped, lse = _k4b_case(case)
+    got, kern, plain, (_, skipped), lse = _k4_case(case)
     lengths = case[6]
     assert (skipped > 0) == (min(lengths) < case[0] - fa.TILE + 1)
     if case[3] > 0 and min(lengths) < case[0] - case[3]:
         assert (lse == fa.NEG_INF).any()  # a window leaves rows with no valid key
-    for name, a, b, c in zip(("dk", "dv"), got, kern, plain):
+    for name, a, b, c in zip(("dk", "dv"), got[1:], kern[1:], plain[1:]):
         _close(a, b, "float32", f"{name} against the TPU kernels (interpret mode)")
         _close(a, c, "float32", f"{name} against the plain version")
+
+
+@pytest.mark.parametrize("case", K4B_CASES, ids=_ids)
+def test_k4a_3xtf32_walk_holds_the_fp32_gate(case):
+    """The CPU witness of K4a's fp32 numerics on the card
+    (`flash_bwd_dq_tf32`): 3xTF32 products on the kernel's query blocks and
+    key-tile walk stay within K4's fp32 gate of the JAX kernels (interpret
+    mode) and of the plain version in dq; fully masked rows (lse -1e30: a
+    window's dead rows, a fully padded batch row) get dq exactly 0, and the
+    walk skips key tiles exactly where a row's padded tail fills one."""
+    got, kern, plain, (skipped, _), lse = _k4_case(case)
+    T, window, lengths = case[0], case[3], case[6]
+    assert (skipped > 0) == (min(lengths) <= T - K4A_KT)
+    if window > 0 and min(lengths) < T - window:
+        assert (lse == fa.NEG_INF).any()  # a window leaves rows with no valid key
+    assert (got[0][lse == fa.NEG_INF] == 0).all()
+    _close(got[0], kern[0], "float32", "dq against the TPU kernels (interpret mode)")
+    _close(got[0], plain[0], "float32", "dq against the plain version")
 
 
 def _gate_excess(got, want):
@@ -333,7 +397,18 @@ def test_single_tf32_product_fails_the_k4b_fp32_gate():
     """Why K4b's fp32 path splits its operands: one TF32 product per pair
     misses K4's fp32 gate in the decoder's global layers."""
     case = (512, 64, 256, 0, 1.0, False, (20, 475))
-    one, _, plain, _, _ = _k4b_case(case, three=False)
-    assert max(_gate_excess(a, b) for a, b in zip(one, plain)) > 1
-    three, _, plain, _, _ = _k4b_case(case)
-    assert max(_gate_excess(a, b) for a, b in zip(three, plain)) <= 1
+    one, _, plain, _, _ = _k4_case(case, three=False)
+    assert max(_gate_excess(a, b) for a, b in zip(one[1:], plain[1:])) > 1
+    three, _, plain, _, _ = _k4_case(case)
+    assert max(_gate_excess(a, b) for a, b in zip(three[1:], plain[1:])) <= 1
+
+
+def test_single_tf32_product_fails_the_k4a_fp32_gate():
+    """Why K4a's fp32 path splits its operands: one TF32 product per pair
+    misses K4's fp32 gate in dq in the decoder's global layers (by ~120×
+    on this case), where 3xTF32 stays within it."""
+    case = (512, 64, 256, 0, 1.0, False, (20, 475))
+    one, _, plain, _, _ = _k4_case(case, three=False)
+    assert _gate_excess(one[0], plain[0]) > 1
+    three, _, plain, _, _ = _k4_case(case)
+    assert _gate_excess(three[0], plain[0]) <= 1
