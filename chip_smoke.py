@@ -18,8 +18,13 @@ Phases, each of which asserts; any failure exits non-zero:
                the CPU (plain path), and bf16-card against fp32-CPU cosines
   6. mips    — the streaming MIPS top-k kernel (K5) against its plain
                version: NQ's corpus size (2,681,468 × 768 bf16), Q = 64,
-               k = 10, and variants (Q 1 and 1024, k 1 and 16, fp32, D 2048
-               and 2560, valid_count < N, duplicate rows, valid_count < k)
+               k = 10, and variants (Q 1, 8, 16, 65 and 1024, k 1 and 16,
+               fp32, D 2048 and 2560, valid_count < N, duplicate rows,
+               all-equal rows, duplicates on both sides of the wrapper's
+               split boundaries, valid_count < k); kernel, plain, library
+               and bound at Q = 64, the kernel's time and GB/s at Q = 1, 8,
+               16 and 1024, and the fp32 path (CUDA cores) at Q = 64 over
+               2^20 rows beside its bound and the library
   7. search  — 4,096 synthetic documents encoded with the engine of phase 4
                into `index_corpus(kernel="pallas")` and a blockmax index: the
                same top-10 for the texts as queries, K5 launched once per
@@ -84,11 +89,13 @@ Phases, each of which asserts; any failure exits non-zero:
 With `--parent DIR` (another checkout of this repo, e.g. the parent commit
 unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
-K3, K4a and K4b from both builds in turns (parent, change, change, parent):
-phase `ab`. K1, K2, K3, K4b and the D buffer that K4a writes must give the
-parent's outputs bit for bit; K4a's redesigned fp32 path the parent's dq
+K3, K4a, K4b and K5 from both builds in turns (parent, change, change,
+parent): phase `ab`. K1, K2, K3, K4b and the D buffer that K4a writes must
+give the parent's outputs bit for bit; K4a's fp32 path the parent's dq
 within K4's fp32 gate, at window 0 and 256, each build's error against an
-fp64 evaluation of dQ logged. K4's inputs come from this tree's K3.
+fp64 evaluation of dQ logged. K4's inputs come from this tree's K3. K5 (Q =
+1, 8, 16, 64 and 1024 over NQ's corpus) runs each side through its own
+wrapper, the parent's loaded from that checkout, and is held by K5's rule.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -149,18 +156,21 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def parent_build(path: str):
-    """The `_build` module of another checkout of this repo (the parent
-    commit unpacked into a git-ignored directory): it compiles that
-    checkout's `csrc/` into that checkout's own build directory."""
-    import importlib.util
+def parent_ops(path: str):
+    """The `sgpt_tpu_torch.ops` package of another checkout of this repo (the
+    parent commit unpacked into a git-ignored directory), loaded as a package
+    of its own (`parent_ops`, its `__init__` not run): `parent_ops._build`
+    compiles that checkout's `csrc/` into that checkout's own build
+    directory, and `parent_ops.mips` is that checkout's K5 wrapper, whose
+    planning (splits, query block) goes with its kernel."""
+    import importlib
+    import types
     from pathlib import Path
 
-    src = Path(path).resolve() / "sgpt_tpu_torch" / "ops" / "_build.py"
-    spec = importlib.util.spec_from_file_location("parent_kernels_build", src)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    pkg = types.ModuleType("parent_ops")
+    pkg.__path__ = [str(Path(path).resolve() / "sgpt_tpu_torch" / "ops")]
+    sys.modules["parent_ops"] = pkg
+    return importlib.import_module("parent_ops._build"), importlib.import_module("parent_ops.mips")
 
 
 @contextlib.contextmanager
@@ -177,15 +187,18 @@ def kernels_of(lib):
         _build.library = saved
 
 
-def phase_ab(torch, sa, fa, parent_lib, this_lib):
-    """K1, K2, K3, K4a and K4b built from the parent checkout and from this
-    tree, timed in one process on one card in turns (parent, change,
+def phase_ab(torch, sa, fa, mips, parent_lib, this_lib, parent_mips):
+    """K1, K2, K3, K4a, K4b and K5 built from the parent checkout and from
+    this tree, timed in one process on one card in turns (parent, change,
     change, parent) at the main paths' shapes. K1, K2, K3 and K4b must give
-    the parent's outputs bit for bit; K4a's redesigned fp32 path (both
-    windows) its D buffer bit for bit and its dq within K4's fp32 gate of
-    the parent's, |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref|, with both builds'
-    errors against an fp64 evaluation of dQ from the same q, k, v, dO, lse
-    and D logged."""
+    the parent's outputs bit for bit; K4a's fp32 path (both windows) its D
+    buffer bit for bit and its dq within K4's fp32 gate of the parent's,
+    |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref|, with both builds' errors against an
+    fp64 evaluation of dQ from the same q, k, v, dO, lse and D logged. K5
+    (NQ's corpus, 768 bf16, k=10, Q = 1, 8, 16, 64, 1024) runs each side through
+    its own wrapper (`parent_mips`: the parent's planning with the parent's
+    kernel) and is held by K5's rule (`check_topk`: values within 1e-5 of
+    the parent's, ids equal except on a near-tie)."""
     rng = np.random.default_rng(SEED + 7)
     cells = {}
 
@@ -272,6 +285,26 @@ def phase_ab(torch, sa, fa, parent_lib, this_lib):
             f"(change/parent {(c1 + c2) / (p1 + p2):.3f}); outputs "
             f"{'equal bit for bit' if diff == 0 else f'differ by at most {diff:.3e}'}")
     del q, k, v, qh, kh, vh, g, out, lse, bwd
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    c = unit_rows(torch, gen, NQ_ROWS, 768, torch.bfloat16)
+    queries = unit_rows(torch, gen, 1024, 768, torch.bfloat16)
+    for Q in (64, 1, 8, 16, 1024):
+        name = f"K5 bf16 Q={Q} N={NQ_ROWS} D=768 k=10"
+        qq = queries[:Q].contiguous()
+        fns = {tag: functools.partial(mod.mips_topk, qq, c, NQ_ROWS, 10)
+               for tag, mod in (("parent", parent_mips), ("change", mips))}
+        outs = {tag: fn() for tag, fn in fns.items()}
+        torch.cuda.synchronize()
+        err, near = check_topk(torch, qq, c, outs["change"], outs["parent"], f"ab {name}")
+        p1, c1, c2, p2 = (cuda_ms(torch, fns[tag], iters=10, warmup=2)
+                          for tag in ("parent", "change", "change", "parent"))
+        cells[name] = {"parent_ms": (p1 + p2) / 2, "ms": (c1 + c2) / 2,
+                       "runs": [p1, c1, c2, p2], "max_abs_diff": err, "near_tie_slots": near}
+        log(f"ab {name}: parent {p1:.4f} / {p2:.4f} ms, change {c1:.4f} / {c2:.4f} ms "
+            f"(change/parent {(c1 + c2) / (p1 + p2):.3f}); values within {err:.3e} of the "
+            f"parent's, {near} ids differ on a near-tie")
+    del c, queries
     torch.cuda.empty_cache()
     return cells
 
@@ -842,7 +875,11 @@ def check_topk(torch, q, c, got, want, what):
 
 def phase_mips(torch, mips, gen):
     """K5 against `mips_topk_reference` at the main shape (NQ-sized corpus,
-    768 bf16, Q = 64, k = 10) and the variants; then the times."""
+    768 bf16, Q = 64, k = 10) and the variants, the bf16 scan's hazards
+    among them (all-equal rows, duplicates on both sides of the wrapper's
+    split boundaries); then the times: kernel, plain, library and bound at
+    the main shape, the kernel at Q = 1, 8, 16 and 1024, and the fp32 path
+    (the CUDA-core scan) at Q = 64 over 2^20 rows."""
     N, D = NQ_ROWS, 768
     c = unit_rows(torch, gen, N, D, torch.bfloat16)
     q = unit_rows(torch, gen, 1024, D, torch.bfloat16)
@@ -861,8 +898,8 @@ def phase_mips(torch, mips, gen):
         return got
 
     run("main", q[:64], c, N, 10)
-    run("Q1", q[:1], c, N, 10)
-    run("Q1024", q, c, N, 10)
+    for Q in (1, 8, 16, 65, 1024):
+        run(f"Q{Q}", q[:Q], c, N, 10)
     run("k1", q[:64], c, N, 1)
     run("k16", q[:64], c, N, 16)
     valid = N - 12_345  # rows past valid_count hold a large value: never seen
@@ -876,6 +913,23 @@ def phase_mips(torch, mips, gen):
     qd = dup[[3, 500, 999]].clone()
     got = run("duplicates", qd, dup, dup.shape[0], 10)
     assert got[1][:, :2].tolist() == [[3, 150_003], [500, 150_500], [999, 150_999]], got[1][:, :2]
+    dup[:] = dup[11].clone()  # every score of a query equal: ids 0 .. k-1 in every list
+    got = run("all-equal", q[:64], dup, dup.shape[0], 10)
+    assert (got[1] == torch.arange(10, device="cuda", dtype=torch.int32)).all(), got[1][:2]
+    # exact duplicates on both sides of the first two split boundaries of
+    # the wrapper's plan at Q = 64 (one block an SM, each with one split)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = mips._splits(64, N, sms, mips.query_block(64, D, torch.bfloat16),
+                          mips.MMA_TILE_ROWS)
+    b = mips._rows_per_split(N, splits, mips.MMA_TILE_ROWS)
+    rows = [b - 1, b, b + 1, 2 * b - 1, 2 * b]
+    saved = c[rows].clone()
+    c[rows] = c[5].clone()
+    qs = q[:64].clone()
+    qs[0] = c[5]
+    got = run("split-dups", qs, c, N, 10)
+    assert got[1][0, :6].tolist() == [5, *rows], (b, got[1][0])
+    c[rows] = saved
     got = run("valid<k", q[:64], c, 5, 10)
     assert (got[0][:, 5:] == mips.NEG).all()
     del dup, saved
@@ -901,18 +955,49 @@ def phase_mips(torch, mips, gen):
     lib = cuda_ms(torch, library, iters=5, warmup=1)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     qb = mips.query_block(64, D, torch.bfloat16)
-    read = c.numel() * c.element_size() * -(-64 // qb)
+    corpus_bytes = c.numel() * c.element_size()
+    read = corpus_bytes * -(-64 // qb)
     nbytes = (c.numel() + qm.numel()) * 2 + 64 * 10 * 8  # corpus, queries once; (value, id) out
     bound_ms, bound_by = bound(nbytes, 2 * 64 * N * D, "bf16")
     log(f"time K5 N={N} D={D} bf16 Q=64 k=10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library (torch.mm + torch.topk) {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
         f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f}); query block {qb}, "
         f"corpus bytes read per search {read} = {read / (ms / 1e3) / 1e9:.1f} GB/s")
+    by_q = {}
+    for Q in (1, 8, 16, 64, 1024):
+        qq = q[:Q].contiguous()
+        t = cuda_ms(torch, functools.partial(mips.mips_topk, qq, c, N, 10),
+                    iters=5 if Q > 64 else 20, warmup=2)
+        qbq = mips.query_block(Q, D, torch.bfloat16)
+        passes = -(-Q // qbq)
+        by_q[Q] = {"ms": t, "query_block": qbq, "corpus_reads": passes,
+                   "gb_per_s": corpus_bytes * passes / (t / 1e3) / 1e9,
+                   "corpus_gb_per_s": corpus_bytes / (t / 1e3) / 1e9}
+        log(f"time K5 bf16 Q={Q} N={N} D={D} k=10: {t:.4f} ms, query block {qbq}, corpus read "
+            f"{passes}× = {by_q[Q]['gb_per_s']:.1f} GB/s ({by_q[Q]['corpus_gb_per_s']:.1f} GB/s "
+            f"of the corpus once)")
     del c, q
+    torch.cuda.empty_cache()
+    # the fp32 path (scan_simt on the CUDA cores) at Q = 64 over 2^20 rows
+    n32 = 1 << 20
+    c32 = unit_rows(torch, gen, n32, D, torch.float32)
+    q32 = unit_rows(torch, gen, 64, D, torch.float32)
+    run("fp32-2^20", q32, c32, n32, 10)
+    t32 = cuda_ms(torch, lambda: mips.mips_topk(q32, c32, n32, 10), iters=10, warmup=2)
+    lib32 = cuda_ms(torch, lambda: torch.topk(torch.mm(q32, c32.T), 10), iters=5, warmup=1)
+    b32, b32_by = bound((c32.numel() + q32.numel()) * 4 + 64 * 10 * 8, 2 * 64 * n32 * D, "fp32")
+    qb32 = mips.query_block(64, D, torch.float32)
+    log(f"time K5 fp32 Q=64 N={n32} D={D} k=10 (CUDA cores): {t32:.4f} ms, library "
+        f"(torch.mm + torch.topk, fp32) {lib32:.4f} ms, bound {b32:.4f} ms ({b32_by}; fp32 "
+        f"{PEAK_OPS_PER_S['fp32'] / 1e12:.0f} TFLOP/s), query block {qb32}, "
+        f"{c32.numel() * 4 * -(-64 // qb32) / (t32 / 1e3) / 1e9:.1f} GB/s")
+    del c32, q32
     torch.cuda.empty_cache()
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
             "bound_ms": bound_ms, "bound_by": bound_by, "query_block": qb,
-            "bytes_per_search": read, "gb_per_s": read / (ms / 1e3) / 1e9}
+            "bytes_per_search": read, "gb_per_s": read / (ms / 1e3) / 1e9, "by_q": by_q,
+            "fp32_q64_n2p20": {"ms": t32, "library_ms": lib32, "bound_ms": b32,
+                               "bound_by": b32_by, "query_block": qb32}}
 
 
 def synthetic_corpus(rng, n: int) -> dict:
@@ -998,12 +1083,21 @@ def phase_search(torch, mips, sa, engine, corpus, gen):
     want = mips.mips_topk_reference(q, big._corpus, big._built_count, 10)
     err2, _ = check_topk(torch, q, big._corpus, got, want, "index 2^20")
     assert [[big._ids[j] for j in row] for row in got[1].tolist()] == i
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        big.search_embeddings(qemb[:64], k=10)
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3 / 10
     log(f"search: index of {len(big)} rows ({big._corpus.shape[0]} padded), Q=64 k=10 "
-        f"through K5: max_abs_err {err2:.3e} against the plain version")
+        f"through K5: max_abs_err {err2:.3e} against the plain version; {big_ms:.3f} ms a "
+        f"dispatch (host clock, 10 dispatches); 4,096-doc index: {ta * 1e3 / dispatches:.3f} "
+        f"ms a Q=64 dispatch (pallas), {tb * 1e3 / dispatches:.3f} (blockmax)")
     del big
     torch.cuda.empty_cache()
     return {"k5_launches": k5_launches, "k1_launches": k1_launches,
-            "lists_equal": same / len(ids), "own_first": float(first)}
+            "lists_equal": same / len(ids), "own_first": float(first),
+            "ms_per_dispatch": ta * 1e3 / dispatches, "ms_per_dispatch_2p20": big_ms}
 
 
 def phase_serve(torch, mips, engine, corpus):
@@ -1689,7 +1783,7 @@ def main() -> int:
 
     # 1. build (and the parent checkout's kernels beside, in parallel)
     t0 = time.perf_counter()
-    parent = parent_build(args.parent) if args.parent else None
+    parent, parent_mips = parent_ops(args.parent) if args.parent else (None, None)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         parent_built = pool.submit(parent.build) if parent else None
         lib_path = _build.build()
@@ -1715,7 +1809,7 @@ def main() -> int:
     ab = {}
     if parent:
         phase("ab")
-        ab = phase_ab(torch, sa, fa, parent.library(), _build.library())
+        ab = phase_ab(torch, sa, fa, mips, parent.library(), _build.library(), parent_mips)
 
     # 4. the slice: full-width GPT-Neo-125M bulk encode through the engine
     phase("slice")
@@ -1886,7 +1980,12 @@ def main() -> int:
         "library_ms": k5["library_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "shape": f"Q=64 N={NQ_ROWS} D=768 bf16 k=10", "query_block": k5["query_block"],
         "bytes_per_search": k5["bytes_per_search"], "gb_per_s": k5["gb_per_s"],
+        "by_q": k5["by_q"], "fp32_q64_n2p20": k5["fp32_q64_n2p20"],
+        **{f"parent_ms_q{Q}": parent_ms(f"K5 bf16 Q={Q} N={NQ_ROWS} D=768 k=10")
+           for Q in (64, 1, 8, 16, 1024)},
         "search_lists_equal": search["lists_equal"], "search_own_first": search["own_first"],
+        "search_ms_per_dispatch": search["ms_per_dispatch"],
+        "search_ms_per_dispatch_2p20": search["ms_per_dispatch_2p20"],
         "serve_p50_ms": serve["p50_ms"], "serve_p99_ms": serve["p99_ms"],
         "serve_qps": serve["qps"], "beir_ndcg10": ndcg10}, {
         "name": "flash_attention_fwd", "route": "cuda",

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build variants of K1's, K2's, K3's, K4a's or K4b's source on one NVIDIA card, check and time them in turns.
+"""Build variants of K1's, K2's, K3's, K4a's, K4b's or K5's source on one
+NVIDIA card, check and time them in turns.
 
     python3 chip_variants.py [NAME ...]
 
@@ -14,7 +15,12 @@ both passes compute the same P bit for bit), K3's fp32 forward
 keys a warp takes at once, and the grid order) or K4b's fp32 backward
 (`flash_bwd_dkv_tf32`, the `k4b_` names: its query ring's stages, tile
 rows, queries a warp takes at once, and K and V split once in shared
-memory or at each k-step). All variants build at once, one `nvcc`
+memory or at each k-step) or K5's bf16 scan (`scan_mma`, the `k5_` names:
+its ring's stages and the stages a barrier hands over, the features a
+stage holds, the warp tile's rows, the register filter off, the copies'
+L2 prefetch size; checked by K5's rule over NQ's corpus and its hazards,
+timed at Q = 64 and 8, with the registers, spills and SASS mix of
+`scan_mma<8, 2>` and `<8, 1>`). All variants build at once, one `nvcc`
 each, into `build/variants/<name>/`; the port's wrappers then run on each
 library in turn (`chip_smoke.kernels_of`). For every variant the script
 prints the registers and spills of its kernels (K1, K2 at Dh=64 without
@@ -118,6 +124,21 @@ K4A_ONE_STAGE = [
      "      cp_async_commit();\n    }\n    cp_async_wait<0>();\n    split_rows<D, KT>(Kb, Ksm);"),
     (BWD, "    if (i + 1 < n) {  // the next key tile copies while this one computes\n"
           "      issue(i + 1);\n      cp_async_commit();\n    }\n", "")]
+# K5: the tensor-core scan's ring capped at n stages (the tree: up to 8; 7
+# at QB = 64, D = 768; below 4 a barrier hands over one stage, not two)
+def k5_stages(n):
+    return [("mips.cu", "constexpr int MM_MAX_STAGES = 8;", f"constexpr int MM_MAX_STAGES = {n};"),
+            ("mips.cu", "constexpr int MM_MIN_STAGES = 3;",
+             f"constexpr int MM_MIN_STAGES = {min(n, 3)};")]
+
+
+# K5: a warp tile of n corpus rows × all QB queries (the tree: 32; the tile
+# is 8 × n rows, and the queue grows to hold a warp's slice of scores)
+def k5_warp_rows(n):
+    return [("mips.cu", "constexpr int MM_WR = 32;", f"constexpr int MM_WR = {n};"),
+            ("mips.cu", "constexpr int QCAP = 1024;", f"constexpr int QCAP = {max(1024, 32 * n)};")]
+
+
 VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     "tree": [],
     # the rounding as the PTX instruction rather than two integer operations
@@ -216,6 +237,24 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     # K4a, a measurement: the fast exponential
     "k4a_fast_exp": [(BWD, "expf(score(s[n][e], p.scale, alibi, slope, kpos) - lse[r])",
                       "__expf(score(s[n][e], p.scale, alibi, slope, kpos) - lse[r])")],
+    # K5: the ring at 3, 4 and 5 stages
+    "k5_stages3": k5_stages(3),
+    "k5_stages4": k5_stages(4),
+    "k5_stages5": k5_stages(5),
+    # K5: one stage a barrier (the tree: two where the ring holds four)
+    "k5_group1": [("mips.cu", "constexpr int MM_GROUP = 2;", "constexpr int MM_GROUP = 1;")],
+    # K5: stages of 256 rows × 64 features (32 KB; 3 at QB = 64, D = 768, so
+    # one a barrier)
+    "k5_kd64": [("mips.cu", "constexpr int MM_KD = 32;", "constexpr int MM_KD = 64;")],
+    # K5: warp tiles of 16 and 64 rows (tiles of 128 and 512 rows)
+    "k5_wr16": k5_warp_rows(16),
+    "k5_wr64": k5_warp_rows(64),
+    # K5: no register filter: every tile takes the full fold (scores through
+    # shared memory, one warp a query)
+    "k5_no_filter": [("mips.cu", "bool full = r0 == r_begin;", "bool full = true;")],
+    # K5: the copies ask L2 for 128 bytes, or for nothing beyond them
+    "k5_l2_128": [("mips.cu", "cp.async.cg.shared.global.L2::256B", "cp.async.cg.shared.global.L2::128B")],
+    "k5_no_l2": [("mips.cu", "cp.async.cg.shared.global.L2::256B", "cp.async.cg.shared.global")],
     # K2, a probe (not timed): at T ≤ 64 and Dh = 64 the rows pass writes its
     # P into dq (row q, column key) and the cols pass its P into dk (row
     # key, column q), to see whether both passes compute the same P
@@ -232,8 +271,9 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
 
 
 def group(name: str) -> str:
-    """The kernel a variant is about: "k2", "k3", "k4a", "k4b" or (the rest) "k1"."""
-    return name.split("_")[0] if name.split("_")[0] in ("k2", "k3", "k4a", "k4b") else "k1"
+    """The kernel a variant is about: "k2", "k3", "k4a", "k4b", "k5" or (the rest) "k1"."""
+    return name.split("_")[0] if name.split("_")[0] in ("k2", "k3", "k4a", "k4b", "k5") \
+        else "k1"
 
 
 def sources(name: str) -> list:
@@ -241,12 +281,13 @@ def sources(name: str) -> list:
     (short_attention.cu also holds the error-string entry point)."""
     if name == "tree":
         return ["short_attention.cu", "short_attention_bwd.cu", "flash_attention.cu",
-                "flash_attention_bwd.cu"]
+                "flash_attention_bwd.cu", "mips.cu"]
     return {"k1": ["short_attention.cu"], "k2": ["short_attention.cu", "short_attention_bwd.cu"],
             "k3": ["short_attention.cu", "flash_attention.cu"],
             "k4a": ["short_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu"],
             "k4b": ["short_attention.cu", "flash_attention.cu",
-                    "flash_attention_bwd.cu"]}[group(name)]
+                    "flash_attention_bwd.cu"],
+            "k5": ["short_attention.cu", "mips.cu"]}[group(name)]
 
 
 def build(names):
@@ -283,7 +324,10 @@ def build(names):
                                        ("flash_bwd_dq_tf32", "ILi64E", "64"),
                                        ("flash_bwd_dq_tf32", "ILi128E", "128"),
                                        ("flash_bwd_dkv_tf32", "ILi64E", "64"),
-                                       ("flash_bwd_dkv_tf32", "ILi128E", "128")):
+                                       ("flash_bwd_dkv_tf32", "ILi128E", "128"),
+                                       ("scan_mma", "ILi8ELi2E", "8, 2"),
+                                       ("scan_mma", "ILi8ELi1E", "8, 1"),
+                                       ("scan_mma", "ILi1ELi2E", "1, 2")):
                 if re.search(rf"Compiling entry function '.*{kernel}{inst}", line):
                     print(f"{name}: {kernel}<{args}>: "
                           + " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
@@ -291,6 +335,9 @@ def build(names):
             sass_mix(OUT / name / "lib.so", "flash_bwd_dq_tf32ILi64E", name)
         if group(name) == "k4b" or name == "tree":
             sass_mix(OUT / name / "lib.so", "flash_bwd_dkv_tf32ILi64E", name)
+        if group(name) == "k5" or name == "tree":
+            sass_mix(OUT / name / "lib.so", "scan_mmaILi8ELi2E", name)
+            sass_mix(OUT / name / "lib.so", "scan_mmaILi8ELi1E", name)
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         p, i_, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         if "short_attention_bwd.cu" in sources(name):
@@ -305,6 +352,11 @@ def build(names):
             lib.sgpt_flash_attention_bwd_dq.restype = i_
             lib.sgpt_flash_attention_bwd_dkv.argtypes = [p] * 10 + [i_] * 4 + [ll] * 9 + [f, i_, i_, p]
             lib.sgpt_flash_attention_bwd_dkv.restype = i_
+        if "mips.cu" in sources(name):
+            lib.sgpt_mips_topk.argtypes = [p] * 6 + [i_] * 7 + [p]
+            lib.sgpt_mips_topk.restype = i_
+            lib.sgpt_mips_query_block.argtypes = [i_] * 4
+            lib.sgpt_mips_query_block.restype = i_
         lib.sgpt_short_attention_fwd.argtypes = [p] * 8 + [i_] * 4 + [f] + [i_] * 3 + [p]
         lib.sgpt_short_attention_fwd.restype = i_
         lib.sgpt_cuda_error_string.argtypes = [i_]
@@ -349,6 +401,7 @@ def main() -> int:
     k3 = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k3"}
     k4a = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4a"}
     k4b = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4b"}
+    k5 = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k5"}
     if len(k1) > 1 or names == ["tree"]:
         run_k1(torch, sa, k1)
     if len(k2) > 1 or names == ["tree"]:
@@ -359,6 +412,8 @@ def main() -> int:
         run_k4a(torch, fa, k4a)
     if len(k4b) > 1 or names == ["tree"]:
         run_k4b(torch, fa, k4b)
+    if len(k5) > 1 or names == ["tree"]:
+        run_k5(torch, k5)
     if "k2_p_probe" in libs:
         probe_p(torch, sa, libs["k2_p_probe"])
     return 0
@@ -655,6 +710,67 @@ def run_k4b(torch, fa, libs):
               + "; ".join(f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
                           for n, t in times.items()), flush=True)
         del out, lse, args, qs, ks, vs, lib_out, gs
+
+
+
+def run_k5(torch, libs):
+    """K5's bf16 scan against the plain version with K5's rule
+    (`chip_smoke.check_topk`) over NQ's corpus (2,681,468 × 768 bf16): Q =
+    64, 8, 65 and 1024, all-equal rows, duplicates on both sides of the
+    tree's split boundaries and valid_count one row either side of a tile
+    boundary; then its time at Q = 64 and Q = 8 (k = 10), two rounds in
+    turns, with GB/s of the corpus read."""
+    from sgpt_tpu_torch.ops import mips
+
+    N, D = cs.NQ_ROWS, 768
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    c = cs.unit_rows(torch, gen, N, D, torch.bfloat16)
+    q = cs.unit_rows(torch, gen, 1024, D, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b = mips._rows_per_split(N, mips._splits(64, N, sms, 64, mips.MMA_TILE_ROWS),
+                             mips.MMA_TILE_ROWS)
+    rows = [b - 1, b, b + 1, 2 * b - 1, 2 * b]
+    eq = c[:300_000].clone()
+    eq[:] = eq[11].clone()
+    for name, lib in libs.items():
+        bad = []
+        with cs.kernels_of(lib):
+            for case, qq, valid in (("Q64", q[:64], N), ("Q8", q[:8], N), ("Q65", q[:65], N),
+                                    ("Q1024", q, N), ("valid-tile-1", q[:64], 40 * 256 - 1),
+                                    ("valid-tile+1", q[:64], 40 * 256 + 1)):
+                try:
+                    cs.check_topk(torch, qq, c, mips.mips_topk(qq, c, valid, 10),
+                                  mips.mips_topk_reference(qq, c, valid, 10), case)
+                except AssertionError as e:
+                    bad.append(f"{case}: {e}")
+            got = mips.mips_topk(q[:64], eq, eq.shape[0], 10)
+            if not (got[1] == torch.arange(10, device="cuda", dtype=torch.int32)).all():
+                bad.append("all-equal: ids are not 0 .. 9")
+            saved = c[rows].clone()
+            c[rows] = c[5].clone()
+            qs = q[:64].clone()
+            qs[0] = c[5]
+            got = mips.mips_topk(qs, c, N, 10)
+            if got[1][0, :6].tolist() != [5, *rows]:
+                bad.append(f"split-dups: {got[1][0, :6].tolist()}")
+            c[rows] = saved
+        print(f"{name}: K5 bf16 {'FAILS: ' + '; '.join(bad) if bad else 'holds K5 rule'} "
+              f"(Q 64, 8, 65, 1024, valid at a tile boundary ± 1, all-equal, split-dups)",
+              flush=True)
+    del eq
+    for Q in (64, 8):
+        qq = q[:Q].contiguous()
+        times = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            with cs.kernels_of(libs[name]):
+                times[name].append(cs.cuda_ms(torch, lambda: mips.mips_topk(qq, c, N, 10),
+                                              iters=20, warmup=2))
+        gb = c.numel() * 2 * -(-Q // 64) / 1e6
+        print(f"K5 bf16 Q={Q} N={N} D={D} k=10: "
+              + "; ".join(f"{n} {np.mean(t):.4f} ms, {gb / np.mean(t):.1f} GB/s "
+                          f"({' '.join(f'{x:.4f}' for x in t)})" for n, t in times.items()),
+              flush=True)
+    del c, q
 
 
 if __name__ == "__main__":

@@ -19,6 +19,17 @@ import torch
 NEG = -1e30   # the TPU kernel's mask value (ops/topk.py masks with -inf)
 K_MAX = 16    # as the JAX function asserts: larger k goes to blockmax_topk
 PLAIN_SCORES = 1 << 24  # (Q, rows) fp32 scores per chunk of the plain version
+MMA_TILE_ROWS = 256  # rows a tile of the tensor-core scan (csrc/mips.cu MM_TR)
+SIMT_TILE_ROWS = 64  # of the CUDA-core scan (SM_TN)
+SIMT_BLOCKS_PER_SM = 2  # blocks of the CUDA-core scan planned an SM (the
+# tensor-core scan's ring fills an SM's shared memory: one block an SM)
+# the tensor-core scan's shared memory (csrc/mips.cu): a block's 227 KB hold
+# the queries (rows of D rounded up to 64, + 8), the lists, the candidate
+# queue and ring stages of 256 rows × 32 bf16 features
+SMEM_MAX = 232448
+MMA_STAGE_BYTES = MMA_TILE_ROWS * 32 * 2
+MMA_MAX_STAGES, MMA_MIN_STAGES = 8, 3
+QUEUE = 1024
 
 # kernel launches made by `mips_topk`; reset and read by chip_smoke.py
 launches = 0
@@ -57,11 +68,58 @@ def mips_topk_reference(queries: torch.Tensor, corpus: torch.Tensor, valid_count
     return vals, idx
 
 
-def _splits(Q: int, valid: int, sms: int) -> int:
-    """Corpus splits of pass 1: about two blocks per SM in all, at least 128
-    rows each, as the kernel sees queries in blocks of up to 64."""
-    per_split_rows = -(-max(valid, 1) // 128)
-    return max(1, min(per_split_rows, -(-2 * sms // -(-Q // 64)), 65535))
+def _rows_per_split(valid: int, splits: int, tile_rows: int) -> int:
+    """Rows of each split as pass 1 computes them (`csrc/mips.cu`,
+    `launch_mma`/`launch_simt`): an equal share rounded up to whole tiles;
+    the last split ends at `valid`."""
+    share = -(-valid // splits)
+    return max(tile_rows, -(-share // tile_rows) * tile_rows)
+
+
+def _splits(Q: int, valid: int, slots: int, qb: int, tile_rows: int) -> int:
+    """Corpus splits of pass 1: one contiguous split per block, and blocks
+    (query blocks × splits) that fill `slots` (resident blocks on the card)
+    in the fewest waves that use at least 90 % of them, so each block
+    streams its split without draining its ring between splits. Never more
+    splits than tiles, and none left empty: the count is recomputed from the
+    rows each split gets."""
+    blocks = -(-Q // qb)
+    rows = max(valid, 1)
+    splits = 1
+    for waves in range(1, 9):
+        s = waves * slots // blocks
+        if s >= 1 and blocks * s >= 0.9 * waves * slots:
+            splits = s
+            break
+    splits = max(1, min(splits, -(-rows // tile_rows), 65535))
+    return -(-rows // _rows_per_split(rows, splits, tile_rows))
+
+
+def _mma_stages(qb: int, D: int) -> int:
+    """Ring stages of the tensor-core scan beside qb queries of width D
+    (`mma_stages` in csrc/mips.cu)."""
+    fixed = 2 * qb * (-(-D // 64) * 64 + 8) + 8 * qb * K_MAX + 8 * QUEUE + 16
+    return 0 if fixed >= SMEM_MAX else min(MMA_MAX_STAGES, (SMEM_MAX - fixed) // MMA_STAGE_BYTES)
+
+
+def _mma_query_block(Q: int, D: int) -> int:
+    """The tensor-core scan's block of queries (`mma_qb` in csrc/mips.cu,
+    which `query_block` asks): the smallest of 8, 16, 32, 64 that holds all
+    Q, halved while fewer than MMA_MIN_STAGES ring stages fit (0: not even
+    two fit at 8)."""
+    qb = 8
+    while qb < 64 and qb < Q:
+        qb *= 2
+    while qb > 8 and _mma_stages(qb, D) < MMA_MIN_STAGES:
+        qb //= 2
+    return qb if _mma_stages(qb, D) >= 2 else 0
+
+
+def _tile_rows(dtype: torch.dtype, D: int, aligned: bool) -> int:
+    """Rows of a pass-1 tile: the tensor-core scan's (bf16, D % 16 == 0,
+    16-byte aligned rows) or the CUDA-core scan's."""
+    return MMA_TILE_ROWS if dtype == torch.bfloat16 and D % 16 == 0 and aligned \
+        else SIMT_TILE_ROWS
 
 
 def query_block(Q: int, D: int, dtype: torch.dtype, aligned: bool = True) -> int:
@@ -105,8 +163,15 @@ def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, valid_count, k: int =
     from ._build import check, library
 
     valid = max(0, min(int(valid_count), N))
-    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    splits = _splits(Q, valid, sms)
+    aligned = queries.data_ptr() % 16 == 0 and corpus.data_ptr() % 16 == 0
+    tile_rows = _tile_rows(queries.dtype, D, aligned)
+    qb = query_block(Q, D, queries.dtype, aligned)
+    if qb == 0:
+        raise ValueError(f"mips_topk: D={D} leaves no room for a block of queries")
+    slots = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    if tile_rows == SIMT_TILE_ROWS:
+        slots *= SIMT_BLOCKS_PER_SM
+    splits = _splits(Q, valid, slots, qb, tile_rows)
     cand_v = torch.empty((splits, Q, k), dtype=torch.float32, device=queries.device)
     cand_i = torch.empty((splits, Q, k), dtype=torch.int32, device=queries.device)
     with torch.cuda.device(queries.device):

@@ -831,3 +831,62 @@ def test_flash_engine_on_the_card_launches_k3_and_equals_the_cpu(cuda):
     assert fa.launches - k3 == cfg.num_layers * flash
     assert sa.launches - k1 == cfg.num_layers * (len(shapes) - flash)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+# The K5 scan's hazards stand last. Run between two CUDA-only
+# torch.profiler sessions of one process (all twelve; any one alone did
+# not), they left the later sessions without kernel events on the card's
+# machine, so the profiler-based routing tests above keep the place in the
+# file they had.
+@pytest.mark.parametrize("case,Q,N,D,k", [
+    ("all-equal", 64, 70_000, 768, 10), ("all-equal", 3, 9000, 768, 16),
+    ("split-duplicates", 64, 200_000, 768, 10), ("split-duplicates", 8, 100_000, 2048, 10),
+    ("valid-tile-1", 64, 20_000, 768, 10), ("valid-tile", 64, 20_000, 768, 10),
+    ("valid-tile+1", 64, 20_000, 768, 10), ("Q65", 65, 50_000, 768, 10),
+    ("Q16", 16, 50_000, 768, 10), ("D2048", 40, 30_000, 2048, 10),
+    ("D2560", 33, 30_000, 2560, 10), ("valid<k", 64, 5000, 768, 10)])
+def test_mips_bf16_scan_hazards(cuda, case, Q, N, D, k):
+    """The tensor-core scan's hazards against the plain version: every
+    score equal (ids 0 .. k-1; the queue overflows on every tile of a
+    split's first), exact duplicates on both sides of a pass-1 split boundary
+    (the wrapper's own plan), valid_count one row either side of a 256-row
+    tile boundary, two query blocks, and the widths of the larger models."""
+    from sgpt_tpu_torch.ops import mips
+
+    rng = np.random.default_rng(N + Q)
+    c = _unit(rng, N, D, cuda, torch.bfloat16)
+    q = _unit(rng, Q, D, cuda, torch.bfloat16)
+    valid = {"valid-tile-1": 40 * 256 - 1, "valid-tile": 40 * 256,
+             "valid-tile+1": 40 * 256 + 1, "valid<k": 7}.get(case, N)
+    if case == "all-equal":
+        c[:] = c[11].clone()
+    if case == "split-duplicates":
+        slots = torch.cuda.get_device_properties(cuda).multi_processor_count
+        splits = mips._splits(Q, N, slots, mips.query_block(Q, D, torch.bfloat16),
+                              mips.MMA_TILE_ROWS)
+        b = mips._rows_per_split(N, splits, mips.MMA_TILE_ROWS)
+        assert 0 < b < N - 256
+        dup = [b - 1, b, b + 1, b + 256]
+        c[dup] = c[17].clone()
+        q[0] = c[17]
+    c[valid:] = 10.0  # rows past valid_count must be invisible
+    before = mips.launches
+    got = mips.mips_topk(q, c, valid, k)
+    torch.cuda.synchronize()
+    assert mips.launches == before + 1
+    _check_mips(q, c, got, mips.mips_topk_reference(q, c, valid, k))
+    assert (got[1] < valid).all()
+    if case == "all-equal":
+        assert (got[1] == torch.arange(k, device=cuda, dtype=torch.int32)).all()
+    if case == "split-duplicates":
+        assert got[1][0, :5].tolist() == [17, *dup]
+
+
+def test_mips_query_block_matches_the_plan(cuda):
+    """`sgpt_mips_query_block` (the kernel's choice) == the wrapper's mirror
+    `_mma_query_block` for bf16 at the main widths, Q 1 to 1024."""
+    from sgpt_tpu_torch.ops import mips
+
+    for D in (768, 2048, 2560):
+        for Q in (1, 2, 7, 8, 9, 16, 17, 32, 33, 63, 64, 65, 100, 1024):
+            assert mips.query_block(Q, D, torch.bfloat16) == mips._mma_query_block(Q, D), (Q, D)
