@@ -81,8 +81,24 @@ Phases, each of which asserts; any failure exits non-zero:
                card K3/K4 against the CPU's plain versions); both profiles
                name `flash_fwd_tf32` alone for K3, `flash_bwd_dq_tf32` alone
                for K4a and `flash_bwd_dkv_tf32` alone for K4b
- 16. report  — kernel, plain-version and library times beside each
-               kernel's bound, encode, long-context, train and serve rates,
+ 16. ce      — the cross-encoder (SGPT-CE) on the weights of phase 4 (bf16,
+               max_length 2048, batch_size 16): K1 (bf16) at the CE shapes
+               against its plain version, window 0 and 256 (packed rows
+               with up to 16 segments at T=256, B=128; T=1,024, B=32;
+               T=2,048, B=16), with kernel, plain, library and bound times;
+               prompt G over a BEIR-like mix's BM25 top-100 (2,000 documents
+               of lognormal(5, 1) words in [20, 1,400], 32 queries: 3,200
+               pairs), a short mix (3,200 pairs of 5-60 words) unpacked and
+               at pack_t=256, and prompt L on 256 short pairs: pairs/s and
+               tokens/s, K1 = 12 × dispatches, one dispatch of each mix
+               profiled; fp32 card == fp32 CPU (32 pairs), fp32 packed ==
+               unpacked (64 pairs), bf16 ranks against fp32 (Spearman of
+               each query's top-100); `SearchService(ranker=...)` over HTTP:
+               POST /rerank from 8 threads == the direct rerank, p50/p99;
+               `cli.bm25_retriever` → `cli.sgptce` on a synthetic BEIR
+               folder writes BM25's and the CE's nDCG
+ 17. report  — kernel, plain-version and library times beside each
+               kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
                line, and last `{"ok": true, "device": {...}}`
 
@@ -1456,6 +1472,484 @@ def phase_long(torch, fa, sa, mips, model, tok, rng, card):
             **profile}
 
 
+# the cross-encoder slice's gates (phase ce)
+CE_RTOL, CE_ATOL = 2e-5, 1e-4  # summed log-probs: fp32 card == CPU, packed == unpacked
+CE_SPEARMAN_FLOOR = 0.99  # bf16 against fp32 ranks of each query's top-100: the least
+CE_SERVE_TOL = 0.05  # |Δ ce_score| of a pair scored in bf16 dispatches of other shapes
+
+
+def ce_mix(rng):
+    """The CE slice's traffic, after tools/bench_ce_ragged.py:make_lengths: a
+    BEIR-like corpus of 2,000 documents of lognormal(5.0, 1.0) words clipped
+    to [20, 1,400], 32 queries of 12 words drawn from documents (so BM25
+    finds them); and a short mix of 3,200 (12-word query, 5-60 word
+    document) pairs."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+    lengths = np.clip(rng.lognormal(5.0, 1.0, 2000), 20, 1400).astype(int)
+    corpus = {f"ce{i}": {"title": "", "text": " ".join(rng.choice(words, int(m)))}
+              for i, m in enumerate(lengths)}
+    src = rng.choice(len(corpus), 32, replace=False)
+    queries = {f"q{n}": " ".join(rng.choice(corpus[f"ce{d}"]["text"].split(), 12,
+                                            replace=False)) for n, d in enumerate(src)}
+    short = [(" ".join(rng.choice(words, 12)), " ".join(rng.choice(words, int(m))))
+             for m in rng.integers(5, 60, 3200)]
+    return corpus, queries, short
+
+
+def ce_tokens(ranker, pairs) -> int:
+    """Tokens in the rows the ranker builds for these pairs (truncation
+    applied; no pair repeats here, so nothing is deduplicated)."""
+    enc = ranker.tokenizer.encode
+    return sum(ranker._pack(enc(ranker.prompt_doc.format(d)), enc(q))[1] for q, d in pairs)
+
+
+def ce_attention_inputs(torch, rng, B, T, packed: bool):
+    """K1's inputs at a CE shape: bf16 q/k/v (std 0.5) of H=12, Dh=64; packed
+    rows carry segments of 8-90 tokens (up to 16 a row, the ranker's cap)
+    and a padding tail (segment -1, key mask 0); unpacked rows the ranker's
+    full-ones key mask."""
+    q, k, v = (torch.from_numpy(rng.normal(0.0, 0.5, (B, T, 768)).astype(np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(3))
+    km = np.ones((B, T), np.int32)
+    seg = None
+    if packed:
+        km[:] = 0
+        seg = np.full((B, T), -1, np.int32)
+        for b in range(B):
+            off = 0
+            for s in range(16):
+                n = int(rng.integers(8, 91))
+                if off + n > T:
+                    break
+                km[b, off:off + n], seg[b, off:off + n] = 1, s
+                off += n
+        seg = torch.from_numpy(seg).cuda()
+    return q, k, v, torch.from_numpy(km).cuda(), seg
+
+
+def phase_ce_kernel(torch, sa, rng):
+    """K1 (bf16) at the CE shapes against its plain version, window 0 and
+    256: packed rows at T=256, B=128 (`mma_kernel<64, GENERAL>`), unpacked
+    rows at T=1,024, B=32 and at T=2,048, B=16; kernel, plain, library (SDPA
+    with the boolean mask causal ∧ same segment ∧ window ∧ key valid) and
+    bound times. Returns the largest error and the times by cell."""
+    out, worst = {}, 0.0
+    for name, B, T, packed in (("packed_t256", 128, 256, True), ("t1024", 32, 1024, False),
+                               ("t2048", 16, 2048, False)):
+        q, k, v, km, seg = ce_attention_inputs(torch, rng, B, T, packed)
+        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
+        for window in (0, 256):
+            def kernel():
+                return sa.short_attention(q, k, v, km, None, 1.0, window, 12, False,
+                                          segments=seg)
+
+            def plain():
+                return sa.short_attention_reference(q, k, v, km, None, scale=1.0,
+                                                    window=window, H=12, use_alibi=False,
+                                                    segments=seg)
+
+            mask = sdpa_mask(torch, km, window)
+            if seg is not None:
+                mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=1.0)
+
+            got, want = kernel().float(), plain().float()
+            assert torch.isfinite(got).all(), (name, window)
+            err = (got - want).abs()
+            assert (err - BF16_RTOL * want.abs()).max().item() <= BF16_ATOL, (name, window)
+            worst = max(worst, err.max().item())
+            del got, want, err
+            p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
+            lib = cuda_ms(torch, library, iters=10)
+            pairs = int(mask.sum().item())
+            nbytes = 4 * q.numel() * 2 + km.numel() * 4 + (0 if seg is None else seg.numel() * 4)
+            ops = 4 * 64 * 12 * pairs
+            b_ms, b_by = bound(nbytes, ops, "bf16")
+            key = name if window == 0 else f"{name}_w256"
+            out[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                        "bound_ms": b_ms, "bound_by": b_by}
+            log(f"time K1 CE {name} B={B} T={T} H=12 Dh=64 bf16 window={window}"
+                f"{' segments' if packed else ''}: kernel {out[key]['ms']:.4f} ms, plain "
+                f"{out[key]['plain_ms']:.4f} ms, library (SDPA, boolean mask) {lib:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} operations over "
+                f"{pairs} (query, key) pairs) (runs: kernel {k1:.4f} {k2:.4f}, plain "
+                f"{p1:.4f} {p2:.4f})")
+            del mask
+        del q, k, v, qh, kh, vh, km, seg
+        torch.cuda.empty_cache()
+    log(f"K1 at the CE shapes: max_abs_err {worst:.3e} against the plain version "
+        f"(atol {BF16_ATOL}, rtol {BF16_RTOL})")
+    return worst, out
+
+
+def profile_ce(torch, ranker, pairs, label: str) -> dict:
+    """One scorer dispatch (the pairs must fill exactly one) under
+    torch.profiler: device time of K1, of the projection GEMMs, of the LM
+    head (the kernels under `Decoder.logits`), of the log-softmax and
+    gather (the other kernels under `logprobs._token_logprobs`) and of the
+    rest, and the device's busy share of the wall time. Then the head's
+    GEMM alone at this dispatch's rows, with the vocab as it is (50,257, an
+    odd row stride) and padded to 50,304, beside its bound."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sgpt_tpu_torch.ops import logprobs
+
+    model, token_logprobs, logits = ranker.model, logprobs._token_logprobs, ranker.model.logits
+    head_rows = []
+
+    def head(h):
+        head_rows.append(h.shape[:-1].numel())
+        with record_function("ce_lm_head"):
+            return logits(h)
+
+    def scored(*a):
+        with record_function("ce_head_logsoftmax"):
+            return token_logprobs(*a)
+
+    ranker.predict(pairs)
+    torch.cuda.synchronize()
+    model.logits, logprobs._token_logprobs = head, scored
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ranker.predict(pairs)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del model.logits
+        logprobs._token_logprobs = token_logprobs
+    ranges = ("ce_lm_head", "ce_head_logsoftmax")
+    # the ranges also show as device spans of their own (user annotations):
+    # a family of their own, dropped, so that no kernel counts twice
+    fam = device_ms(prof, {"K1": K1_KEYS, "GEMM": GEMM_KEYS, "ranges": ranges})
+    del fam["ranges"]
+    total = sum(fam.values())
+    if total == 0:
+        log(f"{label}: the profiler saw no device time (wall {wall_ms:.1f} ms)")
+        return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None}
+
+    def range_kernels(name):
+        """(kernel name, ms) of every kernel launched under the named ranges."""
+        out = []
+
+        def walk(e):
+            out.extend((k.name, k.duration / 1e3) for k in e.kernels)
+            for ch in e.cpu_children:
+                walk(ch)
+
+        for e in prof.events():
+            if e.name == name:
+                walk(e)
+        return out
+
+    head_k, scored_k = range_kernels("ce_lm_head"), range_kernels("ce_head_logsoftmax")
+    head_ms = sum(ms for _, ms in head_k)
+    head_gemm = sum(ms for n, ms in head_k if any(key in n.lower() for key in GEMM_KEYS))
+    parts = {"K1": fam["K1"], "projection GEMMs": fam["GEMM"] - head_gemm, "LM head": head_ms,
+             "log-softmax": sum(ms for _, ms in scored_k) - head_ms}
+    parts["rest"] = total - sum(parts.values())
+    shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in parts.items())
+    names = sorted({n for n, _ in head_k})
+    top = sorted(((ev.key, (getattr(ev, "self_device_time_total", None)
+                            or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3)
+                  for ev in prof.key_averages()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                  and ev.key not in ranges),
+                 key=lambda kv: -kv[1])[:6]
+    log(f"{label}: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall (busy share "
+        f"{total / wall_ms:.3f}): {shares}; the head's kernels {names}; the six longest "
+        "kernels: " + "; ".join(f"{n[:90]} {ms:.2f} ms" for n, ms in top))
+
+    # the head's product alone at this dispatch's rows: vocab 50,257 and padded
+    M, (V, D) = head_rows[-1], model.wte.shape
+    h = torch.randn(M, D, device="cuda", dtype=model.wte.dtype)
+    padded = torch.cat([model.wte, model.wte.new_zeros(-V % 64, D)])
+    odd_ms = cuda_ms(torch, lambda: torch.nn.functional.linear(h, model.wte), iters=10)
+    pad_ms = cuda_ms(torch, lambda: torch.nn.functional.linear(h, padded), iters=10)
+    b_ms, b_by = bound(2 * (M * D + V * D + M * V), 2 * M * D * V, "bf16")
+    log(f"{label}: LM head alone, ({M}, {D}) x ({V}, {D})^T bf16: {odd_ms:.4f} ms; with the "
+        f"vocab padded to {padded.shape[0]}: {pad_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    del h, padded
+    return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total,
+            **{f"profile_{k.split()[0].lower().replace('-', '_')}_ms": v
+               for k, v in parts.items()},
+            "head_rows": M, "head_ms": odd_ms, "head_padded_vocab_ms": pad_ms,
+            "head_bound_ms": b_ms}
+
+
+def phase_ce(torch, sa, model, tok, rng, card):
+    """The cross-encoder slice (SGPT-CE) on the bf16 full-width GPT-Neo-125M
+    of phase 4, max_length 2048 and batch_size 16 (sgptce's defaults):
+    prompt G over the BEIR-like mix's BM25 top-100 (3,200 pairs), the short
+    mix unpacked and at pack_t=256, prompt L on 256 short pairs. K1 must run
+    in every layer of every dispatch. pairs/s and tokens/s on the host clock,
+    tokenising included; one dispatch of each mix profiled. Returns the
+    rates, the bf16 scores of the BEIR mix, the K1 launches and the pairs."""
+    from sgpt_tpu_torch.ce_prompts import build_ranker
+    from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
+    from sgpt_tpu_torch.retrieval_bm25 import BM25Retriever
+
+    cfg = model.cfg
+    corpus, queries, short = ce_mix(rng)
+    t0 = time.perf_counter()
+    first = BM25Retriever().search(corpus, queries, 100)
+    bm25_s = time.perf_counter() - t0
+    beir = [(queries[q], corpus[d]["text"]) for q, hits in first.items() for d in hits]
+    assert len(beir) == 3200, len(beir)
+    kw = dict(device="cuda", batch_size=16, max_length=2048)
+    runs = {"beir": (CrossEncoderRanker(model, cfg, tok, **kw), beir),
+            "short": (CrossEncoderRanker(model, cfg, tok, **kw), short),
+            "short_packed": (CrossEncoderRanker(model, cfg, tok, pack_t=256, **kw), short),
+            "yesno": (build_ranker("L", model, cfg, tok, **kw), short[:256])}
+    shapes = []
+    hook = model.register_forward_pre_hook(lambda m, args: shapes.append(tuple(args[0].shape)))
+    out, scores, launches = {}, {}, 0
+    try:
+        for name, (ranker, pairs) in runs.items():
+            ranker.predict(pairs)  # warm: matmul plans, the pinned-memory pool
+            torch.cuda.synchronize()
+            shapes.clear()
+            sa.launches = 0
+            t0 = time.perf_counter()
+            got = ranker.predict(pairs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1, dispatches = sa.launches, len(shapes)
+            assert k1 == cfg.num_layers * dispatches > 0, (name, k1, dispatches)
+            got = np.asarray(got)
+            assert got.shape == (len(pairs),) and np.isfinite(got).all() and (got < 0).all(), name
+            launches += k1
+            scores[name] = got
+            tokens = ce_tokens(ranker, pairs) if name != "yesno" else None
+            t0 = time.perf_counter()  # the host's share: tokenising, as score_pairs does
+            tok.encode_batch([q for q, _ in pairs])
+            tok.encode_batch([ranker.prompt_doc.format(d, q) for q, d in pairs])
+            tok_s = time.perf_counter() - t0
+            out[name] = {"pairs_per_s": len(pairs) / wall, "wall_s": wall, "tokens": tokens,
+                         "tokens_per_s": tokens / wall if tokens else None,
+                         "dispatches": dispatches, "k1_launches": k1, "tokenise_s": tok_s}
+            log(f"ce {name}: {len(pairs)} pairs in {wall:.3f} s (tokenising them alone "
+                f"{tok_s:.3f} s), {len(pairs) / wall:.1f} pairs/s"
+                + (f", {tokens} tokens, {tokens / wall:.0f} tokens/s" if tokens
+                   else "") + f"; {dispatches} dispatches, (rows, T) "
+                f"{sorted(set(shapes))}; K1 launches {k1} = {cfg.num_layers} x {dispatches}; "
+                f"bf16, max_length 2048, batch_size 16 ({card})")
+        # one dispatch of each mix under the profiler (the warm-up and the
+        # profiled run: two dispatches of one shape)
+        order = np.argsort([-len(d.split()) for _, d in short], kind="stable")
+        for name, pairs in (("beir", sorted(beir, key=lambda p: -len(p[1].split()))[:16]),
+                            ("short", [short[i] for i in order[:256]]),
+                            ("short_packed", short[:440])):
+            shapes.clear()
+            prof = profile_ce(torch, runs[name][0], pairs, f"ce profile, one {name} dispatch")
+            assert len(shapes) == 2 and shapes[0] == shapes[1], (name, shapes)
+            out[name]["profile"] = {"rows_t": list(shapes[0]), **prof}
+    finally:
+        hook.remove()
+    diff = float(np.abs(scores["short"] - scores["short_packed"]).max())
+    log(f"ce: bf16 short mix, packed against unpacked: max |diff| {diff:.4f}; BM25 for 32 "
+        f"queries over 2,000 docs {bm25_s:.2f} s")
+    return out, scores["beir"], launches, (corpus, queries, first, beir, short)
+
+
+def phase_ce_parity(torch, sa, tok, beir, short, bf16_beir, card):
+    """The same weights in fp32 ("highest"): card (K1) against CPU (K1's plain
+    version) on 32 pairs of the BEIR-like mix spread over its lengths, packed
+    against unpacked on the card on 64 short pairs (both within rtol 2e-5,
+    atol 1e-4), and the bf16 scores of phase ce against the card's fp32
+    ones: the Spearman correlation of each query's top-100 at least
+    CE_SPEARMAN_FLOOR."""
+    import copy
+
+    from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
+    from sgpt_tpu_torch.evaluation import spearman
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+
+    cfg32 = gpt_neo("125m")
+    cpu_model = Decoder(cfg32, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    order = np.argsort([len(d.split()) for _, d in beir], kind="stable")
+    pick = [beir[i] for i in order[:: len(beir) // 32][:32]]
+    kw = dict(batch_size=2, max_length=2048)
+    t0 = time.perf_counter()
+    on_cpu = np.array(CrossEncoderRanker(cpu_model, cfg32, tok, device="cpu", **kw).predict(pick))
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    sa.launches = 0
+    on_card = np.array(CrossEncoderRanker(gpu_model, cfg32, tok, device="cuda",
+                                          **kw).predict(pick))
+    assert sa.launches > 0
+    err = np.abs(on_card - on_cpu)
+    log(f"ce parity: fp32 card against fp32 CPU, 32 pairs of {min(len(d.split()) for _, d in pick)}"
+        f"-{max(len(d.split()) for _, d in pick)} words: max |diff| {err.max():.3e}, max "
+        f"|diff|/|score| {(err / np.abs(on_cpu)).max():.3e} (tolerance rtol {CE_RTOL}, atol "
+        f"{CE_ATOL}; CPU took {cpu_s:.1f} s)")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=CE_RTOL, atol=CE_ATOL)
+
+    kw = dict(device="cuda", batch_size=16, max_length=2048)
+    unpacked = np.array(CrossEncoderRanker(gpu_model, cfg32, tok, **kw).predict(short[:64]))
+    packed = np.array(CrossEncoderRanker(gpu_model, cfg32, tok, pack_t=256,
+                                         **kw).predict(short[:64]))
+    perr = float(np.abs(packed - unpacked).max())
+    log(f"ce parity: fp32 on the card, 64 short pairs, pack_t=256 against unpacked: max "
+        f"|diff| {perr:.3e} (tolerance rtol {CE_RTOL}, atol {CE_ATOL})")
+    np.testing.assert_allclose(packed, unpacked, rtol=CE_RTOL, atol=CE_ATOL)
+
+    fp32 = np.array(CrossEncoderRanker(gpu_model, cfg32, tok, **kw).predict(beir))
+    rho = np.array([spearman(bf16_beir[i:i + 100], fp32[i:i + 100])
+                    for i in range(0, len(beir), 100)])
+    top1 = np.mean([np.argmax(bf16_beir[i:i + 100]) == np.argmax(fp32[i:i + 100])
+                    for i in range(0, len(beir), 100)])
+    log(f"ce parity: bf16 against fp32 on the card, 32 queries' top-100: Spearman min "
+        f"{rho.min():.4f} mean {rho.mean():.4f} (floor {CE_SPEARMAN_FLOOR}), same first "
+        f"document for {top1:.3f} of queries, max |score diff| "
+        f"{np.abs(bf16_beir - fp32).max():.4f} ({card})")
+    assert rho.min() >= CE_SPEARMAN_FLOOR, rho
+    del gpu_model
+    torch.cuda.empty_cache()
+    return {"fp32_card_vs_cpu": float(err.max()), "fp32_packed_vs_unpacked": perr,
+            "bf16_vs_fp32_spearman_min": float(rho.min()),
+            "bf16_vs_fp32_spearman_mean": float(rho.mean()), "bf16_vs_fp32_top1": float(top1)}
+
+
+def phase_ce_serve(torch, sa, mips, engine, ranker, corpus, queries):
+    """`SearchService(kernel="pallas", ranker=...)` behind make_server on
+    127.0.0.1 over the BEIR-like mix's 2,000 documents: POST /rerank from 8
+    threads, 4 one-query requests each, first_k = k = 16 (K5's largest k:
+    every candidate comes back with its ce_score). Each answer holds the
+    direct `service.rerank`'s candidates, sorted by ce_score, with the same
+    first-stage scores (within 1e-5) and ce_scores within CE_SERVE_TOL: a
+    coalesced dispatch has other (rows, T, C) shapes, so its bf16 GEMMs may
+    round differently."""
+    import http.client
+    import threading
+
+    from sgpt_tpu_torch.serving import SearchService, make_server
+
+    def post(addr, payload):
+        conn = http.client.HTTPConnection(*addr, timeout=300)
+        try:
+            conn.request("POST", "/rerank", json.dumps(payload),
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read().decode())
+        finally:
+            conn.close()
+
+    service = SearchService(engine, index_kw={"kernel": "pallas"}, ranker=ranker)
+    server = make_server(service, "127.0.0.1", 0, model_name="gpt-neo-125m")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        addr = server.server_address[:2]
+        service.add_documents([corpus[i]["text"] for i in corpus], ids=list(corpus), build=True)
+        service.warm_search(ks=(16,))
+        qs = list(queries.values())
+        service.rerank(qs[:2], k=16, first_k=16)  # warm
+        lat, answers, errors = {}, {}, []
+
+        def client(t):
+            try:
+                for j in range(4):
+                    n = t * 4 + j
+                    t0 = time.perf_counter()
+                    status, body = post(addr, {"queries": [qs[n]], "k": 16, "first_k": 16})
+                    lat[n] = time.perf_counter() - t0
+                    assert status == 200, body
+                    answers[n] = body["results"][0]
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        mips.launches = sa.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        k5, k1 = mips.launches, sa.launches
+        assert not errors, errors
+        dispatches = service._r_batcher.dispatches
+        worst, reordered = 0.0, 0
+        for n, q in enumerate(qs):
+            want = {h["id"]: h for h in service.rerank([q], k=16, first_k=16)[0]}
+            got = answers[n]
+            assert {h["id"] for h in got} == set(want), n
+            ce = [h["ce_score"] for h in got]
+            assert ce == sorted(ce, reverse=True), n
+            for h in got:
+                assert abs(h["score"] - want[h["id"]]["score"]) <= 1e-5, n
+                worst = max(worst, abs(h["ce_score"] - want[h["id"]]["ce_score"]))
+            reordered += [h["id"] for h in got] != list(want)
+        ms = 1e3 * np.array([lat[n] for n in range(len(qs))])
+        p50, p99 = float(np.median(ms)), float(np.percentile(ms, 99))
+        qps = len(qs) / wall
+        log(f"ce serve: {len(corpus)} documents; {len(qs)} POST /rerank (first_k 16) from 8 "
+            f"threads: p50 {p50:.2f} ms, p99 {p99:.2f} ms, {qps:.2f} queries/s "
+            f"({16 * qps:.1f} pairs/s), {dispatches} rerank dispatches in all; K5 launches "
+            f"{k5}, K1 launches {k1}; answers hold the direct rerank's candidates, max "
+            f"|ce_score diff| {worst:.3e} (tolerance {CE_SERVE_TOL}), {reordered} of "
+            f"{len(qs)} orders differ")
+        assert worst <= CE_SERVE_TOL and k5 > 0 and k1 > 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=10)
+    return {"p50_ms": p50, "p99_ms": p99, "qps": qps, "max_ce_diff": worst}
+
+
+def phase_ce_cli(corpus, card):
+    """`cli.bm25_retriever` then `cli.sgptce --randominit --prompt G` (full-width
+    GPT-Neo-125M, bf16) on a synthetic BEIR folder: the BEIR-like mix's first
+    500 documents, 20 queries of 12 words drawn from documents, qrels to
+    those documents. The result json holds bm25_ndcg and ce_ndcg."""
+    import os
+    import tempfile
+
+    from sgpt_tpu_torch.cli import bm25_retriever, sgptce
+
+    ids = list(corpus)[:500]
+    rng = np.random.default_rng(SEED + 9)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        os.makedirs(os.path.join(data, "qrels"))
+        with open(os.path.join(data, "corpus.jsonl"), "w") as f:
+            for i in ids:
+                f.write(json.dumps({"_id": i, **corpus[i]}) + "\n")
+        with open(os.path.join(data, "queries.jsonl"), "w") as f, \
+                open(os.path.join(data, "qrels", "test.tsv"), "w") as g:
+            g.write("query-id\tcorpus-id\tscore\n")
+            for n in range(20):
+                d = ids[n * 25]
+                words = corpus[d]["text"].split()
+                f.write(json.dumps({"_id": f"q{n}", "text": " ".join(
+                    rng.choice(words, 12, replace=False))}) + "\n")
+                g.write(f"q{n}\t{d}\t1\n")
+        first, out = os.path.join(tmp, "bm25.json"), os.path.join(tmp, "ce.json")
+        t0 = time.perf_counter()
+        bm25 = bm25_retriever.main(bm25_retriever.parse_args([
+            "--dataset", "synth", "--datadir", tmp, "--topk", "100", "--output", first]))
+        sgptce.main(sgptce.parse_args([
+            "--dataset", "synth", "--datadir", tmp, "--bm25results", first, "--randominit",
+            "--prompt", "G", "--device", "cuda", "--output", out, "--scores-out", ""]))
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            result = json.load(f)
+    ndcg = result["ce_ndcg"]["NDCG@10"]
+    assert result["prompt"] == "G" and result["bm25_ndcg"]["NDCG@10"] == bm25["NDCG@10"]
+    assert all(0.0 <= v <= 1.0 for key in ("bm25_ndcg", "ce_ndcg") for v in result[key].values())
+    log(f"ce cli: bm25_retriever then sgptce --prompt G on 500 docs, 20 queries (2,000 pairs) "
+        f"in {wall:.2f} s: BM25 nDCG@10 {bm25['NDCG@10']:.5f}, CE nDCG@10 {ndcg:.5f} "
+        f"(random weights) ({card})")
+    return {"bm25_ndcg10": bm25["NDCG@10"], "ce_ndcg10": ndcg, "wall_s": wall}
+
+
 def phase_beir(rng, card):
     """The port's BEIR CLI end to end on a synthetic BEIR folder: 2,000
     documents, 100 queries copied from documents, qrels to those documents;
@@ -1770,6 +2264,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
     from sgpt_tpu_torch.encoder import EmbeddingEngine
     from sgpt_tpu_torch.models import Decoder, gpt_neo
     from sgpt_tpu_torch.ops import _build, mips
@@ -1898,6 +2393,16 @@ def main() -> int:
     phase("long")
     long = phase_long(torch, fa, sa, mips, model, tok, np.random.default_rng(SEED + 2), card)
 
+    # 16. the cross-encoder slice, on the weights of phase 4
+    phase("ce")
+    ce_err, ce_times = phase_ce_kernel(torch, sa, np.random.default_rng(SEED + 7))
+    ce, ce_bf16, ce_launches, (ce_corpus, ce_queries, _, ce_beir, ce_short) = phase_ce(
+        torch, sa, model, tok, np.random.default_rng(SEED + 8), card)
+    ce_parity = phase_ce_parity(torch, sa, tok, ce_beir, ce_short, ce_bf16, card)
+    ce_serve = phase_ce_serve(torch, sa, mips, engine, CrossEncoderRanker(
+        model, cfg, tok, device="cuda", batch_size=16, max_length=2048), ce_corpus, ce_queries)
+    ce_cli = phase_ce_cli(ce_corpus, card)
+
     # 9. the train slice, and 10. its card-against-CPU parity
     del model, engine
     torch.cuda.empty_cache()
@@ -1922,6 +2427,12 @@ def main() -> int:
         f"{train['seq_per_s_highest']:.1f} seq/s; batch 32, max_seq_len 300 ({card})")
     log(f"long: {long['emb_per_s']:.1f} emb/s, {long['tokens_per_s']:.0f} tokens/s, bf16, "
         f"max_seq_len 2048, use_flash ({card})")
+    log(f"ce: {ce['beir']['pairs_per_s']:.1f} pairs/s ({ce['beir']['tokens_per_s']:.0f} "
+        f"tokens/s) on the BEIR-like mix's BM25 top-100, short mix "
+        f"{ce['short']['pairs_per_s']:.1f} pairs/s unpacked, "
+        f"{ce['short_packed']['pairs_per_s']:.1f} at pack_t=256; /rerank p50 "
+        f"{ce_serve['p50_ms']:.2f} ms, p99 {ce_serve['p99_ms']:.2f} ms; bf16, max_length 2048, "
+        f"batch_size 16 ({card})")
     log(f"ltrain: {ltrain['ms_per_step']:.1f} ms/step, {ltrain['seq_per_s']:.2f} seq/s, "
         f"{ltrain['tokens_per_s']:.0f} tokens/s, peak {ltrain['peak_gib']:.2f} GiB, fp32 at "
         f"TF32 products (\"default\"); strict fp32 (\"highest\") "
@@ -1936,9 +2447,10 @@ def main() -> int:
         "name": "short_attention_fwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
-        "launches": main_launches + train["fwd_launches"] + long["k1_launches"],
+        "launches": main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches,
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
-        "launches_long": long["k1_launches"], "max_abs_err": main_err,
+        "launches_long": long["k1_launches"], "launches_ce": ce_launches,
+        "max_abs_err": main_err, "max_abs_err_ce": ce_err,
         "ms": times[0][0], "plain_ms": times[0][1], "library_ms": times[0][2],
         "bound_ms": times[0][3], "bound_by": times[0][4],
         "ms_local256": times[256][0], "plain_ms_local256": times[256][1],
@@ -1953,6 +2465,13 @@ def main() -> int:
         "parent_ms": parent_ms("K1 bf16 B=64 T=300 window=0"),
         "parent_ms_local256": parent_ms("K1 bf16 B=64 T=300 window=256"),
         "parent_ms_fp32_b32": parent_ms("K1 fp32 B=32 T=300 window=0"),
+        **{f"{k}_ce_{cell}": v for cell, t in ce_times.items() for k, v in t.items()},
+        **{f"ce_{k}_{mix}": ce[mix][k] for mix in ce for k in ("pairs_per_s", "tokens_per_s",
+                                                                  "dispatches")},
+        "ce_profile": {mix: ce[mix]["profile"] for mix in ce if "profile" in ce[mix]},
+        "ce_parity": ce_parity, "ce_rerank_p50_ms": ce_serve["p50_ms"],
+        "ce_rerank_p99_ms": ce_serve["p99_ms"], "ce_rerank_qps": ce_serve["qps"],
+        "ce_cli": ce_cli,
         "build_s": build_s, "encode_emb_per_s": emb_per_s, "encode_profile": encode_profile}, {
         "name": "short_attention_bwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",

@@ -1,4 +1,4 @@
-"""sgpt_tpu_torch — SGPT's bulk encode, contrastive training, search and serving in PyTorch, with CUDA kernels for Hopper.
+"""sgpt_tpu_torch — SGPT's bulk encode, contrastive training, search, cross-encoder rerank and serving in PyTorch, with CUDA kernels for Hopper.
 
 A port of `sgpt_tpu` (JAX) that grows beside it. Module names mirror the JAX
 package so each counterpart is easy to find:
@@ -17,19 +17,25 @@ package so each counterpart is easy to find:
                          save/load in the JAX format), index_corpus
     retrieval            DenseRetriever: BEIR-shaped exact search
     serving              MicroBatcher, SearchService, the HTTP server
+    crossencoder         SGPT-CE: CrossEncoderRanker, YesNoRanker, rerank
+    ops.logprobs         continuation log-prob scorers over the LM head
     losses               MNRL (MultipleNegativesRankingLoss)
     training             ContrastiveTrainer, BitFit, schedules, GradCache,
                          checkpoints
     cli.train_msmarco    the MS MARCO training command line
     cli.beir_retriever   BEIR evaluation command line
-    cli.serve            the HTTP search server command line
+    cli.serve            the HTTP search and rerank server command line
+    cli.sgptce           cross-encoder rerank and evaluation command line
+    cli.bm25_retriever   BM25 first-stage command line
 
     ops.flash_attention  causal flash attention forward (long context):
                          CUDA kernel, plain version, autograd function
     tokenization         the port's copies of the host modules it needs:
     data                 tokenizers and SPECB, MS MARCO triplets and the
     evaluation           native jsonl reader, retrieval metrics and BEIR
-    baselines            IO, the BEIR dataset download
+    baselines            IO, the BEIR dataset download; and the
+    ce_prompts           CE prompt registry and the BM25 index
+    retrieval_bm25
 
 The package imports torch, and never jax nor anything of the JAX package:
 the host code it shares with `sgpt_tpu` is copied, not imported.

@@ -6,9 +6,11 @@ card (counterpart of `sgpt_tpu/cli/serve.py`).
 
 The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
 plus `--device`. Not ported yet, and raising: `--index ivf` (item 13),
-`--rerank`/`--rerank-model` (item 8), `--quantize` (item 9), and checkpoints
-other than random-init GPT-Neo presets (item 2). The exact index searches
-with the block-max scan; `--quantize-index int8` stores the corpus in int8.
+`--quantize` (item 9), and checkpoints other than random-init GPT-Neo
+presets (item 2). The exact index searches with the block-max scan;
+`--quantize-index int8` stores the corpus in int8. `--rerank` enables POST
+/rerank: the SGPT-CE ranker (`ce_prompts.build_ranker`) on the encoder's
+model, or with `--rerank-model` on a second model.
 
 corpus.jsonl rows: {"_id": ..., "title": ..., "text": ...} (BEIR shape) or
 {"id": ..., "text": ...}; omit --corpus to start empty and POST /documents.
@@ -92,11 +94,11 @@ def parse_args(argv=None):
                     help="skip running the encode buckets and search shapes "
                     "once at startup (the first requests then build the kernels)")
     ap.add_argument("--rerank", action="store_true",
-                    help="enable POST /rerank with the encoder's weights (not "
-                    "ported yet: ROADMAP Queue 1 item 8)")
+                    help="enable POST /rerank (SGPT-CE log-prob reranking) with the "
+                    "encoder's model: no second copy of the weights")
     ap.add_argument("--rerank-model", default=None,
-                    help="separate causal-LM checkpoint for /rerank (not ported yet: "
-                    "ROADMAP Queue 1 item 8)")
+                    help="separate causal-LM checkpoint for /rerank (loads a second "
+                    "model onto the device)")
     ap.add_argument("--rerank-maxlen", type=int, default=2048,
                     help="max context tokens per (query, doc) rerank pair")
     ap.add_argument("--rerank-prompt", default="G",
@@ -110,9 +112,6 @@ def parse_args(argv=None):
     if args.index == "ivf":
         raise NotImplementedError("--index ivf: IVFIndex is not ported yet "
                                   "(ROADMAP Queue 1 item 13)")
-    if args.rerank or args.rerank_model:
-        raise NotImplementedError("--rerank/--rerank-model: the cross-encoder is not "
-                                  "ported yet (ROADMAP Queue 1 item 8)")
     if args.quantize:
         raise NotImplementedError("--quantize: int8 inference is not ported yet "
                                   "(ROADMAP Queue 1 item 9)")
@@ -121,8 +120,9 @@ def parse_args(argv=None):
 
 def build_server(args):
     """(server, service) from parsed flags: the model and engine on
-    --device, the index (loaded from --index-path, or filled from --corpus),
-    warmed unless --no-warmup; the caller runs serve_forever()."""
+    --device, the ranker with --rerank or --rerank-model, the index (loaded
+    from --index-path, or filled from --corpus), encode and search warmed
+    unless --no-warmup; the caller runs serve_forever()."""
     from ..encoder import EmbeddingEngine
     from ..index import DenseIndex
     from ..serving import SearchService, make_server
@@ -132,6 +132,18 @@ def build_server(args):
     engine = EmbeddingEngine(
         model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
         max_seq_len=args.maxseqlen, batch_size=args.batchsize, normalize_embeddings=True)
+    ranker = None
+    if args.rerank or args.rerank_model:
+        from ..ce_prompts import build_ranker
+        if args.rerank_model:
+            ce_model, ce_cfg, ce_tok = build_model(args.rerank_model,
+                                                   random_init=args.randominit,
+                                                   dtype_str="bfloat16", device=args.device)
+        else:  # the encoder's model: no second copy of the weights
+            ce_model, ce_cfg, ce_tok = model, cfg, tokenizer
+        ranker = build_ranker(args.rerank_prompt, ce_model, ce_cfg, ce_tok,
+                              device=args.device, batch_size=args.batchsize,
+                              max_length=args.rerank_maxlen, pack_t=args.rerank_pack_t)
 
     loaded = False
     if args.index_path and os.path.exists(os.path.join(args.index_path, "index.npz")):
@@ -141,12 +153,12 @@ def build_server(args):
                              f"but the model produces {engine.out_dim}")
         logger.info("loaded %d docs from %s", len(index), args.index_path)
         service = SearchService(engine, index, documents=documents,
-                                max_wait_ms=args.max_wait_ms)
+                                max_wait_ms=args.max_wait_ms, ranker=ranker)
         loaded = True
     else:
         index = DenseIndex(engine.out_dim, normalize_embeddings=True,
                            quantize=args.quantize_index, device=engine.device)
-        service = SearchService(engine, index, max_wait_ms=args.max_wait_ms)
+        service = SearchService(engine, index, max_wait_ms=args.max_wait_ms, ranker=ranker)
 
     if args.corpus and not loaded:
         ids, texts = load_jsonl_corpus(args.corpus)

@@ -1,0 +1,397 @@
+"""Zero-shot cross-encoder reranking, SGPT-CE: score(query, doc) = log P(query | prompt(doc))
+(counterpart of `sgpt_tpu/crossencoder.py`).
+
+Same behaviour as the JAX rankers:
+
+  * main prompt "G": 'Documents are searched to find matches with the same
+    content.\\nThe document "{doc}" is a good search result for "',
+  * left truncation of (context + continuation) that keeps the instruction
+    prefix, raising where the continuation would be cut,
+  * request dedup and length-descending order,
+  * token-budget rows (`row_bucket(budget // T)`) over the length buckets,
+    and continuation windows C from `pick_bucket`,
+  * score = sum of the continuation tokens' log-probs
+    (`ops/logprobs.py`), optional vocab subset and few-shot prefix,
+  * `pack_t`: requests no longer than pack_t/2 tokens bin-pack several to a
+    row (windowed first-fit-decreasing, at most 16 segments a row) with
+    per-segment positions and block-diagonal attention, so each segment
+    scores as its own row would.
+
+The model is the port's `Decoder` on `device` (the card by default). Every
+row is built on the host and copied from pinned memory without a
+synchronise; each batch's scores are fetched one batch late (a depth-2
+pipeline), so the host packs batch i+1 while the card runs batch i. Not
+ported yet, and raising: `quantize=` (ROADMAP Queue 1 item 9) and `mesh=`
+(item 12).
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .models.config import DecoderConfig
+from .models.decoder import Decoder
+from .ops.logprobs import continuation_scores_gathered, continuation_scores_packed
+from .tokenization.base import Tokenizer
+from .tokenization.specb import DEFAULT_BUCKETS, pick_bucket, row_bucket
+
+logger = logging.getLogger(__name__)
+
+# in-flight dispatches before their device-to-host fetch
+FETCH_PIPELINE_DEPTH = 2
+
+PROMPT_G = ('Documents are searched to find matches with the same content.\n'
+            'The document "{}" is a good search result for "')
+
+
+class CrossEncoderRanker:
+    """predict([(query, doc), ...]) -> list of log-prob scores."""
+
+    # segments per packed row: bounds the segment reduction
+    PACK_SEG_CAP = 16
+    # first-fit-decreasing runs inside windows of this many requests: FFD
+    # over a whole BEIR rerank would be quadratic, and neighbours in the
+    # length-sorted order are the natural bin partners anyway
+    PACK_FFD_WINDOW = 2048
+
+    def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
+                 device="cuda", prompt_doc: str = PROMPT_G, use_prompt: bool = True,
+                 fewshots: Optional[Tuple[str, str]] = None,
+                 prompt_doc_start: str = "{}\n{}\n",
+                 batch_size: int = 16, max_length: Optional[int] = None,
+                 vocab_subset: Optional[Sequence[int]] = None,
+                 quantize: Optional[str] = None, mesh=None,
+                 pack_t: Optional[int] = None):
+        """device: where the model runs, the card by default; "cuda" without
+        a card raises, and CPU use passes device="cpu". Every other argument
+        has the JAX ranker's meaning."""
+        if quantize is not None:
+            raise NotImplementedError("CrossEncoderRanker(quantize=): int8 inference is "
+                                      "not ported yet (ROADMAP Queue 1 item 9)")
+        if mesh is not None:
+            raise NotImplementedError("CrossEncoderRanker(mesh=): meshes are not ported "
+                                      "yet (ROADMAP Queue 1 item 12)")
+        if model.cfg != cfg:
+            raise ValueError("CrossEncoderRanker: cfg differs from the model's config")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CrossEncoderRanker: device 'cuda' requested but "
+                               "torch.cuda.is_available() is False; pass device=\"cpu\"")
+        self.device = device
+        self.model = model.to(device).eval()
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.prompt_doc = prompt_doc
+        self.use_prompt = use_prompt
+        self.batch_size = batch_size
+        self.max_length = max_length or cfg.max_position_embeddings
+        if self.max_length > cfg.max_position_embeddings:
+            # a position past wpe is a device assert on the card, not an error
+            raise ValueError(f"max_length={self.max_length} exceeds the model's "
+                             f"{cfg.max_position_embeddings} positions")
+
+        self.pack_t = pack_t
+        if pack_t is not None:
+            if not 32 <= pack_t <= cfg.max_position_embeddings:
+                raise ValueError(
+                    f"pack_t={pack_t} out of range [32, "
+                    f"{cfg.max_position_embeddings}]")
+
+        # tokens before the doc slot are the protected instruction prefix
+        self.instruction_len = len(tokenizer.encode(
+            prompt_doc[: prompt_doc.index("{")])) if use_prompt else 0
+        self.fewshot_prefix = ""
+        if fewshots:
+            if not use_prompt:
+                # predict() builds the context without the prefix when
+                # use_prompt=False, but instruction_len would still count it
+                raise ValueError("fewshots require use_prompt=True")
+            self.fewshot_prefix = prompt_doc_start.format(fewshots[0], fewshots[1])
+            self.instruction_len += len(tokenizer.encode(self.fewshot_prefix))
+
+        self.vocab_mask = None
+        if vocab_subset is not None:
+            vm = np.zeros((cfg.vocab_size,), bool)
+            vm[np.asarray(list(vocab_subset))] = True
+            self.vocab_mask = torch.from_numpy(vm).to(device)
+
+    # ------------------------------------------------------------------
+    def _pack(self, context_enc: List[int], continuation_enc: List[int]):
+        """Instruction-preserving left truncation."""
+        ilen = min(self.instruction_len, len(context_enc))
+        if ilen + len(continuation_enc) > self.max_length + 1:
+            # truncation would eat continuation tokens while the full
+            # continuation is still scored, at positions inside the instruction
+            raise ValueError(
+                f"instruction ({ilen} tokens) + continuation "
+                f"({len(continuation_enc)}) exceed max_length+1 "
+                f"({self.max_length + 1}): continuation tokens would be "
+                "truncated away — shorten the instruction/few-shot prefix "
+                "or raise max_length")
+        body = (context_enc[ilen:] + continuation_enc)[-(self.max_length + 1 - ilen):]
+        inp = (context_enc[:ilen] + body)[:-1]
+        return inp, len(inp), len(continuation_enc)
+
+    def _check_ids(self, ids: np.ndarray, targets: np.ndarray) -> None:
+        """Refuse token ids outside the vocab on the host: on the card an
+        out-of-range embedding or gather index is a device assert that
+        poisons the context, not an error."""
+        V = self.cfg.vocab_size
+        for name, a in (("input", ids), ("continuation", targets)):
+            if a.size and (a.min() < 0 or a.max() >= V):
+                raise ValueError(
+                    f"{name} token ids outside [0, {V}): min {a.min()}, max {a.max()} "
+                    "— tokenizer and model vocab disagree")
+
+    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host rows → the device. Copies to the card go from pinned memory
+        without a synchronise (PyTorch does not reuse a pinned block before
+        its copy completes), so the host goes on to the next batch."""
+        out = [torch.from_numpy(a) for a in arrays]
+        if self.device.type == "cuda":
+            out = [t.pin_memory().to(self.device, non_blocking=True) for t in out]
+        return out
+
+    def _score_packed(self, keys, rows, uniq, scores):
+        """Bin-pack short requests several to a row and score per segment.
+
+        keys/rows arrive length-descending with every inplen <= pack_t//2, so
+        each bin holds >= 2 segments and first-fit-decreasing packs rows to
+        near-full. Scores land in `scores` via the same uniq fan-out as the
+        bucket path."""
+        T = self.pack_t
+        bins: List[List] = []                      # [used, [(key, inp, inplen, contlen)]]
+        for w0 in range(0, len(keys), self.PACK_FFD_WINDOW):
+            window_bins: List[List] = []
+            for key, (inp, inplen, contlen) in zip(
+                    keys[w0 : w0 + self.PACK_FFD_WINDOW],
+                    rows[w0 : w0 + self.PACK_FFD_WINDOW]):
+                for b in window_bins:
+                    if b[0] + inplen <= T and len(b[1]) < self.PACK_SEG_CAP:
+                        b[0] += inplen
+                        b[1].append((key, inp, inplen, contlen))
+                        break
+                else:
+                    window_bins.append([inplen, [(key, inp, inplen, contlen)]])
+            bins.extend(window_bins)
+
+        budget = self.batch_size * self.max_length
+        B = row_bucket(max(1, budget // T))
+        pending: List[Tuple[List, torch.Tensor]] = []
+
+        def drain():
+            pbins, pout = pending.pop(0)
+            vals = pout.cpu().numpy().astype(np.float64)
+            for bi, segs in enumerate(pbins):
+                for s, (key, _inp, _il, _cl) in enumerate(segs):
+                    for orig in uniq[key]:
+                        scores[orig] = vals[bi, s]
+
+        i = 0
+        while i < len(bins):
+            batch = bins[i : i + min(B, len(bins) - i)]
+            i += len(batch)
+            S = pick_bucket(max(len(b[1]) for b in batch),
+                            (2, 4, 8, 16), self.PACK_SEG_CAP)
+            maxcont = max(sum(seg[3] for seg in b[1]) for b in batch)
+            C = pick_bucket(maxcont, (8, 16, 32, 64, 128, 256), T)
+            C = max(C, maxcont)
+
+            ids = np.zeros((B, T), np.int32)
+            amask = np.zeros((B, T), np.int32)
+            posids = np.zeros((B, T), np.int32)
+            segids = np.full((B, T), -1, np.int32)
+            cpos = np.zeros((B, C), np.int32)
+            ctgt = np.zeros((B, C), np.int32)
+            cmask = np.zeros((B, C), np.float32)
+            cseg = np.zeros((B, C), np.int32)
+            for bi, (_used, segs) in enumerate(batch):
+                off = 0
+                cslot = 0
+                for s, (key, inp, inplen, contlen) in enumerate(segs):
+                    ids[bi, off : off + inplen] = inp
+                    amask[bi, off : off + inplen] = 1
+                    posids[bi, off : off + inplen] = np.arange(inplen)
+                    segids[bi, off : off + inplen] = s
+                    cont_ids = list(key[1])[-contlen:]
+                    cpos[bi, cslot : cslot + contlen] = np.arange(
+                        off + inplen - contlen, off + inplen)
+                    ctgt[bi, cslot : cslot + contlen] = cont_ids
+                    cmask[bi, cslot : cslot + contlen] = 1.0
+                    cseg[bi, cslot : cslot + contlen] = s
+                    cslot += contlen
+                    off += inplen
+
+            self._check_ids(ids, ctgt)
+            arrays = self._to_device(ids, amask, posids, segids, cpos, ctgt, cmask, cseg)
+            out = continuation_scores_packed(self.model, *arrays, S, self.vocab_mask)
+            pending.append(([b[1] for b in batch], out))
+            if len(pending) >= FETCH_PIPELINE_DEPTH:
+                drain()
+        while pending:
+            drain()
+
+    def score_pairs(self, pairs: Sequence[Tuple[str, str]]) -> List[float]:
+        """pairs: (continuation, context) token-level requests, already prompted."""
+        enc_batch = getattr(self.tokenizer, "encode_batch", None)
+        if enc_batch is not None and pairs:
+            cont_rows = enc_batch([c for c, _ in pairs])
+            ctx_rows = enc_batch([x for _, x in pairs])
+        else:
+            cont_rows = [self.tokenizer.encode(c) for c, _ in pairs]
+            ctx_rows = [self.tokenizer.encode(x) for _, x in pairs]
+        enc = []
+        for (continuation, context), cont, ctx in zip(pairs, cont_rows, ctx_rows):
+            if context == "":
+                ctx = [self.tokenizer.eos_id]
+            if not cont:
+                cont = [self.tokenizer.eos_id]
+            if len(cont) > self.max_length:
+                raise ValueError(
+                    f"continuation has {len(cont)} tokens but max_length is "
+                    f"{self.max_length}")
+            enc.append((ctx, cont))
+
+        # dedupe + length-descending order
+        uniq: Dict[Tuple, List[int]] = {}
+        for i, (ctx, cont) in enumerate(enc):
+            uniq.setdefault((tuple(ctx), tuple(cont)), []).append(i)
+        keys = sorted(uniq, key=lambda kc: -len(kc[0] + kc[1]))
+
+        scores = np.zeros(len(enc), np.float64)
+        # token-budget batching: rows per dispatch scale inversely with the
+        # length bucket; batch_size is the rows per dispatch at full max_length
+        budget = self.batch_size * self.max_length
+        packed = [self._pack(list(c), list(t)) for c, t in keys]
+        if self.pack_t is not None:
+            # short rows leave the bucket path for the bin-packed path; the
+            # length-descending order survives the partition in both halves
+            half = self.pack_t // 2
+            short = [j for j in range(len(keys)) if packed[j][1] <= half]
+            if short:
+                short_set = set(short)
+                long_idx = [j for j in range(len(keys)) if j not in short_set]
+                self._score_packed([keys[j] for j in short],
+                                   [packed[j] for j in short], uniq, scores)
+                keys = [keys[j] for j in long_idx]
+                packed = [packed[j] for j in long_idx]
+        pending: List[Tuple[List, torch.Tensor]] = []
+
+        def drain():
+            pbatch, pout = pending.pop(0)
+            vals = pout.cpu().numpy().astype(np.float64)
+            for bi, key in enumerate(pbatch):
+                for orig in uniq[key]:
+                    scores[orig] = vals[bi]
+
+        i = 0
+        while i < len(keys):
+            # keys are length-descending: the first row's bucket fits all
+            T = pick_bucket(packed[i][1], DEFAULT_BUCKETS, self.max_length)
+            T = max(T, packed[i][1])
+            B = row_bucket(max(1, budget // T), allow_overshoot=T < self.max_length)
+            batch = keys[i : i + min(B, len(keys) - i)]
+            rows = packed[i : i + len(batch)]
+            i += len(batch)
+            # the LM head runs only on these C positions: the (B, T, V)
+            # logits never exist
+            maxcont = max(r[2] for r in rows)
+            C = pick_bucket(maxcont, (8, 16, 32, 64, 128, 256), T)
+            C = max(C, maxcont)
+
+            ids = np.zeros((B, T), np.int32)
+            cpos = np.zeros((B, C), np.int32)
+            ctgt = np.zeros((B, C), np.int32)
+            cmask = np.zeros((B, C), np.float32)
+            for bi, (inp, inplen, contlen) in enumerate(rows):
+                ids[bi, :inplen] = inp
+                # logits at position t predict token t+1: the continuation
+                # occupies input positions [inplen-contlen, inplen)
+                cpos[bi, :contlen] = np.arange(inplen - contlen, inplen)
+                ctgt[bi, :contlen] = list(batch[bi][1])[-contlen:]
+                cmask[bi, :contlen] = 1.0
+            # causal attention: right padding cannot reach a scored position,
+            # so a full-ones mask is safe
+            amask = np.ones((B, T), np.int32)
+            self._check_ids(ids, ctgt)
+            out = continuation_scores_gathered(
+                self.model, *self._to_device(ids, amask, cpos, ctgt, cmask), self.vocab_mask)
+            pending.append((batch, out))
+            if len(pending) >= FETCH_PIPELINE_DEPTH:
+                drain()
+        while pending:
+            drain()
+        return scores.tolist()
+
+    def predict(self, sentences: Sequence[Tuple[str, str]],
+                batch_size: Optional[int] = None, **kw) -> List[float]:
+        """sentences: (query, document) pairs — the query is the scored continuation."""
+        del batch_size  # fixed at construction
+        requests = []
+        for query, doc in sentences:
+            ctx = (self.fewshot_prefix + self.prompt_doc.format(doc)
+                   if self.use_prompt else doc)
+            requests.append((query, ctx))
+        return self.score_pairs(requests)
+
+
+PROMPT_YESNO = ('An intelligent, helpful bot is given. The bot responds "Yes" '
+                'if the document is a fit to the query and "No" otherwise.\n###\n'
+                'Document: {}\nQuery: {}\nBot:')
+
+
+class YesNoRanker(CrossEncoderRanker):
+    """Yes/No classifier variant (prompt "L"): score = log P("Yes" | doc,
+    query) with the softmax restricted to the {Yes, No} vocabulary."""
+
+    def __init__(self, model, cfg, tokenizer, *, prompt_doc: str = PROMPT_YESNO,
+                 continuation: str = " Yes",
+                 sub_select_voc: Sequence[str] = (" Yes", " No"), **kw):
+        vocab_ids: List[int] = []
+        for word in sub_select_voc:
+            vocab_ids.extend(tokenizer.encode(word))
+        kw.setdefault("vocab_subset", vocab_ids)
+        super().__init__(model, cfg, tokenizer, prompt_doc=prompt_doc, **kw)
+        self.continuation = continuation
+        if self.fewshot_prefix:
+            # the expected answer is appended to the few-shot example and the
+            # whole string tokenized once: summing separate encodes would
+            # miscount across merge boundaries
+            prompt_part = (len(tokenizer.encode(
+                prompt_doc[: prompt_doc.index("{")]))
+                if self.use_prompt else 0)
+            self.fewshot_prefix += continuation
+            self.instruction_len = prompt_part + len(
+                tokenizer.encode(self.fewshot_prefix))
+
+    def predict(self, sentences: Sequence[Tuple[str, str]],
+                batch_size: Optional[int] = None, **kw) -> List[float]:
+        requests = []
+        for query, doc in sentences:
+            ctx = self.fewshot_prefix + self.prompt_doc.format(doc, query)
+            requests.append((self.continuation, ctx))
+        return self.score_pairs(requests)
+
+
+def rerank(ranker: CrossEncoderRanker, corpus: Dict[str, Dict[str, str]],
+           queries: Dict[str, str], first_stage: Dict[str, Dict[str, float]],
+           top_k: int = 100) -> Dict[str, Dict[str, float]]:
+    """Rerank first-stage (e.g. BM25) results: each query's top_k documents
+    by first-stage score, scored by the ranker."""
+    pairs, keys = [], []
+    for qid, hits in first_stage.items():
+        docs = sorted(hits.items(), key=lambda x: -x[1])[:top_k]
+        for did, _ in docs:
+            doc = corpus[did]
+            text = (doc.get("title", "") + " " + doc.get("text", "")).strip()
+            pairs.append((queries[qid], text))
+            keys.append((qid, did))
+    logger.info("Reranking %d pairs", len(pairs))
+    scores = ranker.predict(pairs)
+    out: Dict[str, Dict[str, float]] = {qid: {} for qid in first_stage}
+    for (qid, did), sc in zip(keys, scores):
+        out[qid][did] = float(sc)
+    return out

@@ -4,7 +4,8 @@ Plain PyTorch: the layers are an `nn.ModuleList` walked by a Python loop.
 What the port implements is the GPT-Neo path of the JAX `_forward_impl`:
 learned positions, pre-LN blocks (LayerNorm with fp32 statistics), causal
 attention alternating global and local (windowed) layers, tanh-GELU MLP,
-`ln_f`, and `output_hidden_states` with HF semantics. Attention routes as
+`ln_f`, `output_hidden_states` with HF semantics, and the LM head tied to
+`wte` (`Decoder.logits`). Attention routes as
 the JAX decoder does: with `cfg.use_flash`, T % 128 == 0 and no packed rows
 (`segment_ids`), through `ops.flash_attention` (K3 on a CUDA tensor, and
 K4a/K4b for the backward when a gradient is needed); every other call through
@@ -215,3 +216,11 @@ class Decoder(nn.Module):
             if output_hidden_states:
                 return torch.stack(hidden[:-1] + [final])
             return final
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """LM head (the JAX `logits`): GPT-Neo ties it to `wte`, so (..., D)
+        → (..., V) = hidden · wteᵀ in hidden's dtype, under the config's
+        matmul precision; the caller casts to fp32. A separate `lm_head`
+        (GPT-J, BLOOM) comes with those families (ROADMAP Queue 1 item 3)."""
+        with matmul_precision(self.cfg.matmul_precision):
+            return F.linear(hidden, self.wte.to(hidden.dtype))

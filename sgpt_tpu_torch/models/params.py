@@ -84,8 +84,13 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
     Unstacks the leading layer axis of `layers.*` and transposes every linear
     weight from [in, out] to [out, in]. Raises on a leaf it does not consume
     (e.g. another family's tensors), so nothing is dropped silently, on a
-    missing one, and on an int8 `{"q", "s"}` leaf (not ported yet)."""
+    missing one, and on an int8 `{"q", "s"}` leaf or an `lm_head` (not
+    ported yet)."""
     flat = _flatten(tree)
+    if any(name.startswith("lm_head.") for name in flat):
+        # GPT-Neo ties its head to wte; the families with their own head are not ported
+        raise ValueError("params_from_jax: leaf lm_head not consumed: a separate LM head "
+                         "(GPT-J, BLOOM) is not ported yet — ROADMAP Queue 1 item 3")
     sd = {}
     for name, shape in param_shapes(cfg).items():
         if name.startswith("layers."):

@@ -11,8 +11,9 @@ Endpoints (stdlib `http.server`, JSON bodies):
 
   POST /v1/embeddings   OpenAI embeddings wire shape ({"input": str|[str]})
   POST /search          {"queries": [...], "k": 10, "return_documents": bool}
-  POST /rerank          bi-encoder first_k retrieval + a ranker's rerank
-                        ({"queries", "k", "first_k"}); 400 without a ranker
+  POST /rerank          two-stage: bi-encoder first_k retrieval + SGPT-CE
+                        log-prob rerank ({"queries", "k", "first_k"}); 400
+                        without a ranker
   POST /documents       add documents to the live index (pending-slab adds;
                         POST /rebuild merges)
   POST /documents/delete  {"ids": [...]} tombstone documents
@@ -162,7 +163,7 @@ class SearchService:
         self.index = index if index is not None else DenseIndex(
             engine.out_dim, normalize_embeddings=True,
             **{"device": engine.device, **(index_kw or {})})
-        self.ranker = ranker  # optional: anything with predict(pairs), for POST /rerank
+        self.ranker = ranker  # optional CrossEncoderRanker for POST /rerank
         self.documents: Dict[str, str] = dict(documents or {})
         # ids ever deleted this process: the auto-id probe must skip them even
         # after delete_documents() pops them from self.documents, or a new
@@ -309,10 +310,10 @@ class SearchService:
                first_k: int = 100,
                return_documents: bool = False) -> List[List[dict]]:
         """Two-stage search: bi-encoder retrieval of first_k candidates, then
-        the ranker's scores (SGPT-CE in the JAX service; the cross-encoder is
-        not ported yet, ROADMAP Queue 1 item 8). Each hit keeps the
-        first-stage cosine as `score` and gains `ce_score`; hits sort by
-        ce_score. Requires a ranker AND retained document texts."""
+        the ranker's scores (SGPT-CE: `crossencoder.CrossEncoderRanker`, or
+        anything with predict(pairs)). Each hit keeps the first-stage cosine
+        as `score` and gains `ce_score`; hits sort by ce_score. Requires a
+        ranker AND retained document texts."""
         if self.ranker is None:
             raise ValueError("no reranker configured: pass ranker= to "
                              "SearchService (serve --rerank)")

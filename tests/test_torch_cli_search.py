@@ -1,12 +1,15 @@
-"""The port's search CLIs on the CPU.
+"""The port's search and rerank CLIs on the CPU.
 
 `beir_retriever` on a synthetic BEIR folder, with `build_model` patched to a
 tiny GPT-Neo whose weights the JAX CLI (patched the same way) also gets: the
 two write results files with the same documents per query, in the same
 order, scores within 1e-5, and equal nDCG/MAP/recall/precision entries in
-`beir_embeddings_ndcgs.json`. `serve`: the flags that are not ported raise
-before anything is built; a server built from flags (int8 corpus, a jsonl
-corpus, a persisted index) answers over HTTP.
+`beir_embeddings_ndcgs.json`. `bm25_retriever` writes the JAX CLI's
+first-stage json, and `sgptce` reranks it into the JAX CLI's result json
+(metrics within 1e-6; the CE scores agree to ~1e-6). `serve`: the flags
+that are not ported raise before anything is built; a server built from
+flags (int8 corpus, a jsonl corpus, a persisted index, `--rerank` and
+`--rerank-model`) answers over HTTP.
 """
 import http.client
 import json
@@ -24,10 +27,12 @@ pytest.importorskip("jax").config.update("jax_platforms", "cpu")
 import jax  # noqa: E402
 
 from sgpt_tpu.cli import beir_retriever as jax_beir  # noqa: E402
+from sgpt_tpu.cli import bm25_retriever as jax_bm25  # noqa: E402
+from sgpt_tpu.cli import sgptce as jax_sgptce  # noqa: E402
 from sgpt_tpu.models import init_params as jax_init_params  # noqa: E402
 from sgpt_tpu.models import tiny as jax_tiny  # noqa: E402
 from sgpt_tpu.tokenization import SimpleTokenizer  # noqa: E402
-from sgpt_tpu_torch.cli import beir_retriever, serve  # noqa: E402
+from sgpt_tpu_torch.cli import beir_retriever, bm25_retriever, serve, sgptce  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, from_jax_config, params_from_jax  # noqa: E402
 
 JCFG = jax_tiny("neo", num_layers=2)
@@ -101,9 +106,72 @@ def test_beir_retriever_refuses_what_is_not_ported(flags, match):
         beir_retriever.main(beir_retriever.parse_args(["--randominit", *flags]))
 
 
+def _run_jax_cli(module, argv, cwd, monkeypatch):
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    monkeypatch.setattr(sys, "argv", ["x", *argv])
+    return module.main()
+
+
+def test_bm25_retriever_matches_jax_cli(tmp_path, monkeypatch):
+    _write_beir(tmp_path / "data" / "synth")
+    common = ["--dataset", "synth", "--datadir", str(tmp_path / "data"), "--topk", "7"]
+    _run_jax_cli(jax_bm25, common, tmp_path / "jax", monkeypatch)
+    (tmp_path / "port").mkdir()
+    monkeypatch.chdir(tmp_path / "port")
+    ndcg = bm25_retriever.main(bm25_retriever.parse_args(common))
+    assert ndcg["NDCG@5"] > 0
+    want = json.loads((tmp_path / "jax" / "results_synth.json").read_text())
+    assert json.loads((tmp_path / "port" / "results_synth.json").read_text()) == want
+    assert all(len(hits) == 7 for hits in want.values())
+    # an existing result is kept unless --overwrite
+    assert bm25_retriever.main(bm25_retriever.parse_args(common)) is None
+
+
+@pytest.mark.parametrize("flags", [["--prompt", "G"], ["--prompt", "A,L", "--packt", "64"],
+                                   ["--prompt", "K", "--fewshot"]])
+def test_sgptce_matches_jax_cli(tmp_path, monkeypatch, flags):
+    """BM25 first stage, then the rerank on the same first-stage json."""
+    _write_beir(tmp_path / "data" / "synth")
+    first = tmp_path / "bm25.json"
+    bm25_retriever.main(bm25_retriever.parse_args([
+        "--dataset", "synth", "--datadir", str(tmp_path / "data"), "--topk", "10",
+        "--output", str(first)]))
+    common = ["--dataset", "synth", "--datadir", str(tmp_path / "data"), "--modelpath",
+              "tiny/neo", "--bm25results", str(first), "--randominit", "--dtype", "float32",
+              "--batchsize", "4", "--topk", "5", "--maxseqlen", "128", *flags]
+    monkeypatch.setattr(jax_sgptce, "build_model", _jax_build)
+    _run_jax_cli(jax_sgptce, common, tmp_path / "jax", monkeypatch)
+    (tmp_path / "port").mkdir()
+    monkeypatch.chdir(tmp_path / "port")
+    monkeypatch.setattr(sgptce, "build_model", _port_build)
+    outs = sgptce.main(sgptce.parse_args([*common, "--device", "cpu"]))
+    assert list(outs) == flags[1].split(",")
+    for pid, path in outs.items():
+        got = json.loads((tmp_path / "port" / path).read_text())
+        want = json.loads((tmp_path / "jax" / path).read_text())
+        assert got["prompt"] == pid and got["fewshot"] == ("--fewshot" in flags)
+        assert {k: got[k] for k in ("dataset", "model", "prompt", "fewshot", "bm25_ndcg")} == \
+            {k: want[k] for k in ("dataset", "model", "prompt", "fewshot", "bm25_ndcg")}
+        for key in ("ce_ndcg", "ce_map", "ce_recall", "ce_precision"):
+            assert list(got[key]) == list(want[key])
+            np.testing.assert_allclose(list(got[key].values()), list(want[key].values()),
+                                       atol=1e-6, err_msg=key)
+    store = "sgptce_ndcgs.json"
+    assert list(json.loads((tmp_path / "port" / store).read_text())["ndcgs"]) == \
+        list(json.loads((tmp_path / "jax" / store).read_text())["ndcgs"])
+
+
+@pytest.mark.parametrize("flags,exc", [(["--prompt", "G,nope"], SystemExit),
+                                       (["--prompt", "J"], SystemExit),
+                                       (["--quantize", "int8"], NotImplementedError)])
+def test_sgptce_refuses_before_loading(flags, exc, tmp_path):
+    with pytest.raises(exc):
+        sgptce.main(sgptce.parse_args(["--datadir", str(tmp_path), "--randominit", *flags]))
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--index", "ivf"], "item 13"), (["--rerank"], "item 8"),
-    (["--rerank-model", "gpt2"], "item 8"), (["--quantize", "int8"], "item 9")])
+    (["--index", "ivf"], "item 13"), (["--quantize", "int8"], "item 9")])
 def test_serve_refuses_what_is_not_ported(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         serve.main(["--modelname", "gpt-neo-125m", "--randominit", *flags])
@@ -163,3 +231,38 @@ def test_serve_builds_a_server_from_flags(tmp_path, monkeypatch):
     assert (tmp_path / "idx" / "index.npz").exists()
     assert answers[0] == answers[1] and answers[0][0]["id"] == "b"
     assert answers[0][0]["document"] == "body two about mountains"
+
+
+@pytest.mark.parametrize("rerank", [["--rerank"], ["--rerank-model", "tiny-ce"]])
+def test_serve_rerank_answers(tmp_path, monkeypatch, rerank):
+    """--rerank (the encoder's model) and --rerank-model (a second model):
+    POST /rerank answers what service.rerank gives directly."""
+    models = []
+
+    def build(*a, **kw):
+        models.append(_port_build(*a, **kw))
+        return models[-1]
+
+    monkeypatch.setattr(serve, "build_model", build)
+    corpus = tmp_path / "corpus.jsonl"
+    corpus.write_text("".join(json.dumps({"_id": f"d{i}", "text": t}) + "\n" for i, t in
+                              enumerate(["rivers run to the sea", "mountains are tall",
+                                         "the sea is salty", "deserts are dry"])))
+    server, service = serve.build_server(serve.parse_args([
+        "--modelname", "tiny", "--randominit", "--device", "cpu", "--port", "0",
+        "--maxseqlen", "64", "--batchsize", "4", "--corpus", str(corpus),
+        "--rerank-maxlen", "64", "--rerank-pack-t", "64", "--rerank-prompt", "G", *rerank]))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        assert len(models) == 1 + ("--rerank-model" in rerank)
+        assert service.ranker.model is models[-1][0] and service.ranker.pack_t == 64
+        query = {"queries": ["the salty sea", "tall mountains"], "k": 2, "first_k": 4}
+        status, body = _post(server, "/rerank", query)
+        assert status == 200
+        want = service.rerank(query["queries"], k=2, first_k=4)
+        assert body["results"] == want
+        assert all(len(r) == 2 and {"id", "score", "ce_score"} <= set(r[0]) for r in want)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()

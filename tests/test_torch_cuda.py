@@ -890,3 +890,70 @@ def test_mips_query_block_matches_the_plan(cuda):
     for D in (768, 2048, 2560):
         for Q in (1, 2, 7, 8, 9, 16, 17, 32, 33, 63, 64, 65, 100, 1024):
             assert mips.query_block(Q, D, torch.bfloat16) == mips._mma_query_block(Q, D), (Q, D)
+
+
+# ---------------------------------------------------------------------------
+# the cross-encoder (SGPT-CE): K1 at its packed-row shape, and its scores
+# ---------------------------------------------------------------------------
+def _packed_rows(rng, B, T, max_segments=16):
+    """Key mask and segment ids of packed rows: segments of 8-90 tokens until
+    the row or 16 segments are full; the tail is padding (segment -1, key
+    mask 0), whose query rows have no valid key."""
+    km = np.zeros((B, T), np.int32)
+    seg = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        off = 0
+        for s in range(max_segments):
+            n = int(rng.integers(8, 91))
+            if off + n > T:
+                break
+            km[b, off:off + n], seg[b, off:off + n] = 1, s
+            off += n
+    return km, seg
+
+
+@pytest.mark.parametrize("window", [0, 256])
+def test_kernel_at_the_packed_ce_shape_matches_plain_version(cuda, window):
+    """bf16 K1 with segments (`mma_kernel<64, GENERAL>`) at the packed CE
+    rows' shape: T=256, H=12, Dh=64, up to 16 segments and padding a row."""
+    rng = np.random.default_rng(window + 1)
+    B, T, H, Dh = 16, 256, 12, 64
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    km, seg = (torch.from_numpy(a).to(cuda) for a in _packed_rows(rng, B, T))
+    before = sa.launches
+    got = sa.short_attention(q, k, v, km, None, 1.0, window, H, False, segments=seg)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 1
+    want = sa.short_attention_reference(q, k, v, km, None, scale=1.0, window=window, H=H,
+                                        use_alibi=False, segments=seg)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+def test_ce_scores_on_the_card_equal_the_cpu(cuda):
+    """fp32 cross-encoder scores on the card (K1) == on the CPU (K1's plain
+    version), bucketed and packed, prompt G and Yes/No: rtol 2e-5, atol 1e-4
+    on summed log-probs."""
+    import copy
+
+    from sgpt_tpu_torch import crossencoder as ce
+    from sgpt_tpu_torch.models import Decoder, tiny
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = tiny("neo", num_layers=2, hidden_size=128, num_heads=2, vocab_size=512,
+               max_position_embeddings=512)  # Dh=64: K1's tensor-core path
+    tok = SimpleTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(0)
+    pairs = [(" ".join(f"q{i}w{j}" for j in range(int(rng.integers(1, 9)))),
+              " ".join(f"d{int(w)}" for w in rng.integers(0, 300, int(n))))
+             for i, n in enumerate(rng.integers(2, 300, 40))]
+    on_cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    for cls, kw in (("CrossEncoderRanker", {}), ("CrossEncoderRanker", {"pack_t": 128}),
+                    ("YesNoRanker", {"pack_t": 128})):
+        kw.update(batch_size=4, max_length=512)
+        want = getattr(ce, cls)(on_cpu, cfg, tok, device="cpu", **kw).predict(pairs)
+        before = sa.launches
+        got = getattr(ce, cls)(on_card, cfg, tok, device=cuda, **kw).predict(pairs)
+        assert sa.launches > before
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4, err_msg=f"{cls} {kw}")

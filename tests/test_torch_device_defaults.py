@@ -1,13 +1,14 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: `Decoder`, `EmbeddingEngine`, `DenseIndex` (and `DenseIndex.load`) and
-the CLIs' `build_model` default to device "cuda", and without a card they
-raise rather than fall back to the CPU."""
+CPU: `Decoder`, `EmbeddingEngine`, `CrossEncoderRanker`, `DenseIndex` (and
+`DenseIndex.load`) and the CLIs' `build_model` default to device "cuda", and
+without a card they raise rather than fall back to the CPU."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from sgpt_tpu_torch.cli.common import build_model  # noqa: E402
+from sgpt_tpu_torch.crossencoder import CrossEncoderRanker  # noqa: E402
 from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
 from sgpt_tpu_torch.index import DenseIndex  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, tiny  # noqa: E402
@@ -32,6 +33,8 @@ ENTRY_POINTS = {
     "Decoder": lambda tmp: Decoder(CFG),
     "EmbeddingEngine": lambda tmp: EmbeddingEngine(Decoder(CFG, device="cpu"), CFG,
                                                    SimpleTokenizer(CFG.vocab_size)),
+    "CrossEncoderRanker": lambda tmp: CrossEncoderRanker(Decoder(CFG, device="cpu"), CFG,
+                                                         SimpleTokenizer(CFG.vocab_size)),
     "DenseIndex": lambda tmp: DenseIndex(16),
     "DenseIndex.load": lambda tmp: DenseIndex.load(_save_index(tmp)),
     "build_model": lambda tmp: build_model("gpt-neo-125m", random_init=True),
@@ -45,7 +48,8 @@ def test_default_device_is_the_card_and_raises_without_one(name, tmp_path):
         ENTRY_POINTS[name](tmp_path)
 
 
-@pytest.mark.parametrize("name", ["Decoder", "EmbeddingEngine", "DenseIndex"])
+@pytest.mark.parametrize("name", ["Decoder", "EmbeddingEngine", "CrossEncoderRanker",
+                                  "DenseIndex"])
 def test_explicit_cpu_runs_on_the_cpu(name):
     if name == "Decoder":
         obj = Decoder(CFG, device="cpu")
@@ -54,5 +58,10 @@ def test_explicit_cpu_runs_on_the_cpu(name):
         obj = EmbeddingEngine(Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size),
                               device="cpu")
         assert obj.device.type == "cpu" and obj.encode(["a b c"]).shape == (1, 32)
+    elif name == "CrossEncoderRanker":
+        obj = CrossEncoderRanker(Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size),
+                                 device="cpu")
+        scores = obj.predict([("a query", "a document")])
+        assert obj.device.type == "cpu" and len(scores) == 1 and np.isfinite(scores[0])
     else:
         assert DenseIndex(16, device="cpu").device.type == "cpu"

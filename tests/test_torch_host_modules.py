@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host modules == the originals.
 
-`sgpt_tpu_torch.tokenization`, `.data`, `.evaluation` and `.baselines` are
-copies, so that the port imports nothing of the JAX package. Each case runs
+`sgpt_tpu_torch.tokenization`, `.data`, `.evaluation`, `.baselines`,
+`.ce_prompts` and `.retrieval_bm25` are copies, so that the port imports
+nothing of the JAX package. Each case runs
 the same inputs through the copy and the original and asserts equal
 results (exactly: these modules do no floating-point work that could
 differ, and the native engines are the same C++ sources).
@@ -229,3 +230,50 @@ def test_fetch_beir_dataset_finds_a_dataset_on_disk(tmp_path):
     got = fetch_beir_dataset("scifact", out_dir=str(tmp_path), base_url="http://127.0.0.1:9")
     assert got == jax_fetch("scifact", out_dir=str(tmp_path), base_url="http://127.0.0.1:9")
     assert got == str(tmp_path / "scifact")
+
+
+def test_ce_prompt_registry_and_shot_selection_match():
+    import sgpt_tpu.ce_prompts as jcp
+    import sgpt_tpu_torch.ce_prompts as pcp
+
+    for name in ("ZERO_SHOT", "FEW_SHOT", "YES_NO", "ALL_PROMPT_IDS"):
+        assert getattr(pcp, name) == getattr(jcp, name), name
+    rng = np.random.default_rng(9)
+    corpus = {f"d{i}": {"title": "", "text": " ".join(f"w{j}" for j in range(int(n)))}
+              for i, n in enumerate(rng.integers(1, 30, 40))}
+    queries = {f"q{i}": " ".join(f"t{j}" for j in range(int(n)))
+               for i, n in enumerate(rng.integers(1, 8, 12))}
+    qrels = {f"q{i}": {f"d{int(d)}": int(rng.integers(1, 3))
+                       for d in rng.choice(40, 3, replace=False)} for i in range(12)}
+    qrels["q99"] = {"d0": 1}  # a query without text is skipped
+    for floor in (0, 12):
+        got = pcp.select_fewshot(corpus, queries, qrels, ptok.SimpleTokenizer(500),
+                                 min_corp_query_len=floor)
+        assert got == jcp.select_fewshot(corpus, queries, qrels, jtok.SimpleTokenizer(500),
+                                         min_corp_query_len=floor)
+    for mod, tok in ((pcp, ptok), (jcp, jtok)):
+        with pytest.raises(ValueError, match="no usable"):
+            mod.select_fewshot(corpus, queries, {}, tok.SimpleTokenizer(500))
+
+
+def test_bm25_matches():
+    from sgpt_tpu.retrieval_bm25 import BM25Index as J
+    from sgpt_tpu.retrieval_bm25 import BM25Retriever as JR
+    from sgpt_tpu_torch.retrieval_bm25 import BM25Index as P
+    from sgpt_tpu_torch.retrieval_bm25 import BM25Retriever as PR
+
+    rng = np.random.default_rng(11)
+    words = [f"w{i}" for i in range(80)] + ["Alpha", "beta-gamma", "ünï"]
+    corpus = {f"d{i}": {"title": "T x" if i % 4 == 0 else "",
+                        "text": " ".join(rng.choice(words, int(rng.integers(1, 60))))}
+              for i in range(120)}
+    queries = {f"q{i}": " ".join(rng.choice(words, int(rng.integers(1, 6))))
+               for i in range(20)}
+    queries["none"] = "zzz qqq"  # no term in the corpus: no hits
+    for kw in ({}, {"k1": 0.9, "b": 0.4}):
+        got, want = P.build(corpus, **kw), J.build(corpus, **kw)
+        assert (got.doc_ids, got.doc_len, got.avgdl) == (want.doc_ids, want.doc_len,
+                                                         want.avgdl)
+        for k in (1, 10, 200):
+            assert got.search(queries, k) == want.search(queries, k)
+        assert PR(**kw).search(corpus, queries, 10) == JR(**kw).search(corpus, queries, 10)

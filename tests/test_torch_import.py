@@ -1,8 +1,9 @@
 """`sgpt_tpu_torch` never imports jax nor the JAX package: in a process
 where neither `jax` nor `sgpt_tpu` can be imported, the whole package
 imports (serving and the CLIs included), and a tiny CPU encode, a flash
-(`use_flash`) encode, two index searches, a DenseRetriever search and a
-SearchService search run. A scan of the sources finds no import of either."""
+(`use_flash`) encode, two index searches, a DenseRetriever search, a
+SearchService search and a cross-encoder score (bucketed and packed rows)
+run. A scan of the sources finds no import of either."""
 import re
 import subprocess
 import sys
@@ -62,6 +63,14 @@ svc = SearchService(engine, index_kw={"kernel": "pallas"})
 svc.add_documents(["a short text", "x"], ids=["a", "c"])
 assert svc.search(["x"], k=1)[0][0]["id"] == "c"
 svc.close()
+
+# the cross-encoder: bucketed rows, and packed rows (K1's segment masks)
+from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
+
+pairs = [("a short text", "a document about a short text"), ("x", "y " * 30), ("x", "z")]
+ce = [CrossEncoderRanker(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu",
+                         max_length=64, pack_t=pack_t).predict(pairs) for pack_t in (None, 64)]
+assert all(abs(a - b) < 1e-4 and a < 0 for a, b in zip(*ce)), ce
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "sgpt_tpu") and sys.modules[m] is not None]
 print("OK")

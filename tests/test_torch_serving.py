@@ -5,7 +5,10 @@ ephemeral port, spoken to over real HTTP.
 
 Parity: with the weights of the JAX service and fp32 indexes on both sides,
 the port's /search answers hold the JAX service's ids in the same order and
-scores within 1e-5 (the engines' embeddings agree to ~1e-6).
+scores within 1e-5 (the engines' embeddings agree to ~1e-6); with the JAX
+service's cross-encoder weights too, /rerank's answers hold its ids in the
+same order, first-stage scores within 1e-5 and CE scores within rtol 2e-5,
+atol 1e-4 (summed log-probs).
 """
 import http.client
 import json
@@ -23,11 +26,13 @@ pytest.importorskip("jax").config.update("jax_platforms", "cpu")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from sgpt_tpu.crossencoder import CrossEncoderRanker as JaxRanker  # noqa: E402
 from sgpt_tpu.encoder import EmbeddingEngine as JaxEngine  # noqa: E402
 from sgpt_tpu.models import init_params as jax_init_params  # noqa: E402
 from sgpt_tpu.models import tiny as jax_tiny  # noqa: E402
 from sgpt_tpu.serving import SearchService as JaxService  # noqa: E402
 from sgpt_tpu.tokenization import SimpleTokenizer  # noqa: E402
+from sgpt_tpu_torch.crossencoder import CrossEncoderRanker  # noqa: E402
 from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, from_jax_config, params_from_jax  # noqa: E402
 from sgpt_tpu_torch.serving import MicroBatcher, SearchService, make_server  # noqa: E402
@@ -178,6 +183,41 @@ def test_search_matches_jax_service(engines, kernel):
         for key in ("documents", "pending_docs", "queries_served", "out_dim"):
             assert st[key] == jst[key], key
     finally:
+        port.close()
+        ref.close()
+
+
+@pytest.mark.parametrize("pack_t", [None, 64])
+def test_rerank_matches_jax_service(engines, pack_t):
+    """The two-stage /rerank (first_k by the index, then the CE) of the port's
+    service == the JAX service's, over HTTP on the port's side."""
+    engine, jengine = engines
+    kw = dict(max_length=64, batch_size=4, pack_t=pack_t)
+    port = SearchService(engine, index_kw={"dtype": torch.float32}, max_wait_ms=1.0,
+                         ranker=CrossEncoderRanker(engine.model, engine.cfg, engine.tokenizer,
+                                                   device="cpu", **kw))
+    ref = JaxService(jengine, index_kw={"dtype": jnp.float32}, max_wait_ms=1.0,
+                     ranker=JaxRanker(jengine.params, jengine.cfg, jengine.tokenizer, **kw))
+    srv = make_server(port, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        for svc in (port, ref):
+            svc.add_documents(list(DOCS.values()), ids=list(DOCS), build=True)
+        status, body = _post(srv, "/rerank", {"queries": QUERIES, "k": 3, "first_k": 4,
+                                              "return_documents": True})
+        assert status == 200
+        got, want = body["results"], ref.rerank(QUERIES, k=3, first_k=4,
+                                                 return_documents=True)
+        assert [[(h["id"], h["document"]) for h in r] for r in got] == \
+            [[(h["id"], h["document"]) for h in r] for r in want]
+        np.testing.assert_allclose([h["score"] for r in got for h in r],
+                                   [h["score"] for r in want for h in r], atol=1e-5)
+        np.testing.assert_allclose([h["ce_score"] for r in got for h in r],
+                                   [h["ce_score"] for r in want for h in r],
+                                   rtol=2e-5, atol=1e-4)
+    finally:
+        srv.shutdown()
+        srv.server_close()
         port.close()
         ref.close()
 
