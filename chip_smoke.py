@@ -7,7 +7,14 @@ Phases, each of which asserts; any failure exits non-zero:
   1. build   — compile the CUDA kernels from `sgpt_tpu_torch/csrc/` with nvcc (sm_90a)
   2. kernel  — the fused short-T attention kernel (K1) against its plain
                PyTorch version on the card, at the encode path's shape and
-               variants, and at the train slice's (fp32, B=32)
+               variants, and at the train slice's (fp32, B=32); then at
+               GPT-J's head size 256 (bf16 `mma_kernel<256, …>`, fp32
+               `scalar_kernel`) and with BLOOM's real slopes (H 16 and 32,
+               Dh 128), unpacked and packed, with key padding and fully
+               masked rows, and at every shape the families' CE dispatches
+               give it (T 128, 512, 1024 and 2048), bf16 and fp32 (fp32 with BLOOM's slopes held to
+               an fp64 evaluation where it misses the fp32 gate); times of
+               GPT-J's and BLOOM-1b7's encode and packed-CE cells
   3. bwd     — the short-attention backward kernel (K2) against its plain
                version, same variants, with a random output gradient
   4. slice   — bulk encode with full-width GPT-Neo-125M (random weights from a
@@ -50,7 +57,10 @@ Phases, each of which asserts; any failure exits non-zero:
                key padding with fully masked rows; output and lse; times in
                bf16 at B=64 and in fp32 at the long train's B=8 (fp32 bound:
                3 × its operations at the TF32 peak, the CUDA cores' beside
-               it; kernel and plain errors against an fp64 evaluation)
+               it; kernel and plain errors against an fp64 evaluation); then
+               Dh 256 (`flash_fwd_bf16<256>`, `flash_fwd_tf32<256>`) and
+               BLOOM's real slopes, times of GPT-J's and BLOOM-1b7's long
+               encode cell (B=16, T=2048) and of K3 fp32 at Dh 256
  13. long    — long-context encode: full-width GPT-Neo-125M with use_flash
                (bf16, max_seq_len 2048, batch_size 64) over 512 documents of
                300-3,000 words (buckets 512, 1024, 2048; 154 truncated) and
@@ -97,7 +107,24 @@ Phases, each of which asserts; any failure exits non-zero:
                POST /rerank from 8 threads == the direct rerank, p50/p99;
                `cli.bm25_retriever` → `cli.sgptce` on a synthetic BEIR
                folder writes BM25's and the CE's nDCG
- 17. report  — kernel, plain-version and library times beside each
+ 17. families — GPT-J-6B (28 layers, D 4,096, Dh 256, its biased head),
+               then BLOOM-1b7 (24 layers, D 2,048, ALiBi, vocab 250,880),
+               full width, bf16, random weights drawn on the card, each
+               freed before the next: the encode slice's 1,280 texts (K1 =
+               L × batches, one batch profiled, peak memory), an index of
+               them (K5 at D) where each finds itself first, a long encode
+               with use_flash of 112 documents (one batch each at T 2048,
+               1024 and 512; K3 = L × flash batches), the CE on 4 queries
+               × BM25 top-100 (K1 = L × dispatches; BLOOM also a short mix
+               packed at pack_t 256 against unpacked); kernel path against
+               plain path at full depth (cosines, CE Spearman); fp32 card
+               against fp32 CPU at full width with the depth cut to 2
+               layers (the CPU cannot run 6B in fp32 in the time limit),
+               and fp32 packed CE rows against unpacked on the card; the
+               HF loader: a checkpoint written from the 2-layer model's
+               weights as safetensors (by hand) and as .bin, reloaded,
+               gives the same embeddings bit for bit
+ 18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
                line, and last `{"ok": true, "device": {...}}`
@@ -107,7 +134,9 @@ unpacked by `git archive` into the git-ignored build/parent), it also builds
 that checkout's kernels beside this tree's and, after phase 14, times K1, K2,
 K3, K4a, K4b and K5 from both builds in turns (parent, change, change,
 parent): phase `ab`. K1, K2, K3, K4b and the D buffer that K4a writes must
-give the parent's outputs bit for bit; K4a's fp32 path the parent's dq
+give the parent's outputs bit for bit (BLOOM's ALiBi shapes included),
+K1 bf16 at GPT-J's Dh 256 (the parent's `scalar_kernel`) within bf16's
+gate; K4a's fp32 path the parent's dq
 within K4's fp32 gate, at window 0 and 256, each build's error against an
 fp64 evaluation of dQ logged. K4's inputs come from this tree's K3. K5 (Q =
 1, 8, 16, 64 and 1024 over NQ's corpus) runs each side through its own
@@ -156,6 +185,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0].strip()
+
+
+def card_normal(torch, rng, shape, std: float, dtype=None):
+    """N(0, std²) values of `shape`, drawn on the card from a generator that
+    `rng` seeds (numpy's draws at the families' sizes, ~4e8 values a case,
+    take seconds each on the host); fp32, cast to `dtype` when given."""
+    gen = torch.Generator("cuda").manual_seed(int(rng.integers(2**62)))
+    out = torch.randn(shape, generator=gen, device="cuda").mul_(std)
+    return out if dtype is None else out.to(dtype)
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -222,8 +260,7 @@ def phase_ab(torch, sa, fa, mips, parent_lib, this_lib, parent_mips):
         args, _ = attention_inputs(torch, rng, B, 300, 12, 64, dtype)
         if not bwd:
             return functools.partial(sa.short_attention, *args, 1.0, window, 12, False)
-        g = torch.from_numpy(rng.normal(0.0, 1.0, (B, 300, 768)).astype(np.float32)).to(
-            "cuda", dtype)
+        g = card_normal(torch, rng, (B, 300, 768), 1.0, dtype)
         return functools.partial(sa.short_attention_bwd, *args, g, scale=1.0, window=window,
                                  H=12, use_alibi=False)
 
@@ -234,8 +271,7 @@ def phase_ab(torch, sa, fa, mips, parent_lib, this_lib, parent_mips):
 
     (q, k, v, km, _), _ = attention_inputs(torch, rng, 8, 2048, 12, 64, torch.float32)
     qh, kh, vh = (heads(t, 12) for t in (q, k, v))
-    g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (8, 2048, 768)).astype(np.float32)).cuda(),
-              12)
+    g = heads(card_normal(torch, rng, (8, 2048, 768), 1.0), 12)
     bwd = {}  # window: K4's arguments, from this tree's K3
     for window in (0, 256):
         out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, window=window,
@@ -249,9 +285,26 @@ def phase_ab(torch, sa, fa, mips, parent_lib, this_lib, parent_mips):
         run.window = window
         return run
 
+    from sgpt_tpu_torch.models.decoder import alibi_slopes
+
+    def family_short(B, T, H, Dh, dtype, alibi, packed):  # GPT-J's and BLOOM's K1 calls
+        q, k, v, km, seg, pos = family_inputs(torch, rng, B, T, H, Dh, dtype,
+                                              "packed" if packed else "pad")
+        return functools.partial(sa.short_attention, q, k, v, km,
+                                 alibi_slopes(H, "cuda") if alibi else None, Dh ** -0.5, 0, H,
+                                 alibi, segments=seg, positions=pos if alibi else None)
+
+    def family_flash(B, H, Dh, dtype, alibi):
+        (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, H, Dh, dtype)
+        qh, kh, vh = (heads(t, H) for t in (q, k, v))
+        return functools.partial(fa.flash_attention, qh, kh, vh, km,
+                                 alibi_slopes(H, "cuda") if alibi else None, scale=Dh ** -0.5,
+                                 block_kv=256)
+
     runs = [  # name, function, how the output is held to the parent's: "exact" (bit for
-        # bit), or "k4a" (the redesigned fp32 K4a: dq within its gate, fp64 errors
-        # logged, the D buffer bit for bit)
+        # bit), "bf16" (within K1's bf16 gate: GPT-J's Dh 256, which the parent ran on
+        # scalar_kernel), or "k4a" (the redesigned fp32 K4a: dq within its gate, fp64
+        # errors logged, the D buffer bit for bit)
         ("K1 bf16 B=64 T=300 window=0", short(64, torch.bfloat16, 0), "exact"),
         ("K1 bf16 B=64 T=300 window=256", short(64, torch.bfloat16, 256), "exact"),
         ("K1 fp32 B=32 T=300 window=0", short(32, torch.float32, 0), "exact"),
@@ -268,6 +321,20 @@ def phase_ab(torch, sa, fa, mips, parent_lib, this_lib, parent_mips):
              k4(fa._launch_dq, w, (bwd[w]["grads"][0], bwd[w]["keep"][8])), "k4a"),
             (f"K4b fp32 B=8 T=2048 window={w}", k4(fa._launch_dkv, w, bwd[w]["grads"][1:]),
              "exact"))],
+        ("K1 bf16 BLOOM-1b7 B=64 T=300 H=16 Dh=128 alibi",
+         family_short(64, 300, 16, 128, torch.bfloat16, True, False), "exact"),
+        ("K1 bf16 BLOOM-1b7 CE packed B=128 T=256 H=16 Dh=128 alibi",
+         family_short(128, 256, 16, 128, torch.bfloat16, True, True), "exact"),
+        ("K1 fp32 BLOOM-1b7 B=32 T=300 H=16 Dh=128 alibi",
+         family_short(32, 300, 16, 128, torch.float32, True, False), "exact"),
+        ("K3 bf16 BLOOM-1b7 B=16 T=2048 H=16 Dh=128 alibi",
+         family_flash(16, 16, 128, torch.bfloat16, True), "exact"),
+        ("K3 fp32 BLOOM-1b7 B=4 T=2048 H=16 Dh=128 alibi",
+         family_flash(4, 16, 128, torch.float32, True), "exact"),
+        ("K1 fp32 GPT-J B=16 T=300 H=16 Dh=256",
+         family_short(16, 300, 16, 256, torch.float32, False, False), "exact"),
+        ("K1 bf16 GPT-J B=64 T=300 H=16 Dh=256",
+         family_short(64, 300, 16, 256, torch.bfloat16, False, False), "bf16"),
     ]
     for name, fn, held in runs:
         outs = {}
@@ -279,6 +346,9 @@ def phase_ab(torch, sa, fa, mips, parent_lib, this_lib, parent_mips):
         diff = max((a - b).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
         if held == "exact":
             assert diff == 0, f"ab {name}: the change moved the output by {diff:.3e}"
+        elif held == "bf16":
+            (a,), (b,) = outs["parent"], outs["change"]
+            assert ((a - b).abs() <= BF16_ATOL + BF16_RTOL * a.abs()).all(), (name, diff)
         else:  # K4a fp32: D bit for bit, dq within K4's fp32 gate, both against fp64
             (a, a_d), (b, b_d) = outs["parent"], outs["change"]
             assert torch.equal(a_d, b_d), f"ab {name}: the change moved D"
@@ -354,16 +424,23 @@ def sdpa_mask(torch, key_mask, window: int):
     return m[None, None] & (key_mask > 0)[:, None, None, :]
 
 
-def k1_fp64(torch, args, window: int, scale: float = 1.0):
-    """K1's formula (no ALiBi, no segments) evaluated in fp64 on the card:
-    the yardstick of K1's fp32 error (the plain version evaluates it in
-    fp32). args: (q2, k2, v2, key_mask, slopes) with H = 12."""
-    q2, k2, v2, km, _ = args
+def k1_fp64(torch, args, window: int, scale: float = 1.0, H: int = 12, segments=None,
+            positions=None):
+    """K1's formula evaluated in fp64 on the card: the yardstick of K1's fp32
+    error (the plain version evaluates it in fp32), and of the fp32 paths
+    under BLOOM's slopes, whose scores of ~10^2-10^3 put one fp32 rounding of
+    a score (6e-5 at 724) past K1's 1e-5 gate in the kernel and the plain
+    version alike. args: (q2, k2, v2, key_mask, slopes); ALiBi when slopes
+    is not None, at `positions` (default: the key index)."""
+    q2, k2, v2, km, slopes = args
     B, T, HD = q2.shape
-    q, k, v = (t.reshape(B, T, 12, HD // 12).double() for t in (q2, k2, v2))
+    q, k, v = (t.reshape(B, T, H, HD // H).double() for t in (q2, k2, v2))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    s = torch.where(sdpa_mask(torch, km, window), s, torch.full((), -1e9, dtype=s.dtype,
-                                                                  device=s.device))
+    if slopes is not None:
+        kp = positions if positions is not None else torch.arange(T, device=q2.device).expand(B, T)
+        s = s + slopes.double()[None, :, None, None] * kp.double()[:, None, None, :]
+    s = torch.where(family_mask(torch, km, window, segments), s,
+                    torch.full((), -1e9, dtype=s.dtype, device=s.device))
     o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
     return o.reshape(B, T, HD)
 
@@ -390,18 +467,23 @@ def k4_fp64(torch, keep, window: int, scale: float = 1.0):
     return torch.stack(dq), torch.stack(dk), torch.stack(dv)
 
 
-def k3_fp64(torch, args, window: int):
-    """K3's formula (scale 1, no ALiBi) evaluated in fp64 on the card, one
-    batch row at a time: the yardstick of K3's fp32 error. args: (q, k, v,
-    key_mask) as the kernel takes them, q/k/v (B, H, T, Dh). Returns the
-    fp64 output and the (B, 1, T, 1) mask of the rows that hold a valid key
-    (a row without one is the mean of V over the TPU tiles' visited keys, a
-    property of the walk and not of the formula; it is 0 here)."""
+def k3_fp64(torch, args, window: int, scale: float = 1.0, slopes=None):
+    """K3's formula (with ALiBi at the key index when slopes is not None)
+    evaluated in fp64 on the card, one batch row at a time: the yardstick of
+    K3's fp32 error. args: (q, k, v, key_mask) as the kernel takes them,
+    q/k/v (B, H, T, Dh). Returns the fp64 output and the (B, 1, T, 1) mask
+    of the rows that hold a valid key (a row without one is the mean of V
+    over the TPU tiles' visited keys, a property of the walk and not of the
+    formula; it is 0 here)."""
     q, k, v, km = args[:4]
     mask = sdpa_mask(torch, km, window)
+    T = q.shape[2]
     out = []
     for b in range(q.shape[0]):
-        s = torch.einsum("hqd,hkd->hqk", q[b].double(), k[b].double())
+        s = torch.einsum("hqd,hkd->hqk", q[b].double(), k[b].double()) * scale
+        if slopes is not None:
+            s = s + slopes.double()[:, None, None] * torch.arange(
+                T, device=q.device, dtype=torch.float64)
         p = torch.softmax(s.masked_fill(~mask[b], float("-inf")), dim=-1).nan_to_num(0.0)
         out.append(torch.einsum("hqk,hkd->hqd", p, v[b].double()))
         del s, p
@@ -418,10 +500,7 @@ def attention_inputs(torch, rng, B, T, H, Dh, dtype, *, alibi=False, segments=Fa
     """q/k/v at the scale of real projections (std 0.5), ~10 % right padding
     including a row short enough that a window leaves its tail fully masked.
     Returns (q2, k2, v2, key_mask, slopes) and the segments/positions keywords."""
-    def t(shape):
-        return torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32)).to("cuda", dtype)
-
-    q, k, v = (t((B, T, H * Dh)) for _ in range(3))
+    q, k, v = (card_normal(torch, rng, (B, T, H * Dh), 0.5, dtype) for _ in range(3))
     lengths = np.full(B, T)
     n_pad = max(1, B // 5)
     lengths[:n_pad] = rng.integers(max(1, T // 2), T, n_pad)
@@ -568,8 +647,7 @@ def phase_bwd_kernel(torch, sa, rng):
             B = 32 if name.startswith("main") else B
             args, extra = attention_inputs(torch, rng, B, T, H, Dh, dtype,
                                            alibi=alibi, segments=segments)
-            g = torch.from_numpy(rng.normal(0.0, 1.0, (B, T, H * Dh)).astype(np.float32)
-                                 ).to("cuda", dtype)
+            g = card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype)
             kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, **extra)
             got = sa.short_attention_bwd(*args, g, **kw)
             want = sa.short_attention_bwd_reference(*args, g, **kw)
@@ -596,8 +674,7 @@ def phase_bwd_kernel(torch, sa, rng):
     for dtype in (torch.float32, torch.bfloat16):
         for window in (0, 256):
             args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, dtype)
-            g = torch.from_numpy(rng.normal(0.0, 1.0, (32, 300, 768)).astype(np.float32)
-                                 ).to("cuda", dtype)
+            g = card_normal(torch, rng, (32, 300, 768), 1.0, dtype)
             kw = dict(scale=1.0, window=window, H=12, use_alibi=False)
 
             def kernel():
@@ -1476,6 +1553,10 @@ def phase_long(torch, fa, sa, mips, model, tok, rng, card):
 CE_RTOL, CE_ATOL = 2e-5, 1e-4  # summed log-probs: fp32 card == CPU, packed == unpacked
 CE_SPEARMAN_FLOOR = 0.99  # bf16 against fp32 ranks of each query's top-100: the least
 CE_SERVE_TOL = 0.05  # |Δ ce_score| of a pair scored in bf16 dispatches of other shapes
+# bf16 kernel path against bf16 plain path, one query's top-100 at 24-28 layers: random
+# weights score a query's 100 documents within a narrow band, and 24-28 layers of bf16
+# roundings move a summed log-prob by up to ~0.2, so single queries reorder near-ties
+FAMILY_SPEARMAN_MIN = 0.98
 
 
 def ce_mix(rng):
@@ -1504,28 +1585,31 @@ def ce_tokens(ranker, pairs) -> int:
     return sum(ranker._pack(enc(ranker.prompt_doc.format(d)), enc(q))[1] for q, d in pairs)
 
 
-def ce_attention_inputs(torch, rng, B, T, packed: bool):
-    """K1's inputs at a CE shape: bf16 q/k/v (std 0.5) of H=12, Dh=64; packed
-    rows carry segments of 8-90 tokens (up to 16 a row, the ranker's cap)
-    and a padding tail (segment -1, key mask 0); unpacked rows the ranker's
-    full-ones key mask."""
-    q, k, v = (torch.from_numpy(rng.normal(0.0, 0.5, (B, T, 768)).astype(np.float32))
-               .to("cuda", torch.bfloat16) for _ in range(3))
+def ce_attention_inputs(torch, rng, B, T, packed: bool, H: int = 12, Dh: int = 64,
+                        dtype=None):
+    """K1's inputs at a CE shape: q/k/v (std 0.5; bf16 unless `dtype`) of H
+    heads of Dh; packed rows carry segments of 8-90 tokens (up to 16 a row,
+    the ranker's cap), positions restarting in each, and a padding tail
+    (segment -1, key mask 0); unpacked rows the ranker's full-ones key mask.
+    Returns (q, k, v, key_mask, segments or None, positions or None)."""
+    q, k, v = (card_normal(torch, rng, (B, T, H * Dh), 0.5, dtype or torch.bfloat16)
+               for _ in range(3))
     km = np.ones((B, T), np.int32)
-    seg = None
+    seg = pos = None
     if packed:
         km[:] = 0
         seg = np.full((B, T), -1, np.int32)
+        pos = np.zeros((B, T), np.int32)
         for b in range(B):
             off = 0
             for s in range(16):
                 n = int(rng.integers(8, 91))
                 if off + n > T:
                     break
-                km[b, off:off + n], seg[b, off:off + n] = 1, s
+                km[b, off:off + n], seg[b, off:off + n], pos[b, off:off + n] = 1, s, np.arange(n)
                 off += n
-        seg = torch.from_numpy(seg).cuda()
-    return q, k, v, torch.from_numpy(km).cuda(), seg
+        seg, pos = torch.from_numpy(seg).cuda(), torch.from_numpy(pos).cuda()
+    return q, k, v, torch.from_numpy(km).cuda(), seg, pos
 
 
 def phase_ce_kernel(torch, sa, rng):
@@ -1537,7 +1621,7 @@ def phase_ce_kernel(torch, sa, rng):
     out, worst = {}, 0.0
     for name, B, T, packed in (("packed_t256", 128, 256, True), ("t1024", 32, 1024, False),
                                ("t2048", 16, 2048, False)):
-        q, k, v, km, seg = ce_attention_inputs(torch, rng, B, T, packed)
+        q, k, v, km, seg, _ = ce_attention_inputs(torch, rng, B, T, packed)
         qh, kh, vh = (heads(t, 12) for t in (q, k, v))
         for window in (0, 256):
             def kernel():
@@ -2029,8 +2113,7 @@ def phase_fbwd(torch, fa, rng):
             if alibi:
                 slopes = slopes * 0.03  # BLOOM-sized slopes
             qh, kh, vh = (heads(t, H) for t in (q, k, v))
-            g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (B, T, H * Dh)).astype(np.float32))
-                      .to("cuda", dtype), H)
+            g = heads(card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype), H)
             kw = dict(scale=scale, window=window, block_kv=block_kv)
             out, lse = fa.flash_attention(qh, kh, vh, km, slopes, return_residuals=True, **kw)
             got = fa.flash_attention_bwd(qh, kh, vh, km, slopes, g, out, lse, **kw)
@@ -2064,8 +2147,7 @@ def phase_fbwd(torch, fa, rng):
         B, T, H, Dh = 8, 2048, 12, 64
         (q, k, v, km, _), _ = attention_inputs(torch, rng, B, T, H, Dh, torch.float32)
         qh, kh, vh = (heads(t, H) for t in (q, k, v))
-        g = heads(torch.from_numpy(rng.normal(0.0, 1.0, (B, T, H * Dh)).astype(np.float32))
-                  .cuda(), H)
+        g = heads(card_normal(torch, rng, (B, T, H * Dh), 1.0), H)
         kw = dict(window=window, block_kv=256)
         out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, **kw)
         args = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
@@ -2249,6 +2331,631 @@ def phase_ltrain(torch, fa, sa, tok, card):
     return {**counts, **rates, **profile_out, "losses": losses, "gc_vs_direct": abs(gc - direct)}
 
 
+# ---------------------------------------------------------------------------
+# GPT-J's and BLOOM's attention shapes (phases kernel, flash and ab) and the
+# families slice (phase families)
+# ---------------------------------------------------------------------------
+
+FAMILY_K1_CASES = [  # name, B, T, H, Dh, window, alibi, rows: GPT-J (Dh 256) and BLOOM
+    # rows: "pad" right-padded as the encode pads, "packed" CE segments, "ce"
+    # the CE's unpacked dispatches (the ranker's full-ones key mask) at the
+    # families slice's shapes
+    ("gptj-encode", 64, 300, 16, 256, 0, False, "pad"),
+    ("gptj-ce-packed", 32, 256, 16, 256, 0, False, "packed"),
+    ("gptj-w256", 4, 700, 16, 256, 256, False, "pad"),  # fully masked padded rows
+    ("gptj-ce-t2048", 16, 2048, 16, 256, 0, False, "ce"),
+    ("gptj-ce-t1024", 32, 1024, 16, 256, 0, False, "ce"),
+    ("gptj-ce-t512", 64, 512, 16, 256, 0, False, "ce"),
+    ("gptj-ce-t128", 256, 128, 16, 256, 0, False, "ce"),
+    ("bloom1b7-encode", 64, 300, 16, 128, 0, True, "pad"),
+    ("bloom1b7-ce-packed", 32, 256, 16, 128, 0, True, "packed"),
+    ("bloom1b7-ce-t2048", 16, 2048, 16, 128, 0, True, "ce"),
+    ("bloom1b7-ce-t1024", 32, 1024, 16, 128, 0, True, "ce"),
+    ("bloom1b7-ce-t512", 64, 512, 16, 128, 0, True, "ce"),
+    ("bloom1b7-ce-t128", 256, 128, 16, 128, 0, True, "ce"),
+    ("bloom7b1-encode", 16, 300, 32, 128, 0, True, "pad"),
+    ("bloom7b1-w256", 4, 700, 32, 128, 256, True, "packed"),
+]
+
+FAMILY_FLASH_CASES = [  # name, B, T, H, Dh, block_kv, window, alibi
+    ("gptj-long", 16, 2048, 16, 256, 256, 0, False),
+    ("gptj-w256", 4, 1024, 16, 256, 128, 256, False),  # fully masked padded rows
+    ("bloom1b7-long", 8, 2048, 16, 128, 256, 0, True),
+    ("bloom7b1-w256", 4, 1024, 32, 128, 256, 256, True),
+]
+
+
+def family_inputs(torch, rng, B, T, H, Dh, dtype, rows: str):
+    """K1's inputs at GPT-J's or BLOOM's heads: "packed" and "ce" rows as
+    the CE builds them, packed or not (`ce_attention_inputs`), "pad" rows
+    right-padded as `attention_inputs` pads them (one row short enough that
+    a window leaves its tail fully masked). Returns (q, k, v, key_mask,
+    segments or None, positions or None)."""
+    if rows != "pad":
+        return ce_attention_inputs(torch, rng, B, T, rows == "packed", H, Dh, dtype)
+    (q, k, v, km, _), _ = attention_inputs(torch, rng, B, T, H, Dh, dtype)
+    return q, k, v, km, None, None
+
+
+def family_mask(torch, km, window, seg):
+    """The (B, 1, T, T) boolean mask of causal ∧ [window] ∧ key valid ∧ [same segment]."""
+    mask = sdpa_mask(torch, km, window)
+    if seg is not None:
+        mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
+    return mask
+
+
+def hold(torch, name, got, want, dtype, fp64=None):
+    """The kernel's output against its plain version's: bf16 within 2e-2 +
+    1e-2·|ref|, fp32 within 1e-5 + 1e-5·|ref|; an fp32 case with BLOOM's
+    slopes that misses the fp32 gate passes only if the kernel lies no
+    further from an fp64 evaluation (`fp64()`) than twice the plain
+    version does. Returns the max abs error and which gate held it."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all(), f"{name}: non-finite kernel output"
+    err = (g - w).abs()
+    atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (FP32_ATOL, FP32_RTOL)
+    if (err - rtol * w.abs()).max().item() <= atol:
+        return err.max().item(), "gate"
+    assert fp64 is not None, f"{name} {dtype}: exceeds tolerance ({err.max().item():.3e})"
+    ref = fp64()
+    k64 = (got.double() - ref).abs().max().item()
+    p64 = (want.double() - ref).abs().max().item()
+    assert k64 <= 2 * p64, f"{name}: |kernel - fp64| {k64:.3e} > 2 x |plain - fp64| {p64:.3e}"
+    return err.max().item(), f"fp64 (kernel {k64:.3e}, plain {p64:.3e})"
+
+
+def phase_kernel_families(torch, sa, rng):
+    """K1 at GPT-J's and BLOOM's shapes against its plain version, bf16 and
+    fp32: Dh 256 (bf16: `mma_kernel<256, …>`; fp32: `scalar_kernel`) and
+    BLOOM's real slopes (`alibi_slopes`, H = 16 and 32, Dh 128) with key
+    padding, fully masked rows (window 256) and packed rows (ALiBi key
+    positions restarting per segment); then kernel, plain, library and bound
+    times of the bf16 cells on the families' main paths. Returns the
+    largest bf16 error and the times by cell."""
+    from sgpt_tpu_torch.models.decoder import alibi_slopes
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, T, H, Dh, window, alibi, rows in FAMILY_K1_CASES:
+            q, k, v, km, seg, pos = family_inputs(torch, rng, B, T, H, Dh, dtype, rows)
+            sl = alibi_slopes(H, "cuda") if alibi else None
+            kpos = pos if alibi else None
+            scale = Dh ** -0.5
+            args = (q, k, v, km, sl)
+            got = sa.short_attention(*args, scale, window, H, alibi, segments=seg,
+                                     positions=kpos)
+            want = sa.short_attention_reference(*args, scale=scale, window=window, H=H,
+                                                use_alibi=alibi, segments=seg, positions=kpos)
+            torch.cuda.synchronize()
+            err, gate = hold(torch, f"kernel {name}", got, want, dtype, fp64=(
+                (lambda: k1_fp64(torch, args, window, scale, H, seg, kpos))
+                if alibi and dtype == torch.float32 else None))
+            dead = int((~family_mask(torch, km, window, seg).any(-1)).sum().item()) * H
+            log(f"kernel {name:18s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} "
+                f"window={window}{' alibi' if alibi else ''} rows {rows}: "
+                f"max_abs_err={err:.3e} (held by {gate}), fully masked rows {dead}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            del q, k, v, km, seg, pos, got, want
+    times = {}
+    for name, B, T, H, Dh, alibi, packed in (("gptj", 64, 300, 16, 256, False, False),
+                                             ("gptj_ce_packed", 128, 256, 16, 256, False, True),
+                                             ("bloom1b7", 64, 300, 16, 128, True, False),
+                                             ("bloom1b7_ce_packed", 128, 256, 16, 128, True,
+                                              True)):
+        q, k, v, km, seg, pos = family_inputs(torch, rng, B, T, H, Dh, torch.bfloat16,
+                                              "packed" if packed else "pad")
+        sl = alibi_slopes(H, "cuda") if alibi else None
+        kpos = pos if alibi else None
+        scale = Dh ** -0.5
+        mask = family_mask(torch, km, 0, seg)
+        qh, kh, vh = (heads(t, H) for t in (q, k, v))
+        attn_mask = mask
+        if alibi:  # the library's additive form of the same scores: slope·kpos, -inf masked
+            kp = (kpos if kpos is not None else torch.arange(T, device="cuda").expand(B, T))
+            attn_mask = torch.where(mask, sl[None, :, None, None] * kp[:, None, None, :].float(),
+                                    float("-inf")).to(torch.bfloat16)
+
+        def kernel():
+            return sa.short_attention(q, k, v, km, sl, scale, 0, H, alibi, segments=seg,
+                                      positions=kpos)
+
+        def plain():
+            return sa.short_attention_reference(q, k, v, km, sl, scale=scale, window=0, H=H,
+                                                use_alibi=alibi, segments=seg, positions=kpos)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                    attn_mask=attn_mask,
+                                                                    scale=scale)
+
+        p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
+        lib = cuda_ms(torch, library, iters=10)
+        pairs = int(mask.sum().item())
+        nbytes = (4 * q.numel() * 2 + km.numel() * 4
+                  + sum(t.numel() * 4 for t in (seg, kpos) if t is not None))
+        ops = 4 * Dh * H * pairs
+        b_ms, b_by = bound(nbytes, ops, "bf16")
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        log(f"time K1 {name} B={B} T={T} H={H} Dh={Dh} bf16 window=0"
+            f"{' alibi' if alibi else ''}{' packed' if packed else ''}: kernel "
+            f"{times[name]['ms']:.4f} ms, plain {times[name]['plain_ms']:.4f} ms, library "
+            f"(SDPA, {'bf16 additive' if alibi else 'boolean'} mask) {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} operations over {pairs} pairs) "
+            f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+        del q, k, v, qh, kh, vh, km, seg, pos, mask, attn_mask
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def phase_flash_families(torch, fa, rng):
+    """K3 at GPT-J's and BLOOM's long-context shapes against its plain
+    version, output and lse, bf16 and fp32 (fp32 at B ≤ 4): Dh 256
+    (`flash_fwd_bf16<256>`, `flash_fwd_tf32<256>`) and BLOOM's real slopes
+    (H = 16 and 32, Dh 128), key padding and fully masked rows (window
+    256); fp32 with BLOOM's slopes held to fp64 where it misses the fp32
+    gate (see `hold`). Then kernel, plain, library and bound times of
+    GPT-J's and BLOOM-1b7's long encode cell (bf16, B=16, T=2048) and of
+    K3 fp32 at Dh 256 (B=4). Returns the largest bf16 error and the times."""
+    from sgpt_tpu_torch.models.decoder import alibi_slopes
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, T, H, Dh, block_kv, window, alibi in FAMILY_FLASH_CASES:
+            if dtype == torch.float32:
+                B = min(B, 4)
+            (q, k, v, km, _), _ = attention_inputs(torch, rng, B, T, H, Dh, dtype)
+            sl = alibi_slopes(H, "cuda") if alibi else None
+            qh, kh, vh = (heads(t, H) for t in (q, k, v))
+            kw = dict(scale=Dh ** -0.5, window=window, block_kv=block_kv)
+            got, lse = fa.flash_attention(qh, kh, vh, km, sl, return_residuals=True, **kw)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_reference(qh, kh, vh, km, sl, **kw)
+            assert got.dtype == dtype and got.stride() == qh.stride(), name
+
+            def fp64():  # rows with a valid key: a fully masked row is not the formula's
+                ref, valid = k3_fp64(torch, (qh, kh, vh, km), window, Dh ** -0.5, sl)
+                return torch.where(valid, ref, want.double())
+
+            err, gate = hold(torch, f"flash {name}", got, want, dtype,
+                             fp64=fp64 if alibi and dtype == torch.float32 else None)
+            dead = want_lse == fa.NEG_INF
+            assert torch.equal(lse == fa.NEG_INF, dead), f"flash {name}: masked rows differ"
+            lerr = (lse - want_lse).abs()[~dead]
+            assert (lerr - 1e-5 * want_lse.abs()[~dead]).max().item() <= 1e-4, f"{name} lse"
+            log(f"flash  {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} "
+                f"block_kv={block_kv} window={window}{' alibi' if alibi else ''}: max_abs_err "
+                f"{err:.3e} (held by {gate}), lse {lerr.max().item():.3e}, fully masked rows "
+                f"{int(dead.sum())}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            del q, k, v, qh, kh, vh, got, want, lse, want_lse
+    times = {}
+    for name, B, H, Dh, alibi, dt in (("gptj", 16, 16, 256, False, "bf16"),
+                                      ("bloom1b7", 16, 16, 128, True, "bf16"),
+                                      ("gptj_fp32", 4, 16, 256, False, "fp32")):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        (q, k, v, km, _), _ = attention_inputs(torch, rng, B, 2048, H, Dh, dtype)
+        sl = alibi_slopes(H, "cuda") if alibi else None
+        qh, kh, vh = (heads(t, H) for t in (q, k, v))
+        mask = sdpa_mask(torch, km, 0)
+        attn_mask = mask
+        if alibi:
+            attn_mask = torch.where(mask, sl[None, :, None, None] * torch.arange(
+                2048, device="cuda", dtype=torch.float32), float("-inf")).to(dtype)
+        scale = Dh ** -0.5
+
+        def kernel():
+            return fa.flash_attention(qh, kh, vh, km, sl, scale=scale, block_kv=256)
+
+        def plain():
+            return fa.flash_attention_reference(qh, kh, vh, km, sl, scale=scale, block_kv=256)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                    attn_mask=attn_mask,
+                                                                    scale=scale)
+
+        p1, k1, k2, p2 = (cuda_ms(torch, f, iters=n, warmup=1)
+                          for f, n in ((plain, 2), (kernel, 5), (kernel, 5), (plain, 2)))
+        lib = cuda_ms(torch, library, iters=3, warmup=1)
+        nbytes = 4 * q.numel() * q.element_size() + B * H * 2048 * 4 + km.numel() * 4
+        pairs = attention_pairs(torch, km, 0)
+        ops = 4 * Dh * H * pairs
+        b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, dt)
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                       "bound_ms": b[0], "bound_by": b[1]}
+        log(f"time K3 {name} B={B} T=2048 H={H} Dh={Dh} {dt} window=0"
+            f"{' alibi' if alibi else ''}: kernel {times[name]['ms']:.4f} ms, plain "
+            f"{times[name]['plain_ms']:.4f} ms, library (SDPA {dt}) {lib:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
+            + (f"3 x {ops} TF32" if dt == "fp32" else f"{ops}") + f" operations over {pairs} "
+            f"pairs; {ops / (times[name]['ms'] / 1e3) / 1e12:.1f} TFLOP/s) (runs: kernel "
+            f"{k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+        del q, k, v, qh, kh, vh, mask, attn_mask
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+@contextlib.contextmanager
+def plain_attention(sa, fa):
+    """The decoder's attention through the kernels' plain versions, on the
+    card: the kernel path's yardstick at full depth."""
+    from sgpt_tpu_torch.models import decoder as dm
+
+    saved = dm.short_attention, dm.flash_attention
+
+    def short(q2, k2, v2, km, sl, scale, window, H, use_alibi, segments=None, positions=None):
+        return sa.short_attention_reference(q2, k2, v2, km, sl, scale=scale, window=window,
+                                            H=H, use_alibi=use_alibi, segments=segments,
+                                            positions=positions)
+
+    def flash(q, k, v, km, sl=None, **kw):
+        return fa.flash_attention_reference(q, k, v, km, sl, **kw)[0]
+
+    dm.short_attention, dm.flash_attention = short, flash
+    try:
+        yield
+    finally:
+        dm.short_attention, dm.flash_attention = saved
+
+
+def hf_checkpoint(torch, model, family: str) -> tuple:
+    """The model's weights as an HF checkpoint of its family: (state dict
+    in HF names, `hf_loader.hf_state_dict`; config.json dict)."""
+    from sgpt_tpu_torch.models.hf_loader import hf_state_dict
+
+    cfg = model.cfg
+    D, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
+    if family == "bloom":
+        config = {"model_type": "bloom", "vocab_size": cfg.vocab_size, "n_embed": D,
+                  "n_layer": L, "n_head": H, "layer_norm_epsilon": cfg.layer_norm_eps}
+    else:
+        config = {"model_type": "gptj", "vocab_size": cfg.vocab_size, "n_embd": D,
+                  "n_layer": L, "n_head": H, "n_positions": cfg.max_position_embeddings,
+                  "rotary_dim": cfg.rotary_dim, "n_inner": None,
+                  "layer_norm_epsilon": cfg.layer_norm_eps, "tie_word_embeddings": False}
+    return hf_state_dict(model.state_dict(), cfg, family), config
+
+
+def check_loader(torch, model, family, tok, texts):
+    """A checkpoint directory written from `model`'s weights on the card, as
+    one safetensors file (written by hand) and as a `.bin` (`torch.save`),
+    reloaded by `hf_loader.load_pretrained` into a new Decoder on the card:
+    the same embeddings, bit for bit. The directory goes under the
+    git-ignored build/ and is removed after each format."""
+    import shutil
+    from pathlib import Path
+
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder
+    from sgpt_tpu_torch.models.hf_loader import load_pretrained, save_safetensors
+
+    kw = dict(specb=True, max_seq_len=300, batch_size=8, normalize_embeddings=True)
+    want = EmbeddingEngine(model, model.cfg, tok, device="cuda", **kw).encode(texts)
+    sd, config = hf_checkpoint(torch, model, family)
+    out = {}
+    path = Path(__file__).resolve().parent / "build" / "smoke_checkpoint"
+    for fmt in ("safetensors", "bin"):
+        shutil.rmtree(path, ignore_errors=True)
+        path.mkdir(parents=True)
+        (path / "config.json").write_text(json.dumps(config))
+        t0 = time.perf_counter()
+        if fmt == "safetensors":
+            save_safetensors(sd, str(path / "model.safetensors"))
+        else:
+            torch.save({k: v.cpu() for k, v in sd.items()}, path / "pytorch_model.bin")
+        size = sum(f.stat().st_size for f in path.iterdir())
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weights, cfg = load_pretrained(str(path))
+        load_s = time.perf_counter() - t0
+        assert cfg.replace(intermediate_size=model.cfg.intermediate_size) == model.cfg, cfg
+        reloaded = Decoder(model.cfg, device="cuda", weights=weights)
+        got = EmbeddingEngine(reloaded, reloaded.cfg, tok, device="cuda", **kw).encode(texts)
+        assert np.array_equal(got, want), f"{family} {fmt}: reloaded embeddings differ"
+        out[fmt] = {"bytes": size, "write_s": write_s, "load_s": load_s}
+        log(f"families {family} loader: {fmt} checkpoint of {size} bytes written in "
+            f"{write_s:.1f} s, loaded in {load_s:.1f} s: the same embeddings bit for bit "
+            f"on {len(texts)} texts")
+        del weights, reloaded
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def family_slice(torch, fa, sa, mips, family: str, card: str) -> dict:
+    """One family at full width, bf16, random weights drawn on the card:
+    GPT-J-6B (28 layers, D 4,096, Dh 256, vocab 50,400, its separate biased
+    head) or BLOOM-1b7 (24 layers, D 2,048, Dh 128, ALiBi, vocab 250,880,
+    tied head). The encode slice's 1,280 texts (docs and queries, T ≤ 300,
+    batch 64; K1 = L × batches; one batch of 64 at T=300 profiled); their
+    index (K5 at D) in which each text finds itself first; a long-context
+    encode with use_flash over 112 documents (a batch of 16 at T=2048, 32 at
+    1024, 64 at 512; batch_size 16: K3 = L × flash batches); the CE (prompt G, max_length 2048,
+    batch_size 16) on 4 queries × BM25 top-100 of the BEIR-like mix (K1 = L
+    × dispatches), for BLOOM also a short mix packed at pack_t 256 against
+    unpacked. Held: the kernel path against the plain path on the card at
+    full depth (cosines of 64 texts, 8 long documents; CE ranks by
+    Spearman); card fp32 against CPU fp32 at full width with the depth cut
+    to 2 layers (embeddings, CE scores) and, on the card, that model's
+    packed CE rows against unpacked; the loader (`check_loader`) on that
+    2-layer model."""
+    import copy
+
+    from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.evaluation import spearman
+    from sgpt_tpu_torch.index import DenseIndex
+    from sgpt_tpu_torch.models import Decoder, bloom, gpt_j_6b
+    from sgpt_tpu_torch.retrieval_bm25 import BM25Retriever
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    rng = np.random.default_rng(SEED + 11)
+    head = ("w", "b") if family == "gptj" else ()
+    base = gpt_j_6b() if family == "gptj" else bloom("1b7")
+    cfg = base.replace(dtype=torch.bfloat16)
+    L = cfg.num_layers
+    phase(f"families {family}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED),
+                    lm_head=head)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"families {family}: {n_params} parameters drawn on the card in {init_s:.2f} s "
+        f"(bf16, {torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    tok = SimpleTokenizer(cfg.vocab_size)
+    out = {"params": n_params, "init_s": init_s}
+
+    # encode: docs and queries, K1 in every layer of every batch
+    engine = EmbeddingEngine(model, cfg, tok, device="cuda", specb=True, max_seq_len=300,
+                             batch_size=64, normalize_embeddings=True)
+    texts = synthetic_texts(rng)
+    engine.warmup()
+    torch.cuda.synchronize()
+    shapes = []
+    hook = model.register_forward_pre_hook(lambda m, a: shapes.append(tuple(a[0].shape)))
+    sa.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    docs = engine.encode(texts)
+    torch.cuda.synchronize()
+    doc_s = time.perf_counter() - t0
+    queries = engine.encode(texts, is_query=True)
+    hook.remove()
+    k1 = sa.launches
+    assert k1 == L * len(shapes) > 0 and fa.launches == 0, (k1, len(shapes))
+    for name, emb in (("docs", docs), ("queries", queries)):
+        assert emb.shape == (len(texts), cfg.hidden_size) and np.isfinite(emb).all(), name
+        assert np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-2, name
+    tokens = sum(len(r) for r in engine.codec.encode_rows(texts)[0])
+    out.update(encode_emb_per_s=len(texts) / doc_s, encode_tokens_per_s=tokens / doc_s,
+               encode_k1=k1, encode_batches=len(shapes))
+    log(f"families {family} encode: {len(texts) / doc_s:.1f} emb/s ({tokens / doc_s:.0f} "
+        f"tokens/s), {len(texts)} docs in {doc_s:.3f} s; docs + queries in {len(shapes)} "
+        f"batches, K1 launches {k1} = {L} x {len(shapes)}; bf16, batch_size 64, max_seq_len "
+        f"300 ({card})")
+    longest = np.argsort([len(t) for t in texts], kind="stable")[-64:]
+    out["encode_profile"] = prof = profile_batch(
+        torch, engine, [texts[i] for i in longest],
+        f"families {family} encode profile, one batch of 64 at T=300",
+        {"K1 mma_kernel": ("mma_kernel",), "scalar K1": ("scalar_kernel", "tf32_kernel"),
+         "GEMM": GEMM_KEYS})
+    if prof["profile_kernel_ms"] is not None:  # bf16 K1 on the tensor cores, by its name
+        assert prof["profile_k1_ms"] > 0 and prof["profile_scalar_ms"] == 0, prof
+    out["encode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # the kernel path against the plain path, bf16, full depth
+    sub = [texts[i] for i in np.argsort([len(t) for t in texts])[:: len(texts) // 64][:64]]
+    got = engine.encode(sub)
+    with plain_attention(sa, fa):
+        want = engine.encode(sub)
+    cos = cosine(got, want)
+    log(f"families {family}: kernel path against plain path on the card, bf16, {L} layers, "
+        f"64 texts: cosine min {cos.min():.6f} mean {cos.mean():.6f} (tolerance min 0.99)")
+    assert cos.min() > 0.99
+    out["kernel_vs_plain_cos_min"] = float(cos.min())
+
+    # index the documents (K5 at D): each text finds itself first
+    mips.launches = 0
+    index = DenseIndex(cfg.hidden_size, kernel="pallas", device="cuda")
+    index.add(docs, ids=[f"t{i}" for i in range(len(texts))])
+    index.build()
+    _, hits = index.search_embeddings(docs, k=10)
+    unique = {t: i for i, t in enumerate(texts) if texts.count(t) == 1}
+    own = np.mean([hits[i][0] == f"t{i}" for i in unique.values()])
+    log(f"families {family} search: index of {len(index)} texts at D={cfg.hidden_size} "
+        f"(kernel=pallas): own text first for {own:.4f} of {len(unique)} distinct texts; "
+        f"K5 launches {mips.launches}")
+    assert own == 1.0 and mips.launches > 0
+    out.update(search_own_first=float(own), k5_launches=mips.launches)
+    del engine, index
+
+    # long-context encode with use_flash
+    phase(f"families {family} long")
+    fcfg = cfg.replace(use_flash=True)
+    flash_model = Decoder(fcfg, device="cuda", weights=model.state_dict())
+    docs_all, _ = long_texts(np.random.default_rng(SEED + 2))
+    lrows_len = [len(d.split()) for d in docs_all]
+    order = np.argsort(lrows_len, kind="stable")
+    # whole batches of each bucket (rows a batch at batch_size 16: 16 at 2048, 32 at
+    # 1024, 64 at 512): the 16 longest (truncated), 32 of 511-1022 words, 64 of 300-510
+    pick = list(order[-16:]) + list(order[160:192]) + list(order[:64])
+    long_docs = [docs_all[i] for i in pick]
+    lengine = EmbeddingEngine(flash_model, fcfg, tok, device="cuda", specb=True,
+                              max_seq_len=2048, batch_size=16, normalize_embeddings=True)
+    lengine.warmup([512, 1024, 2048])
+    torch.cuda.synchronize()
+    shapes = []
+    hook = flash_model.register_forward_pre_hook(lambda m, a: shapes.append(tuple(a[0].shape)))
+    sa.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    lemb = lengine.encode(long_docs)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    hook.remove()
+    flash_batches = sum(T % 128 == 0 for _, T in shapes)
+    k3, k1_long = fa.launches, sa.launches
+    ltokens = sum(len(r) for r in lengine.codec.encode_rows(long_docs)[0])
+    log(f"families {family} long: {len(long_docs)} docs ({ltokens} tokens) in {long_s:.3f} s "
+        f"({len(long_docs) / long_s:.1f} emb/s, {ltokens / long_s:.0f} tokens/s), shapes "
+        f"{shapes}; K3 launches {k3} = {L} x {flash_batches}, K1 {k1_long} ({card})")
+    assert k3 == L * flash_batches > 0 and k1_long == L * (len(shapes) - flash_batches)
+    assert {512, 1024, 2048} <= {T for _, T in shapes}, shapes
+    assert np.isfinite(lemb).all() and lemb.shape == (len(long_docs), cfg.hidden_size)
+    few = long_docs[:4] + long_docs[16:18] + long_docs[-2:]
+    got = lengine.encode(few)
+    with plain_attention(sa, fa):
+        want = lengine.encode(few)
+    lcos = cosine(got, want)
+    log(f"families {family} long: kernel path against plain path, 8 docs: cosine min "
+        f"{lcos.min():.6f} (tolerance min 0.99)")
+    assert lcos.min() > 0.99
+    out.update(long_emb_per_s=len(long_docs) / long_s, long_tokens_per_s=ltokens / long_s,
+               long_k3=k3, long_k1=k1_long, long_flash_batches=flash_batches,
+               long_kernel_vs_plain_cos_min=float(lcos.min()))
+    del lengine, flash_model
+    torch.cuda.empty_cache()
+
+    # the CE on 4 queries x BM25 top-100 of the BEIR-like mix
+    phase(f"families {family} ce")
+    corpus, qs, short = ce_mix(np.random.default_rng(SEED + 8))
+    qs = {q: qs[q] for q in list(qs)[:4]}
+    first = BM25Retriever().search(corpus, qs, 100)
+    beir = [(qs[q], corpus[d]["text"]) for q, hits_ in first.items() for d in hits_]
+    kw = dict(device="cuda", batch_size=16, max_length=2048)
+    ranker = CrossEncoderRanker(model, cfg, tok, **kw)
+    ranker.predict(beir[:16])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = []
+    hook = model.register_forward_pre_hook(lambda m, a: shapes.append(tuple(a[0].shape)))
+    sa.launches = 0
+    t0 = time.perf_counter()
+    scores = np.asarray(ranker.predict(beir))
+    torch.cuda.synchronize()
+    ce_s = time.perf_counter() - t0
+    hook.remove()
+    k1_ce, ce_dispatches = sa.launches, len(shapes)
+    assert k1_ce == L * ce_dispatches > 0, (k1_ce, ce_dispatches)
+    assert np.isfinite(scores).all() and (scores < 0).all()
+    ce_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"families {family} ce: {len(beir)} pairs in {ce_s:.3f} s, {len(beir) / ce_s:.1f} "
+        f"pairs/s, {ce_dispatches} dispatches {sorted(set(shapes))}, K1 launches {k1_ce} = "
+        f"{L} x {ce_dispatches}; peak {ce_peak:.2f} GiB; bf16, max_length 2048, batch_size 16 "
+        f"({card})")
+    with plain_attention(sa, fa):
+        plain_scores = np.asarray(ranker.predict(beir))
+    rho = np.array([spearman(scores[i:i + 100], plain_scores[i:i + 100])
+                    for i in range(0, len(beir), 100)])
+    log(f"families {family} ce: kernel path against plain path, {len(qs)} queries' top-100: "
+        f"Spearman min {rho.min():.4f} (floor {FAMILY_SPEARMAN_MIN}) mean {rho.mean():.4f} "
+        f"(floor {CE_SPEARMAN_FLOOR}), max |score diff| "
+        f"{np.abs(scores - plain_scores).max():.4f}")
+    assert rho.min() >= FAMILY_SPEARMAN_MIN and rho.mean() >= CE_SPEARMAN_FLOOR, rho
+    out.update(ce_pairs_per_s=len(beir) / ce_s, ce_k1=k1_ce, ce_dispatches=ce_dispatches,
+               ce_peak_gib=ce_peak, ce_kernel_vs_plain_spearman_min=float(rho.min()))
+    if family == "bloom":
+        pairs = short[:1024]
+        res = {}
+        for name, pack in (("unpacked", None), ("packed", 256)):
+            r = CrossEncoderRanker(model, cfg, tok, pack_t=pack, **kw)
+            r.predict(pairs[:64])
+            torch.cuda.synchronize()
+            sa.launches = 0
+            shapes = []
+            hook = model.register_forward_pre_hook(lambda m, a: shapes.append(tuple(a[0].shape)))
+            t0 = time.perf_counter()
+            res[name] = np.asarray(r.predict(pairs))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            hook.remove()
+            assert sa.launches == L * len(shapes) > 0
+            out[f"ce_short_{name}_pairs_per_s"] = len(pairs) / wall
+            out["ce_short_k1"] = out.get("ce_short_k1", 0) + sa.launches
+            log(f"families bloom ce short mix {name}: {len(pairs)} pairs, "
+                f"{len(pairs) / wall:.1f} pairs/s, {len(shapes)} dispatches "
+                f"{sorted(set(shapes))}, K1 launches {sa.launches} ({card})")
+        diff = float(np.abs(res["packed"] - res["unpacked"]).max())
+        log(f"families bloom ce: bf16 packed against unpacked (dispatches of other shapes, "
+            f"24 layers of bf16 roundings; held in fp32 below): max |diff| {diff:.4f}")
+        out["ce_bf16_packed_vs_unpacked"] = diff
+    del ranker, model
+    torch.cuda.empty_cache()
+
+    # fp32 at full width, depth cut to 2 layers: card against CPU, and the loader
+    phase(f"families {family} fp32")
+    cfg32 = base.replace(num_layers=2)
+    gpu_model = Decoder(cfg32, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED), lm_head=head)
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    t0 = time.perf_counter()
+    few_texts = [texts[i] for i in np.argsort([len(t) for t in texts])[:: len(texts) // 8][:8]]
+    ekw = dict(specb=True, max_seq_len=300, batch_size=8, normalize_embeddings=True)
+    on_cpu = EmbeddingEngine(cpu_model, cfg32, tok, device="cpu", **ekw).encode(few_texts)
+    pick = beir[::100][:4] + beir[50::100][:4]
+    ce_cpu = np.asarray(CrossEncoderRanker(cpu_model, cfg32, tok, device="cpu", batch_size=2,
+                                           max_length=2048).predict(pick))
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    sa.launches = 0
+    on_gpu = EmbeddingEngine(gpu_model, cfg32, tok, device="cuda", **ekw).encode(few_texts)
+    ce_gpu = np.asarray(CrossEncoderRanker(gpu_model, cfg32, tok, device="cuda", batch_size=2,
+                                           max_length=2048).predict(pick))
+    assert sa.launches > 0
+    err = float(np.abs(on_gpu - on_cpu).max())
+    cerr = np.abs(ce_gpu - ce_cpu)
+    log(f"families {family}: fp32 card against fp32 CPU, full width, 2 layers: embeddings of "
+        f"8 texts max abs diff {err:.3e} (tolerance 1e-4); CE scores of 8 pairs max |diff| "
+        f"{cerr.max():.3e} (rtol {CE_RTOL}, atol {CE_ATOL}); CPU took {cpu_s:.1f} s")
+    assert err < 1e-4
+    np.testing.assert_allclose(ce_gpu, ce_cpu, rtol=CE_RTOL, atol=CE_ATOL)
+    # packed rows (segments; for BLOOM ALiBi key positions restarting in each)
+    # against unpacked, fp32 on the card
+    kw = dict(device="cuda", batch_size=16, max_length=2048)
+    unpacked = np.asarray(CrossEncoderRanker(gpu_model, cfg32, tok, **kw).predict(short[:64]))
+    packed = np.asarray(CrossEncoderRanker(gpu_model, cfg32, tok, pack_t=256,
+                                           **kw).predict(short[:64]))
+    perr = float(np.abs(packed - unpacked).max())
+    log(f"families {family}: fp32 CE on the card, 64 short pairs, pack_t=256 against "
+        f"unpacked: max |diff| {perr:.3e} (rtol {CE_RTOL}, atol {CE_ATOL})")
+    np.testing.assert_allclose(packed, unpacked, rtol=CE_RTOL, atol=CE_ATOL)
+    out.update(fp32_card_vs_cpu=err, ce_fp32_card_vs_cpu=float(cerr.max()),
+               ce_fp32_packed_vs_unpacked=perr)
+    out["loader"] = check_loader(torch, gpu_model, family, tok, few_texts)
+    del gpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, fa, sa, mips, card) -> dict:
+    """GPT-J-6B, then BLOOM-1b7 (`family_slice`), each freed before the next."""
+    return {family: family_slice(torch, fa, sa, mips, family, card)
+            for family in ("gptj", "bloom")}
+
+
+def ptxas_lines(log_text: str, *names: str) -> dict:
+    """Registers and spills that ptxas reported for the kernels whose mangled
+    names hold each of `names` (e.g. "mma_kernelILi256ELb0"), from build.log."""
+    out = {}
+    lines = log_text.splitlines()
+    for name in names:
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and name in line:
+                regs = spill = None
+                for nxt in lines[i + 1:i + 8]:
+                    if "spill stores" in nxt and spill is None:
+                        spill = nxt.strip()
+                    if "Used" in nxt and "registers" in nxt:
+                        regs = nxt.strip().split("ptxas info    : ")[-1]
+                        break
+                out[name] = {"registers": regs, "spills": spill}
+                break
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     ap.add_argument("--parent", default=None,
@@ -2295,10 +3002,15 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     phase("kernel")
     main_err, times = phase_kernel(torch, sa, rng)
+    phase("kernel families")
+    fam_err, fam_times = phase_kernel_families(torch, sa, np.random.default_rng(SEED + 12))
     phase("bwd")
     bwd_err, bwd_times = phase_bwd_kernel(torch, sa, rng)
     phase("flash")
     flash_err, flash_times = phase_flash(torch, fa, np.random.default_rng(SEED + 3))
+    phase("flash families")
+    fam_flash_err, fam_flash_times = phase_flash_families(torch, fa,
+                                                          np.random.default_rng(SEED + 13))
     phase("fbwd")
     fbwd_err, fbwd_times = phase_fbwd(torch, fa, np.random.default_rng(SEED + 5))
     ab = {}
@@ -2418,6 +3130,10 @@ def main() -> int:
     # 11. the BEIR CLI
     phase("beir")
     ndcg10 = phase_beir(rng, card)
+
+    # 17. GPT-J-6B and BLOOM-1b7 at full width
+    phase("families")
+    families = phase_families(torch, fa, sa, mips, card)
     phase("report")
 
     # 16. report
@@ -2442,14 +3158,36 @@ def main() -> int:
     def parent_ms(cell):  # the parent build's time in the A/B phase (--parent), else None
         return ab[cell]["parent_ms"] if cell in ab else None
 
+    for family, f in families.items():
+        log(f"families {family}: encode {f['encode_emb_per_s']:.1f} emb/s, long "
+            f"{f['long_emb_per_s']:.2f} emb/s, ce {f['ce_pairs_per_s']:.1f} pairs/s; bf16, "
+            f"full width ({card})")
+    fam_k1 = sum(f["encode_k1"] + f["long_k1"] + f["ce_k1"] + f.get("ce_short_k1", 0)
+                 for f in families.values())
+    build_log = (lib_path.parent / "build.log").read_text()
+    templates = ptxas_lines(build_log, "mma_kernelILi256ELb0", "mma_kernelILi256ELb1",
+                            "flash_fwd_bf16ILi256", "flash_fwd_tf32ILi256")
+
     log(card)
     print(json.dumps({"kernels": [{
         "name": "short_attention_fwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
-        "launches": main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches,
+        "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
+                     + fam_k1),
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
         "launches_long": long["k1_launches"], "launches_ce": ce_launches,
+        "launches_families": fam_k1,
+        "templates": {"mma_kernel<256, false>": templates.get("mma_kernelILi256ELb0"),
+                      "mma_kernel<256, true>": templates.get("mma_kernelILi256ELb1"),
+                      "fp32 at Dh 256": "scalar_kernel"},
+        "max_abs_err_families": fam_err,
+        **{f"{k}_{cell}": v for cell, t in fam_times.items() for k, v in t.items()},
+        "parent_ms_gptj": parent_ms("K1 bf16 GPT-J B=64 T=300 H=16 Dh=256"),
+        "parent_ms_bloom1b7": parent_ms("K1 bf16 BLOOM-1b7 B=64 T=300 H=16 Dh=128 alibi"),
+        "parent_ms_bloom1b7_ce_packed": parent_ms(
+            "K1 bf16 BLOOM-1b7 CE packed B=128 T=256 H=16 Dh=128 alibi"),
+        "families": families,
         "max_abs_err": main_err, "max_abs_err_ce": ce_err,
         "ms": times[0][0], "plain_ms": times[0][1], "library_ms": times[0][2],
         "bound_ms": times[0][3], "bound_by": times[0][4],
@@ -2493,8 +3231,10 @@ def main() -> int:
         "train_profile": {k: v for k, v in train.items() if k.startswith("profile")}}, {
         "name": "mips_topk", "route": "cuda", "source": "sgpt_tpu_torch/csrc/mips.cu",
         "replaces": "sgpt_tpu/ops/pallas/mips.py:44",
-        "launches": search["k5_launches"] + serve["k5_launches"],
+        "launches": (search["k5_launches"] + serve["k5_launches"]
+                     + sum(f["k5_launches"] for f in families.values())),
         "launches_search": search["k5_launches"], "launches_serve": serve["k5_launches"],
+        "launches_families": {k: f["k5_launches"] for k, f in families.items()},
         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "library_ms": k5["library_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "shape": f"Q=64 N={NQ_ROWS} D=768 bf16 k=10", "query_block": k5["query_block"],
@@ -2510,9 +3250,15 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/flash_attention.py:32",
-        "launches": long["k3_launches"] + ltrain["k3"],
+        "launches": (long["k3_launches"] + ltrain["k3"]
+                     + sum(f["long_k3"] for f in families.values())),
         "launches_long_encode": long["k3_launches"], "launches_long_train": ltrain["k3"],
-        "max_abs_err": flash_err,
+        "launches_families": {k: f["long_k3"] for k, f in families.items()},
+        "templates": {"flash_fwd_bf16<256>": templates.get("flash_fwd_bf16ILi256"),
+                      "flash_fwd_tf32<256>": templates.get("flash_fwd_tf32ILi256")},
+        "max_abs_err": flash_err, "max_abs_err_families": fam_flash_err,
+        **{f"{k}_{cell}": v for cell, t in fam_flash_times.items() for k, v in t.items()},
+        "parent_ms_bloom1b7": parent_ms("K3 bf16 BLOOM-1b7 B=16 T=2048 H=16 Dh=128 alibi"),
         "ms": flash_times[0][0], "plain_ms": flash_times[0][1],
         "library_ms": flash_times[0][2], "bound_ms": flash_times[0][3],
         "bound_by": flash_times[0][4], "shape": "B=64 T=2048 H=12 Dh=64 bf16",

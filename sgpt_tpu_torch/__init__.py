@@ -3,9 +3,12 @@
 A port of `sgpt_tpu` (JAX) that grows beside it. Module names mirror the JAX
 package so each counterpart is easy to find:
 
-    models.config        DecoderConfig with a torch dtype, GPT-Neo presets
+    models.config        DecoderConfig with a torch dtype; GPT-Neo, GPT-J-6B
+                         and BLOOM presets
     models.params        random init and conversion of a JAX parameter tree
-    models.decoder       GPT-Neo forward (nn.Module, layers in a ModuleList)
+    models.decoder       GPT-Neo / GPT-J / BLOOM forward (nn.Module, layers
+                         in a ModuleList)
+    models.hf_loader     local HF checkpoints (safetensors, .bin, sharded)
     ops.short_attention  fused short-T attention: CUDA forward and backward
                          kernels, their plain versions, the autograd function
     ops.mips             streaming exact MIPS top-k: CUDA kernel, plain version

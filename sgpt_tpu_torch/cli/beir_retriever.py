@@ -7,9 +7,10 @@
 The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item
 12), plus `--device`. Writes the same `./results_<model>_<method>_<dataset>.json`
 and `./beir_embeddings_ndcgs.json` entries. Not ported yet, and raising:
-`--quantize` (item 9), `--layeridx` other than -1 (item 5), and checkpoints
-other than random-init GPT-Neo presets (item 2). `--download` fetches the
-dataset only when passed.
+`--quantize` (item 9) and `--layeridx` other than -1 (item 5).
+`--modelname` is a preset with `--randominit` (GPT-Neo; "6b"/"5.8b"/"6.1b":
+GPT-J-6B; "bloom": BLOOM-1b7) or a local HF checkpoint directory.
+`--download` fetches the dataset only when passed.
 """
 from __future__ import annotations
 

@@ -13,28 +13,46 @@ def setup_logging():
 
 def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "bfloat16",
                 device="cuda", seed: int = 0):
-    """(model, cfg, tokenizer): a random-init GPT-Neo preset (`--randominit`,
-    the reference's `--reinit` debugging flag and the zero-egress smoke
-    path), with weights from `seed` and the hash tokenizer bounded by the
-    model's vocab. As the JAX `build_model`, the dtype defaults to bf16 and
-    the config runs at `matmul_precision="default"` (TF32 float32 products
-    on the card); build a `Decoder` from a config at "highest" for strict
-    float32."""
+    """(model, cfg, tokenizer), as the JAX `build_model`: with `random_init`
+    (`--randominit`, the reference's `--reinit` debugging flag and the
+    zero-egress smoke path) a preset chosen from the name ("6b", "5.8b",
+    "6.1b": GPT-J-6B; "bloom": BLOOM-1b7; "1.3b", "2.7b", else 125M:
+    GPT-Neo) with weights from `seed` and the hash tokenizer bounded by the
+    model's vocab; else the local checkpoint directory `model_name`
+    (`hf_loader.load_pretrained`) with its own tokenizer
+    (`get_tokenizer(model_name, fallback=False)`: real weights refuse the
+    hash tokenizer). As the JAX `build_model`, the dtype defaults to bf16
+    and the config runs at `matmul_precision="default"` (TF32 float32
+    products on the card; a float32 checkpoint stays at "highest"); build a
+    `Decoder` from a config at "highest" for strict float32. Random weights
+    are drawn where the model lives: on the card from a generator there (no
+    host copy of up to 6B parameters), on the CPU from a host generator."""
     import torch
 
-    from ..models import Decoder, gpt_neo
+    from ..models import Decoder, bloom, gpt_j_6b, gpt_neo
+    from ..models.hf_loader import load_pretrained
     from ..tokenization import get_tokenizer
 
-    if not random_init:
-        raise NotImplementedError(
-            f"loading checkpoint {model_name!r} needs the HF state-dict loader "
-            "(hf_loader) — ROADMAP Queue 1 item 2; pass --randominit")
-    low = model_name.lower()
-    if any(s in low for s in ("6b", "5.8b", "6.1b", "bert", "bloom", "t5")):
-        raise NotImplementedError(f"{model_name!r}: only GPT-Neo is ported "
-                                  "(ROADMAP Queue 1 items 3, 14)")
-    size = "1.3b" if "1.3b" in low else "2.7b" if "2.7b" in low else "125m"
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_str]
-    cfg = gpt_neo(size, dtype=dtype, matmul_precision="default")
-    model = Decoder(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    low = model_name.lower()
+    if not random_init:
+        sd, cfg = load_pretrained(model_name, dtype=dtype)
+        cfg = cfg.replace(dtype=dtype)
+        if dtype != torch.float32:
+            cfg = cfg.replace(matmul_precision="default")
+        model = Decoder(cfg, device=device, weights=sd)
+        return model, cfg, get_tokenizer(model_name, fallback=False)
+    if any(s in low for s in ("bert", "t5")):
+        raise NotImplementedError(f"{model_name!r}: the encoder families (BERT, T5) are "
+                                  "not ported yet (ROADMAP Queue 1 item 14)")
+    if any(s in low for s in ("6b", "5.8b", "6.1b")):
+        cfg = gpt_j_6b()
+    elif "bloom" in low:
+        cfg = bloom("1b7")
+    else:
+        cfg = gpt_neo("1.3b" if "1.3b" in low else "2.7b" if "2.7b" in low else "125m")
+    cfg = cfg.replace(dtype=dtype, matmul_precision="default")
+    on_card = torch.device(device).type == "cuda" and torch.cuda.is_available()
+    generator = torch.Generator(device=device if on_card else "cpu").manual_seed(seed)
+    model = Decoder(cfg, device=device, generator=generator)
     return model, cfg, get_tokenizer(None, vocab_size=cfg.vocab_size)

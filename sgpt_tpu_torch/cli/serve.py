@@ -6,8 +6,9 @@ card (counterpart of `sgpt_tpu/cli/serve.py`).
 
 The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
 plus `--device`. Not ported yet, and raising: `--index ivf` (item 13),
-`--quantize` (item 9), and checkpoints other than random-init GPT-Neo
-presets (item 2). The exact index searches with the block-max scan;
+`--quantize` (item 9). `--modelname` is a preset with
+`--randominit` (GPT-Neo, GPT-J-6B, BLOOM-1b7) or a local HF checkpoint
+directory. The exact index searches with the block-max scan;
 `--quantize-index int8` stores the corpus in int8. `--rerank` enables POST
 /rerank: the SGPT-CE ranker (`ce_prompts.build_ranker`) on the encoder's
 model, or with `--rerank-model` on a second model.

@@ -11,8 +11,8 @@ The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
 plus `--device`. Writes the same per-prompt result json
 (`./sgptce_<dataset>_prompt<id>.json` unless `--output`) and the
 cross-dataset `--scores-out` entries. Not ported yet, and raising:
-`--quantize` (item 9), and checkpoints other than random-init GPT-Neo
-presets (item 2).
+`--quantize` (item 9). `--modelpath` is a preset with `--randominit`
+(GPT-Neo, GPT-J-6B, BLOOM-1b7) or a local HF checkpoint directory.
 """
 from __future__ import annotations
 

@@ -12,8 +12,10 @@ queries.tsv (qid\\ttext), hard-negatives.jsonl ({qid, pos: [pid], neg:
     python -m sgpt_tpu_torch.cli.train_msmarco --data_folder data/msmarco \\
         --randominit --train_batch_size 32 --specb --freezenonbias --lr 2e-4
 
-Only random-init GPT-Neo presets load so far (`--randominit`); a real
-checkpoint needs the HF loader (ROADMAP Queue 1 item 2).
+`--model_name` is a preset with `--randominit` or a local HF checkpoint
+directory. Training of GPT-J and BLOOM is not part of the port yet
+(ROADMAP Queue 1 item 16): GPT-J's head size 256 has no tensor-core K2
+and no K4.
 """
 from __future__ import annotations
 

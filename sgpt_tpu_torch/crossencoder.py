@@ -88,8 +88,10 @@ class CrossEncoderRanker:
         self.use_prompt = use_prompt
         self.batch_size = batch_size
         self.max_length = max_length or cfg.max_position_embeddings
-        if self.max_length > cfg.max_position_embeddings:
-            # a position past wpe is a device assert on the card, not an error
+        if cfg.position_embedding == "learned" and self.max_length > cfg.max_position_embeddings:
+            # a position past wpe is a device assert on the card, not an error;
+            # rotary (GPT-J) and ALiBi (BLOOM) positions have no table, and the
+            # JAX ranker takes any max_length for them
             raise ValueError(f"max_length={self.max_length} exceeds the model's "
                              f"{cfg.max_position_embeddings} positions")
 

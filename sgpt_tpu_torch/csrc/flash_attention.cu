@@ -59,7 +59,11 @@
 //     each 8-key step). Each K and V value is split once for the block, by
 //     the thread that copied it, as it lands; K streams through two stages,
 //     V through one (copied during the sub-tile's scores), which keeps the
-//     block at 6 fp32 tiles, two blocks an SM at Dh ≤ 64.
+//     block at 6 fp32 tiles, two blocks an SM at Dh ≤ 64. At Dh 256 six
+//     tiles would not fit the SM: the block keeps Q, one K and one V
+//     sub-tile unsplit and splits each value where it is read.
+//   At Dh 256 (GPT-J) flash_fwd_bf16 reads Q's fragments from the shared Q
+//   tile at each k-step (qk_tile_smem), as K1's mma_kernel does there.
 // Both skip the sub-tiles that cannot change any row of the block (see Walk).
 
 #include <cuda_bf16.h>
@@ -225,7 +229,12 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(cons
     if (threadIdx.x < TK / 4) cp_async16(kms + stage * TK + 4 * threadIdx.x, kmg + k0 + 4 * threadIdx.x, true);
   };
 
-  uint32_t qf[D / 16][4];
+  // Dh 256 (GPT-J): Q's fragments are read from the Q tile at each k-step
+  // (qk_tile_smem, the same bits), as in K1's mma_kernel: held, their 64
+  // registers beside O's 128 would spill
+  constexpr bool Q_IN_SMEM = D > 128;
+  const bf16* qrows = Qs + warp * WR * LD;
+  uint32_t qf[Q_IN_SMEM ? 1 : D / 16][4];
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float o[D / 8][4];
 #pragma unroll
@@ -237,10 +246,14 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(cons
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // sub-tile i (and at i = 0 the Q tile) has landed for every thread
-    if (i == 0) load_a_frags<D>(qf, Qs + warp * WR * LD, lane);
     const int entry = list[i], k0 = entry & ~NEEDS_MASK, stage = i & 1;
     float s[8][4];
-    qk_tile<D>(s, qf, Ks + stage * TK * LD, lane);
+    if constexpr (Q_IN_SMEM) {
+      qk_tile_smem<D>(s, qrows, Ks + stage * TK * LD, lane);
+    } else {
+      if (i == 0) load_a_frags<D>(qf, qrows, lane);
+      qk_tile<D>(s, qf, Ks + stage * TK * LD, lane);
+    }
     const float2 mx = entry & NEEDS_MASK
                           ? k3_scores<true>(s, p, slope, qpos, k0, kms + stage * TK, lane)
                           : k3_scores<false>(s, p, slope, qpos, k0, kms + stage * TK, lane);
@@ -298,18 +311,26 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(cons
 // spilled and cost 10 % at Dh 64 on the H100 (chip_variants.py
 // k3_q_in_regs). P = exp(s − m_new) stays in the score registers,
 // unrounded, as P·V's A fragments.
+// At Dh 256 (GPT-J; SPLIT false) six tiles would take 400 KB of shared
+// memory, so the block keeps three: Q, one K and one V sub-tile, unsplit;
+// each warp splits the K and V values it reads (qk_step_3xtf32_unsplit,
+// pv_tile_3xtf32_unsplit: the same big and small parts as split_own_chunks
+// stores, so the products are the same). K of sub-tile i + 1 is copied
+// during sub-tile i's softmax and P·V, V of i + 1 during i + 1's scores:
+// 200 KB, one block an SM.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(const Params p) {
   constexpr int LD = D + 4;
+  constexpr bool SPLIT = D <= 128;
   static_assert(TQ == MMA_TILE && NTHREADS == MMA_THREADS, "mma_tf32.cuh's block shape");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // the Q tile, later the output staging tile
-  float* Ks = Qs + TQ * LD;                        // two stages (big parts once split)
-  float* Vs = Ks + 2 * TK * LD;                    // one stage (big parts once split)
-  float* Ksm = Vs + TK * LD;                       // small parts of the current K sub-tile
-  float* Vsm = Ksm + TK * LD;                      // small parts of the current V sub-tile
-  int* kms = reinterpret_cast<int*>(Vsm + TK * LD);  // two stages of TK key-mask values
-  int* list = kms + 2 * TK;                           // T / 64 sub-tile entries
+  float* Ks = Qs + TQ * LD;                        // two stages (big parts once split); unsplit, one
+  float* Vs = Ks + (SPLIT ? 2 : 1) * TK * LD;      // one stage (big parts once split)
+  float* Ksm = Vs + TK * LD;                       // small parts of the current K sub-tile (SPLIT)
+  float* Vsm = Ksm + TK * LD;                      // small parts of the current V sub-tile (SPLIT)
+  int* kms = reinterpret_cast<int*>(SPLIT ? Vsm + TK * LD : Ksm);  // two stages of TK key-mask values
+  int* list = kms + 2 * TK;                                          // T / 64 sub-tile entries
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ, h = blockIdx.y, b = blockIdx.z;
@@ -328,7 +349,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(cons
 
   auto issue_k = [&](int i) {
     const int k0 = list[i] & ~NEEDS_MASK, stage = i & 1;
-    load_tile_async_f32<D>(Ks + stage * TK * LD, kg, p.st, k0, p.T);
+    load_tile_async_f32<D>(Ks + (SPLIT ? stage * TK * LD : 0), kg, p.st, k0, p.T);
     if (threadIdx.x < TK / 4) cp_async16(kms + stage * TK + 4 * threadIdx.x, kmg + k0 + 4 * threadIdx.x, true);
   };
   auto issue_v = [&](int i) { load_tile_async_f32<D>(Vs, vg, p.st, list[i] & ~NEEDS_MASK, p.T); };
@@ -337,30 +358,54 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(cons
   float o[D / 8][4];
 #pragma unroll
   for (int c = 0; c < D / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
-  if (n > 0) {
-    issue_k(0);
-    issue_v(0);
+  if constexpr (SPLIT) {
+    if (n > 0) {
+      issue_k(0);
+      issue_v(0);
+    }
+    cp_async_commit();  // with the Q tile's copies
+  } else {
+    if (n > 0) issue_k(0);
+    cp_async_commit();  // with the Q tile's copies
+    if (n > 0) issue_v(0);
+    cp_async_commit();
   }
-  cp_async_commit();  // with the Q tile's copies
   for (int i = 0; i < n; ++i) {
     const int entry = list[i], k0 = entry & ~NEEDS_MASK, stage = i & 1;
-    float* kb = Ks + stage * TK * LD;
-    if (i + 1 < n) issue_k(i + 1);  // the next K sub-tile's copy overlaps this one's products
-    cp_async_commit();
-    if (i == 0)
+    float* kb = Ks + (SPLIT ? stage * TK * LD : 0);
+    if constexpr (SPLIT) {
+      if (i + 1 < n) issue_k(i + 1);  // the next K sub-tile's copy overlaps this one's products
+      cp_async_commit();
+      if (i == 0)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<2>();
+      split_own_chunks<D>(kb, Ksm);
+      __syncthreads();  // K of sub-tile i (and at i = 0 the Q tile) landed and split
+    } else {
       cp_async_wait<1>();
-    else
-      cp_async_wait<2>();
-    split_own_chunks<D>(kb, Ksm);
-    __syncthreads();  // K of sub-tile i (and at i = 0 the Q tile) landed and split
+      __syncthreads();  // K of sub-tile i (and at i = 0 the Q tile) landed; V of i may be in flight
+    }
     float s[8][4];
 #pragma unroll
     for (int c = 0; c < 8; ++c) s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+    if constexpr (SPLIT) {
 #pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      uint32_t ab[4], as[4];
-      a_frag_3xtf32<D>(ab, as, qrows, d, lane);  // Q's fragments, split at every k-step
-      qk_step_3xtf32<D>(s, ab, as, kb, Ksm, d, lane);
+      for (int d = 0; d < D / 8; ++d) {
+        uint32_t ab[4], as[4];
+        a_frag_3xtf32<D>(ab, as, qrows, d, lane);  // Q's fragments, split at every k-step
+        qk_step_3xtf32<D>(s, ab, as, kb, Ksm, d, lane);
+      }
+    } else {
+#pragma unroll 4
+      for (int d = 0; d < D / 8; ++d) {
+        uint32_t ab[4], as[4];
+        a_frag_3xtf32<D>(ab, as, qrows, d, lane);
+        qk_step_3xtf32_unsplit<D>(s, ab, as, kb, d, lane);
+      }
+      __syncthreads();  // every warp has read the K sub-tile
+      if (i + 1 < n) issue_k(i + 1);
+      cp_async_commit();
     }
     const float2 mx = entry & NEEDS_MASK
                           ? k3_scores<true>(s, p, slope, qpos, k0, kms + stage * TK, lane)
@@ -387,10 +432,15 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(cons
       o[c][2] = __fmul_rn(o[c][2], alpha[1]), o[c][3] = __fmul_rn(o[c][3], alpha[1]);
     }
     cp_async_wait<1>();
-    split_own_chunks<D>(Vs, Vsm);
-    __syncthreads();  // V of sub-tile i landed and split
-    pv_tile_3xtf32<D>(o, s, Vs, Vsm, lane);
-    __syncthreads();  // V, Ksm and the K stage consumed
+    if constexpr (SPLIT) {
+      split_own_chunks<D>(Vs, Vsm);
+      __syncthreads();  // V of sub-tile i landed and split
+      pv_tile_3xtf32<D>(o, s, Vs, Vsm, lane);
+    } else {
+      __syncthreads();  // V of sub-tile i landed; K of i + 1 may be in flight
+      pv_tile_3xtf32_unsplit<D>(o, s, Vs, lane);
+    }
+    __syncthreads();  // V (split: and Ksm and the K stage) consumed
     if (i + 1 < n) issue_v(i + 1);
     cp_async_commit();
   }
@@ -421,7 +471,8 @@ size_t bf16_smem(int T) {
 
 template <int D>
 size_t tf32_smem(int T) {
-  return tf32_tiles_bytes<D>() + sizeof(int) * (2 * TK + T / TK);
+  const size_t tiles = D > 128 ? sizeof(float) * 3 * TQ * (D + 4) : tf32_tiles_bytes<D>();
+  return tiles + sizeof(int) * (2 * TK + T / TK);
 }
 
 template <typename KernelT>
@@ -465,6 +516,7 @@ extern "C" int sgpt_flash_attention_fwd(const void* q, const void* k, const void
     case 32: return (int)dispatch<32>(is_bf16, grid, s, p);
     case 64: return (int)dispatch<64>(is_bf16, grid, s, p);
     case 128: return (int)dispatch<128>(is_bf16, grid, s, p);
+    case 256: return (int)dispatch<256>(is_bf16, grid, s, p);
     default: return (int)cudaErrorInvalidValue;
   }
 }

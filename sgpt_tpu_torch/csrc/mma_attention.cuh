@@ -150,6 +150,32 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[D
   }
 }
 
+// qk_tile with Q's A fragments read from the warp's 16 rows of the shared
+// Q tile (row stride D + 8) at every k-step instead of held in registers:
+// at Dh 256 (GPT-J) the 64 registers of held fragments beside O's 128 and
+// S's 32 would spill. Each s[n] adds the same products in the same k-step
+// order as qk_tile, so the scores are the same bits.
+template <int D>
+__device__ __forceinline__ void qk_tile_smem(float (&s)[8][4], const __nv_bfloat16* qrows,
+                                             const __nv_bfloat16* ks, int lane) {
+  const __nv_bfloat16* pa = qrows + (lane & 15) * (D + 8) + (lane >> 4) * 8;
+  const __nv_bfloat16* p = ks + ((lane & 7) + (lane >> 4) * 8) * (D + 8) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D / 16; ++d) {
+    uint32_t a[4];
+    ldmatrix_x4(a, pa + d * 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t b[4];
+      ldmatrix_x4(b, p + j * 16 * (D + 8) + d * 16);
+      mma_bf16(s[2 * j], a, b[0], b[1]);
+      mma_bf16(s[2 * j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // P as the A fragments of P·V, straight from the S accumulator layout:
 // key step k (keys 16k .. 16k + 15) is n-tiles 2k and 2k + 1
 __device__ __forceinline__ void p_frags(uint32_t (&pf)[4][4], const float (&p)[8][4]) {

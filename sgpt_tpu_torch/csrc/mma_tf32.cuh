@@ -145,6 +145,50 @@ __device__ __forceinline__ void qk_step_3xtf32(float (&s)[8][4], const uint32_t 
   }
 }
 
+// qk_step_3xtf32 from an unsplit fp32 K tile (row stride D + 4): each lane
+// splits the two values it reads for each n-tile, into the same big and
+// small parts split_own_chunks stores, so the products are the same. K3's
+// fp32 path at Dh 256 takes this: its tiles have no room for the small
+// parts.
+template <int D>
+__device__ __forceinline__ void qk_step_3xtf32_unsplit(float (&s)[8][4], const uint32_t (&ab)[4],
+                                                       const uint32_t (&as)[4], const float* k,
+                                                       int d, int lane) {
+  const float* b = k + (lane >> 2) * (D + 4) + 8 * d + (lane & 3);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int r = n * 8 * (D + 4);
+    uint32_t bb0, bs0, bb1, bs1;
+    split_tf32(b[r], bb0, bs0);
+    split_tf32(b[r + 4], bb1, bs1);
+    mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
+  }
+}
+
+// pv_tile_3xtf32 from an unsplit fp32 V tile, each lane splitting the V
+// values it reads (as qk_step_3xtf32_unsplit does K's)
+template <int D>
+__device__ __forceinline__ void pv_tile_3xtf32_unsplit(float (&o)[D / 8][4], const float (&p)[8][4],
+                                                       const float* v, int lane) {
+  const float* b = v + 2 * (lane & 3) * (D + 4) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[j][0], ab[0], as[0]);
+    split_tf32(p[j][2], ab[1], as[1]);
+    split_tf32(p[j][1], ab[2], as[2]);
+    split_tf32(p[j][3], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int r0 = 8 * j * (D + 4) + 8 * n, r1 = r0 + D + 4;  // V rows 8j + 2t, 8j + 2t + 1
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(b[r0], bb0, bs0);
+      split_tf32(b[r1], bb1, bs1);
+      mma_3xtf32(o[n], ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
 // O (16 rows x D) += P (16 x 64 keys, fp32 in the accumulator layout) · V
 // over a 64-key V tile split into vb (big) and vsm (small) (row stride D +
 // 4), keys permuted within each 8-key step as the note at the top says; o[n]

@@ -16,10 +16,14 @@
 // causal walk needs. The TPU kernel keeps one head's whole (T, T) fp32 score
 // tile in VMEM (360 KB at T=300, more than the 227 KB of shared memory a
 // block may use), so the design differs:
-//   * mma_kernel<Dh> (bf16, Dh in {16, 32, 64, 128}): one block of 4 warps
-//     per (64 query rows, head, batch row), longest rows first; each warp
-//     owns 16 rows and keeps their Q fragments, scores and output in
-//     mma.sync registers (mma_attention.cuh). 64-key K/V tiles stream
+//   * mma_kernel<Dh> (bf16, Dh in {16, 32, 64, 128, 256}): one block of 4
+//     warps per (64 query rows, head, batch row), longest rows first; each
+//     warp owns 16 rows and keeps their Q fragments, scores and output in
+//     mma.sync registers (mma_attention.cuh). At Dh 256 (GPT-J) the output
+//     alone is 128 fp32 registers a thread, so Q's fragments stay in the
+//     shared Q tile and are read at each k-step (qk_tile_smem: the same
+//     products in the same order, so the same bits); the tiles take 170 KB,
+//     one block an SM. 64-key K/V tiles stream
 //     through a 2-stage cp.async ring, with each tile's key padding, segment
 //     ids and ALiBi positions loaded into shared memory once a tile. The
 //     exact softmax takes two passes, and S never leaves registers: pass 1
@@ -44,7 +48,8 @@
 //     T=300, H=12, Dh=64, fp32) q, k, v and out are 118 MB, 0.035 ms at
 //     3.35 TB/s, and the causal pairs' three TF32 products ~0.026 ms at 495
 //     TFLOP/s; the mma.sync instructions and the splits bound it in practice.
-//   * scalar_kernel (other head sizes, or pointers not 16-byte aligned): one
+//   * scalar_kernel (other head sizes, fp32 at Dh 256, or pointers not
+//     16-byte aligned): one
 //     block per (batch row, head, BQ=16 query rows) keeps a BQ × T fp32
 //     score strip in shared memory (128 KB at T=2048), fills it over every
 //     64-key tile, runs softmax_row over each whole row and accumulates P·V
@@ -166,8 +171,8 @@ scalar_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
   }
 }
 
-// bf16 K1 on the tensor cores (D = Dh in {16, 32, 64, 128}); see the note at
-// the top. One block per (64 query rows, head, batch row), longest rows
+// bf16 K1 on the tensor cores (D = Dh in {16, 32, 64, 128, 256}); see the
+// note at the top. One block per (64 query rows, head, batch row), longest rows
 // first; warp w owns rows 16w .. 16w + 15 of the tile. GENERAL: ALiBi or
 // segments (the encode path has neither).
 template <int D, bool GENERAL>
@@ -201,6 +206,9 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const int q_last = min(q0 + MMA_TILE - 1, T - 1);
   const int kt_lo = mask.window > 0 ? max(0, q0 - mask.window + 1) / MMA_TILE : 0;
   const int kt_hi = q_last / MMA_TILE;
+  // Dh 256: Q's fragments are read from the Q tile at each k-step
+  constexpr bool Q_IN_SMEM = D > 128;
+  const bf16* qrows = Qs + warp * 16 * LD;
 
   auto issue = [&](int kt, int stage, bool with_v) {
     load_tile_async<D>(Ks + stage * MMA_TILE * LD, kh, HD, kt * MMA_TILE, T);
@@ -217,7 +225,7 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   };
 
   // Pass 1: S = Q·Kᵀ, masked, and the running max m and sum l of each row.
-  uint32_t qf[D / 16][4];
+  uint32_t qf[Q_IN_SMEM ? 1 : D / 16][4];
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   load_tile_async<D>(Qs, qh, HD, q0, T);
   issue(kt_lo, 0, false);
@@ -228,10 +236,14 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile kt (and at i = 0 the Q tile) has landed for every thread
-    if (i == 0) load_a_frags<D>(qf, Qs + warp * 16 * LD, lane);
     const KeyAux* a = aux + (i & 1);
     float s[8][4];
-    qk_tile<D>(s, qf, Ks + (i & 1) * MMA_TILE * LD, lane);
+    if constexpr (Q_IN_SMEM) {
+      qk_tile_smem<D>(s, qrows, Ks + (i & 1) * MMA_TILE * LD, lane);
+    } else {
+      if (i == 0) load_a_frags<D>(qf, qrows, lane);
+      qk_tile<D>(s, qf, Ks + (i & 1) * MMA_TILE * LD, lane);
+    }
     const float2 mx =
         all_allowed(kt, a)
             ? k1_scores<false, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane)
@@ -286,7 +298,10 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     __syncthreads();
     const KeyAux* a = aux + stage;
     float s[8][4];
-    qk_tile<D>(s, qf, Ks + stage * MMA_TILE * LD, lane);
+    if constexpr (Q_IN_SMEM)
+      qk_tile_smem<D>(s, qrows, Ks + stage * MMA_TILE * LD, lane);
+    else
+      qk_tile<D>(s, qf, Ks + stage * MMA_TILE * LD, lane);
     if (all_allowed(kt, a))
       k1_scores<false, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane);
     else
@@ -489,7 +504,8 @@ cudaError_t launch_tiles(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st
   return cudaGetLastError();
 }
 
-// K1 on the tensor cores: mma_kernel (bf16) or tf32_kernel (fp32)
+// K1 on the tensor cores: mma_kernel (bf16) or tf32_kernel (fp32; Dh ≤ 128,
+// see mma_ok)
 template <int D>
 cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v,
                        void* out, const Mask& mask, int T, int H, bool is_bf16) {
@@ -498,13 +514,20 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
   if (is_bf16)
     return launch_tiles<bf16>(general ? mma_kernel<D, true> : mma_kernel<D, false>,
                               mma_tiles_bytes<D>() + aux, grid, st, q, k, v, out, mask, T, H);
-  return launch_tiles<float>(general ? tf32_kernel<D, true> : tf32_kernel<D, false>,
-                             tf32_tiles_bytes<D>() + aux, grid, st, q, k, v, out, mask, T, H);
+  if constexpr (D <= 128)
+    return launch_tiles<float>(general ? tf32_kernel<D, true> : tf32_kernel<D, false>,
+                               tf32_tiles_bytes<D>() + aux, grid, st, q, k, v, out, mask, T, H);
+  return cudaErrorInvalidValue;
 }
 
-bool mma_ok(const void* q, const void* k, const void* v, const void* out, int Dh) {
+// The tensor-core route, by dtype and head size: bf16 at Dh 16-256, fp32 at
+// Dh 16-128 (six fp32 tiles of Dh 256 would take 400 KB of shared memory,
+// so fp32 at Dh 256 takes scalar_kernel); all four tensors 16-byte aligned.
+bool mma_ok(const void* q, const void* k, const void* v, const void* out, int Dh,
+            bool is_bf16) {
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
-  return (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128) && ptrs % 16 == 0;
+  return (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128 || (Dh == 256 && is_bf16)) &&
+         ptrs % 16 == 0;
 }
 
 }  // namespace
@@ -526,13 +549,14 @@ extern "C" int sgpt_short_attention_fwd(const void* q, const void* k, const void
   const int Tpad = (T + BK - 1) / BK * BK;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   cudaError_t err;
-  if (mma_ok(q, k, v, out, Dh)) {
+  if (mma_ok(q, k, v, out, Dh, is_bf16)) {
     const dim3 mgrid((T + MMA_TILE - 1) / MMA_TILE, H, B);
     switch (Dh) {
       case 16: return (int)launch_mma<16>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
       case 32: return (int)launch_mma<32>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
       case 64: return (int)launch_mma<64>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
-      default: return (int)launch_mma<128>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
+      case 128: return (int)launch_mma<128>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
+      default: return (int)launch_mma<256>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);
     }
   }
   const size_t smem =

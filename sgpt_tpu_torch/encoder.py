@@ -34,7 +34,7 @@ _LATER = ("layeridx", "learned_weights", "dense_heads", "mesh", "sp_mesh",
 
 
 class EmbeddingEngine:
-    """Batched sentence embedding over the port's GPT-Neo decoder."""
+    """Batched sentence embedding over the port's decoder (GPT-Neo, GPT-J, BLOOM)."""
 
     def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
                  device="cuda", method: str = "weightedmean", specb: bool = False,

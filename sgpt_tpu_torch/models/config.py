@@ -1,8 +1,9 @@
 """Decoder architecture configs (counterpart of `sgpt_tpu/models/config.py`).
 
 Same fields as the JAX `DecoderConfig`; only `dtype` differs: a `torch.dtype`
-here, a `jnp.dtype` there. The decoder implements the GPT-Neo path and raises
-`NotImplementedError` for the flags of the other families.
+here, a `jnp.dtype` there. The decoder implements the three GPT families
+(GPT-Neo, GPT-J, BLOOM) and raises `NotImplementedError` for the flags of
+the encoder families (BERT, T5, CLIP).
 """
 from __future__ import annotations
 
@@ -85,17 +86,59 @@ def gpt_neo(size: str = "125m", **kw) -> DecoderConfig:
     )
 
 
+def gpt_j_6b(**kw) -> DecoderConfig:
+    return DecoderConfig(
+        vocab_size=50400,
+        hidden_size=4096,
+        num_layers=28,
+        num_heads=16,
+        position_embedding="rotary",
+        rotary_dim=64,
+        parallel_residual=True,
+        scale_attn=True,
+        qkv_bias=False,
+        out_bias=False,
+        **kw,
+    )
+
+
+def bloom(size: str = "1b7", **kw) -> DecoderConfig:
+    dims = {
+        "560m": dict(hidden_size=1024, num_layers=24, num_heads=16),
+        "1b7": dict(hidden_size=2048, num_layers=24, num_heads=16),
+        "3b": dict(hidden_size=2560, num_layers=30, num_heads=32),
+        "7b1": dict(hidden_size=4096, num_layers=30, num_heads=32),
+    }[size]
+    return DecoderConfig(
+        vocab_size=250880,
+        position_embedding="alibi",
+        embedding_layernorm=True,
+        scale_attn=True,
+        qkv_bias=True,
+        out_bias=True,
+        **dims,
+        **kw,
+    )
+
+
 def tiny(family: str = "neo", vocab_size: int = 257, **kw) -> DecoderConfig:
-    """Small configs for tests; same structural flags as the full family."""
-    if family != "neo":
-        raise NotImplementedError(
-            f"tiny({family!r}): only the GPT-Neo family is ported "
-            "(ROADMAP Queue 1 item 3 lists GPT-J and BLOOM next)")
+    """Small configs for tests; same structural flags as the full families."""
     base = dict(vocab_size=vocab_size, hidden_size=64, num_layers=4, num_heads=4,
                 max_position_embeddings=128)
     base.update(kw)
-    return DecoderConfig(position_embedding="learned", attention_layout="alternating",
-                         local_window=8, scale_attn=False, **base)
+    if family == "neo":
+        return DecoderConfig(position_embedding="learned", attention_layout="alternating",
+                             local_window=8, scale_attn=False, **base)
+    if family == "gptj":
+        return DecoderConfig(position_embedding="rotary", rotary_dim=8,
+                             parallel_residual=True, out_bias=False, **base)
+    if family == "bloom":
+        return DecoderConfig(position_embedding="alibi", embedding_layernorm=True,
+                             qkv_bias=True, **base)
+    if family in ("bert", "t5"):
+        raise NotImplementedError(f"tiny({family!r}): the encoder families are not "
+                                  "ported yet (ROADMAP Queue 1 item 14)")
+    raise ValueError(f"unknown family {family!r}")
 
 
 def from_jax_config(cfg) -> DecoderConfig:

@@ -1,22 +1,31 @@
-"""GPT-Neo decoder forward (counterpart of `sgpt_tpu/models/decoder.py`).
+"""Causal decoder forward of the GPT families (counterpart of `sgpt_tpu/models/decoder.py`).
 
 Plain PyTorch: the layers are an `nn.ModuleList` walked by a Python loop.
-What the port implements is the GPT-Neo path of the JAX `_forward_impl`:
-learned positions, pre-LN blocks (LayerNorm with fp32 statistics), causal
-attention alternating global and local (windowed) layers, tanh-GELU MLP,
-`ln_f`, `output_hidden_states` with HF semantics, and the LM head tied to
-`wte` (`Decoder.logits`). Attention routes as
-the JAX decoder does: with `cfg.use_flash`, T % 128 == 0 and no packed rows
-(`segment_ids`), through `ops.flash_attention` (K3 on a CUDA tensor, and
-K4a/K4b for the backward when a gradient is needed); every other call through
-`ops.short_attention` (K1, and K2 for the backward when a gradient is
-needed). On a CPU tensor both take their plain versions. The flags of the
-other families raise `NotImplementedError`.
+What the port implements is the causal path of the JAX `_forward_impl` for
+its three GPT families: GPT-Neo (learned positions, unscaled scores, global
+and local (windowed) layers alternating), GPT-J (GPT-J's interleaved rotary
+on the leading `rotary_dim` of each head, 1/sqrt(Dh) scores, the parallel
+residual x + attn(ln1(x)) + mlp(ln1(x)), a separate biased LM head) and
+BLOOM (ALiBi with BLOOM's slopes, a LayerNorm on the embeddings, q/k/v
+biases); pre-LN blocks (LayerNorm with fp32 statistics), tanh-GELU MLP,
+`ln_f`, `output_hidden_states` with HF semantics, and the LM head
+(`Decoder.logits`: `lm_head` when the weights have one, else tied to
+`wte`). Attention routes as the JAX decoder does: with `cfg.use_flash`,
+T % 128 == 0 and no packed rows (`segment_ids`), through
+`ops.flash_attention` (K3 on a CUDA tensor, and K4a/K4b for the backward
+when a gradient is needed); every other call through `ops.short_attention`
+(K1, and K2 for the backward when a gradient is needed). On a CPU tensor
+both take their plain versions. ALiBi reaches both kernels as the slopes
+(K1 and K3 add slope·key position to the scaled score); packed rows pass
+their per-segment positions as K1's ALiBi key positions, unpacked rows use
+the key index, which equals the JAX XLA path's cumsum(mask) − 1 on every
+valid key of a right-padded row. The flags of the encoder families (BERT,
+T5, CLIP) raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +34,7 @@ from torch import nn
 from ..ops.flash_attention import flash_attention
 from ..ops.short_attention import short_attention
 from .config import DecoderConfig
-from .params import init_params, param_shapes
+from .params import init_params, init_params_, param_shapes
 from .precision import matmul_precision
 
 
@@ -37,18 +46,52 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
 
 
+def rope_sincos(positions: torch.Tensor, rotary_dim: int):
+    """GPT-J style sin/cos tables, repeat-interleaved by 2, in fp32.
+    positions: (T,) shared across the batch, or (B, T) per-row (sequence
+    packing restarts positions at each segment boundary)."""
+    inv_freq = 1.0 / (10000.0 ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                                               device=positions.device) / rotary_dim))
+    freqs = positions.float()[..., None] * inv_freq                        # (..., T, rd/2)
+    return (torch.repeat_interleave(torch.sin(freqs), 2, dim=-1),          # (..., T, rd)
+            torch.repeat_interleave(torch.cos(freqs), 2, dim=-1))
+
+
+def _rotate_every_two(x: torch.Tensor) -> torch.Tensor:
+    return torch.stack([-x[..., 1::2], x[..., ::2]], dim=-1).reshape(x.shape)
+
+
+def apply_rotary(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+                 rotary_dim: int) -> torch.Tensor:
+    """x: (B, T, H, Dh); rotary applied to the leading `rotary_dim` of Dh, in
+    x's dtype (sin and cos cast to it, as the JAX `apply_rotary` casts them).
+    sin/cos: (T, rd) batch-shared or (B, T, rd) per-row."""
+    rot, rest = x[..., :rotary_dim], x[..., rotary_dim:]
+    if sin.dim() == 2:
+        sin, cos = sin[None], cos[None]
+    sin = sin[:, :, None, :].to(rot.dtype)
+    cos = cos[:, :, None, :].to(rot.dtype)
+    rot = rot * cos + _rotate_every_two(rot) * sin
+    return torch.cat([rot, rest], dim=-1)
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """BLOOM's per-head ALiBi slopes (closest-power-of-two interpolation), fp32 (H,)."""
+    cp2 = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(cp2) - 3)))
+    slopes = [base ** (i + 1) for i in range(cp2)]
+    if cp2 != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * cp2) - 3)))
+        slopes += [extra_base ** (i + 1) for i in range(0, 2 * (num_heads - cp2), 2)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
 def _unsupported(cfg: DecoderConfig) -> list:
     """(flag, ROADMAP item) for each config flag this port does not implement."""
     later = []
-    if cfg.position_embedding == "rotary":
-        later.append(("position_embedding='rotary' (GPT-J)", "Queue 1 item 3"))
-    elif cfg.position_embedding != "learned":
-        later.append((f"position_embedding={cfg.position_embedding!r} "
-                      "(alibi: BLOOM; none: T5)", "Queue 1 items 3, 14"))
-    if cfg.parallel_residual:
-        later.append(("parallel_residual (GPT-J)", "Queue 1 item 3"))
-    if cfg.embedding_layernorm:
-        later.append(("embedding_layernorm (BLOOM, BERT)", "Queue 1 items 3, 14"))
+    if cfg.position_embedding not in ("learned", "rotary", "alibi"):
+        later.append((f"position_embedding={cfg.position_embedding!r} (T5)",
+                      "Queue 1 item 14"))
     if cfg.bidirectional:
         later.append(("bidirectional (BERT, T5)", "Queue 1 item 14"))
     if cfg.post_layernorm:
@@ -64,63 +107,72 @@ def _unsupported(cfg: DecoderConfig) -> list:
     return later
 
 
+def _empty(shape, factory: dict) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, **factory))
+
+
 class LayerNorm(nn.Module):
-    def __init__(self, D: int, eps: float):
+    def __init__(self, D: int, eps: float, factory: dict):
         super().__init__()
-        self.scale = nn.Parameter(torch.empty(D))
-        self.bias = nn.Parameter(torch.empty(D))
+        self.scale = _empty(D, factory)
+        self.bias = _empty(D, factory)
         self.eps = eps
 
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias, self.eps)
 
 
-def _params(module: nn.Module, names, shapes: dict, prefix: str):
+def _params(module: nn.Module, names, shapes: dict, prefix: str, factory: dict):
     for n in names:
         if prefix + n in shapes:
-            setattr(module, n, nn.Parameter(torch.empty(shapes[prefix + n])))
+            setattr(module, n, _empty(shapes[prefix + n], factory))
         else:
             setattr(module, n, None)
 
 
 class Attention(nn.Module):
-    """Causal multi-head attention: projections in (B, T, H·Dh), then the
-    flash attention (`use_flash`, T % 128 == 0, rows not packed) or the fused
-    short-T attention, then the output projection."""
+    """Causal multi-head attention: projections in (B, T, H·Dh), rotary
+    (GPT-J) on q and k, then the flash attention (`use_flash`, T % 128 == 0,
+    rows not packed) or the fused short-T attention, with BLOOM's ALiBi
+    slopes where the config has them, then the output projection."""
 
-    def __init__(self, cfg: DecoderConfig, shapes: dict, prefix: str):
+    def __init__(self, cfg: DecoderConfig, shapes: dict, prefix: str, factory: dict):
         super().__init__()
         _params(self, ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"), shapes,
-                prefix + "attn.")
+                prefix + "attn.", factory)
         self.H = cfg.num_heads
+        self.rotary_dim = cfg.rotary_dim
         self.scale = 1.0 / math.sqrt(cfg.head_size) if cfg.scale_attn else 1.0
         self.use_flash = cfg.use_flash
 
-    def forward(self, x, key_mask, window: int, segment_ids):
+    def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos):
         q = F.linear(x, self.wq, self.bq)
         k = F.linear(x, self.wk, self.bk)
         v = F.linear(x, self.wv, self.bv)
         B, T, HD = q.shape
-        # GPT-Neo has no ALiBi: no slopes, use_alibi=False
+        if rope is not None:
+            q, k = (apply_rotary(t.view(B, T, self.H, HD // self.H), *rope,
+                                 self.rotary_dim).reshape(B, T, HD) for t in (q, k))
+        alibi = slopes is not None
         if self.use_flash and T % 128 == 0 and segment_ids is None:
             # (B, H, T, Dh) views of the projections: the kernel reads them
             # through their strides and writes the output in the same
             # (B, T, H·Dh) layout, so neither side copies on the card
             qh, kh, vh = (t.view(B, T, self.H, HD // self.H).transpose(1, 2)
                           for t in (q, k, v))
-            out = flash_attention(qh, kh, vh, key_mask, None, scale=self.scale,
+            out = flash_attention(qh, kh, vh, key_mask, slopes, scale=self.scale,
                                   window=window, block_kv=256 if T % 256 == 0 else 128)
             out = out.transpose(1, 2).reshape(B, T, HD)
         else:
-            out = short_attention(q, k, v, key_mask, None, self.scale, window,
-                                  self.H, False, segments=segment_ids)
+            out = short_attention(q, k, v, key_mask, slopes, self.scale, window, self.H,
+                                  alibi, segments=segment_ids, positions=kpos)
         return F.linear(out, self.wo, self.bo)
 
 
 class MLP(nn.Module):
-    def __init__(self, shapes: dict, prefix: str):
+    def __init__(self, shapes: dict, prefix: str, factory: dict):
         super().__init__()
-        _params(self, ("wi", "bi", "wo", "bo"), shapes, prefix + "mlp.")
+        _params(self, ("wi", "bi", "wo", "bo"), shapes, prefix + "mlp.", factory)
 
     def forward(self, x):
         h = F.gelu(F.linear(x, self.wi, self.bi), approximate="tanh")
@@ -128,30 +180,61 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(·))."""
+    """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(·)); under the parallel
+    residual (GPT-J) x + attn(ln1(x)) + mlp(ln1(x))."""
 
-    def __init__(self, cfg: DecoderConfig, shapes: dict, i: int, local: bool):
+    def __init__(self, cfg: DecoderConfig, shapes: dict, i: int, local: bool, factory: dict):
         super().__init__()
         prefix = f"layers.{i}."
-        self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.attn = Attention(cfg, shapes, prefix)
-        self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.mlp = MLP(shapes, prefix)
+        self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
+        self.attn = Attention(cfg, shapes, prefix, factory)
+        self.ln2 = (None if cfg.parallel_residual
+                    else LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory))
+        self.mlp = MLP(shapes, prefix, factory)
         self.window = cfg.local_window if local else 0
 
-    def forward(self, x, key_mask, segment_ids):
-        x = x + self.attn(self.ln1(x), key_mask, self.window, segment_ids)
+    def forward(self, x, key_mask, segment_ids, rope, slopes, kpos):
+        h1 = self.ln1(x)
+        a = self.attn(h1, key_mask, self.window, segment_ids, rope, slopes, kpos)
+        if self.ln2 is None:
+            return x + a + self.mlp(h1)
+        x = x + a
         return x + self.mlp(self.ln2(x))
 
 
+class Head(nn.Module):
+    """A separate LM head (GPT-J; BLOOM and GPT-Neo tie theirs to `wte`):
+    w (V, D) and, for a biased head, b (V,)."""
+
+    def __init__(self, shapes: dict, factory: dict):
+        super().__init__()
+        _params(self, ("w", "b"), shapes, "lm_head.", factory)
+
+
 class Decoder(nn.Module):
-    """GPT-Neo-style causal decoder. Parameters are created in `cfg.dtype`
-    on `device` (the card by default; "cuda" without one raises, and CPU use
-    passes device="cpu"), filled from `init_params(cfg, generator)`; load
-    converted weights with `load_state_dict(params_from_jax(...))`."""
+    """Causal decoder of the GPT families, with parameters in `cfg.dtype` on
+    `device` (the card by default; "cuda" without one raises, and CPU use
+    passes device="cpu"). Where the weights come from:
+
+      * `weights` (a state dict: `params_from_jax`, `hf_loader.load_pretrained`):
+        those values, cast to `cfg.dtype`; a separate LM head when it holds
+        `lm_head.*`. No random draw.
+      * else random, 0.02·N(0, 1) weights, LayerNorm scales 1, biases 0, with
+        a separate LM head of the leaves `lm_head` names (("w",), ("w", "b"))
+        or none (tied to `wte`):
+          - `generator` on the CPU, or none: `init_params(cfg, generator)`,
+            drawn in fp32 on the host and cast, so one seed gives the same
+            weights on every device (the tests' and parity checks' path);
+          - `generator` on `device` (e.g. `torch.Generator("cuda")`): each
+            tensor drawn in place on the device in `cfg.dtype`
+            (`init_params_`), with no host copy: the path of the
+            full-width 6B presets. Other numbers than the host path's.
+    """
 
     def __init__(self, cfg: DecoderConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weights: Optional[Mapping[str, torch.Tensor]] = None,
+                 lm_head: Tuple[str, ...] = ()):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -161,15 +244,28 @@ class Decoder(nn.Module):
         if later:
             raise NotImplementedError(
                 "not ported yet: " + "; ".join(f"{f} — ROADMAP {r}" for f, r in later))
+        if weights is not None:
+            lm_head = tuple(leaf for leaf in ("w", "b") if f"lm_head.{leaf}" in weights)
         self.cfg = cfg
-        shapes = param_shapes(cfg)
-        self.wte = nn.Parameter(torch.empty(shapes["wte"]))
-        self.wpe = nn.Parameter(torch.empty(shapes["wpe"]))
+        factory = dict(device=device, dtype=cfg.dtype)
+        shapes = param_shapes(cfg, lm_head)
+        self.wte = _empty(shapes["wte"], factory)
+        self.wpe = _empty(shapes["wpe"], factory) if "wpe" in shapes else None
+        self.emb_ln = (LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
+                       if cfg.embedding_layernorm else None)
         self.layers = nn.ModuleList(
-            Block(cfg, shapes, i, local) for i, local in enumerate(cfg.local_flags()))
-        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.load_state_dict(init_params(cfg, generator))
-        self.to(device=device, dtype=cfg.dtype)
+            Block(cfg, shapes, i, local, factory) for i, local in enumerate(cfg.local_flags()))
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
+        self.lm_head = Head(shapes, factory) if lm_head else None
+        if weights is not None:
+            self.load_state_dict(weights)
+        elif generator is not None and generator.device.type != "cpu":
+            if generator.device.type != device.type:
+                raise ValueError(f"Decoder: generator on {generator.device}, "
+                                 f"parameters on {device}")
+            init_params_(dict(self.named_parameters()), generator)
+        else:
+            self.load_state_dict(init_params(cfg, generator, lm_head))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, *,
                 output_hidden_states: bool = False,
@@ -200,17 +296,28 @@ class Decoder(nn.Module):
                 "positions that restart at each segment boundary")
         cfg = self.cfg
         B, T = input_ids.shape
-        positions = (torch.arange(T, device=input_ids.device)
-                     if position_ids is None else position_ids)
+        dev = input_ids.device
+        positions = torch.arange(T, device=dev) if position_ids is None else position_ids
         with matmul_precision(cfg.matmul_precision):
-            x = self.wte[input_ids].to(cfg.dtype) + self.wpe[positions].to(cfg.dtype)
+            x = self.wte[input_ids].to(cfg.dtype)
+            if self.wpe is not None:
+                x = x + self.wpe[positions].to(cfg.dtype)
+            if self.emb_ln is not None:
+                x = self.emb_ln(x)
             key_mask = attention_mask.to(torch.int32).contiguous()
+            rope = slopes = kpos = None
+            if cfg.position_embedding == "rotary":
+                rope = tuple(t.to(cfg.dtype) for t in rope_sincos(positions, cfg.rotary_dim))
+            if cfg.position_embedding == "alibi":
+                slopes = alibi_slopes(cfg.num_heads, dev)
+                if segment_ids is not None:  # key positions restart in each segment
+                    kpos = positions.to(torch.int32).expand(B, T).contiguous()
             if segment_ids is not None:
                 segment_ids = segment_ids.to(torch.int32).contiguous()
 
             hidden = [x]
             for layer in self.layers:
-                x = layer(x, key_mask, segment_ids)
+                x = layer(x, key_mask, segment_ids, rope, slopes, kpos)
                 hidden.append(x)
             final = self.ln_f(x)
             if output_hidden_states:
@@ -218,9 +325,13 @@ class Decoder(nn.Module):
             return final
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """LM head (the JAX `logits`): GPT-Neo ties it to `wte`, so (..., D)
-        → (..., V) = hidden · wteᵀ in hidden's dtype, under the config's
-        matmul precision; the caller casts to fp32. A separate `lm_head`
-        (GPT-J, BLOOM) comes with those families (ROADMAP Queue 1 item 3)."""
+        """LM head (the JAX `logits`): (..., D) → (..., V) in hidden's dtype,
+        under the config's matmul precision, from `lm_head` (weight and
+        bias) when the weights hold one, else tied to `wte` (GPT-Neo,
+        BLOOM); the caller casts to fp32."""
         with matmul_precision(self.cfg.matmul_precision):
+            if self.lm_head is not None:
+                b = self.lm_head.b
+                return F.linear(hidden, self.lm_head.w.to(hidden.dtype),
+                                None if b is None else b.to(hidden.dtype))
             return F.linear(hidden, self.wte.to(hidden.dtype))

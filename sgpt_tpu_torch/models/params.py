@@ -14,15 +14,25 @@ import torch
 from .config import DecoderConfig
 
 
-def param_shapes(cfg: DecoderConfig) -> Dict[str, Tuple[int, ...]]:
-    """Name → shape of every parameter of the GPT-Neo-style decoder."""
+def param_shapes(cfg: DecoderConfig, lm_head: Tuple[str, ...] = ()) -> Dict[str, Tuple[int, ...]]:
+    """Name → shape of every parameter of the decoder, as the JAX
+    `param_shapes` lays the tree out: `wpe` only for learned positions,
+    `emb_ln` with `embedding_layernorm`, no `ln2` under `parallel_residual`,
+    q/k/v biases with `qkv_bias`. lm_head: the leaves of a separate LM head
+    ("w", and "b" for a biased one: GPT-J's); () ties the head to `wte`."""
     D, F, L = cfg.hidden_size, cfg.mlp_size, cfg.num_layers
     P = cfg.num_heads * cfg.head_size
-    shapes = {"wte": (cfg.vocab_size, D), "wpe": (cfg.max_position_embeddings, D),
-              "ln_f.scale": (D,), "ln_f.bias": (D,)}
+    shapes = {"wte": (cfg.vocab_size, D)}
+    if cfg.position_embedding == "learned":
+        shapes["wpe"] = (cfg.max_position_embeddings, D)
+    if cfg.embedding_layernorm:
+        shapes["emb_ln.scale"] = (D,)
+        shapes["emb_ln.bias"] = (D,)
+    shapes["ln_f.scale"] = (D,)
+    shapes["ln_f.bias"] = (D,)
     for i in range(L):
         p = f"layers.{i}."
-        for ln in ("ln1", "ln2"):
+        for ln in ("ln1",) if cfg.parallel_residual else ("ln1", "ln2"):
             shapes[p + ln + ".scale"] = (D,)
             shapes[p + ln + ".bias"] = (D,)
         for w in ("wq", "wk", "wv"):
@@ -38,24 +48,55 @@ def param_shapes(cfg: DecoderConfig) -> Dict[str, Tuple[int, ...]]:
         if cfg.mlp_bias:
             shapes[p + "mlp.bi"] = (F,)
             shapes[p + "mlp.bo"] = (D,)
+    if set(lm_head) - {"w", "b"} or (lm_head and "w" not in lm_head):
+        raise ValueError(f"lm_head leaves {lm_head}: expected (), ('w',) or ('w', 'b')")
+    if "w" in lm_head:
+        shapes["lm_head.w"] = (cfg.vocab_size, D)
+    if "b" in lm_head:
+        shapes["lm_head.b"] = (cfg.vocab_size,)
     return shapes
 
 
-def init_params(cfg: DecoderConfig,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+def _kind(name: str) -> str:
+    """"ones" (LayerNorm scales), "zeros" (biases) or "normal" (weights)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "scale":
+        return "ones"
+    return "zeros" if leaf.startswith("b") else "normal"
+
+
+def init_params(cfg: DecoderConfig, generator: Optional[torch.Generator] = None,
+                lm_head: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
     """Random init with the JAX package's distribution: weights 0.02·N(0, 1),
-    LayerNorm scales 1, biases 0. Drawn in float32 on the CPU from
-    `generator`, so one seed gives the same weights on every device."""
+    LayerNorm scales 1, biases 0, for `param_shapes(cfg, lm_head)`. Drawn in
+    float32 on the CPU from `generator`, so one seed gives the same weights
+    on every device."""
     out = {}
-    for name, shape in param_shapes(cfg).items():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
+    for name, shape in param_shapes(cfg, lm_head).items():
+        kind = _kind(name)
+        if kind == "ones":
             out[name] = torch.ones(shape)
-        elif leaf.startswith("b"):
+        elif kind == "zeros":
             out[name] = torch.zeros(shape)
         else:
             out[name] = 0.02 * torch.randn(shape, generator=generator)
     return out
+
+
+@torch.no_grad()
+def init_params_(params: Dict[str, torch.Tensor], generator: torch.Generator) -> None:
+    """`init_params`' distribution drawn in place into existing tensors, on
+    their device and in their dtype, from `generator` (which must lie on that
+    device): no host copy. Weights are N(0, 1) drawn in the tensor's dtype
+    and scaled by 0.02 there, so they differ from `init_params`' numbers."""
+    for name, t in params.items():
+        kind = _kind(name)
+        if kind == "ones":
+            t.fill_(1)
+        elif kind == "zeros":
+            t.zero_()
+        else:
+            t.normal_(0.0, 1.0, generator=generator).mul_(0.02)
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -82,17 +123,15 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dicts of numpy-convertible arrays) → state dict.
 
     Unstacks the leading layer axis of `layers.*` and transposes every linear
-    weight from [in, out] to [out, in]. Raises on a leaf it does not consume
-    (e.g. another family's tensors), so nothing is dropped silently, on a
-    missing one, and on an int8 `{"q", "s"}` leaf or an `lm_head` (not
-    ported yet)."""
+    weight from [in, out] to [out, in] (`lm_head.w` included: (D, V) → (V,
+    D)). A separate LM head (`lm_head.w`, optionally `lm_head.b`) is kept.
+    Raises on a leaf it does not consume (e.g. another family's tensors), so
+    nothing is dropped silently, on a missing one, and on an int8 `{"q",
+    "s"}` leaf."""
     flat = _flatten(tree)
-    if any(name.startswith("lm_head.") for name in flat):
-        # GPT-Neo ties its head to wte; the families with their own head are not ported
-        raise ValueError("params_from_jax: leaf lm_head not consumed: a separate LM head "
-                         "(GPT-J, BLOOM) is not ported yet — ROADMAP Queue 1 item 3")
+    head = tuple(leaf for leaf in ("w", "b") if f"lm_head.{leaf}" in flat)
     sd = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in param_shapes(cfg, head).items():
         if name.startswith("layers."):
             _, i, rest = name.split(".", 2)
             src = "layers." + rest

@@ -9,10 +9,11 @@ autograd function like the JAX custom VJP: the forward is the kernel of
 PyTorch versions of the same math, which are also the kernels' oracles on
 the card. Without a gradient (`no_grad`, `inference_mode`) it launches K1
 alone. A CUDA tensor never takes a plain version: a kernel launches or the
-call raises. K1 picks its kernel inside the C entry point: at head sizes 16,
-32, 64 and 128 with 16-byte-aligned tensors, `mma_kernel` (bf16) or
-`tf32_kernel` (fp32 in 3xTF32 tensor-core products, within 1e-5 of the
-exact fp32 plain version), else `scalar_kernel`. K2 picks likewise: fp32 at
+call raises. K1 picks its kernel inside the C entry point, by dtype and
+head size, with 16-byte-aligned tensors: `mma_kernel` for bf16 at head
+sizes 16, 32, 64, 128 and 256 (GPT-J), `tf32_kernel` for fp32 at 16-128
+(3xTF32 tensor-core products, within 1e-5 of the exact fp32 plain
+version); every other call, fp32 at 256 included, takes `scalar_kernel`. K2 picks likewise: fp32 at
 those head sizes with 16-byte-aligned tensors (q, k, v, g and the three
 gradients) takes `tf32_rows` then `tf32_cols` (3xTF32, deterministic, within
 1e-5·max|ref| + 1e-5·|ref| of the plain version); bf16, other head sizes

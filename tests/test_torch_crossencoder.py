@@ -88,10 +88,15 @@ def test_logits_match_jax(pair):
     got = model.logits(_t(h)).detach().numpy()
     assert got.shape == (2, 5, VOCAB)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # a separate, biased head (GPT-J's): the port's Decoder takes it from the tree
     tree = jax.tree.map(np.asarray, jparams)
-    tree["lm_head"] = {"w": np.zeros((cfg.hidden_size, VOCAB), np.float32)}
-    with pytest.raises(ValueError, match="item 3"):  # GPT-J/BLOOM's own head
-        params_from_jax(tree, cfg)
+    rng = np.random.default_rng(1)
+    tree["lm_head"] = {"w": rng.normal(size=(cfg.hidden_size, VOCAB)).astype(np.float32),
+                       "b": rng.normal(size=(VOCAB,)).astype(np.float32)}
+    headed = Decoder(cfg, device="cpu", weights=params_from_jax(tree, cfg))
+    np.testing.assert_allclose(headed.logits(_t(h)).detach().numpy(),
+                               np.asarray(jax_logits(tree, jnp.asarray(h), jcfg)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def _scorer_inputs(seed=0, B=3, T=24, C=8):

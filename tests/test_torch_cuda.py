@@ -838,6 +838,77 @@ def test_flash_engine_on_the_card_launches_k3_and_equals_the_cpu(cuda):
 # not), they left the later sessions without kernel events on the card's
 # machine, so the profiler-based routing tests above keep the place in the
 # file they had.
+def _kernel_names(fn, keys):
+    """The device kernels whose names hold one of `keys` that fn() launched,
+    by the profiler (the wrappers' own dtype casts launch PyTorch kernels too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return {ev.key for ev in prof.key_averages() if any(k in ev.key for k in keys)}, out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("general", [False, True])
+def test_k1_at_head_size_256_routes_by_dtype_and_matches_plain_version(cuda, dtype, general):
+    """GPT-J's head size: bf16 K1 runs `mma_kernel<256, …>` (the general
+    template with ALiBi and packed segments), fp32 `scalar_kernel`, each
+    named so by the profiler and within its gate of the plain version (bf16
+    2e-2 + 1e-2·|ref|, fp32 1e-5 + 1e-5·|ref|)."""
+    rng = np.random.default_rng(256 + general)
+    B, T, H, Dh = 3, 300, 4, 256
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda, dt) for _ in range(3))
+    km, seg = (torch.from_numpy(a).to(cuda) for a in _packed_rows(rng, B, T))
+    slopes = torch.from_numpy((0.03 * rng.random(H)).astype(np.float32)).to(cuda)
+    kw = dict(segments=seg, positions=torch.arange(T, device=cuda).expand(B, T).contiguous()
+              ) if general else {}
+    names, got = _kernel_names(
+        lambda: sa.short_attention(q, k, v, km, slopes, 1 / 16, 0, H, general, **kw),
+        ("mma_kernel", "tf32_kernel", "scalar_kernel"))
+    want = sa.short_attention_reference(q, k, v, km, slopes, scale=1 / 16, window=0, H=H,
+                                        use_alibi=general, **kw)
+    expect = "mma_kernel" if dtype == "bfloat16" else "scalar_kernel"
+    assert names and all(expect in n for n in names), names
+    atol, rtol = (2e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-5)
+    assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k3_at_head_size_256_launches_its_templates(cuda, dtype):
+    """K3 at Dh 256: `flash_fwd_bf16<256>` / `flash_fwd_tf32<256>` (named by
+    the profiler), output and lse within the dtype's gate of the plain
+    version, fully masked rows included; a gradient at Dh 256 raises before
+    the forward runs (K4 takes Dh ≤ 128)."""
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    B, H, T, Dh = 3, 2, 512, 256
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda, dt).view(B, T, H, Dh).transpose(1, 2) for _ in range(3))
+    km = torch.from_numpy((np.arange(T)[None] < np.array([[20], [T], [T - 37]])).astype(
+        np.int32)).to(cuda)
+    slopes = torch.from_numpy((0.03 * rng.random(H)).astype(np.float32)).to(cuda)
+    kw = dict(scale=1 / 16, window=64, block_kv=128)
+    names, (got, lse) = _kernel_names(
+        lambda: fa.flash_attention(q, k, v, km, slopes, return_residuals=True, **kw),
+        ("flash_fwd",))
+    expect = "flash_fwd_bf16" if dtype == "bfloat16" else "flash_fwd_tf32"
+    assert names and all(expect in n for n in names), names
+    want, want_lse = fa.flash_attention_reference(q, k, v, km, slopes, **kw)
+    atol, rtol = (2e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-5)
+    assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+    dead = want_lse == fa.NEG_INF
+    assert torch.equal(lse == fa.NEG_INF, dead) and dead.any()
+    assert ((lse - want_lse).abs()[~dead] <= 1e-4 + 1e-5 * want_lse.abs()[~dead]).all()
+    qg = q.detach().clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 16"):
+        fa.flash_attention(qg, k, v, km, slopes, **kw)
+
+
 @pytest.mark.parametrize("case,Q,N,D,k", [
     ("all-equal", 64, 70_000, 768, 10), ("all-equal", 3, 9000, 768, 16),
     ("split-duplicates", 64, 200_000, 768, 10), ("split-duplicates", 8, 100_000, 2048, 10),
@@ -957,3 +1028,112 @@ def test_ce_scores_on_the_card_equal_the_cpu(cuda):
         got = getattr(ce, cls)(on_card, cfg, tok, device=cuda, **kw).predict(pairs)
         assert sa.launches > before
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4, err_msg=f"{cls} {kw}")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernels_with_bloom_slopes_match_plain_version(cuda, dtype):
+    """K1 (unpacked, and packed with positions restarting per segment) and
+    K3 with BLOOM's real slopes (`alibi_slopes(16)`, Dh 128, scale
+    1/sqrt(128)) at T=1024: bf16 within 2e-2 + 1e-2·|ref|; fp32 within
+    1e-5 + 1e-5·|ref|, or, where scores of ~10^2-10^3 make one fp32 rounding
+    of a score move the output past that (in the plain version too), no
+    further from an fp64 evaluation than twice the plain version is."""
+    from sgpt_tpu_torch.models.decoder import alibi_slopes
+    from sgpt_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(16)
+    B, T, H, Dh = 2, 1024, 16, 128
+    dt = getattr(torch, dtype)
+    q2, k2, v2 = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+                  .to(cuda, dt) for _ in range(3))
+    km, seg = (torch.from_numpy(a).to(cuda) for a in _packed_rows(rng, B, T))
+    slopes = alibi_slopes(H, cuda)
+    scale = Dh ** -0.5
+    atol, rtol = (2e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-5)
+    full = torch.ones_like(km)
+
+    def held(got, want, exact):
+        ok = (got.float() - want.float()).abs() <= atol + rtol * want.float().abs()
+        if ok.all():
+            return
+        assert dtype == "float32", "bf16 outside its gate"
+        e = exact()
+        assert (got.double() - e).abs().max() <= 2 * (want.double() - e).abs().max()
+
+    def k1_exact(mask, kp):
+        q, k, v = (t.reshape(B, T, H, Dh).double() for t in (q2, k2, v2))
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        s = s + slopes.double()[None, :, None, None] * kp.double()[:, None, None, :]
+        s = torch.where(mask, s, torch.full((), -1e9, dtype=s.dtype, device=cuda))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v).reshape(B, T, H * Dh)
+
+    i = torch.arange(T, device=cuda)
+    causal = (i[None, :] <= i[:, None])[None, None]
+    # unpacked rows: the key index as the ALiBi position
+    got = sa.short_attention(q2, k2, v2, full, slopes, scale, 0, H, True)
+    want = sa.short_attention_reference(q2, k2, v2, full, slopes, scale=scale, window=0, H=H,
+                                        use_alibi=True)
+    held(got, want, lambda: k1_exact(causal.expand(B, 1, T, T), i.expand(B, T)))
+    # packed rows: positions restart in each segment (and in the padding tail)
+    starts = [np.flatnonzero(np.diff(np.concatenate([[-2], s])) != 0) for s in seg.cpu().numpy()]
+    pos = torch.from_numpy(np.stack([np.arange(T) - st[np.searchsorted(st, np.arange(T),
+                                                                         side="right") - 1]
+                                     for st in starts]).astype(np.int32)).to(cuda)
+    kw = dict(segments=seg, positions=pos)
+    got = sa.short_attention(q2, k2, v2, km, slopes, scale, 0, H, True, **kw)
+    want = sa.short_attention_reference(q2, k2, v2, km, slopes, scale=scale, window=0, H=H,
+                                        use_alibi=True, **kw)
+    mask = causal & (km > 0)[:, None, None, :] & (seg[:, :, None] == seg[:, None, :])[:, None]
+    held(got, want, lambda: k1_exact(mask, pos))
+    # K3: the key index as the ALiBi position, right padding
+    qh, kh, vh = (t.view(B, T, H, Dh).transpose(1, 2) for t in (q2, k2, v2))
+    kmr = torch.from_numpy((np.arange(T)[None] < np.array([[T], [T - 300]])).astype(
+        np.int32)).to(cuda)
+    got = fa.flash_attention(qh, kh, vh, kmr, slopes, scale=scale, block_kv=256)
+    want, _ = fa.flash_attention_reference(qh, kh, vh, kmr, slopes, scale=scale, block_kv=256)
+
+    def k3_exact():
+        m = causal & (kmr > 0)[:, None, None, :]
+        s = torch.einsum("bhqd,bhkd->bhqk", qh.double(), kh.double()) * scale
+        s = s + slopes.double()[None, :, None, None] * i.double()
+        p = torch.softmax(s.masked_fill(~m, float("-inf")), -1)
+        return torch.einsum("bhqk,bhkd->bhqd", p, vh.double())
+
+    held(got, want, k3_exact)
+
+
+def test_families_on_the_card_equal_the_cpu(cuda):
+    """Tiny GPT-J (head size 256: K1's `mma_kernel<256>` in bf16 and
+    `scalar_kernel` in fp32; K3 with use_flash) and BLOOM (ALiBi), fp32:
+    engine embeddings on the card == on the CPU within 1e-4, CE scores
+    (GPT-J with a biased head, BLOOM packed) within rtol 2e-5, atol 1e-4."""
+    import copy
+
+    from sgpt_tpu_torch import crossencoder as ce
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, tiny
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    rng = np.random.default_rng(1)
+    texts = [" ".join(f"w{int(w)}" for w in rng.integers(0, 400, int(n)))
+             for n in rng.integers(2, 400, 12)]
+    pairs = [(" ".join(f"q{i}w{j}" for j in range(int(rng.integers(1, 9)))), t)
+             for i, t in enumerate(texts)]
+    for family, head in (("gptj", ("w", "b")), ("bloom", ())):
+        cfg = tiny(family, num_layers=2, hidden_size=512, num_heads=2, vocab_size=512,
+                   max_position_embeddings=512, use_flash=True)
+        tok = SimpleTokenizer(cfg.vocab_size)
+        on_cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                         lm_head=head)
+        on_card = copy.deepcopy(on_cpu).to(cuda)
+        kw = dict(specb=True, max_seq_len=512, batch_size=4, normalize_embeddings=True)
+        want = EmbeddingEngine(on_cpu, cfg, tok, device="cpu", **kw).encode(texts)
+        before = fa.launches
+        got = EmbeddingEngine(on_card, cfg, tok, device=cuda, **kw).encode(texts)
+        assert fa.launches > before
+        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=family)
+        ckw = dict(batch_size=4, max_length=512, pack_t=None if family == "gptj" else 128)
+        want = ce.CrossEncoderRanker(on_cpu, cfg, tok, device="cpu", **ckw).predict(pairs)
+        got = ce.CrossEncoderRanker(on_card, cfg, tok, device=cuda, **ckw).predict(pairs)
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4, err_msg=family)

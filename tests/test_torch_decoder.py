@@ -91,8 +91,14 @@ def test_packed_segments_and_positions_match_jax():
 
 @pytest.mark.parametrize("family", ["gptj", "bloom", "bert", "t5"])
 def test_other_families_raise(family):
+    """BERT and T5 raise; GPT-J and BLOOM build, and still raise with a flag
+    of the encoder families (bidirectional attention)."""
+    cfg = from_jax_config(jax_tiny(family))
+    if family in ("gptj", "bloom"):
+        Decoder(cfg, device="cpu")
+        cfg = cfg.replace(bidirectional=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Decoder(from_jax_config(jax_tiny(family)), device="cpu")
+        Decoder(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(inputs_embeds=torch.zeros(1)),
@@ -108,9 +114,12 @@ def test_params_from_jax_refuses_leftover_and_missing_leaves():
     jcfg, jparams, cfg, _ = _pair()
     tree = jax.tree.map(np.asarray, jparams)
     tree["lm_head"] = {"w": np.zeros((cfg.hidden_size, cfg.vocab_size), np.float32)}
-    with pytest.raises(ValueError, match="lm_head"):
-        params_from_jax(tree, cfg)
+    assert params_from_jax(tree, cfg)["lm_head.w"].shape == (cfg.vocab_size, cfg.hidden_size)
     del tree["lm_head"]
+    tree["wtt"] = np.zeros((2, cfg.hidden_size), np.float32)  # BERT's token types
+    with pytest.raises(ValueError, match="wtt"):
+        params_from_jax(tree, cfg)
+    del tree["wtt"]
     tree["layers"]["attn"]["wq"] = {"q": np.zeros(1, np.int8), "s": np.zeros(1)}  # int8 leaf
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         params_from_jax(tree, cfg)

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: `Decoder`, `EmbeddingEngine`, `CrossEncoderRanker`, `DenseIndex` (and
-`DenseIndex.load`) and the CLIs' `build_model` default to device "cuda", and
-without a card they raise rather than fall back to the CPU."""
+`DenseIndex.load`) and the CLIs' `build_model` (every preset family, and a
+local checkpoint) default to device "cuda", and without a card they raise
+rather than fall back to the CPU."""
 import numpy as np
 import pytest
 
@@ -29,6 +30,15 @@ def _save_index(tmp_path):
     return str(tmp_path / "i.npz")
 
 
+def _tiny_checkpoint(tmp):
+    transformers = pytest.importorskip("transformers")
+    c = transformers.GPTNeoConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                                  attention_types=[[["global", "local"], 1]],
+                                  max_position_embeddings=64)
+    transformers.GPTNeoModel(c).save_pretrained(tmp / "checkpoint")
+    return str(tmp / "checkpoint")
+
+
 ENTRY_POINTS = {
     "Decoder": lambda tmp: Decoder(CFG),
     "EmbeddingEngine": lambda tmp: EmbeddingEngine(Decoder(CFG, device="cpu"), CFG,
@@ -38,6 +48,9 @@ ENTRY_POINTS = {
     "DenseIndex": lambda tmp: DenseIndex(16),
     "DenseIndex.load": lambda tmp: DenseIndex.load(_save_index(tmp)),
     "build_model": lambda tmp: build_model("gpt-neo-125m", random_init=True),
+    "build_model gpt-j": lambda tmp: build_model("EleutherAI/gpt-j-6b", random_init=True),
+    "build_model bloom": lambda tmp: build_model("bigscience/bloom-1b7", random_init=True),
+    "build_model checkpoint": lambda tmp: build_model(_tiny_checkpoint(tmp)),
 }
 
 
