@@ -16,7 +16,13 @@ Phases, each of which asserts; any failure exits non-zero:
                an fp64 evaluation where it misses the fp32 gate); times of
                GPT-J's and BLOOM-1b7's encode and packed-CE cells
   3. bwd     — the short-attention backward kernel (K2) against its plain
-               version, same variants, with a random output gradient
+               version, same variants and GPT-J's and BLOOM-1b7's MS MARCO
+               training shapes (B=32, T=300, H=16: Dh 256 on the CUDA-core
+               pair; Dh 128 with BLOOM's real slopes, fp32 held to fp64
+               where it misses the gate; a fully padded row), with a random
+               output gradient, bf16 and fp32 (bf16's gate scaled to each
+               gradient's RMS and norm, and shown to refuse a planted zeroed
+               key strip); times of each pass, plain, SDPA backward, bound
   4. slice   — bulk encode with full-width GPT-Neo-125M (random weights from a
                seed, bf16) through `EmbeddingEngine`, documents and queries;
                the kernel's launch count must be 12 × the number of batches;
@@ -76,7 +82,13 @@ Phases, each of which asserts; any failure exits non-zero:
                scale 1/8, ALiBi, Dh 32 and 128, bf16; times of each kernel,
                the plain version and the library's SDPA backward, beside
                each kernel's bound (3 × its operations at the TF32 peak,
-               the CUDA cores' beside it)
+               the CUDA cores' beside it); the same at GPT-J's head size 256
+               (`flash_bwd_dq_wide`, `flash_bwd_dkv_wide`: B=4, T=2048, H=16,
+               global and window 256, T 128-1024, scale 1/16 and 1, fully
+               padded rows) and with BLOOM-1b7's real slopes (T=2048, fp32
+               held to fp64 where it misses the gate), times at both
+               families' long-context cell (B=4); bf16's gate as in phase 3,
+               its planted fault a zeroed 64-key block of GPT-J's dk
  15. ltrain  — long-context contrastive training: full-width GPT-Neo-125M
                with use_flash, fp32, max_seq_len 2048, BitFit, SPECB,
                GradCache (chunks of 8), batches of 16 triplets with documents
@@ -124,6 +136,17 @@ Phases, each of which asserts; any failure exits non-zero:
                HF loader: a checkpoint written from the 2-layer model's
                weights as safetensors (by hand) and as .bin, reloaded,
                gives the same embeddings bit for bit
+ 17b. families train — GPT-J-6B, then BLOOM-1b7, full width, fp32 weights
+               drawn on the card, "default" precision, BitFit, SPECB, MNRL,
+               1 warm-up and 2 timed steps on a repeated batch (the loss
+               falls): the MS MARCO configuration (32 triplets, T=300,
+               GradCache chunk 4: K1 = L × 3 × 2 × 8, K2 = L × 3 × 8 a step)
+               and long context with use_flash (T=2048, 8 or 16 triplets,
+               GradCache chunks of 2 or 4: K3 = L × 3 × 2 × chunks, K4a =
+               K4b = L × 3 × chunks; the profile names only Dh-256 or Dh-128
+               instantiations); only biases move; ms/step, sequences/s, peak
+               memory, one profiled step each; card against CPU at 2 layers
+               (loss and bias gradients at T=300 and, with use_flash, 512)
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -161,6 +184,7 @@ import numpy as np
 SEED = 0
 BF16_ATOL, BF16_RTOL = 2e-2, 1e-2   # bf16 outputs: a flipped rounding of P or O
 FP32_ATOL, FP32_RTOL = 1e-5, 1e-5   # fp32, TF32 off: summation order only
+GRAD_RMS_ATOL, GRAD_NORM_RTOL = 1e-2, 1e-2  # bf16 gradients: atol per RMS(ref), |Δ|/|ref|
 # the card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 HBM_BYTES_PER_S = 3.35e12
@@ -446,18 +470,23 @@ def k1_fp64(torch, args, window: int, scale: float = 1.0, H: int = 12, segments=
 
 
 def k4_fp64(torch, keep, window: int, scale: float = 1.0):
-    """K4's formula (no ALiBi) evaluated in fp64 on the card, one batch row
-    at a time: dQ = Σ dS·K·scale, dV = Σ Pᵀ·dO and dK = Σ dSᵀ·Q·scale with
-    P = where(mask, exp(s − lse), 0) and dS = P∘(dP − D), from the kernels'
-    own lse and D (the yardstick of K4's fp32 error). keep: `_bwd_args`'s
-    tensors (q, k, v, g, out, key_mask, slopes, lse, D), q/k/v/g (B, H, T,
-    Dh). Returns (dq, dk, dv)."""
-    q, k, v, g, _, km, _, lse, dsum = keep
+    """K4's formula evaluated in fp64 on the card, one batch row at a time:
+    dQ = Σ dS·K·scale, dV = Σ Pᵀ·dO and dK = Σ dSᵀ·Q·scale with P =
+    where(mask, exp(s − lse), 0) and dS = P∘(dP − D), from the kernels' own
+    lse and D (the yardstick of K4's fp32 error), ALiBi at the key index
+    where the slopes are not None. keep: `_bwd_args`'s tensors (q, k, v, g,
+    out, key_mask, slopes, lse, D), q/k/v/g (B, H, T, Dh). Returns (dq, dk,
+    dv)."""
+    q, k, v, g, _, km, slopes, lse, dsum = keep
     mask = sdpa_mask(torch, km, window)
+    T = q.shape[2]
     dq, dk, dv = [], [], []
     for b in range(q.shape[0]):
         qb, kb, vb, gb = (t[b].double() for t in (q, k, v, g))
         s = torch.einsum("hqd,hkd->hqk", qb, kb) * scale
+        if slopes is not None:
+            s = s + slopes.double()[:, None, None] * torch.arange(
+                T, device=q.device, dtype=torch.float64)
         p = torch.where(mask[b], torch.exp(s - lse[b].double()[..., None]), 0.0)
         ds = p * (torch.einsum("hqd,hkd->hqk", gb, vb) - dsum[b].double()[..., None])
         dq.append(torch.einsum("hqk,hkd->hqd", ds, kb) * scale)
@@ -632,86 +661,230 @@ def phase_kernel(torch, sa, rng):
     return main_err, times
 
 
+BWD_CASES = [(*c, False) for c in CASES] + [  # ..., alibi, segments, a fully padded row
+    # GPT-J-6B's and BLOOM-1b7's MS MARCO training shapes: the CUDA-core pair
+    # at Dh 256, the 3xTF32 pair with BLOOM's own slopes at the key index
+    ("gptj-train", 32, 300, 16, 256, 1 / 16, 0, False, False, True),
+    ("bloom1b7-train", 32, 300, 16, 128, 128 ** -0.5, 0, "bloom", False, True),
+]
+
+BWD_TIMED = [  # cell, dtype, B, T, H, Dh, scale, window, alibi
+    *[((dt, w), dt, 32, 300, 12, 64, 1.0, w, False) for dt in ("fp32", "bf16") for w in (0, 256)],
+    ("gptj-train", "fp32", 32, 300, 16, 256, 1 / 16, 0, False),
+    ("bloom1b7-train", "fp32", 32, 300, 16, 128, 128 ** -0.5, 0, "bloom"),
+]
+
+
+def case_inputs(torch, rng, B, T, H, Dh, dtype, alibi, segments=False, dead=False):
+    """`attention_inputs` for a case row: alibi True draws slopes (and
+    restarts positions in segments), "bloom" takes BLOOM's own slopes
+    (`alibi_slopes`) at the key index; `dead` pads batch row 1 fully."""
+    (q, k, v, km, slopes), extra = attention_inputs(torch, rng, B, T, H, Dh, dtype,
+                                                    alibi=alibi is True, segments=segments)
+    if alibi == "bloom":
+        from sgpt_tpu_torch.models.decoder import alibi_slopes
+        slopes = alibi_slopes(H, q.device)
+    if dead:
+        km[1] = 0
+    return (q, k, v, km, slopes), extra
+
+
+def library_mask(torch, km, window: int, slopes):
+    """The library's mask of the same attention: boolean, or with slopes its
+    additive form (slope·key index, -inf where masked)."""
+    mask = sdpa_mask(torch, km, window)
+    if slopes is None:
+        return mask
+    T = km.shape[1]
+    return torch.where(mask, slopes[None, :, None, None] * torch.arange(
+        T, device=km.device, dtype=torch.float32), float("-inf"))
+
+
+def bf16_grad_gate(torch, got, want) -> tuple:
+    """bf16's gate of a gradient, scaled to the tensor: |Δ| ≤ 1e-2·|ref| +
+    min(2e-2, 1e-2·RMS(ref)) everywhere and ‖Δ‖ ≤ 1e-2·‖ref‖. Kernel and
+    plain version both sum in fp32 and round once to bf16, so a sound kernel
+    differs by flipped roundings (≤ 2^-7·|ref|); a fixed 2e-2 alone would
+    pass a zeroed tile where gradients are ~5e-3 (dq and dk at T=2048).
+    Returns (holds, max(|Δ| − 1e-2·|ref|, 0)/RMS(ref), ‖Δ‖/‖ref‖)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = w.pow(2).mean().sqrt().item()
+    excess = max((err - BF16_RTOL * w.abs()).max().item(), 0.0)
+    ref_norm = w.norm().item()
+    ratio = excess / rms if rms > 0 else (0.0 if excess == 0 else float("inf"))
+    norm = err.norm().item() / ref_norm if ref_norm > 0 else (
+        0.0 if err.max().item() == 0 else float("inf"))
+    return excess <= min(BF16_ATOL, GRAD_RMS_ATOL * rms) and norm <= GRAD_NORM_RTOL, ratio, norm
+
+
+def hold_grads(torch, name, got, want, dtype, fp64=None) -> tuple:
+    """K2's and K4's gate on (dq, dk, dv) against the plain version: fp32
+    within 1e-5·max|ref| + 1e-5·|ref|, bf16 by `bf16_grad_gate`; an fp32
+    case with BLOOM's slopes that misses it passes only if each part lies no
+    further from an fp64 evaluation (`fp64()` → (dq, dk, dv)) than twice the
+    plain version does. Returns the max abs errors, which gate held them,
+    and bf16's readings (the largest excess/RMS and ‖Δ‖/‖ref‖; None in fp32)."""
+    errs, missed, readings = [], [], []
+    for part, gg, ww in zip(("dq", "dk", "dv"), got, want):
+        assert gg.dtype == ww.dtype == dtype and gg.shape == ww.shape, (name, part)
+        assert torch.isfinite(gg.float()).all(), f"{name} {part}: non-finite output"
+        err = (gg.float() - ww.float()).abs()
+        errs.append(err.max().item())
+        if dtype == torch.bfloat16:
+            holds, ratio, norm = bf16_grad_gate(torch, gg, ww)
+            assert holds, (f"{name} {part}: outside bf16's gate (excess/RMS {ratio:.3e}, "
+                           f"|Δ|/|ref| {norm:.3e})")
+            readings.append((part, ratio, norm))
+        elif (err - FP32_RTOL * ww.abs()).max().item() > FP32_ATOL * ww.abs().max().item():
+            missed.append(part)
+    if readings:
+        return errs, "bf16 gate: excess/RMS, |Δ|/|ref| " + ", ".join(
+            f"{p} {r:.2e} {n:.2e}" for p, r, n in readings), (
+            max(r for _, r, _ in readings), max(n for _, _, n in readings))
+    if not missed:
+        return errs, "gate", None
+    assert fp64 is not None, f"{name} {dtype}: {missed} exceed the tolerance ({errs})"
+    ref = fp64()
+    held = []
+    for i, part in enumerate(("dq", "dk", "dv")):
+        if part in missed:
+            k64 = (got[i].double() - ref[i]).abs().max().item()
+            p64 = (want[i].double() - ref[i]).abs().max().item()
+            assert k64 <= 2 * p64, f"{name} {part}: |kernel - fp64| {k64:.3e} > 2 x {p64:.3e}"
+            held.append(f"{part} kernel {k64:.3e} plain {p64:.3e}")
+    return errs, "fp64 (" + ", ".join(held) + ")", None
+
+
+def planted_fault(torch, name, faulty, want) -> dict:
+    """bf16's gradient gate checked on a gradient with one tile of keys
+    zeroed: it must refuse it. Logs its readings and whether the fixed
+    2e-2 + 1e-2·|ref| gate alone would have passed the fault."""
+    holds, ratio, norm = bf16_grad_gate(torch, faulty, want)
+    err = (faulty.float() - want.float()).abs()
+    fixed = (err - BF16_RTOL * want.float().abs()).max().item() <= BF16_ATOL
+    log(f"{name}: planted fault (one key tile of dk zeroed): excess/RMS {ratio:.3e}, "
+        f"|Δ|/|ref| {norm:.3e}; bf16's gate refuses it: {not holds}; the fixed 2e-2 + "
+        f"1e-2·|ref| gate alone {'passes' if fixed else 'refuses'} it")
+    assert not holds, f"{name}: bf16's gate passed a zeroed key tile"
+    return {"excess_per_rms": ratio, "norm_ratio": norm, "fixed_gate_passes": fixed}
+
+
+def k2_fp64(torch, args, g, window: int, scale: float, H: int):
+    """K2's function evaluated in fp64 on the card by autograd through the
+    masked softmax (-1e9 at masked pairs, ALiBi at the key index when slopes
+    is not None): (dq, dk, dv) as (B, T, H·Dh)."""
+    q2, k2, v2, km, slopes = args
+    B, T, HD = q2.shape
+    q, k, v = (t.detach().reshape(B, T, H, HD // H).double().requires_grad_()
+               for t in (q2, k2, v2))
+    with torch.enable_grad():
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        if slopes is not None:
+            s = s + slopes.double()[None, :, None, None] * torch.arange(
+                T, device=q.device, dtype=torch.float64)
+        s = torch.where(sdpa_mask(torch, km, window), s,
+                        torch.full((), -1e9, dtype=s.dtype, device=s.device))
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+        grads = torch.autograd.grad(o, (q, k, v), g.reshape(B, T, H, HD // H).double())
+    return [x.reshape(B, T, HD) for x in grads]
+
+
 def phase_bwd_kernel(torch, sa, rng):
     """K2 against its plain version over K1's variants (the main shapes at
-    the train slice's B=32) with a random output gradient. fp32: only the
-    summation order differs, |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref|; bf16: K1's
-    2e-2 + 1e-2·|ref|. Returns the largest fp32 main-shape error (the train
-    slice runs fp32) and the times at B=32, T=300, H=12, Dh=64: the pair, and
-    each pass alone under torch.profiler. The fp32 pair issues three TF32
-    products for each fp32 one, so its bound is 3 × its operations over the
-    TF32 peak (the CUDA-core bound logged beside it)."""
-    main_err = 0.0
+    the train slice's B=32) and GPT-J-6B's and BLOOM-1b7's MS MARCO training
+    shapes (B=32, T=300, H=16; Dh 256 on the CUDA-core `rows_kernel` /
+    `cols_kernel`, Dh 128 with BLOOM's real slopes on the 3xTF32 pair, each
+    with a fully padded row), with a random output gradient (`hold_grads`:
+    fp32 only the summation order differs, fp32 with BLOOM's slopes held to
+    fp64 where it misses; bf16 scaled to each gradient, checked on a planted
+    fault at GPT-J's shape). Then the times (`BWD_TIMED`): the pair and each
+    pass under torch.profiler, the plain version, the library's SDPA
+    backward and the bound (10·Dh operations a pair; the fp32 pair issues
+    three TF32 products for each fp32 one, so its bound is 3 × its
+    operations at the TF32 peak, the CUDA cores' logged beside it). Returns
+    the largest fp32 main-shape error (the train slice runs fp32), every
+    case's, bf16's gate readings and the times."""
+    main_err, worst, readings = 0.0, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, B, T, H, Dh, scale, window, alibi, segments in CASES:
+        dt = str(dtype)[6:]
+        for name, B, T, H, Dh, scale, window, alibi, segments, dead in BWD_CASES:
             B = 32 if name.startswith("main") else B
-            args, extra = attention_inputs(torch, rng, B, T, H, Dh, dtype,
-                                           alibi=alibi, segments=segments)
+            args, extra = case_inputs(torch, rng, B, T, H, Dh, dtype, alibi, segments, dead)
             g = card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype)
-            kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, **extra)
+            kw = dict(scale=scale, window=window, H=H, use_alibi=bool(alibi), **extra)
             got = sa.short_attention_bwd(*args, g, **kw)
             want = sa.short_attention_bwd_reference(*args, g, **kw)
             torch.cuda.synchronize()
-            errs = []
-            for part, gg, ww in zip(("dq", "dk", "dv"), got, want):
-                assert gg.shape == ww.shape and gg.dtype == ww.dtype == dtype, (name, part)
-                gg, ww = gg.float(), ww.float()
-                assert torch.isfinite(gg).all(), f"bwd {name} {part}: non-finite output"
-                err = (gg - ww).abs()
-                if dtype == torch.float32:
-                    atol, rtol = FP32_ATOL * ww.abs().max().item(), FP32_RTOL
-                else:
-                    atol, rtol = BF16_ATOL, BF16_RTOL
-                assert (err - rtol * ww.abs()).max().item() <= atol, \
-                    f"bwd {name} {dtype} {part}: exceeds tolerance"
-                errs.append(err.max().item())
-                if name.startswith("main") and dtype == torch.float32:
-                    main_err = max(main_err, err.max().item())
-            log(f"bwd    {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} max_abs_err "
-                f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+            errs, gate, reading = hold_grads(torch, f"bwd {name}", got, want, dtype, fp64=(
+                (lambda: k2_fp64(torch, args, g, window, scale, H))
+                if alibi == "bloom" and dtype == torch.float32 else None))
+            if dead:
+                assert (got[0][1] == 0).all(), f"bwd {name}: dq of a fully padded row"
+            log(f"bwd    {name:14s} {dt:8s} B={B} T={T} H={H} Dh={Dh} window={window}"
+                f"{' alibi (BLOOM)' if alibi == 'bloom' else ''}: max_abs_err dq {errs[0]:.3e} "
+                f"dk {errs[1]:.3e} dv {errs[2]:.3e} (held by {gate})"
+                f"{', a fully padded row' if dead else ''}")
+            worst[f"{name}_{dt}"] = max(errs)
+            if reading:
+                readings[name] = reading
+            if name.startswith("main") and dtype == torch.float32:
+                main_err = max(main_err, *errs)
+            if name == "gptj-train" and dtype == torch.bfloat16:
+                faulty = got[1].clone()
+                faulty[:, 2 * T // 3:2 * T // 3 + 16] = 0  # one of cols_kernel's 16-key strips
+                readings["planted fault"] = planted_fault(torch, f"bwd {name}", faulty, want[1])
+            del args, extra, g, got, want
+    log(f"bwd    bf16 gate readings, largest over the cases: excess/RMS "
+        f"{max(r[0] for k, r in readings.items() if k != 'planted fault'):.3e}, |Δ|/|ref| "
+        f"{max(r[1] for k, r in readings.items() if k != 'planted fault'):.3e} (allowances "
+        f"{GRAD_RMS_ATOL}, {GRAD_NORM_RTOL})")
 
     times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for window in (0, 256):
-            args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, dtype)
-            g = card_normal(torch, rng, (32, 300, 768), 1.0, dtype)
-            kw = dict(scale=1.0, window=window, H=12, use_alibi=False)
+    for cell, dt, B, T, H, Dh, scale, window, alibi in BWD_TIMED:
+        dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
+        (q, k, v, km, sl), _ = case_inputs(torch, rng, B, T, H, Dh, dtype, alibi)
+        g = card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype)
+        kw = dict(scale=scale, window=window, H=H, use_alibi=bool(alibi))
 
-            def kernel():
-                return sa.short_attention_bwd(*args, g, **kw)
+        def kernel():
+            return sa.short_attention_bwd(q, k, v, km, sl, g, **kw)
 
-            def plain():
-                return sa.short_attention_bwd_reference(*args, g, **kw)
+        def plain():
+            return sa.short_attention_bwd_reference(q, k, v, km, sl, g, **kw)
 
-            q, k, v, km, _ = args
-            qh, kh, vh = (heads(t, 12).detach().contiguous().requires_grad_() for t in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=sdpa_mask(torch, km, window), scale=1.0)
-            gh = heads(g, 12).contiguous()
+        qh, kh, vh = (heads(t, H).detach().contiguous().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=library_mask(torch, km, window, sl), scale=scale)
+        gh = heads(g, H).contiguous()
 
-            def library():  # the library's backward of the same attention
-                return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+        def library():  # the library's backward of the same attention
+            return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
 
-            p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
-            lib = cuda_ms(torch, library, iters=10)
-            del out
-            passes = pass_ms(torch, kernel)
-            dt = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-            # read q, k, v, g once, write dq, dk, dv; 10·Dh operations a pair:
-            # Q·Kᵀ again, dP = g·Vᵀ, dV = Pᵀ·g, dQ = dS·K, dK = dSᵀ·Q
-            nbytes = 7 * q.numel() * q.element_size() + km.numel() * 4
-            ops = 10 * 64 * 12 * attention_pairs(torch, km, window)
-            simt = bound(nbytes, ops, "fp32")
-            b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, dt)
-            times[(dt, window)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *b, *passes, simt[0])
-            log(f"time K2 B=32 T=300 H=12 Dh=64 {dt} window={window}: kernel "
-                f"{times[(dt, window)][0]:.4f} ms (rows pass {passes[0]}, cols pass "
-                f"{passes[1]} ms), plain {times[(dt, window)][1]:.4f} ms, library (SDPA "
-                f"backward) {lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
-                + (f"3 x {ops} TF32 operations" if dt == "fp32" else f"{ops} operations")
-                + f"; on the CUDA cores {simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} "
-                f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
-    return main_err, times
+        p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
+        lib = cuda_ms(torch, library, iters=10)
+        rows_ms, cols_ms = pass_ms(torch, kernel)
+        # read q, k, v, g once, write dq, dk, dv; 10·Dh operations a pair:
+        # Q·Kᵀ again, dP = g·Vᵀ, dV = Pᵀ·g, dQ = dS·K, dK = dSᵀ·Q
+        nbytes = 7 * q.numel() * q.element_size() + km.numel() * 4
+        ops = 10 * Dh * H * attention_pairs(torch, km, window)
+        simt = bound(nbytes, ops, "fp32")
+        b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, dt)
+        t = times[cell] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                           "bound_ms": b[0], "bound_by": b[1], "rows_ms": rows_ms,
+                           "cols_ms": cols_ms, "bound_ms_cuda_cores": simt[0]}
+        log(f"time K2 {'' if isinstance(cell, tuple) else cell + ' '}B={B} T={T} H={H} Dh={Dh} "
+            f"{dt} window={window}{' alibi (BLOOM)' if alibi == 'bloom' else ''}: kernel "
+            f"{t['ms']:.4f} ms (rows pass {rows_ms}, cols pass {cols_ms} ms), plain "
+            f"{t['plain_ms']:.4f} ms, library (SDPA backward"
+            f"{', fp32 additive mask' if sl is not None else ''}) {lib:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
+            + (f"3 x {ops} TF32 operations" if dt == "fp32" else f"{ops} operations")
+            + f"; on the CUDA cores {simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} "
+            f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
+        del q, k, v, km, sl, g, qh, kh, vh, out, gh
+        torch.cuda.empty_cache()
+    return main_err, worst, readings, times
 
 
 def pass_ms(torch, kernel, iters: int = 10):
@@ -745,27 +918,34 @@ def synthetic_triplets(rng, n: int) -> list:
     return [(text(3, 12), text(40, 451), text(40, 451)) for _ in range(n)]
 
 
-def profile_step(torch, trainer, batch, label: str, families: dict) -> dict:
+def profile_step(torch, trainer, batch, label: str, families: dict,
+                 name_keys: tuple = ()) -> dict:
     """One training step of `trainer` under torch.profiler: device time by
-    kernel family and the device's busy share of the wall time."""
+    kernel family, the device's busy share of the wall time, and the names
+    of the device kernels that hold one of `name_keys`. Device activity
+    only: the host's op events, which no figure here reads, took the
+    profiler tens of seconds to process for a 6B step."""
     from torch.profiler import ProfilerActivity, profile
 
     towers = trainer._prep_batch(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         float(trainer._step(towers))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     ms = device_ms(prof, families)
     total = sum(ms.values())
+    names = sorted({ev.key for ev in prof.key_averages()
+                    if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                    and any(k in ev.key for k in name_keys)})
     if total == 0:
         log(f"{label}: the profiler saw no device time (wall {wall_ms:.1f} ms)")
-        return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None}
+        return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None, "kernel_names": names}
     shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items())
     log(f"{label}: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall (busy share "
-        f"{total / wall_ms:.3f}): {shares}")
-    return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total,
+        f"{total / wall_ms:.3f}): {shares}" + (f"; kernels {names}" if name_keys else ""))
+    return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total, "kernel_names": names,
             **{f"profile_{k.lower()}_ms": v for k, v in ms.items()}}
 
 
@@ -2080,17 +2260,32 @@ def phase_beir(rng, card):
     return ndcg["NDCG@10"]
 
 
-FBWD_CASES = [  # name, B, T, H, Dh, block_kv, scale, window, alibi
-    ("main-global", 8, 2048, 12, 64, 256, 1.0, 0, False),
-    ("main-local256", 8, 2048, 12, 64, 256, 1.0, 256, False),
-    ("T128", 8, 128, 12, 64, 256, 1.0, 256, False),   # block_kv clamps to 128
-    ("T256", 8, 256, 12, 64, 256, 1.0, 256, False),
-    ("T512-bkv128", 8, 512, 12, 64, 128, 1.0, 256, False),
-    ("T1024-global", 8, 1024, 12, 64, 256, 1.0, 0, False),
-    ("scale", 8, 512, 12, 64, 256, 0.125, 0, False),
-    ("alibi", 8, 1024, 12, 64, 256, 1.0, 256, True),
-    ("Dh128-T2048", 2, 2048, 16, 128, 256, 1.0, 256, True),  # GPT-Neo 1.3B/2.7B heads
-    ("Dh32-w64", 4, 384, 4, 32, 128, 0.25, 64, False),
+FBWD_CASES = [  # name, B, T, H, Dh, block_kv, scale, window, alibi, a fully padded row
+    ("main-global", 8, 2048, 12, 64, 256, 1.0, 0, False, False),
+    ("main-local256", 8, 2048, 12, 64, 256, 1.0, 256, False, False),
+    ("T128", 8, 128, 12, 64, 256, 1.0, 256, False, False),   # block_kv clamps to 128
+    ("T256", 8, 256, 12, 64, 256, 1.0, 256, False, False),
+    ("T512-bkv128", 8, 512, 12, 64, 128, 1.0, 256, False, False),
+    ("T1024-global", 8, 1024, 12, 64, 256, 1.0, 0, False, False),
+    ("scale", 8, 512, 12, 64, 256, 0.125, 0, False, False),
+    ("alibi", 8, 1024, 12, 64, 256, 1.0, 256, True, False),
+    ("Dh128-T2048", 2, 2048, 16, 128, 256, 1.0, 256, True, False),  # GPT-Neo 1.3B/2.7B heads
+    ("Dh32-w64", 4, 384, 4, 32, 128, 0.25, 64, False, False),
+    # GPT-J-6B's head size (`flash_bwd_dq_wide`, `flash_bwd_dkv_wide`) and
+    # BLOOM-1b7's own slopes at the key index
+    ("gptj-global", 4, 2048, 16, 256, 256, 1 / 16, 0, False, False),
+    ("gptj-w256", 4, 2048, 16, 256, 256, 1 / 16, 256, False, True),
+    ("gptj-T128", 4, 128, 16, 256, 128, 1 / 16, 0, False, True),
+    ("gptj-T512-bkv128", 4, 512, 16, 256, 128, 1 / 16, 256, False, False),
+    ("gptj-T1024-scale1", 4, 1024, 16, 256, 256, 1.0, 0, False, True),
+    ("bloom1b7-T2048", 2, 2048, 16, 128, 256, 128 ** -0.5, 0, "bloom", True),
+]
+
+FBWD_TIMED = [  # cell, B, T, H, Dh, scale, window, alibi
+    (0, 8, 2048, 12, 64, 1.0, 0, False),
+    (256, 8, 2048, 12, 64, 1.0, 256, False),
+    ("gptj", 4, 2048, 16, 256, 1 / 16, 0, False),  # the families' long-context training cells
+    ("bloom1b7", 4, 2048, 16, 128, 128 ** -0.5, 0, "bloom"),
 ]
 
 
@@ -2098,19 +2293,23 @@ def phase_fbwd(torch, fa, rng):
     """K4a/K4b against `flash_attention_bwd_reference` from K3's residuals
     (out, lse), on the decoder's (B, T, H·Dh) projection views with a random
     output gradient (std 1) in the same layout; each case has a short row
-    that a window leaves fully masked. fp32: |Δ| ≤ 1e-5·max|ref| +
-    1e-5·|ref| (summation order only); bf16: 2e-2 + 1e-2·|ref| (a flipped
-    rounding of an output cast to bf16). Fully masked rows' dq is 0 on both
-    sides. Then the times at the main shape (fp32, the slice's dtype),
-    global and window 256: each kernel, the plain version (dq, dk and dv
-    together), the library's SDPA backward with the same boolean mask, and
-    each kernel's bound from this run's pairs and bytes."""
-    main_err = {"dq": 0.0, "dkv": 0.0}
+    that a window leaves fully masked, some a fully padded batch row
+    (`FBWD_CASES`: GPT-Neo's head sizes, GPT-J's 256 and BLOOM-1b7's own
+    slopes). `hold_grads`: fp32 |Δ| ≤ 1e-5·max|ref| + 1e-5·|ref| (summation
+    order only; BLOOM's slopes held to fp64 where it misses), bf16 scaled to
+    each gradient and checked on a planted fault at GPT-J's shape. Fully
+    masked rows' dq is 0 on both sides. Then the fp32 times (`FBWD_TIMED`:
+    GPT-Neo's main shape global and window 256, the families' long-context
+    cells): each kernel, the plain version (dq, dk and dv together), the
+    library's SDPA backward of the same attention, and each kernel's bound
+    from this run's pairs and bytes."""
+    main_err, worst, readings = {"dq": 0.0, "dkv": 0.0}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, T, H, Dh, block_kv, scale, window, alibi in FBWD_CASES:
-            (q, k, v, km, slopes), _ = attention_inputs(torch, rng, B, T, H, Dh, dtype,
-                                                        alibi=alibi)
-            if alibi:
+        dt = str(dtype)[6:]
+        for name, B, T, H, Dh, block_kv, scale, window, alibi, dead in FBWD_CASES:
+            (q, k, v, km, slopes), _ = case_inputs(torch, rng, B, T, H, Dh, dtype, alibi,
+                                                   dead=dead)
+            if alibi is True:
                 slopes = slopes * 0.03  # BLOOM-sized slopes
             qh, kh, vh = (heads(t, H) for t in (q, k, v))
             g = heads(card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype), H)
@@ -2119,38 +2318,43 @@ def phase_fbwd(torch, fa, rng):
             got = fa.flash_attention_bwd(qh, kh, vh, km, slopes, g, out, lse, **kw)
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_reference(qh, kh, vh, km, slopes, g, out, lse, **kw)
-            dead = lse == fa.NEG_INF
-            errs = []
-            for part, gg, ww in zip(("dq", "dk", "dv"), got, want):
-                assert gg.dtype == dtype and gg.stride() == qh.stride(), (name, part)
-                gg, ww = gg.float(), ww.float()
-                assert torch.isfinite(gg).all(), f"fbwd {name} {part}: non-finite output"
-                err = (gg - ww).abs()
-                if dtype == torch.float32:
-                    atol, rtol = FP32_ATOL * ww.abs().max().item(), FP32_RTOL
-                else:
-                    atol, rtol = BF16_ATOL, BF16_RTOL
-                assert (err - rtol * ww.abs()).max().item() <= atol, \
-                    f"fbwd {name} {dtype} {part}: exceeds tolerance"
-                errs.append(err.max().item())
-            assert (got[0][dead] == 0).all() and (want[0][dead] == 0).all(), name
+            dead_rows = lse == fa.NEG_INF
+            errs, gate, reading = hold_grads(torch, f"fbwd {name}", got, want, dtype, fp64=(
+                (lambda: k4_fp64(torch, (qh, kh, vh, g, out, km, slopes, lse,
+                                         (g * out).sum(-1)), window, scale))
+                if alibi == "bloom" and dtype == torch.float32 else None))
+            assert all(t.stride() == qh.stride() for t in got), name
+            assert (got[0][dead_rows] == 0).all() and (want[0][dead_rows] == 0).all(), name
+            log(f"fbwd   {name:18s} {dt:8s} B={B} T={T} H={H} Dh={Dh} "
+                f"block_kv={min(block_kv, T)} scale={scale:.4g} window={window}"
+                f"{' alibi (BLOOM)' if alibi == 'bloom' else ''}: max_abs_err dq {errs[0]:.3e} "
+                f"dk {errs[1]:.3e} dv {errs[2]:.3e} (held by {gate}), fully masked rows "
+                f"{int(dead_rows.sum())}")
+            worst[f"{name}_{dt}"] = max(errs)
+            if reading:
+                readings[name] = reading
             if name.startswith("main") and dtype == torch.float32:
                 main_err["dq"] = max(main_err["dq"], errs[0])
                 main_err["dkv"] = max(main_err["dkv"], errs[1], errs[2])
-            log(f"fbwd   {name:14s} {str(dtype)[6:]:8s} B={B} T={T} H={H} Dh={Dh} "
-                f"block_kv={min(block_kv, T)} window={window}: max_abs_err dq {errs[0]:.3e} "
-                f"dk {errs[1]:.3e} dv {errs[2]:.3e}, fully masked rows {int(dead.sum())}")
+            if name == "gptj-global" and dtype == torch.bfloat16:
+                faulty = got[1].clone()
+                k0 = 2 * T // 3 // 64 * 64
+                faulty[:, :, k0:k0 + 64] = 0  # one 64-key block of K4b's walk
+                readings["planted fault"] = planted_fault(torch, f"fbwd {name}", faulty, want[1])
             del q, k, v, qh, kh, vh, g, out, lse, got, want
+    log(f"fbwd   bf16 gate readings, largest over the cases: excess/RMS "
+        f"{max(r[0] for k, r in readings.items() if k != 'planted fault'):.3e}, |Δ|/|ref| "
+        f"{max(r[1] for k, r in readings.items() if k != 'planted fault'):.3e} (allowances "
+        f"{GRAD_RMS_ATOL}, {GRAD_NORM_RTOL})")
 
     times = {}
-    for window in (0, 256):
-        B, T, H, Dh = 8, 2048, 12, 64
-        (q, k, v, km, _), _ = attention_inputs(torch, rng, B, T, H, Dh, torch.float32)
+    for cell, B, T, H, Dh, scale, window, alibi in FBWD_TIMED:
+        (q, k, v, km, sl), _ = case_inputs(torch, rng, B, T, H, Dh, torch.float32, alibi)
         qh, kh, vh = (heads(t, H) for t in (q, k, v))
         g = heads(card_normal(torch, rng, (B, T, H * Dh), 1.0), H)
-        kw = dict(window=window, block_kv=256)
-        out, lse = fa.flash_attention(qh, kh, vh, km, return_residuals=True, **kw)
-        args = fa._bwd_args(qh, kh, vh, km, None, g, out, lse, 1.0, window, 128, 256)
+        kw = dict(scale=scale, window=window, block_kv=256)
+        out, lse = fa.flash_attention(qh, kh, vh, km, sl, return_residuals=True, **kw)
+        args = fa._bwd_args(qh, kh, vh, km, sl, g, out, lse, scale, window, 128, 256)
 
         def dq():
             fa._launch_dq(args)
@@ -2159,11 +2363,11 @@ def phase_fbwd(torch, fa, rng):
             fa._launch_dkv(args)
 
         def plain():
-            return fa.flash_attention_bwd_reference(qh, kh, vh, km, None, g, out, lse, **kw)
+            return fa.flash_attention_bwd_reference(qh, kh, vh, km, sl, g, out, lse, **kw)
 
         qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (qh, kh, vh))
         lib_out = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=sdpa_mask(torch, km, window), scale=1.0)
+            qs, ks, vs, attn_mask=library_mask(torch, km, window, sl), scale=scale)
         gs = g.contiguous()
 
         def library():  # the library's backward of the same attention: dq, dk and dv
@@ -2180,26 +2384,26 @@ def phase_fbwd(torch, fa, rng):
         # pair; K4b reads q, k, v, g, lse, D and the mask, writes dk and dv:
         # 8·Dh a pair. Both in 3xTF32 (the CUDA cores' bound beside it)
         nbytes = 6 * size + 2 * rows + km.numel() * 4
-        bound_dq = bound(nbytes, 3 * 6 * Dh * H * pairs, "tf32")
-        bound_dq_cc = bound(nbytes, 6 * Dh * H * pairs, "fp32")
-        bound_dkv = bound(nbytes, 3 * 8 * Dh * H * pairs, "tf32")
-        bound_dkv_cc = bound(nbytes, 8 * Dh * H * pairs, "fp32")
         t = {"dq": (a1 + a2) / 2, "dkv": (b1 + b2) / 2, "plain": (p1 + p2) / 2, "library": lib,
-             "bound_dq": bound_dq, "bound_dkv": bound_dkv, "bound_dq_cuda_cores": bound_dq_cc,
-             "bound_dkv_cuda_cores": bound_dkv_cc, "pairs": pairs}
-        times[window] = t
-        log(f"time K4a/K4b B={B} T={T} H={H} Dh={Dh} fp32 window={window}: K4a {t['dq']:.4f} ms "
-            f"(3xTF32 bound {bound_dq[0]:.4f} ms, {bound_dq[1]}; CUDA cores "
-            f"{bound_dq_cc[0]:.4f}), "
-            f"K4b {t['dkv']:.4f} ms (3xTF32 bound {bound_dkv[0]:.4f} ms, {bound_dkv[1]}; "
-            f"CUDA cores {bound_dkv_cc[0]:.4f}), together {t['dq'] + t['dkv']:.4f} ms; "
-            f"plain (dq, dk, dv) {t['plain']:.4f} ms, library (SDPA backward, boolean mask) "
-            f"{lib:.4f} ms; {pairs} pairs a head; {6 * Dh * H * pairs / (t['dq'] / 1e3) / 1e12:.1f}"
-            f" and {8 * Dh * H * pairs / (t['dkv'] / 1e3) / 1e12:.1f} TFLOP/s (runs: K4a "
-            f"{a1:.4f} {a2:.4f}, K4b {b1:.4f} {b2:.4f}, plain {p1:.4f} {p2:.4f})")
-        del q, k, v, qh, kh, vh, g, out, lse, args, qs, ks, vs, lib_out, gs
-    torch.cuda.empty_cache()
-    return main_err, times
+             "pairs": pairs}
+        for part, per_pair in (("dq", 6), ("dkv", 8)):
+            t[f"bound_{part}"] = bound(nbytes, 3 * per_pair * Dh * H * pairs, "tf32")
+            t[f"bound_{part}_cuda_cores"] = bound(nbytes, per_pair * Dh * H * pairs, "fp32")
+        times[cell] = t
+        log(f"time K4a/K4b {'' if isinstance(cell, int) else cell + ' '}B={B} T={T} H={H} "
+            f"Dh={Dh} fp32 window={window}{' alibi (BLOOM)' if alibi == 'bloom' else ''}: K4a "
+            f"{t['dq']:.4f} ms (3xTF32 bound {t['bound_dq'][0]:.4f} ms, {t['bound_dq'][1]}; "
+            f"CUDA cores {t['bound_dq_cuda_cores'][0]:.4f}), K4b {t['dkv']:.4f} ms (3xTF32 "
+            f"bound {t['bound_dkv'][0]:.4f} ms, {t['bound_dkv'][1]}; CUDA cores "
+            f"{t['bound_dkv_cuda_cores'][0]:.4f}), together {t['dq'] + t['dkv']:.4f} ms; plain "
+            f"(dq, dk, dv) {t['plain']:.4f} ms, library (SDPA backward"
+            f"{', fp32 additive mask' if sl is not None else ', boolean mask'}) {lib:.4f} ms; "
+            f"{pairs} pairs a head; {6 * Dh * H * pairs / (t['dq'] / 1e3) / 1e12:.1f} and "
+            f"{8 * Dh * H * pairs / (t['dkv'] / 1e3) / 1e12:.1f} TFLOP/s (runs: K4a {a1:.4f} "
+            f"{a2:.4f}, K4b {b1:.4f} {b2:.4f}, plain {p1:.4f} {p2:.4f})")
+        del q, k, v, km, sl, qh, kh, vh, g, out, lse, args, qs, ks, vs, lib_out, gs
+        torch.cuda.empty_cache()
+    return main_err, worst, readings, times
 
 
 def long_triplets(rng, n: int) -> list:
@@ -2936,6 +3140,218 @@ def phase_families(torch, fa, sa, mips, card) -> dict:
             for family in ("gptj", "bloom")}
 
 
+# ---------------------------------------------------------------------------
+# The families' training slice (phase families train)
+# ---------------------------------------------------------------------------
+
+FAMILY_LONG_TRAIN = {"gptj": (8, 2), "bloom": (16, 4)}  # triplets, GradCache chunk
+
+
+def bits_fingerprint(torch, p) -> int:
+    """A fingerprint of an fp32 tensor's bits: the int64 sum of its values'
+    int32 patterns (a frozen weight keeps it; cloning 24 GB to compare is
+    not affordable)."""
+    return int(p.detach().view(torch.int32).sum(dtype=torch.int64).item())
+
+
+def train_cell(torch, fa, sa, model, cfg, tok, tc, batch, steps: int, label: str,
+               families: dict, name_keys: tuple) -> dict:
+    """`steps` steps of `ContrastiveTrainer.fit` on one repeated batch at
+    constant lr (1 warm-up step, the rest timed); launch counts, losses, peak
+    memory, ms/step and sequences/s; then one step under torch.profiler
+    (`profile_step`)."""
+    from sgpt_tpu_torch.training import ContrastiveTrainer
+
+    trainer = ContrastiveTrainer(model, cfg, tok, tc)
+    stamps = []
+    tc.log_fn = lambda rec: stamps.append(time.perf_counter())  # float(loss) synchronises
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.launches = sa.bwd_launches = 0
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    t0 = time.perf_counter()
+    out = trainer.fit(lambda: iter([batch] * steps), steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k1": sa.launches, "k2": sa.bwd_launches, "k3": fa.launches,
+              "k4a": fa.bwd_dq_launches, "k4b": fa.bwd_dkv_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in out["history"]]
+    ms = 1e3 * float(np.median(np.diff(stamps)))
+    towers = trainer._prep_batch(batch)
+    valid = int(sum(t["mask"].sum().item() for t in towers))
+    res = {"losses": losses, "wall_s": wall, "peak_gib": peak_gib, "ms_per_step": ms,
+           "seq_per_s": 3 * len(batch) / (ms / 1e3), "tokens_per_s": valid / (ms / 1e3),
+           **counts}
+    log(f"{label}: {steps} steps in {wall:.2f} s, losses {[round(x, 5) for x in losses]}; "
+        f"{ms:.1f} ms/step, {res['seq_per_s']:.2f} sequences/s, {res['tokens_per_s']:.0f} "
+        f"valid tokens/s, peak {peak_gib:.2f} GiB; launches {counts}")
+    return {**res, **profile_step(torch, trainer, batch, f"{label} profile, one step",
+                                  families, name_keys)}
+
+
+def family_train(torch, fa, sa, family: str, card: str) -> dict:
+    """Training of one family at full width with fp32 weights drawn on the
+    card (GPT-J-6B with its biased head, or BLOOM-1b7), through
+    `ContrastiveTrainer.fit` at the CLI's matmul precision "default", SPECB,
+    BitFit, MNRL, constant lr 2e-4, 1 warm-up and 2 timed steps on one
+    repeated batch (its loss falls):
+      (a) the MS MARCO configuration: 32 triplets, max_seq_len 300, GradCache
+          chunk 4 (the paper's SGPT-5.8B setting): K1 = L × 3 towers × 2
+          passes × 8 chunks a step, K2 = L × 3 × 8;
+      (b) long context with use_flash at max_seq_len 2048: 8 (GPT-J) or 16
+          (BLOOM) triplets of 300-3,000-word documents, GradCache chunks of 2
+          (GPT-J) or 4 (BLOOM): K3 = L × 3 × 2 × chunks, K4a = K4b = L × 3 ×
+          chunks; the profile names only Dh-256 (GPT-J: K4's `_wide`) or
+          Dh-128 (BLOOM) instantiations;
+    both with only biases moving (frozen weights keep their bits), ms/step,
+    sequences/s, peak memory and one profiled step; then (c) card against
+    CPU at full width with the depth cut to 2 layers, at "highest": one step's
+    loss and bias gradients on 2 triplets at T=300 (K1, K2) and with
+    use_flash at T=512 (K3, K4a, K4b), gated as phase tparity."""
+    import copy
+    import dataclasses
+
+    from sgpt_tpu_torch.models import Decoder, bloom, gpt_j_6b
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
+
+    rng = np.random.default_rng(SEED + 21)
+    head = ("w", "b") if family == "gptj" else ()
+    base = gpt_j_6b() if family == "gptj" else bloom("1b7")
+    # use_flash: T=300 is no multiple of 128, so (a) takes K1/K2 as without it
+    cfg = base.replace(use_flash=True, matmul_precision="default")
+    L = cfg.num_layers
+    phase(f"families train {family}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED),
+                    lm_head=head)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"families train {family}: {n_params} fp32 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({weights_gib:.2f} GiB)")
+    tok = SimpleTokenizer(cfg.vocab_size)
+    biases = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.rsplit(".", 1)[-1] in BIAS_NAMES}
+    frozen = {n: bits_fingerprint(torch, p) for n, p in model.named_parameters()
+              if n not in biases}
+    out = {"params": n_params, "weights_gib": weights_gib}
+    short_keys = {"K1": K1_KEYS, "K2tc": ("tf32_rows", "tf32_cols"),
+               "K2cc": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS}
+    flash_keys = {"K3": ("flash_fwd",), "K4a": ("flash_bwd_dq",), "K4b": ("flash_bwd_dkv",),
+                  "GEMM": GEMM_KEYS}
+    steps = 3
+
+    # (a) the MS MARCO configuration
+    B, chunk = 32, 4
+    tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=300, specb=True, freeze_nonbias=True,
+                     pooling="weightedmean", scheduler="constantlr", use_gradcache=True,
+                     chunk_size=chunk)
+    a = train_cell(torch, fa, sa, model, cfg, tok, tc, synthetic_triplets(rng, B), steps,
+                   f"families train {family} msmarco (B={B}, T=300, GradCache chunk {chunk})",
+                   short_keys, ("scalar_kernel", "tf32_kernel", "mma_kernel", "rows_kernel",
+                             "cols_kernel", "tf32_rows", "tf32_cols"))
+    chunks = B // chunk
+    assert (a["k1"], a["k2"]) == (L * 3 * 2 * chunks * steps, L * 3 * chunks * steps), a
+    assert a["k3"] == a["k4a"] == a["k4b"] == 0, a
+    assert all(np.isfinite(a["losses"])) and a["losses"][-1] < a["losses"][0], a["losses"]
+    if a["profile_kernel_ms"] is not None:
+        k2_kind = "profile_k2cc_ms" if cfg.head_size == 256 else "profile_k2tc_ms"
+        assert a[k2_kind] > 0 and a["profile_k1_ms"] > 0, a
+    out["msmarco"] = a
+
+    # (b) long context with use_flash
+    n_long, chunk = FAMILY_LONG_TRAIN[family]
+    tc = dataclasses.replace(tc, batch_size=n_long, max_seq_len=2048, chunk_size=chunk,
+                             log_fn=None)
+    long_batch = long_triplets(np.random.default_rng(SEED + 22), n_long)
+    b = train_cell(torch, fa, sa, model, cfg, tok, tc, long_batch, steps,
+                   f"families train {family} long (B={n_long}, T=2048, use_flash, GradCache "
+                   f"chunk {chunk})", flash_keys, ("flash_",))
+    chunks = n_long // chunk
+    assert b["k1"] == b["k2"] == 0, b
+    assert b["k3"] == L * 3 * 2 * chunks * steps, b
+    assert b["k4a"] == b["k4b"] == L * 3 * chunks * steps, b
+    assert all(np.isfinite(b["losses"])) and b["losses"][-1] < b["losses"][0], b["losses"]
+    if b["profile_kernel_ms"] is not None:
+        width = str(cfg.head_size)
+        assert b["kernel_names"] and all(width in n for n in b["kernel_names"]), b
+        bwd = [n for n in b["kernel_names"] if "flash_bwd" in n]
+        assert bwd and all(("_wide" in n) == (width == "256") for n in bwd), bwd
+        assert b["profile_k4a_ms"] > 0 and b["profile_k4b_ms"] > 0, b
+    out["long"] = b
+
+    # only biases moved: every bias leaf changed, every other weight kept its bits
+    for name, p in model.named_parameters():
+        if name in biases:
+            assert not torch.equal(p.detach(), biases[name]), f"{name} did not move"
+        else:
+            assert p.grad is None and bits_fingerprint(torch, p) == frozen[name], f"{name} moved"
+    log(f"families train {family}: {len(biases)} bias leaves moved, {len(frozen)} frozen "
+        f"leaves kept their bits ({card})")
+    del model, biases
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU, full width, 2 layers, "highest"
+    phase(f"families train {family} parity")
+    cfg2 = base.replace(num_layers=2, use_flash=True)
+    gpu = Decoder(cfg2, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED + 1),
+                  lm_head=head)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    batch = synthetic_triplets(rng, 2)
+    parity = {}
+    for T in (300, 512):
+        tc = TrainConfig(lr=2e-4, batch_size=2, max_seq_len=T, specb=True, freeze_nonbias=True)
+        res = []
+        t0 = time.perf_counter()
+        for net in (cpu, gpu):
+            trainer = ContrastiveTrainer(net, cfg2, tok, tc)
+            trainer._opt, trainer._sched = trainer._build_optimizer(1)
+            trainer._opt.zero_grad(set_to_none=True)
+            sa.launches = sa.bwd_launches = 0
+            fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+            loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+            res.append((loss, {n: p.grad.cpu() for n, p in net.named_parameters()
+                               if p.requires_grad}))
+        counts = (sa.launches, sa.bwd_launches, fa.launches, fa.bwd_dq_launches,
+                  fa.bwd_dkv_launches)
+        flash = T % 128 == 0
+        want = (0, 0, 6, 6, 6) if flash else (6, 6, 0, 0, 0)  # 2 layers × 3 towers
+        assert counts == want, (T, counts, want)
+        (loss_cpu, g_cpu), (loss_gpu, g_gpu) = res
+        # BLOOM's key bias adds q·bk to a whole score row, which the softmax
+        # does not see: its gradient is 0 and both sides hold rounding noise,
+        # held to 1e-6 of the largest bias gradient instead of its own norm
+        zero = [n for n in g_cpu if n.endswith("attn.bk")]
+        scale = max(g.norm().item() for g in g_cpu.values())
+        worst = max(((g_gpu[n] - g).abs().max() / g.norm().clamp_min(1e-12)).item()
+                    for n, g in g_cpu.items() if n not in zero)
+        noise = max([max(g_gpu[n].abs().max().item(), g_cpu[n].abs().max().item()) / scale
+                     for n in zero], default=0.0)
+        log(f"families train {family} parity T={T}{' use_flash' if flash else ''}: loss card "
+            f"{loss_gpu:.7f} CPU {loss_cpu:.7f} (|diff| {abs(loss_gpu - loss_cpu):.3e}, "
+            f"tolerance 1e-5 relative); {len(g_cpu) - len(zero)} bias gradients, worst "
+            f"max|diff|/norm {worst:.3e} (tolerance 1e-4); {len(zero)} key-bias gradients "
+            f"(exactly 0 in the formula) at most {noise:.3e} of the largest bias gradient's norm "
+            f"on either side (tolerance 1e-6); K1, K2, K3, K4a, K4b launches on the card "
+            f"{counts}; {time.perf_counter() - t0:.1f} s")
+        assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+        assert worst <= 1e-4 and noise <= 1e-6
+        parity[T] = {"loss_diff": abs(loss_gpu - loss_cpu), "grad_rel": worst,
+                     "key_bias_noise": noise}
+    out["parity"] = parity
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families_train(torch, fa, sa, card) -> dict:
+    """GPT-J-6B, then BLOOM-1b7 (`family_train`), each freed before the next."""
+    return {family: family_train(torch, fa, sa, family, card) for family in ("gptj", "bloom")}
+
+
 def ptxas_lines(log_text: str, *names: str) -> dict:
     """Registers and spills that ptxas reported for the kernels whose mangled
     names hold each of `names` (e.g. "mma_kernelILi256ELb0"), from build.log."""
@@ -3005,14 +3421,15 @@ def main() -> int:
     phase("kernel families")
     fam_err, fam_times = phase_kernel_families(torch, sa, np.random.default_rng(SEED + 12))
     phase("bwd")
-    bwd_err, bwd_times = phase_bwd_kernel(torch, sa, rng)
+    bwd_err, bwd_worst, bwd_readings, bwd_times = phase_bwd_kernel(torch, sa, rng)
     phase("flash")
     flash_err, flash_times = phase_flash(torch, fa, np.random.default_rng(SEED + 3))
     phase("flash families")
     fam_flash_err, fam_flash_times = phase_flash_families(torch, fa,
                                                           np.random.default_rng(SEED + 13))
     phase("fbwd")
-    fbwd_err, fbwd_times = phase_fbwd(torch, fa, np.random.default_rng(SEED + 5))
+    fbwd_err, fbwd_worst, fbwd_readings, fbwd_times = phase_fbwd(
+        torch, fa, np.random.default_rng(SEED + 5))
     ab = {}
     if parent:
         phase("ab")
@@ -3134,6 +3551,8 @@ def main() -> int:
     # 17. GPT-J-6B and BLOOM-1b7 at full width
     phase("families")
     families = phase_families(torch, fa, sa, mips, card)
+    phase("families train")
+    fam_train = phase_families_train(torch, fa, sa, card)
     phase("report")
 
     # 16. report
@@ -3164,9 +3583,24 @@ def main() -> int:
             f"full width ({card})")
     fam_k1 = sum(f["encode_k1"] + f["long_k1"] + f["ce_k1"] + f.get("ce_short_k1", 0)
                  for f in families.values())
+    for family, f in fam_train.items():
+        for cell in ("msmarco", "long"):
+            c = f[cell]
+            log(f"families train {family} {cell}: {c['ms_per_step']:.1f} ms/step, "
+                f"{c['seq_per_s']:.2f} sequences/s, {c['tokens_per_s']:.0f} valid tokens/s, "
+                f"peak {c['peak_gib']:.2f} GiB; fp32 at TF32 products (\"default\"), full width "
+                f"({card})")
+    train_launches = {k: sum(f[cell][k] for f in fam_train.values() for cell in ("msmarco", "long"))
+                      for k in ("k1", "k2", "k3", "k4a", "k4b")}
     build_log = (lib_path.parent / "build.log").read_text()
     templates = ptxas_lines(build_log, "mma_kernelILi256ELb0", "mma_kernelILi256ELb1",
-                            "flash_fwd_bf16ILi256", "flash_fwd_tf32ILi256")
+                            "flash_fwd_bf16ILi256", "flash_fwd_tf32ILi256",
+                            "flash_bwd_dq_wideIfLi256", "flash_bwd_dkv_wideIfLi256",
+                            "flash_bwd_dq_wideI13__nv_bfloat16Li256",
+                            "flash_bwd_dkv_wideI13__nv_bfloat16Li256")
+    for name in templates:
+        if "wide" in name:
+            log(f"ptxas {name}: {templates[name]}")
 
     log(card)
     print(json.dumps({"kernels": [{
@@ -3174,10 +3608,10 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
-                     + fam_k1),
+                     + fam_k1 + train_launches["k1"]),
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
         "launches_long": long["k1_launches"], "launches_ce": ce_launches,
-        "launches_families": fam_k1,
+        "launches_families": fam_k1, "launches_families_train": train_launches["k1"],
         "templates": {"mma_kernel<256, false>": templates.get("mma_kernelILi256ELb0"),
                       "mma_kernel<256, true>": templates.get("mma_kernelILi256ELb1"),
                       "fp32 at Dh 256": "scalar_kernel"},
@@ -3214,13 +3648,14 @@ def main() -> int:
         "name": "short_attention_bwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
-        "launches": train["bwd_launches"], "max_abs_err": bwd_err,
-        "ms": bwd_times[("fp32", 0)][0], "plain_ms": bwd_times[("fp32", 0)][1],
-        "library_ms": bwd_times[("fp32", 0)][2], "bound_ms": bwd_times[("fp32", 0)][3],
-        "bound_by": bwd_times[("fp32", 0)][4],
-        **{f"{k}_{dt}_w{w}": bwd_times[(dt, w)][i] for dt, w in bwd_times
-           for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                  "rows_ms", "cols_ms", "bound_ms_cuda_cores"))},
+        "launches": train["bwd_launches"] + train_launches["k2"],
+        "launches_train": train["bwd_launches"], "launches_families_train": train_launches["k2"],
+        "max_abs_err": bwd_err, "max_abs_err_cases": bwd_worst,
+        "bf16_gate_readings": bwd_readings,
+        **{k: bwd_times[("fp32", 0)][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by")},
+        **{(f"{k}_{cell[0]}_w{cell[1]}" if isinstance(cell, tuple) else f"{k}_{cell}"): v
+           for cell, t in bwd_times.items() for k, v in t.items()},
         "parent_ms": parent_ms("K2 fp32 B=32 T=300 window=0"),
         "parent_ms_fp32_w256": parent_ms("K2 fp32 B=32 T=300 window=256"),
         "parent_ms_bf16_w0": parent_ms("K2 bf16 B=32 T=300 window=0"),
@@ -3228,7 +3663,8 @@ def main() -> int:
         "train_ms_per_step_highest": train["ms_per_step_highest"],
         "train_seq_per_s_highest": train["seq_per_s_highest"],
         "train_peak_gib": train["peak_gib"],
-        "train_profile": {k: v for k, v in train.items() if k.startswith("profile")}}, {
+        "train_profile": {k: v for k, v in train.items() if k.startswith("profile")},
+        "families_train": fam_train}, {
         "name": "mips_topk", "route": "cuda", "source": "sgpt_tpu_torch/csrc/mips.cu",
         "replaces": "sgpt_tpu/ops/pallas/mips.py:44",
         "launches": (search["k5_launches"] + serve["k5_launches"]
@@ -3251,8 +3687,9 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/flash_attention.py:32",
         "launches": (long["k3_launches"] + ltrain["k3"]
-                     + sum(f["long_k3"] for f in families.values())),
+                     + sum(f["long_k3"] for f in families.values()) + train_launches["k3"]),
         "launches_long_encode": long["k3_launches"], "launches_long_train": ltrain["k3"],
+        "launches_families_train": train_launches["k3"],
         "launches_families": {k: f["long_k3"] for k, f in families.items()},
         "templates": {"flash_fwd_bf16<256>": templates.get("flash_fwd_bf16ILi256"),
                       "flash_fwd_tf32<256>": templates.get("flash_fwd_tf32ILi256")},
@@ -3281,7 +3718,16 @@ def main() -> int:
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": f"sgpt_tpu/ops/pallas/flash_attention.py:{line}",
-        "launches": ltrain[key], "max_abs_err": fbwd_err[part],
+        "launches": ltrain[key] + train_launches[key], "launches_long_train": ltrain[key],
+        "launches_families_train": train_launches[key], "max_abs_err": fbwd_err[part],
+        "max_abs_err_cases": fbwd_worst, "bf16_gate_readings": fbwd_readings,
+        "template_fp32_dh256": templates.get(f"flash_bwd_{part}_wideIfLi256"),
+        "template_bf16_dh256": templates.get(f"flash_bwd_{part}_wideI13__nv_bfloat16Li256"),
+        **{f"{k}_{cell}": v for cell, t in fbwd_times.items() if isinstance(cell, str)
+           for k, v in (
+            ("ms", t[part]), ("plain_ms", t["plain"]), ("library_ms", t["library"]),
+            ("bound_ms", t[f"bound_{part}"][0]), ("bound_by", t[f"bound_{part}"][1]),
+            ("bound_ms_cuda_cores", t[f"bound_{part}_cuda_cores"][0]))},
         "ms": fbwd_times[0][part], "plain_ms": fbwd_times[0]["plain"],
         "library_ms": fbwd_times[0]["library"], "bound_ms": fbwd_times[0][f"bound_{part}"][0],
         "bound_by": fbwd_times[0][f"bound_{part}"][1], "shape": "B=8 T=2048 H=12 Dh=64 fp32",

@@ -12,10 +12,19 @@ queries.tsv (qid\\ttext), hard-negatives.jsonl ({qid, pos: [pid], neg:
     python -m sgpt_tpu_torch.cli.train_msmarco --data_folder data/msmarco \\
         --randominit --train_batch_size 32 --specb --freezenonbias --lr 2e-4
 
-`--model_name` is a preset with `--randominit` or a local HF checkpoint
-directory. Training of GPT-J and BLOOM is not part of the port yet
-(ROADMAP Queue 1 item 16): GPT-J's head size 256 has no tensor-core K2
-and no K4.
+`--model_name` is a preset with `--randominit` (GPT-Neo by size, "6b" /
+"5.8b" / "6.1b" for GPT-J-6B, "bloom" for BLOOM-1b7) or a local HF
+checkpoint directory of any of the three families (`models/hf_loader.py`).
+Weights train in fp32 at matmul precision "default". The paper's SGPT-5.8B
+run is BitFit with GradCache at chunk size 4:
+
+    python -m sgpt_tpu_torch.cli.train_msmarco --data_folder data/msmarco \
+        --model_name 6b --randominit --train_batch_size 32 --specb \
+        --freezenonbias --gradcache --chunksize 4 --lr 2e-4
+
+GPT-J's head size 256 takes K1's `scalar_kernel` and K2's CUDA-core pair
+at T=300, and K3 and K4a/K4b (`flash_bwd_dq_wide`, `flash_bwd_dkv_wide`)
+with a `use_flash` config; BLOOM's ALiBi slopes reach every kernel.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 // Causal flash attention backward for Hopper (compiled for sm_90a): K4a, K4b.
 //
 // Replaces the two TPU kernels of sgpt_tpu/ops/pallas/flash_attention.py's
-// flash_attention_bwd, the backward of every attention layer when GPT-Neo
-// trains with use_flash at T % 128 == 0 (the long-context training path):
-//   * K4a (flash_bwd_dq_tf32, bf16 flash_bwd_dq) replaces :231
-//     _flash_bwd_dq_kernel;
-//   * K4b (flash_bwd_dkv_tf32, bf16 flash_bwd_dkv) replaces :276
-//     _flash_bwd_dkv_kernel.
+// flash_attention_bwd, the backward of every attention layer when GPT-Neo,
+// GPT-J or BLOOM trains with use_flash at T % 128 == 0 (the long-context
+// training path):
+//   * K4a (flash_bwd_dq_tf32, bf16 flash_bwd_dq; at Dh 256
+//     flash_bwd_dq_wide) replaces :231 _flash_bwd_dq_kernel;
+//   * K4b (flash_bwd_dkv_tf32, bf16 flash_bwd_dkv; at Dh 256
+//     flash_bwd_dkv_wide) replaces :276 _flash_bwd_dkv_kernel.
 // They compute what the TPU kernels compute, in fp32 whatever the input
 // dtype: s = q·k (× scale, + slope·kpos, rounded as the forward: the score()
 // of flash_attention.cuh), p = where(mask, exp(s − lse), 0) with the where
@@ -98,6 +99,38 @@
 // `_k4b_tf32` in tests/test_torch_flash_backward.py; chip_variants.py's
 // k4a_* and k4b_* variants time the alternatives (one stage, other tile
 // rows and chunk widths, grid order) as substitutions of this source.
+//
+// Dh 256 (GPT-J's head size), fp32 and bf16: flash_bwd_dq_wide (K4a) and
+// flash_bwd_dkv_wide (K4b), the tensor-core kernels above with three
+// changes, each against a wall that Dh 256 hits:
+//   * Registers. A warp's dK and dV for 16 keys over 256 columns would be
+//     256 fp32 registers a thread. K4b takes 8 warps a block: warps w and
+//     w + 4 own the same 16 keys, each computes their Sᵀ and dPᵀ over all of
+//     Dh and keeps one half of the dK/dV columns (128 registers). The
+//     recomputed Sᵀ and dPᵀ cost +50 % of K4b's operations (12·Dh a pair
+//     instead of 8·Dh), where keeping the accumulators in shared memory
+//     would leave no room for the tiles, two passes over the column halves
+//     would read K, V, Q and dO twice, and splitting the score sums between
+//     two warps would change their order against the CPU emulation. K4a's
+//     dQ (16 rows × 256) is 128 registers a thread, as K3's output at 256:
+//     4 warps, Q's and dO's A fragments read from their shared tiles at each
+//     k-step.
+//   * Shared memory. The Dh ≤ 128 plan (split big and small parts stored
+//     for every streamed tile) is 270 KB at 256. The wide kernels keep every
+//     tile unsplit in the input dtype and split each value where a lane
+//     reads it (the parts split_rows would store, so the same products):
+//     K4b holds K and V (64 rows of 264 fp32, 135 KB) and two stages of 16
+//     query rows of Q and dO with their lse and D (68 KB); K4a holds Q and
+//     dO (135 KB) and two stages of 16 keys of K and V, walking each listed
+//     32-key tile in two halves (68 KB); 203 KB in fp32, one block an SM.
+//   * bf16. The CUDA-core pair's four 64 × (D + 4) fp32 tiles are 266 KB at
+//     256; the wide kernels take bf16 tiles as they are (cp.async copies the
+//     raw bytes), widen each value to fp32 where it is read and run the same
+//     3xTF32 products (a bf16 value's small part is 0).
+// The sums keep the Dh ≤ 128 kernels' order: `_k4a_tf32` and `_k4b_tf32`
+// emulate them at 256 too. Bounds at GPT-J's long-context cell (B=4,
+// T=2048, H=16, global): 6·Dh FLOP a pair in K4a and 8·Dh in K4b (12·Dh
+// issued), 3 × those at the TF32 peak ≈ 1.25 and 1.67 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -425,15 +458,16 @@ struct DkvSmem {
 };
 
 // rows [0, R) of one head from src (row stride `stride` elements) → a shared
-// tile of row stride D + 8, 16 bytes a copy; the caller commits the group
-template <int D, int R>
-__device__ __forceinline__ void copy_rows_async(float* dst, const float* src, long long stride) {
-  constexpr int C = D / 4, LD = D + 8;
+// tile of row stride D + 8 in the input dtype, 16 bytes a copy, by NTH
+// threads; the caller commits the group
+template <int D, int R, int NTH = MMA_THREADS, typename T>
+__device__ __forceinline__ void copy_rows_async(T* dst, const T* src, long long stride) {
+  constexpr int E = 16 / sizeof(T), C = D / E, LD = D + 8;
+  static_assert(R * C % NTH == 0, "whole chunks a thread");
 #pragma unroll
-  for (int i = 0; i < (R * C + MMA_THREADS - 1) / MMA_THREADS; ++i) {
-    const int e = threadIdx.x + i * MMA_THREADS, r = e / C, c = (e - r * C) * 4;
-    if (R * C % MMA_THREADS == 0 || e < R * C)
-      cp_async16(dst + r * LD + c, src + r * stride + c, true);
+  for (int i = 0; i < R * C / NTH; ++i) {
+    const int e = threadIdx.x + i * NTH, r = e / C, c = (e - r * C) * E;
+    cp_async16(dst + r * LD + c, src + r * stride + c, true);
   }
 }
 
@@ -902,6 +936,369 @@ flash_bwd_dq_tf32(const Params p) {
   }
 }
 
+// ---- K4a and K4b at Dh 256 (GPT-J), fp32 and bf16 (see the note at the top) ----
+
+constexpr int WIDE_QT = 16;             // K4b: query rows of a ring stage (two stages)
+constexpr int WIDE_KT = DQ_KT / 2;      // K4a: keys of a ring stage, half a listed key tile
+constexpr int DKV_WIDE_THREADS = 256;   // K4b: 8 warps, two to each 16 keys
+static_assert(SUB % WIDE_QT == 0 && WIDE_KT % 8 == 0, "whole n-tiles a stage");
+
+// two neighbouring values of a shared tile, widened to fp32
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// four neighbouring values of a row of dq, dk or dv, rounded to its dtype
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Shared memory of flash_bwd_dkv_wide: the K and V tiles (64 rows each),
+// then two stages of QT rows of Q and dO with the tile's lse and D; tiles in
+// the input dtype, rows of D + 8 elements. fp32: 203,008 bytes.
+template <typename T, int D>
+struct DkvWideSmem {
+  static constexpr int LD = D + 8;
+  static constexpr size_t KV = 2 * SUB * LD;  // elements
+  static constexpr size_t STAGE = 2 * WIDE_QT * LD * sizeof(T) + 2 * WIDE_QT * sizeof(float);
+  static constexpr size_t BYTES = KV * sizeof(T) + 2 * STAGE;
+};
+
+// Shared memory of flash_bwd_dq_wide: the Q and dO tiles (64 rows each),
+// then two stages of WIDE_KT keys of K and V with their key-mask values, the
+// block's D and its key tile list. fp32 at T = 2048: 203,392 bytes.
+template <typename T, int D>
+struct DqWideSmem {
+  static constexpr int LD = D + 8;
+  static constexpr size_t QG = 2 * SUB * LD;  // elements
+  static constexpr size_t STAGE = 2 * WIDE_KT * LD * sizeof(T) + WIDE_KT * sizeof(int);
+  static size_t bytes(int T_) {
+    return QG * sizeof(T) + 2 * STAGE + SUB * sizeof(float) + sizeof(int) * (T_ / DQ_KT);
+  }
+};
+
+// kv_frag from a tile in the input dtype: the split A fragments of k-step d
+// of the 16 rows at `rows` (row stride D + 8), each value split where it is
+// read
+template <typename T, int D>
+__device__ __forceinline__ void a_frag_wide(uint32_t (&big)[4], uint32_t (&small)[4],
+                                            const T* rows, int lane, int d) {
+  constexpr int LD = D + 8;
+  const T* at = rows + (lane >> 2) * LD + 8 * d + 2 * (lane & 3);
+  const float2 lo = ld2(at), hi = ld2(at + 8 * LD);
+  split_tf32(lo.x, big[0], small[0]);
+  split_tf32(hi.x, big[1], small[1]);
+  split_tf32(lo.y, big[2], small[2]);
+  split_tf32(hi.y, big[3], small[3]);
+}
+
+// st_step from an unsplit tile in the input dtype: each lane splits the two
+// values it reads for each n-tile into the parts split_rows would store, so
+// the products are st_step's
+template <typename T, int D, int N, bool SWAPPED>
+__device__ __forceinline__ void st_step_wide(float (&s)[N][4], const uint32_t (&ab)[4],
+                                             const uint32_t (&as)[4], const T* rows, int d,
+                                             int g, int t) {
+  constexpr int LD = D + 8;
+  const T* at = rows + (g ^ (g >> 2 & 1)) * LD + 8 * d + 2 * t;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float2 v = ld2(at + 8 * n * LD);
+    uint32_t bb0, bs0, bb1, bs1;
+    split_tf32(v.x, bb0, bs0);
+    split_tf32(v.y, bb1, bs1);
+    if (SWAPPED)
+      mma_3xtf32_swapped(s[n], ab, as, bb0, bb1, bs0, bs1);
+    else
+      mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
+  }
+}
+
+// acc_tile over the C columns [col0, col0 + C) of an unsplit tile in the
+// input dtype, each B value split where it is read: acc (16 rows x C) += X
+// (16 rows x 8N) · B
+template <typename T, int D, int N, int C>
+__device__ __forceinline__ void acc_tile_wide(float (&acc)[C / 8][4], const float (&x)[N][4],
+                                              const T* rows, int col0, int g, int t) {
+  constexpr int LD = D + 8;
+  const T* r0 = rows + (2 * t + (t >> 1)) * LD + col0 + 2 * g;
+  const T* r1 = rows + (2 * t + 1 - (t >> 1)) * LD + col0 + 2 * g;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(x[j][0], ab[0], as[0]);
+    split_tf32(x[j][2], ab[1], as[1]);
+    split_tf32(x[j][1], ab[2], as[2]);
+    split_tf32(x[j][3], ab[3], as[3]);
+#pragma unroll
+    for (int m = 0; m < C / 16; ++m) {
+      const int o = 8 * j * LD + 16 * m;
+      const float2 v0 = ld2(r0 + o), v1 = ld2(r1 + o);
+      uint32_t b0, s0, b1, s1;
+      split_tf32(v0.x, b0, s0);
+      split_tf32(v1.x, b1, s1);
+      mma_3xtf32(acc[2 * m], ab, as, b0, b1, s0, s1);
+      split_tf32(v0.y, b0, s0);
+      split_tf32(v1.y, b1, s1);
+      mma_3xtf32(acc[2 * m + 1], ab, as, b0, b1, s0, s1);
+    }
+  }
+}
+
+// K4b at Dh 256, fp32 or bf16: one block of 8 warps per (64 keys, head,
+// batch row), key blocks in the slow grid order. Warps w and w + 4 own keys
+// 16(w % 4) .. + 15; each computes their Sᵀ and dPᵀ over all of Dh (the
+// same products as flash_bwd_dkv_tf32) and keeps half of their dK and dV
+// columns in registers, w < 4 the first 128, w ≥ 4 the last.
+template <typename T, int D>
+__global__ void __launch_bounds__(DKV_WIDE_THREADS, 1) flash_bwd_dkv_wide(const Params p) {
+  using S = DkvWideSmem<T, D>;
+  constexpr int LD = S::LD, QT = WIDE_QT, N = QT / 8, HALF = D / 2, NTH = DKV_WIDE_THREADS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* kv = reinterpret_cast<T*>(smem_raw);  // the block's keys, then their values
+  unsigned char* ring = smem_raw + S::KV * sizeof(T);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int kw = warp & 3, col0 = (warp >> 2) * HALF;  // the warp's 16 keys; its columns
+  const int HB = gridDim.x / (p.T / SUB);               // heads × batch rows
+  const int kb = blockIdx.x / HB, hb = blockIdx.x - kb * HB, h = hb % p.H, b = hb / p.H;
+  const int k0 = kb * SUB, kr = kw * 16 + g;  // kr, kr + 8: the lane's keys in the block
+  const long long base = b * p.sb + h * p.sh;
+  const T* qg = static_cast<const T*>(p.q) + base;
+  const T* gg = static_cast<const T*>(p.g) + b * p.gb + h * p.gh;
+  const long long rows = ((long long)b * p.H + h) * p.T;  // into lse and dsum
+  const int* kmg = p.key_mask + (long long)b * p.T + k0;
+  const bool alibi = p.slopes != nullptr;
+  const float slope = alibi ? p.slopes[h] : 0.f;
+  const int kpos[2] = {k0 + kr, k0 + kr + 8};
+  const bool live[2] = {kmg[kr] != 0, kmg[kr + 8] != 0};
+  T* dk = static_cast<T*>(p.dk) + b * p.rb + h * p.rh;
+  T* dv = static_cast<T*>(p.dv) + b * p.rb + h * p.rh;
+
+  const bool all_live = __syncthreads_and(threadIdx.x >= SUB || kmg[threadIdx.x] != 0);
+  if (!__syncthreads_or(threadIdx.x < SUB && kmg[threadIdx.x] != 0)) {
+    // all 64 keys padded: p = 0 on every pair, dK = dV = 0
+    constexpr int C = D / 4;
+    for (int e = threadIdx.x; e < SUB * C; e += NTH) {
+      const long long at = (k0 + e / C) * p.rt + (e % C) * 4;
+      store4(dk + at, 0.f, 0.f, 0.f, 0.f);
+      store4(dv + at, 0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int q_end = p.window > 0 ? min(p.T, k0 + SUB - 1 + p.window) : p.T;
+  const int n_tiles = (q_end - k0 + QT - 1) / QT;
+
+  auto issue = [&](int i) {  // query tile i into stage i & 1: Q, dO, lse, D
+    unsigned char* st = ring + (i & 1) * S::STAGE;
+    T* qs = reinterpret_cast<T*>(st);
+    const int q0 = k0 + i * QT;
+    copy_rows_async<D, QT, NTH>(qs, qg + q0 * p.st, p.st);
+    copy_rows_async<D, QT, NTH>(qs + QT * LD, gg + q0 * p.gt, p.gt);
+    float* aux = reinterpret_cast<float*>(st + 2 * QT * LD * sizeof(T));
+    if (threadIdx.x < QT / 4)
+      cp_async16(aux + 4 * threadIdx.x, p.lse + rows + q0 + 4 * threadIdx.x, true);
+    else if (threadIdx.x < QT / 2)
+      cp_async16(aux + 4 * threadIdx.x, p.dsum + rows + q0 + 4 * threadIdx.x - QT, true);
+  };
+
+  // K and V tiles, in tile 0's group
+  copy_rows_async<D, SUB, NTH>(kv, static_cast<const T*>(p.k) + base + k0 * p.st, p.st);
+  copy_rows_async<D, SUB, NTH>(kv + SUB * LD, static_cast<const T*>(p.v) + base + k0 * p.st,
+                               p.st);
+  issue(0);
+  cp_async_commit();
+
+  float ak[HALF / 8][4], av[HALF / 8][4];  // the warp's columns of dK, dV
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  const T* ka = kv + kw * 16 * LD;          // the warp's K rows (A)
+  const T* va = kv + (SUB + kw * 16) * LD;  // their V rows
+
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    const unsigned char* st = ring + (i & 1) * S::STAGE;
+    const T* Qs = reinterpret_cast<const T*>(st);
+    const T* Gs = Qs + QT * LD;
+    const float* lse = reinterpret_cast<const float*>(st + 2 * QT * LD * sizeof(T));
+    const float* dd = lse + QT;
+    cp_async_wait<0>();
+    __syncthreads();  // tile i landed (at i = 0 also K, V); tile i - 1 consumed
+    if (i + 1 < n_tiles) {  // tile i + 1 copies while this one computes
+      issue(i + 1);
+      cp_async_commit();
+    }
+    const int q0 = k0 + i * QT;
+    const bool unmasked =
+        all_live & (q0 >= k0 + SUB - 1) & ((p.window <= 0) | (q0 + QT - 1 < k0 + p.window));
+    float s[N][4], dp[N][4];  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D / 8; ++d) {
+      uint32_t ab[4], as[4];
+      a_frag_wide<T, D>(ab, as, ka, lane, d);
+      st_step_wide<T, D, N, true>(s, ab, as, Qs, d, g, t);
+      a_frag_wide<T, D>(ab, as, va, lane, d);
+      st_step_wide<T, D, N, true>(dp, ab, as, Gs, d, g, t);
+    }
+    if (unmasked)
+      p_ds<false, N>(s, dp, p, alibi, slope, kpos, live, q0, 0, lse, dd, t);
+    else
+      p_ds<true, N>(s, dp, p, alibi, slope, kpos, live, q0, 0, lse, dd, t);
+    acc_tile_wide<T, D, N, HALF>(av, s, Gs, col0, g, t);   // dV += Pᵀ·dO
+    acc_tile_wide<T, D, N, HALF>(ak, dp, Qs, col0, g, t);  // dK += dSᵀ·Q
+  }
+  // a lane's dK and dV: rows kpos[r], columns col0 + 16m + 4t .. + 3
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    T* krow = dk + (long long)kpos[r] * p.rt + col0 + 4 * t;
+    T* vrow = dv + (long long)kpos[r] * p.rt + col0 + 4 * t;
+#pragma unroll
+    for (int m = 0; m < HALF / 16; ++m) {
+      const int e = 2 * r;
+      store4(krow + 16 * m, ak[2 * m][e] * p.scale, ak[2 * m + 1][e] * p.scale,
+             ak[2 * m][e + 1] * p.scale, ak[2 * m + 1][e + 1] * p.scale);
+      store4(vrow + 16 * m, av[2 * m][e], av[2 * m + 1][e], av[2 * m][e + 1],
+             av[2 * m + 1][e + 1]);
+    }
+  }
+}
+
+// K4a at Dh 256, fp32 or bf16: one block of 4 warps per (64 query rows,
+// head, batch row), the last query block first; warp w owns rows 16w .. +
+// 15 and keeps their dQ (all of Dh) in registers; Q's and dO's A fragments
+// are read from their shared tiles at each k-step. The key tiles of
+// key_tile_list stream through the ring in halves of WIDE_KT keys.
+template <typename T, int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1) flash_bwd_dq_wide(const Params p) {
+  using S = DqWideSmem<T, D>;
+  constexpr int LD = S::LD, KT = WIDE_KT, N = KT / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qgs = reinterpret_cast<T*>(smem_raw);  // the block's Q rows, then its dO rows
+  unsigned char* ring = smem_raw + S::QG * sizeof(T);
+  float* d_s = reinterpret_cast<float*>(ring + 2 * S::STAGE);
+  int* list = reinterpret_cast<int*>(d_s + SUB);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int NQ = p.T / SUB, HB = gridDim.x / NQ;  // query blocks; heads × batch rows
+  const int slot = blockIdx.x / HB, hb = blockIdx.x - slot * HB, h = hb % p.H, b = hb / p.H;
+  const int q0 = (NQ - 1 - slot) * SUB, qw = q0 + warp * 16;  // the last query block first
+  const long long base = b * p.sb + h * p.sh;
+  const T* kg = static_cast<const T*>(p.k) + base;
+  const T* vg = static_cast<const T*>(p.v) + base;
+  const T* gg = static_cast<const T*>(p.g) + b * p.gb + h * p.gh + q0 * p.gt;
+  const T* og = static_cast<const T*>(p.o) + b * p.ob + h * p.oh + q0 * p.ot;
+  const int* kmg = p.key_mask + (long long)b * p.T;
+  const long long row0 = ((long long)b * p.H + h) * p.T + q0;  // into lse and dsum
+  const bool alibi = p.slopes != nullptr;
+  const float slope = alibi ? p.slopes[h] : 0.f;
+  const int qpos[2] = {qw + g, qw + g + 8};
+
+  copy_rows_async<D, SUB>(qgs, static_cast<const T*>(p.q) + base + q0 * p.st, p.st);
+  copy_rows_async<D, SUB>(qgs + SUB * LD, gg, p.gt);
+  cp_async_commit();
+  const int n = 2 * key_tile_list(list, kmg, q0, p.window);  // half tiles
+
+  auto issue = [&](int i) {  // half tile i into stage i & 1: K, V, key-mask values
+    unsigned char* st = ring + (i & 1) * S::STAGE;
+    T* ks = reinterpret_cast<T*>(st);
+    const int k0 = (list[i >> 1] & ~SOME_PADDED) + (i & 1) * KT;
+    copy_rows_async<D, KT>(ks, kg + k0 * p.st, p.st);
+    copy_rows_async<D, KT>(ks + KT * LD, vg + k0 * p.st, p.st);
+    if (threadIdx.x < KT / 4)
+      cp_async16(st + 2 * KT * LD * sizeof(T) + 16 * threadIdx.x, kmg + k0 + 4 * threadIdx.x,
+                 true);
+  };
+  if (n > 0) issue(0);
+  cp_async_commit();
+  // D = rowsum(dO∘O) while the tiles copy: one warp a row, lanes across Dh
+  // in column order, then the shuffle sum (dO and O read from device memory)
+#pragma unroll 4
+  for (int j = 0; j < SUB / MMA_WARPS; ++j) {
+    const int r = warp + MMA_WARPS * j;
+    float x = 0.f;
+    for (int c = lane; c < D; c += 32) x = fmaf(to_f(gg[r * p.gt + c]), to_f(og[r * p.ot + c]), x);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    if (lane == 0) {
+      d_s[r] = x;
+      p.dsum[row0 + r] = x;
+    }
+  }
+  cp_async_wait<1>();
+  __syncthreads();  // Q and dO landed, D visible
+
+  const float lse[2] = {p.lse[row0 + warp * 16 + g], p.lse[row0 + warp * 16 + g + 8]};
+  const float dd[2] = {d_s[warp * 16 + g], d_s[warp * 16 + g + 8]};
+  float acc[D / 8][4];  // dQ
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  const T* qa = qgs + warp * 16 * LD;          // the warp's Q rows (A)
+  const T* ga = qgs + (SUB + warp * 16) * LD;  // its dO rows
+
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const unsigned char* st = ring + (i & 1) * S::STAGE;
+    const T* Ks = reinterpret_cast<const T*>(st);
+    const T* Vs = Ks + KT * LD;
+    const int* km = reinterpret_cast<const int*>(st + 2 * KT * LD * sizeof(T));
+    cp_async_wait<0>();
+    __syncthreads();  // half tile i landed; half tile i - 1 consumed
+    if (i + 1 < n) {  // the next half tile copies while this one computes
+      issue(i + 1);
+      cp_async_commit();
+    }
+    const int entry = list[i >> 1], k0 = (entry & ~SOME_PADDED) + (i & 1) * KT;
+    // the warp's rows see a key of the half tile: not all before it, not all past its window
+    if ((k0 > qw + 15) | ((p.window > 0) & (k0 + KT - 1 <= qw - p.window))) continue;
+    const bool unmasked = !(entry & SOME_PADDED) & (k0 + KT - 1 <= qw) &
+                          ((p.window <= 0) | (qw + 15 < k0 + p.window));
+    float s[N][4], dp[N][4];  // S = Q·Kᵀ, dP = dO·Vᵀ
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D / 8; ++d) {
+      uint32_t ab[4], as[4];
+      a_frag_wide<T, D>(ab, as, qa, lane, d);
+      st_step_wide<T, D, N, false>(s, ab, as, Ks, d, g, t);
+      a_frag_wide<T, D>(ab, as, ga, lane, d);
+      st_step_wide<T, D, N, false>(dp, ab, as, Vs, d, g, t);
+    }
+    if (unmasked)
+      dq_ds<false, N>(s, dp, p, alibi, slope, qpos, lse, dd, k0, km, t);
+    else
+      dq_ds<true, N>(s, dp, p, alibi, slope, qpos, lse, dd, k0, km, t);
+    acc_tile_wide<T, D, N, D>(acc, dp, Ks, 0, g, t);  // dQ += dS·K
+  }
+  // a lane's dQ: rows qpos[r], columns 16m + 4t .. 16m + 4t + 3
+  T* dq = static_cast<T*>(p.dq) + b * p.rb + h * p.rh + 4 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    T* row = dq + (long long)qpos[r] * p.rt;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const int e = 2 * r;
+      store4(row + 16 * m, acc[2 * m][e] * p.scale, acc[2 * m + 1][e] * p.scale,
+             acc[2 * m][e + 1] * p.scale, acc[2 * m + 1][e + 1] * p.scale);
+    }
+  }
+}
+
 template <int D>
 constexpr size_t dq_smem() {
   return sizeof(float) * ((size_t)4 * SUB * (D + 4) + (size_t)SUB * LDT + 3 * SUB);
@@ -921,26 +1318,32 @@ cudaError_t launch(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st, cons
   return cudaGetLastError();
 }
 
-// fp32 K4a and K4b: one block of MMA_THREADS per (walk block, head, batch
-// row) on a 1-D grid, the walk's block slowest
+// fp32 K4a and K4b, and both at Dh 256: one block of `threads` per (walk
+// block, head, batch row) on a 1-D grid, the walk's block slowest
 template <typename KernelT>
-cudaError_t launch_tf32(KernelT kernel, size_t smem, int B, cudaStream_t st, const Params& p) {
+cudaError_t launch_tf32(KernelT kernel, size_t smem, int B, cudaStream_t st, const Params& p,
+                        int threads = MMA_THREADS) {
   const long long blocks = (long long)(p.T / SUB) * p.H * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, MMA_THREADS, smem, st>>>(p);
+  kernel<<<(unsigned)blocks, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// The one place a call meets its kernel: fp32 K4a flash_bwd_dq_tf32 and K4b
-// flash_bwd_dkv_tf32 on the tensor cores, bf16 K4a flash_bwd_dq and K4b
-// flash_bwd_dkv on the CUDA cores. No fallback: a launch that fails returns
-// its error.
+// The one place a call meets its kernel: at Dh 256 K4a flash_bwd_dq_wide and
+// K4b flash_bwd_dkv_wide on the tensor cores in both dtypes; below it fp32
+// K4a flash_bwd_dq_tf32 and K4b flash_bwd_dkv_tf32 on the tensor cores, bf16
+// K4a flash_bwd_dq and K4b flash_bwd_dkv on the CUDA cores. No fallback: a
+// launch that fails returns its error.
 template <typename T, int D>
 cudaError_t launch_kernel(bool dkv, int B, cudaStream_t s, const Params& p) {
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (D == 256) {
+    return dkv ? launch_tf32(flash_bwd_dkv_wide<T, D>, DkvWideSmem<T, D>::BYTES, B, s, p,
+                             DKV_WIDE_THREADS)
+               : launch_tf32(flash_bwd_dq_wide<T, D>, DqWideSmem<T, D>::bytes(p.T), B, s, p);
+  } else if constexpr (std::is_same_v<T, bf16>) {
     const dim3 grid(p.T / SUB, p.H, B);
     return dkv ? launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), grid, s, p)
                : launch(flash_bwd_dq<T, D>, dq_smem<D>(), grid, s, p);
@@ -957,6 +1360,7 @@ cudaError_t dispatch(bool dkv, int B, int Dh, cudaStream_t s, const Params& p) {
     case 32: return launch_kernel<T, 32>(dkv, B, s, p);
     case 64: return launch_kernel<T, 64>(dkv, B, s, p);
     case 128: return launch_kernel<T, 128>(dkv, B, s, p);
+    case 256: return launch_kernel<T, 256>(dkv, B, s, p);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -29,8 +29,7 @@ import torch
 
 NEG_INF = -1e30  # the TPU kernel's mask constant (the decoder and K1 use -1e9)
 TILE = 64        # the kernel's query and key sub-tile: block sizes must divide by it
-HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # K4a/K4b; Dh 256 (GPT-J) is ROADMAP Queue 1 item 16
+HEAD_DIMS = (16, 32, 64, 128, 256)  # K3, K4a and K4b
 
 # kernel launches made by `flash_attention` (K3) and by `flash_attention_bwd`
 # (K4a, K4b); reset and read by chip_smoke.py
@@ -253,23 +252,12 @@ def _kernel_layout(t, q, name: str):
     return t
 
 
-def _check_bwd_head_dim(q) -> None:
-    """K4a/K4b take Dh 16-128: a gradient at GPT-J's 256, which K3 takes, is
-    not ported yet."""
-    if q.device.type == "cuda" and q.shape[-1] in set(HEAD_DIMS) - set(BWD_HEAD_DIMS):
-        raise NotImplementedError(
-            f"flash_attention backward at head dim {q.shape[-1]}: K4a/K4b take "
-            f"{BWD_HEAD_DIMS}; training at GPT-J's head size 256 is ROADMAP Queue 1 "
-            "item 16")
-
-
 def _bwd_args(q, k, v, key_mask, alibi_slopes, g, out, lse, scale, window, block_q,
               block_kv) -> dict:
     """Check what K4a/K4b take, allocate dq, dk and dv (q's strides) and D =
     rowsum(g∘out) (a (B, H, T) fp32 buffer that K4a fills and K4b reads), and
     build both C calls' arguments less the stream. The dict keeps every
     tensor the kernels read or write alive."""
-    _check_bwd_head_dim(q)
     km, sl = _check_inputs(q, k, v, key_mask, alibi_slopes, block_q, block_kv)
     g, out = _kernel_layout(g, q, "g"), _kernel_layout(out, q, "out")
     B, H, T, Dh = q.shape
@@ -289,8 +277,8 @@ def _bwd_args(q, k, v, key_mask, alibi_slopes, g, out, lse, scale, window, block
 
 
 def _launch_dq(a) -> None:
-    """K4a (fp32 `flash_bwd_dq_tf32`, bf16 `flash_bwd_dq`): dq, and D in its
-    prologue."""
+    """K4a (fp32 `flash_bwd_dq_tf32`, bf16 `flash_bwd_dq`; at Dh 256
+    `flash_bwd_dq_wide` in both): dq, and D in its prologue."""
     global bwd_dq_launches
     from ._build import check, library
 
@@ -302,7 +290,8 @@ def _launch_dq(a) -> None:
 
 
 def _launch_dkv(a) -> None:
-    """K4b: dk and dv, from the D that K4a wrote."""
+    """K4b (fp32 `flash_bwd_dkv_tf32`, bf16 `flash_bwd_dkv`; at Dh 256
+    `flash_bwd_dkv_wide` in both): dk and dv, from the D that K4a wrote."""
     global bwd_dkv_launches
     from ._build import check, library
 
@@ -373,7 +362,6 @@ def flash_attention(q, k, v, key_mask, alibi_slopes: Optional[torch.Tensor] = No
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        _check_bwd_head_dim(q)  # before the forward: its backward could not run
         out, lse = FlashAttention.apply(q, k, v, key_mask, alibi_slopes, scale, window,
                                         block_q, block_kv)
     else:

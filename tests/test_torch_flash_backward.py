@@ -30,6 +30,7 @@ from sgpt_tpu.ops.pallas.flash_attention import _flash_bwd_scan  # noqa: E402
 from sgpt_tpu.ops.pallas.flash_attention import flash_attention as jax_flash  # noqa: E402
 from sgpt_tpu.ops.pallas.flash_attention import flash_attention_bwd as jax_bwd  # noqa: E402
 from sgpt_tpu.ops.pallas.flash_attention import flash_attention_trainable  # noqa: E402
+from sgpt_tpu_torch.models.decoder import alibi_slopes  # noqa: E402
 from sgpt_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from test_torch_short_attention import PV_ORDER, _mma_tf32  # noqa: E402
 
@@ -57,21 +58,34 @@ CASES = [  # T, Dh, block_kv, window, scale, alibi, lengths
     (384, 32, 128, 64, 0.17677669, False, (40, 300)),
     (512, 64, 256, 256, 1.0, False, (20, 475)),        # the decoder's local layers
     (512, 16, 128, 0, 1.0, True, (100, 512)),
+    # GPT-J's head size 256 (K4a/K4b's `flash_bwd_dq_wide`/`flash_bwd_dkv_wide`
+    # on the card), with and without BLOOM's slopes, a fully padded batch row
+    (256, 256, 128, 0, 0.0625, False, (20, 219)),
+    (256, 256, 256, 64, 0.0625, "bloom", (0, 256)),
+    (384, 256, 128, 256, 0.0625, "bloom", (40, 300)),
 ]
 
 
 def _ids(c):
-    return "T{}-Dh{}-bkv{}-w{}-s{:.3g}-{}".format(*c[:5], "alibi" if c[5] else "noalibi")
+    alibi = "bloom" if c[5] == "bloom" else "alibi" if c[5] else "noalibi"
+    return "T{}-Dh{}-bkv{}-w{}-s{:.3g}-{}".format(*c[:5], alibi)
 
 
-def _inputs(seed, T, Dh, lengths, alibi, B=2, H=2):
+def _inputs(seed, T, Dh, lengths, alibi, B=2, H=None):
     """q/k/v (B, H, T, Dh) at the scale of real projections (std 0.5), a
-    cotangent g (std 1), a key mask of right padding, BLOOM-sized slopes."""
+    cotangent g (std 1), a key mask of right padding, BLOOM-sized slopes
+    (alibi True, H 2) or BLOOM's own `alibi_slopes` (alibi "bloom", H 4:
+    0.25 down to 2^-8)."""
+    H = H or (4 if alibi == "bloom" else 2)
     rng = np.random.default_rng(seed)
     q, k, v, g = (rng.normal(0.0, s, (B, H, T, Dh)).astype(np.float32)
                   for s in (0.5, 0.5, 0.5, 1.0))
     km = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
-    slopes = (0.03 * rng.random(H)).astype(np.float32) if alibi else None
+    slopes = None
+    if alibi == "bloom":
+        slopes = alibi_slopes(H).numpy()
+    elif alibi:
+        slopes = (0.03 * rng.random(H)).astype(np.float32)
     return q, k, v, g, km, slopes
 
 
@@ -112,7 +126,7 @@ def _close(got, want, dtype, what):
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_plain_backward_matches_jax_kernels_and_scan(case, dtype):
     T, Dh, block_kv, window, scale, alibi, lengths = case
-    q, k, v, g, km, slopes = _inputs(T + Dh + window + int(alibi), T, Dh, lengths, alibi)
+    q, k, v, g, km, slopes = _inputs(T + Dh + window + bool(alibi), T, Dh, lengths, alibi)
     kw = dict(scale=scale, window=window, block_kv=block_kv)
     out, lse, kern, scan = _jax_all(q, k, v, g, km, slopes, dtype, **kw)
     before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
@@ -339,7 +353,7 @@ def _k4_case(case, three=True):
     forward residuals and D, with each emulation's count of skipped tiles
     and the lse. Cached: the K4a and K4b tests of a case share one build."""
     T, Dh, block_kv, window, scale, alibi, lengths = case
-    q, k, v, g, km, slopes = _inputs(T + Dh + window + int(alibi), T, Dh, lengths, alibi)
+    q, k, v, g, km, slopes = _inputs(T + Dh + window + bool(alibi), T, Dh, lengths, alibi)
     kw = dict(scale=scale, window=window, block_kv=block_kv)
     out, lse, kern, _ = _jax_all(q, k, v, g, km, slopes, "float32", **kw)
     plain = _port(q, k, v, g, km, slopes, out, lse, "float32", **kw)
