@@ -124,6 +124,35 @@ K4A_ONE_STAGE = [
      "      cp_async_commit();\n    }\n    cp_async_wait<0>();\n    split_rows<D, KT>(Kb, Ksm);"),
     (BWD, "    if (i + 1 < n) {  // the next key tile copies while this one computes\n"
           "      issue(i + 1);\n      cp_async_commit();\n    }\n", "")]
+SA = "short_attention.cu"
+SAB = "short_attention_bwd.cu"
+# K1 fp32 at Dh 256 (the tree: two warps to each 16 rows, each summing half
+# of Dh into S, S = S_lo + S_hi through shared memory, and keeping half of
+# O's columns): (b) both warps compute S over all of Dh, with no exchange;
+# (a) besides, one warp to each 16 rows with all of O's columns (4 warps)
+K1W_FULL_S = [
+    (SA, "      for (int d = upper * (D / 16); d < (upper + 1) * (D / 16); ++d) {",
+     "      for (int d = 0; d < D / 8; ++d) {"),
+    (SA, "      if (upper) pair_store(s, xs);\n"
+         "      __syncthreads();  // every warp has read K of tile kt; the upper halves stored\n"
+         "      if (!upper) pair_add(s, xs);\n      pair_barrier(rw);\n"
+         "      if (upper) pair_load(s, xs);\n",
+     "      __syncthreads();  // every warp has read K of tile kt\n")]
+K1W_ONE_WARP = [
+    *K1W_FULL_S,
+    (SA, "HALF = D / 2, NTH = K1W_THREADS;", "HALF = D, NTH = K1W_THREADS;"),
+    (SA, "constexpr int K1W_THREADS = 2 * MMA_THREADS;",
+     "constexpr int K1W_THREADS = MMA_THREADS;")]
+# K2 fp32 at Dh 256 (the tree: in both passes two warps to each 16 rows or
+# keys, each summing half of Dh into S and dP, or Sᵀ and dPᵀ, through
+# shared memory, and keeping half of the gradient's columns): K4b's way,
+# both warps computing the scores over all of Dh (+50 % of the products),
+# with no exchange
+K2W_DUP = [(SAB, "for (int d = upper * (D / 16); d < (upper + 1) * (D / 16); ++d) {",
+            "for (int d = 0; d < D / 8; ++d) {")] + [
+    (SAB, f"    pair_sum(s, dp, xs, upper, {w});\n", "") for w in ("warp", "kw")]
+
+
 # K5: the tensor-core scan's ring capped at n stages (the tree: up to 8; 7
 # at QB = 64, D = 768; below 4 a barrier hands over one stage, not two)
 def k5_stages(n):
@@ -255,6 +284,16 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
     # K5: the copies ask L2 for 128 bytes, or for nothing beyond them
     "k5_l2_128": [("mips.cu", "cp.async.cg.shared.global.L2::256B", "cp.async.cg.shared.global.L2::128B")],
     "k5_no_l2": [("mips.cu", "cp.async.cg.shared.global.L2::256B", "cp.async.cg.shared.global")],
+    # K1 fp32 at Dh 256 (`tf32_kernel_wide`): (b) both warps of a pair
+    # computing S over all of Dh; (a) one warp to each 16 rows with all of O
+    "k1w_b": K1W_FULL_S,
+    "k1w_a": K1W_ONE_WARP,
+    # K1 fp32 at Dh 256: the score loop unrolled 2 or 8 deep (the tree: 4)
+    "k1w_unroll2": [(SA, "#pragma unroll 4\n      for (int d = upper * (D / 16);",
+                     "#pragma unroll 2\n      for (int d = upper * (D / 16);")],
+    # K2 fp32 at Dh 256 (`tf32_rows_wide`, `tf32_cols_wide`): the scores
+    # over all of Dh in both warps of a pair, as K4b's `_wide` takes them
+    "k2w_dup": K2W_DUP,
     # K2, a probe (not timed): at T ≤ 64 and Dh = 64 the rows pass writes its
     # P into dq (row q, column key) and the cols pass its P into dk (row
     # key, column q), to see whether both passes compute the same P
@@ -271,9 +310,10 @@ VARIANTS = {  # name: [(file, text in the tree, its replacement)]; "k2_*": K2's
 
 
 def group(name: str) -> str:
-    """The kernel a variant is about: "k2", "k3", "k4a", "k4b", "k5" or (the rest) "k1"."""
-    return name.split("_")[0] if name.split("_")[0] in ("k2", "k3", "k4a", "k4b", "k5") \
-        else "k1"
+    """The kernel a variant is about: "k1w" (K1 fp32 at Dh 256), "k2", "k2w" (K2
+    fp32 at Dh 256), "k3", "k4a", "k4b", "k5" or (the rest) "k1"."""
+    return name.split("_")[0] if name.split("_")[0] in ("k1w", "k2", "k2w", "k3", "k4a", "k4b",
+                                                         "k5") else "k1"
 
 
 def sources(name: str) -> list:
@@ -282,7 +322,9 @@ def sources(name: str) -> list:
     if name == "tree":
         return ["short_attention.cu", "short_attention_bwd.cu", "flash_attention.cu",
                 "flash_attention_bwd.cu", "mips.cu"]
-    return {"k1": ["short_attention.cu"], "k2": ["short_attention.cu", "short_attention_bwd.cu"],
+    return {"k1": ["short_attention.cu"], "k1w": ["short_attention.cu"],
+            "k2": ["short_attention.cu", "short_attention_bwd.cu"],
+            "k2w": ["short_attention.cu", "short_attention_bwd.cu"],
             "k3": ["short_attention.cu", "flash_attention.cu"],
             "k4a": ["short_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu"],
             "k4b": ["short_attention.cu", "flash_attention.cu",
@@ -316,7 +358,10 @@ def build(names):
             raise SystemExit(f"variant {name}: nvcc failed\n{out[-4000:]}")
         lines = out.splitlines()
         for i, line in enumerate(lines):
-            for kernel, inst, args in (("tf32_kernel", "ILi64ELb0", "64, false"),
+            for kernel, inst, args in (("tf32_kernel_wide", "ILb0", "false"),
+                                       ("tf32_rows_wide", "ILb0", "false"),
+                                       ("tf32_cols_wide", "ILb0", "false"),
+                                       ("tf32_kernel", "ILi64ELb0", "64, false"),
                                        ("tf32_rows", "ILi64ELb0", "64, false"),
                                        ("tf32_cols", "ILi64ELb0", "64, false"),
                                        ("flash_fwd_tf32", "ILi64E", "64"),
@@ -396,8 +441,10 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     libs = build(names)
     k1 = {n: lib for n, lib in libs.items() if group(n) == "k1"}  # "tree" among them
+    k1w = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k1w"}
     k2 = {n: lib for n, lib in libs.items()
           if n == "tree" or (group(n) == "k2" and n != "k2_p_probe")}
+    k2w = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k2w"}
     k3 = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k3"}
     k4a = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4a"}
     k4b = {n: lib for n, lib in libs.items() if n == "tree" or group(n) == "k4b"}
@@ -406,6 +453,10 @@ def main() -> int:
         run_k1(torch, sa, k1)
     if len(k2) > 1 or names == ["tree"]:
         run_k2(torch, sa, k2)
+    if len(k1w) > 1 or names == ["tree"]:
+        run_k1w(torch, sa, k1w)
+    if len(k2w) > 1 or names == ["tree"]:
+        run_k2w(torch, sa, k2w)
     if len(k3) > 1 or names == ["tree"]:
         run_k3(torch, fa, k3)
     if len(k4a) > 1 or names == ["tree"]:
@@ -524,6 +575,122 @@ def run_k2(torch, sa, libs):
         print(f"K2 fp32 B=32 T=300 window={window}: SDPA backward {sdpa:.4f} ms; " + "; ".join(
             f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)}; rows pass "
             f"{passes[n][0]}, cols pass {passes[n][1]})" for n, t in times.items()), flush=True)
+
+
+WIDE_CASES = [  # K1's and K2's fp32 cases at Dh 256: name, B, T, H, scale, window, rows, alibi
+    ("gptj-train", 4, 300, 16, 1 / 16, 0, "pad", False),
+    ("window16", 4, 200, 4, 1 / 16, 16, "pad", False),  # fully masked padded rows
+    ("T77", 3, 77, 4, 1.0, 0, "pad", False),
+    ("packed-t512", 4, 512, 4, 1 / 16, 0, "packed", False),
+    ("packed-t2048-alibi", 2, 2048, 4, 1 / 16, 0, "packed", True),
+]
+
+
+def wide_inputs(torch, rng, B, T, H, rows, alibi):
+    """GPT-J-shaped fp32 inputs (`chip_smoke.family_inputs`) with BLOOM's
+    slopes where `alibi`: (q, k, v, key_mask, slopes) and the keywords."""
+    from sgpt_tpu_torch.models.decoder import alibi_slopes
+
+    q, k, v, km, seg, pos = cs.family_inputs(torch, rng, B, T, H, 256, torch.float32, rows)
+    sl = alibi_slopes(H, "cuda") if alibi else None
+    return (q, k, v, km, sl), dict(segments=seg, positions=pos if alibi else None)
+
+
+def run_k1w(torch, sa, libs):
+    """K1 fp32 at Dh 256: the fp32 gate over WIDE_CASES (with BLOOM's slopes
+    at T=2048 held to fp64: no further from it than twice the plain
+    version), then the time at GPT-J's training launch (B=4) and phase ab's
+    B=16, T=300, H=16, scale 1/16, in turns, beside SDPA fp32."""
+    for name, lib in libs.items():
+        errs, bad = [], []
+        with cs.kernels_of(lib):
+            for case, B, T, H, scale, window, rows, alibi in WIDE_CASES:
+                args, extra = wide_inputs(torch, np.random.default_rng(len(case)), B, T, H,
+                                          rows, alibi)
+                got = sa.short_attention(*args, scale, window, H, alibi, **extra)
+                want = sa.short_attention_reference(*args, scale=scale, window=window, H=H,
+                                                    use_alibi=alibi, **extra)
+                try:
+                    _, held = cs.hold(torch, f"k1w {case}", got, want, torch.float32, fp64=(
+                        lambda: cs.k1_fp64(torch, args, window, scale, H, extra["segments"],
+                                           extra["positions"])) if alibi else None)
+                    errs.append(f"{case} {(got - want).abs().max().item():.2e} ({held})")
+                except AssertionError as e:
+                    bad.append(f"{case}: {e}")
+                del args, extra, got, want
+        print(f"{name}: K1 fp32 Dh 256 gate {'FAILS in ' + '; '.join(bad) if bad else 'holds'}; "
+              f"max |Δ|: {', '.join(errs)}", flush=True)
+    for B in (4, 16):
+        (q, k, v, km, _), _ = cs.attention_inputs(torch, np.random.default_rng(cs.SEED), B, 300,
+                                                  16, 256, torch.float32)
+
+        def run():
+            return sa.short_attention(q, k, v, km, None, 1 / 16, 0, 16, False)
+        times = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            with cs.kernels_of(libs[name]):
+                times[name].append(cs.cuda_ms(torch, run, iters=10))
+        qh, kh, vh = (cs.heads(t, 16) for t in (q, k, v))
+        mask = cs.sdpa_mask(torch, km, 0)
+        sdpa = cs.cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=1 / 16), iters=10)
+        print(f"K1 fp32 B={B} T=300 H=16 Dh=256: SDPA {sdpa:.4f} ms; " + "; ".join(
+            f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)})"
+            for n, t in times.items()), flush=True)
+        del q, k, v, km, qh, kh, vh, mask
+
+
+def run_k2w(torch, sa, libs):
+    """K2 fp32 at Dh 256: K2's fp32 gate over WIDE_CASES (|Δ| ≤
+    1e-5·max|ref| + 1e-5·|ref| in dq, dk and dv; with BLOOM's slopes at
+    T=2048 held to fp64), then the time at GPT-J's training launch (B=4) and
+    phase ab's B=32, T=300, H=16, scale 1/16, each pass under
+    torch.profiler, in turns, beside SDPA fp32's backward."""
+    for name, lib in libs.items():
+        errs, bad = [], []
+        with cs.kernels_of(lib):
+            for case, B, T, H, scale, window, rows, alibi in WIDE_CASES:
+                rng = np.random.default_rng(len(case))
+                args, extra = wide_inputs(torch, rng, B, T, H, rows, alibi)
+                g = cs.card_normal(torch, rng, (B, T, H * 256), 1.0)
+                kw = dict(scale=scale, window=window, H=H, use_alibi=alibi, **extra)
+                got = sa.short_attention_bwd(*args, g, **kw)
+                want = sa.short_attention_bwd_reference(*args, g, **kw)
+                try:
+                    e, held, _ = cs.hold_grads(torch, f"k2w {case}", got, want, torch.float32,
+                                               fp64=(lambda: cs.k2_fp64(
+                                                   torch, args, g, window, scale, H,
+                                                   **extra)) if alibi else None)
+                    errs.append(f"{case} {max(e):.2e} ({held})")
+                except AssertionError as ex:
+                    bad.append(f"{case}: {ex}")
+                del args, extra, g, got, want
+        print(f"{name}: K2 fp32 Dh 256 gate {'FAILS in ' + '; '.join(bad) if bad else 'holds'}; "
+              f"max |Δ|: {', '.join(errs)}", flush=True)
+    for B in (4, 32):
+        rng = np.random.default_rng(cs.SEED)
+        (q, k, v, km, _), _ = cs.attention_inputs(torch, rng, B, 300, 16, 256, torch.float32)
+        g = cs.card_normal(torch, rng, (B, 300, 4096), 1.0)
+
+        def run():
+            return sa.short_attention_bwd(q, k, v, km, None, g, scale=1 / 16, window=0, H=16,
+                                          use_alibi=False)
+        times = {name: [] for name in libs}
+        passes = {}
+        for name in list(libs) + list(libs)[::-1]:
+            with cs.kernels_of(libs[name]):
+                times[name].append(cs.cuda_ms(torch, run, iters=10))
+                passes[name] = cs.pass_ms(torch, run)
+        qh, kh, vh = (cs.heads(t, 16).detach().contiguous().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=cs.sdpa_mask(torch, km, 0), scale=1 / 16)
+        gh = cs.heads(g, 16).contiguous()
+        sdpa = cs.cuda_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                             retain_graph=True), iters=10)
+        print(f"K2 fp32 B={B} T=300 H=16 Dh=256: SDPA backward {sdpa:.4f} ms; " + "; ".join(
+            f"{n} {np.mean(t):.4f} ms ({' '.join(f'{x:.4f}' for x in t)}; rows pass "
+            f"{passes[n][0]}, cols pass {passes[n][1]})" for n, t in times.items()), flush=True)
+        del q, k, v, km, g, qh, kh, vh, out, gh
 
 
 def run_k3(torch, fa, libs):

@@ -22,9 +22,10 @@ run is BitFit with GradCache at chunk size 4:
         --model_name 6b --randominit --train_batch_size 32 --specb \
         --freezenonbias --gradcache --chunksize 4 --lr 2e-4
 
-GPT-J's head size 256 takes K1's `scalar_kernel` and K2's CUDA-core pair
-at T=300, and K3 and K4a/K4b (`flash_bwd_dq_wide`, `flash_bwd_dkv_wide`)
-with a `use_flash` config; BLOOM's ALiBi slopes reach every kernel.
+GPT-J's head size 256 takes K1's `tf32_kernel_wide` and K2's
+`tf32_rows_wide`/`tf32_cols_wide` (3xTF32 on the tensor cores) at T=300,
+and K3 and K4a/K4b (`flash_bwd_dq_wide`, `flash_bwd_dkv_wide`) with a
+`use_flash` config; BLOOM's ALiBi slopes reach every kernel.
 """
 from __future__ import annotations
 

@@ -313,8 +313,8 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(cons
 // unrounded, as P·V's A fragments.
 // At Dh 256 (GPT-J; SPLIT false) six tiles would take 400 KB of shared
 // memory, so the block keeps three: Q, one K and one V sub-tile, unsplit;
-// each warp splits the K and V values it reads (qk_step_3xtf32_unsplit,
-// pv_tile_3xtf32_unsplit: the same big and small parts as split_own_chunks
+// each warp splits the K and V values it reads (qk_part_3xtf32_unsplit,
+// pv_part_3xtf32_unsplit: the same big and small parts as split_own_chunks
 // stores, so the products are the same). K of sub-tile i + 1 is copied
 // during sub-tile i's softmax and P·V, V of i + 1 during i + 1's scores:
 // 200 KB, one block an SM.
@@ -401,7 +401,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(cons
       for (int d = 0; d < D / 8; ++d) {
         uint32_t ab[4], as[4];
         a_frag_3xtf32<D>(ab, as, qrows, d, lane);
-        qk_step_3xtf32_unsplit<D>(s, ab, as, kb, d, lane);
+        qk_part_3xtf32_unsplit<D, 8>(s, ab, as, kb, d, lane);
       }
       __syncthreads();  // every warp has read the K sub-tile
       if (i + 1 < n) issue_k(i + 1);
@@ -438,7 +438,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? 2 : 1) flash_fwd_tf32(cons
       pv_tile_3xtf32<D>(o, s, Vs, Vsm, lane);
     } else {
       __syncthreads();  // V of sub-tile i landed; K of i + 1 may be in flight
-      pv_tile_3xtf32_unsplit<D>(o, s, Vs, lane);
+      pv_part_3xtf32_unsplit<D, 8>(o, s, Vs, lane);
     }
     __syncthreads();  // V (split: and Ksm and the K stage) consumed
     if (i + 1 < n) issue_v(i + 1);

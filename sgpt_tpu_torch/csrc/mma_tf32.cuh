@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks of K1's fp32 forward
-// (short_attention.cu, `tf32_kernel`), K2's fp32 backward
-// (short_attention_bwd.cu, `tf32_rows` and `tf32_cols`) and K3's fp32
-// forward (flash_attention.cu, `flash_fwd_tf32`): 3xTF32 products on
+// (short_attention.cu, `tf32_kernel`, at Dh 256 `tf32_kernel_wide`), K2's
+// fp32 backward (short_attention_bwd.cu, `tf32_rows` and `tf32_cols`, at Dh
+// 256 `tf32_rows_wide` and `tf32_cols_wide`) and K3's fp32 forward
+// (flash_attention.cu, `flash_fwd_tf32`): 3xTF32 products on
 // `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`.
 //
 // 3xTF32. Each fp32 operand x splits into big = tf32(x) and small =
@@ -75,19 +76,20 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4
   for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
-// rows [r0, r0 + 64) of an fp32 array (row stride `stride` elements, D
-// contiguous values a row) → a shared tile of row stride D + 4; rows at or
-// past n_rows are zero-filled. 16 bytes a copy; the caller commits the group.
-template <int D>
+// rows [r0, r0 + R) of an fp32 array (row stride `stride` elements, D
+// contiguous values a row) → a shared tile of row stride D + 4, by NTH
+// threads; rows at or past n_rows are zero-filled. 16 bytes a copy; the
+// caller commits the group.
+template <int D, int R = MMA_TILE, int NTH = MMA_THREADS>
 __device__ __forceinline__ void load_tile_async_f32(float* dst, const float* src,
                                                     long long stride, int r0, int n_rows) {
-  constexpr int C = D / 4, LD = D + 4, ROWS = MMA_THREADS / C;
-  static_assert(MMA_TILE % ROWS == 0, "whole rows a pass");
+  constexpr int C = D / 4, LD = D + 4, ROWS = NTH / C;
+  static_assert(R % ROWS == 0, "whole rows a pass");
   const int r = r0 + threadIdx.x / C, c = (threadIdx.x % C) * 4;
   const float* s = src + (long long)r * stride + c;
   float* d = dst + (threadIdx.x / C) * LD + c;
 #pragma unroll
-  for (int i = 0; i < MMA_TILE / ROWS; ++i) {
+  for (int i = 0; i < R / ROWS; ++i) {
     const bool ok = r + i * ROWS < n_rows;
     cp_async16(d + i * ROWS * LD, ok ? s + (long long)i * ROWS * stride : src, ok);
   }
@@ -142,50 +144,6 @@ __device__ __forceinline__ void qk_step_3xtf32(float (&s)[8][4], const uint32_t 
   for (int n = 0; n < 8; ++n) {
     const int r = n * 8 * (D + 4);
     mma_3xtf32(s[n], ab, as, b[r], b[r + 4], sm[r], sm[r + 4]);
-  }
-}
-
-// qk_step_3xtf32 from an unsplit fp32 K tile (row stride D + 4): each lane
-// splits the two values it reads for each n-tile, into the same big and
-// small parts split_own_chunks stores, so the products are the same. K3's
-// fp32 path at Dh 256 takes this: its tiles have no room for the small
-// parts.
-template <int D>
-__device__ __forceinline__ void qk_step_3xtf32_unsplit(float (&s)[8][4], const uint32_t (&ab)[4],
-                                                       const uint32_t (&as)[4], const float* k,
-                                                       int d, int lane) {
-  const float* b = k + (lane >> 2) * (D + 4) + 8 * d + (lane & 3);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int r = n * 8 * (D + 4);
-    uint32_t bb0, bs0, bb1, bs1;
-    split_tf32(b[r], bb0, bs0);
-    split_tf32(b[r + 4], bb1, bs1);
-    mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
-  }
-}
-
-// pv_tile_3xtf32 from an unsplit fp32 V tile, each lane splitting the V
-// values it reads (as qk_step_3xtf32_unsplit does K's)
-template <int D>
-__device__ __forceinline__ void pv_tile_3xtf32_unsplit(float (&o)[D / 8][4], const float (&p)[8][4],
-                                                       const float* v, int lane) {
-  const float* b = v + 2 * (lane & 3) * (D + 4) + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t ab[4], as[4];
-    split_tf32(p[j][0], ab[0], as[0]);
-    split_tf32(p[j][2], ab[1], as[1]);
-    split_tf32(p[j][1], ab[2], as[2]);
-    split_tf32(p[j][3], ab[3], as[3]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int r0 = 8 * j * (D + 4) + 8 * n, r1 = r0 + D + 4;  // V rows 8j + 2t, 8j + 2t + 1
-      uint32_t bb0, bs0, bb1, bs1;
-      split_tf32(b[r0], bb0, bs0);
-      split_tf32(b[r1], bb1, bs1);
-      mma_3xtf32(o[n], ab, as, bb0, bb1, bs0, bs1);
-    }
   }
 }
 
@@ -274,25 +232,77 @@ __device__ __forceinline__ void pv_part_3xtf32(float (&o)[D / 8][4], const float
   }
 }
 
-// a warp's O rows → its 16 rows of a shared fp32 staging tile (row stride
-// D + 4)
-template <int D>
-__device__ __forceinline__ void stage_rows_f32(float* rows, const float (&o)[D / 8][4],
+// qk_part_3xtf32 from an unsplit fp32 B tile (row stride D + 4): each lane
+// splits the two values it reads for each n-tile, into the same big and
+// small parts split_own_chunks stores, so the products are the same. The
+// kernels at Dh 256 take this: their tiles have no room for the small parts
+// (K3's flash_fwd_tf32<256> with N = 8, K1's tf32_kernel_wide, K2's
+// tf32_rows_wide and, SWAPPED, tf32_cols_wide).
+template <int D, int N, bool SWAPPED = false>
+__device__ __forceinline__ void qk_part_3xtf32_unsplit(float (&s)[N][4], const uint32_t (&ab)[4],
+                                                       const uint32_t (&as)[4], const float* rows,
+                                                       int d, int lane) {
+  const float* b = rows + (lane >> 2) * (D + 4) + 8 * d + (lane & 3);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int r = n * 8 * (D + 4);
+    uint32_t bb0, bs0, bb1, bs1;
+    split_tf32(b[r], bb0, bs0);
+    split_tf32(b[r + 4], bb1, bs1);
+    if (SWAPPED)
+      mma_3xtf32_swapped(s[n], ab, as, bb0, bb1, bs0, bs1);
+    else
+      mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
+  }
+}
+
+// pv_part_3xtf32 over C of the B tile's columns from an unsplit fp32 tile,
+// each lane splitting the values it reads: O (16 rows x C) += P (16 x 8J,
+// the accumulator layout) · B (8J rows; `rows` points at the first of the
+// C columns, row stride D + 4)
+template <int D, int J, int C = D>
+__device__ __forceinline__ void pv_part_3xtf32_unsplit(float (&o)[C / 8][4],
+                                                       const float (&p)[J][4], const float* rows,
+                                                       int lane) {
+  const float* b = rows + 2 * (lane & 3) * (D + 4) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[j][0], ab[0], as[0]);
+    split_tf32(p[j][2], ab[1], as[1]);
+    split_tf32(p[j][1], ab[2], as[2]);
+    split_tf32(p[j][3], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) {
+      const int r0 = 8 * j * (D + 4) + 8 * n, r1 = r0 + D + 4;  // B rows 8j + 2t, 8j + 2t + 1
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(b[r0], bb0, bs0);
+      split_tf32(b[r1], bb1, bs1);
+      mma_3xtf32(o[n], ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// a warp's O rows (C columns) → its 16 rows of a shared fp32 staging tile
+// (row stride D + 4; `rows` points at the first of the C columns)
+template <int D, int C = D>
+__device__ __forceinline__ void stage_rows_f32(float* rows, const float (&o)[C / 8][4],
                                                int lane) {
   float* p = rows + (lane >> 2) * (D + 4) + (lane & 3) * 2;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < C / 8; ++n) {
     *reinterpret_cast<float2*>(p + n * 8) = make_float2(o[n][0], o[n][1]);
     *reinterpret_cast<float2*>(p + 8 * (D + 4) + n * 8) = make_float2(o[n][2], o[n][3]);
   }
 }
 
 // the staging tile's rows [0, 64) → global rows r0 .. (row stride `stride`
-// elements), 16 bytes a store; rows at or past n_rows are not written
-template <int D>
+// elements), 16 bytes a store, by NTH threads; rows at or past n_rows are
+// not written
+template <int D, int NTH = MMA_THREADS>
 __device__ __forceinline__ void store_tile_f32(float* dst, long long stride, const float* st,
                                                int r0, int n_rows) {
-  constexpr int C = D / 4, LD = D + 4, ROWS = MMA_THREADS / C;
+  constexpr int C = D / 4, LD = D + 4, ROWS = NTH / C;
   const int r = threadIdx.x / C, c = (threadIdx.x % C) * 4;
   float* d = dst + (long long)(r0 + r) * stride + c;
 #pragma unroll
@@ -300,6 +310,69 @@ __device__ __forceinline__ void store_tile_f32(float* dst, long long stride, con
     if (r0 + r + i * ROWS < n_rows)
       *reinterpret_cast<float4*>(d + (long long)i * ROWS * stride) =
           *reinterpret_cast<const float4*>(st + (r + i * ROWS) * LD + c);
+}
+
+// A warp pair's sum over a product's depth (the kernels at Dh 256): warps
+// w and w + 4 of a block each sum half of Dh's k-steps into the same
+// accumulator tiles (lower: k-steps 0-15, upper: 16-31). The upper warp's
+// partials go through the pair's slot of a shared buffer (one float4 a lane
+// and n-tile) to the lower warp, which adds them (lower + upper, each half
+// summed from zero in k-step order) and hands the sums back, so that both
+// warps hold the same bits:
+//   if (upper) pair_store(x, xs); pair_barrier(p);
+//   if (!upper) pair_add(x, xs); pair_barrier(p); if (upper) pair_load(x, xs);
+// xs: the slot's float4 of this lane and n-tile 0 (n-tile n at xs[32 n]).
+template <int N>
+__device__ __forceinline__ void pair_store(const float (&x)[N][4], float4* xs) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) xs[32 * n] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+}
+
+template <int N>
+__device__ __forceinline__ void pair_add(float (&x)[N][4], float4* xs) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float4 u = xs[32 * n];
+    x[n][0] += u.x, x[n][1] += u.y, x[n][2] += u.z, x[n][3] += u.w;
+    xs[32 * n] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void pair_load(float (&x)[N][4], const float4* xs) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float4 u = xs[32 * n];
+    x[n][0] = u.x, x[n][1] = u.y, x[n][2] = u.z, x[n][3] = u.w;
+  }
+}
+
+// the 64 threads of warp pair p (warps p and p + 4): named barrier 1 + p
+__device__ __forceinline__ void pair_barrier(int p) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + p) : "memory");
+}
+
+// The pair sum of two accumulator sets a and b (K2's S and dP, or Sᵀ and
+// dPᵀ) through the pair's slot xs (a's n-tiles, then b's), with its own two
+// barriers; the caller keeps the upper warp's next store after the lower
+// warp's reads (a block barrier between two calls does).
+template <int N>
+__device__ __forceinline__ void pair_sum(float (&a)[N][4], float (&b)[N][4], float4* xs,
+                                         bool upper, int p) {
+  if (upper) {
+    pair_store(a, xs);
+    pair_store(b, xs + 32 * N);
+  }
+  pair_barrier(p);
+  if (!upper) {
+    pair_add(a, xs);
+    pair_add(b, xs + 32 * N);
+  }
+  pair_barrier(p);
+  if (upper) {
+    pair_load(a, xs);
+    pair_load(b, xs + 32 * N);
+  }
 }
 
 // shared memory of the fp32 tiles: Q (later the output staging tile), K in

@@ -48,17 +48,38 @@
 //     T=300, H=12, Dh=64, fp32) q, k, v and out are 118 MB, 0.035 ms at
 //     3.35 TB/s, and the causal pairs' three TF32 products ~0.026 ms at 495
 //     TFLOP/s; the mma.sync instructions and the splits bound it in practice.
-//   * scalar_kernel (other head sizes, fp32 at Dh 256, or pointers not
-//     16-byte aligned): one
+//   * tf32_kernel_wide (fp32 at Dh 256, GPT-J; its training path launches
+//     it 1,344 times a MS MARCO step at B=4, T=300, H=16): tf32_kernel's
+//     walk, vote, skip and online softmax with tiles and warps laid out for
+//     256, against three walls. Registers: a warp's 16 rows × 256 output
+//     columns are 128 fp32 registers a thread, so two warps share each 16
+//     rows (8 warps a block): each sums half of Dh's k-steps into the rows'
+//     S, the upper warp's partial reaches the lower one through shared
+//     memory and comes back as S = S_lo + S_hi (mma_tf32.cuh's pair_*), and
+//     each keeps half of O's columns. chip_variants.py measured this against
+//     one warp to each 16 rows with all of O (k1w_a: 1.7-1.9× slower, 4
+//     warps an SM) and against both warps computing S over all of Dh
+//     (k1w_b: 1.24-1.27× slower). Shared memory: split big and small parts of
+//     every tile would be ~400 KB, so the block keeps three unsplit tiles
+//     (Q, one K, one V) and each lane splits the values it reads into the
+//     parts split_own_chunks would store (the same products); with the
+//     pairs' exchange buffer 218 KB, one block an SM. Latency: K of tile kt
+//     + 1 copies during tile kt's softmax and P·V, V of kt + 1 during kt +
+//     1's scores. At B=16, T=300,
+//     H=16 q, k, v and out are 315 MB, 0.094 ms at 3.35 TB/s; the causal
+//     pairs' three TF32 products ~0.07 ms at 495 TFLOP/s, those issued (the
+//     visited tiles) 0.10 ms.
+//   * scalar_kernel (other head sizes, or pointers not 16-byte aligned): one
 //     block per (batch row, head, BQ=16 query rows) keeps a BQ × T fp32
 //     score strip in shared memory (128 KB at T=2048), fills it over every
 //     64-key tile, runs softmax_row over each whole row and accumulates P·V
 //     with scalar fp32 FMAs. Its masking and softmax live in
 //     short_attention.cuh, which the backward (short_attention_bwd.cu)
 //     shares so that it recomputes the same scores and probabilities.
-// mma_kernel and tf32_kernel compute what scalar_kernel computes in another
-// summation order: their outputs differ by fp32 rounding (before the bf16
-// cast, in mma_kernel) and, in tf32_kernel, by the ~2^-22 of 3xTF32.
+// mma_kernel, tf32_kernel and tf32_kernel_wide compute what scalar_kernel
+// computes in another summation order: their outputs differ by fp32
+// rounding (before the bf16 cast, in mma_kernel) and, in the fp32 kernels,
+// by the ~2^-22 of 3xTF32.
 
 #include "mma_attention.cuh"
 #include "mma_tf32.cuh"
@@ -492,20 +513,179 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_tile_f32<D>(out + row0 * HD + h * D, HD, Qs, q0, T);
 }
 
+// fp32 K1 at Dh 256 (GPT-J) on the tensor cores in 3xTF32: tf32_kernel's
+// blocks, three-part walk with the dead-row vote, key-tile skip, analytic
+// count of unvisited keys and online softmax, with the tiles and warps laid
+// out for 256 (see the note at the top). Two warps share each 16-row strip
+// of the query tile: each sums half of Dh into the strip's S (pair_store /
+// pair_add / pair_load: S = S_lo + S_hi, the same bits in both) and keeps
+// half of O's columns in registers. Three unsplit tiles (Q, one K and one
+// V; each value split where a lane reads it) and the pairs' 16 KB exchange
+// buffer take 218 KB, one block an SM: K of tile kt + 1 copies during tile
+// kt's softmax and P·V, V of kt + 1 during kt + 1's scores.
+constexpr int K1W_THREADS = 2 * MMA_THREADS;
+
+template <bool GENERAL>
+__global__ void __launch_bounds__(K1W_THREADS, 1)
+tf32_kernel_wide(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, const Mask mask, int T,
+                 int H) {
+  constexpr int D = 256, LD = D + 4, HALF = D / 2, NTH = K1W_THREADS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // the Q tile, later the output staging tile
+  float* Ks = Qs + MMA_TILE * LD;                  // one K tile
+  float* Vs = Ks + MMA_TILE * LD;                  // one V tile
+  KeyAux* aux = reinterpret_cast<KeyAux*>(Vs + MMA_TILE * LD);  // two stages, with K's
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % MMA_WARPS, upper = warp / MMA_WARPS;  // the warp's rows, half of Dh
+  const int col0 = upper * HALF;
+  float4* xs = reinterpret_cast<float4*>(aux + 2) + rw * 8 * 32 + lane;  // the pair's S slot
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const float* qh = q + row0 * HD + h * D;
+  const float* kh = k + row0 * HD + h * D;
+  const float* vh = v + row0 * HD + h * D;
+  const float* qrows = Qs + rw * 16 * LD;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  int qi[2], segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + rw * 16 + (lane >> 2) + 8 * r;
+    segq[r] = GENERAL && mask.segments != nullptr && qi[r] < T ? mask.segments[row0 + qi[r]] : 0;
+  }
+
+  const int q_last = min(q0 + MMA_TILE - 1, T - 1);
+  const int kt_lo = mask.window > 0 ? max(0, q0 - mask.window + 1) / MMA_TILE : 0;
+  const int kt_hi = q_last / MMA_TILE;
+
+  auto issue_k = [&](int kt, int stage) {
+    load_tile_async_f32<D, MMA_TILE, NTH>(Ks, kh, HD, kt * MMA_TILE, T);
+    if (threadIdx.x < MMA_THREADS)
+      load_aux_async<GENERAL>(aux + stage, mask, row0, kt * MMA_TILE, T);
+  };
+  auto issue_v = [&](int kt) {
+    load_tile_async_f32<D, MMA_TILE, NTH>(Vs, vh, HD, kt * MMA_TILE, T);
+  };
+  auto all_allowed = [&](int kt, const KeyAux* a) {
+    const int k0 = kt * MMA_TILE;
+    const bool in_range = k0 + MMA_TILE - 1 <= q0 &&
+                          (mask.window <= 0 || k0 > q0 + MMA_TILE - 1 - mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    return __all_sync(0xffffffffu, in_range & (a->km[lane] > 0) & (a->km[lane + 32] > 0));
+  };
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float o[HALF / 8][4];
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  // tf32_kernel's walk in up to three parts; per part the cp.async groups,
+  // oldest first, are K of tile kt (with, the first time, the Q tile) and V
+  // of kt, then K of kt + 1 (issued once every warp has read K of kt) and V
+  // of kt + 1 (issued once every warp has read V of kt)
+  const int last = (T - 1) / MMA_TILE;
+  int n_walked = (kt_hi + 1 - kt_lo) * MMA_TILE;
+  load_tile_async_f32<D, MMA_TILE, NTH>(Qs, qh, HD, q0, T);  // joins the first part's K group
+#pragma unroll 1
+  for (int part = 0; part < 3; ++part) {
+    if (part == 1) {
+      const bool dead = (qi[0] < T && m[0] == NEG) || (qi[1] < T && m[1] == NEG);
+      if (!__syncthreads_or(dead)) break;
+      n_walked = (last + 1) * MMA_TILE;
+    }
+    const int lo = part == 0 ? kt_lo : part == 1 ? 0 : kt_hi + 1;
+    const int hi = part == 0 ? kt_hi : part == 1 ? kt_lo - 1 : last;
+    if (lo > hi) continue;
+    cp_async_wait<0>();
+    issue_k(lo, 0);
+    cp_async_commit();
+    issue_v(lo);
+    cp_async_commit();
+#pragma unroll 1
+    for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+      const int stage = i & 1;
+      cp_async_wait<1>();
+      __syncthreads();  // K of tile kt (and the first time the Q tile) landed
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+      for (int d = upper * (D / 16); d < (upper + 1) * (D / 16); ++d) {
+        uint32_t ab[4], as[4];
+        a_frag_3xtf32<D>(ab, as, qrows, d, lane);
+        qk_part_3xtf32_unsplit<D, 8>(s, ab, as, Ks, d, lane);
+      }
+      if (upper) pair_store(s, xs);
+      __syncthreads();  // every warp has read K of tile kt; the upper halves stored
+      if (!upper) pair_add(s, xs);
+      pair_barrier(rw);
+      if (upper) pair_load(s, xs);
+      if (kt < hi) issue_k(kt + 1, stage ^ 1);
+      cp_async_commit();
+      const KeyAux* a = aux + stage;
+      const float2 mx =
+          all_allowed(kt, a)
+              ? k1_scores<false, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane)
+              : k1_scores<true, GENERAL>(s, mask, slope, qi, segq, kt * MMA_TILE, a, lane);
+      // the online softmax, as tf32_kernel's
+      const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+      const float rescale[2] = {expf(m[0] - m_new[0]), expf(m[1] - m_new[1])};
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - m_new[e >> 1]);
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * rescale[r] + quad_sum(sum[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= rescale[e >> 1];
+      cp_async_wait<1>();
+      __syncthreads();  // V of tile kt landed
+      pv_part_3xtf32_unsplit<D, 8, HALF>(o, s, Vs + col0, lane);
+      __syncthreads();  // every warp has read V of tile kt
+      if (kt < hi) issue_v(kt + 1);
+      cp_async_commit();
+    }
+  }
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / (l[r] + (float)(T - n_walked) * expf(NEG - m[r]));
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= inv_l[e >> 1];
+
+  // Epilogue: each warp's columns of O through the (free) Q tile, 16-byte
+  // stores of rows < T
+  stage_rows_f32<D, HALF>(Qs + rw * 16 * LD + col0, o, lane);
+  __syncthreads();
+  store_tile_f32<D, NTH>(out + row0 * HD + h * D, HD, Qs, q0, T);
+}
+
 template <typename scalar_t, typename KernelT>
 cudaError_t launch_tiles(KernelT kernel, size_t smem, dim3 grid, cudaStream_t st,
                          const void* q, const void* k, const void* v, void* out,
-                         const Mask& mask, int T, int H) {
+                         const Mask& mask, int T, int H, int threads = MMA_THREADS) {
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, MMA_THREADS, smem, st>>>(
+  kernel<<<grid, threads, smem, st>>>(
       static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
       static_cast<const scalar_t*>(v), static_cast<scalar_t*>(out), mask, T, H);
   return cudaGetLastError();
 }
 
-// K1 on the tensor cores: mma_kernel (bf16) or tf32_kernel (fp32; Dh ≤ 128,
-// see mma_ok)
+// K1 on the tensor cores: mma_kernel (bf16) or tf32_kernel (fp32; at Dh 256
+// tf32_kernel_wide)
 template <int D>
 cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v,
                        void* out, const Mask& mask, int T, int H, bool is_bf16) {
@@ -517,17 +697,18 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
   if constexpr (D <= 128)
     return launch_tiles<float>(general ? tf32_kernel<D, true> : tf32_kernel<D, false>,
                                tf32_tiles_bytes<D>() + aux, grid, st, q, k, v, out, mask, T, H);
-  return cudaErrorInvalidValue;
+  else
+    return launch_tiles<float>(general ? tf32_kernel_wide<true> : tf32_kernel_wide<false>,
+                               sizeof(float) * 3 * MMA_TILE * (D + 4) + aux +
+                                   sizeof(float4) * MMA_WARPS * 8 * 32,
+                               grid, st, q, k, v, out, mask, T, H, K1W_THREADS);
 }
 
-// The tensor-core route, by dtype and head size: bf16 at Dh 16-256, fp32 at
-// Dh 16-128 (six fp32 tiles of Dh 256 would take 400 KB of shared memory,
-// so fp32 at Dh 256 takes scalar_kernel); all four tensors 16-byte aligned.
-bool mma_ok(const void* q, const void* k, const void* v, const void* out, int Dh,
-            bool is_bf16) {
+// The tensor-core route: head sizes 16-256 in both dtypes, all four tensors
+// 16-byte aligned.
+bool mma_ok(const void* q, const void* k, const void* v, const void* out, int Dh) {
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
-  return (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128 || (Dh == 256 && is_bf16)) &&
-         ptrs % 16 == 0;
+  return (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128 || Dh == 256) && ptrs % 16 == 0;
 }
 
 }  // namespace
@@ -549,7 +730,7 @@ extern "C" int sgpt_short_attention_fwd(const void* q, const void* k, const void
   const int Tpad = (T + BK - 1) / BK * BK;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   cudaError_t err;
-  if (mma_ok(q, k, v, out, Dh, is_bf16)) {
+  if (mma_ok(q, k, v, out, Dh)) {
     const dim3 mgrid((T + MMA_TILE - 1) / MMA_TILE, H, B);
     switch (Dh) {
       case 16: return (int)launch_mma<16>(mgrid, st, q, k, v, out, mask, T, H, is_bf16);

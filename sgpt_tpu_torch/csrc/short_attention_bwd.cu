@@ -58,6 +58,36 @@
 //     S and dP (Sᵀ and dPᵀ) at 32 registers beside dQ (dK and dV): 64 keys
 //     at once spilled the cols pass. 1/l is taken once a row, not a division
 //     a score. Registers and spills of each variant: build.log.
+//   * fp32 at Dh 256 (GPT-J; its MS MARCO step launches it 672 times at B=4,
+//     T=300, H=16) with 16-byte-aligned tensors: tf32_rows_wide, then
+//     tf32_cols_wide, the same masks, walks and statistics with tiles and
+//     warps laid out for 256. A warp's 16 rows × 256 columns are 128 fp32
+//     registers a thread (dQ; dK and dV together 256), and split big and
+//     small parts of every tile would be ~400 KB. So every tile stays
+//     unsplit (row stride 260), each lane splitting the values it reads
+//     into the parts split_own_chunks would store, and in both passes two
+//     warps share each 16 rows (keys): each sums half of Dh's k-steps into
+//     their S and dP (Sᵀ and dPᵀ), the upper warp's partials reach the
+//     lower one through shared memory and come back as S_lo + S_hi
+//     (mma_tf32.cuh's pair_*; the cols pass adds the same partials in the
+//     same order, so both passes see the same P), and each keeps half of
+//     the gradient's columns. 8 warps a block, 209 KB, one block an SM.
+//     chip_variants.py measured this against the first tree of this form:
+//     a rows pass of 4 warps holding all of dQ and a cols pass whose two
+//     warps both compute the scores over all of Dh (K4b's way): 1.38× and
+//     1.37× slower at B=32 and 4; `k2w_dup` keeps the latter.
+//     - tf32_rows_wide: 64 query rows a block, Q's and g's A fragments read
+//       from their shared tiles at each k-step; the keys stream through a
+//       two-stage ring of WIDE_KC = 16 (one barrier a stage), twice: walk 1
+//       takes m, l and D online 16 keys at a time, walk 2 dQ. It visits
+//       only the keys before T (rounded up to 16) of the tiles it would
+//       visit; the others enter l by count.
+//     - tf32_cols_wide: 64 keys a block; the query tiles it visits
+//       (tf32_cols's rule) stream through a two-stage ring of WIDE_QC = 16
+//       rows before T.
+//     Bound at the MS MARCO launch shape's B=32: 7 tensors of 157 MB, 0.33
+//     ms of bytes, and 3 × 10·Dh TF32 operations a pair, 0.35 ms; issued,
+//     the rows pass's two walks make it 18·Dh a pair.
 //   * bf16, other head sizes, or tensors off 16-byte alignment: rows_kernel
 //     and cols_kernel, fp32 on the CUDA cores (the mask, scale, ALiBi and
 //     row softmax of short_attention.cuh).
@@ -799,6 +829,361 @@ tf32_cols(const float* __restrict__ q, const float* __restrict__ k, const float*
   store_tile_f32<D>(dv + row0 * HD + h * D, HD, Vs, k0, T);
 }
 
+// ---- fp32 K2 at Dh 256 (GPT-J) on the tensor cores (see the note at the top) ----
+
+constexpr int WIDE_KC = 16;             // rows pass: keys of a ring stage (two stages)
+constexpr int WIDE_QC = 16;             // cols pass: query rows of a ring stage (two stages)
+static_assert(MMA_TILE % WIDE_KC == 0 && MMA_TILE % WIDE_QC == 0, "whole stages a tile");
+
+constexpr int WIDE_THREADS = 2 * MMA_THREADS;  // both passes: 8 warps, two to each 16 rows or keys
+
+// The pairs' exchange buffer of both passes: S and dP (Sᵀ and dPᵀ) of a
+// stage, 2 × 2 n-tiles a pair, one float4 a lane and n-tile
+constexpr size_t WIDE_XCHG = sizeof(float4) * MMA_WARPS * 4 * 32;
+
+// Shared memory of the rows pass: the Q and g tiles (row stride 260), two
+// ring stages of WIDE_KC keys of K and V with their mask inputs (a KeyAux
+// whose first WIDE_KC entries are the stage's keys), the exchange buffer
+struct RowsWideSmem {
+  static constexpr int LD = 260;
+  static constexpr size_t TILES = 2 * MMA_TILE * LD;  // Q and g (floats)
+  static constexpr size_t STAGE = sizeof(float) * 2 * WIDE_KC * LD + sizeof(KeyAux);
+  static constexpr size_t BYTES = sizeof(float) * TILES + 2 * STAGE + WIDE_XCHG;
+};
+
+// fp32 K2's rows pass at Dh 256: tf32_rows with the tiles and walk laid out
+// for 256. One block of 8 warps per (64 query rows, head, batch row),
+// longest rows first; warps w and w + 4 own rows 16(w % 4) .. + 15: each
+// sums half of Dh into their S and dP (the pair's sum S_lo + S_hi through
+// shared memory, mma_tf32.cuh's pair_*) and keeps half of their dQ columns
+// in registers; Q's and g's A fragments are read from their shared tiles at
+// each k-step. The keys of the tiles that hold a causal, in-window pair for
+// the block (those before T) stream through a two-stage cp.async ring of
+// WIDE_KC keys, unsplit, each value split where a lane reads it, twice:
+// walk 1 takes m, l and D online, WIDE_KC keys at a time; walk 2 forms dS
+// and accumulates dQ = dS·K. One barrier a stage.
+template <bool GENERAL>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+tf32_rows_wide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dq,
+               float* __restrict__ stats, const Mask mask, int T, int H) {
+  constexpr int D = 256, LD = RowsWideSmem::LD, KC = WIDE_KC, N = KC / 8, HALF = D / 2,
+                NTH = WIDE_THREADS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // the Q tile, later dQ's staging tile
+  float* Gs = Qs + MMA_TILE * LD;                  // the output gradient's tile
+  unsigned char* ring = smem_raw + sizeof(float) * RowsWideSmem::TILES;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % MMA_WARPS;  // the warp's rows
+  const int upper = threadIdx.x / 32 / MMA_WARPS, col0 = upper * HALF;    // its half of Dh
+  float4* xs = reinterpret_cast<float4*>(ring + 2 * RowsWideSmem::STAGE) + warp * 4 * 32 + lane;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const int64_t n_rows = (int64_t)gridDim.z * H * T;
+  const float* kh = k + row0 * HD + h * D;
+  const float* vh = v + row0 * HD + h * D;
+  const float* qrows = Qs + warp * 16 * LD;
+  const float* grows = Gs + warp * 16 * LD;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  int qi[2], segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    segq[r] = GENERAL && mask.segments != nullptr && qi[r] < T ? mask.segments[row0 + qi[r]] : 0;
+  }
+  // the stages of the walk: the key tiles that hold a causal, in-window
+  // pair for the block, cut at T (a key past T is padded: p = 0, and the
+  // count of unvisited keys below covers it)
+  const int q_last = min(q0 + MMA_TILE - 1, T - 1);
+  const int kt_lo = mask.window > 0 ? max(0, q0 - mask.window + 1) / MMA_TILE : 0;
+  const int c_lo = kt_lo * MMA_TILE / KC;
+  const int c_end = min((q_last / MMA_TILE + 1) * MMA_TILE, (T + KC - 1) / KC * KC) / KC;
+  const int n = c_end - c_lo;  // stages a walk
+
+  auto issue = [&](int j) {  // stage j of the two walks into ring slot j & 1
+    unsigned char* st = ring + (j & 1) * RowsWideSmem::STAGE;
+    float* ks = reinterpret_cast<float*>(st);
+    const int k0 = (c_lo + j % n) * KC;
+    load_tile_async_f32<D, KC, NTH>(ks, kh, HD, k0, T);
+    load_tile_async_f32<D, KC, NTH>(ks + KC * LD, vh, HD, k0, T);
+    if (threadIdx.x < MMA_THREADS)
+      load_aux_async<GENERAL>(reinterpret_cast<KeyAux*>(ks + 2 * KC * LD), mask, row0, k0, T);
+  };
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  float inv_l[2];
+  float o[HALF / 8][4];  // the warp's columns of dQ
+#pragma unroll
+  for (int c = 0; c < HALF / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  // join stage 0's group
+  load_tile_async_f32<D, MMA_TILE, NTH>(Qs, q + row0 * HD + h * D, HD, q0, T);
+  load_tile_async_f32<D, MMA_TILE, NTH>(Gs, g + row0 * HD + h * D, HD, q0, T);
+  issue(0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int j = 0; j < 2 * n; ++j) {
+    const unsigned char* st = ring + (j & 1) * RowsWideSmem::STAGE;
+    const float* Ks = reinterpret_cast<const float*>(st);
+    const float* Vs = Ks + KC * LD;
+    const KeyAux* a = reinterpret_cast<const KeyAux*>(Vs + KC * LD);
+    cp_async_wait<0>();
+    __syncthreads();  // stage j landed (at j = 0 also Q and g); stage j - 1 consumed
+    if (j + 1 < 2 * n) {  // stage j + 1 copies while this one computes
+      issue(j + 1);
+      cp_async_commit();
+    }
+    const int walk = j / n, k0 = (c_lo + j % n) * KC;
+    if (j == n) {
+      // Every key walk 1 did not visit counts as masked, exp(-1e9 − m) each
+      // (1 for a row with no valid key, whose l is then T).
+      const int64_t srow = ((int64_t)blockIdx.z * H + h) * T;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += (float)(T - n * KC) * expf(NEG - m[r]);
+        inv_l[r] = 1.f / l[r];
+        dd[r] /= l[r];
+        if (!upper && (lane & 3) == 0 && qi[r] < T) {
+          stats[srow + qi[r]] = m[r];
+          stats[n_rows + srow + qi[r]] = l[r];
+          stats[2 * n_rows + srow + qi[r]] = dd[r];
+        }
+      }
+    }
+    const bool in_range = k0 + KC - 1 <= q0 &&
+                          (mask.window <= 0 || k0 > q0 + MMA_TILE - 1 - mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    const bool unmasked = __all_sync(0xffffffffu, in_range & (a->km[lane % KC] > 0));
+    float dp[N][4], s[N][4];  // dP = g·Vᵀ, S = Q·Kᵀ
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[c][e] = s[c][e] = 0.f;
+#pragma unroll 2
+    for (int d = upper * (D / 16); d < (upper + 1) * (D / 16); ++d) {
+      uint32_t ab[4], as[4];
+      a_frag_3xtf32<D>(ab, as, grows, d, lane);
+      qk_part_3xtf32_unsplit<D, N>(dp, ab, as, Vs, d, lane);
+      a_frag_3xtf32<D>(ab, as, qrows, d, lane);
+      qk_part_3xtf32_unsplit<D, N>(s, ab, as, Ks, d, lane);
+    }
+    pair_sum(s, dp, xs, upper, warp);
+    const float2 mx = unmasked ? k1_scores<false, GENERAL, N>(s, mask, slope, qi, segq, k0, a, lane)
+                               : k1_scores<true, GENERAL, N>(s, mask, slope, qi, segq, k0, a, lane);
+    if (walk == 0) {
+      // online, as tf32_rows: l and Σ exp(s − m)·dP rescaled to m_new
+      const float m_new[2] = {fmaxf(m[0], mx.x), fmaxf(m[1], mx.y)};
+      const float rescale[2] = {expf(m[0] - m_new[0]), expf(m[1] - m_new[1])};
+      float sum[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < N; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float w = expf(s[c][e] - m_new[e >> 1]);
+          sum[e >> 1] += w;
+          dsum[e >> 1] += w * dp[c][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * rescale[r] + quad_sum(sum[r]);
+        dd[r] = dd[r] * rescale[r] + quad_sum(dsum[r]);
+        m[r] = m_new[r];
+      }
+    } else {
+      // dS = P∘(dP − D), re-masked, scaled; dQ += dS·K (dS's registers as A)
+#pragma unroll
+      for (int c = 0; c < N; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = expf(s[c][e] - m[r]) * inv_l[r];
+          const float x = s[c][e] == NEG ? 0.f : p * (dp[c][e] - dd[r]);
+          s[c][e] = x * mask.scale;
+        }
+      pv_part_3xtf32_unsplit<D, N, HALF>(o, s, Ks + col0, lane);
+    }
+  }
+  // dQ through the (free) Q tile: each warp stages its rows' half of the
+  // columns, where only it read Q
+  stage_rows_f32<D, HALF>(Qs + warp * 16 * LD + col0, o, lane);
+  __syncthreads();
+  store_tile_f32<D, NTH>(dq + row0 * HD + h * D, HD, Qs, q0, T);
+}
+
+// One cols-pass ring stage's query side: the rows pass's m, 1/l and D of
+// WIDE_QC queries (1/l = 1 past T) and, for the general variant, their
+// segment ids
+struct QueryAuxWide {
+  float m[WIDE_QC], inv_l[WIDE_QC], d[WIDE_QC];
+  int seg[WIDE_QC];
+};
+
+// Shared memory of the cols pass: the K and V tiles, K's mask inputs, two
+// ring stages of WIDE_QC query rows of Q and g with their QueryAuxWide, the
+// exchange buffer
+struct ColsWideSmem {
+  static constexpr int LD = 260;
+  static constexpr size_t TILES = 2 * MMA_TILE * LD;  // K and V (floats)
+  static constexpr size_t STAGE = sizeof(float) * 2 * WIDE_QC * LD + sizeof(QueryAuxWide);
+  static constexpr size_t BYTES = sizeof(float) * TILES + sizeof(KeyAux) + 2 * STAGE + WIDE_XCHG;
+};
+
+// fp32 K2's cols pass at Dh 256: tf32_cols with the tiles and warps laid
+// out for 256. One block of 8 warps per (64 keys, head, batch row); warps w
+// and w + 4 own keys 16(w % 4) .. + 15: each sums half of Dh into their Sᵀ
+// and dPᵀ (the pair's sum as the rows pass takes it, with the operands'
+// roles swapped: the rows pass's S and P bit for bit) and keeps one half of
+// their dK and dV columns in registers, w < 4 the first 128, w ≥ 4 the
+// last. The query tiles that reach the keys, and every tile with a fully
+// masked row, stream through a two-stage cp.async ring WIDE_QC rows at a
+// time (rows before T), unsplit, each value split where a lane reads it.
+// One barrier a stage.
+template <bool GENERAL>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+tf32_cols_wide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dk,
+               float* __restrict__ dv, const float* __restrict__ stats, const Mask mask, int T,
+               int H) {
+  constexpr int D = 256, LD = ColsWideSmem::LD, QC = WIDE_QC, N = QC / 8, HALF = D / 2,
+                NTH = WIDE_THREADS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // the block's keys, later dK's staging tile
+  float* Vs = Ks + MMA_TILE * LD;                  // their values, later dV's staging tile
+  KeyAux* aux = reinterpret_cast<KeyAux*>(Vs + MMA_TILE * LD);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(aux + 1);
+  __shared__ int dead[MAX_T / MMA_TILE];  // query tiles that hold a row with no valid key
+
+  const int lane = threadIdx.x % 32, kw = threadIdx.x / 32 % MMA_WARPS;  // the warp's keys
+  const int upper = threadIdx.x / 32 / MMA_WARPS, col0 = upper * HALF;  // its half of Dh
+  float4* xs = reinterpret_cast<float4*>(ring + 2 * ColsWideSmem::STAGE) + kw * 4 * 32 + lane;
+  const int k0 = blockIdx.x * MMA_TILE, h = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * T;
+  const int64_t HD = (int64_t)H * D;
+  const int64_t n_rows = (int64_t)gridDim.z * H * T;
+  const int64_t srow = ((int64_t)blockIdx.z * H + h) * T;
+  const float* qh = q + row0 * HD + h * D;
+  const float* gh = g + row0 * HD + h * D;
+  const float* krows = Ks + kw * 16 * LD;
+  const float* vrows = Vs + kw * 16 * LD;
+  const float slope = GENERAL && mask.use_alibi ? mask.slopes[h] : 0.f;
+  const int kr[2] = {kw * 16 + (lane >> 2), kw * 16 + (lane >> 2) + 8};
+
+  load_tile_async_f32<D, MMA_TILE, NTH>(Ks, k + row0 * HD + h * D, HD, k0, T);
+  load_tile_async_f32<D, MMA_TILE, NTH>(Vs, v + row0 * HD + h * D, HD, k0, T);
+  if (threadIdx.x < MMA_THREADS)  // joins the first stage's group
+    load_aux_async<GENERAL>(aux, mask, row0, k0, T);
+
+  // A fully masked query row is uniform 1/T over every key: its tile
+  // reaches every key block (its g/T goes to dV; its dS is 0).
+  const int last = (T - 1) / MMA_TILE;
+  if (threadIdx.x <= last) dead[threadIdx.x] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < T; r += NTH)
+    if (stats[srow + r] == NEG) dead[r / MMA_TILE] = 1;
+  __syncthreads();
+  // the query tiles that hold a causal, in-window pair for the block's keys
+  const int qt_lo = blockIdx.x;
+  const int qt_hi = mask.window > 0 ? min(last, (k0 + MMA_TILE - 2 + mask.window) / MMA_TILE)
+                                    : last;
+  // the stage after query rows q (a multiple of WIDE_QC) in the walk, or -1:
+  // the next stage of the tile while it holds rows before T, else the first
+  // of the next tile to visit
+  auto next_stage = [&](int q_at) {
+    if (q_at % MMA_TILE != 0 && q_at < T) return q_at;
+    for (int qt = q_at / MMA_TILE + (q_at % MMA_TILE != 0); qt <= last; ++qt)
+      if ((qt >= qt_lo && qt <= qt_hi) || dead[qt]) return qt * MMA_TILE;
+    return -1;
+  };
+  auto issue = [&](int q_at, int slot) {  // query rows q_at .. + QC into ring slot `slot`
+    unsigned char* st = ring + slot * ColsWideSmem::STAGE;
+    float* qs = reinterpret_cast<float*>(st);
+    load_tile_async_f32<D, QC, NTH>(qs, qh, HD, q_at, T);
+    load_tile_async_f32<D, QC, NTH>(qs + QC * LD, gh, HD, q_at, T);
+    QueryAuxWide* qa = reinterpret_cast<QueryAuxWide*>(qs + 2 * QC * LD);
+    const int j = threadIdx.x % QC, qi = q_at + j;
+    const bool ok = qi < T;
+    if (threadIdx.x < QC) {
+      const float* sp = stats + srow + (ok ? qi : 0);
+      cp_async4(qa->m + j, sp, ok);
+      cp_async4(qa->inv_l + j, sp + n_rows, ok);
+      cp_async4(qa->d + j, sp + 2 * n_rows, ok);
+    } else if (threadIdx.x < 2 * QC && GENERAL && mask.segments != nullptr) {
+      cp_async4(qa->seg + j, mask.segments + row0 + (ok ? qi : 0), ok);
+    }
+  };
+
+  float ak[HALF / 8][4], av[HALF / 8][4];  // the warp's columns of dK, dV
+#pragma unroll
+  for (int c = 0; c < HALF / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[c][e] = av[c][e] = 0.f;
+  int q_at = next_stage(0);
+  issue(q_at, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int i = 0; q_at >= 0; ++i) {
+    unsigned char* st = ring + (i & 1) * ColsWideSmem::STAGE;
+    const float* Qc = reinterpret_cast<const float*>(st);
+    const float* Gc = Qc + QC * LD;
+    QueryAuxWide* qa = reinterpret_cast<QueryAuxWide*>(st + sizeof(float) * 2 * QC * LD);
+    const int nxt = next_stage(q_at + QC);
+    cp_async_wait<0>();
+    if (threadIdx.x < QC)  // l → 1/l, once a query, by the thread that copied it
+      qa->inv_l[threadIdx.x] = q_at + threadIdx.x < T ? 1.f / qa->inv_l[threadIdx.x] : 1.f;
+    __syncthreads();  // stage i landed (at i = 0 also K, V); stage i - 1 consumed
+    if (nxt >= 0) {  // stage i + 1 copies while this one computes
+      issue(nxt, (i + 1) & 1);
+      cp_async_commit();
+    }
+    const bool in_range = q_at >= k0 + MMA_TILE - 1 && q_at + QC <= T &&
+                          (mask.window <= 0 || q_at + QC - 1 < k0 + mask.window) &&
+                          !(GENERAL && mask.segments != nullptr);
+    const bool unmasked =
+        __all_sync(0xffffffffu, in_range & (aux->km[lane] > 0) & (aux->km[lane + 32] > 0));
+    float s[N][4], dp[N][4];  // Sᵀ = K·Qᵀ, dPᵀ = V·gᵀ
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
+#pragma unroll 2
+    for (int d = upper * (D / 16); d < (upper + 1) * (D / 16); ++d) {
+      uint32_t ab[4], as[4];
+      a_frag_3xtf32<D>(ab, as, krows, d, lane);
+      qk_part_3xtf32_unsplit<D, N, true>(s, ab, as, Qc, d, lane);
+      a_frag_3xtf32<D>(ab, as, vrows, d, lane);
+      qk_part_3xtf32_unsplit<D, N, true>(dp, ab, as, Gc, d, lane);
+    }
+    pair_sum(s, dp, xs, upper, kw);
+    if (unmasked)
+      k2_scores_t<false, GENERAL, N>(s, mask, slope, kr, k0, q_at, T, aux, qa->seg, lane);
+    else
+      k2_scores_t<true, GENERAL, N>(s, mask, slope, kr, k0, q_at, T, aux, qa->seg, lane);
+    // Pᵀ = exp(s − m) / l from the rows pass's statistics; dSᵀ as in tf32_cols
+    const int c0 = (lane & 3) * 2;
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c * 8 + c0 + (e & 1);
+        const float p = expf(s[c][e] - qa->m[col]) * qa->inv_l[col];
+        const float x = s[c][e] == NEG ? 0.f : p * (dp[c][e] - qa->d[col]);
+        s[c][e] = p;
+        dp[c][e] = x * mask.scale;
+      }
+    pv_part_3xtf32_unsplit<D, N, HALF>(ak, dp, Qc + col0, lane);  // dK += dSᵀ·Q
+    pv_part_3xtf32_unsplit<D, N, HALF>(av, s, Gc + col0, lane);   // dV += Pᵀ·g
+    q_at = nxt;
+  }
+  // dK and dV through the (free) K and V tiles: each warp stages its rows'
+  // half of the columns, once every warp has read its A fragments
+  __syncthreads();
+  stage_rows_f32<D, HALF>(Ks + kw * 16 * LD + col0, ak, lane);
+  stage_rows_f32<D, HALF>(Vs + kw * 16 * LD + col0, av, lane);
+  __syncthreads();
+  store_tile_f32<D, NTH>(dk + row0 * HD + h * D, HD, Ks, k0, T);
+  store_tile_f32<D, NTH>(dv + row0 * HD + h * D, HD, Vs, k0, T);
+}
+
 // the fp32 pair: tf32_rows, then tf32_cols, on one stream
 template <int D>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* g, void* dq,
@@ -820,6 +1205,27 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void*
   if ((err = set_smem(cols, smem_cols)) != cudaSuccess) return err;
   cols<<<grid, MMA_THREADS, smem_cols, st>>>(q_, k_, v_, g_, static_cast<float*>(dk),
                                              static_cast<float*>(dv), stats, mask, T, H);
+  return cudaGetLastError();
+}
+
+// the fp32 pair at Dh 256: tf32_rows_wide, then tf32_cols_wide, on one stream
+cudaError_t launch_tf32_wide(const void* q, const void* k, const void* v, const void* g,
+                             void* dq, void* dk, void* dv, float* stats, const Mask& mask, int B,
+                             int T, int H, cudaStream_t st) {
+  const bool general = mask.use_alibi || mask.segments != nullptr;
+  const dim3 grid((T + MMA_TILE - 1) / MMA_TILE, H, B);
+  const float *q_ = static_cast<const float*>(q), *k_ = static_cast<const float*>(k),
+              *v_ = static_cast<const float*>(v), *g_ = static_cast<const float*>(g);
+  auto rows = general ? tf32_rows_wide<true> : tf32_rows_wide<false>;
+  auto cols = general ? tf32_cols_wide<true> : tf32_cols_wide<false>;
+  cudaError_t err;
+  if ((err = set_smem(rows, RowsWideSmem::BYTES)) != cudaSuccess) return err;
+  rows<<<grid, WIDE_THREADS, RowsWideSmem::BYTES, st>>>(q_, k_, v_, g_, static_cast<float*>(dq),
+                                                        stats, mask, T, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = set_smem(cols, ColsWideSmem::BYTES)) != cudaSuccess) return err;
+  cols<<<grid, WIDE_THREADS, ColsWideSmem::BYTES, st>>>(
+      q_, k_, v_, g_, static_cast<float*>(dk), static_cast<float*>(dv), stats, mask, T, H);
   return cudaGetLastError();
 }
 
@@ -871,12 +1277,13 @@ extern "C" int sgpt_short_attention_bwd(const void* q, const void* k, const void
   if (is_bf16) return (int)launch<bf16>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, Dh, st);
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
                          (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
-  if (ptrs % 16 == 0) {  // the fp32 pair copies and stores 16 bytes at a time
+  if (ptrs % 16 == 0) {  // the fp32 pairs copy and store 16 bytes at a time
     switch (Dh) {
       case 16: return (int)launch_tf32<16>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
       case 32: return (int)launch_tf32<32>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
       case 64: return (int)launch_tf32<64>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
       case 128: return (int)launch_tf32<128>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
+      case 256: return (int)launch_tf32_wide(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, st);
     }
   }
   return (int)launch<float>(q, k, v, g, dq, dk, dv, stats, mask, B, T, H, Dh, st);

@@ -12,14 +12,15 @@ alone. A CUDA tensor never takes a plain version: a kernel launches or the
 call raises. K1 picks its kernel inside the C entry point, by dtype and
 head size, with 16-byte-aligned tensors: `mma_kernel` for bf16 at head
 sizes 16, 32, 64, 128 and 256 (GPT-J), `tf32_kernel` for fp32 at 16-128
-(3xTF32 tensor-core products, within 1e-5 of the exact fp32 plain
-version); every other call, fp32 at 256 included, takes `scalar_kernel`. K2 picks likewise: fp32 at
-those head sizes with 16-byte-aligned tensors (q, k, v, g and the three
-gradients) takes `tf32_rows` then `tf32_cols` (3xTF32, deterministic, within
-1e-5·max|ref| + 1e-5·|ref| of the plain version); bf16, other head sizes
-and unaligned tensors take `rows_kernel` then `cols_kernel` on the CUDA
-cores. Both keep each row's max, sum and D = rowsum(dP∘P) in `stats`
-between their two passes.
+and `tf32_kernel_wide` for fp32 at 256 (3xTF32 tensor-core products,
+within 1e-5 of the exact fp32 plain version); every other call takes
+`scalar_kernel`. K2 picks likewise: fp32 at those head sizes with
+16-byte-aligned tensors (q, k, v, g and the three gradients) takes
+`tf32_rows` then `tf32_cols`, at 256 `tf32_rows_wide` then `tf32_cols_wide`
+(3xTF32, deterministic, within 1e-5·max|ref| + 1e-5·|ref| of the plain
+version); bf16, other head sizes and unaligned tensors take `rows_kernel`
+then `cols_kernel` on the CUDA cores. Both keep each row's max, sum and D =
+rowsum(dP∘P) in `stats` between their two passes.
 """
 from __future__ import annotations
 

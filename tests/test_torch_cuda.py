@@ -212,13 +212,15 @@ def _bwd_kernel_names(fn):
 
 
 @pytest.mark.parametrize("Dh,offset,pair", [
-    (16, 0, True), (32, 0, True), (64, 0, True), (128, 0, True),
+    (16, 0, True), (32, 0, True), (64, 0, True), (128, 0, True), (256, 0, True),
     (48, 0, False),  # a head size the tensor-core pair does not take
-    (64, 1, False)])  # tensors one element off 16-byte alignment
+    (64, 1, False),  # tensors one element off 16-byte alignment
+    (256, 1, False)])
 def test_fp32_backward_routing_and_gate(cuda, Dh, offset, pair):
     """fp32 K2 takes the 3xTF32 pair (`tf32_rows`, `tf32_cols`) at head
-    sizes 16, 32, 64 and 128 with 16-byte-aligned tensors, and the CUDA-core
-    `rows_kernel`/`cols_kernel` otherwise; both hold the fp32 gate."""
+    sizes 16, 32, 64 and 128 and `tf32_rows_wide`, `tf32_cols_wide` at 256
+    (GPT-J), with 16-byte-aligned tensors, and the CUDA-core
+    `rows_kernel`/`cols_kernel` otherwise; all hold the fp32 gate."""
     rng = np.random.default_rng(Dh + offset)
     B, T, H = 3, 150, 4
     n = B * T * H * Dh
@@ -230,6 +232,7 @@ def test_fp32_backward_routing_and_gate(cuda, Dh, offset, pair):
     kw = dict(scale=0.125, window=16, H=H, use_alibi=False)
     names = _bwd_kernel_names(lambda: sa.short_attention_bwd(q, k, v, km, None, g, **kw))
     assert names and all(("tf32_" in n) == pair for n in names), names
+    assert all(("_wide" in n) == (pair and Dh == 256) for n in names), names
     _check_bwd_gate(sa.short_attention_bwd(q, k, v, km, None, g, **kw),
                     sa.short_attention_bwd_reference(q, k, v, km, None, g, **kw))
 
@@ -865,10 +868,10 @@ def _kernel_names(fn, keys):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("general", [False, True])
 def test_k1_at_head_size_256_routes_by_dtype_and_matches_plain_version(cuda, dtype, general):
-    """GPT-J's head size: bf16 K1 runs `mma_kernel<256, …>` (the general
-    template with ALiBi and packed segments), fp32 `scalar_kernel`, each
-    named so by the profiler and within its gate of the plain version (bf16
-    2e-2 + 1e-2·|ref|, fp32 1e-5 + 1e-5·|ref|)."""
+    """GPT-J's head size: bf16 K1 runs `mma_kernel<256, …>`, fp32
+    `tf32_kernel_wide<…>` (3xTF32; the general templates with ALiBi and
+    packed segments), each named so by the profiler and within its gate of
+    the plain version (bf16 2e-2 + 1e-2·|ref|, fp32 1e-5 + 1e-5·|ref|)."""
     rng = np.random.default_rng(256 + general)
     B, T, H, Dh = 3, 300, 4, 256
     dt = getattr(torch, dtype)
@@ -883,10 +886,48 @@ def test_k1_at_head_size_256_routes_by_dtype_and_matches_plain_version(cuda, dty
         ("mma_kernel", "tf32_kernel", "scalar_kernel"))
     want = sa.short_attention_reference(q, k, v, km, slopes, scale=1 / 16, window=0, H=H,
                                         use_alibi=general, **kw)
-    expect = "mma_kernel" if dtype == "bfloat16" else "scalar_kernel"
+    expect = "mma_kernel" if dtype == "bfloat16" else "tf32_kernel_wide"
     assert names and all(expect in n for n in names), names
     atol, rtol = (2e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-5)
     assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+def test_k1_fp32_at_head_size_256_packed_t2048(cuda, alibi):
+    """fp32 K1 at Dh 256 on packed rows of T=2,048 (up to 40 segments of
+    8-90 tokens, a padded tail whose rows have no valid key), with ALiBi at
+    per-segment key positions: `tf32_kernel_wide<true>` (named by the
+    profiler) within the fp32 gate 1e-5 + 1e-5·|ref| of the plain version,
+    fully masked rows included; an unaligned copy takes `scalar_kernel`
+    within the same gate."""
+    rng = np.random.default_rng(2048 + alibi)
+    B, T, H, Dh = 2, 2048, 4, 256
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (B, T, H * Dh)).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    km_np, seg_np = _packed_rows(rng, B, T, max_segments=40)
+    start = np.zeros_like(seg_np)
+    for b in range(B):
+        for j in range(1, T):
+            start[b, j] = start[b, j - 1] if seg_np[b, j] == seg_np[b, j - 1] else j
+    km, seg = (torch.from_numpy(a).to(cuda) for a in (km_np, seg_np))
+    pos = torch.from_numpy((np.arange(T)[None] - start).astype(np.int32)).to(cuda)
+    slopes = torch.from_numpy((0.03 * rng.random(H)).astype(np.float32)).to(cuda)
+    kw = dict(segments=seg, positions=pos if alibi else None)
+    names, got = _kernel_names(
+        lambda: sa.short_attention(q, k, v, km, slopes, 1 / 16, 0, H, alibi, **kw),
+        ("mma_kernel", "tf32_kernel", "scalar_kernel"))
+    want = sa.short_attention_reference(q, k, v, km, slopes, scale=1 / 16, window=0, H=H,
+                                        use_alibi=alibi, **kw)
+    assert names and all("tf32_kernel_wide" in n for n in names), names
+    assert (km_np == 0).any()  # a padded tail: rows with no valid key
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all()
+    buf = torch.empty(3, q.numel() + 1, device=cuda)
+    qu, ku, vu = (buf[i, 1:].view_as(t).copy_(t) for i, t in enumerate((q, k, v)))
+    names, got = _kernel_names(
+        lambda: sa.short_attention(qu, ku, vu, km, slopes, 1 / 16, 0, H, alibi, **kw),
+        ("mma_kernel", "tf32_kernel", "scalar_kernel"))
+    assert names and all("scalar_kernel" in n for n in names), names
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all()
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -1173,8 +1214,10 @@ def test_families_on_the_card_equal_the_cpu(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("family", ["gptj", "bloom"])
 def test_backward_kernel_at_the_families_training_shapes(cuda, dtype, family):
-    """K2 at GPT-J's head size 256 (fp32 on the CUDA-core `rows_kernel` /
-    `cols_kernel`) and with BLOOM-1b7's real slopes (`alibi_slopes(16)`, Dh
+    """K2 at GPT-J's head size 256 (fp32 on the 3xTF32 `tf32_rows_wide` /
+    `tf32_cols_wide`, bf16 on the CUDA-core `rows_kernel` / `cols_kernel`;
+    the routing by name is `test_fp32_backward_routing_and_gate`'s, which
+    runs before the K5 hazards) and with BLOOM-1b7's real slopes (`alibi_slopes(16)`, Dh
     128, the key index as position), T=300, key padding and a fully padded
     row: within K2's gate of the plain version (bf16 `_bf16_grad_gate`,
     fp32 1e-5·max|ref| + 1e-5·|ref|), or for fp32 under BLOOM's slopes, where

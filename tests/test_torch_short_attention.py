@@ -199,13 +199,15 @@ def _split(x):
     return big, _tf32(x - big)
 
 
-def _mma_tf32(a, b, order, three, swapped=False):
+def _mma_tf32(a, b, order, three, swapped=False, halves=False):
     """a (..., M, K) · b (..., K, N) as K1's fp32 kernel takes it on the
     card: m16n8k8 steps of 8 along K; per step the TF32 products a_s·b_b,
     a_b·b_s, a_b·b_b (3xTF32, the small terms first; `swapped`, K2's cols
     pass: a_b·b_s, a_s·b_b, a_b·b_b; `three=False`: a_b·b_b alone), each
     product exact and added in turn, the step's 8 terms in `order`, to a
-    zeroed fp32 accumulator whose sum is then added to the running one."""
+    zeroed fp32 accumulator whose sum is then added to the running one.
+    `halves` (the scores at Dh 256, whose two halves two warps sum): the
+    steps of each half of K run from zero, then the halves are added."""
     (ab, asm), (bb, bsm) = _split(a), _split(b)
     if not three:
         terms = ((ab, bb),)
@@ -213,14 +215,16 @@ def _mma_tf32(a, b, order, three, swapped=False):
         terms = ((ab, bsm), (asm, bb), (ab, bb))
     else:
         terms = ((asm, bb), (ab, bsm), (ab, bb))
-    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
-    for k0 in range(0, a.shape[-1], 8):
-        step = torch.zeros_like(acc)
+    K = a.shape[-1]
+    acc = [torch.zeros(*a.shape[:-1], b.shape[-1]) for _ in range(2)]
+    for k0 in range(0, K, 8):
+        step = torch.zeros_like(acc[0])
         for x, y in terms:
             for kk in order:
                 step = step + x[..., :, k0 + kk, None] * y[..., None, k0 + kk, :]
-        acc = acc + step
-    return acc
+        h = int(halves and k0 >= K // 2)
+        acc[h] = acc[h] + step
+    return acc[0] + acc[1] if halves else acc[0]
 
 
 # A column κ of a P·V step is key 2κ (κ < 4) or 2(κ − 4) + 1 of its 8-key
@@ -230,14 +234,15 @@ PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 def _k1_tf32(q2, k2, v2, key_mask, slopes, *, scale, window, H, use_alibi, segments=None,
              positions=None, three=True):
-    """K1's fp32 formula with its products in (3x)TF32: S = Q·Kᵀ, scale, ALiBi
-    and where(mask, s, -1e9) as `_scores`, the fp32 softmax, P unrounded,
-    then P·V with each 8-key step in PV_ORDER (keys past T padded to a
-    multiple of 8 with p = 0)."""
+    """K1's fp32 formula with its products in (3x)TF32: S = Q·Kᵀ (at Dh 256,
+    `tf32_kernel_wide`, in two halves of Dh), scale, ALiBi and where(mask, s,
+    -1e9) as `_scores`, the fp32 softmax, P unrounded, then P·V with each
+    8-key step in PV_ORDER (keys past T padded to a multiple of 8 with p =
+    0)."""
     B, T, HD = q2.shape
     Dh = HD // H
     q, k, v = (t.reshape(B, T, H, Dh).transpose(1, 2).float() for t in (q2, k2, v2))
-    s = _mma_tf32(q, k.transpose(-1, -2), range(8), three)
+    s = _mma_tf32(q, k.transpose(-1, -2), range(8), three, halves=Dh == 256)
     _, mask = sa._scores(q2, k2, key_mask, slopes, scale=scale, window=window, H=H,
                          use_alibi=use_alibi, segments=segments, positions=positions)
     if scale != 1.0:
@@ -261,6 +266,11 @@ TF32_CASES = {  # name: (T, Dh, scale, window, pad_at, alibi, segments)
     "alibi-window16-T77-Dh128": (77, 128, 1.0, 16, 60, True, False),
     "segments-scale-T300-Dh128": (300, 128, 0.125, 0, 250, False, True),
     "segments-alibi-T77-Dh32": (77, 32, 1.0, 0, None, True, True),
+    # GPT-J's head size (`tf32_kernel_wide` on the card): its scale with key
+    # padding, fully masked rows (76..) and packed segments with ALiBi
+    "scale16-padded-T150-Dh256": (150, 256, 0.0625, 0, 100, False, False),
+    "window16-T120-Dh256-fully-masked": (120, 256, 0.0625, 16, 60, False, False),
+    "segments-alibi-T130-Dh256": (130, 256, 0.0625, 0, 110, True, True),
 }
 
 
@@ -298,13 +308,29 @@ def test_3xtf32_products_hold_the_fp32_gate(name):
     assert _gate(got, oracle) <= 1e-5
 
 
-def test_single_tf32_product_fails_the_fp32_gate():
+@pytest.mark.parametrize("name", ["causal-T300-Dh64", "scale16-padded-T150-Dh256"])
+def test_single_tf32_product_fails_the_fp32_gate(name):
     """Why K1 splits its operands: one TF32 product per pair (11 significand
-    bits) misses the fp32 gate at the train shape's T=300."""
-    args, kw, _ = _tf32_case("causal-T300-Dh64")
+    bits) misses the fp32 gate at the train shape's T=300, and at GPT-J's
+    head size and scale."""
+    args, kw, _ = _tf32_case(name)
     want = sa.short_attention_reference(*args, **kw)
     assert _gate(_k1_tf32(*args, **kw, three=False), want) > 1e-5
     assert _gate(_k1_tf32(*args, **kw), want) <= 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(n for n in TF32_CASES if "Dh256" in n))
+def test_3xtf32_at_head_size_256_holds_the_fp32_gate_against_the_jax_kernel(name):
+    """The witness of `tf32_kernel_wide` (GPT-J's fp32 K1: two warps to each
+    16 rows, each summing half of Dh into S, S = S_lo + S_hi, and keeping
+    half of O's columns) against the JAX kernel in interpret mode, within
+    the fp32 gate."""
+    args, kw, (q, k, v, km, slopes, seg, pos) = _tf32_case(name)
+    jj = (lambda a: None if a is None else jnp.asarray(a))
+    kernel = torch.from_numpy(np.array(jax_short_attention(
+        jj(q), jj(k), jj(v), jj(km), jj(slopes), kw["scale"], kw["window"], kw["H"],
+        kw["use_alibi"], segments=jj(seg), positions=jj(pos))))
+    assert _gate(_k1_tf32(*args, **kw), kernel) <= 1e-5
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():

@@ -123,7 +123,10 @@ def _k2_tf32(q2, k2, v2, key_mask, slopes, g, *, scale, window, H, use_alibi, se
     tile over the key tiles that hold a causal, in-window pair for it: walk
     1 takes m, l and Σ exp(s − m)·dP online, 32 keys at a time (S = Q·Kᵀ
     and dP = g·Vᵀ with Q and g as A), adds each unvisited key to l as
-    exp(-1e9 − m), D = that sum / l; walk 2 forms P = exp(s − m)·(1/l) and
+    exp(-1e9 − m), D = that sum / l (at Dh 256, `tf32_rows_wide`: 16 keys
+    at a time, and only the keys before T rounded up to 16, the rest counted
+    as unvisited; there both passes sum each half of Dh into the scores
+    apart, then add the halves); walk 2 forms P = exp(s − m)·(1/l) and
     dS = P∘(dP − D), re-masked and scaled, and dQ = dS·K with each 8-key
     step in PV_ORDER. Cols pass, per 64-key block over the
     query tiles that reach it and (`visit_dead`) every tile with a fully
@@ -149,9 +152,10 @@ def _k2_tf32(q2, k2, v2, key_mask, slopes, g, *, scale, window, H, use_alibi, se
             s = s + slopes.float()[None, :, None, None] * kp[:, None, None, :]
         return torch.where(mask, s, torch.full((), sa.NEG))
 
+    halves = Dh == 256  # the wide pair: two warps each sum half of Dh into the scores
     # rows pass
-    s = masked(_mma_tf32(q, k.transpose(-1, -2), range(8), three))
-    dp = _mma_tf32(gh, v.transpose(-1, -2), range(8), three)
+    s = masked(_mma_tf32(q, k.transpose(-1, -2), range(8), three, halves=halves))
+    dp = _mma_tf32(gh, v.transpose(-1, -2), range(8), three, halves=halves)
     m = torch.zeros(B, H, Tp, 1)
     l, dd = torch.ones_like(m), torch.zeros_like(m)  # past T: as the cols pass reads them
     seen = torch.zeros(B, H, Tp, Tp, dtype=torch.bool)
@@ -160,15 +164,18 @@ def _k2_tf32(q2, k2, v2, key_mask, slopes, g, *, scale, window, H, use_alibi, se
         kt_lo = max(0, q0 - window + 1) // TILE if window > 0 else 0
         kt_hi = min(q0 + TILE - 1, T - 1) // TILE
         mr, lr, dr = (torch.full((B, H, TILE, 1), x) for x in (sa.NEG, 0.0, 0.0))
-        for c in range(kt_lo * TILE, (kt_hi + 1) * TILE, TILE // 2):  # in halves of a tile
-            cols = slice(c, c + TILE // 2)
+        chunk, end = TILE // 2, (kt_hi + 1) * TILE  # halves of a tile, the whole tiles
+        if Dh == 256:
+            chunk, end = 16, min(end, -(-T // 16) * 16)
+        for c in range(kt_lo * TILE, end, chunk):
+            cols = slice(c, c + chunk)
             st, dpt = s[:, :, rows, cols], dp[:, :, rows, cols]
             m_new = torch.maximum(mr, st.amax(-1, keepdim=True))
             w, rescale = torch.exp(st - m_new), torch.exp(mr - m_new)
             lr = lr * rescale + w.sum(-1, keepdim=True)
             dr = dr * rescale + (w * dpt).sum(-1, keepdim=True)
             mr = m_new
-        lr = lr + (T - (kt_hi + 1 - kt_lo) * TILE) * torch.exp(sa.NEG - mr)
+        lr = lr + (T - (end - kt_lo * TILE)) * torch.exp(sa.NEG - mr)
         n = min(TILE, T - q0)
         m[:, :, q0:q0 + n], l[:, :, q0:q0 + n] = mr[:, :, :n], lr[:, :, :n]
         dd[:, :, q0:q0 + n] = (dr / lr)[:, :, :n]
@@ -178,9 +185,9 @@ def _k2_tf32(q2, k2, v2, key_mask, slopes, g, *, scale, window, H, use_alibi, se
     dq = _mma_tf32(torch.where(seen, ds, torch.zeros(())), k, PV_ORDER, three)
 
     # cols pass
-    st = masked(_mma_tf32(k, q.transpose(-1, -2), range(8), three, swapped=True)
-                .transpose(-1, -2)).transpose(-1, -2)
-    dpt = _mma_tf32(v, gh.transpose(-1, -2), range(8), three, swapped=True)
+    st = masked(_mma_tf32(k, q.transpose(-1, -2), range(8), three, swapped=True,
+                          halves=halves).transpose(-1, -2)).transpose(-1, -2)
+    dpt = _mma_tf32(v, gh.transpose(-1, -2), range(8), three, swapped=True, halves=halves)
     mt, lt, dt = (x.transpose(-1, -2) for x in (m, l, dd))  # per query: a column
     p_cols = torch.exp(st - mt) * (1 / lt)
     dst = torch.where(st == sa.NEG, torch.zeros(()), p_cols * (dpt - dt)) * scale
@@ -246,6 +253,12 @@ K2_TF32_CASES = {  # name: (T, Dh, scale, window, pad_at, alibi, segments)
     "window16-T200-Dh32-fully-masked": (200, 32, 1.0, 16, 100, False, False),  # rows 115..
     "alibi-window16-T130-Dh128": (130, 128, 1.0, 16, 110, True, False),
     "segments-scale-T150-Dh16": (150, 16, 0.125, 0, 140, False, True),
+    # GPT-J's head size (`tf32_rows_wide`, `tf32_cols_wide` on the card): its
+    # scale with key padding, fully masked rows (75..) and packed segments
+    # with ALiBi, each over two tiles
+    "scale16-padded-T120-Dh256": (120, 256, 0.0625, 0, 80, False, False),
+    "window16-T128-Dh256-fully-masked": (128, 256, 0.0625, 16, 60, False, False),
+    "segments-alibi-T100-Dh256": (100, 256, 0.0625, 0, 90, True, True),
 }
 
 
@@ -274,13 +287,39 @@ def test_k2_3xtf32_tile_walks_hold_the_fp32_gate_over_several_tiles(name):
     assert same_p
 
 
-def test_k2_single_tf32_product_fails_the_fp32_gate():
+@pytest.mark.parametrize("name", ["causal-T300-Dh64", "scale16-padded-T120-Dh256"])
+def test_k2_single_tf32_product_fails_the_fp32_gate(name):
     """Why K2 splits its operands: one TF32 product per pair misses the
-    fp32 gate at the train shape's T=300."""
-    args, kw = _k2_case("causal-T300-Dh64")
+    fp32 gate at the train shape's T=300, and at GPT-J's head size and
+    scale."""
+    args, kw = _k2_case(name)
     want = sa.short_attention_bwd_reference(*args, **kw)
     one, _ = _k2_tf32(*args, **kw, three=False)
     assert max(_k2_gate(gg, ww) for gg, ww in zip(one, want)) > 1
+
+
+@pytest.mark.parametrize("name", sorted(n for n in K2_TF32_CASES if "Dh256" in n))
+def test_k2_3xtf32_at_head_size_256_holds_the_fp32_gate_against_the_jax_kernel(name):
+    """The witness of GPT-J's fp32 K2 pair (`tf32_rows_wide`,
+    `tf32_cols_wide`: two warps to each 16 rows or keys, each summing half
+    of Dh into the scores, S = S_lo + S_hi, and keeping half of the
+    gradient's columns; walk 1 16 keys at a time) against the JAX
+    `_bwd_kernel` in interpret mode, within K2's fp32 gate; both passes see
+    the same P bit for bit."""
+    args, kw = _k2_case(name)
+    got, same_p = _k2_tf32(*args, **kw)
+    q, k, v, km, slopes, g = (None if a is None else a.numpy() for a in args)
+    seg, pos = (None if kw[x] is None else kw[x].numpy() for x in ("segments", "positions"))
+    B, T = km.shape
+    jseg, jkpos = _seg_kpos_blocks(jnp.asarray(km), None if seg is None else jnp.asarray(seg),
+                                   None if pos is None else jnp.asarray(pos), B, T)
+    jax_kernel = _short_attention_bwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km), jnp.asarray(slopes),
+        jseg, jkpos, jnp.asarray(g), kw["scale"], kw["window"], kw["H"], kw["use_alibi"],
+        seg is not None, interpret=True)
+    for part, gg, jj in zip(("dq", "dk", "dv"), got, jax_kernel):
+        assert _k2_gate(gg, torch.from_numpy(np.array(jj))) <= 1, part
+    assert same_p
 
 
 @pytest.mark.parametrize("name", ["window256-T300-Dh64", "window16-T200-Dh32-fully-masked"])
