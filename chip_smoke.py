@@ -145,13 +145,39 @@ Phases, each of which asserts; any failure exits non-zero:
                drawn on the card, "default" precision, BitFit, SPECB, MNRL,
                1 warm-up and 2 timed steps on a repeated batch (the loss
                falls): the MS MARCO configuration (32 triplets, T=300,
-               GradCache chunk 4: K1 = L × 3 × 2 × 8, K2 = L × 3 × 8 a step)
-               and long context with use_flash (T=2048, 8 or 16 triplets,
+               GradCache chunk 4: K1 = L × 3 × 2 × 8, K2 = L × 3 × 8 a step),
+               for GPT-J also SGPT-5.8B-weightedmean-nli-bitfit's NLI
+               configuration (64 triplets, T=75, GradCache chunk 16, no
+               SPECB: K1 = 28 × 3 × 2 × 4, K2 = 28 × 3 × 4 a step, the
+               profile names only `_wide` kernels; card == CPU at 2 layers
+               at T=75 too), and long context with use_flash (T=2048, 8 or 16 triplets,
                GradCache chunks of 2 or 4: K3 = L × 3 × 2 × chunks, K4a =
                K4b = L × 3 × chunks; the profile names only Dh-256 or Dh-128
                instantiations); only biases move; ms/step, sequences/s, peak
                memory, one profiled step each; card against CPU at 2 layers
                (loss and bias gradients at T=300 and, with use_flash, 512)
+ 19. kernel nli — K1 and K2 fp32 at T=75 (NLI's max_seq_len: no multiple
+               of 16, below one 64-key tile) at GPT-Neo's Dh 64 (global and
+               window 256) and GPT-J's Dh 256, and bf16 K1 at the USEB
+               encode's buckets 16, 32 and 64, each with key padding and a
+               fully padded row, against their plain versions; times beside
+               the plain version, SDPA (and its backward) and the bound
+ 20. nli     — NLI training (symmetric SGPT-BE) of full-width GPT-Neo-125M in
+               fp32 at "default": synthetic AllNLI (2,000 premises) →
+               build_nli_triplets → NoDuplicatesBatcher of 64, T=75, BitFit,
+               weightedmean, 5 timed steps (K1 = K2 = 12 × 3 a step, one
+               profiled), 2 steps each with the learnt mean, a post-pool GELU
+               head and a pre-pool head (only biases and the aux move), a
+               repeated batch (the loss falls), GradCache (chunk 16) ==
+               direct and card == CPU at "highest" (bias and aux
+               gradients), and `cli.train_nli` end to end with an STS-B dev
+               set, whose best model `SGPTModel.load` reloads bit for bit
+ 21. useb    — `cli.useb_retriever` with full-width GPT-Neo-125M in bf16 on
+               synthetic folders of the four USEB tasks: weightedmean at
+               --layeridx -1, 0, 4, 8, 12, meanmean and lasttokenmean (K1 =
+               12 × batches, emb/s); the kernel path against the plain path
+               (cosines ≥ 0.99, main scores within 1.0); fp32 card == CPU for
+               max, cls, meanmean, lasttokenmean and layer 6
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -601,6 +627,47 @@ CASES = [  # name, B, T, H, Dh, scale, window, alibi, segments
 ]
 
 
+def time_k1(torch, sa, label: str, args, H: int, scale: float, window: int) -> dict:
+    """K1's time on (q, k, v, key_mask, slopes) beside its plain version, the
+    library's SDPA (boolean mask) and the bound (4·Dh operations a pair; fp32:
+    3 × them at the TF32 peak, the 3xTF32 products)."""
+    q, k, v, km, _ = args
+    B, T, HD = q.shape
+    Dh = HD // H
+    dt = "fp32" if q.dtype == torch.float32 else "bf16"
+
+    def kernel():
+        return sa.short_attention(q, k, v, km, None, scale, window, H, False)
+
+    def plain():
+        return sa.short_attention_reference(q, k, v, km, None, scale=scale, window=window,
+                                            H=H, use_alibi=False)
+
+    mask = sdpa_mask(torch, km, window)
+    qh, kh, vh = (heads(t, H) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                scale=scale)
+
+    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kernel, kernel, plain))
+    lib = cuda_ms(torch, library)
+    nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
+    ops = 4 * Dh * H * attention_pairs(torch, km, window)
+    b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, "bf16")
+    simt = bound(nbytes, ops, "fp32")
+    t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+         "bound_ms": b[0], "bound_by": b[1]}
+    log(f"time K1 {label}B={B} T={T} H={H} Dh={Dh} {dt} window={window}: kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA, boolean mask) "
+        f"{lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
+        + (f"3 x {ops} TF32 operations at {PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s; on "
+           f"the CUDA cores {simt[0]:.4f} ms, {simt[1]}" if dt == "fp32"
+           else f"{ops} operations")
+        + f") (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+    return t
+
+
 def phase_kernel(torch, sa, rng):
     """K1 against its plain version; returns the main-path error and times."""
     main_err = 0.0
@@ -634,68 +701,23 @@ def phase_kernel(torch, sa, rng):
     times = {}
     for window in (0, 256):
         args, _ = attention_inputs(torch, rng, 64, 300, 12, 64, torch.bfloat16)
-
-        def kernel():
-            return sa.short_attention(*args, 1.0, window, 12, False)
-
-        def plain():
-            return sa.short_attention_reference(*args, scale=1.0, window=window, H=12,
-                                                use_alibi=False)
-
-        q, k, v, km, _ = args
-        mask = sdpa_mask(torch, km, window)
-        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                                    scale=1.0)
-
-        p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kernel, kernel, plain))
-        lib = cuda_ms(torch, library)
-        nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
-        ops = 4 * 64 * 12 * attention_pairs(torch, km, window)
-        times[window] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, ops, "bf16"))
-        log(f"time K1 B=64 T=300 H=12 Dh=64 bf16 window={window}: kernel "
-            f"{times[window][0]:.4f} ms, plain {times[window][1]:.4f} ms, library (SDPA, "
-            f"boolean mask) {lib:.4f} ms, bound {times[window][3]:.4f} ms "
-            f"({times[window][4]}: {nbytes} bytes, {ops} operations) "
-            f"(runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f})")
+        t = time_k1(torch, sa, "", args, 12, 1.0, window)
+        times[window] = tuple(t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by"))
     # the train slice's shape: fp32, B=32; 3xTF32 products on the tensor cores
     for window in (0, 256):
         args, _ = attention_inputs(torch, rng, 32, 300, 12, 64, torch.float32)
-
-        def kernel32():
-            return sa.short_attention(*args, 1.0, window, 12, False)
-
-        def plain32():
-            return sa.short_attention_reference(*args, scale=1.0, window=window, H=12,
-                                                use_alibi=False)
-
-        q, k, v, km, _ = args
-        mask = sdpa_mask(torch, km, window)
-        qh, kh, vh = (heads(t, 12) for t in (q, k, v))
-
-        def library32():  # fp32 SDPA, TF32 off
-            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                                    scale=1.0)
-
-        p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain32, kernel32, kernel32, plain32))
-        lib = cuda_ms(torch, library32)
-        nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4
-        ops = 4 * 64 * 12 * attention_pairs(torch, km, window)
+        t = time_k1(torch, sa, "", args, 12, 1.0, window)
         key = "fp32" if window == 0 else "fp32_w256"
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, lib, *bound(nbytes, 3 * ops, "tf32"))
-        simt = bound(nbytes, ops, "fp32")
+        times[key] = tuple(t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by"))
         ref = k1_fp64(torch, args, window)
-        err64 = (kernel32().double() - ref).abs().max().item()
-        plain64 = (plain32().double() - ref).abs().max().item()
+        err64 = (sa.short_attention(*args, 1.0, window, 12, False).double() - ref).abs().max()
+        plain64 = (sa.short_attention_reference(*args, scale=1.0, window=window, H=12,
+                                                use_alibi=False).double() - ref).abs().max()
         del ref
-        log(f"time K1 B=32 T=300 H=12 Dh=64 fp32 window={window}: kernel {times[key][0]:.4f} ms, "
-            f"plain {times[key][1]:.4f} ms, library (SDPA fp32, boolean mask) {lib:.4f} ms, "
-            f"bound {times[key][3]:.4f} ms ({times[key][4]}: {nbytes} bytes, 3 x {ops} TF32 "
-            f"operations at {PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s; on the CUDA cores "
-            f"{simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} "
-            f"{p2:.4f}); max |out - fp64 evaluation|: kernel {err64:.3e}, plain {plain64:.3e}")
+        log(f"time K1 B=32 T=300 H=12 Dh=64 fp32 window={window}: max |out - fp64 "
+            f"evaluation|: kernel {err64.item():.3e}, plain {plain64.item():.3e}")
     return main_err, times
 
 
@@ -835,6 +857,57 @@ def k2_fp64(torch, args, g, window: int, scale: float, H: int, segments=None,
     return [x.reshape(B, T, HD) for x in grads]
 
 
+def time_k2(torch, sa, label: str, args, g, H: int, scale: float, window: int,
+            note: str = "") -> dict:
+    """K2's time on (q, k, v, key_mask, slopes) and output gradient g: the
+    pair and each pass (torch.profiler), the plain version, the library's
+    SDPA backward of the same attention and the bound (10·Dh operations a
+    pair; the fp32 pair issues three TF32 products for each fp32 one, so its
+    bound is 3 × its operations at the TF32 peak, the CUDA cores' logged
+    beside it)."""
+    q, k, v, km, sl = args
+    B, T, HD = q.shape
+    Dh = HD // H
+    dt = "fp32" if q.dtype == torch.float32 else "bf16"
+    kw = dict(scale=scale, window=window, H=H, use_alibi=sl is not None)
+
+    def kernel():
+        return sa.short_attention_bwd(q, k, v, km, sl, g, **kw)
+
+    def plain():
+        return sa.short_attention_bwd_reference(q, k, v, km, sl, g, **kw)
+
+    qh, kh, vh = (heads(t, H).detach().contiguous().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=library_mask(torch, km, window, sl), scale=scale)
+    gh = heads(g, H).contiguous()
+
+    def library():  # the library's backward of the same attention
+        return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+
+    p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
+    lib = cuda_ms(torch, library, iters=10)
+    rows_ms, cols_ms = pass_ms(torch, kernel)
+    # read q, k, v, g once, write dq, dk, dv; 10·Dh operations a pair:
+    # Q·Kᵀ again, dP = g·Vᵀ, dV = Pᵀ·g, dQ = dS·K, dK = dSᵀ·Q
+    nbytes = 7 * q.numel() * q.element_size() + km.numel() * 4
+    ops = 10 * Dh * H * attention_pairs(torch, km, window)
+    simt = bound(nbytes, ops, "fp32")
+    b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, dt)
+    t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+         "bound_ms": b[0], "bound_by": b[1], "rows_ms": rows_ms, "cols_ms": cols_ms,
+         "bound_ms_cuda_cores": simt[0]}
+    log(f"time K2 {label}B={B} T={T} H={H} Dh={Dh} {dt} window={window}{note}: kernel "
+        f"{t['ms']:.4f} ms (rows pass {rows_ms}, cols pass {cols_ms} ms), plain "
+        f"{t['plain_ms']:.4f} ms, library (SDPA backward"
+        f"{', fp32 additive mask' if sl is not None else ''}) {lib:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
+        + (f"3 x {ops} TF32 operations" if dt == "fp32" else f"{ops} operations")
+        + f"; on the CUDA cores {simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} "
+        f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
+    return t
+
+
 def phase_bwd_kernel(torch, sa, rng):
     """K2 against its plain version over K1's variants (the main shapes at
     the train slice's B=32) and GPT-J-6B's and BLOOM-1b7's MS MARCO training
@@ -892,44 +965,10 @@ def phase_bwd_kernel(torch, sa, rng):
         dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
         (q, k, v, km, sl), _ = case_inputs(torch, rng, B, T, H, Dh, dtype, alibi)
         g = card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype)
-        kw = dict(scale=scale, window=window, H=H, use_alibi=bool(alibi))
-
-        def kernel():
-            return sa.short_attention_bwd(q, k, v, km, sl, g, **kw)
-
-        def plain():
-            return sa.short_attention_bwd_reference(q, k, v, km, sl, g, **kw)
-
-        qh, kh, vh = (heads(t, H).detach().contiguous().requires_grad_() for t in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=library_mask(torch, km, window, sl), scale=scale)
-        gh = heads(g, H).contiguous()
-
-        def library():  # the library's backward of the same attention
-            return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
-
-        p1, k1, k2, p2 = (cuda_ms(torch, f, iters=10) for f in (plain, kernel, kernel, plain))
-        lib = cuda_ms(torch, library, iters=10)
-        rows_ms, cols_ms = pass_ms(torch, kernel)
-        # read q, k, v, g once, write dq, dk, dv; 10·Dh operations a pair:
-        # Q·Kᵀ again, dP = g·Vᵀ, dV = Pᵀ·g, dQ = dS·K, dK = dSᵀ·Q
-        nbytes = 7 * q.numel() * q.element_size() + km.numel() * 4
-        ops = 10 * Dh * H * attention_pairs(torch, km, window)
-        simt = bound(nbytes, ops, "fp32")
-        b = bound(nbytes, 3 * ops, "tf32") if dt == "fp32" else bound(nbytes, ops, dt)
-        t = times[cell] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
-                           "bound_ms": b[0], "bound_by": b[1], "rows_ms": rows_ms,
-                           "cols_ms": cols_ms, "bound_ms_cuda_cores": simt[0]}
-        log(f"time K2 {'' if isinstance(cell, tuple) else cell + ' '}B={B} T={T} H={H} Dh={Dh} "
-            f"{dt} window={window}{' alibi (BLOOM)' if alibi == 'bloom' else ''}: kernel "
-            f"{t['ms']:.4f} ms (rows pass {rows_ms}, cols pass {cols_ms} ms), plain "
-            f"{t['plain_ms']:.4f} ms, library (SDPA backward"
-            f"{', fp32 additive mask' if sl is not None else ''}) {lib:.4f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]}: {nbytes} bytes, "
-            + (f"3 x {ops} TF32 operations" if dt == "fp32" else f"{ops} operations")
-            + f"; on the CUDA cores {simt[0]:.4f} ms, {simt[1]}) (runs: kernel {k1:.4f} "
-            f"{k2:.4f}, plain {p1:.4f} {p2:.4f})")
-        del q, k, v, km, sl, g, qh, kh, vh, out, gh
+        times[cell] = time_k2(torch, sa, "" if isinstance(cell, tuple) else cell + " ",
+                              (q, k, v, km, sl), g, H, scale, window,
+                              " alibi (BLOOM)" if alibi == "bloom" else "")
+        del q, k, v, km, sl, g
         torch.cuda.empty_cache()
     return main_err, worst, readings, times
 
@@ -3258,6 +3297,11 @@ def family_train(torch, fa, sa, family: str, card: str) -> dict:
       (a) the MS MARCO configuration: 32 triplets, max_seq_len 300, GradCache
           chunk 4 (the paper's SGPT-5.8B setting): K1 = L × 3 towers × 2
           passes × 8 chunks a step, K2 = L × 3 × 8;
+      (a2) GPT-J only, SGPT-5.8B-weightedmean-nli-bitfit's configuration:
+          64 NLI triplets at max_seq_len 75 (`nli_batches`), GradCache chunk
+          16 (1,200 tokens a chunk, as MS MARCO's 4 × 300), no SPECB: K1 =
+          28 × 3 × 2 × 4, K2 = 28 × 3 × 4 a step; the profile names only the
+          `_wide` instantiations;
       (b) long context with use_flash at max_seq_len 2048: 8 (GPT-J) or 16
           (BLOOM) triplets of 300-3,000-word documents, GradCache chunks of 2
           (GPT-J) or 4 (BLOOM): K3 = L × 3 × 2 × chunks, K4a = K4b = L × 3 ×
@@ -3267,7 +3311,8 @@ def family_train(torch, fa, sa, family: str, card: str) -> dict:
     sequences/s, peak memory and one profiled step; then (c) card against
     CPU at full width with the depth cut to 2 layers, at "highest": one step's
     loss and bias gradients on 2 triplets at T=300 (K1, K2) and with
-    use_flash at T=512 (K3, K4a, K4b), gated as phase tparity."""
+    use_flash at T=512 (K3, K4a, K4b), and for GPT-J at NLI's T=75, gated as
+    phase tparity."""
     import copy
     import dataclasses
 
@@ -3324,6 +3369,27 @@ def family_train(torch, fa, sa, family: str, card: str) -> dict:
         assert all(("_wide" in n) == (cfg.head_size == 256) for n in names), names
     out["msmarco"] = a
 
+    # (a2) GPT-J: the NLI configuration of SGPT-5.8B-weightedmean-nli-bitfit
+    if family == "gptj":
+        B, chunk = 64, 16
+        nli_tc = dataclasses.replace(tc, batch_size=B, max_seq_len=NLI_T, specb=False,
+                                     chunk_size=chunk, log_fn=None)
+        batch = nli_batches(np.random.default_rng(SEED + 24), 200, B, 1)[0]
+        n = train_cell(torch, fa, sa, model, cfg, tok, nli_tc, batch, steps,
+                       f"families train {family} nli (B={B}, T={NLI_T}, GradCache chunk "
+                       f"{chunk})", short_keys, ("::scalar_kernel", "tf32_kernel", "mma_kernel",
+                                                 "rows_kernel", "cols_kernel", "tf32_rows",
+                                                 "tf32_cols"))
+        chunks = B // chunk
+        assert (n["k1"], n["k2"]) == (L * 3 * 2 * chunks * steps, L * 3 * chunks * steps), n
+        assert n["k3"] == n["k4a"] == n["k4b"] == 0, n
+        assert all(np.isfinite(n["losses"])) and n["losses"][-1] < n["losses"][0], n["losses"]
+        if n["profile_kernel_ms"] is not None:
+            names = [x for x in n["kernel_names"] if "(anonymous namespace)::" in x]
+            assert n["profile_k2_ms"] > 0 and n["profile_k1_ms"] > 0, n
+            assert names and all("tf32_" in x and "_wide" in x for x in names), names
+        out["nli"] = n
+
     # (b) long context with use_flash
     n_long, chunk = FAMILY_LONG_TRAIN[family]
     tc = dataclasses.replace(tc, batch_size=n_long, max_seq_len=2048, chunk_size=chunk,
@@ -3364,7 +3430,7 @@ def family_train(torch, fa, sa, family: str, card: str) -> dict:
     cpu = copy.deepcopy(gpu).to("cpu")
     batch = synthetic_triplets(rng, 2)
     parity = {}
-    for T in (300, 512):
+    for T in ((NLI_T,) if family == "gptj" else ()) + (300, 512):
         tc = TrainConfig(lr=2e-4, batch_size=2, max_seq_len=T, specb=True, freeze_nonbias=True)
         res = []
         t0 = time.perf_counter()
@@ -3412,6 +3478,508 @@ def family_train(torch, fa, sa, family: str, card: str) -> dict:
 def phase_families_train(torch, fa, sa, card) -> dict:
     """GPT-J-6B, then BLOOM-1b7 (`family_train`), each freed before the next."""
     return {family: family_train(torch, fa, sa, family, card) for family in ("gptj", "bloom")}
+
+
+# ---------------------------------------------------------------------------
+# the symmetric-search slice of SGPT-BE: NLI training and USEB evaluation
+
+NLI_T = 75  # training_nli_v2.py's max_seq_length: every tower of a step pads to it
+
+NLI_CASES = [  # name, dtype, B, T, H, Dh, scale, window; each with a fully padded row
+    ("neo-nli", "fp32", 64, NLI_T, 12, 64, 1.0, 0),         # GPT-Neo-125M's NLI towers
+    ("neo-nli-w256", "fp32", 64, NLI_T, 12, 64, 1.0, 256),  # its local layers
+    ("gptj-nli", "fp32", 16, NLI_T, 16, 256, 1 / 16, 0),    # GPT-J-6B's GradCache chunk
+    ("useb-T16", "bf16", 512, 16, 12, 64, 1.0, 0),          # the USEB encode's short
+    ("useb-T32", "bf16", 256, 32, 12, 64, 1.0, 256),        # buckets (batch 64 at 128)
+    ("useb-T64", "bf16", 128, 64, 12, 64, 1.0, 0),
+]
+NLI_TIMED = ("neo-nli", "gptj-nli", "useb-T32")
+
+
+def phase_nli_kernels(torch, sa, rng):
+    """K1 and K2 at the symmetric slice's shapes against their plain
+    versions (`NLI_CASES`): fp32 at T=75 (not a multiple of 16, and below one
+    64-key tile of K2's cols pass) at GPT-Neo's Dh 64 (global and window 256)
+    and GPT-J's Dh 256, K2 on a random output gradient; bf16 K1 at the USEB
+    encode's short buckets (T 16, 32, 64); ~10 % key padding, a row short
+    enough that a window leaves its tail fully masked, and batch row 1 fully
+    padded (K2 gives it dq = 0). K1 held to its gate (bf16 2e-2 + 1e-2·|ref|,
+    fp32 1e-5 + 1e-5·|ref|), K2 by `hold_grads`. Then the times of
+    `NLI_TIMED` (`time_k1`, `time_k2`). Returns the largest error by kernel
+    and the times."""
+    errs, times = {"k1": 0.0, "k2": 0.0}, {}
+    for name, dt, B, T, H, Dh, scale, window in NLI_CASES:
+        dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
+        args, _ = case_inputs(torch, rng, B, T, H, Dh, dtype, False, dead=True)
+        got = sa.short_attention(*args, scale, window, H, False)
+        want = sa.short_attention_reference(*args, scale=scale, window=window, H=H,
+                                            use_alibi=False)
+        torch.cuda.synchronize()
+        err, _ = hold(torch, f"kernel {name}", got, want, dtype)
+        errs["k1"] = max(errs["k1"], err)
+        line = (f"kernel {name:13s} {dt} B={B} T={T} H={H} Dh={Dh} window={window}, a fully "
+                f"padded row: K1 max_abs_err {err:.3e}")
+        if dtype == torch.float32:
+            g = card_normal(torch, rng, (B, T, H * Dh), 1.0, dtype)
+            kw = dict(scale=scale, window=window, H=H, use_alibi=False)
+            got = sa.short_attention_bwd(*args, g, **kw)
+            want = sa.short_attention_bwd_reference(*args, g, **kw)
+            torch.cuda.synchronize()
+            e2, gate, _ = hold_grads(torch, f"bwd {name}", got, want, dtype)
+            assert (got[0][1] == 0).all(), f"bwd {name}: dq of a fully padded row"
+            errs["k2"] = max(errs["k2"], *e2)
+            line += f"; K2 max_abs_err dq {e2[0]:.3e} dk {e2[1]:.3e} dv {e2[2]:.3e} ({gate})"
+        log(line)
+        if name in NLI_TIMED:
+            times[name] = {"k1": time_k1(torch, sa, f"{name} ", args, H, scale, window)}
+            if dtype == torch.float32:
+                times[name]["k2"] = time_k2(torch, sa, f"{name} ", args, g, H, scale, window)
+        del args, got, want
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def nli_rows(rng, n: int) -> list:
+    """(split, premise, hypothesis, label) rows of a synthetic AllNLI.tsv:
+    `n` premises of 8-40 words, each with 1-2 entailment, 1-2 contradiction
+    hypotheses and one neutral one of 4-20 words."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi))))
+
+    rows = []
+    for _ in range(n):
+        premise = text(8, 41)
+        for label, count in (("entailment", int(rng.integers(1, 3))),
+                             ("contradiction", int(rng.integers(1, 3))), ("neutral", 1)):
+            rows += [("train", premise, text(4, 21), label) for _ in range(count)]
+    return rows
+
+
+def write_nli(folder: str, rng, n_premises: int, n_sts: int) -> tuple:
+    """AllNLI.tsv.gz (`nli_rows`) and an STS-B tsv of `n_sts` dev pairs of
+    4-20 words with scores in [0, 5] under `folder`; their paths."""
+    import gzip
+    import os
+
+    nli = os.path.join(folder, "AllNLI.tsv.gz")
+    with gzip.open(nli, "wt") as f:
+        f.write("split\tsentence1\tsentence2\tlabel\n")
+        f.writelines("\t".join(r) + "\n" for r in nli_rows(rng, n_premises))
+    sts = os.path.join(folder, "stsbenchmark.tsv.gz")
+    pairs = nli_rows(rng, n_sts)[:n_sts]
+    with gzip.open(sts, "wt") as f:
+        f.write("split\tsentence1\tsentence2\tscore\n")
+        f.writelines(f"dev\t{p}\t{h}\t{5 * rng.random():.3f}\n" for _, p, h, _ in pairs)
+    return nli, sts
+
+
+def nli_batches(rng, n_premises: int, batch: int, n_batches: int) -> list:
+    """`n_batches` NoDuplicates batches of `batch` (anchor, entailment,
+    contradiction) triplets built from `nli_rows` as the train_nli CLI does."""
+    from sgpt_tpu_torch.data import NoDuplicatesBatcher, build_nli_triplets
+
+    triplets = build_nli_triplets([r[1:] for r in nli_rows(rng, n_premises)], seed=SEED)
+    out = [[ex.texts for ex in b] for b in NoDuplicatesBatcher(triplets, batch, seed=SEED)]
+    assert len(out) >= n_batches, (len(out), n_batches)
+    return out[:n_batches]
+
+
+def grads_of(torch, trainer) -> dict:
+    """The trainable leaves' gradients after `_loss_and_grads`: the model's
+    (biases under BitFit) and the aux tensors', on the CPU."""
+    from sgpt_tpu_torch.training.trainer import aux_leaves
+
+    out = {n: p.grad.cpu() for n, p in trainer.model.named_parameters() if p.requires_grad}
+    out.update({f"aux.{n}": t.grad.cpu() for n, t in aux_leaves(trainer.aux).items()})
+    return out
+
+
+def worst_grad(a: dict, b: dict) -> float:
+    """max over leaves of max|a − b| / ‖b‖."""
+    assert a.keys() == b.keys(), (sorted(a), sorted(b))
+    return max(((a[n] - g).abs().max() / g.norm().clamp_min(1e-12)).item() for n, g in b.items())
+
+
+def phase_nli(torch, sa, tok, card) -> dict:
+    """NLI training, symmetric SGPT-BE (SGPT-125M-weightedmean-nli-bitfit's
+    configuration), of full-width GPT-Neo-125M in fp32 at the CLI's matmul
+    precision "default" (TF32 products): synthetic AllNLI (2,000 premises of
+    8-40 words with entailment and contradiction hypotheses) →
+    `build_nli_triplets` → `NoDuplicatesBatcher` of 64 → BitFit, MNRL,
+    weightedmean, max_seq_len 75 (every tower pads to it: K1 and K2 at T=75):
+      * 5 steps through `ContrastiveTrainer.fit` (warmuplinear, lr 2e-4),
+        ms/step from the last 4, one step profiled (fp32 K1 and K2 on their
+        Dh-64 3xTF32 kernels by name); then 2 steps each with the learnt
+        mean, one post-pool GELU head and one pre-pool head (768 → 768, no
+        bias under BitFit, as the CLI): K1 = K2 = 12 × 3 a step, only
+        biases and the aux move;
+      * a repeated batch at constant lr: the loss falls;
+      * at "highest", with the learnt mean and a post-pool GELU head:
+        GradCache (chunk 16) == the direct step (loss within 1e-5 relative,
+        bias and aux gradients within 1e-4 of each leaf's norm), and the card
+        == the CPU (4 triplets, the same gates);
+      * `cli.train_nli` end to end (400 premises, 256 STS-B dev pairs
+        evaluated every 10 % of the epoch, --learntmean --addxlinear 1
+        --useact --freezenonbias): its best model, reloaded with
+        `SGPTModel.load`, gives the exported model's embeddings bit for bit."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+
+    from sgpt_tpu_torch.cli import train_nli
+    from sgpt_tpu_torch.model import SGPTModel
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
+    from sgpt_tpu_torch.training.trainer import aux_leaves
+
+    rng = np.random.default_rng(SEED + 31)
+    steps, B = 5, 64
+    batches = nli_batches(rng, 2000, B, steps + 6)
+    cfg = gpt_neo("125m", matmul_precision="default")  # as cli.common.build_model
+    model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    L = cfg.num_layers
+    tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=NLI_T, freeze_nonbias=True,
+                     pooling="weightedmean", scheduler="warmuplinear")
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.rsplit(".", 1)[-1] not in BIAS_NAMES}
+    biases = {n: p.detach().clone() for n, p in model.named_parameters() if n not in frozen}
+
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.log_fn = lambda rec: stamps.append(time.perf_counter())  # float(loss) synchronises
+    sa.launches = sa.bwd_launches = 0
+    out = ContrastiveTrainer(model, cfg, tok, tc).fit(lambda: iter(batches[:steps]),
+                                                       steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    counts = {"k1": sa.launches, "k2": sa.bwd_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in out["history"]]
+    ms = 1e3 * float(np.median(np.diff(stamps)))
+    res = {"ms_per_step": ms, "seq_per_s": 3 * B / (ms / 1e3), "peak_gib": peak_gib,
+           "losses": losses}
+    log(f"nli: {steps} steps (B={B}, T={NLI_T}), losses {[round(x, 5) for x in losses]}; "
+        f"{ms:.1f} ms/step, {res['seq_per_s']:.1f} sequences/s, peak {peak_gib:.2f} GiB, "
+        f"fp32 at TF32 products (\"default\"); K1 {counts['k1']}, K2 {counts['k2']} launches "
+        f"({card})")
+    assert all(np.isfinite(losses)), losses
+    assert counts == {"k1": L * 3 * steps, "k2": L * 3 * steps}, counts
+    trainer = ContrastiveTrainer(model, cfg, tok, tc)
+    trainer._opt, trainer._sched = trainer._build_optimizer(1)
+    res.update(profile_step(
+        torch, trainer, batches[0], "nli profile, one step (TF32)",
+        {"K1": K1_KEYS, "K2": ("tf32_rows", "tf32_cols"),
+         "K2scalar": ("rows_kernel", "cols_kernel"), "GEMM": GEMM_KEYS},
+        ("::scalar_kernel", "tf32_kernel", "mma_kernel", "rows_kernel", "cols_kernel",
+         "tf32_rows", "tf32_cols")))
+    if res["profile_kernel_ms"] is not None:
+        names = [n for n in res["kernel_names"] if "(anonymous namespace)::" in n]
+        assert res["profile_k1_ms"] > 0 and res["profile_k2_ms"] > 0, res
+        assert res["profile_k2scalar_ms"] == 0, res
+        assert names and all("tf32_" in n and "_wide" not in n for n in names), names
+
+    # 2 steps each with the learnt mean, a post-pool GELU head, a pre-pool head
+    head = dict(in_features=cfg.hidden_size, out_features=cfg.hidden_size, bias=False)
+    variants = {"learntmean": dict(pooling="learned_weightedmean"),
+                "post-pool gelu head": dict(dense_heads=[{**head, "activation": "gelu"}]),
+                "pre-pool head": dict(dense_heads=[{**head, "location": "pre_pool"}])}
+    for i, (label, kw) in enumerate(variants.items()):
+        vt = ContrastiveTrainer(model, cfg, tok, dataclasses.replace(tc, log_fn=None, **kw))
+        start = {n: t.detach().clone() for n, t in aux_leaves(vt.aux).items()}
+        sa.launches = sa.bwd_launches = 0
+        vl = [h["loss"] for h in vt.fit(lambda: iter(batches[steps + 2 * i: steps + 2 * i + 2]),
+                                        steps_per_epoch=2)["history"]]
+        moved = [n for n, t in aux_leaves(vt.aux).items() if not torch.equal(t, start[n])]
+        log(f"nli {label}: losses {[round(x, 5) for x in vl]}; aux leaves moved {moved}; K1 "
+            f"{sa.launches}, K2 {sa.bwd_launches} launches")
+        assert all(np.isfinite(vl)) and moved == list(start), (vl, moved)
+        assert (sa.launches, sa.bwd_launches) == (L * 3 * 2,) * 2
+        counts["k1"] += sa.launches
+        counts["k2"] += sa.bwd_launches
+    for name, p in model.named_parameters():
+        if name in frozen:
+            assert p.grad is None and torch.equal(p.detach(), frozen[name]), f"{name} moved"
+        else:
+            assert not torch.equal(p.detach(), biases[name]), f"{name} did not move"
+    log(f"nli: {len(biases)} bias leaves moved, {len(frozen)} frozen leaves kept their bits")
+    del frozen, biases
+
+    # a repeated batch at constant lr: the loss falls
+    const = dataclasses.replace(tc, scheduler="constantlr", log_fn=None)
+    sa.launches = sa.bwd_launches = 0
+    rep = [h["loss"] for h in ContrastiveTrainer(model, cfg, tok, const).fit(
+        lambda: iter([batches[-1]] * 4), steps_per_epoch=4)["history"]]
+    counts["k1"] += sa.launches
+    counts["k2"] += sa.bwd_launches
+    log(f"nli: one batch repeated at constant lr 2e-4: losses {[round(x, 5) for x in rep]}")
+    assert rep[-1] < rep[0], rep
+
+    # GradCache (chunk 16) == direct, and the card == the CPU, at "highest"
+    strict = cfg.replace(matmul_precision="highest")
+    model.cfg = strict
+    aux_tc = dataclasses.replace(const, pooling="learned_weightedmean", dense_heads=[
+        {**head, "activation": "gelu"}])
+
+    def one_step(net, net_cfg, batch, **kw):
+        trainer = ContrastiveTrainer(net, net_cfg, tok, dataclasses.replace(aux_tc, **kw))
+        trainer._opt, trainer._sched = trainer._build_optimizer(1)
+        trainer._opt.zero_grad(set_to_none=True)
+        loss = float(trainer._loss_and_grads(trainer._prep_batch(batch)))
+        return loss, grads_of(torch, trainer)
+
+    direct = one_step(model, strict, batches[0])
+    sa.launches = sa.bwd_launches = 0
+    gc = one_step(model, strict, batches[0], use_gradcache=True, chunk_size=16)
+    chunks = B // 16
+    worst = worst_grad(gc[1], direct[1])
+    log(f"nli: GradCache (chunk 16) loss {gc[0]:.7f}, direct {direct[0]:.7f}, |diff| "
+        f"{abs(gc[0] - direct[0]):.3e} (tolerance 1e-5 relative); {len(direct[1])} bias and aux "
+        f"gradients, worst max|diff|/norm {worst:.3e} (tolerance 1e-4); K1 {sa.launches}, K2 "
+        f"{sa.bwd_launches} launches")
+    assert abs(gc[0] - direct[0]) <= 1e-5 * abs(direct[0]) and worst <= 1e-4
+    assert (sa.launches, sa.bwd_launches) == (2 * L * 3 * chunks, L * 3 * chunks)
+    del model
+    torch.cuda.empty_cache()
+    cpu = Decoder(gpt_neo("125m"), device="cpu", generator=torch.Generator().manual_seed(SEED + 1))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    small = batches[1][:4]
+    on_cpu, on_gpu = one_step(cpu, cpu.cfg, small), one_step(gpu, gpu.cfg, small)
+    worst = worst_grad(on_gpu[1], on_cpu[1])
+    log(f"nli parity: loss card {on_gpu[0]:.7f} CPU {on_cpu[0]:.7f} (|diff| "
+        f"{abs(on_gpu[0] - on_cpu[0]):.3e}, tolerance 1e-5 relative); {len(on_cpu[1])} bias "
+        f"and aux gradients (learnt mean, a GELU head), worst max|diff|/norm {worst:.3e} "
+        f"(tolerance 1e-4)")
+    assert abs(on_gpu[0] - on_cpu[0]) <= 1e-5 * abs(on_cpu[0]) and worst <= 1e-4
+    res["parity"] = {"loss_diff": abs(on_gpu[0] - on_cpu[0]), "grad_rel": worst}
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+    # the CLI end to end; its best model reloads bit for bit
+    texts = [r[2] for r in nli_rows(rng, 40)]
+    with tempfile.TemporaryDirectory() as tmp:
+        nli, sts = write_nli(tmp, rng, 400, 256)
+        save = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        sa.launches = sa.bwd_launches = 0
+        cli = train_nli.main(train_nli.parse_args([
+            "--model_name", "125m", "--randominit", "--nli_path", nli, "--stsb_path", sts,
+            "--train_batch_size", str(B), "--lr", "2e-4", "--freezenonbias", "--learntmean",
+            "--addxlinear", "1", "--useact", "--model_save_path", save, "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+        counts["k1"] += sa.launches
+        counts["k2"] += sa.bwd_launches
+        evals = [h["eval_score"] for h in cli["history"] if "eval_score" in h]
+        n_steps = sum("loss" in h for h in cli["history"])
+        want = cli["model"].encode(texts)
+        got = SGPTModel.load(os.path.join(save, "best_model"), device="cuda").encode(texts)
+    log(f"nli cli: {n_steps} steps, {len(evals)} STS-B dev evaluations "
+        f"{[round(x, 4) for x in evals]}, best {cli['best_score']:.4f} (random weights), "
+        f"{wall:.1f} s; the reloaded best model's embeddings equal the exported model's: "
+        f"{np.array_equal(got, want)}")
+    assert n_steps > 0 and len(evals) == n_steps and all(np.isfinite(evals)), evals
+    assert want.shape == (len(texts), cfg.hidden_size) and np.isfinite(want).all()
+    assert np.array_equal(got, want), np.abs(got - want).max()
+    res["cli"] = {"steps": n_steps, "evals": evals, "best_score": cli["best_score"]}
+    return {**res, **counts}
+
+
+USEB_RUNS = [("weightedmean", -1), ("weightedmean", 0), ("weightedmean", 4),
+             ("weightedmean", 8), ("weightedmean", 12), ("meanmean", -1), ("lasttokenmean", -1)]
+USEB_SCORE_TOL = 1.0  # |Δ main score| (×100) of the kernel path against the plain path, bf16
+
+
+def write_useb(root: str, rng) -> int:
+    """Synthetic folders of the four USEB tasks under `root`, in the formats
+    of tests/test_useb.py's fixtures: AskUbuntu (2,000 questions of 4-14
+    words, 100 queries × 20 BM25 candidates a split), CQADupStack (3 forums
+    of 1,500 posts of 8-60 words, 50 duplicate queries each), TwitterPara
+    (800 URL pairs and 800 PIT pairs of 5-25 words) and SciDocs (2,000 titles
+    of 4-16 words, 30 queries × 5 documents in each of the 4 subtasks).
+    Returns the number of texts."""
+    import os
+
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi))))
+
+    def folder(name):
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        return path
+
+    n_texts = 0
+    d = folder("askubuntu")
+    with open(os.path.join(d, "text_tokenized.txt"), "w") as f:
+        f.writelines(f"q{i}\t{text(4, 15)}\t{text(10, 40)}\n" for i in range(2000))
+    for fname in ("test.txt", "dev.txt"):
+        with open(os.path.join(d, fname), "w") as f:
+            for i in range(100):
+                cands = rng.choice(np.arange(100, 2000), 20, replace=False)
+                f.write(f"q{i}\t{' '.join(f'q{c}' for c in cands[:2])}\t"
+                        f"{' '.join(f'q{c}' for c in cands)}\t"
+                        f"{' '.join(f'{x:.3f}' for x in rng.random(20))}\n")
+    n_texts += 2000
+    d = folder("cqadupstack")
+    corpus = {forum: {f"d{i}": text(8, 61) for i in range(1500)}
+              for forum in ("android", "gis", "unix")}
+    split = {s: {forum: {f"d{i}": [f"d{i + 1}", f"d{i + 2}"] for i in range(0, 1500, 30)}
+                 for forum in corpus} for s in ("test", "valid")}
+    with open(os.path.join(d, "corpus.json"), "w") as f:
+        json.dump(corpus, f)
+    with open(os.path.join(d, "retrieval_split.json"), "w") as f:
+        json.dump(split, f)
+    n_texts += 4500
+    d = folder("twitterpara")
+    with open(os.path.join(d, "Twitter_URL_Corpus_test.txt"), "w") as f:
+        f.writelines(f"{text(5, 26)}\t{text(5, 26)}\t({rng.integers(0, 7)}, 6)\n"
+                     for _ in range(800))
+    with open(os.path.join(d, "test.data"), "w") as f:
+        f.writelines(f"id\ttopic\t{text(5, 26)}\t{text(5, 26)}\t{rng.integers(0, 6)}\n"
+                     for _ in range(800))
+    n_texts += 3200
+    d = folder("scidocs")
+    data = {"corpus": {f"p{i}": {"title": text(4, 17)} for i in range(2000)}}
+    for s in ("test", "valid"):
+        data[s] = {task: {f"p{q}": {f"p{int(c)}": int(rng.integers(0, 2))
+                                    for c in rng.choice(np.arange(100, 2000), 5, replace=False)}
+                          for q in range(30)}
+                   for task in ("cite", "cocite", "coview", "coread")}
+    with open(os.path.join(d, "data.json"), "w") as f:
+        json.dump(data, f)
+    return n_texts + 2000
+
+
+def phase_useb(torch, sa, fa, card) -> dict:
+    """USEB evaluation (symmetric search) through `cli.useb_retriever` with
+    full-width GPT-Neo-125M in bf16 (random weights from the CLI's seed,
+    --maxseqlen 128, --batchsize 64) on synthetic folders of the four tasks
+    (`write_useb`): `USEB_RUNS`, weightedmean at --layeridx -1 and the sweep
+    0, 4, 8, 12, then meanmean and lasttokenmean (the all-layer stack). Each
+    run: K1 = 12 × batches, main scores finite in [0, 100], emb/s. The
+    kernel path against the plain path (`plain_attention`) on the same
+    weights, weightedmean and meanmean: every embedding's cosine ≥ 0.99 (the
+    parity phase's bf16 gate) and each task's main score within
+    `USEB_SCORE_TOL`. fp32 card == fp32 CPU on 8 texts (max |Δ| ≤ 1e-4 of
+    normalised embeddings, the parity phase's gate) for max, cls, meanmean,
+    lasttokenmean and weightedmean at layer 6."""
+    import copy
+    import os
+    import tempfile
+
+    from sgpt_tpu_torch import encoder as enc_mod
+    from sgpt_tpu_torch.cli import common, useb_retriever
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.evaluation import useb
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    rng = np.random.default_rng(SEED + 41)
+    out = {"runs": {}, "k1": 0}
+    shapes, spent = [], [0, 0.0]  # forward shapes; texts encoded, seconds in encode
+    built = []
+
+    def build(*a, **kw):
+        model, cfg, tok = common.build_model(*a, **kw)
+        model.register_forward_pre_hook(lambda m, args: shapes.append(tuple(args[0].shape)))
+        built.append((model, cfg, tok))
+        return model, cfg, tok
+
+    encode = enc_mod.EmbeddingEngine.encode
+
+    def timed(self, texts, **kw):
+        t0 = time.perf_counter()
+        emb = encode(self, texts, **kw)
+        spent[0] += len(texts)
+        spent[1] += time.perf_counter() - t0
+        return emb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n_texts = write_useb(tmp, rng)
+        useb_retriever.build_model = build
+        enc_mod.EmbeddingEngine.encode = timed
+        try:
+            for method, layer in USEB_RUNS:
+                shapes.clear()
+                spent[:] = [0, 0.0]
+                sa.launches = 0
+                path = os.path.join(tmp, f"{method}_{layer}.json")
+                useb_retriever.main(useb_retriever.parse_args([
+                    "--modelname", "125m", "--randominit", "--datapath", tmp, "--method",
+                    method, "--layeridx", str(layer), "--maxseqlen", "128", "--batchsize", "64",
+                    "--output", path, "--device", "cuda"]))
+                with open(path) as f:
+                    result = json.load(f)
+                L = built[-1][1].num_layers
+                assert sa.launches == L * len(shapes) > 0, (sa.launches, len(shapes))
+                mains = result["main"]
+                assert set(mains) == {*useb.EVALUATORS, "avg"}, mains
+                assert all(np.isfinite(v) and 0 <= v <= 100 for v in mains.values()), mains
+                assert (result["method"], result["layeridx"]) == (method, layer)
+                key = f"{method}_{layer}"
+                out["runs"][key] = {"main": mains, "batches": len(shapes),
+                                    "emb_per_s": spent[0] / spent[1]}
+                out["k1"] += sa.launches
+                log(f"useb {method} --layeridx {layer}: main {mains}; {spent[0]} texts in "
+                    f"{len(shapes)} batches (buckets {sorted({t for _, t in shapes})}), "
+                    f"{spent[0] / spent[1]:.1f} emb/s; K1 {sa.launches} launches ({card})")
+        finally:
+            useb_retriever.build_model = common.build_model
+            enc_mod.EmbeddingEngine.encode = encode
+
+        # the kernel path against the plain path, on the CLI's weights
+        model, cfg, tok = built[0]
+        del built[1:]
+        torch.cuda.empty_cache()
+        with open(os.path.join(tmp, "askubuntu", "text_tokenized.txt")) as f:
+            sample = [line.split("\t")[1] for line in f][:512]
+        out["plain"] = {}
+        for method in ("weightedmean", "meanmean"):
+            engine = EmbeddingEngine(model, cfg, tok, device="cuda", method=method,
+                                     max_seq_len=128, batch_size=64)
+            kern = engine.encode(sample)
+            _, kern_main = useb.run({t: engine.encode for t in useb.EVALUATORS},
+                                    data_eval_path=tmp)
+            with plain_attention(sa, fa):
+                plain = engine.encode(sample)
+                _, plain_main = useb.run({t: engine.encode for t in useb.EVALUATORS},
+                                         data_eval_path=tmp)
+            cos = cosine(kern, plain)
+            diff = max(abs(kern_main[t] - plain_main[t]) for t in plain_main)
+            log(f"useb {method}: kernel path against plain path (bf16): {len(sample)} "
+                f"embeddings, cosine min {cos.min():.6f} (gate 0.99); main scores kernel "
+                f"{kern_main}, plain {plain_main}, max |diff| {diff:.2f} (tolerance "
+                f"{USEB_SCORE_TOL})")
+            assert cos.min() > 0.99 and diff <= USEB_SCORE_TOL
+            out["plain"][method] = {"cos_min": float(cos.min()), "main_diff": diff}
+    del model, built
+    torch.cuda.empty_cache()
+
+    # fp32 card == fp32 CPU for each new pooler and a layer index
+    cpu = Decoder(gpt_neo("125m"), device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    tok = SimpleTokenizer(cpu.cfg.vocab_size)
+    texts = sample[:8]
+    out["fp32"] = {}
+    for method, layer in (("max", -1), ("cls", -1), ("meanmean", -1), ("lasttokenmean", -1),
+                          ("weightedmean", 6)):
+        kw = dict(method=method, layeridx=layer, max_seq_len=128, batch_size=8,
+                  normalize_embeddings=True)
+        err = float(np.abs(EmbeddingEngine(gpu, gpu.cfg, tok, device="cuda", **kw).encode(texts)
+                           - EmbeddingEngine(cpu, cpu.cfg, tok, device="cpu", **kw).encode(
+                               texts)).max())
+        out["fp32"][f"{method}_{layer}"] = err
+        log(f"useb fp32 card vs CPU, {method} --layeridx {layer}, 8 texts: max abs diff "
+            f"{err:.3e} (tolerance 1e-4)")
+        assert err < 1e-4, (method, layer, err)
+    del cpu, gpu
+    out["n_texts"] = n_texts
+    return out
 
 
 def ptxas_lines(log_text: str, *names: str) -> dict:
@@ -3492,6 +4060,8 @@ def main() -> int:
     phase("fbwd")
     fbwd_err, fbwd_worst, fbwd_readings, fbwd_times = phase_fbwd(
         torch, fa, np.random.default_rng(SEED + 5))
+    phase("kernel nli")
+    nli_err, nli_times = phase_nli_kernels(torch, sa, np.random.default_rng(SEED + 30))
     ab = {}
     if parent:
         phase("ab")
@@ -3602,6 +4172,10 @@ def main() -> int:
     phase("tparity")
     phase_train_parity(torch, fa, rng, tok)
 
+    # 19. NLI training (symmetric SGPT-BE)
+    phase("nli")
+    nli = phase_nli(torch, sa, tok, card)
+
     # 15. the long-context training slice
     phase("ltrain")
     ltrain = phase_ltrain(torch, fa, sa, tok, card)
@@ -3609,6 +4183,10 @@ def main() -> int:
     # 11. the BEIR CLI
     phase("beir")
     ndcg10 = phase_beir(rng, card)
+
+    # 20. USEB evaluation through its CLI
+    phase("useb")
+    useb_res = phase_useb(torch, sa, fa, card)
 
     # 17. GPT-J-6B and BLOOM-1b7 at full width
     phase("families")
@@ -3645,14 +4223,20 @@ def main() -> int:
             f"full width ({card})")
     fam_k1 = sum(f["encode_k1"] + f["long_k1"] + f["ce_k1"] + f.get("ce_short_k1", 0)
                  for f in families.values())
+    log(f"nli: {nli['ms_per_step']:.1f} ms/step, {nli['seq_per_s']:.1f} sequences/s "
+        f"(192 sequences of T={NLI_T} a step), peak {nli['peak_gib']:.2f} GiB, fp32 at TF32 "
+        f"products (\"default\"); GPT-Neo-125M, batch 64, BitFit ({card})")
+    log("useb: " + ", ".join(f"{k} {r['emb_per_s']:.1f} emb/s" for k, r in useb_res["runs"].items())
+        + f"; bf16, max_seq_len 128, batch_size 64 ({card})")
     for family, f in fam_train.items():
-        for cell in ("msmarco", "long"):
+        for cell in [c for c in ("msmarco", "nli", "long") if c in f]:
             c = f[cell]
             log(f"families train {family} {cell}: {c['ms_per_step']:.1f} ms/step, "
                 f"{c['seq_per_s']:.2f} sequences/s, {c['tokens_per_s']:.0f} valid tokens/s, "
                 f"peak {c['peak_gib']:.2f} GiB; fp32 at TF32 products (\"default\"), full width "
                 f"({card})")
-    train_launches = {k: sum(f[cell][k] for f in fam_train.values() for cell in ("msmarco", "long"))
+    train_launches = {k: sum(f[cell][k] for f in fam_train.values()
+                             for cell in ("msmarco", "nli", "long") if cell in f)
                       for k in ("k1", "k2", "k3", "k4a", "k4b")}
     build_log = (lib_path.parent / "build.log").read_text()
     templates = ptxas_lines(build_log, "mma_kernelILi256ELb0", "mma_kernelILi256ELb1",
@@ -3672,8 +4256,13 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
-                     + fam_k1 + train_launches["k1"]),
+                     + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"]),
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
+        "launches_nli": nli["k1"], "launches_useb": useb_res["k1"],
+        "launches_families_train_gptj_nli": fam_train["gptj"]["nli"]["k1"],
+        "max_abs_err_nli": nli_err["k1"],
+        **{f"{k}_{cell}": v for cell, t in nli_times.items() for k, v in t["k1"].items()},
+        "nli": {k: v for k, v in nli.items() if k not in ("k1", "k2")}, "useb": useb_res,
         "launches_long": long["k1_launches"], "launches_ce": ce_launches,
         "launches_families": fam_k1, "launches_families_train": train_launches["k1"],
         "templates": {"mma_kernel<256, false>": templates.get("mma_kernelILi256ELb0"),
@@ -3717,8 +4306,13 @@ def main() -> int:
         "name": "short_attention_bwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
-        "launches": train["bwd_launches"] + train_launches["k2"],
+        "launches": train["bwd_launches"] + train_launches["k2"] + nli["k2"],
         "launches_train": train["bwd_launches"], "launches_families_train": train_launches["k2"],
+        "launches_nli": nli["k2"],
+        "launches_families_train_gptj_nli": fam_train["gptj"]["nli"]["k2"],
+        "max_abs_err_nli": nli_err["k2"],
+        **{f"{k}_{cell}": v for cell, t in nli_times.items() if "k2" in t
+           for k, v in t["k2"].items()},
         "max_abs_err": bwd_err, "max_abs_err_cases": bwd_worst,
         "bf16_gate_readings": bwd_readings,
         **{k: bwd_times[("fp32", 0)][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",

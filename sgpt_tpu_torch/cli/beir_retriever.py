@@ -6,8 +6,14 @@
 
 The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item
 12), plus `--device`. Writes the same `./results_<model>_<method>_<dataset>.json`
-and `./beir_embeddings_ndcgs.json` entries. Not ported yet, and raising:
-`--quantize` (item 9) and `--layeridx` other than -1 (item 5).
+and `./beir_embeddings_ndcgs.json` entries. `--layeridx` pools the states
+of one layer (0: the embeddings, -1: the final states), for the layer
+sweeps of the reference:
+
+    for L in 0 4 8 12; do python -m sgpt_tpu_torch.cli.beir_retriever \
+        --dataset scifact --layeridx $L --randominit --overwrite; done
+
+Not ported yet, and raising: `--quantize` (item 9).
 `--modelname` is a preset with `--randominit` (GPT-Neo; "6b"/"5.8b"/"6.1b":
 GPT-J-6B; "bloom": BLOOM-1b7) or a local HF checkpoint directory.
 `--download` fetches the dataset only when passed.
@@ -64,9 +70,6 @@ def main(args=None):
     if args.quantize:
         raise NotImplementedError("--quantize: int8 inference is not ported yet "
                                   "(ROADMAP Queue 1 item 9)")
-    if args.layeridx != -1:
-        raise NotImplementedError("--layeridx: layer selection is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
 
     from ..evaluation.aggregate import ResultsStore
     store = ResultsStore()
@@ -103,7 +106,7 @@ def main(args=None):
         raise
     engine = EmbeddingEngine(
         model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
-        max_seq_len=args.maxseqlen, batch_size=args.batchsize,
+        layeridx=args.layeridx, max_seq_len=args.maxseqlen, batch_size=args.batchsize,
         cache_dir=(f"embeddings/{args.modelname.split('/')[-1]}/"
                    f"{args.method}/{args.dataset}" if args.saveemb else None))
 

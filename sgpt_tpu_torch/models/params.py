@@ -153,3 +153,25 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
     if left:
         raise ValueError(f"params_from_jax: leaves not consumed: {left}")
     return sd
+
+
+def aux_from_jax(aux: dict) -> Dict[str, object]:
+    """The JAX trainer's auxiliary parameters (`ContrastiveTrainer.aux`:
+    `pos_weights` and `heads`, a list of {"w", ["b"]}) → the port trainer's
+    `aux` layout, as fp32 CPU tensors. A dense head's `w` keeps the JAX
+    (in, out) layout, applied as `h @ w` on both sides (`encoder.apply_heads`),
+    not transposed to `nn.Linear`'s (out, in). Raises on an unknown key."""
+    left = set(aux) - {"pos_weights", "heads"}
+    if left:
+        raise ValueError(f"aux_from_jax: unknown aux keys {sorted(left)}")
+    out: Dict[str, object] = {}
+    if "pos_weights" in aux:
+        out["pos_weights"] = _to_torch(aux["pos_weights"]).float()
+    if "heads" in aux:
+        heads = []
+        for i, h in enumerate(aux["heads"]):
+            if set(h) - {"w", "b"} or "w" not in h:
+                raise ValueError(f"aux_from_jax: head {i} has leaves {sorted(h)}")
+            heads.append({k: _to_torch(v).float() for k, v in h.items()})
+        out["heads"] = heads
+    return out

@@ -17,14 +17,23 @@ one device:
     `optax.MultiSteps`
   * GradCache (`use_gradcache`, `chunk_size`), evaluation with best-model
     tracking, step checkpoints with retention
+  * auxiliary trainable state outside the decoder (`aux`), trainable also
+    under BitFit: learnt position weights for `learned_weightedmean`
+    (ones of length max_seq_len) and dense heads (`dense_heads`: w (in, out)
+    from 0.02·N(0, 1) of a generator seeded with seed + 1, b zeros),
+    applied pre-pool heads → pooler → post-pool heads; weight decay on a
+    head's w only
+  * `export_model()`: the trained pipeline as an `SGPTModel` on the live
+    decoder
 
 The model is the port's `Decoder`; it trains on the device its parameters
 are on. Every tower pads to `max_seq_len`, so a `use_flash` model at
 `max_seq_len % 128 == 0` (long-context training) runs the flash attention
 in every layer of every step: K3 forward, K4a/K4b backward on the card
-(under GradCache, pass 1 runs K3 alone, without a graph). Meshes, dense
-heads, learned pooling weights and `export_model` are not ported yet and
-raise `NotImplementedError` naming their ROADMAP item.
+(under GradCache, pass 1 runs K3 alone, without a graph); other lengths
+(the NLI default 75, MS MARCO's 300) run K1 forward and K2 backward.
+Meshes are not ported yet and raise `NotImplementedError` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..encoder import ACTIVATIONS, apply_heads, pool_single
 from ..losses import mnrl_loss
 from ..models.config import DecoderConfig
 from ..models.decoder import Decoder
@@ -79,7 +89,9 @@ class TrainConfig:
     checkpoint_limit: int = 2
     output_dir: Optional[str] = None
     seed: int = 0
-    # trainable dense heads: not ported yet (ROADMAP Queue 1 item 5)
+    # trainable dense heads (--addxlinear/--linearthenpool/--useact/--outfeats,
+    # training_nli_v2.py:93-117): list of dicts with keys
+    # in_features/out_features[/bias/activation/location]
     dense_heads: Optional[list] = None
     # optional metrics sink called with {'step', 'loss'|'eval_score', ...}
     log_fn: Optional[Callable[[dict], None]] = None
@@ -95,14 +107,11 @@ class ContrastiveTrainer:
             raise NotImplementedError(
                 "mesh (dp/tp training) — ROADMAP Queue 1 item 12; sp_mesh "
                 "(sequence-parallel training) — ROADMAP Queue 1 item 11")
-        if train_config.dense_heads:
-            raise NotImplementedError("dense_heads — ROADMAP Queue 1 item 5")
-        if train_config.pooling == "learned_weightedmean":
-            raise NotImplementedError("learned_weightedmean pooling — ROADMAP Queue 1 item 4")
-        if train_config.pooling not in POOLERS:
-            raise NotImplementedError(
-                f"pooling {train_config.pooling!r} not ported yet; ported: "
-                f"{sorted(POOLERS)} (ROADMAP Queue 1 item 4)")
+        if train_config.pooling not in POOLERS \
+                and train_config.pooling != "learned_weightedmean":
+            raise ValueError(
+                f"pooling {train_config.pooling!r} not trainable here; choose one of "
+                f"{sorted(POOLERS)} or 'learned_weightedmean'")
         if model.cfg != cfg:
             raise ValueError("ContrastiveTrainer: cfg differs from the model's config")
         self.model = model
@@ -114,7 +123,34 @@ class ContrastiveTrainer:
         self.codec = SpecbCodec(tokenizer, max_seq_len=train_config.max_seq_len,
                                 specb=train_config.specb, clean_newlines=False)
         self.device = next(model.parameters()).device
+        # auxiliary trainable tensors outside the decoder, fp32 on its device
+        # (trainable under BitFit too, like the reference's pooling and Dense
+        # modules, which training_nli_v2.py never freezes)
         self.aux: dict = {}
+        self._head_meta: list = []
+        if train_config.pooling == "learned_weightedmean":
+            # learnt per-position weights, init 1.0 (WeightedMeanPooling.py:19)
+            self.aux["pos_weights"] = torch.ones(train_config.max_seq_len, device=self.device)
+        if train_config.dense_heads:
+            gen = torch.Generator().manual_seed(train_config.seed + 1)
+            heads = []
+            for spec in train_config.dense_heads:
+                if spec.get("activation", "identity") not in ACTIVATIONS:
+                    raise ValueError(f"dense head activation {spec['activation']!r}: one of "
+                                     f"{sorted(ACTIVATIONS)}")
+                if spec.get("location", "post_pool") not in ("pre_pool", "post_pool"):
+                    raise ValueError(f"dense head location {spec['location']!r}: "
+                                     "expected pre_pool or post_pool")
+                w = 0.02 * torch.randn(spec["in_features"], spec["out_features"], generator=gen)
+                h = {"w": w.to(self.device)}
+                if spec.get("bias", True):
+                    h["b"] = torch.zeros(spec["out_features"], device=self.device)
+                heads.append(h)
+                self._head_meta.append({"activation": spec.get("activation", "identity"),
+                                        "location": spec.get("location", "post_pool")})
+            self.aux["heads"] = heads
+        for leaf in aux_leaves(self.aux).values():
+            leaf.requires_grad_(True)
         self.best_score = -1e9
         self.best_params = None
         self.best_aux = None
@@ -139,18 +175,29 @@ class ContrastiveTrainer:
             p.requires_grad_(mask is None or mask[name])
             if p.requires_grad:
                 (no_decay if NO_DECAY & set(name.split(".")) else decay).append(p)
+        for name, p in aux_leaves(self.aux).items():  # trainable under BitFit too
+            (no_decay if NO_DECAY & set(name.split(".")) else decay).append(p)
         groups = [g for g in ({"params": decay, "weight_decay": tc.weight_decay},
                               {"params": no_decay, "weight_decay": 0.0}) if g["params"]]
         # base lr 1: LambdaLR then sets each step's lr to the schedule's value
         opt = torch.optim.AdamW(groups, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
+    def _heads(self, location: str) -> List[dict]:
+        """The live dense heads at `location`, in `apply_heads`' form."""
+        return [{**h, **meta} for h, meta in zip(self.aux.get("heads", []), self._head_meta)
+                if meta["location"] == location]
+
     def _encode_fn(self):
-        pooler = POOLERS[self.tc.pooling]
-        model = self.model
+        """chunk → (B, D): decoder → pre-pool heads → pooler (the learnt
+        position weights for learned_weightedmean) → post-pool heads."""
+        model, method = self.model, self.tc.pooling
+        pre, post = self._heads("pre_pool"), self._heads("post_pool")
+        learned = self.aux.get("pos_weights")
 
         def encode(chunk):
-            return pooler(model(chunk["ids"], chunk["mask"]), chunk["mask"])
+            h = apply_heads(model(chunk["ids"], chunk["mask"]), pre)
+            return apply_heads(pool_single(h, chunk["mask"], method, learned), post)
 
         return encode
 
@@ -292,8 +339,34 @@ class ContrastiveTrainer:
                 "best_score": self.best_score, "history": history}
 
     def export_model(self, tokenizer_name: Optional[str] = None):
-        raise NotImplementedError(
-            "export_model needs the port of model.py's SGPTModel — ROADMAP Queue 1 item 14")
+        """The trained pipeline as an `SGPTModel`: the live decoder module
+        (no copy of its weights), the dense heads and the learnt position
+        weights as they stand, on the trainer's device. `tokenizer_name`
+        names the HF tokenizer for `SGPTModel.save` (not needed with the
+        hash tokenizer of random weights)."""
+        from ..model import SGPTModel
+        dense_heads = None
+        if self._head_meta:
+            dense_heads = [{**{k: v.detach() for k, v in h.items()}, **meta}
+                           for h, meta in zip(self.aux["heads"], self._head_meta)]
+        pos = self.aux.get("pos_weights")
+        return SGPTModel(
+            self.model, self.cfg, self.tokenizer,
+            method="learned_weightedmean" if pos is not None else self.tc.pooling,
+            specb=self.tc.specb, max_seq_len=self.tc.max_seq_len, dense_heads=dense_heads,
+            learned_weights=None if pos is None else pos.detach(),
+            tokenizer_name=tokenizer_name, device=self.device)
+
+    def _snapshot(self):
+        """A copy of the model as it stands, for best-model tracking: a
+        state dict in which every trainable parameter is a clone and every
+        frozen one the live tensor (frozen leaves do not change, so under
+        BitFit a 6B model's snapshot costs its biases, not a second copy of
+        its weights on the card), and a deep copy of `aux`."""
+        trainable = {n for n, p in self.model.named_parameters() if p.requires_grad}
+        params = {k: v.detach().clone() if k in trainable else v
+                  for k, v in self.model.state_dict().items()}
+        return params, _clone_aux(self.aux)
 
     def _evaluate(self, evaluator, step, history):
         try:
@@ -313,9 +386,7 @@ class ContrastiveTrainer:
         logger.info("eval @%d: %.4f", step, score)
         if score > self.best_score:  # best-model save (ST fit :861-876)
             self.best_score = score
-            self.best_params = {k: v.detach().clone()
-                                for k, v in self.model.state_dict().items()}
-            self.best_aux = dict(self.aux)
+            self.best_params, self.best_aux = self._snapshot()
             if self.tc.output_dir:
                 self.save_model(os.path.join(self.tc.output_dir, "best"))
 
@@ -326,14 +397,14 @@ class ContrastiveTrainer:
             return
         from .checkpoint import prune_checkpoints, save_checkpoint as _save
         path = os.path.join(self.tc.output_dir, "checkpoints", str(step))
-        _save(path, {"model": self.model.state_dict(), "aux": self.aux},
+        _save(path, {"model": self.model.state_dict(), "aux": _clone_aux(self.aux)},
               opt_state=None if optimizer is None else optimizer.state_dict(), step=step)
         prune_checkpoints(os.path.join(self.tc.output_dir, "checkpoints"),
                           self.tc.checkpoint_limit)
 
     def save_model(self, path: str):
         from .checkpoint import save_checkpoint as _save
-        _save(path, {"model": self.model.state_dict(), "aux": self.aux}, step=None)
+        _save(path, {"model": self.model.state_dict(), "aux": _clone_aux(self.aux)}, step=None)
 
     def restore(self, path: str):
         """Resume weights from a step checkpoint or a saved model dir (the
@@ -341,5 +412,32 @@ class ContrastiveTrainer:
         from .checkpoint import load_checkpoint
         tree = load_checkpoint(path)
         self.model.load_state_dict(tree["model"])
-        self.aux = dict(tree.get("aux", self.aux))
+        saved = aux_leaves(tree.get("aux", {}))
+        live = aux_leaves(self.aux)
+        if set(saved) != set(live):
+            raise ValueError(f"{path}: aux leaves {sorted(saved)}, the trainer has "
+                             f"{sorted(live)}")
+        with torch.no_grad():  # in place: the optimizer holds the live tensors
+            for name, t in live.items():
+                t.copy_(saved[name])
         return self
+
+
+def aux_leaves(aux: dict) -> dict:
+    """{"pos_weights": t, "heads.0.w": t, ...}: the aux tensors by name."""
+    out = {}
+    if "pos_weights" in aux:
+        out["pos_weights"] = aux["pos_weights"]
+    for i, h in enumerate(aux.get("heads", [])):
+        out.update({f"heads.{i}.{k}": v for k, v in h.items()})
+    return out
+
+
+def _clone_aux(aux: dict) -> dict:
+    """A deep copy of `aux` (head lists included), detached."""
+    out = {}
+    if "pos_weights" in aux:
+        out["pos_weights"] = aux["pos_weights"].detach().clone()
+    if "heads" in aux:
+        out["heads"] = [{k: v.detach().clone() for k, v in h.items()} for h in aux["heads"]]
+    return out

@@ -4,7 +4,7 @@
 tiny GPT-Neo whose weights the JAX CLI (patched the same way) also gets: the
 two write results files with the same documents per query, in the same
 order, scores within 1e-5, and equal nDCG/MAP/recall/precision entries in
-`beir_embeddings_ndcgs.json`. `bm25_retriever` writes the JAX CLI's
+`beir_embeddings_ndcgs.json`, also with `--layeridx`. `bm25_retriever` writes the JAX CLI's
 first-stage json, and `sgptce` reranks it into the JAX CLI's result json
 (metrics within 1e-6; the CE scores agree to ~1e-6). `serve`: the flags
 that are not ported raise before anything is built; a server built from
@@ -69,11 +69,13 @@ def _write_beir(root, n_docs=40, n_queries=8, seed=0):
             f.write(f"q{i}\td{i * 3 + 1}\t1\n")
 
 
-def test_beir_retriever_matches_jax_cli(tmp_path, monkeypatch):
+def _beir_parity(tmp_path, monkeypatch, extra=()):
+    """Both CLIs on one synthetic BEIR folder with `extra` flags: the same
+    documents per query, scores within 1e-5, equal metric entries."""
     _write_beir(tmp_path / "data" / "synth")
     common = ["--modelname", "tiny/neo", "--dataset", "synth",
               "--datapath", str(tmp_path / "data"), "--specb", "--maxseqlen", "64",
-              "--batchsize", "4", "--randominit", "--dtype", "float32"]
+              "--batchsize", "4", "--randominit", "--dtype", "float32", *extra]
     (tmp_path / "jax").mkdir()
     monkeypatch.chdir(tmp_path / "jax")
     monkeypatch.setattr(jax_beir, "build_model", _jax_build)
@@ -99,8 +101,16 @@ def test_beir_retriever_matches_jax_cli(tmp_path, monkeypatch):
         json.loads((tmp_path / "jax" / store).read_text())
 
 
-@pytest.mark.parametrize("flags,match", [(["--quantize", "int8"], "item 9"),
-                                         (["--layeridx", "3"], "item 5")])
+def test_beir_retriever_matches_jax_cli(tmp_path, monkeypatch):
+    _beir_parity(tmp_path, monkeypatch)
+
+
+def test_beir_retriever_layeridx_matches_jax_cli(tmp_path, monkeypatch):
+    """`--layeridx 1` (of 2 layers) pools a middle layer's states on both sides."""
+    _beir_parity(tmp_path, monkeypatch, ["--layeridx", "1"])
+
+
+@pytest.mark.parametrize("flags,match", [(["--quantize", "int8"], "item 9")])
 def test_beir_retriever_refuses_what_is_not_ported(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         beir_retriever.main(beir_retriever.parse_args(["--randominit", *flags]))

@@ -100,9 +100,9 @@ def test_out_of_range_ids_raise_on_the_host(pair):
         engine.encode(["many different words so that some id lands high"] * 3)
 
 
-@pytest.mark.parametrize("kw", [dict(dense_heads=[]), dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(mesh=object()),
                                 dict(quantize="int8"), dict(dispatch_chain=8),
-                                dict(learned_weights=np.ones(4)), dict(method="meanmean")])
+                                dict(fused_attention=True), dict(mesh=object(), quantize="int8")])
 def test_unported_options_raise(pair, kw):
     _, _, cfg, model = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):

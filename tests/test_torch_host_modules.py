@@ -277,3 +277,201 @@ def test_bm25_matches():
         for k in (1, 10, 200):
             assert got.search(queries, k) == want.search(queries, k)
         assert PR(**kw).search(corpus, queries, 10) == JR(**kw).search(corpus, queries, 10)
+
+
+# ---------------------------------------------------------------------------
+# the symmetric-search slice's copies: data/nli.py, readers.py, datasets.py,
+# evaluation/sts.py, useb.py, extra.py
+
+def test_data_and_evaluation_export_the_same_names():
+    assert set(pdata.__all__) == set(jdata.__all__)
+    assert set(peval.__all__) == set(jeval.__all__)
+
+
+def _nli_rows(rng, n=30):
+    rows = []
+    for i in range(n):
+        p = f"premise {i} " + " ".join(f"w{rng.integers(0, 40)}" for _ in range(3))
+        for label in ("entailment", "contradiction", "neutral"):
+            for j in range(int(rng.integers(0, 3))):
+                rows.append(("train" if i % 5 else "dev", p, f"{label} {i} {j}", label))
+    return rows
+
+
+def test_nli_triplets_and_readers_match(tmp_path):
+    import gzip
+
+    rng = np.random.default_rng(21)
+    rows = _nli_rows(rng)
+    path = tmp_path / "AllNLI.tsv.gz"
+    with gzip.open(path, "wt") as f:
+        f.write("split\tsentence1\tsentence2\tlabel\n")
+        f.writelines("\t".join(r) + "\n" for r in rows)
+    for split in ("train", "dev"):
+        got = list(pdata.load_nli_tsv(str(path), split))
+        assert got == list(jdata.load_nli_tsv(str(path), split)) and got
+        for seed in (0, 3):
+            a = pdata.build_nli_triplets(got, seed=seed)
+            b = jdata.build_nli_triplets(got, seed=seed)
+            assert [e.texts for e in a] == [e.texts for e in b] and a
+    sts = tmp_path / "sts.tsv"
+    sts.write_text("split\tsentence1\tsentence2\tscore\n" + "".join(
+        f"{'dev' if i % 2 else 'test'}\ts{i}\tt{i}\t{i % 6}\n" for i in range(12)))
+    trip = tmp_path / "trip.tsv"
+    trip.write_text("a\tb\tc\n" + "".join(f"a{i}\tp{i}\tn{i}\n" for i in range(9)) + "short\n")
+    for kw in ({}, {"max_examples": 3}, {"split": "dev"}):
+        for name, fname in (("STSDataReader", "sts.tsv"), ("NLIDataReader", "AllNLI.tsv.gz")):
+            a = getattr(pdata, name)(str(tmp_path)).get_examples(fname, **kw)
+            b = getattr(jdata, name)(str(tmp_path)).get_examples(fname, **kw)
+            assert [(e.texts, e.label) for e in a] == [(e.texts, e.label) for e in b] and a
+    for header in (False, True):
+        a = pdata.TripletReader(str(tmp_path), has_header=header).get_examples("trip.tsv")
+        b = jdata.TripletReader(str(tmp_path), has_header=header).get_examples("trip.tsv")
+        assert [e.texts for e in a] == [e.texts for e in b] and a
+
+
+def test_dataset_batchers_match():
+    import random
+
+    sents = [f"sentence {i} " + "word " * (i % 7) for i in range(40)]
+    ex = [(f"t{i}", float(i % 4)) for i in range(33)]
+    for repl in (False, True):
+        a, b = (mod.SentenceLabelBatcher([mod.InputExample(texts=(t,), label=lab)
+                                          for t, lab in ex], 8, 2, seed=1, with_replacement=repl)
+                for mod in (pdata, jdata))
+        assert len(a) == len(b)
+        assert [[(e.texts, e.label) for e in x] for x in a] == \
+            [[(e.texts, e.label) for e in x] for x in b]
+    a = list(pdata.contrastive_tension_batches(sents, 8, 4, seed=2))
+    b = list(jdata.contrastive_tension_batches(sents, 8, 4, seed=2))
+    assert [[(e.texts, e.label) for e in x] for x in a] == \
+        [[(e.texts, e.label) for e in x] for x in b] and a
+    a, b = pdata.DenoisingBatcher(sents, 6, seed=4), jdata.DenoisingBatcher(sents, 6, seed=4)
+    for _ in range(2):  # the noise changes by epoch
+        assert [[e.texts for e in x] for x in a] == [[e.texts for e in x] for x in b]
+    assert (pdata.denoise_text("a b c d e", 0.5, random.Random(5))
+            == jdata.denoise_text("a b c d e", 0.5, random.Random(5)))
+    pp, jp = (mod.ParallelSentencesData(lambda s: [len(t) for t in s], batch_size=3)
+              for mod in (pdata, jdata))
+    for p in (pp, jp):
+        p.add_dataset([["src a", "tgt a1", "tgt a2"], ["src b"], ["src c", "tgt c"]] * 2,
+                      max_sentences=7)
+    assert pp.pairs == jp.pairs and list(pp.batches()) == list(jp.batches())
+
+
+def _table_encoder(dim=8, seed=0):
+    """A deterministic text → vector map: identical texts, identical rows."""
+    import hashlib
+
+    def enc(texts):
+        out = []
+        for t in texts:
+            h = int(hashlib.sha1(t.strip().encode()).hexdigest()[:8], 16)
+            out.append(np.random.default_rng(h + seed).normal(size=dim))
+        return np.asarray(out, np.float32)
+
+    return enc
+
+
+def test_sts_and_extra_evaluators_match():
+    enc = _table_encoder()
+    rng = np.random.default_rng(6)
+    s1 = [f"a {i}" for i in range(20)]
+    s2 = [f"a {i}" if i % 3 == 0 else f"b {i}" for i in range(20)]
+    gold = rng.random(20).tolist()
+    pairs = [(pe, je) for pe, je in (
+        (peval.EmbeddingSimilarityEvaluator(s1, s2, gold),
+         jeval.EmbeddingSimilarityEvaluator(s1, s2, gold)),
+        (peval.TripletEvaluator(s1, s2, s1[::-1]), jeval.TripletEvaluator(s1, s2, s1[::-1])),
+        (peval.BinaryClassificationEvaluator(s1, s2, [i % 3 == 0 for i in range(20)]),
+         jeval.BinaryClassificationEvaluator(s1, s2, [i % 3 == 0 for i in range(20)])),
+        (peval.MSEEvaluator(s1, enc(s2)), jeval.MSEEvaluator(s1, enc(s2))),
+        (peval.TranslationEvaluator(s1, s2), jeval.TranslationEvaluator(s1, s2)))]
+    samples = [{"query": s1[i], "positive": [s2[i]], "negative": s2[i + 1:i + 4]}
+               for i in range(10)]
+    pairs.append((peval.RerankingEvaluator(samples), jeval.RerankingEvaluator(samples)))
+    rows = [{"en": s1[i], "de": s2[i], "fr": "" if i == 2 else s2[-i]} for i in range(10)]
+    pairs.append((peval.MSEEvaluatorFromDataFrame(rows, enc, [("en", "de"), ("en", "fr")]),
+                  jeval.MSEEvaluatorFromDataFrame(rows, enc, [("en", "de"), ("en", "fr")])))
+    pairs.append((peval.SequentialEvaluator([p for p, _ in pairs[:3]]),
+                  jeval.SequentialEvaluator([j for _, j in pairs[:3]])))
+    for pe, je in pairs:
+        assert pe(enc) == je(enc), type(pe).__name__
+        if hasattr(pe, "compute"):
+            assert pe.compute(enc) == je.compute(enc), type(pe).__name__
+    w = rng.normal(size=(24, 3))
+    labels = rng.integers(0, 3, 20).tolist()
+    got = peval.LabelAccuracyEvaluator(s1, s2, labels)(
+        peval.LabelAccuracyEvaluator.softmax_head_classifier(enc, w, np.ones(3)))
+    assert got == jeval.LabelAccuracyEvaluator(s1, s2, labels)(
+        jeval.LabelAccuracyEvaluator.softmax_head_classifier(enc, w, np.ones(3)))
+
+
+def write_useb(root, rng, n=24):
+    """The four USEB tasks' folders under `root`, in the formats of
+    tests/test_useb.py's fixtures, with random word texts (some repeated)."""
+    import json as _json
+
+    def text(lo=2, hi=9):
+        return " ".join(f"w{rng.integers(0, 30)}" for _ in range(int(rng.integers(lo, hi))))
+
+    d = root / "askubuntu"
+    d.mkdir(parents=True)
+    with open(d / "text_tokenized.txt", "w") as f:
+        for i in range(n):
+            f.write(f"q{i}\t{text()}\t{text()}\n")
+    for fname in ("test.txt", "dev.txt"):
+        with open(d / fname, "w") as f:
+            for i in range(n // 3):
+                cands = rng.choice(n, 6, replace=False)
+                scores = " ".join(f"{x:.2f}" for x in rng.random(6))
+                gold = " ".join(f"q{c}" for c in cands[:2])
+                f.write(f"q{i}\t{gold}\t{' '.join(f'q{c}' for c in cands)}\t{scores}\n")
+    d = root / "cqadupstack"
+    d.mkdir()
+    corpus = {forum: {f"d{i}": text() for i in range(n)} for forum in ("android", "gis")}
+    split = {s: {forum: {f"d{i}": [f"d{i + 1}", f"d{i + 5}"] for i in range(0, n - 5, 4)}
+                 for forum in corpus} for s in ("test", "valid")}
+    (d / "corpus.json").write_text(_json.dumps(corpus))
+    (d / "retrieval_split.json").write_text(_json.dumps(split))
+    d = root / "twitterpara"
+    d.mkdir()
+    with open(d / "Twitter_URL_Corpus_test.txt", "w") as f:
+        for i in range(n):
+            f.write(f"{text()}\t{text()}\t({int(rng.integers(0, 7))}, 6)\n")
+    with open(d / "test.data", "w") as f:
+        for i in range(n):
+            f.write(f"id\ttopic\t{text()}\t{text()}\t{int(rng.integers(0, 6))}\n")
+    d = root / "scidocs"
+    d.mkdir()
+    papers = {f"p{i}": {"title": None if i == 3 else ("" if i == 4 else text())}
+              for i in range(n)}
+    data = {"corpus": papers}
+    for s in ("test", "valid"):
+        data[s] = {task: {f"p{q}": {f"p{int(c)}": int(rng.integers(0, 2))
+                                    for c in rng.choice(n, 5, replace=False)}
+                          for q in range(0, n, 6)}
+                   for task in ("cite", "cocite", "coview", "coread")}
+    (d / "data.json").write_text(_json.dumps(data))
+
+
+def test_useb_evaluators_match(tmp_path):
+    from sgpt_tpu.evaluation import useb as juseb
+    from sgpt_tpu_torch.evaluation import useb as puseb
+
+    write_useb(tmp_path, np.random.default_rng(8))
+    enc = _table_encoder(dim=6)
+    assert list(puseb.EVALUATORS) == list(juseb.EVALUATORS)
+    for eval_type in ("test", "valid"):
+        for name in puseb.EVALUATORS:
+            got = puseb.run_on(name, enc, eval_type, str(tmp_path))
+            assert got == juseb.run_on(name, enc, eval_type, str(tmp_path)) and got, name
+    fns = {name: enc for name in ("askubuntu", "scidocs", "twitterpara")}
+    got = puseb.run(fns, data_eval_path=str(tmp_path), normalize=False,
+                    output_dir=str(tmp_path / "p"))
+    assert got == juseb.run(fns, data_eval_path=str(tmp_path), normalize=False,
+                            output_dir=str(tmp_path / "j"))
+    for f in ("results.detailed.json", "results.average_precision.json"):
+        assert (tmp_path / "p" / f).read_text() == (tmp_path / "j" / f).read_text()
+    assert (puseb._sklearn_ap([1, 0, 1, 0], [0.3, 0.9, 0.2, 0.2])
+            == juseb._sklearn_ap([1, 0, 1, 0], [0.3, 0.9, 0.2, 0.2]))

@@ -1,9 +1,10 @@
 """`sgpt_tpu_torch` never imports jax nor the JAX package: in a process
 where neither `jax` nor `sgpt_tpu` can be imported, the whole package
-imports (serving and the CLIs included), and a tiny CPU encode, a flash
-(`use_flash`) encode, two index searches, a DenseRetriever search, a
-SearchService search and a cross-encoder score (bucketed and packed rows)
-run. A scan of the sources finds no import of either."""
+imports (serving and the CLIs included), and a tiny CPU encode, a
+stack-pooled (`meanmean`) encode at a layer index with a dense head, an
+`SGPTModel` save/load round trip, a flash (`use_flash`) encode, two index
+searches, a DenseRetriever search, a SearchService search and a
+cross-encoder score (bucketed and packed rows) run. A scan of the sources finds no import of either."""
 import re
 import subprocess
 import sys
@@ -36,6 +37,19 @@ engine = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cp
 emb = engine.encode(["a short text", "a longer text " * 20, "x"])
 assert emb.shape == (3, 32), emb.shape
 assert abs(float((emb ** 2).sum(1).max()) - 1) < 1e-5
+head = [{"w": torch.full((32, 8), 0.1), "activation": "gelu", "location": "post_pool"}]
+stack = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu",
+                        method="meanmean", layeridx=1, max_seq_len=64, dense_heads=head
+                        ).encode(["a short text", "x"])
+assert stack.shape == (2, 8), stack.shape
+import tempfile
+from sgpt_tpu_torch.model import SGPTModel
+sgpt = SGPTModel(model, cfg, SimpleTokenizer(cfg.vocab_size), layeridx=1, dense_heads=head,
+                 max_seq_len=64, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    sgpt.save(d)
+    again = SGPTModel.load(d, device="cpu").encode(["a short text", "x"])
+assert (again == sgpt.encode(["a short text", "x"])).all()
 fcfg = cfg.replace(use_flash=True)
 fmodel = Decoder(fcfg, device="cpu", generator=torch.Generator().manual_seed(0))
 femb = EmbeddingEngine(fmodel, fcfg, SimpleTokenizer(cfg.vocab_size), device="cpu", specb=True,
