@@ -178,6 +178,32 @@ Phases, each of which asserts; any failure exits non-zero:
                12 × batches, emb/s); the kernel path against the plain path
                (cosines ≥ 0.99, main scores within 1.0); fp32 card == CPU for
                max, cls, meanmean, lasttokenmean and layer 6
+ 22. int8    — int8 inference (`ops/quant.py`): `int8_project` at GPT-J's
+               shapes (19,200 rows; 4,096 → 4,096 and → 16,384, 16,384 →
+               4,096) and a 5-row batch (padded to `_int_mm`'s 17): the int32
+               accumulators of `torch._int_mm` and the outputs equal the
+               plain version's (fp64 on the card) exactly; the times of the
+               activation quantize pass, `_int_mm` and the rescale beside
+               `F.linear` in bf16 and the bound (int8 peak 1,979 TOPS); the
+               encode slice of phase 4 with `quantize="int8"` (emb/s against
+               bf16, peak memory, a profiled batch, cosine to the bf16
+               embeddings ≥ 0.99 for every text, top-10 overlap of a search;
+               `_int_mm` = 6 × 12 × batches); `cli.beir_retriever --quantize
+               int8`. In phase 17, GPT-J-6B the same (`family_int8`), its CE
+               with `quantize="int8"` (pairs/s, Spearman against bf16 for
+               each query) and `quantize_decoder_params(free_source=True)`
+               on the bf16 model (peak ≤ the float total + one fp32 D × F slab)
+ 23. ivf     — the balanced IVF index (`index_ivf.IVFIndex`) at NQ's corpus
+               size (2,681,468 × 768, a mixture of 4,096 unit centres at
+               spread 0.75, drawn on the card), int8 rows, auto-K: add and
+               build seconds, K, overflow share; recall@10 at nprobe 8, 32
+               and 64 against K5's exact top-10 of the bf16 rows and against
+               the exact scan of the index's own int8 rows, p50 of
+               `search_embeddings` at Q=1 and Q=64 beside K5's exact search;
+               a save/load round trip gives the same results bit for bit;
+               `cli.serve --index ivf --quantize int8 --quantize-index int8`
+               over HTTP on the 4,096 documents of phase 7: /search p50 and
+               p99, answers equal a direct `search_embeddings`
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -222,8 +248,9 @@ GRAD_RMS_ATOL, GRAD_NORM_RTOL = 1e-2, 1e-2  # bf16 gradients: atol per RMS(ref),
 # larger of its bytes over the memory rate and its operations over the peak
 HBM_BYTES_PER_S = 3.35e12
 # tensor cores (bf16; TF32, which the fp32 paths of K1, K2, K3 and K4 issue
-# three of for each fp32 product, 3xTF32); fp32 on the CUDA cores
-PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+# three of for each fp32 product, 3xTF32; int8, `torch._int_mm`); fp32 on the
+# CUDA cores
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
 
 
 T0 = time.perf_counter()
@@ -2301,10 +2328,11 @@ def phase_ce_cli(corpus, card):
     return {"bm25_ndcg10": bm25["NDCG@10"], "ce_ndcg10": ndcg, "wall_s": wall}
 
 
-def phase_beir(rng, card):
+def phase_beir(rng, card, extra=()):
     """The port's BEIR CLI end to end on a synthetic BEIR folder: 2,000
     documents, 100 queries copied from documents, qrels to those documents;
-    full-width GPT-Neo-125M, random weights, SPECB, max_seq_len 300."""
+    full-width GPT-Neo-125M, random weights, SPECB, max_seq_len 300; `extra`
+    flags (phase int8: --quantize int8)."""
     import os
     import tempfile
 
@@ -2332,7 +2360,7 @@ def phase_beir(rng, card):
             ndcg = beir_retriever.main(beir_retriever.parse_args([
                 "--modelname", "EleutherAI/gpt-neo-125M", "--dataset", "synth", "--datapath",
                 tmp, "--randominit", "--specb", "--maxseqlen", "300", "--device", "cuda",
-                "--batchsize", "64"]))
+                "--batchsize", "64", *extra]))
             wall = time.perf_counter() - t0
             with open("results_EleutherAI_gpt-neo-125M_weightedmean_synth.json") as f:
                 results = json.load(f)
@@ -2342,8 +2370,8 @@ def phase_beir(rng, card):
     assert len(results) == 100 and all(0 < len(r) <= 1000 for r in results.values())
     assert all(np.isfinite(v) for r in results.values() for v in r.values())
     assert 0.0 <= ndcg["NDCG@10"] <= 1.0
-    log(f"beir: 2000 docs, 100 queries in {wall:.2f} s; nDCG@10 {ndcg['NDCG@10']:.5f} "
-        f"(random weights) ({card})")
+    log(f"beir{' ' + ' '.join(extra) if extra else ''}: 2000 docs, 100 queries in "
+        f"{wall:.2f} s; nDCG@10 {ndcg['NDCG@10']:.5f} (random weights) ({card})")
     return ndcg["NDCG@10"]
 
 
@@ -3184,7 +3212,13 @@ def family_slice(torch, fa, sa, mips, family: str, card: str) -> dict:
         log(f"families bloom ce: bf16 packed against unpacked (dispatches of other shapes, "
             f"24 layers of bf16 roundings; held in fp32 below): max |diff| {diff:.4f}")
         out["ce_bf16_packed_vs_unpacked"] = diff
-    del ranker, model
+    if family == "gptj":
+        del ranker
+        out["int8"] = family_int8(torch, model, cfg, tok, texts, docs, doc_s, beir, scores,
+                                  card)
+    else:
+        del ranker
+    del model
     torch.cuda.empty_cache()
 
     # fp32 at full width, depth cut to 2 layers: card against CPU, and the loader
@@ -3229,6 +3263,66 @@ def family_slice(torch, fa, sa, mips, family: str, card: str) -> dict:
     out["loader"] = check_loader(torch, gpu_model, family, tok, few_texts)
     del gpu_model
     torch.cuda.empty_cache()
+    return out
+
+
+def family_int8(torch, model, cfg, tok, texts, docs, doc_s, pairs, scores, card) -> dict:
+    """GPT-J-6B in int8: the encode slice (`int8_encode`), the CE with
+    quantize="int8" on the same 4 queries × BM25 top-100 (pairs/s, K1 and
+    `_int_mm` launches, Spearman against bf16 for each query), then
+    `quantize_decoder_params(free_source=True)` on the bf16 model itself:
+    its peak stays within the float total plus one fp32 slab of the widest
+    projection (D × F)."""
+    from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
+    from sgpt_tpu_torch.evaluation import spearman
+    from sgpt_tpu_torch.ops import quant
+    from sgpt_tpu_torch.ops import short_attention as sa
+
+    phase("families gptj int8")
+    out = int8_encode(torch, model, cfg, tok, texts, docs, doc_s, "families gptj", card)
+    torch.cuda.empty_cache()
+    ranker = CrossEncoderRanker(model, cfg, tok, device="cuda", batch_size=16, max_length=2048,
+                                quantize="int8")
+    ranker.predict(pairs[:16])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    quant.launches = sa.launches = 0
+    t0 = time.perf_counter()
+    got = np.asarray(ranker.predict(pairs))
+    torch.cuda.synchronize()
+    ce_s = time.perf_counter() - t0
+    launches, k1 = quant.launches, sa.launches
+    assert np.isfinite(got).all() and (got < 0).all()
+    assert launches == 6 * k1 > 0, (launches, k1)
+    rho = np.array([spearman(got[i:i + 100], scores[i:i + 100])
+                    for i in range(0, len(pairs), 100)])
+    out.update(ce_pairs_per_s=len(pairs) / ce_s, ce_k1_launches=k1, ce_int_mm_launches=launches,
+               ce_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ce_spearman_vs_bf16=rho.tolist(),
+               ce_max_abs_diff_vs_bf16=float(np.abs(got - scores).max()))
+    log(f"families gptj int8 ce: {len(pairs)} pairs in {ce_s:.3f} s, {len(pairs) / ce_s:.1f} "
+        f"pairs/s, K1 launches {k1}, _int_mm {launches}; Spearman against bf16 per query "
+        f"{', '.join(f'{r:.4f}' for r in rho)}; max |score diff| "
+        f"{out['ce_max_abs_diff_vs_bf16']:.4f} ({card})")
+    del ranker
+    torch.cuda.empty_cache()
+    slab = 4 * cfg.hidden_size * cfg.mlp_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    quant.quantize_decoder_params(model, free_source=True)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    out.update(free_source_base_gib=base / 2**30, free_source_peak_gib=peak / 2**30,
+               free_source_after_gib=after / 2**30, free_source_s=q_s,
+               free_source_slab_gib=slab / 2**30)
+    log(f"families gptj int8: quantize_decoder_params(free_source=True) in {q_s:.2f} s: "
+        f"{base / 2**30:.3f} GiB before, peak {peak / 2**30:.3f} GiB (bound: before + one fp32 "
+        f"slab of {slab / 2**30:.3f} GiB), {after / 2**30:.3f} GiB after ({card})")
+    assert quant.is_quantized_model(model) and after < base
+    assert peak <= base + slab, (peak, base, slab)
     return out
 
 
@@ -3982,6 +4076,342 @@ def phase_useb(torch, sa, fa, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# int8 inference (phase int8) and the IVF index (phase ivf)
+# ---------------------------------------------------------------------------
+
+INT8_SHAPES = [(4096, 4096), (4096, 16384), (16384, 4096)]  # GPT-J's projections: D → F
+INT8_ROWS = 64 * 300   # an encode batch of 64 rows at T=300
+INT8_COS_MIN = 0.99    # int8 against bf16 embeddings, each text (cosine)
+
+
+def time_int8_project(torch, quant, M: int, D: int, F: int, gen) -> dict:
+    """`int8_project` on (M, D) bf16 activations and an (F, D) weight: the
+    int32 accumulators of `torch._int_mm` against the plain version's (fp64
+    on the card) and the outputs against the plain path's, both exactly;
+    the time of each piece (the activation quantize pass, `_int_mm`, the
+    rescale) beside `F.linear` in bf16 and the bound (bytes over the memory
+    rate, or 2·M·D·F operations over the dense int8 peak)."""
+    import torch.nn.functional as Fn
+
+    x = (torch.randn((M, D), generator=gen, device="cuda")).to(torch.bfloat16)
+    w = (0.02 * torch.randn((F, D), generator=gen, device="cuda")).to(torch.bfloat16)
+    qw = quant.quantize_weight(w)
+    qx, sx = quant.quantize_activations(x)
+    acc = quant.int8_matmul(qx, qw["q"])
+    want = quant.int8_matmul_reference(qx, qw["q"])
+    assert torch.equal(acc, want), f"int8 {M}x{D}x{F}: _int_mm differs from the plain version"
+    got = quant.int8_project(x, qw)
+    plain = (want.float() * sx * qw["s"].reshape(1, -1)).to(torch.bfloat16)
+    assert torch.equal(got, plain), f"int8 {M}x{D}x{F}: output differs from the plain path"
+    del want, plain
+    s_row = qw["s"].reshape(1, -1)
+    ms = {"quantize_ms": cuda_ms(torch, lambda: quant.quantize_activations(x)),
+          "int_mm_ms": cuda_ms(torch, lambda: quant.int8_matmul(qx, qw["q"])),
+          "rescale_ms": cuda_ms(torch, lambda: (acc.float() * sx * s_row).to(torch.bfloat16)),
+          "ms": cuda_ms(torch, lambda: quant.int8_project(x, qw)),
+          "plain_ms": cuda_ms(torch, lambda: quant.int8_matmul_reference(qx, qw["q"]), iters=3),
+          "library_ms": cuda_ms(torch, lambda: Fn.linear(x, w))}
+    nbytes = 2 * M * D + F * D + 4 * F + 2 * M * F   # x bf16, W int8, scales, y bf16
+    ms["bound_ms"], ms["bound_by"] = bound(nbytes, 2.0 * M * D * F, "int8")
+    return ms
+
+
+def int8_encode(torch, model, cfg, tok, texts, bf16_docs, bf16_s, label, card) -> dict:
+    """The encode slice again with `EmbeddingEngine(quantize="int8")`: emb/s,
+    peak memory, one batch of 64 at T=300 profiled, the cosine of each int8
+    embedding to its bf16 one, and the overlap of the two top-10 lists of a
+    search of the texts as queries over the texts (K5)."""
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.index import DenseIndex
+    from sgpt_tpu_torch.ops import quant
+    from sgpt_tpu_torch.ops import short_attention as sa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = EmbeddingEngine(model, cfg, tok, device="cuda", specb=True, max_seq_len=300,
+                             batch_size=64, normalize_embeddings=True, quantize="int8")
+    engine.warmup()
+    torch.cuda.synchronize()
+    quant.launches = sa.launches = 0
+    t0 = time.perf_counter()
+    docs = engine.encode(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, k1 = quant.launches, sa.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    projections = 4 + 2
+    batches = launches // (projections * cfg.num_layers)
+    assert launches == projections * cfg.num_layers * batches > 0, launches
+    assert k1 == cfg.num_layers * batches, (k1, batches)
+    assert docs.shape == bf16_docs.shape and np.isfinite(docs).all()
+    cos = cosine(docs, bf16_docs)
+    longest = np.argsort([len(t) for t in texts], kind="stable")[-64:]
+    prof = profile_batch(torch, engine, [texts[i] for i in longest],
+                         f"{label} int8 encode profile, one batch of 64 at T=300",
+                         {"K1": K1_KEYS, "GEMM": GEMM_KEYS})
+    del engine
+    lists = []
+    for emb in (bf16_docs, docs):   # the texts as queries over the texts
+        index = DenseIndex(cfg.hidden_size, kernel="pallas", device="cuda")
+        index.add(emb, ids=[str(i) for i in range(len(emb))])
+        index.build()
+        lists.append(index.search_embeddings(emb, k=10)[1])
+    overlap = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(*lists)]))
+    out = {"emb_per_s": len(texts) / wall, "bf16_emb_per_s": len(texts) / bf16_s,
+           "peak_gib": peak, "cos_mean": float(cos.mean()), "cos_min": float(cos.min()),
+           "top10_overlap": overlap, "int_mm_launches": launches, "k1_launches": k1, **prof}
+    log(f"{label} int8 encode: {out['emb_per_s']:.1f} emb/s (bf16 {out['bf16_emb_per_s']:.1f}), "
+        f"peak {peak:.2f} GiB, _int_mm launches {launches} = {projections} x {cfg.num_layers} "
+        f"x {batches} batches, K1 {k1}; cosine to bf16 mean "
+        f"{cos.mean():.6f} min {cos.min():.6f} (floor {INT8_COS_MIN}); top-10 overlap with "
+        f"bf16 {overlap:.4f} ({card})")
+    assert cos.min() >= INT8_COS_MIN, cos.min()
+    return out
+
+
+def phase_int8(torch, model, cfg, tok, texts, docs, doc_s, gen, card) -> dict:
+    """int8_project at GPT-J's shapes (exact against the plain version, times
+    beside F.linear and the bound); GPT-Neo-125M's encode with
+    quantize="int8" against bf16; `cli.beir_retriever --quantize int8`."""
+    from sgpt_tpu_torch.ops import quant
+
+    shapes = {}
+    for D, F in INT8_SHAPES:
+        t = time_int8_project(torch, quant, INT8_ROWS, D, F, gen)
+        shapes[f"{D}x{F}"] = t
+        log(f"int8_project M={INT8_ROWS} {D}->{F}: equal to the plain version (int32 and "
+            f"output); {t['ms']:.4f} ms = quantize {t['quantize_ms']:.4f} + _int_mm "
+            f"{t['int_mm_ms']:.4f} + rescale {t['rescale_ms']:.4f}; F.linear bf16 "
+            f"{t['library_ms']:.4f} ms; plain (fp64) {t['plain_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({card})")
+    out = {"int8_project": shapes}
+    short = time_int8_project(torch, quant, 5, 768, 3072, gen)   # padded to 17 rows
+    log(f"int8_project M=5 768->3072 (padded to 17 rows): equal; {short['ms']:.4f} ms")
+    out["neo"] = int8_encode(torch, model, cfg, tok, texts, docs, doc_s, "neo", card)
+    out["beir_int8_ndcg10"] = phase_beir(np.random.default_rng(SEED + 14), card,
+                                         ["--quantize", "int8"])
+    return out
+
+
+IVF_CENTERS, IVF_SPREAD = 4096, 0.75
+IVF_NPROBES = (8, 32, 64)
+
+
+def ivf_corpus(torch, gen, n: int, d: int, nq: int):
+    """A Gaussian mixture drawn on the card: IVF_CENTERS unit centres, noise of
+    norm ~IVF_SPREAD (σ = spread/√d), rows normalised; nq queries are
+    documents of the first chunk plus N(0, 0.02²) noise. Yields fp32 host
+    chunks of 2^20 rows and keeps the normalised rows in bf16 on the card
+    (the exact oracle's corpus)."""
+    mu = torch.randn((IVF_CENTERS, d), generator=gen, device="cuda")
+    mu /= mu.norm(dim=1, keepdim=True)
+    rows = torch.empty((n, d), dtype=torch.bfloat16, device="cuda")
+    chunks, queries = [], None
+    for s in range(0, n, 1 << 20):
+        m = min(1 << 20, n - s)
+        a = torch.randint(0, IVF_CENTERS, (m,), generator=gen, device="cuda")
+        x = mu[a] + (IVF_SPREAD / d ** 0.5) * torch.randn((m, d), generator=gen, device="cuda")
+        x /= x.norm(dim=1, keepdim=True)
+        if queries is None:
+            pick = torch.randint(0, m, (nq,), generator=gen, device="cuda")
+            queries = x[pick] + 0.02 * torch.randn((nq, d), generator=gen, device="cuda")
+        rows[s:s + m] = x.to(torch.bfloat16)
+        chunks.append(x.cpu().numpy())
+        del x, a
+    return rows, chunks, queries.cpu().numpy()
+
+
+def p50_ms(fn, reps: int) -> float:
+    fn()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        lat.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(lat))
+
+
+def phase_ivf(torch, mips, gen, corpus, card) -> dict:
+    """The IVF index at NQ's corpus size, int8 storage, auto-K: build
+    seconds, K, overflow share; recall@10 against K5's exact top-10 of the
+    same rows (bf16) and against the exact scan of the index's own int8
+    rows, and p50 of search_embeddings at Q=1 and Q=64 for each nprobe,
+    beside K5's exact search; a save/load round trip bit for bit;
+    then `cli.serve --index ivf --quantize int8 --quantize-index int8` over
+    HTTP on the serve phase's corpus."""
+    import os
+    import tempfile
+
+    from sgpt_tpu_torch.index import DenseIndex
+    from sgpt_tpu_torch.index_ivf import IVFIndex
+    from sgpt_tpu_torch.ops.pooling import normalize
+
+    d, nq = 768, 64
+    t0 = time.perf_counter()
+    rows, chunks, q = ivf_corpus(torch, gen, NQ_ROWS, d, nq)
+    gen_s = time.perf_counter() - t0
+    index = IVFIndex(d, quantize="int8", device="cuda")
+    t0 = time.perf_counter()
+    for s, c in enumerate(chunks):
+        index.add(c, ids=[str(i) for i in range(s << 20, (s << 20) + len(c))])
+    add_s = time.perf_counter() - t0
+    del chunks
+    t0 = time.perf_counter()
+    index.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    K, ov = index.selected_k, index._overflow_count / len(index)
+    c_pad = int(index._blocks.shape[1])
+    log(f"ivf: {NQ_ROWS} x {d} mixture rows ({IVF_CENTERS} centres, spread {IVF_SPREAD}) drawn "
+        f"in {gen_s:.1f} s; add (host: normalise, int8) {add_s:.1f} s; build {build_s:.1f} s: "
+        f"auto K {K}, C_pad {c_pad}, overflow {index._overflow_count} rows "
+        f"({100 * ov:.2f} %) ({card})")
+    assert len(index) == NQ_ROWS and K >= 8
+    qd = normalize(torch.from_numpy(q).to("cuda", torch.bfloat16))
+    mips.launches = 0
+    exact_ids = mips.mips_topk(qd, rows, NQ_ROWS, 10)[1].cpu().numpy()
+    # the exact scan of the index's own int8 rows (block-max, the exact index's scan)
+    int8_rows, int8_scales = index._rebuild_host_rows()
+    exact8 = DenseIndex(d, quantize="int8", device="cuda")
+    exact8._chunks, exact8._scale_chunks = [int8_rows], [int8_scales]
+    exact8._ids, exact8._count = list(index._ids), NQ_ROWS
+    exact8.build()
+    del int8_rows, int8_scales
+    exact8_ids = exact8.search_embeddings(q, k=10)[1]
+    del exact8
+    k5_ms = {1: p50_ms(lambda: mips.mips_topk(qd[:1], rows, NQ_ROWS, 10)[1].cpu(), 10),
+             nq: p50_ms(lambda: mips.mips_topk(qd, rows, NQ_ROWS, 10)[1].cpu(), 10)}
+    oracle_launches = mips.launches
+    out = {"build_s": build_s, "add_s": add_s, "k": K, "c_pad": c_pad, "overflow_share": ov,
+           "k5_exact_ms_q1": k5_ms[1], "k5_exact_ms_q64": k5_ms[nq],
+           "oracle_k5_launches": oracle_launches}
+    for nprobe in IVF_NPROBES:
+        _, hits = index.search_embeddings(q, k=10, nprobe=nprobe)
+        recall = float(np.mean([len({int(i) for i in h} & set(e.tolist())) / 10
+                                for h, e in zip(hits, exact_ids)]))
+        recall8 = float(np.mean([len(set(h) & set(e)) / 10 for h, e in zip(hits, exact8_ids)]))
+        ms1 = p50_ms(lambda: index.search_embeddings(q[:1], k=10, nprobe=nprobe), 20)
+        ms64 = p50_ms(lambda: index.search_embeddings(q, k=10, nprobe=nprobe), 10)
+        out[f"nprobe{nprobe}"] = {"recall10": recall, "recall10_int8_exact": recall8,
+                                  "p50_ms_q1": ms1, "p50_ms_q64": ms64}
+        log(f"ivf nprobe {nprobe}: recall@10 {recall:.4f} against K5's exact top-10 of the bf16 "
+            f"rows, {recall8:.4f} against the exact scan of the index's own int8 rows; "
+            f"search_embeddings p50 {ms1:.3f} ms at Q=1, {ms64:.3f} ms at Q=64 (host clock); "
+            f"K5 exact {k5_ms[1]:.3f} / {k5_ms[nq]:.3f} ms ({card})")
+    assert out["nprobe32"]["recall10"] >= 0.9, out["nprobe32"]
+    del rows
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        t0 = time.perf_counter()
+        index.save(os.path.join(tmp, "ivf.npz"))
+        again = IVFIndex.load(os.path.join(tmp, "ivf.npz"), device="cuda")
+        rt_s = time.perf_counter() - t0
+        a_v, a_i = index.search_embeddings(q, k=10)
+        b_v, b_i = again.search_embeddings(q, k=10)
+        assert a_i == b_i and all(np.array_equal(x, y) for x, y in zip(a_v, b_v)), \
+            "ivf: the save/load round trip changed the results"
+        del again
+    log(f"ivf: save + load of the index in {rt_s:.1f} s; the same top-10 lists and scores "
+        f"bit for bit at Q=64")
+    out["save_load_s"] = rt_s
+    del index
+    torch.cuda.empty_cache()
+    out["serve"] = phase_ivf_serve(torch, corpus, card)
+    return out
+
+
+def phase_ivf_serve(torch, corpus, card) -> dict:
+    """`cli.serve --index ivf --quantize int8 --quantize-index int8` (full-width
+    GPT-Neo-125M, random weights) on the serve phase's 4,096 documents
+    (--corpus), POST /search from 8 threads: p50, p99; the answers equal a
+    direct search_embeddings of the same queries."""
+    import http.client
+    import os
+    import tempfile
+    import threading
+
+    from sgpt_tpu_torch.cli import serve as serve_cli
+    from sgpt_tpu_torch.index_ivf import IVFIndex
+    from sgpt_tpu_torch.ops import quant
+    from sgpt_tpu_torch.ops import short_attention as sa
+
+    def post(addr, path, payload):
+        conn = http.client.HTTPConnection(*addr, timeout=120)
+        try:
+            conn.request("POST", path, json.dumps(payload), {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read().decode())
+        finally:
+            conn.close()
+
+    ids = list(corpus)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        path = os.path.join(tmp, "corpus.jsonl")
+        with open(path, "w") as f:
+            for i in ids:
+                f.write(json.dumps({"_id": i, **corpus[i]}) + "\n")
+        t0 = time.perf_counter()
+        server, service = serve_cli.build_server(serve_cli.parse_args([
+            "--modelname", "125m", "--randominit", "--device", "cuda", "--port", "0",
+            "--index", "ivf", "--quantize", "int8", "--quantize-index", "int8",
+            "--corpus", path]))
+        start_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        index = service.index
+        assert isinstance(index, IVFIndex) and index.quantize == "int8"
+        assert quant.is_quantized_model(service.engine.model)
+        addr = server.server_address[:2]
+        texts = [(corpus[i]["title"] + " " + corpus[i]["text"]).strip() for i in ids]
+        queries = [" ".join(t.split()[:8]) for t in texts[::len(texts) // 64]][:64]
+        lat, answers, errors = {}, {}, []
+
+        def client(t):
+            try:
+                for j in range(8):
+                    n = t * 8 + j
+                    t1 = time.perf_counter()
+                    status, body = post(addr, "/search", {"queries": [queries[n]], "k": 10})
+                    lat[n] = time.perf_counter() - t1
+                    assert status == 200, body
+                    answers[n] = body["results"][0]
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        quant.launches = sa.launches = 0
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        assert not errors, errors
+        launches, k1 = quant.launches, sa.launches
+        vals, want = index.search_embeddings(service.engine.encode(queries, is_query=True), k=10)
+        for n in range(len(queries)):
+            assert [h["id"] for h in answers[n]] == want[n], n
+            np.testing.assert_allclose([h["score"] for h in answers[n]], vals[n], rtol=0,
+                                       atol=1e-6)
+        ms = 1e3 * np.array([lat[n] for n in range(len(queries))])
+        out = {"p50_ms": float(np.median(ms)), "p99_ms": float(np.percentile(ms, 99)),
+               "qps": len(queries) / wall, "start_s": start_s, "k": index.selected_k,
+               "int_mm_launches": launches, "k1_launches": k1}
+        log(f"ivf serve: --index ivf --quantize int8 --quantize-index int8, {len(ids)} docs "
+            f"(auto K {index.selected_k}, nprobe {index.nprobe}), started in {start_s:.1f} s; "
+            f"{len(queries)} POST /search from 8 threads: p50 {out['p50_ms']:.2f} ms, p99 "
+            f"{out['p99_ms']:.2f} ms, {out['qps']:.1f} queries/s; _int_mm launches {launches}, "
+            f"K1 {k1}; answers equal a direct search_embeddings ({card})")
+        assert launches > 0 and k1 > 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=10)
+    return out
+
+
 def ptxas_lines(log_text: str, *names: str) -> dict:
     """Registers and spills that ptxas reported for the kernels whose mangled
     names hold each of `names` (e.g. "mma_kernelILi256ELb0"), from build.log."""
@@ -4150,6 +4580,12 @@ def main() -> int:
     phase("serve")
     serve = phase_serve(torch, mips, engine, corpus)
 
+    # int8 inference, and the IVF index
+    phase("int8")
+    int8 = phase_int8(torch, model, cfg, tok, texts, docs, doc_s, gen, card)
+    phase("ivf")
+    ivf = phase_ivf(torch, mips, gen, corpus, card)
+
     # 13. the long-context slice (flash engine), on the weights of phase 4
     phase("long")
     long = phase_long(torch, fa, sa, mips, model, tok, np.random.default_rng(SEED + 2), card)
@@ -4214,6 +4650,29 @@ def main() -> int:
         f"{ltrain['ms_per_step_highest']:.1f} ms/step, {ltrain['seq_per_s_highest']:.2f} seq/s; "
         f"batch 16, max_seq_len 2048, use_flash, GradCache chunk 8 ({card})")
 
+    for shape, t in int8["int8_project"].items():
+        log(f"int8_project M={INT8_ROWS} {shape}: {t['ms']:.4f} ms (quantize "
+            f"{t['quantize_ms']:.4f}, _int_mm {t['int_mm_ms']:.4f}, rescale "
+            f"{t['rescale_ms']:.4f}); F.linear bf16 {t['library_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({card})")
+    fam_int8 = families["gptj"]["int8"]
+    for label, r in (("GPT-Neo-125M", int8["neo"]), ("GPT-J-6B", fam_int8)):
+        log(f"int8 encode {label}: {r['emb_per_s']:.1f} emb/s against bf16 "
+            f"{r['bf16_emb_per_s']:.1f}; cosine mean {r['cos_mean']:.6f} min {r['cos_min']:.6f}; "
+            f"top-10 overlap {r['top10_overlap']:.4f}; peak {r['peak_gib']:.2f} GiB ({card})")
+    log(f"int8 ce GPT-J-6B: {fam_int8['ce_pairs_per_s']:.1f} pairs/s against bf16 "
+        f"{families['gptj']['ce_pairs_per_s']:.1f}; Spearman per query "
+        f"{fam_int8['ce_spearman_vs_bf16']} ({card})")
+    for nprobe in IVF_NPROBES:
+        r = ivf[f"nprobe{nprobe}"]
+        log(f"ivf NQ-size int8, K {ivf['k']}, nprobe {nprobe}: recall@10 {r['recall10']:.4f}, "
+            f"p50 {r['p50_ms_q1']:.3f} ms at Q=1, {r['p50_ms_q64']:.3f} ms at Q=64; K5 exact "
+            f"{ivf['k5_exact_ms_q1']:.3f} / {ivf['k5_exact_ms_q64']:.3f} ms ({card})")
+    log(f"ivf serve: /search p50 {ivf['serve']['p50_ms']:.2f} ms, p99 "
+        f"{ivf['serve']['p99_ms']:.2f} ms ({card})")
+    int8_k1 = (int8["neo"]["k1_launches"] + fam_int8["k1_launches"]
+               + fam_int8["ce_k1_launches"] + ivf["serve"]["k1_launches"])
+
     def parent_ms(cell):  # the parent build's time in the A/B phase (--parent), else None
         return ab[cell]["parent_ms"] if cell in ab else None
 
@@ -4256,7 +4715,8 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
-                     + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"]),
+                     + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1),
+        "launches_int8": int8_k1, "int8": int8,
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
         "launches_nli": nli["k1"], "launches_useb": useb_res["k1"],
         "launches_families_train_gptj_nli": fam_train["gptj"]["nli"]["k1"],
@@ -4335,7 +4795,9 @@ def main() -> int:
         "name": "mips_topk", "route": "cuda", "source": "sgpt_tpu_torch/csrc/mips.cu",
         "replaces": "sgpt_tpu/ops/pallas/mips.py:44",
         "launches": (search["k5_launches"] + serve["k5_launches"]
-                     + sum(f["k5_launches"] for f in families.values())),
+                     + sum(f["k5_launches"] for f in families.values())
+                     + ivf["oracle_k5_launches"]),
+        "launches_ivf_oracle": ivf["oracle_k5_launches"], "ivf": ivf,
         "launches_search": search["k5_launches"], "launches_serve": serve["k5_launches"],
         "launches_families": {k: f["k5_launches"] for k, f in families.items()},
         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],

@@ -17,11 +17,15 @@ package so each counterpart is easy to find:
     ops.pooling          every pooler of the JAX package (single-layer, all-layer,
                          learnt weights), normalize
     ops.similarity       dot / cosine scores in fp32
+    ops.quant            int8 inference: per-channel int8 weights, per-token
+                         int8 activations, torch._int_mm on the card
     encoder              EmbeddingEngine: tokenize, bucket, forward, [layer
                          selection], [dense heads], pool
     model                SGPTModel / AsymModel: the embedding pipeline, save/load
     index                DenseIndex (exact; pending adds, tombstones, int8,
                          save/load in the JAX format), index_corpus
+    index_ivf            IVFIndex (balanced IVF, auto-K, overflow slab, int8,
+                         save/load in the JAX format)
     retrieval            DenseRetriever: BEIR-shaped exact search
     serving              MicroBatcher, SearchService, the HTTP server
     crossencoder         SGPT-CE: CrossEncoderRanker, YesNoRanker, rerank

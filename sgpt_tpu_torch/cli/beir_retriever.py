@@ -13,9 +13,11 @@ sweeps of the reference:
     for L in 0 4 8 12; do python -m sgpt_tpu_torch.cli.beir_retriever \
         --dataset scifact --layeridx $L --randominit --overwrite; done
 
-Not ported yet, and raising: `--quantize` (item 9).
-`--modelname` is a preset with `--randominit` (GPT-Neo; "6b"/"5.8b"/"6.1b":
-GPT-J-6B; "bloom": BLOOM-1b7) or a local HF checkpoint directory.
+`--quantize int8` quantizes the decoder's projections in place after
+loading (`quantize_decoder_params(free_source=True)`: a 6B model never
+holds both copies). `--modelname` is a preset with `--randominit`
+(GPT-Neo; "6b"/"5.8b"/"6.1b": GPT-J-6B; "bloom": BLOOM-1b7) or a local HF
+checkpoint directory.
 `--download` fetches the dataset only when passed.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ import json
 import logging
 import os
 
+from ..ops.quant import quantize_decoder_params
 from .common import build_model, setup_logging
 
 logger = logging.getLogger(__name__)
@@ -53,7 +56,7 @@ def parse_args(argv=None):
                    help="random weights (smoke/debug; reference --reinit)")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="int8 decoder projections (not ported yet: ROADMAP Queue 1 item 9)")
+                   help="int8 decoder projections (quantized in place after loading)")
     p.add_argument("--topk", type=int, default=1000)
     p.add_argument("--expect-ndcg", type=float, default=None, dest="expect_ndcg",
                    help="assert nDCG@10 >= this value minus --ndcg-tol (exit 1 otherwise)")
@@ -67,9 +70,6 @@ def parse_args(argv=None):
 def main(args=None):
     setup_logging()
     args = args or parse_args()
-    if args.quantize:
-        raise NotImplementedError("--quantize: int8 inference is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
 
     from ..evaluation.aggregate import ResultsStore
     store = ResultsStore()
@@ -104,6 +104,8 @@ def main(args=None):
             logger.error("score-parity UNAVAILABLE: cannot build %s (%r)", args.modelname, e)
             raise SystemExit(3) from e
         raise
+    if args.quantize:
+        model = quantize_decoder_params(model, free_source=True)
     engine = EmbeddingEngine(
         model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
         layeridx=args.layeridx, max_seq_len=args.maxseqlen, batch_size=args.batchsize,

@@ -2,16 +2,18 @@
 card (counterpart of `sgpt_tpu/cli/serve.py`).
 
     python -m sgpt_tpu_torch.cli.serve --modelname gpt-neo-125m --randominit \\
-        --device cuda --port 8080 --corpus corpus.jsonl --quantize-index int8
+        --device cuda --port 8080 --corpus corpus.jsonl --quantize-index int8 \\
+        [--index ivf --clusters auto --nprobe 32] [--quantize int8]
 
 The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
-plus `--device`. Not ported yet, and raising: `--index ivf` (item 13),
-`--quantize` (item 9). `--modelname` is a preset with
-`--randominit` (GPT-Neo, GPT-J-6B, BLOOM-1b7) or a local HF checkpoint
-directory. The exact index searches with the block-max scan;
-`--quantize-index int8` stores the corpus in int8. `--rerank` enables POST
-/rerank: the SGPT-CE ranker (`ce_prompts.build_ranker`) on the encoder's
-model, or with `--rerank-model` on a second model.
+plus `--device`. `--modelname` is a preset with `--randominit` (GPT-Neo,
+GPT-J-6B, BLOOM-1b7) or a local HF checkpoint directory. `--index exact`
+searches with the block-max scan, `--index ivf` with the balanced IVF index
+(`index_ivf.IVFIndex`: `--clusters`, `--nprobe`); `--quantize-index int8`
+stores the corpus in int8, `--quantize int8` runs the encoder's (and the
+ranker's) decoder projections in int8. `--rerank` enables POST /rerank: the
+SGPT-CE ranker (`ce_prompts.build_ranker`) on the encoder's model, or with
+`--rerank-model` on a second model.
 
 corpus.jsonl rows: {"_id": ..., "title": ..., "text": ...} (BEIR shape) or
 {"id": ..., "text": ...}; omit --corpus to start empty and POST /documents.
@@ -67,12 +69,11 @@ def parse_args(argv=None):
     ap.add_argument("--maxseqlen", type=int, default=300)
     ap.add_argument("--batchsize", type=int, default=64)
     ap.add_argument("--quantize", choices=["int8"], default=None,
-                    help="int8 model weights (not ported yet: ROADMAP Queue 1 item 9)")
+                    help="int8 decoder projections for the encoder and the ranker")
     ap.add_argument("--quantize-index", choices=["int8"], default=None,
                     help="int8 corpus storage")
     ap.add_argument("--index", choices=["exact", "ivf"], default="exact",
-                    help="exact scan, or balanced-IVF ANN (not ported yet: "
-                    "ROADMAP Queue 1 item 13)")
+                    help="exact scan, or balanced-IVF ANN")
     ap.add_argument("--clusters", default="auto",
                     type=lambda s: s if s == "auto" else int(s),
                     help="IVF cluster count, or 'auto' (with --index ivf)")
@@ -109,42 +110,40 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to encode and search on: cuda (the kernels) "
                     "or cpu (their plain versions)")
-    args = ap.parse_args(argv)
-    if args.index == "ivf":
-        raise NotImplementedError("--index ivf: IVFIndex is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
-    if args.quantize:
-        raise NotImplementedError("--quantize: int8 inference is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
-    return args
+    return ap.parse_args(argv)
 
 
 def build_server(args):
     """(server, service) from parsed flags: the model and engine on
     --device, the ranker with --rerank or --rerank-model, the index (loaded
-    from --index-path, or filled from --corpus), encode and search warmed
-    unless --no-warmup; the caller runs serve_forever()."""
+    from --index-path, or an empty --index one filled from --corpus), encode
+    and search warmed unless --no-warmup; the caller runs serve_forever()."""
     from ..encoder import EmbeddingEngine
     from ..index import DenseIndex
+    from ..index_ivf import IVFIndex
     from ..serving import SearchService, make_server
 
     model, cfg, tokenizer = build_model(args.modelname, random_init=args.randominit,
                                         dtype_str="bfloat16", device=args.device)
     engine = EmbeddingEngine(
         model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
-        max_seq_len=args.maxseqlen, batch_size=args.batchsize, normalize_embeddings=True)
+        max_seq_len=args.maxseqlen, batch_size=args.batchsize, normalize_embeddings=True,
+        quantize=args.quantize)
     ranker = None
     if args.rerank or args.rerank_model:
         from ..ce_prompts import build_ranker
+        ce_quantize = None
         if args.rerank_model:
             ce_model, ce_cfg, ce_tok = build_model(args.rerank_model,
                                                    random_init=args.randominit,
                                                    dtype_str="bfloat16", device=args.device)
-        else:  # the encoder's model: no second copy of the weights
-            ce_model, ce_cfg, ce_tok = model, cfg, tokenizer
+            ce_quantize = args.quantize
+        else:  # the encoder's (int8 with --quantize) model: no second copy of the weights
+            ce_model, ce_cfg, ce_tok = engine.model, cfg, tokenizer
         ranker = build_ranker(args.rerank_prompt, ce_model, ce_cfg, ce_tok,
                               device=args.device, batch_size=args.batchsize,
-                              max_length=args.rerank_maxlen, pack_t=args.rerank_pack_t)
+                              max_length=args.rerank_maxlen, pack_t=args.rerank_pack_t,
+                              quantize=ce_quantize)
 
     loaded = False
     if args.index_path and os.path.exists(os.path.join(args.index_path, "index.npz")):
@@ -157,8 +156,13 @@ def build_server(args):
                                 max_wait_ms=args.max_wait_ms, ranker=ranker)
         loaded = True
     else:
-        index = DenseIndex(engine.out_dim, normalize_embeddings=True,
-                           quantize=args.quantize_index, device=engine.device)
+        if args.index == "ivf":
+            index = IVFIndex(engine.out_dim, n_clusters=args.clusters, nprobe=args.nprobe,
+                             normalize_embeddings=True, quantize=args.quantize_index,
+                             device=engine.device)
+        else:
+            index = DenseIndex(engine.out_dim, normalize_embeddings=True,
+                               quantize=args.quantize_index, device=engine.device)
         service = SearchService(engine, index, max_wait_ms=args.max_wait_ms, ranker=ranker)
 
     if args.corpus and not loaded:

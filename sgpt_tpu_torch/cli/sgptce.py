@@ -10,8 +10,9 @@ log-prob scoring, and evaluates both:
 The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
 plus `--device`. Writes the same per-prompt result json
 (`./sgptce_<dataset>_prompt<id>.json` unless `--output`) and the
-cross-dataset `--scores-out` entries. Not ported yet, and raising:
-`--quantize` (item 9). `--modelpath` is a preset with `--randominit`
+cross-dataset `--scores-out` entries. `--quantize int8` quantizes the
+decoder's projections in place after loading (`free_source=True`).
+`--modelpath` is a preset with `--randominit`
 (GPT-Neo, GPT-J-6B, BLOOM-1b7) or a local HF checkpoint directory.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ import json
 import logging
 import os
 
+from ..ops.quant import quantize_decoder_params
 from .common import build_model, setup_logging
 
 logger = logging.getLogger(__name__)
@@ -51,7 +53,7 @@ def parse_args(argv=None):
     p.add_argument("--randominit", action="store_true")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="int8 decoder projections (not ported yet: ROADMAP Queue 1 item 9)")
+                   help="int8 decoder projections (quantized in place after loading)")
     p.add_argument("--packt", type=int, default=None,
                    help="sequence packing: (doc, query) pairs shorter than "
                         "packt/2 tokens bin-pack several to a row with "
@@ -71,9 +73,6 @@ def parse_args(argv=None):
 def main(args=None):
     setup_logging()
     args = args or parse_args()
-    if args.quantize:
-        raise NotImplementedError("--quantize: int8 inference is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
 
     from ..ce_prompts import ALL_PROMPT_IDS, FEW_SHOT, build_ranker, select_fewshot
     from ..crossencoder import rerank
@@ -99,6 +98,8 @@ def main(args=None):
 
     model, cfg, tokenizer = build_model(args.modelpath, random_init=args.randominit,
                                         dtype_str=args.dtype, device=args.device)
+    if args.quantize:
+        model = quantize_decoder_params(model, free_source=True)
     fewshots = None
     if args.fewshot:
         fewshots = select_fewshot(corpus, queries, qrels, tokenizer,

@@ -11,9 +11,10 @@ the all-layer `meanmean` and `lasttokenmean` included) and the layer
         --modelname 125m --randominit --method weightedmean --layeridx 6
 
 The JAX CLI's flags plus `--device`. Writes the same JSON to `--output`:
-{"detailed", "main", "model", "method", "layeridx"}. `--quantize` (int8,
-ROADMAP Queue 1 item 9) raises, and so does `--download`: the port copies
-no download helper for USEB and fetches nothing.
+{"detailed", "main", "model", "method", "layeridx"}. `--quantize int8`
+quantizes the decoder's projections in place after loading
+(`free_source=True`). `--download` raises: the port copies no download
+helper for USEB and fetches nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import argparse
 import json
 import logging
 
+from ..ops.quant import quantize_decoder_params
 from .common import build_model, setup_logging
 
 logger = logging.getLogger(__name__)
@@ -46,7 +48,7 @@ def parse_args(argv=None):
     p.add_argument("--randominit", action="store_true")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="int8 decoder projections (not ported yet: ROADMAP Queue 1 item 9)")
+                   help="int8 decoder projections (quantized in place after loading)")
     p.add_argument("--output", default="./useb_results.json")
     p.add_argument("--device", default="cuda",
                    help="torch device to encode on: cuda (the kernels) or cpu (their plain "
@@ -58,9 +60,6 @@ def main(args=None):
     """Returns (detailed results, main scores)."""
     setup_logging()
     args = args or parse_args()
-    if args.quantize:
-        raise NotImplementedError("--quantize: int8 inference is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
     if args.download:
         raise NotImplementedError("--download: the port fetches no USEB data; point "
                                   "--datapath at a local copy of data-eval")
@@ -70,6 +69,8 @@ def main(args=None):
 
     model, cfg, tokenizer = build_model(args.modelname, random_init=args.randominit,
                                         dtype_str=args.dtype, device=args.device)
+    if args.quantize:
+        model = quantize_decoder_params(model, free_source=True)
     engine = EmbeddingEngine(model, cfg, tokenizer, device=args.device, method=args.method,
                              specb=args.specb, layeridx=args.layeridx,
                              max_seq_len=args.maxseqlen, batch_size=args.batchsize)

@@ -20,9 +20,10 @@ Same behaviour as the JAX rankers:
 The model is the port's `Decoder` on `device` (the card by default). Every
 row is built on the host and copied from pinned memory without a
 synchronise; each batch's scores are fetched one batch late (a depth-2
-pipeline), so the host packs batch i+1 while the card runs batch i. Not
-ported yet, and raising: `quantize=` (ROADMAP Queue 1 item 9) and `mesh=`
-(item 12).
+pipeline), so the host packs batch i+1 while the card runs batch i.
+`quantize="int8"` scores with int8 decoder projections (`ops/quant.py`) on a
+quantized copy of the model. Not ported yet, and raising: `mesh=` (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 from .models.config import DecoderConfig
 from .models.decoder import Decoder
 from .ops.logprobs import continuation_scores_gathered, continuation_scores_packed
+from .ops.quant import quantized_copy
 from .tokenization.base import Tokenizer
 from .tokenization.specb import DEFAULT_BUCKETS, pick_bucket, row_bucket
 
@@ -66,11 +68,11 @@ class CrossEncoderRanker:
                  quantize: Optional[str] = None, mesh=None,
                  pack_t: Optional[int] = None):
         """device: where the model runs, the card by default; "cuda" without
-        a card raises, and CPU use passes device="cpu". Every other argument
-        has the JAX ranker's meaning."""
-        if quantize is not None:
-            raise NotImplementedError("CrossEncoderRanker(quantize=): int8 inference is "
-                                      "not ported yet (ROADMAP Queue 1 item 9)")
+        a card raises, and CPU use passes device="cpu". quantize: "int8"
+        scores with int8 decoder projections on a quantized copy (the
+        caller's model stays float; for a model whose two copies do not fit,
+        pass one quantized with `free_source=True` and quantize=None). Every
+        other argument has the JAX ranker's meaning."""
         if mesh is not None:
             raise NotImplementedError("CrossEncoderRanker(mesh=): meshes are not ported "
                                       "yet (ROADMAP Queue 1 item 12)")
@@ -81,7 +83,8 @@ class CrossEncoderRanker:
             raise RuntimeError("CrossEncoderRanker: device 'cuda' requested but "
                                "torch.cuda.is_available() is False; pass device=\"cpu\"")
         self.device = device
-        self.model = model.to(device).eval()
+        self.model = quantized_copy(model.to(device), quantize).eval()
+        self.quantize = quantize
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.prompt_doc = prompt_doc

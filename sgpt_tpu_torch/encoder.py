@@ -11,9 +11,10 @@ layer sweeps) or over the stack of all layers (`meanmean`,
 trained position weights. Embeddings can be cached on disk under a key that
 fingerprints the weights, the heads and the encode settings.
 
-Not ported yet (ROADMAP Queue 1 items 5, 9, 11 and 12): dispatch chaining,
-the depth-2 fetch pipeline, meshes and int8 quantisation. Passing any of
-them raises `NotImplementedError`.
+`quantize="int8"` runs the decoder's projections in int8 (`ops/quant.py`)
+on a quantized copy of the model. Not ported yet (ROADMAP Queue 1 items 5,
+11 and 12): dispatch chaining, the depth-2 fetch pipeline and meshes.
+Passing any of them raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -30,12 +31,13 @@ from .models.config import DecoderConfig
 from .models.decoder import Decoder
 from .models.precision import matmul_precision
 from .ops.pooling import POOLERS, STACK_POOLERS, normalize, pool
+from .ops.quant import quantized_copy
 from .tokenization.base import Tokenizer
 from .tokenization.specb import SpecbCodec, pick_bucket, row_bucket
 
 logger = logging.getLogger(__name__)
 
-_LATER = ("mesh", "sp_mesh", "fused_attention", "quantize", "dispatch_chain")
+_LATER = ("mesh", "sp_mesh", "fused_attention", "dispatch_chain")
 
 # the dense heads' activations (the JAX engine's `_ACTIVATIONS`: GELU is
 # jax.nn.gelu's tanh approximation)
@@ -76,11 +78,18 @@ class EmbeddingEngine:
                  layeridx: int = -1, max_seq_len: Optional[int] = None,
                  batch_size: int = 32, normalize_embeddings: bool = False,
                  learned_weights=None, dense_heads: Optional[list] = None,
-                 cache_dir: Optional[str] = None, text_prefix: str = "", **later):
+                 cache_dir: Optional[str] = None, text_prefix: str = "",
+                 quantize: Optional[str] = None, **later):
         """device: where the model runs, the card by default; "cuda"
         without a card raises, and CPU use passes device="cpu".
         Every other argument has the JAX engine's meaning:
 
+        quantize: "int8" runs the decoder's projections as int8 weights ×
+        per-token int8 activations (`ops/quant.py`) on a quantized copy:
+        the caller's model stays float. For a model whose float and int8
+        copies do not fit the card together, quantize it first with
+        `quantize_decoder_params(model, free_source=True)` and pass that
+        with quantize=None (what the CLIs do).
         layeridx: the layer whose states are pooled (-1 or L: the final
         states after ln_f; 0 the embeddings). Any other value, and a stack
         pooler, runs the forward with `output_hidden_states` (every layer
@@ -98,7 +107,7 @@ class EmbeddingEngine:
         if later:
             raise NotImplementedError(
                 f"EmbeddingEngine: {sorted(later)} not ported yet (ROADMAP Queue 1 "
-                "items 5, 9, 11, 12)")
+                "items 5, 11, 12)")
         if method not in POOLERS and method not in STACK_POOLERS \
                 and method != "learned_weightedmean":
             raise ValueError(f"unknown pooling method {method!r}")
@@ -111,7 +120,8 @@ class EmbeddingEngine:
             raise RuntimeError("EmbeddingEngine: device 'cuda' requested but "
                                "torch.cuda.is_available() is False")
         self.device = device
-        self.model = model.to(device).eval()
+        self.model = quantized_copy(model.to(device), quantize).eval()
+        self.quantize = quantize
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.method = method

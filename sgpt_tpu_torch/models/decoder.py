@@ -10,7 +10,10 @@ BLOOM (ALiBi with BLOOM's slopes, a LayerNorm on the embeddings, q/k/v
 biases); pre-LN blocks (LayerNorm with fp32 statistics), tanh-GELU MLP,
 `ln_f`, `output_hidden_states` with HF semantics, and the LM head
 (`Decoder.logits`: `lm_head` when the weights have one, else tied to
-`wte`). Attention routes as the JAX decoder does: with `cfg.use_flash`,
+`wte`). A projection whose weight is int8 (`ops.quant.QuantizedWeight`,
+from `quantize_decoder_params` or int8 `weights`) goes through
+`int8_project`, as the JAX `_project` dispatches on a quantized leaf.
+Attention routes as the JAX decoder does: with `cfg.use_flash`,
 T % 128 == 0 and no packed rows (`segment_ids`), through
 `ops.flash_attention` (K3 on a CUDA tensor, and K4a/K4b for the backward
 when a gradient is needed); every other call through `ops.short_attention`
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.quant import QuantizedWeight, int8_project, is_quantized
 from ..ops.short_attention import short_attention
 from .config import DecoderConfig
 from .params import init_params, init_params_, param_shapes
@@ -122,6 +126,15 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.scale, self.bias, self.eps)
 
 
+def project(x: torch.Tensor, w, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """x @ wᵀ + b: `F.linear` for a float weight; for an int8 one
+    `int8_project`, then the bias in x's dtype (the JAX `_project`)."""
+    if is_quantized(w):
+        y = int8_project(x, w)
+        return y if b is None else y + b.to(x.dtype)
+    return F.linear(x, w, b)
+
+
 def _params(module: nn.Module, names, shapes: dict, prefix: str, factory: dict):
     for n in names:
         if prefix + n in shapes:
@@ -146,9 +159,9 @@ class Attention(nn.Module):
         self.use_flash = cfg.use_flash
 
     def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos):
-        q = F.linear(x, self.wq, self.bq)
-        k = F.linear(x, self.wk, self.bk)
-        v = F.linear(x, self.wv, self.bv)
+        q = project(x, self.wq, self.bq)
+        k = project(x, self.wk, self.bk)
+        v = project(x, self.wv, self.bv)
         B, T, HD = q.shape
         if rope is not None:
             q, k = (apply_rotary(t.view(B, T, self.H, HD // self.H), *rope,
@@ -166,7 +179,7 @@ class Attention(nn.Module):
         else:
             out = short_attention(q, k, v, key_mask, slopes, self.scale, window, self.H,
                                   alibi, segments=segment_ids, positions=kpos)
-        return F.linear(out, self.wo, self.bo)
+        return project(out, self.wo, self.bo)
 
 
 class MLP(nn.Module):
@@ -175,8 +188,8 @@ class MLP(nn.Module):
         _params(self, ("wi", "bi", "wo", "bo"), shapes, prefix + "mlp.", factory)
 
     def forward(self, x):
-        h = F.gelu(F.linear(x, self.wi, self.bi), approximate="tanh")
-        return F.linear(h, self.wo, self.bo)
+        h = F.gelu(project(x, self.wi, self.bi), approximate="tanh")
+        return project(h, self.wo, self.bo)
 
 
 class Block(nn.Module):
@@ -218,7 +231,9 @@ class Decoder(nn.Module):
 
       * `weights` (a state dict: `params_from_jax`, `hf_loader.load_pretrained`):
         those values, cast to `cfg.dtype`; a separate LM head when it holds
-        `lm_head.*`. No random draw.
+        `lm_head.*`; a projection given as `<name>.q` (int8, [out, in]) and
+        `<name>.s` (fp32 (out, 1)) becomes a `QuantizedWeight`. No random
+        draw.
       * else random, 0.02·N(0, 1) weights, LayerNorm scales 1, biases 0, with
         a separate LM head of the leaves `lm_head` names (("w",), ("w", "b"))
         or none (tied to `wte`):
@@ -258,6 +273,13 @@ class Decoder(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
         self.lm_head = Head(shapes, factory) if lm_head else None
         if weights is not None:
+            for name in [n[:-2] for n in weights if n.endswith(".q")]:
+                path, leaf = name.rsplit(".", 1)
+                owner = self.get_submodule(path)
+                delattr(owner, leaf)
+                setattr(owner, leaf, QuantizedWeight(
+                    torch.empty(shapes[name], dtype=torch.int8, device=device),
+                    torch.empty((shapes[name][0], 1), dtype=torch.float32, device=device)))
             self.load_state_dict(weights)
         elif generator is not None and generator.device.type != "cpu":
             if generator.device.type != device.type:

@@ -3,6 +3,8 @@
 Layout: one entry per layer (`layers.{i}.…`, no stacked layer axis) and
 linear weights in torch's [out, in] order. The JAX tree stacks layers on a
 leading axis and stores linear weights [in, out]; `params_from_jax` converts.
+An int8 projection (`ops/quant.py`) is two entries, `<name>.q` (int8, [out,
+in]) and `<name>.s` (fp32 scales, (out, 1)).
 """
 from __future__ import annotations
 
@@ -100,11 +102,9 @@ def init_params_(params: Dict[str, torch.Tensor], generator: torch.Generator) ->
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Leaf name → array; an int8 {"q", "s"} leaf gives `<name>.q` and `<name>.s`."""
     flat = {}
     for k, v in tree.items():
-        if isinstance(v, dict) and set(v) == {"q", "s"}:
-            raise NotImplementedError(
-                f"{prefix}{k}: int8-quantized leaf — ROADMAP Queue 1 item 9")
         if isinstance(v, dict):
             flat.update(_flatten(v, f"{prefix}{k}."))
         else:
@@ -125,9 +125,11 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
     Unstacks the leading layer axis of `layers.*` and transposes every linear
     weight from [in, out] to [out, in] (`lm_head.w` included: (D, V) → (V,
     D)). A separate LM head (`lm_head.w`, optionally `lm_head.b`) is kept.
-    Raises on a leaf it does not consume (e.g. another family's tensors), so
-    nothing is dropped silently, on a missing one, and on an int8 `{"q",
-    "s"}` leaf."""
+    A projection quantized by the JAX `quantize_decoder_params` ({"q": (L,
+    D, F) int8, "s": (L, 1, F)}) gives `<name>.q` (F, D) and `<name>.s` (F,
+    1) for each layer, which `Decoder(weights=...)` takes as int8. Raises on
+    a leaf it does not consume (e.g. another family's tensors), so nothing
+    is dropped silently, and on a missing one."""
     flat = _flatten(tree)
     head = tuple(leaf for leaf in ("w", "b") if f"lm_head.{leaf}" in flat)
     sd = {}
@@ -135,6 +137,14 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
         if name.startswith("layers."):
             _, i, rest = name.split(".", 2)
             src = "layers." + rest
+            if src + ".q" in flat and src + ".s" in flat:
+                q = _to_torch(flat[src + ".q"][int(i)])
+                if q.dim() != 2 or tuple(q.shape[::-1]) != shape:
+                    raise ValueError(f"{name}: int8 leaf of shape {tuple(q.shape)}, "
+                                     f"expected {shape[::-1]}")
+                sd[name + ".q"] = q.T.contiguous()
+                sd[name + ".s"] = _to_torch(flat[src + ".s"][int(i)]).float().T.contiguous()
+                continue
             if src not in flat:
                 raise KeyError(f"JAX tree has no leaf {src!r}")
             arr = _to_torch(flat[src][int(i)])

@@ -151,8 +151,9 @@ class SearchService:
 
     Wraps an `EmbeddingEngine` (queries and documents coalesce through
     separate micro-batchers — SPECB gives them different token streams) and a
-    `DenseIndex` whose pending-slab `add` keeps search exact between
-    rebuilds. `documents` retains id → text for `return_documents=True`.
+    `DenseIndex` or an `IVFIndex`, whose pending-slab `add` keeps new
+    documents searchable between rebuilds. `documents` retains id → text
+    for `return_documents=True`.
     """
 
     def __init__(self, engine, index: Optional[DenseIndex] = None, *,
@@ -375,14 +376,17 @@ class SearchService:
 
     @staticmethod
     def load_index(directory: str, *, mesh=None, **index_kw):
-        """(index, documents dict) from a save()d directory; index_kw (device,
-        kernel) go to `DenseIndex.load`. IVF indexes are not ported yet."""
+        """(index, documents dict) from a save()d directory. The index class
+        comes from the file's own metadata: `IVFIndex.load` for an IVF file,
+        else `DenseIndex.load`; index_kw (device; kernel for a dense index)
+        go to it."""
         path = os.path.join(directory, "index.npz")
         meta = json.loads(bytes(np.load(path)["meta"]))
         if meta.get("kind") == "ivf":
-            raise NotImplementedError(f"{path} holds an IVF index; IVFIndex is not "
-                                      "ported yet (ROADMAP Queue 1 item 13)")
-        index = DenseIndex.load(path, mesh=mesh, **index_kw)
+            from .index_ivf import IVFIndex
+            index = IVFIndex.load(path, mesh=mesh, **index_kw)
+        else:
+            index = DenseIndex.load(path, mesh=mesh, **index_kw)
         documents = {}
         doc_path = os.path.join(directory, "documents.jsonl")
         if os.path.exists(doc_path):

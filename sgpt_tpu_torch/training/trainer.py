@@ -53,6 +53,7 @@ from ..models.config import DecoderConfig
 from ..models.decoder import Decoder
 from ..models.precision import matmul_precision
 from ..ops.pooling import POOLERS
+from ..ops.quant import is_quantized_model
 from ..tokenization.base import Tokenizer
 from ..tokenization.specb import SpecbCodec
 from .bitfit import bitfit_mask
@@ -114,6 +115,9 @@ class ContrastiveTrainer:
                 f"{sorted(POOLERS)} or 'learned_weightedmean'")
         if model.cfg != cfg:
             raise ValueError("ContrastiveTrainer: cfg differs from the model's config")
+        if is_quantized_model(model):
+            raise ValueError("ContrastiveTrainer: the model has int8 projections; quantized "
+                             "models are for inference only, train the float model")
         self.model = model
         self.cfg = cfg
         self.tc = train_config

@@ -6,10 +6,11 @@ two write results files with the same documents per query, in the same
 order, scores within 1e-5, and equal nDCG/MAP/recall/precision entries in
 `beir_embeddings_ndcgs.json`, also with `--layeridx`. `bm25_retriever` writes the JAX CLI's
 first-stage json, and `sgptce` reranks it into the JAX CLI's result json
-(metrics within 1e-6; the CE scores agree to ~1e-6). `serve`: the flags
-that are not ported raise before anything is built; a server built from
-flags (int8 corpus, a jsonl corpus, a persisted index, `--rerank` and
-`--rerank-model`) answers over HTTP.
+(metrics within 1e-6; the CE scores agree to ~1e-6); `--quantize int8`
+in both. `serve`: the flags that are not ported raise before anything is
+built; a server built from flags (int8 corpus, a jsonl corpus, a persisted
+index, `--rerank` and `--rerank-model`, `--index ivf` with `--quantize
+int8`) answers over HTTP.
 """
 import http.client
 import json
@@ -40,7 +41,8 @@ JPARAMS = jax_init_params(JCFG, jax.random.key(0))
 
 
 def _jax_build(model_name, random_init=False, dtype_str="bfloat16"):
-    return JPARAMS, JCFG, SimpleTokenizer(vocab_size=JCFG.vocab_size)
+    # a fresh tree each call: `--quantize` quantizes it in place (free_source)
+    return jax.tree.map(lambda a: a, JPARAMS), JCFG, SimpleTokenizer(vocab_size=JCFG.vocab_size)
 
 
 def _port_build(model_name, random_init=False, dtype_str="float32", device="cpu", seed=0):
@@ -92,6 +94,16 @@ def _beir_parity(tmp_path, monkeypatch, extra=()):
     want = json.loads((tmp_path / "jax" / name).read_text())
     got = json.loads((tmp_path / "port" / name).read_text())
     assert list(got) == list(want)
+    if "--quantize" in extra:
+        # every document is returned (--topk 1000 > 40 documents); an int8
+        # activation that rounds the other way moves scores by up to the
+        # tolerance of tests/test_torch_quant.py (2e-2 on unit embeddings),
+        # so near-ties may swap places: scores compared by document
+        for qid in want:
+            assert set(got[qid]) == set(want[qid]), qid
+            np.testing.assert_allclose([got[qid][d] for d in want[qid]],
+                                       list(want[qid].values()), atol=2e-2)
+        return
     for qid in want:
         assert list(got[qid]) == list(want[qid]), qid
         np.testing.assert_allclose(list(got[qid].values()), list(want[qid].values()),
@@ -110,10 +122,18 @@ def test_beir_retriever_layeridx_matches_jax_cli(tmp_path, monkeypatch):
     _beir_parity(tmp_path, monkeypatch, ["--layeridx", "1"])
 
 
-@pytest.mark.parametrize("flags,match", [(["--quantize", "int8"], "item 9")])
-def test_beir_retriever_refuses_what_is_not_ported(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
+def test_beir_retriever_refuses_what_is_not_ported(flags):
+    """Meshes (ROADMAP Queue 1 item 12): the JAX CLI's mesh flags are not
+    flags of the port's."""
+    with pytest.raises(SystemExit):
         beir_retriever.main(beir_retriever.parse_args(["--randominit", *flags]))
+
+
+def test_beir_retriever_quantize_matches_jax_cli(tmp_path, monkeypatch):
+    """`--quantize int8` on both sides (each quantizes its freshly built
+    model in place): the same documents per query and scores within 1e-5."""
+    _beir_parity(tmp_path, monkeypatch, ["--quantize", "int8"])
 
 
 def _run_jax_cli(module, argv, cwd, monkeypatch):
@@ -139,7 +159,8 @@ def test_bm25_retriever_matches_jax_cli(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--prompt", "G"], ["--prompt", "A,L", "--packt", "64"],
-                                   ["--prompt", "K", "--fewshot"]])
+                                   ["--prompt", "K", "--fewshot"],
+                                   ["--prompt", "G", "--quantize", "int8"]])
 def test_sgptce_matches_jax_cli(tmp_path, monkeypatch, flags):
     """BM25 first stage, then the rerank on the same first-stage json."""
     _write_beir(tmp_path / "data" / "synth")
@@ -174,16 +195,16 @@ def test_sgptce_matches_jax_cli(tmp_path, monkeypatch, flags):
 
 @pytest.mark.parametrize("flags,exc", [(["--prompt", "G,nope"], SystemExit),
                                        (["--prompt", "J"], SystemExit),
-                                       (["--quantize", "int8"], NotImplementedError)])
+                                       (["--dp", "2"], SystemExit)])
 def test_sgptce_refuses_before_loading(flags, exc, tmp_path):
     with pytest.raises(exc):
         sgptce.main(sgptce.parse_args(["--datadir", str(tmp_path), "--randominit", *flags]))
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--index", "ivf"], "item 13"), (["--quantize", "int8"], "item 9")])
-def test_serve_refuses_what_is_not_ported(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
+def test_serve_refuses_what_is_not_ported(flags):
+    """Meshes (ROADMAP Queue 1 item 12): refused before anything is built."""
+    with pytest.raises(SystemExit):
         serve.main(["--modelname", "gpt-neo-125m", "--randominit", *flags])
 
 
@@ -276,3 +297,49 @@ def test_serve_rerank_answers(tmp_path, monkeypatch, rerank):
         server.shutdown()
         server.server_close()
         service.close()
+
+
+def test_serve_ivf_with_int8_model_from_flags(tmp_path, monkeypatch):
+    """--index ivf --quantize int8 --quantize-index int8: the engine runs an
+    int8 copy of the model, the corpus goes into an int8 IVF index, POST
+    /search answers what the index gives the engine's query embeddings
+    directly, and a second server loads the saved IVF index from
+    --index-path and answers the same."""
+    from sgpt_tpu_torch.index_ivf import IVFIndex
+    from sgpt_tpu_torch.ops.quant import is_quantized_model
+
+    monkeypatch.setattr(serve, "build_model", _port_build)
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(40)]
+    corpus = tmp_path / "corpus.jsonl"
+    corpus.write_text("".join(
+        json.dumps({"_id": f"d{i}", "text": " ".join(rng.choice(words, 6))}) + "\n"
+        for i in range(48)))
+    flags = ["--modelname", "tiny", "--randominit", "--device", "cpu", "--port", "0",
+             "--maxseqlen", "64", "--batchsize", "4", "--index", "ivf", "--clusters", "4",
+             "--nprobe", "2", "--quantize", "int8", "--quantize-index", "int8",
+             "--index-path", str(tmp_path / "idx"), "--rerank", "--rerank-maxlen", "64"]
+    queries = ["w1 w2 w3", "w30 w31"]
+    answers = []
+    for extra in (["--corpus", str(corpus)], []):
+        server, service = serve.build_server(serve.parse_args(flags + extra))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            index = service.index
+            assert isinstance(index, IVFIndex) and index.quantize == "int8"
+            assert index.selected_k == 4 and index.nprobe == 2 and len(index) == 48
+            assert is_quantized_model(service.engine.model)
+            assert service.ranker.model is service.engine.model
+            status, body = _post(server, "/search", {"queries": queries, "k": 5})
+            assert status == 200
+            vals, ids = index.search_embeddings(service.engine.encode(queries, is_query=True),
+                                                k=5)
+            assert [[h["id"] for h in r] for r in body["results"]] == ids
+            for r, v in zip(body["results"], vals):
+                np.testing.assert_allclose([h["score"] for h in r], v, rtol=0, atol=1e-6)
+            answers.append(body["results"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+    assert answers[0] == answers[1]

@@ -303,7 +303,7 @@ def test_errors_match_jax(pair, name):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(quantize="int8"), NotImplementedError, "item 9"),
+    (dict(quantize="int4"), ValueError, "quantize"),
     (dict(mesh=object()), NotImplementedError, "item 12"),
     (dict(max_length=129), ValueError, "positions")])
 def test_ranker_refuses_what_it_cannot_run(pair, kw, exc, match):

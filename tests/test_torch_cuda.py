@@ -1365,3 +1365,99 @@ def test_stack_pooled_encode_on_the_card_equals_the_cpu(cuda, method, layeridx):
     got = EmbeddingEngine(gpu, cfg, tok, device=cuda, **kw).encode(texts)
     assert sa.launches > before
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,D,F", [(5, 64, 40), (16, 768, 3072), (17, 768, 768),
+                                   (300, 4096, 16384)])
+def test_int8_matmul_on_the_card_equals_the_plain_version(cuda, M, D, F):
+    """`torch._int_mm` (a short batch padded to its 17-row minimum) gives
+    the plain version's int32 accumulators exactly, and `int8_project` the
+    CPU's output bit for bit (the quantize pass and the rescale are the same
+    IEEE operations on both)."""
+    from sgpt_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(M + D)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, D)).astype(np.int8))
+    q = torch.from_numpy(rng.integers(-127, 128, (F, D)).astype(np.int8))
+    before = quant.launches
+    got = quant.int8_matmul(a.to(cuda), q.to(cuda))
+    assert quant.launches == before + 1 and got.dtype == torch.int32
+    assert tuple(got.shape) == (M, F)
+    assert torch.equal(got.cpu(), quant.int8_matmul_reference(a, q))
+    w = torch.from_numpy((0.02 * rng.standard_normal((F, D))).astype(np.float32))
+    qw = quant.quantize_weight(w)
+    qw_card = quant.quantize_weight(w.to(cuda))
+    assert all(torch.equal(qw[k], qw_card[k].cpu()) for k in ("q", "s"))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((M, D)).astype(np.float32)).to(dtype)
+        want = quant.int8_project(x, qw)
+        got = quant.int8_project(x.to(cuda), qw_card)
+        assert got.dtype == dtype and torch.equal(got.cpu(), want), dtype
+
+
+def test_int8_matmul_refuses_what_int_mm_cannot_take(cuda):
+    from sgpt_tpu_torch.ops import quant
+
+    a = torch.zeros((32, 36), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(a, torch.zeros((16, 36), dtype=torch.int8, device=cuda))
+
+
+def test_quantized_encode_on_the_card_equals_the_cpu(cuda):
+    """A 2-layer model at GPT-Neo-125M's width, fp32, `quantize="int8"`:
+    the card's encode (K1, `torch._int_mm`) against the CPU's (plain
+    versions) within the int8 tolerance of tests/test_torch_quant.py (an
+    activation whose float value differs in its last bits between the two
+    may round to the next int8 value): 2e-2 on unit embeddings."""
+    import copy
+
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.ops import quant
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = gpt_neo("125m").replace(num_layers=2)
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(1)
+    texts = [" ".join(f"w{rng.integers(0, 9000)}" for _ in range(n)) for n in (3, 12, 30, 70)]
+    kw = dict(max_seq_len=128, batch_size=2, normalize_embeddings=True, quantize="int8")
+    tok = SimpleTokenizer(cfg.vocab_size)
+    want = EmbeddingEngine(cpu, cfg, tok, device="cpu", **kw).encode(texts)
+    before, k1 = quant.launches, sa.launches
+    got = EmbeddingEngine(gpu, cfg, tok, device=cuda, **kw).encode(texts)
+    assert quant.launches > before and sa.launches > k1
+    np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_ivf_on_the_card_equals_the_cpu(cuda, quantize):
+    """The IVF index built and searched on the card against the same on the
+    CPU, on a clustered corpus (clear margins): the same K, layout and
+    overflow, centroids within 1e-5, the same ids at nprobe 1, 8 and K and
+    scores within 1e-5, with pending rows and a tombstone."""
+    from sgpt_tpu_torch.index_ivf import IVFIndex
+
+    rng = np.random.default_rng(7)
+    mu = rng.standard_normal((32, 64))
+    mu /= np.linalg.norm(mu, axis=1, keepdims=True)
+    emb = (mu[rng.integers(0, 32, 20000)] + 0.25 * rng.standard_normal((20000, 64))
+           ).astype(np.float32)
+    queries = emb[:40] + 0.05 * rng.standard_normal((40, 64)).astype(np.float32)
+    built = []
+    for device in ("cpu", cuda):
+        idx = IVFIndex(64, quantize=quantize, pad_factor=1.2, device=device)
+        idx.add(emb[:19000])
+        idx.build()
+        idx.add(emb[19000:])
+        idx.delete(["5", "19500"])
+        built.append(idx)
+    cpu, card = built
+    assert card.selected_k == cpu.selected_k and card._overflow_count == cpu._overflow_count
+    assert torch.equal(card._block_ids.cpu(), cpu._block_ids)
+    torch.testing.assert_close(card._centroids.cpu(), cpu._centroids, rtol=0, atol=1e-5)
+    for nprobe in (1, 8, cpu.selected_k):
+        want_v, want_i = cpu.search_embeddings(queries, k=10, nprobe=nprobe)
+        got_v, got_i = card.search_embeddings(queries, k=10, nprobe=nprobe)
+        assert got_i == want_i, nprobe
+        np.testing.assert_allclose(np.stack(got_v), np.stack(want_v), rtol=0, atol=1e-5)

@@ -121,7 +121,7 @@ def test_params_from_jax_refuses_leftover_and_missing_leaves():
         params_from_jax(tree, cfg)
     del tree["wtt"]
     tree["layers"]["attn"]["wq"] = {"q": np.zeros(1, np.int8), "s": np.zeros(1)}  # int8 leaf
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="int8 leaf of shape"):   # of the wrong shape
         params_from_jax(tree, cfg)
     del tree["layers"]["attn"]["wq"]
     with pytest.raises(KeyError, match="wq"):

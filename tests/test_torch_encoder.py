@@ -101,7 +101,7 @@ def test_out_of_range_ids_raise_on_the_host(pair):
 
 
 @pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(mesh=object()),
-                                dict(quantize="int8"), dict(dispatch_chain=8),
+                                dict(dispatch_chain=8),
                                 dict(fused_attention=True), dict(mesh=object(), quantize="int8")])
 def test_unported_options_raise(pair, kw):
     _, _, cfg, model = pair
