@@ -204,6 +204,32 @@ Phases, each of which asserts; any failure exits non-zero:
                `cli.serve --index ivf --quantize int8 --quantize-index int8`
                over HTTP on the 4,096 documents of phase 7: /search p50 and
                p99, answers equal a direct `search_embeddings`
+ 24. kernel tsdae — K1 and K2 fp32 at GPT-Neo's heads where the training
+               objectives beyond MNRL run them: TSDAE's encoder (B=8, T=75)
+               and tied decoder (B=8, T=74, an all-ones key mask), the
+               trainable cross-encoder's pair rows (B=32, T=512; B=2,
+               T=2,048), global and window 256, against their plain
+               versions; times beside the plain version, SDPA and the bound
+ 25. tsdae   — `cli.train_tsdae` at its defaults (batch 8, T=75, del_ratio
+               0.6, weightedmean, fp32 at "default") with full-width
+               GPT-Neo-125M on synthetic sentences: 1 warm-up and 6 timed
+               steps (K1 = K2 = 12 × 2 a step), ms/step, sentences/s, peak
+               memory, one step profiled (K1, K2, GEMMs, the LM head at
+               vocab 50,257, the log-softmax, the rest); 2 steps with
+               --freezenonbias (only biases and the projections move);
+               card == CPU at 2 layers ("highest"); the trained model
+               through `save_hf_checkpoint` and `load_pretrained` gives its
+               embeddings bit for bit
+ 26. ce train — `CrossEncoderTrainable` (num_labels 1) with full-width
+               GPT-Neo-125M, fp32 at "default": batch 32 at max_length 512,
+               1 warm-up and 5 timed steps (K1 = K2 = 12 a step), pairs/s,
+               peak memory, one step profiled; one step at the class
+               defaults (batch 16, max_length 2,048) and its peak memory;
+               `predict` and `CECorrelationEvaluator` card == CPU at 2 layers
+ 27. search utils — `ops.search_utils.semantic_search` on the card over the
+               encode slice's embeddings == the exact (fp64) top-10;
+               paraphrase mining's pairs and the communities held to fp64
+               cosines
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -2934,20 +2960,14 @@ def plain_attention(sa, fa):
 
 def hf_checkpoint(torch, model, family: str) -> tuple:
     """The model's weights as an HF checkpoint of its family: (state dict
-    in HF names, `hf_loader.hf_state_dict`; config.json dict)."""
+    in HF names, `hf_loader.hf_state_dict`; config.json dict,
+    `hf_export.hf_config`)."""
+    from sgpt_tpu_torch.models.hf_export import hf_config
     from sgpt_tpu_torch.models.hf_loader import hf_state_dict
 
-    cfg = model.cfg
-    D, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
-    if family == "bloom":
-        config = {"model_type": "bloom", "vocab_size": cfg.vocab_size, "n_embed": D,
-                  "n_layer": L, "n_head": H, "layer_norm_epsilon": cfg.layer_norm_eps}
-    else:
-        config = {"model_type": "gptj", "vocab_size": cfg.vocab_size, "n_embd": D,
-                  "n_layer": L, "n_head": H, "n_positions": cfg.max_position_embeddings,
-                  "rotary_dim": cfg.rotary_dim, "n_inner": None,
-                  "layer_norm_epsilon": cfg.layer_norm_eps, "tie_word_embeddings": False}
-    return hf_state_dict(model.state_dict(), cfg, family), config
+    sd = model.state_dict()
+    return (hf_state_dict(sd, model.cfg, family),
+            hf_config(model.cfg, family, tied="lm_head.w" not in sd))
 
 
 def check_loader(torch, model, family, tok, texts):
@@ -4412,6 +4432,455 @@ def phase_ivf_serve(torch, corpus, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The training-objectives slice: TSDAE pretraining and the trainable
+# cross-encoder (K1 and K2 fp32 at their shapes), and the search utilities.
+
+TSDAE_T = 75  # train_tsdae's --max_seq_length: the encoder's T; the decoder reads T - 1
+TSDAE_CASES = [  # name, B, T, window, all-ones key mask; fp32, H 12, Dh 64 (GPT-Neo-125M)
+    ("tsdae-enc", 8, TSDAE_T, 0, False),         # the encoder, on the noisy sentences
+    ("tsdae-enc-w256", 8, TSDAE_T, 256, False),  # its local layers
+    ("tsdae-dec", 8, TSDAE_T - 1, 0, True),      # the tied decoder: tgt[:, :-1], no mask
+    ("tsdae-dec-w256", 8, TSDAE_T - 1, 256, True),
+    ("ce-train", 32, 512, 0, False),             # the CE's pair rows at max_length 512
+    ("ce-train-w256", 32, 512, 256, False),
+    ("ce-default", 2, 2048, 0, False),           # and at the class default 2,048
+    ("ce-default-w256", 2, 2048, 256, False),
+]
+TSDAE_TIMED = ("tsdae-enc", "tsdae-dec", "ce-train", "ce-default")
+HEAD_KEYS = ("aten::mm", "aten::addmm")  # the ops whose kernels an LM head's GEMMs are
+
+
+def phase_tsdae_kernels(torch, sa, rng):
+    """K1 and K2 fp32 at the shapes the TSDAE and trainable-CE steps give
+    them (`TSDAE_CASES`: T=75 for the encoder, T=74 with an all-ones key mask
+    for the decoder, the CE's pair rows at T=512 and 2,048; global and window
+    256, GPT-Neo's two layer kinds) against their plain versions: K1 within
+    1e-5 + 1e-5·|ref|, K2 by `hold_grads`, on a random output gradient.
+    Then the times of `TSDAE_TIMED` (`time_k1`, `time_k2`: kernel, plain,
+    SDPA and its backward, bound). Returns the largest error by kernel and
+    the times."""
+    errs, times = {"k1": 0.0, "k2": 0.0}, {}
+    for name, B, T, window, ones in TSDAE_CASES:
+        args, _ = case_inputs(torch, rng, B, T, 12, 64, torch.float32, False)
+        if ones:
+            args[3].fill_(1)
+        got = sa.short_attention(*args, 1.0, window, 12, False)
+        want = sa.short_attention_reference(*args, scale=1.0, window=window, H=12,
+                                            use_alibi=False)
+        torch.cuda.synchronize()
+        err, _ = hold(torch, f"kernel {name}", got, want, torch.float32)
+        g = card_normal(torch, rng, (B, T, 12 * 64), 1.0)
+        kw = dict(scale=1.0, window=window, H=12, use_alibi=False)
+        got2 = sa.short_attention_bwd(*args, g, **kw)
+        want2 = sa.short_attention_bwd_reference(*args, g, **kw)
+        torch.cuda.synchronize()
+        e2, gate, _ = hold_grads(torch, f"bwd {name}", got2, want2, torch.float32)
+        errs["k1"] = max(errs["k1"], err)
+        errs["k2"] = max(errs["k2"], *e2)
+        log(f"kernel {name:15s} fp32 B={B} T={T} H=12 Dh=64 window={window}"
+            f"{', all-ones key mask' if ones else ''}: K1 max_abs_err {err:.3e}; K2 max_abs_err "
+            f"dq {e2[0]:.3e} dk {e2[1]:.3e} dv {e2[2]:.3e} ({gate})")
+        if name in TSDAE_TIMED:
+            times[name] = {"k1": time_k1(torch, sa, f"{name} ", args, 12, 1.0, window),
+                           "k2": time_k2(torch, sa, f"{name} ", args, g, 12, 1.0, window)}
+        del args, got, want, g, got2, want2
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def profile_train_step(torch, step, label: str, head_dim=None) -> dict:
+    """Two training steps (`step()`, which ends on the loss) under
+    torch.profiler. The first records device activity alone: device time of
+    K1, K2, the GEMMs and the rest, the six longest kernels, and the
+    device's busy share of the wall time (host op events would slow the
+    step). The second adds the host ops with their shapes, to split off the
+    LM head (the GEMM ops, forward and backward, with an operand of
+    `head_dim` columns: the vocab) and the log-softmax (forward and
+    backward) by the op that launched each kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step())
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    fam = device_ms(prof, {"K1": K1_KEYS, "K2": ("tf32_rows", "tf32_cols", "rows_kernel",
+                                                 "cols_kernel"), "GEMM": GEMM_KEYS})
+    total = sum(fam.values())
+    if total == 0:
+        log(f"{label}: the profiler saw no device time (wall {wall_ms:.1f} ms)")
+        return {"profile_wall_ms": wall_ms, "profile_kernel_ms": None}
+    top = sorted(((ev.key, (getattr(ev, "self_device_time_total", None)
+                            or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3)
+                  for ev in prof.key_averages()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA")),
+                 key=lambda kv: -kv[1])[:6]
+    parts = {"K1": fam["K1"], "K2": fam["K2"], "projection GEMMs": fam["GEMM"]}
+    if head_dim:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as ops:
+            float(step())
+            torch.cuda.synchronize()
+        head = gemm_in_head = soft = 0.0
+        for e in ops.events():
+            kernels = [(k.name, k.duration / 1e3) for k in e.kernels]
+            if e.name in HEAD_KEYS and any(head_dim in sh for sh in e.input_shapes if sh):
+                head += sum(ms for _, ms in kernels)
+                gemm_in_head += sum(ms for n, ms in kernels
+                                    if any(key in n.lower() for key in GEMM_KEYS))
+            elif "log_softmax" in e.name:
+                soft += sum(ms for _, ms in kernels)
+        parts["projection GEMMs"] -= gemm_in_head
+        parts.update({"LM head": head, "log-softmax": soft})
+    parts["rest"] = total - sum(parts.values())
+    shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in parts.items())
+    log(f"{label}: {total:.2f} ms of kernels in {wall_ms:.2f} ms wall (busy share "
+        f"{total / wall_ms:.3f}): {shares}; the six longest kernels: "
+        + "; ".join(f"{n[:80]} {ms:.2f} ms" for n, ms in top))
+    return {"profile_wall_ms": wall_ms, "profile_kernel_ms": total,
+            "busy_share": total / wall_ms, "top_kernels": top,
+            **{f"profile_{k.split()[0].lower().replace('-', '_')}_ms": v
+               for k, v in parts.items()}}
+
+
+def synthetic_sentences(rng, n: int, lo: int = 6, hi: int = 40) -> list:
+    """`n` sentences of lo to hi - 1 random words (some truncate at T=75)."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+    return [" ".join(rng.choice(words, int(rng.integers(lo, hi)))) for _ in range(n)]
+
+
+def run_tsdae_cli(torch, folder: str, sentences: list, extra: list, log_fn=None,
+                  snapshot: bool = False):
+    """`cli.train_tsdae` at its defaults (batch 8, T=75, del_ratio 0.6,
+    weightedmean) on a file of `sentences`, full-width GPT-Neo-125M from
+    --randominit on the card: (the CLI's result, the model as built, with
+    `snapshot` a copy of its state before training)."""
+    import os
+
+    from sgpt_tpu_torch.cli import common, train_tsdae
+
+    path = os.path.join(folder, "sentences.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(sentences) + "\n")
+    built = {}
+
+    def build(*a, **kw):
+        built["out"] = common.build_model(*a, **kw)
+        if snapshot:
+            built["before"] = {n: t.clone() for n, t in built["out"][0].state_dict().items()}
+        return built["out"]
+
+    train_tsdae.build_model = build
+    try:
+        res = train_tsdae.main(train_tsdae.parse_args([
+            "--model_name", "125m", "--randominit", "--sentences_path", path,
+            "--model_save_path", os.path.join(folder, "out"), "--device", "cuda",
+            "--seed", str(SEED), *extra]), log_fn=log_fn)
+    finally:
+        train_tsdae.build_model = common.build_model
+    return res, built["out"][0], built.get("before")
+
+
+def phase_tsdae(torch, sa, card) -> dict:
+    """TSDAE pretraining of full-width GPT-Neo-125M (fp32 at the CLI's
+    "default", TF32 products) through `cli.train_tsdae` at its defaults
+    (batch 8, --max_seq_length 75, --del_ratio 0.6, weightedmean, lr 3e-5)
+    on 56 synthetic sentences of 6-39 words:
+      * 7 steps, ms/step over the last 6 (the first warms up), sentences/s,
+        peak memory; K1 = K2 = 12 × 2 a step (the encoder at T=75, the tied
+        decoder at T=74 with an all-ones key mask); two steps profiled
+        (`profile_train_step`): K1, K2, the projection GEMMs, the LM head at
+        vocab 50,257 (forward and backward), the log-softmax and the rest;
+      * 2 steps with --freezenonbias: only biases and the projections move;
+      * at 2 layers and "highest", the card's loss and gradients (every
+        parameter and both projections) equal the CPU's (loss within 1e-5
+        relative, each gradient within 1e-4 of its norm);
+      * the trained model through `save_hf_checkpoint` and
+        `hf_loader.load_pretrained` gives the trained model's embeddings
+        of 64 sentences bit for bit; seconds to write and to load."""
+    import copy
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from sgpt_tpu_torch.data import DenoisingBatcher
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.models.hf_export import save_hf_checkpoint
+    from sgpt_tpu_torch.models.hf_loader import load_pretrained
+    from sgpt_tpu_torch.models.precision import matmul_precision
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import BIAS_NAMES, TSDAETrainer, init_tsdae_params, tsdae_loss
+
+    rng = np.random.default_rng(SEED + 40)
+    steps, B = 7, 8
+    sentences = synthetic_sentences(rng, steps * B)
+    out = {}
+    sa.launches = sa.bwd_launches = 0  # every launch of the phase counts in the kernels line
+    with tempfile.TemporaryDirectory() as tmp:
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, model, _ = run_tsdae_cli(torch, tmp, sentences, [],
+                                      log_fn=lambda r: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        cli_launches = (sa.launches, sa.bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in res["history"]]
+        ms = 1e3 * float(np.median(np.diff(stamps)))
+        L = model.cfg.num_layers
+        out.update(ms_per_step=ms, sentences_per_s=B / (ms / 1e3), peak_gib=peak, losses=losses)
+        log(f"tsdae: {steps} steps (B={B}, T={TSDAE_T}), losses {[round(x, 4) for x in losses]}; "
+            f"{ms:.1f} ms/step (median of the last {steps - 1}), {B / (ms / 1e3):.1f} "
+            f"sentences/s, peak {peak:.2f} GiB, fp32 at TF32 products (\"default\"); K1 "
+            f"{cli_launches[0]}, K2 {cli_launches[1]} launches ({card})")
+        assert len(losses) == steps and all(np.isfinite(losses)), losses
+        assert cli_launches == (2 * L * steps,) * 2, cli_launches
+        trainer = res["trainer"]
+        batch = trainer.prep_batch(next(iter(DenoisingBatcher(sentences, B, seed=SEED + 1))))
+        out.update(profile_train_step(torch, lambda: trainer.step(batch),
+                                      "tsdae profile, one step (TF32)",
+                                      head_dim=model.cfg.vocab_size))
+
+        # the trained model exported to an HF checkpoint and reloaded
+        tok = SimpleTokenizer(model.cfg.vocab_size)
+        texts = synthetic_sentences(rng, 64)
+        kw = dict(max_seq_len=TSDAE_T, batch_size=64)
+        want = EmbeddingEngine(model, model.cfg, tok, device="cuda", **kw).encode(texts)
+        path = Path(__file__).resolve().parent / "build" / "smoke_tsdae_hf"
+        shutil.rmtree(path, ignore_errors=True)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(str(path), model, model.cfg, "neo")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weights, cfg = load_pretrained(str(path))
+        load_s = time.perf_counter() - t0
+        assert cfg.replace(intermediate_size=None, matmul_precision=model.cfg.matmul_precision
+                           ) == model.cfg.replace(intermediate_size=None), cfg
+        reloaded = Decoder(model.cfg, device="cuda", weights=weights)
+        got = EmbeddingEngine(reloaded, model.cfg, tok, device="cuda", **kw).encode(texts)
+        shutil.rmtree(path, ignore_errors=True)
+        log(f"tsdae export: save_hf_checkpoint {write_s:.2f} s, load_pretrained {load_s:.2f} s; "
+            f"the reloaded model's embeddings of {len(texts)} sentences equal the trained "
+            f"model's bit for bit: {np.array_equal(got, want)}")
+        assert want.shape == (len(texts), model.cfg.hidden_size) and np.isfinite(want).all()
+        assert np.array_equal(got, want), np.abs(got - want).max()
+        out["export"] = {"write_s": write_s, "load_s": load_s}
+        del res, trainer, model, reloaded, weights
+        torch.cuda.empty_cache()
+
+        # 2 steps with --freezenonbias: only the biases and the projections move
+        res, model, before = run_tsdae_cli(torch, tmp, sentences[:2 * B], ["--freezenonbias"],
+                                           snapshot=True)
+        init = init_tsdae_params(model.cfg, torch.Generator().manual_seed(SEED), "cuda")
+        moved = sorted(n for n, t in model.state_dict().items() if not torch.equal(t, before[n]))
+        biases = sorted(n for n in before if n.rsplit(".", 1)[-1] in BIAS_NAMES)
+        cp_moved = [k for k, t in res["trainer"].tsdae.items() if not torch.equal(t, init[k])]
+        log(f"tsdae --freezenonbias: losses {[round(h['loss'], 4) for h in res['history']]}; "
+            f"{len(moved)} of {len(before)} leaves moved, all {len(biases)} biases among "
+            f"them: {moved == biases}; projections moved {cp_moved}")
+        assert moved == biases and cp_moved == ["w", "b"], (moved, cp_moved)
+        del res, model, before
+        torch.cuda.empty_cache()
+
+    # card == CPU at 2 layers, "highest": the loss and every gradient
+    cfg2 = gpt_neo("125m").replace(num_layers=2)
+    cpu = Decoder(cfg2, device="cpu", generator=torch.Generator().manual_seed(SEED + 41))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    pairs = [ex.texts for ex in next(iter(DenoisingBatcher(sentences, B, seed=SEED + 2)))]
+    tok = SimpleTokenizer(cfg2.vocab_size)
+
+    def loss_and_grads(net):
+        tr = TSDAETrainer(net, cfg2, tok, seed=SEED)
+        with matmul_precision("highest"):
+            loss = tsdae_loss(net, tr.tsdae, *tr.prep_batch(pairs))
+            loss.backward()
+        grads = {n: p.grad.cpu() for n, p in net.named_parameters()}
+        grads.update({f"tsdae.{k}": t.grad.cpu() for k, t in tr.tsdae.items()})
+        return float(loss.detach()), grads
+
+    on_cpu = loss_and_grads(cpu)
+    on_gpu = loss_and_grads(gpu)
+    worst = worst_grad(on_gpu[1], on_cpu[1])
+    log(f"tsdae parity (2 layers, \"highest\"): loss card {on_gpu[0]:.7f} CPU {on_cpu[0]:.7f} "
+        f"(|diff| {abs(on_gpu[0] - on_cpu[0]):.3e}, tolerance 1e-5 relative); "
+        f"{len(on_cpu[1])} gradients, worst max|diff|/norm {worst:.3e} (tolerance 1e-4)")
+    assert abs(on_gpu[0] - on_cpu[0]) <= 1e-5 * abs(on_cpu[0]) and worst <= 1e-4
+    out["parity"] = {"loss_diff": abs(on_gpu[0] - on_cpu[0]), "grad_rel": worst}
+    out["k1"], out["k2"] = sa.launches, sa.bwd_launches
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def ce_train_samples(rng, n: int) -> list:
+    """`n` labelled (query, passage) pairs as the MS MARCO cross-encoder
+    recipe trains on: queries of 3-11 words, passages of 20-399 words (some
+    truncate at 512 tokens), labels 1 or 0 in turn."""
+    from sgpt_tpu_torch.data import InputExample
+
+    q = synthetic_sentences(rng, n, 3, 12)
+    p = synthetic_sentences(rng, n, 20, 400)
+    return [InputExample(texts=(a, b), label=float(i % 2)) for i, (a, b) in enumerate(zip(q, p))]
+
+
+def phase_ce_train(torch, sa, card) -> dict:
+    """The trainable cross-encoder (num_labels 1) on full-width
+    GPT-Neo-125M, fp32 at "default" (TF32 products), with the ST MS MARCO
+    cross-encoder recipe's batch 32 and max_length 512 (every row pads to
+    it) and lr 7e-6:
+      * 1 warm-up and 5 timed steps (tokenize, forward, backward, clip,
+        AdamW, as `fit` runs them): ms/step, pairs/s, peak memory; K1 = K2 =
+        12 a step; one step profiled (K1, K2, GEMMs, the rest; its six
+        longest kernels);
+      * one `fit` step at the class defaults (batch 16, max_length 2,048):
+        its time and peak memory;
+      * at 2 layers and "highest", `predict` on the card equals the CPU's
+        within 1e-5 on 32 pairs, and `CECorrelationEvaluator`'s score is
+        the same (unless two of the CPU's scores lie closer together than
+        the two sides differ, where their ranks may swap)."""
+    import copy
+
+    from sgpt_tpu_torch.cross_encoder_trainable import (CECorrelationEvaluator,
+                                                        CrossEncoderTrainable)
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    rng = np.random.default_rng(SEED + 50)
+    B, steps = 32, 5
+    samples = ce_train_samples(rng, B * (steps + 1))
+    cfg = gpt_neo("125m", matmul_precision="default")
+    model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    tok = SimpleTokenizer(cfg.vocab_size)
+    L = cfg.num_layers
+    ce = CrossEncoderTrainable(model, cfg, tok, num_labels=1, max_length=512, batch_size=B,
+                               seed=SEED)
+    opt, sched = ce._build_optimizer(steps + 1, 7e-6, 0.1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.launches = sa.bwd_launches = 0  # every launch of the phase counts in the kernels line
+    losses = [float(ce._step(opt, sched, *ce._prep(samples[:B])))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(1, steps + 1):
+        losses.append(float(ce._step(opt, sched, *ce._prep(samples[s * B:(s + 1) * B]))))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = (sa.launches, sa.bwd_launches)
+    out = {"ms_per_step": ms, "pairs_per_s": B / (ms / 1e3), "peak_gib": peak, "losses": losses}
+    log(f"ce train: {steps + 1} steps (B={B}, T=512), losses {[round(x, 4) for x in losses]}; "
+        f"{ms:.1f} ms/step over the last {steps}, {B / (ms / 1e3):.1f} pairs/s, peak "
+        f"{peak:.2f} GiB, fp32 at TF32 products (\"default\"); K1 {timed[0]}, K2 "
+        f"{timed[1]} launches ({card})")
+    assert all(np.isfinite(losses)), losses
+    assert timed == (L * (steps + 1),) * 2, timed
+    ids, mask, labels = ce._prep(samples[:B])
+    out.update(profile_train_step(torch, lambda: ce._step(opt, sched, ids, mask, labels),
+                                  "ce train profile, one step at T=512 (TF32)"))
+    del opt, sched, ids, mask, labels
+    torch.cuda.empty_cache()
+
+    # one step at the class defaults: batch 16, max_length 2,048
+    big = CrossEncoderTrainable(model, cfg, tok, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (sa.launches, sa.bwd_launches)
+    t0 = time.perf_counter()
+    h = big.fit(samples[:big.batch_size], lr=7e-6)
+    torch.cuda.synchronize()
+    out["default"] = {"step_s": time.perf_counter() - t0,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "batch_size": big.batch_size, "max_length": big.max_length}
+    launched = (sa.launches - before[0], sa.bwd_launches - before[1])
+    log(f"ce train at the class defaults (batch {big.batch_size}, max_length "
+        f"{big.max_length}): one fit step {out['default']['step_s']:.2f} s with its optimizer's "
+        f"set-up, loss {h[0]['loss']:.4f}, peak {out['default']['peak_gib']:.2f} GiB; K1 "
+        f"{launched[0]}, K2 {launched[1]} launches ({card})")
+    assert launched == (L, L) and np.isfinite(h[0]["loss"])
+    del model, ce, big
+    torch.cuda.empty_cache()
+
+    # card == CPU at 2 layers, "highest": predict and an evaluator
+    cfg2 = gpt_neo("125m").replace(num_layers=2)
+    cpu = Decoder(cfg2, device="cpu", generator=torch.Generator().manual_seed(SEED + 51))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    pairs = [ex.texts for ex in ce_train_samples(rng, 32)]
+    gold = rng.random(32).tolist()
+    kw = dict(max_length=512, batch_size=B, seed=SEED)
+    ce_cpu, ce_gpu = (CrossEncoderTrainable(m, cfg2, tok, **kw) for m in (cpu, gpu))
+    got, want = ce_gpu.predict(pairs), ce_cpu.predict(pairs)
+    evaluator = CECorrelationEvaluator(pairs, gold)
+    scores = (evaluator(ce_gpu), evaluator(ce_cpu))
+    err = float(np.abs(got - want).max())
+    gap = float(np.diff(np.sort(want)).min())
+    log(f"ce train parity (2 layers, \"highest\"): predict card vs CPU max |diff| {err:.3e} "
+        f"(tolerance 1e-5; the CPU's closest two scores {gap:.3e} apart); "
+        f"CECorrelationEvaluator card {scores[0]:.6f} CPU {scores[1]:.6f}")
+    # Spearman ranks: two CPU scores closer than the two sides' difference
+    # may swap places, and only then may the scores differ
+    assert got.shape == (32,) and err <= 1e-5 and (scores[0] == scores[1] or gap <= 2 * err)
+    out["parity"] = {"predict_err": err, "evaluator": scores[0]}
+    out["k1"], out["k2"] = sa.launches, sa.bwd_launches
+    return out
+
+
+def phase_search_utils(torch, docs, queries, card) -> dict:
+    """`ops.search_utils` on the card over the encode slice's embeddings:
+    `semantic_search` of 64 queries over the 1,280 documents (top 10) equals
+    the exact top-10 of an fp64 evaluation on the host (ids in every slot
+    but a near-tie within 1e-5, scores within 1e-5); the pairs of
+    `paraphrase_mining_embeddings` carry their fp64 cosines within 1e-5,
+    best first, and the communities of `community_detection` hold only
+    members within 1e-5 of the threshold of their first element, each
+    document in one community at most. (Against the CPU's calls the card's
+    lists may order near-ties otherwise: summation order.)"""
+    from sgpt_tpu_torch.ops import search_utils as su
+
+    q = queries[:64]
+    su.semantic_search(q, docs, top_k=10, device="cuda")
+    t0 = time.perf_counter()
+    hits = su.semantic_search(q, docs, top_k=10, device="cuda")
+    ms = 1e3 * (time.perf_counter() - t0)
+
+    def unit(x):
+        x = x.astype(np.float64)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    exact = unit(q) @ unit(docs).T
+    want = np.argsort(-exact, axis=1, kind="stable")[:, :10]
+    got = np.array([[h["corpus_id"] for h in row] for row in hits])
+    vals = np.array([[h["score"] for h in row] for row in hits])
+    rows = np.arange(len(q))[:, None]
+    err = float(np.abs(vals - exact[rows, want]).max())
+    off = got != want
+    tie_ok = bool((np.abs(exact[rows, got] - exact[rows, want])[off] <= 1e-5).all())
+
+    cos = unit(docs) @ unit(docs).T
+    mined = su.paraphrase_mining_embeddings(docs, top_k=5, device="cuda")
+    scores = np.array([sc for sc, _, _ in mined])
+    pairs = np.array([(a, b) for _, a, b in mined])
+    mined_ok = bool(len(mined) and (pairs[:, 0] < pairs[:, 1]).all()
+                    and np.abs(scores - cos[pairs[:, 0], pairs[:, 1]]).max() <= 1e-5
+                    and (np.diff(scores) <= 0).all())
+    comm = su.community_detection(docs, threshold=0.9, min_community_size=2, device="cuda")
+    members = [m for c in comm for m in c]
+    comm_ok = (len(members) == len(set(members))
+               and all(len(c) >= 2 and (cos[c[0], c] >= 0.9 - 1e-5).all() for c in comm))
+    log(f"search utils: semantic_search of {len(q)} queries over {len(docs)} documents "
+        f"(top 10) in {ms:.2f} ms; max |score - fp64| {err:.3e} (tolerance 1e-5), "
+        f"{int(off.sum())} slots off the exact order, all near-ties: {tie_ok}; paraphrase "
+        f"mining {len(mined)} pairs, fp64 cosines and order hold: {mined_ok}; "
+        f"{len(comm)} communities ({len(members)} documents) within the threshold: {comm_ok} "
+        f"({card})")
+    assert err <= 1e-5 and tie_ok and mined_ok and comm_ok
+    return {"ms": ms, "max_abs_err": err, "near_tie_slots": int(off.sum()),
+            "paraphrase_pairs": len(mined), "communities": len(comm)}
+
+
 def ptxas_lines(log_text: str, *names: str) -> dict:
     """Registers and spills that ptxas reported for the kernels whose mangled
     names hold each of `names` (e.g. "mma_kernelILi256ELb0"), from build.log."""
@@ -4492,6 +4961,8 @@ def main() -> int:
         torch, fa, np.random.default_rng(SEED + 5))
     phase("kernel nli")
     nli_err, nli_times = phase_nli_kernels(torch, sa, np.random.default_rng(SEED + 30))
+    phase("kernel tsdae")
+    tsdae_err, tsdae_times = phase_tsdae_kernels(torch, sa, np.random.default_rng(SEED + 32))
     ab = {}
     if parent:
         phase("ab")
@@ -4577,6 +5048,8 @@ def main() -> int:
     corpus = synthetic_corpus(rng, 4096)
     phase("search")
     search = phase_search(torch, mips, sa, engine, corpus, gen)
+    phase("search utils")
+    search_utils = phase_search_utils(torch, docs, queries, card)
     phase("serve")
     serve = phase_serve(torch, mips, engine, corpus)
 
@@ -4611,6 +5084,12 @@ def main() -> int:
     # 19. NLI training (symmetric SGPT-BE)
     phase("nli")
     nli = phase_nli(torch, sa, tok, card)
+
+    # the training objectives beyond MNRL: TSDAE and the trainable cross-encoder
+    phase("tsdae")
+    tsdae = phase_tsdae(torch, sa, card)
+    phase("ce train")
+    ce_train = phase_ce_train(torch, sa, card)
 
     # 15. the long-context training slice
     phase("ltrain")
@@ -4685,6 +5164,14 @@ def main() -> int:
     log(f"nli: {nli['ms_per_step']:.1f} ms/step, {nli['seq_per_s']:.1f} sequences/s "
         f"(192 sequences of T={NLI_T} a step), peak {nli['peak_gib']:.2f} GiB, fp32 at TF32 "
         f"products (\"default\"); GPT-Neo-125M, batch 64, BitFit ({card})")
+    log(f"tsdae: {tsdae['ms_per_step']:.1f} ms/step, {tsdae['sentences_per_s']:.1f} "
+        f"sentences/s, peak {tsdae['peak_gib']:.2f} GiB, fp32 at TF32 products (\"default\"); "
+        f"GPT-Neo-125M, batch 8, T={TSDAE_T} ({card})")
+    log(f"ce train: {ce_train['ms_per_step']:.1f} ms/step, {ce_train['pairs_per_s']:.1f} pairs/s, "
+        f"peak {ce_train['peak_gib']:.2f} GiB at batch 32, max_length 512; one step at batch 16, "
+        f"max_length 2048 {ce_train['default']['step_s']:.2f} s, peak "
+        f"{ce_train['default']['peak_gib']:.2f} GiB; fp32 at TF32 products (\"default\") "
+        f"({card})")
     log("useb: " + ", ".join(f"{k} {r['emb_per_s']:.1f} emb/s" for k, r in useb_res["runs"].items())
         + f"; bf16, max_seq_len 128, batch_size 64 ({card})")
     for family, f in fam_train.items():
@@ -4715,7 +5202,14 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/short_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
-                     + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1),
+                     + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1
+                     + tsdae["k1"] + ce_train["k1"]),
+        "launches_tsdae": tsdae["k1"], "launches_ce_train": ce_train["k1"],
+        "max_abs_err_tsdae": tsdae_err["k1"],
+        **{f"{k}_{cell}": v for cell, t in tsdae_times.items() for k, v in t["k1"].items()},
+        "tsdae": {k: v for k, v in tsdae.items() if k not in ("k1", "k2")},
+        "ce_train": {k: v for k, v in ce_train.items() if k not in ("k1", "k2")},
+        "search_utils": search_utils,
         "launches_int8": int8_k1, "int8": int8,
         "launches_encode": main_launches, "launches_train": train["fwd_launches"],
         "launches_nli": nli["k1"], "launches_useb": useb_res["k1"],
@@ -4766,7 +5260,11 @@ def main() -> int:
         "name": "short_attention_bwd", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
-        "launches": train["bwd_launches"] + train_launches["k2"] + nli["k2"],
+        "launches": (train["bwd_launches"] + train_launches["k2"] + nli["k2"] + tsdae["k2"]
+                     + ce_train["k2"]),
+        "launches_tsdae": tsdae["k2"], "launches_ce_train": ce_train["k2"],
+        "max_abs_err_tsdae": tsdae_err["k2"],
+        **{f"{k}_{cell}": v for cell, t in tsdae_times.items() for k, v in t["k2"].items()},
         "launches_train": train["bwd_launches"], "launches_families_train": train_launches["k2"],
         "launches_nli": nli["k2"],
         "launches_families_train_gptj_nli": fam_train["gptj"]["nli"]["k2"],

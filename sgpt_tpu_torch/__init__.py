@@ -10,6 +10,7 @@ package so each counterpart is easy to find:
     models.decoder       GPT-Neo / GPT-J / BLOOM forward (nn.Module, layers
                          in a ModuleList)
     models.hf_loader     local HF checkpoints (safetensors, .bin, sharded)
+    models.hf_export     the decoder's weights under HF names, config.json
     ops.short_attention  fused short-T attention: CUDA forward and backward
                          kernels, their plain versions, the autograd function
     ops.mips             streaming exact MIPS top-k: CUDA kernel, plain version
@@ -17,6 +18,8 @@ package so each counterpart is easy to find:
     ops.pooling          every pooler of the JAX package (single-layer, all-layer,
                          learnt weights), normalize
     ops.similarity       dot / cosine scores in fp32
+    ops.search_utils     semantic search, paraphrase mining, community
+                         detection over embeddings
     ops.quant            int8 inference: per-channel int8 weights, per-token
                          int8 activations, torch._int_mm on the card
     encoder              EmbeddingEngine: tokenize, bucket, forward, [layer
@@ -30,21 +33,25 @@ package so each counterpart is easy to find:
     serving              MicroBatcher, SearchService, the HTTP server
     crossencoder         SGPT-CE: CrossEncoderRanker, YesNoRanker, rerank
     ops.logprobs         continuation log-prob scorers over the LM head
-    losses               MNRL (MultipleNegativesRankingLoss)
+    cross_encoder_trainable  the trainable cross-encoder and its evaluators
+    losses               MNRL and the other sentence-transformers losses
     training             ContrastiveTrainer (learnt mean, dense heads,
-                         export_model), BitFit, schedules, GradCache, checkpoints
+                         export_model), TSDAETrainer, BitFit, schedules,
+                         GradCache, checkpoints
     cli.train_msmarco    the MS MARCO training command line
     cli.train_nli        the NLI (symmetric search) training command line
+    cli.train_tsdae      TSDAE pretraining command line
     cli.useb_retriever   USEB evaluation command line
     cli.beir_retriever   BEIR evaluation command line
     cli.serve            the HTTP search and rerank server command line
     cli.sgptce           cross-encoder rerank and evaluation command line
     cli.bm25_retriever   BM25 first-stage command line
+    cli.bioasq_convert   BioASQ → BEIR conversion command line
 
     ops.flash_attention  causal flash attention forward (long context):
                          CUDA kernel, plain version, autograd function
     tokenization         the port's copies of the host modules it needs:
-    data                 tokenizers and SPECB, MS MARCO and NLI triplets,
+    data                 tokenizers and SPECB, MS MARCO, NLI and BioASQ data,
     evaluation           readers and batchers, the native jsonl reader,
                          retrieval metrics, BEIR, STS, USEB and the other
                          evaluators

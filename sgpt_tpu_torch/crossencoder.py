@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .models.config import DecoderConfig
-from .models.decoder import Decoder
+from .models.decoder import Decoder, check_token_ids
 from .ops.logprobs import continuation_scores_gathered, continuation_scores_packed
 from .ops.quant import quantized_copy
 from .tokenization.base import Tokenizer
@@ -144,12 +144,8 @@ class CrossEncoderRanker:
         """Refuse token ids outside the vocab on the host: on the card an
         out-of-range embedding or gather index is a device assert that
         poisons the context, not an error."""
-        V = self.cfg.vocab_size
         for name, a in (("input", ids), ("continuation", targets)):
-            if a.size and (a.min() < 0 or a.max() >= V):
-                raise ValueError(
-                    f"{name} token ids outside [0, {V}): min {a.min()}, max {a.max()} "
-                    "— tokenizer and model vocab disagree")
+            check_token_ids(a, self.cfg.vocab_size, name)
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """Host rows → the device. Copies to the card go from pinned memory

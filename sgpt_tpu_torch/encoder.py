@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .models.config import DecoderConfig
-from .models.decoder import Decoder
+from .models.decoder import Decoder, check_token_ids
 from .models.precision import matmul_precision
 from .ops.pooling import POOLERS, STACK_POOLERS, normalize, pool
 from .ops.quant import quantized_copy
@@ -158,12 +158,7 @@ class EmbeddingEngine:
     # ------------------------------------------------------------------
     def _embed(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """One batch: forward + pool + normalise on the device → (B, D) fp32 host array."""
-        if ids.size and (ids.min() < 0 or ids.max() >= self.cfg.vocab_size):
-            # on the card an out-of-range embedding index is a device assert
-            # that poisons the context, not an error: refuse it on the host
-            raise ValueError(
-                f"token ids outside [0, {self.cfg.vocab_size}): min {ids.min()}, "
-                f"max {ids.max()} — tokenizer and model vocab disagree")
+        check_token_ids(ids, self.cfg.vocab_size)
         ids_t = torch.from_numpy(ids).to(self.device)
         mask_t = torch.from_numpy(mask).to(self.device)
         L = self.cfg.num_layers

@@ -22,7 +22,9 @@ both take their plain versions. ALiBi reaches both kernels as the slopes
 (K1 and K3 add slope·key position to the scaled score); packed rows pass
 their per-segment positions as K1's ALiBi key positions, unpacked rows use
 the key index, which equals the JAX XLA path's cumsum(mask) − 1 on every
-valid key of a right-padded row. The flags of the encoder families (BERT,
+valid key of a right-padded row. TSDAE's decoder conditioning (`cond`,
+`cond_params`) adds a per-layer projection of the sentence embedding to
+each attention output, as the JAX forward does. The flags of the encoder families (BERT,
 T5, CLIP) raise `NotImplementedError`.
 """
 from __future__ import annotations
@@ -88,6 +90,16 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
         extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * cp2) - 3)))
         slopes += [extra_base ** (i + 1) for i in range(0, 2 * (num_heads - cp2), 2)]
     return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+def check_token_ids(ids, vocab_size: int, name: str = "") -> None:
+    """Refuse host token ids (a numpy array) outside [0, vocab_size): on the
+    card an out-of-range embedding or gather index is a device assert that
+    poisons the context, not an error."""
+    if ids.size and (ids.min() < 0 or ids.max() >= vocab_size):
+        raise ValueError(f"{name + ' ' if name else ''}token ids outside [0, {vocab_size}): "
+                         f"min {ids.min()}, max {ids.max()} — tokenizer and model vocab "
+                         "disagree")
 
 
 def _unsupported(cfg: DecoderConfig) -> list:
@@ -206,9 +218,11 @@ class Block(nn.Module):
         self.mlp = MLP(shapes, prefix, factory)
         self.window = cfg.local_window if local else 0
 
-    def forward(self, x, key_mask, segment_ids, rope, slopes, kpos):
+    def forward(self, x, key_mask, segment_ids, rope, slopes, kpos, cond=None):
         h1 = self.ln1(x)
         a = self.attn(h1, key_mask, self.window, segment_ids, rope, slopes, kpos)
+        if cond is not None:  # TSDAE: the sentence embedding's projection, (B, 1, D)
+            a = a + cond
         if self.ln2 is None:
             return x + a + self.mlp(h1)
         x = x + a
@@ -303,15 +317,24 @@ class Decoder(nn.Module):
         position_ids: optional (T,) or (B, T); segment_ids: optional (B, T)
         for packed rows (block-diagonal attention), which needs position_ids
         that restart at each segment. The whole forward runs under
-        `matmul_precision(cfg.matmul_precision)`, as the JAX decoder does."""
+        `matmul_precision(cfg.matmul_precision)`, as the JAX decoder does.
+
+        cond (B, D) with cond_params {"w": (L, D, D), "b": (L, D)}: TSDAE's
+        decoder conditioning. Cross-attention to one encoder token is a
+        query-independent projection of the sentence embedding (the softmax
+        of a single logit is 1), so each layer l adds cond @ w[l] + b[l], in
+        the activations' dtype, to its attention output before the residual
+        add (pre-LN and parallel-residual blocks alike), as the JAX forward
+        does."""
         if sp_mesh is not None or tp_mesh is not None:
             raise NotImplementedError("sp_mesh / tp_mesh — ROADMAP Queue 1 items 11, 12")
         if token_type_ids is not None:
             raise NotImplementedError("token_type_ids (BERT) — ROADMAP Queue 1 item 14")
         if inputs_embeds is not None:
             raise NotImplementedError("inputs_embeds (CLIP vision) — ROADMAP Queue 1 item 14")
-        if cond is not None or cond_params is not None:
-            raise NotImplementedError("cond / cond_params (TSDAE) — ROADMAP Queue 1 item 14")
+        if cond is not None and cond_params is None:
+            raise ValueError("cond without cond_params: TSDAE conditioning needs the "
+                             "per-layer projections {'w': (L, D, D), 'b': (L, D)}")
         if segment_ids is not None and position_ids is None:
             raise ValueError(
                 "segment_ids without position_ids: packed rows must carry (B, T) "
@@ -338,8 +361,12 @@ class Decoder(nn.Module):
                 segment_ids = segment_ids.to(torch.int32).contiguous()
 
             hidden = [x]
-            for layer in self.layers:
-                x = layer(x, key_mask, segment_ids, rope, slopes, kpos)
+            for i, layer in enumerate(self.layers):
+                proj = None
+                if cond is not None:
+                    proj = (cond.to(x.dtype) @ cond_params["w"][i].to(x.dtype)
+                            + cond_params["b"][i].to(x.dtype))[:, None, :]
+                x = layer(x, key_mask, segment_ids, rope, slopes, kpos, proj)
                 hidden.append(x)
             final = self.ln_f(x)
             if output_hidden_states:

@@ -4,7 +4,10 @@ Layout: one entry per layer (`layers.{i}.…`, no stacked layer axis) and
 linear weights in torch's [out, in] order. The JAX tree stacks layers on a
 leading axis and stores linear weights [in, out]; `params_from_jax` converts.
 An int8 projection (`ops/quant.py`) is two entries, `<name>.q` (int8, [out,
-in]) and `<name>.s` (fp32 scales, (out, 1)).
+in]) and `<name>.s` (fp32 scales, (out, 1)). `tsdae_from_jax` and
+`head_from_jax` carry the trainers' tensors outside the decoder (TSDAE's
+conditioning projections, the trainable cross-encoder's head) in their JAX
+layout.
 """
 from __future__ import annotations
 
@@ -185,3 +188,28 @@ def aux_from_jax(aux: dict) -> Dict[str, object]:
             heads.append({k: _to_torch(v).float() for k, v in h.items()})
         out["heads"] = heads
     return out
+
+
+def tsdae_from_jax(tsdae: dict) -> Dict[str, torch.Tensor]:
+    """The JAX `TSDAETrainer`'s conditioning projections (`tree["tsdae"]`:
+    {"w": (L, D, D), "b": (L, D)}) → fp32 CPU tensors in the same layout:
+    both sides apply them as cond @ w[l] + b[l], so nothing is transposed.
+    Raises on another key set."""
+    if set(tsdae) != {"w", "b"}:
+        raise ValueError(f"tsdae_from_jax: expected leaves w and b, got {sorted(tsdae)}")
+    w, b = _to_torch(tsdae["w"]).float(), _to_torch(tsdae["b"]).float()
+    if w.dim() != 3 or w.shape[1] != w.shape[2] or tuple(b.shape) != tuple(w.shape[:2]):
+        raise ValueError(f"tsdae_from_jax: w {tuple(w.shape)}, b {tuple(b.shape)}; "
+                         "expected (L, D, D) and (L, D)")
+    return {"w": w, "b": b}
+
+
+def head_from_jax(head_w, head_b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX `CrossEncoderTrainable`'s classification head (w (D,
+    num_labels), b (num_labels,)) → fp32 CPU tensors in the same (in, out)
+    layout, applied as rep @ w + b on both sides."""
+    w, b = _to_torch(head_w).float(), _to_torch(head_b).float()
+    if w.dim() != 2 or tuple(b.shape) != (w.shape[1],):
+        raise ValueError(f"head_from_jax: w {tuple(w.shape)}, b {tuple(b.shape)}; "
+                         "expected (D, num_labels) and (num_labels,)")
+    return w, b

@@ -50,7 +50,7 @@ import torch
 from ..encoder import ACTIVATIONS, apply_heads, pool_single
 from ..losses import mnrl_loss
 from ..models.config import DecoderConfig
-from ..models.decoder import Decoder
+from ..models.decoder import Decoder, check_token_ids
 from ..models.precision import matmul_precision
 from ..ops.pooling import POOLERS
 from ..ops.quant import is_quantized_model
@@ -225,16 +225,7 @@ class ContrastiveTrainer:
         return [p for g in self._opt.param_groups for p in g["params"]]
 
     def _clip(self, params: Sequence[torch.Tensor]) -> None:
-        """optax.clip_by_global_norm: keep the gradients when their global
-        norm is below max_norm, else scale them by max_norm / norm."""
-        grads = [p.grad for p in params if p.grad is not None]
-        if not grads:
-            return
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-        keep = norm < self.tc.max_grad_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.tc.max_grad_norm))
+        clip_by_global_norm(params, self.tc.max_grad_norm)
 
     def _step(self, towers) -> torch.Tensor:
         """One micro-step; every `grad_accum`-th applies the averaged
@@ -258,12 +249,7 @@ class ContrastiveTrainer:
     def _tokenize_tower(self, texts: Sequence[str], is_query: bool):
         enc = self.codec.encode(list(texts), is_query=is_query, pad_to=self.tc.max_seq_len)
         ids = np.asarray(enc.input_ids)
-        if ids.size and (ids.min() < 0 or ids.max() >= self.cfg.vocab_size):
-            # on the card an out-of-range embedding index is a device assert
-            # that poisons the context, not an error: refuse it on the host
-            raise ValueError(
-                f"token ids outside [0, {self.cfg.vocab_size}): min {ids.min()}, "
-                f"max {ids.max()} — tokenizer and model vocab disagree")
+        check_token_ids(ids, self.cfg.vocab_size)
         return {"ids": ids.astype(np.int64), "mask": np.asarray(enc.attention_mask)}
 
     def _prep_batch(self, batch: Sequence[Tuple[str, ...]]):
@@ -425,6 +411,20 @@ class ContrastiveTrainer:
             for name, t in live.items():
                 t.copy_(saved[name])
         return self
+
+
+def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm on the parameters' `.grad`, in place: keep
+    the gradients when their global norm is below max_norm, else scale them
+    by max_norm / norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
 def aux_leaves(aux: dict) -> dict:

@@ -1461,3 +1461,112 @@ def test_ivf_on_the_card_equals_the_cpu(cuda, quantize):
         got_v, got_i = card.search_embeddings(queries, k=10, nprobe=nprobe)
         assert got_i == want_i, nprobe
         np.testing.assert_allclose(np.stack(got_v), np.stack(want_v), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,window,ones", [(8, 75, 0, False), (8, 74, 256, True),
+                                             (32, 512, 0, False), (2, 2048, 256, False)])
+def test_k1_k2_fp32_at_the_tsdae_and_trainable_ce_shapes(cuda, B, T, window, ones):
+    """K1 and K2 fp32 at GPT-Neo's heads (H 12, Dh 64) where TSDAE (the
+    encoder at T=75, the decoder at T=74 with an all-ones key mask) and the
+    trainable cross-encoder (pair rows at T=512 and 2,048) run them, against
+    their plain versions: K1 within 1e-5 + 1e-5·|ref|, K2 within 1e-5 of
+    each gradient's largest value."""
+    rng = np.random.default_rng(T + window)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, s, (B, T, 768)).astype(np.float32)).to(cuda)
+                  for s in (0.5, 0.5, 0.5, 1.0))
+    km = np.ones((B, T), np.int32)
+    if not ones:
+        km[0, T // 5:] = 0
+    km = torch.from_numpy(km).to(cuda)
+    before = (sa.launches, sa.bwd_launches)
+    got = sa.short_attention(q, k, v, km, None, 1.0, window, 12, False)
+    kw = dict(scale=1.0, window=window, H=12, use_alibi=False)
+    grads = sa.short_attention_bwd(q, k, v, km, None, g, **kw)
+    torch.cuda.synchronize()
+    assert (sa.launches, sa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = sa.short_attention_reference(q, k, v, km, None, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    for a, b in zip(grads, sa.short_attention_bwd_reference(q, k, v, km, None, g, **kw)):
+        torch.testing.assert_close(a, b, atol=1e-5 * b.abs().max().item(), rtol=0)
+
+
+def test_tsdae_step_on_the_card_equals_the_cpu(cuda):
+    """One TSDAE loss and its gradients (every parameter and both
+    projections) of a 2-layer model at GPT-Neo-125M's width, fp32 at
+    "highest": card (K1, K2) against CPU (plain versions), loss within 1e-5
+    relative, each gradient within 1e-4 of its norm."""
+    import copy
+
+    from sgpt_tpu_torch.data import DenoisingBatcher
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import TSDAETrainer, tsdae_loss
+
+    cfg = gpt_neo("125m").replace(num_layers=2)
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    sents = [" ".join(f"w{i * 7 + j}" for j in range(5 + 4 * i)) for i in range(8)]
+    pairs = [ex.texts for ex in next(iter(DenoisingBatcher(sents, 8, seed=1)))]
+    out = []
+    for net in (cpu, gpu):
+        tr = TSDAETrainer(net, cfg, SimpleTokenizer(cfg.vocab_size), max_seq_len=32)
+        before = (sa.launches, sa.bwd_launches)
+        loss = tsdae_loss(net, tr.tsdae, *tr.prep_batch(pairs))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in net.named_parameters()}
+        grads.update({k: t.grad.cpu() for k, t in tr.tsdae.items()})
+        out.append((loss.item(), grads, (sa.launches - before[0], sa.bwd_launches - before[1])))
+    (want, wg, _), (got, gg, launched) = out
+    assert launched == (4, 4)
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for name, w in wg.items():
+        assert (gg[name] - w).abs().max() <= 1e-4 * max(w.norm().item(), 1e-12), name
+
+
+def test_trainable_ce_on_the_card_equals_the_cpu(cuda):
+    """The trainable cross-encoder on a 2-layer model at GPT-Neo-125M's
+    width, fp32 at "highest": one `fit` step's loss within 1e-5 relative and
+    `predict` afterwards within 1e-5, card (K1, K2) against CPU."""
+    import copy
+
+    from sgpt_tpu_torch.cross_encoder_trainable import CrossEncoderTrainable
+    from sgpt_tpu_torch.data import InputExample
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = gpt_neo("125m").replace(num_layers=2)
+    cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(3)
+    pairs = [(" ".join(f"q{rng.integers(0, 900)}" for _ in range(4)),
+              " ".join(f"d{rng.integers(0, 9000)}" for _ in range(int(n))))
+             for n in rng.integers(5, 200, 8)]
+    samples = [InputExample(texts=p, label=float(i % 2)) for i, p in enumerate(pairs)]
+    out = []
+    for net in (cpu, gpu):
+        ce = CrossEncoderTrainable(net, cfg, SimpleTokenizer(cfg.vocab_size), max_length=128,
+                                   batch_size=8)
+        before = sa.bwd_launches
+        loss = ce.fit(samples, lr=1e-4)[0]["loss"]
+        out.append((loss, ce.predict(pairs), sa.bwd_launches - before))
+    (want_loss, want, _), (got_loss, got, k2) = out
+    assert k2 == 2
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_search_utils_on_the_card_equal_the_cpu(cuda):
+    """Semantic search and community detection on a clustered corpus: the
+    card's ids and communities equal the CPU's."""
+    from sgpt_tpu_torch.ops import search_utils as su
+
+    rng = np.random.default_rng(5)
+    emb = (rng.normal(size=(8, 32))[rng.integers(0, 8, 500)]
+           + 0.3 * rng.normal(size=(500, 32))).astype(np.float32)
+    kw = dict(top_k=7, query_chunk_size=64)
+    got = su.semantic_search(emb[:100], emb, device=cuda, **kw)
+    want = su.semantic_search(emb[:100], emb, device="cpu", **kw)
+    assert [[h["corpus_id"] for h in r] for r in got] == \
+        [[h["corpus_id"] for h in r] for r in want]
+    assert (su.community_detection(emb, device=cuda, min_community_size=5)
+            == su.community_detection(emb, device="cpu", min_community_size=5))

@@ -102,7 +102,7 @@ def test_other_families_raise(family):
 
 
 @pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(inputs_embeds=torch.zeros(1)),
-                                dict(cond=torch.zeros(1))])
+                                dict(token_type_ids=torch.zeros(1, 4))])
 def test_unported_forward_arguments_raise(kw):
     model = Decoder(tiny("neo", num_layers=1), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.int32)

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host modules == the originals.
 
-`sgpt_tpu_torch.tokenization`, `.data`, `.evaluation`, `.baselines`,
+`sgpt_tpu_torch.tokenization`, `.data` (`bioasq` included), `.evaluation`, `.baselines`,
 `.ce_prompts` and `.retrieval_bm25` are copies, so that the port imports
 nothing of the JAX package. Each case runs
 the same inputs through the copy and the original and asserts equal
@@ -475,3 +475,62 @@ def test_useb_evaluators_match(tmp_path):
         assert (tmp_path / "p" / f).read_text() == (tmp_path / "j" / f).read_text()
     assert (puseb._sklearn_ap([1, 0, 1, 0], [0.3, 0.9, 0.2, 0.2])
             == juseb._sklearn_ap([1, 0, 1, 0], [0.3, 0.9, 0.2, 0.2]))
+
+
+# ---------------------------------------------------------------------------
+# the training slice's copy: data/bioasq.py, and the bioasq_convert CLI
+
+def _bioasq_raw(root):
+    """A synthetic allMeSH file (a header line, articles, one line only the
+    string-index fallback parses), the manual-fixes csv, a golden-test
+    directory and a training json, as tests/test_bioasq_bm25_cli.py lays
+    them out."""
+    allmesh = root / "allMeSH_2020.json"
+    with open(allmesh, "w") as f:
+        f.write('{"articles":[\n')
+        for i in range(5):
+            f.write(json.dumps({"journal": "J", "abstractText": f"abstract about disease {i}",
+                                "pmid": str(1000 + i), "title": f"Study {i}"}) + ",\n")
+        f.write('{"journal":"J","abstractText":"fallback abstract","pmid":"2000",'
+                '"title":"Fallback study."}\n')
+    fixes = root / "manual-fixes.csv"
+    fixes.write_text("3000,Fixed title,Fixed text body\n")
+    golden = root / "golden"
+    golden.mkdir()
+    for part in (1, 2):
+        (golden / f"8B{part}_golden.json").write_text(json.dumps({"questions": [
+            {"id": f"q{part}", "body": f"question about disease {part}",
+             "documents": [f"http://www.ncbi.nlm.nih.gov/pubmed/{1000 + part}",
+                           "http://www.ncbi.nlm.nih.gov/pubmed/2000"]}]}))
+    training = root / "training8b.json"
+    training.write_text(json.dumps({"questions": [
+        {"id": "tq", "body": "train question",
+         "documents": ["http://x/pubmed/42", "http://x/pubmed/43"]}]}))
+    return allmesh, fixes, golden, training
+
+
+def test_bioasq_convert_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch):
+    import sys
+
+    from sgpt_tpu.cli import bioasq_convert as jax_cli
+    from sgpt_tpu.data import bioasq as jbioasq
+    from sgpt_tpu_torch.cli import bioasq_convert
+    from sgpt_tpu_torch.data import bioasq as pbioasq
+
+    allmesh, fixes, golden, training = _bioasq_raw(tmp_path)
+    for questions in (golden, training):
+        outs = {side: tmp_path / f"{side}_{questions.name}" for side in ("port", "jax")}
+        flags = ["--allmesh", str(allmesh), "--questions", str(questions),
+                 "--manual-fixes", str(fixes)]
+        bioasq_convert.main(bioasq_convert.parse_args(flags + ["--out", str(outs["port"])]))
+        monkeypatch.setattr(sys, "argv", ["x"] + flags + ["--out", str(outs["jax"])])
+        jax_cli.main()
+        for rel in ("corpus.jsonl", "queries.jsonl", os.path.join("qrels", "test.tsv")):
+            got = (outs["port"] / rel).read_text()
+            assert got == (outs["jax"] / rel).read_text() and got, rel
+    got = peval.load_beir_dataset(str(tmp_path / "port_golden"))
+    assert "2000" in got[0] and got[0]["3000"]["text"] == "Fixed text body"
+    assert got[2] == {"q1": {"1001": 1, "2000": 1}, "q2": {"1002": 1, "2000": 1}}
+    for line in ('{"pmid": 7, "title": "t"},', '"abstractText":"x","pmid":"9","title":"y"}',
+                 "{", "garbage"):
+        assert pbioasq._parse_allmesh_line(line) == jbioasq._parse_allmesh_line(line), line
