@@ -230,6 +230,25 @@ Phases, each of which asserts; any failure exits non-zero:
                encode slice's embeddings == the exact (fp64) top-10;
                paraphrase mining's pairs and the communities held to fp64
                cosines
+ 28. encoders — the encoder families at full width with random weights from
+               the seed: BERT-base, T5-base (v1.0, ReLU) and T5 v1.1 (gated
+               GELU), each a bf16 bulk encode of 1,024 documents at
+               max_seq_len 256 through `EmbeddingEngine(method="mean")`
+               (emb/s; no K1 or K3 launch: bidirectional attention takes the
+               decoder's plain path) with the plain attention's share of one
+               T=256 batch (CUDA events), fp32 card == fp32 CPU on one batch
+               of 8 (1e-4) and bf16 card against fp32 CPU cosines (≥ 0.99);
+               BERT's token types move the output, K5 over its embeddings ==
+               its plain version, and 3 BitFit MNRL steps (fp32 "default",
+               batch 32, T=128; only biases move); T5's relative bias on the
+               card == the CPU's at T=256; CLIP ViT-B/32 in bf16 through
+               `CLIPEncoder` on 256 texts and 256 uint8 images, mixed (K1 =
+               12 × text batches, the same image the same embedding, fp32
+               card == CPU on 8 + 8 items), K1 at the text tower's shape
+               (B=32, T=77, H=8, Dh=64, bf16, padded rows) against its plain
+               version, timed beside SDPA and its bound; `cli.beir_retriever
+               --modelname bert-base-uncased --randominit` on 1,000 synthetic
+               documents; `modules.py`'s CNN and LSTM, card == CPU (fp32)
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -2354,17 +2373,19 @@ def phase_ce_cli(corpus, card):
     return {"bm25_ndcg10": bm25["NDCG@10"], "ce_ndcg10": ndcg, "wall_s": wall}
 
 
-def phase_beir(rng, card, extra=()):
+def phase_beir(rng, card, extra=(), model="EleutherAI/gpt-neo-125M", n_docs=2000,
+               n_queries=100):
     """The port's BEIR CLI end to end on a synthetic BEIR folder: 2,000
     documents, 100 queries copied from documents, qrels to those documents;
     full-width GPT-Neo-125M, random weights, SPECB, max_seq_len 300; `extra`
-    flags (phase int8: --quantize int8)."""
+    flags (phase int8: --quantize int8); another `model` name and a smaller
+    folder (phase encoders: bert-base-uncased)."""
     import os
     import tempfile
 
     from sgpt_tpu_torch.cli import beir_retriever
 
-    corpus = synthetic_corpus(rng, 2000)
+    corpus = synthetic_corpus(rng, n_docs)
     ids = list(corpus)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2376,28 +2397,28 @@ def phase_beir(rng, card, extra=()):
         with open(os.path.join(data, "queries.jsonl"), "w") as f, \
                 open(os.path.join(data, "qrels", "test.tsv"), "w") as g:
             g.write("query-id\tcorpus-id\tscore\n")
-            for n in range(100):
-                d = ids[n * 20]
+            for n in range(n_queries):
+                d = ids[n * (n_docs // n_queries)]
                 f.write(json.dumps({"_id": f"q{n}", "text": corpus[d]["text"]}) + "\n")
                 g.write(f"q{n}\t{d}\t1\n")
         t0 = time.perf_counter()
         os.chdir(tmp)
         try:
             ndcg = beir_retriever.main(beir_retriever.parse_args([
-                "--modelname", "EleutherAI/gpt-neo-125M", "--dataset", "synth", "--datapath",
+                "--modelname", model, "--dataset", "synth", "--datapath",
                 tmp, "--randominit", "--specb", "--maxseqlen", "300", "--device", "cuda",
                 "--batchsize", "64", *extra]))
             wall = time.perf_counter() - t0
-            with open("results_EleutherAI_gpt-neo-125M_weightedmean_synth.json") as f:
+            with open(f"results_{model.replace('/', '_')}_weightedmean_synth.json") as f:
                 results = json.load(f)
             assert os.path.exists("beir_embeddings_ndcgs.json")
         finally:
             os.chdir(cwd)
-    assert len(results) == 100 and all(0 < len(r) <= 1000 for r in results.values())
+    assert len(results) == n_queries and all(0 < len(r) <= 1000 for r in results.values())
     assert all(np.isfinite(v) for r in results.values() for v in r.values())
     assert 0.0 <= ndcg["NDCG@10"] <= 1.0
-    log(f"beir{' ' + ' '.join(extra) if extra else ''}: 2000 docs, 100 queries in "
-        f"{wall:.2f} s; nDCG@10 {ndcg['NDCG@10']:.5f} (random weights) ({card})")
+    log(f"beir {model}{' ' + ' '.join(extra) if extra else ''}: {n_docs} docs, {n_queries} "
+        f"queries in {wall:.2f} s; nDCG@10 {ndcg['NDCG@10']:.5f} (random weights) ({card})")
     return ndcg["NDCG@10"]
 
 
@@ -2943,12 +2964,15 @@ def plain_attention(sa, fa):
 
     saved = dm.short_attention, dm.flash_attention
 
-    def short(q2, k2, v2, km, sl, scale, window, H, use_alibi, segments=None, positions=None):
+    def short(q2, k2, v2, km, sl, scale, window, H, use_alibi, segments=None, positions=None,
+              causal=True):
+        assert causal, "the plain versions are causal, as the kernels"
         return sa.short_attention_reference(q2, k2, v2, km, sl, scale=scale, window=window,
                                             H=H, use_alibi=use_alibi, segments=segments,
                                             positions=positions)
 
-    def flash(q, k, v, km, sl=None, **kw):
+    def flash(q, k, v, km, sl=None, causal=True, **kw):
+        assert causal, "the plain versions are causal, as the kernels"
         return fa.flash_attention_reference(q, k, v, km, sl, **kw)[0]
 
     dm.short_attention, dm.flash_attention = short, flash
@@ -4881,6 +4905,337 @@ def phase_search_utils(torch, docs, queries, card) -> dict:
             "paraphrase_pairs": len(mined), "communities": len(comm)}
 
 
+ENC_DOCS = 1024     # documents of the encoder families' bulk encode
+ENC_T = 256         # their max_seq_len
+CLIP_ITEMS = 256    # texts, and as many images, in CLIP's mixed batch
+CLIP_BATCH = 32     # CLIPEncoder's batch_size: K1 runs 12 × ceil(256 / 32) times
+
+
+def encoder_docs(rng, n: int) -> list:
+    """n documents of 10-400 words: every length bucket up to 256 tokens,
+    and a tail truncated at 256."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(5000)]
+    return [" ".join(rng.choice(words, int(m))) for m in rng.integers(10, 400, n)]
+
+
+def plain_attention_share(torch, engine, texts) -> dict:
+    """One encode batch of `texts` (one bucket), timed with CUDA events
+    around the forward, pooling and copy to the host (`_embed`) and around
+    each call of the decoder's plain attention: the attention's share of
+    the batch's device time (its events enclose the scores, the bias and
+    mask add, the softmax and P·V)."""
+    from sgpt_tpu_torch.models import decoder as dec
+
+    rows, _, _ = engine.codec.encode_rows(texts)
+    T = max(len(r) for r in rows)
+    enc = engine.codec.pad_rows(rows, pad_to=T)
+    ids, mask = enc.input_ids, enc.attention_mask
+    engine._embed(ids, mask)
+    orig, marks = dec.plain_attention, []
+
+    def timed(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    dec.plain_attention = timed
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        engine._embed(ids, mask)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        dec.plain_attention = orig
+    attn_ms = sum(a.elapsed_time(b) for a, b in marks)
+    total_ms = start.elapsed_time(end)
+    assert len(marks) == engine.cfg.num_layers, (len(marks), engine.cfg.num_layers)
+    return {"rows": len(rows), "T": T, "batch_ms": total_ms, "attention_ms": attn_ms,
+            "attention_share": attn_ms / total_ms}
+
+
+def encoder_family(torch, sa, mips, name: str, cfg16, cfg32, docs, card, rng) -> dict:
+    """One encoder family at full width (BERT-base or T5-base): the bf16
+    bulk encode of `docs` through `EmbeddingEngine(method="mean")` with no
+    launch of K1 or K3 (bidirectional attention takes the plain path), the
+    plain attention's share of one T=256 batch, fp32 card against fp32 CPU
+    on one batch of 8 (phase parity's gate, 1e-4) and bf16 card against fp32
+    CPU cosines (≥ 0.99); BERT's token types change the output, and K5 over
+    BERT's embeddings is held to its plain version; T5's relative bias on
+    the card equals the CPU's bit for bit at T=256."""
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.index import DenseIndex
+    from sgpt_tpu_torch.models import Decoder
+    from sgpt_tpu_torch.models.decoder import t5_relative_bias
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.ops.pooling import normalize
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    tok = SimpleTokenizer(cfg16.vocab_size)
+    model = Decoder(cfg16, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+    engine = EmbeddingEngine(model, cfg16, tok, device="cuda", method="mean", max_seq_len=ENC_T,
+                             batch_size=64, normalize_embeddings=True)
+    engine.warmup()
+    torch.cuda.synchronize()
+    sa.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    emb = engine.encode(docs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k3 = sa.launches, fa.launches
+    rows, n_trunc, _ = engine.codec.encode_rows(docs)
+    tokens = sum(len(r) for r in rows)
+    assert emb.shape == (len(docs), cfg16.hidden_size) and np.isfinite(emb).all(), name
+    assert np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-2, name
+    assert k1 == k3 == 0, f"{name}: bidirectional layers reached K1 ({k1}) or K3 ({k3})"
+    out = {"emb_per_s": len(docs) / wall, "tokens_per_s": tokens / wall, "wall_s": wall,
+           "truncated": n_trunc}
+    longest = np.argsort([len(r) for r in rows], kind="stable")[-64:]
+    share = plain_attention_share(torch, engine, [docs[i] for i in longest])
+    out.update({f"batch_{k}": v for k, v in share.items()})
+    log(f"encoders {name}: {len(docs)} docs in {wall:.3f} s, {out['emb_per_s']:.1f} emb/s "
+        f"({out['tokens_per_s']:.0f} tokens/s), {n_trunc} truncated at {ENC_T}; bf16, mean "
+        f"pooling, batch_size 64; K1 {k1}, K3 {k3}; one batch of {share['rows']} at "
+        f"T={share['T']}: {share['batch_ms']:.3f} ms, plain attention {share['attention_ms']:.3f} "
+        f"ms ({share['attention_share']:.3f}) ({card})")
+
+    # fp32 card (strict fp32) against fp32 CPU on one batch; bf16 card cosines
+    small = [docs[i] for i in longest[-8:]]
+    cpu32 = Decoder(cfg32, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu32 = Decoder(cfg32, device="cuda", weights=cpu32.state_dict())
+    gpu16 = Decoder(cfg16, device="cuda", weights=cpu32.state_dict())
+    kw = dict(method="mean", max_seq_len=128, batch_size=8, normalize_embeddings=True)
+    on_cpu = EmbeddingEngine(cpu32, cfg32, tok, device="cpu", **kw).encode(small)
+    on_gpu = EmbeddingEngine(gpu32, cfg32, tok, device="cuda", **kw).encode(small)
+    on_gpu16 = EmbeddingEngine(gpu16, cfg16, tok, device="cuda", **kw).encode(small)
+    err32 = float(np.abs(on_gpu - on_cpu).max())
+    cos16 = cosine(on_gpu16, on_cpu)
+    log(f"encoders {name} parity, one batch of 8 at T=128: fp32 card vs fp32 CPU max abs diff "
+        f"{err32:.3e} (tolerance 1e-4); bf16 card vs fp32 CPU cosine min {cos16.min():.6f} "
+        f"(tolerance 0.99)")
+    assert err32 < 1e-4, (name, err32)
+    assert cos16.min() > 0.99, (name, cos16.min())
+    out.update(fp32_card_vs_cpu=err32, bf16_cos_min=float(cos16.min()))
+    enc = engine.codec.pad_rows(engine.codec.encode_rows(small)[0], pad_to=128)
+    ids = torch.from_numpy(enc.input_ids).cuda()
+    mask = torch.from_numpy(enc.attention_mask).cuda()
+    if cfg32.token_type_vocab:
+        with torch.inference_mode():
+            base = gpu32(ids, mask)
+            ones = gpu32(ids, mask, token_type_ids=torch.ones_like(ids))
+        moved = float((ones - base).abs().max())
+        log(f"encoders {name}: token_type_ids of ones move the states by {moved:.3e}")
+        assert moved > 1e-3, moved
+    if cfg32.relative_attention:
+        args = (256, cfg32.relative_attention_buckets, cfg32.relative_attention_max_distance,
+                True)
+        with torch.inference_mode():
+            card_bias = t5_relative_bias(gpu32.rel_bias, *args)
+            cpu_bias = t5_relative_bias(cpu32.rel_bias, *args)
+        assert torch.equal(card_bias.cpu(), cpu_bias), f"{name}: relative bias differs"
+        log(f"encoders {name}: relative bias at T=256 equals the CPU's bit for bit")
+    del cpu32, gpu32, gpu16
+    if name == "bert-base":
+        index = DenseIndex(cfg16.hidden_size, kernel="pallas", device="cuda")
+        index.add(emb, ids=[f"d{i}" for i in range(len(docs))])
+        index.build()
+        mips.launches = 0
+        _, hits = index.search_embeddings(emb[:64], k=10)
+        out["k5_launches"] = mips.launches
+        assert mips.launches == 1, mips.launches
+        own = float(np.mean([row[0] == f"d{n}" for n, row in enumerate(hits)]))
+        q = normalize(torch.from_numpy(emb[:64]).to("cuda", torch.bfloat16))
+        got = mips.mips_topk(q, index._corpus, index._built_count, 10)
+        want = mips.mips_topk_reference(q, index._corpus, index._built_count, 10)
+        k5_err, ties = check_topk(torch, q, index._corpus, got, want, "K5 over BERT embeddings")
+        log(f"encoders {name}: K5 over the {len(docs)} embeddings, Q=64 k=10: 1 launch, "
+            f"max_abs_err {k5_err:.3e} against its plain version ({ties} near-tie slots); own "
+            f"document first for {own:.4f} of queries")
+        out.update(k5_max_abs_err=k5_err, own_first=own)
+    del model, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_train(torch, sa, rng, card) -> dict:
+    """3 `ContrastiveTrainer.fit` steps of BitFit MNRL on full-width
+    BERT-base in fp32 at the CLI's "default" (TF32 products): batch 32,
+    max_seq_len 128, mean pooling, constant lr; only biases move, no K1 or
+    K2 launch; ms/step over the last two steps."""
+    from sgpt_tpu_torch.models import Decoder, bert
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import BIAS_NAMES, ContrastiveTrainer, TrainConfig
+
+    steps, B = 3, 32
+    cfg = bert("base", matmul_precision="default")
+    model = Decoder(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    stamps = []
+    tc = TrainConfig(lr=2e-4, batch_size=B, max_seq_len=128, freeze_nonbias=True,
+                     pooling="mean", scheduler="constantlr",
+                     log_fn=lambda rec: stamps.append(time.perf_counter()))
+    triplets = synthetic_triplets(rng, B * steps)
+    batches = [triplets[i * B:(i + 1) * B] for i in range(steps)]
+    frozen = {n: bits_fingerprint(torch, p) for n, p in model.named_parameters()
+              if n.rsplit(".", 1)[-1] not in BIAS_NAMES}
+    biases = {n: p.detach().clone() for n, p in model.named_parameters() if n not in frozen}
+    trainer = ContrastiveTrainer(model, cfg, SimpleTokenizer(cfg.vocab_size), tc)
+    sa.launches = sa.bwd_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = trainer.fit(lambda: iter(batches), steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in out["history"]]
+    ms = 1e3 * float(np.median(np.diff(stamps)))
+    moved = sum(not torch.equal(p.detach(), biases[n]) for n, p in model.named_parameters()
+                if n in biases)
+    still = all(bits_fingerprint(torch, p) == frozen[n] for n, p in model.named_parameters()
+                if n in frozen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"encoders bert-base train: {steps} steps, losses {[round(x, 5) for x in losses]}; "
+        f"{ms:.1f} ms/step ({3 * B / (ms / 1e3):.1f} sequences/s), peak {peak:.2f} GiB; "
+        f"{moved} of {len(biases)} bias leaves moved, frozen leaves unchanged: {still}; K1 "
+        f"{sa.launches}, K2 {sa.bwd_launches}; fp32 at TF32 products (\"default\"), batch 32, "
+        f"max_seq_len 128, BitFit ({card})")
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert still and moved > 0, (still, moved)
+    assert sa.launches == sa.bwd_launches == 0
+    del model, trainer
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "seq_per_s": 3 * B / (ms / 1e3), "peak_gib": peak,
+            "losses": losses}
+
+
+def clip_items(rng, n: int) -> tuple:
+    """n texts of 1-100 words (some past CLIP's 77 tokens) and n uint8 images
+    (224 × 224, and 256 × 320 and 300 × 240, which resize), interleaved;
+    images 5 and 17 are one image (one image batch holds both). Returns the
+    items and the two positions of the repeated image."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+             for _ in range(3000)]
+    texts = [" ".join(rng.choice(words, int(m))) for m in rng.integers(1, 100, n)]
+    sizes = [(224, 224), (256, 320), (300, 240)]
+    images = [rng.integers(0, 256, (*sizes[i % 3], 3), dtype=np.uint8) for i in range(n)]
+    images[17] = images[5]
+    items = [x for pair in zip(texts, images) for x in pair]
+    return items, (2 * 5 + 1, 2 * 17 + 1)
+
+
+def clip_phase(torch, sa, rng, card) -> dict:
+    """CLIP ViT-B/32 at full width, random weights from the seed, bf16:
+    `CLIPEncoder` on 256 texts and 256 images, mixed, in input order: K1
+    (the causal text tower) 12 × text batches, the same image the same
+    embedding, items/s; fp32 card against fp32 CPU on 8 texts and 8 images
+    (1e-4); then K1 at the text tower's shape (B=32, T=77, H=8, Dh=64, bf16,
+    padded rows) against its plain version, timed beside SDPA and its
+    bound."""
+    import dataclasses
+
+    from sgpt_tpu_torch.models.clip import CLIP, CLIPEncoder, clip_vit_b_32
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg32 = clip_vit_b_32()
+    cfg16 = dataclasses.replace(
+        cfg32, text=cfg32.text.replace(dtype=torch.bfloat16, matmul_precision="default"),
+        vision=cfg32.vision.replace(dtype=torch.bfloat16, matmul_precision="default"))
+    tok = SimpleTokenizer(cfg32.text.vocab_size)
+    cpu32 = CLIP(cfg32, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    model = CLIP(cfg16, device="cuda", weights=cpu32.state_dict())
+    items, (a, b) = clip_items(rng, CLIP_ITEMS)
+    enc = CLIPEncoder(model, cfg16, tok, normalize_embeddings=True, batch_size=CLIP_BATCH)
+    enc.encode(items[:2 * CLIP_BATCH])
+    torch.cuda.synchronize()
+    sa.launches = 0
+    t0 = time.perf_counter()
+    emb = enc.encode(items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = sa.launches
+    text_batches = -(-CLIP_ITEMS // CLIP_BATCH)
+    log(f"encoders clip-vit-b-32: {CLIP_ITEMS} texts + {CLIP_ITEMS} images (uint8, resized on "
+        f"the host) in {wall:.3f} s, {2 * CLIP_ITEMS / wall:.1f} items/s; bf16, batch_size "
+        f"{CLIP_BATCH}; K1 launches {k1} (12 x {text_batches} text batches) ({card})")
+    assert emb.shape == (2 * CLIP_ITEMS, cfg16.projection_dim) and np.isfinite(emb).all()
+    assert k1 == cfg16.text.num_layers * text_batches, (k1, text_batches)
+    assert np.array_equal(emb[a], emb[b]), "the same image gave two embeddings"
+    assert np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3
+    sub = items[:16]
+    on_cpu = CLIPEncoder(cpu32, cfg32, tok, normalize_embeddings=True).encode(sub)
+    card32 = CLIP(cfg32, device="cuda", weights=cpu32.state_dict())
+    on_gpu = CLIPEncoder(card32, cfg32, tok, normalize_embeddings=True).encode(sub)
+    err32 = float(np.abs(on_gpu - on_cpu).max())
+    log(f"encoders clip-vit-b-32 parity, 8 texts + 8 images: fp32 card vs fp32 CPU max abs "
+        f"diff {err32:.3e} (tolerance 1e-4)")
+    assert err32 < 1e-4, err32
+    del cpu32, card32, model, enc
+    torch.cuda.empty_cache()
+
+    args, _ = attention_inputs(torch, rng, 32, 77, 8, 64, torch.bfloat16)
+    got = sa.short_attention(*args, 0.125, 0, 8, False)
+    want = sa.short_attention_reference(*args, scale=0.125, window=0, H=8, use_alibi=False)
+    torch.cuda.synchronize()
+    k1_err, gate = hold(torch, "kernel clip-text", got, want, torch.bfloat16)
+    log(f"kernel clip-text bf16 B=32 T=77 H=8 Dh=64 window=0, padded rows: K1 max_abs_err "
+        f"{k1_err:.3e} ({gate})")
+    times = time_k1(torch, sa, "clip-text ", args, 8, 0.125, 0)
+    return {"items_per_s": 2 * CLIP_ITEMS / wall, "wall_s": wall, "k1_launches": k1,
+            "text_batches": text_batches, "fp32_card_vs_cpu": err32, "k1_max_abs_err": k1_err,
+            "k1_times": times}
+
+
+def modules_phase(torch, rng, card) -> dict:
+    """`modules.py` on the card against the CPU, fp32: the CNN (kernel sizes
+    1, 3, 5, 256 channels) and the 2-layer bidirectional LSTM (hidden 128,
+    ragged lengths) over (32, 64, 300) token embeddings, within 1e-4."""
+    from sgpt_tpu_torch import modules
+
+    x = torch.from_numpy(rng.standard_normal((32, 64, 300)).astype(np.float32))
+    lengths = torch.from_numpy(rng.integers(1, 65, 32).astype(np.int32))
+    cnn = modules.init_cnn(torch.Generator().manual_seed(SEED), 300)
+    lstm = modules.init_lstm(torch.Generator().manual_seed(SEED), 300, 128, num_layers=2)
+    errs = {}
+    for name, fn, params, extra in (("cnn", modules.cnn_forward, cnn, ()),
+                                    ("lstm", modules.lstm_forward, lstm, (lengths,))):
+        want = fn(params, x, *extra)
+        got = fn(modules.params_to(params, "cuda"), x.cuda(),
+                 *[t.cuda() for t in extra]).cpu()
+        errs[name] = float((got - want).abs().max())
+        assert got.shape == want.shape and errs[name] < 1e-4, (name, errs[name])
+    log(f"encoders modules: CNN (1, 3, 5) x 256 and biLSTM 2 x 128 over (32, 64, 300), card vs "
+        f"CPU fp32 max abs diff {errs['cnn']:.3e} / {errs['lstm']:.3e} (tolerance 1e-4) ({card})")
+    return errs
+
+
+def phase_encoders(torch, sa, mips, card) -> dict:
+    """The encoder families at full width (`encoder_family`: BERT-base, T5-base
+    v1.0 and v1.1), BERT's training steps (`bert_train`), CLIP ViT-B/32
+    (`clip_phase`), the BEIR CLI with `--modelname bert-base-uncased
+    --randominit` (its retriever scans with blockmax, as the JAX CLI's:
+    K5 is held on BERT's embeddings above) and `modules.py` (`modules_phase`)."""
+    from sgpt_tpu_torch.models import bert, t5
+
+    rng = np.random.default_rng(SEED + 40)
+    docs = encoder_docs(rng, ENC_DOCS)
+    out = {}
+    for name, cfg in (("bert-base", bert("base")), ("t5-base", t5("base")),
+                      ("t5-v1_1-base", t5("base").replace(mlp_activation="gated_gelu"))):
+        # bf16 at the CLI's "default" (`build_model`): the plain attention's
+        # fp32 scores of bf16 operands on TF32 tensor cores, exact products
+        cfg16 = cfg.replace(dtype=torch.bfloat16, matmul_precision="default")
+        out[name] = encoder_family(torch, sa, mips, name, cfg16, cfg, docs, card, rng)
+    out["bert_train"] = bert_train(torch, sa, rng, card)
+    out["clip"] = clip_phase(torch, sa, rng, card)
+    out["beir_bert_ndcg10"] = phase_beir(rng, card, model="bert-base-uncased", n_docs=1000,
+                                         n_queries=50)
+    out["modules"] = modules_phase(torch, rng, card)
+    return out
+
+
 def ptxas_lines(log_text: str, *names: str) -> dict:
     """Registers and spills that ptxas reported for the kernels whose mangled
     names hold each of `names` (e.g. "mma_kernelILi256ELb0"), from build.log."""
@@ -5103,6 +5458,10 @@ def main() -> int:
     phase("useb")
     useb_res = phase_useb(torch, sa, fa, card)
 
+    # 28. the encoder families, CLIP and the word-level modules
+    phase("encoders")
+    encoders = phase_encoders(torch, sa, mips, card)
+
     # 17. GPT-J-6B and BLOOM-1b7 at full width
     phase("families")
     families = phase_families(torch, fa, sa, mips, card)
@@ -5155,6 +5514,15 @@ def main() -> int:
     def parent_ms(cell):  # the parent build's time in the A/B phase (--parent), else None
         return ab[cell]["parent_ms"] if cell in ab else None
 
+    for name in ("bert-base", "t5-base", "t5-v1_1-base"):
+        e = encoders[name]
+        log(f"encoders {name}: {e['emb_per_s']:.1f} emb/s ({e['tokens_per_s']:.0f} tokens/s), "
+            f"plain attention {e['batch_attention_share']:.3f} of a batch of "
+            f"{e['batch_rows']} at T={e['batch_T']}; bf16, max_seq_len {ENC_T}, full width "
+            f"({card})")
+    log(f"encoders bert-base train: {encoders['bert_train']['ms_per_step']:.1f} ms/step; "
+        f"clip-vit-b-32: {encoders['clip']['items_per_s']:.1f} items/s, K1 "
+        f"{encoders['clip']['k1_times']['ms']:.4f} ms at B=32 T=77 H=8 Dh=64 bf16 ({card})")
     for family, f in families.items():
         log(f"families {family}: encode {f['encode_emb_per_s']:.1f} emb/s, long "
             f"{f['long_emb_per_s']:.2f} emb/s, ce {f['ce_pairs_per_s']:.1f} pairs/s; bf16, "
@@ -5203,7 +5571,12 @@ def main() -> int:
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
                      + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1
-                     + tsdae["k1"] + ce_train["k1"]),
+                     + tsdae["k1"] + ce_train["k1"] + encoders["clip"]["k1_launches"]),
+        "launches_clip_text": encoders["clip"]["k1_launches"],
+        "max_abs_err_clip_text": encoders["clip"]["k1_max_abs_err"],
+        **{f"{k}_clip_text": v for k, v in encoders["clip"]["k1_times"].items()},
+        "encoders": {k: v for k, v in encoders.items() if k != "clip"},
+        "clip": {k: v for k, v in encoders["clip"].items() if k != "k1_times"},
         "launches_tsdae": tsdae["k1"], "launches_ce_train": ce_train["k1"],
         "max_abs_err_tsdae": tsdae_err["k1"],
         **{f"{k}_{cell}": v for cell, t in tsdae_times.items() for k, v in t["k1"].items()},
@@ -5294,7 +5667,8 @@ def main() -> int:
         "replaces": "sgpt_tpu/ops/pallas/mips.py:44",
         "launches": (search["k5_launches"] + serve["k5_launches"]
                      + sum(f["k5_launches"] for f in families.values())
-                     + ivf["oracle_k5_launches"]),
+                     + ivf["oracle_k5_launches"] + encoders["bert-base"]["k5_launches"]),
+        "launches_encoders_bert": encoders["bert-base"]["k5_launches"],
         "launches_ivf_oracle": ivf["oracle_k5_launches"], "ivf": ivf,
         "launches_search": search["k5_launches"], "launches_serve": serve["k5_launches"],
         "launches_families": {k: f["k5_launches"] for k, f in families.items()},

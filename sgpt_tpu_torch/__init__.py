@@ -1,15 +1,18 @@
-"""sgpt_tpu_torch — SGPT's bulk encode, contrastive training (asymmetric and symmetric), search, cross-encoder rerank and serving in PyTorch, with CUDA kernels for Hopper.
+"""sgpt_tpu_torch — SGPT's bulk encode, contrastive training (asymmetric and symmetric), search, cross-encoder rerank and serving in PyTorch, with CUDA kernels for Hopper; the sentence-transformers encoder backbones (BERT, T5, CLIP) and word-level modules beside.
 
 A port of `sgpt_tpu` (JAX) that grows beside it. Module names mirror the JAX
 package so each counterpart is easy to find:
 
-    models.config        DecoderConfig with a torch dtype; GPT-Neo, GPT-J-6B
-                         and BLOOM presets
+    models.config        DecoderConfig with a torch dtype; GPT-Neo, GPT-J-6B,
+                         BLOOM, BERT and T5 (encoder) presets
     models.params        random init and conversion of a JAX parameter tree
                          and of the JAX trainer's aux (learnt weights, heads)
-    models.decoder       GPT-Neo / GPT-J / BLOOM forward (nn.Module, layers
-                         in a ModuleList)
+    models.decoder       GPT-Neo / GPT-J / BLOOM / BERT / T5 forward
+                         (nn.Module, layers in a ModuleList); bidirectional
+                         and relative-bias attention in plain PyTorch
+    models.clip          the CLIP dual tower (text, ViT), CLIPEncoder
     models.hf_loader     local HF checkpoints (safetensors, .bin, sharded)
+                         of the GPT families, BERT and T5
     models.hf_export     the decoder's weights under HF names, config.json
     ops.short_attention  fused short-T attention: CUDA forward and backward
                          kernels, their plain versions, the autograd function
@@ -34,6 +37,8 @@ package so each counterpart is easy to find:
     crossencoder         SGPT-CE: CrossEncoderRanker, YesNoRanker, rerank
     ops.logprobs         continuation log-prob scorers over the LM head
     cross_encoder_trainable  the trainable cross-encoder and its evaluators
+    modules              word-level ST modules: tokenizers, word embeddings,
+                         BoW, CNN, LSTM, embedding dropout
     losses               MNRL and the other sentence-transformers losses
     training             ContrastiveTrainer (learnt mean, dense heads,
                          export_model), TSDAETrainer, BitFit, schedules,

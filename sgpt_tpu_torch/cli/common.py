@@ -15,21 +15,23 @@ def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = 
                 device="cuda", seed: int = 0):
     """(model, cfg, tokenizer), as the JAX `build_model`: with `random_init`
     (`--randominit`, the reference's `--reinit` debugging flag and the
-    zero-egress smoke path) a preset chosen from the name ("6b", "5.8b",
-    "6.1b": GPT-J-6B; "bloom": BLOOM-1b7; "1.3b", "2.7b", else 125M:
-    GPT-Neo) with weights from `seed` and the hash tokenizer bounded by the
-    model's vocab; else the local checkpoint directory `model_name`
-    (`hf_loader.load_pretrained`) with its own tokenizer
-    (`get_tokenizer(model_name, fallback=False)`: real weights refuse the
-    hash tokenizer). As the JAX `build_model`, the dtype defaults to bf16
-    and the config runs at `matmul_precision="default"` (TF32 float32
-    products on the card; a float32 checkpoint stays at "highest"); build a
-    `Decoder` from a config at "highest" for strict float32. Random weights
-    are drawn where the model lives: on the card from a generator there (no
-    host copy of up to 6B parameters), on the CPU from a host generator."""
+    zero-egress smoke path) a preset chosen from the name in the JAX order
+    ("6b", "5.8b", "6.1b": GPT-J-6B; "bert": BERT base, or large; "bloom":
+    BLOOM-1b7; "t5": T5's encoder base, or small or large, gated-GELU for
+    "v1_1"/"v1.1"; "1.3b", "2.7b", else 125M: GPT-Neo) with weights from
+    `seed` and the hash tokenizer bounded by the model's vocab; else the
+    local checkpoint directory `model_name` (`hf_loader.load_pretrained`)
+    with its own tokenizer (`get_tokenizer(model_name, fallback=False)`:
+    real weights refuse the hash tokenizer). As the JAX `build_model`, the
+    dtype defaults to bf16 and the config runs at
+    `matmul_precision="default"` (TF32 float32 products on the card; a
+    float32 checkpoint stays at "highest"); build a `Decoder` from a config
+    at "highest" for strict float32. Random weights are drawn where the
+    model lives: on the card from a generator there (no host copy of up to
+    6B parameters), on the CPU from a host generator."""
     import torch
 
-    from ..models import Decoder, bloom, gpt_j_6b, gpt_neo
+    from ..models import Decoder, bert, bloom, gpt_j_6b, gpt_neo, t5
     from ..models.hf_loader import load_pretrained
     from ..tokenization import get_tokenizer
 
@@ -42,13 +44,16 @@ def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = 
             cfg = cfg.replace(matmul_precision="default")
         model = Decoder(cfg, device=device, weights=sd)
         return model, cfg, get_tokenizer(model_name, fallback=False)
-    if any(s in low for s in ("bert", "t5")):
-        raise NotImplementedError(f"{model_name!r}: the encoder families (BERT, T5) are "
-                                  "not ported yet (ROADMAP Queue 1 item 14)")
     if any(s in low for s in ("6b", "5.8b", "6.1b")):
         cfg = gpt_j_6b()
+    elif "bert" in low:
+        cfg = bert("large" if "large" in low else "base")
     elif "bloom" in low:
         cfg = bloom("1b7")
+    elif "t5" in low:
+        cfg = t5("large" if "large" in low else "small" if "small" in low else "base")
+        if "v1_1" in low or "v1.1" in low:
+            cfg = cfg.replace(mlp_activation="gated_gelu")
     else:
         cfg = gpt_neo("1.3b" if "1.3b" in low else "2.7b" if "2.7b" in low else "125m")
     cfg = cfg.replace(dtype=dtype, matmul_precision="default")

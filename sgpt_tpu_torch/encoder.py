@@ -13,8 +13,10 @@ fingerprints the weights, the heads and the encode settings.
 
 `quantize="int8"` runs the decoder's projections in int8 (`ops/quant.py`)
 on a quantized copy of the model. Not ported yet (ROADMAP Queue 1 items 5,
-11 and 12): dispatch chaining, the depth-2 fetch pipeline and meshes.
-Passing any of them raises `NotImplementedError`.
+11 and 12): dispatch chaining, the depth-2 fetch pipeline and meshes. The
+JAX engine's keywords for them are accepted at the values that ask for
+none of these (`mesh=None`, `sp_mesh=None`, `fused_attention=None`,
+`dispatch_chain=1`); any other value raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ from .tokenization.specb import SpecbCodec, pick_bucket, row_bucket
 
 logger = logging.getLogger(__name__)
 
-_LATER = ("mesh", "sp_mesh", "fused_attention", "dispatch_chain")
+# the JAX engine's keywords for what is not ported, each with the one value
+# that asks for nothing the port lacks
+_LATER = {"mesh": None, "sp_mesh": None, "fused_attention": None, "dispatch_chain": 1}
 
 # the dense heads' activations (the JAX engine's `_ACTIVATIONS`: GELU is
 # jax.nn.gelu's tanh approximation)
@@ -71,7 +75,8 @@ def pool_single(hidden: torch.Tensor, mask: torch.Tensor, method: str,
 
 
 class EmbeddingEngine:
-    """Batched sentence embedding over the port's decoder (GPT-Neo, GPT-J, BLOOM)."""
+    """Batched sentence embedding over the port's decoder (GPT-Neo, GPT-J,
+    BLOOM, BERT, T5's encoder)."""
 
     def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
                  device="cuda", method: str = "weightedmean", specb: bool = False,
@@ -100,13 +105,18 @@ class EmbeddingEngine:
         "location": "pre_pool" | "post_pool"}, applied in list order within
         each location: pre-pool heads to every token's state, post-pool
         heads to the sentence embedding.
-        text_prefix: prepended to every text before tokenization."""
+        text_prefix: prepended to every text before tokenization.
+        mesh, sp_mesh, fused_attention, dispatch_chain: the JAX engine's
+        keywords, accepted at None, None, None and 1 (see the module
+        docstring)."""
         unknown = set(later) - set(_LATER)
         if unknown:
             raise TypeError(f"EmbeddingEngine: unexpected arguments {sorted(unknown)}")
-        if later:
+        asked = sorted(k for k, v in later.items()
+                       if not (v is None if _LATER[k] is None else v == _LATER[k]))
+        if asked:
             raise NotImplementedError(
-                f"EmbeddingEngine: {sorted(later)} not ported yet (ROADMAP Queue 1 "
+                f"EmbeddingEngine: {asked} not ported yet (ROADMAP Queue 1 "
                 "items 5, 11, 12)")
         if method not in POOLERS and method not in STACK_POOLERS \
                 and method != "learned_weightedmean":
@@ -193,8 +203,10 @@ class EmbeddingEngine:
             self._embed(np.zeros((B, T), np.int32), np.ones((B, T), np.int32))
         return self
 
-    def encode(self, texts: Sequence[str], *, is_query: bool = False) -> np.ndarray:
-        """Embed a list of texts → (N, D) float32 numpy array (input order)."""
+    def encode(self, texts: Sequence[str], *, is_query: bool = False,
+               show_progress: bool = False) -> np.ndarray:
+        """Embed a list of texts → (N, D) float32 numpy array (input order).
+        show_progress: accepted and unused, as in the JAX engine."""
         if len(texts) == 0:
             return np.zeros((0, self.out_dim), np.float32)
         cached = self._cache_load(texts, is_query)

@@ -1,34 +1,53 @@
-"""Causal decoder forward of the GPT families (counterpart of `sgpt_tpu/models/decoder.py`).
+"""Transformer forward of every family (counterpart of `sgpt_tpu/models/decoder.py`).
 
 Plain PyTorch: the layers are an `nn.ModuleList` walked by a Python loop.
-What the port implements is the causal path of the JAX `_forward_impl` for
-its three GPT families: GPT-Neo (learned positions, unscaled scores, global
-and local (windowed) layers alternating), GPT-J (GPT-J's interleaved rotary
-on the leading `rotary_dim` of each head, 1/sqrt(Dh) scores, the parallel
-residual x + attn(ln1(x)) + mlp(ln1(x)), a separate biased LM head) and
-BLOOM (ALiBi with BLOOM's slopes, a LayerNorm on the embeddings, q/k/v
-biases); pre-LN blocks (LayerNorm with fp32 statistics), tanh-GELU MLP,
-`ln_f`, `output_hidden_states` with HF semantics, and the LM head
-(`Decoder.logits`: `lm_head` when the weights have one, else tied to
-`wte`). A projection whose weight is int8 (`ops.quant.QuantizedWeight`,
-from `quantize_decoder_params` or int8 `weights`) goes through
-`int8_project`, as the JAX `_project` dispatches on a quantized leaf.
-Attention routes as the JAX decoder does: with `cfg.use_flash`,
-T % 128 == 0 and no packed rows (`segment_ids`), through
-`ops.flash_attention` (K3 on a CUDA tensor, and K4a/K4b for the backward
-when a gradient is needed); every other call through `ops.short_attention`
-(K1, and K2 for the backward when a gradient is needed). On a CPU tensor
-both take their plain versions. ALiBi reaches both kernels as the slopes
-(K1 and K3 add slope·key position to the scaled score); packed rows pass
-their per-segment positions as K1's ALiBi key positions, unpacked rows use
-the key index, which equals the JAX XLA path's cumsum(mask) − 1 on every
-valid key of a right-padded row. TSDAE's decoder conditioning (`cond`,
+One forward serves, by config flags, as the JAX `_forward_impl` does:
+
+  * the GPT families: GPT-Neo (learned positions, unscaled scores, global
+    and local (windowed) layers alternating), GPT-J (GPT-J's interleaved
+    rotary on the leading `rotary_dim` of each head, 1/sqrt(Dh) scores, the
+    parallel residual x + attn(ln1(x)) + mlp(ln1(x)), a separate biased LM
+    head) and BLOOM (ALiBi with BLOOM's slopes, a LayerNorm on the
+    embeddings, q/k/v biases); pre-LN blocks, tanh-GELU MLP, `ln_f`;
+  * the encoder families: BERT (`bidirectional`, token-type embeddings
+    `wtt` with `token_type_ids` defaulting to zeros, `post_layernorm`
+    blocks x = ln1(x + attn(x)), x = ln2(x + mlp(x)) and no `ln_f`, erf
+    GELU) and T5's encoder (`norm_style="rms"`: RMSNorm with fp32
+    statistics and a scale only; `relative_attention`: T5's bucketed
+    relative position bias from the one (buckets, H) table `rel_bias`,
+    shared by every layer; unscaled scores; a ReLU or, for v1.1,
+    `gated_gelu` MLP, tanh-GELU(wi·x)·(wg·x), with no biases);
+  * CLIP's towers (`models/clip.py`): `quick_gelu` MLPs, h·sigmoid(1.702h);
+    the vision tower passes `inputs_embeds` (no `input_ids`).
+
+LayerNorm and RMSNorm keep fp32 statistics for any activation dtype.
+`output_hidden_states` has HF semantics: the embeddings, the block outputs,
+and last ln_f(last block output), or the last block's output itself for a
+post-LN stack. The LM head is `Decoder.logits` (`lm_head` when the weights
+have one, else tied to `wte`). A projection whose weight is int8
+(`ops.quant.QuantizedWeight`) goes through `int8_project`, as the JAX
+`_project` dispatches on a quantized leaf.
+
+Attention routes by config and shape, as the JAX decoder does.
+Bidirectional and relative-bias configs (BERT, T5, CLIP's vision tower)
+take `plain_attention`, a copy of the JAX XLA `attention`: no Pallas kernel
+computes them, so none of the port's kernels does either. Every causal
+config without a relative bias takes, with `cfg.use_flash`, T % 128 == 0
+and no packed rows (`segment_ids`), `ops.flash_attention` (K3 on a CUDA
+tensor, and K4a/K4b for the backward when a gradient is needed), and
+otherwise `ops.short_attention` (K1, and K2 for the backward); on a CPU
+tensor both take their plain versions. Both wrappers refuse a call that is
+not causal. ALiBi reaches both kernels as the slopes (K1 and K3 add
+slope·key position to the scaled score); packed rows pass their
+per-segment positions as K1's ALiBi key positions, unpacked rows use the
+key index, which equals the JAX XLA path's cumsum(mask) − 1 on every valid
+key of a right-padded row. TSDAE's decoder conditioning (`cond`,
 `cond_params`) adds a per-layer projection of the sentence embedding to
-each attention output, as the JAX forward does. The flags of the encoder families (BERT,
-T5, CLIP) raise `NotImplementedError`.
+each attention output, as the JAX forward does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Mapping, Optional, Tuple
 
@@ -43,6 +62,8 @@ from .config import DecoderConfig
 from .params import init_params, init_params_, param_shapes
 from .precision import matmul_precision
 
+NEG_INF = -1e9  # the JAX decoder's mask constant
+
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
@@ -50,6 +71,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     bf16 input, PyTorch's kernel keeps the mean, the biased variance and the
     affine in fp32 and casts the result back, as the JAX `layer_norm` does."""
     return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """T5's RMSNorm, written out in fp32 as the JAX `rms_norm` is: no mean
+    subtraction, no bias, x·rsqrt(mean(x²) + eps)·scale, cast back."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def rope_sincos(positions: torch.Tensor, rotary_dim: int):
@@ -102,25 +131,108 @@ def check_token_ids(ids, vocab_size: int, name: str = "") -> None:
                          "disagree")
 
 
-def _unsupported(cfg: DecoderConfig) -> list:
-    """(flag, ROADMAP item) for each config flag this port does not implement."""
-    later = []
-    if cfg.position_embedding not in ("learned", "rotary", "alibi"):
-        later.append((f"position_embedding={cfg.position_embedding!r} (T5)",
-                      "Queue 1 item 14"))
-    if cfg.bidirectional:
-        later.append(("bidirectional (BERT, T5)", "Queue 1 item 14"))
-    if cfg.post_layernorm:
-        later.append(("post_layernorm (BERT)", "Queue 1 item 14"))
-    if cfg.token_type_vocab:
-        later.append(("token_type_vocab (BERT)", "Queue 1 item 14"))
-    if cfg.gelu_exact or cfg.mlp_activation is not None:
-        later.append(("gelu_exact / mlp_activation (BERT, T5, CLIP)", "Queue 1 item 14"))
-    if cfg.norm_style != "layer":
-        later.append((f"norm_style={cfg.norm_style!r} (T5 RMSNorm)", "Queue 1 item 14"))
-    if cfg.relative_attention:
-        later.append(("relative_attention (T5)", "Queue 1 item 14"))
-    return later
+_CHOICES = {
+    "position_embedding": ("learned", "rotary", "alibi", "none"),
+    "attention_layout": ("global", "alternating"),
+    "norm_style": ("layer", "rms"),
+    "mlp_activation": (None, "relu", "gated_gelu", "quick_gelu"),
+}
+
+
+def check_config(cfg: DecoderConfig) -> None:
+    """Refuse a config flag value that the forward has no meaning for (the
+    JAX forward would quietly take the default branch for it), and ALiBi or
+    local layers on a config that takes the plain attention: no family has
+    them, and the plain path implements neither."""
+    for field, allowed in _CHOICES.items():
+        if getattr(cfg, field) not in allowed:
+            raise ValueError(f"DecoderConfig.{field}={getattr(cfg, field)!r}: "
+                             f"expected one of {allowed}")
+    if (cfg.bidirectional or cfg.relative_attention) and (
+            cfg.position_embedding == "alibi" or any(cfg.local_flags())):
+        raise ValueError("bidirectional or relative-bias attention with ALiBi or local "
+                         "layers: no family has it, and the plain attention implements "
+                         "neither")
+
+
+def relative_buckets(T: int, num_buckets: int, max_distance: int,
+                     bidirectional: bool) -> torch.Tensor:
+    """(T, T) int64 bucket of each (query, key) pair, HF
+    `T5Attention._relative_position_bucket` as the JAX `t5_relative_bias`
+    computes it: half the buckets (bidirectional) split by the sign of
+    key − query; within each half the first max_exact distances get their
+    own bucket and larger ones a logarithmic bucket up to max_distance,
+    from an fp32 log truncated to an integer. Computed on the CPU, so the
+    table is the same whatever the device of the model."""
+    ctx = torch.arange(T)
+    rel = ctx[None, :] - ctx[:, None]                       # key - query
+    nb = num_buckets
+    bucket = torch.zeros((T, T), dtype=torch.int32)
+    if bidirectional:
+        nb = nb // 2
+        bucket = bucket + (rel > 0).to(torch.int32) * nb
+        rel_abs = rel.abs()
+    else:
+        rel_abs = torch.clamp(-rel, min=0)
+    max_exact = nb // 2
+    is_small = rel_abs < max_exact
+    large = max_exact + (
+        torch.log(torch.clamp(rel_abs, min=1).to(torch.float32) / max_exact)
+        / math.log(max_distance / max_exact) * (nb - max_exact)
+    ).to(torch.int32)
+    large = torch.clamp(large, max=nb - 1)
+    return (bucket + torch.where(is_small, rel_abs.to(torch.int32), large)).long()
+
+
+@functools.lru_cache(maxsize=32)
+def _bucket_index(T: int, num_buckets: int, max_distance: int, bidirectional: bool,
+                  device: torch.device) -> torch.Tensor:
+    """`relative_buckets` moved to `device` once per length (not once per
+    forward: the copy of a host tensor waits for the device's queue); made
+    outside inference mode, so that a training step may index with it."""
+    with torch.inference_mode(False):
+        return relative_buckets(T, num_buckets, max_distance, bidirectional).to(device)
+
+
+def t5_relative_bias(rel_table: torch.Tensor, T: int, num_buckets: int,
+                     max_distance: int, bidirectional: bool) -> torch.Tensor:
+    """(1, H, T, T) fp32 additive bias from the (num_buckets, H) table; every
+    T5 layer shares it."""
+    idx = _bucket_index(T, num_buckets, max_distance, bidirectional, rel_table.device)
+    return rel_table.float()[idx].permute(2, 0, 1)[None]
+
+
+def mask_bias(attention_mask: torch.Tensor, T: int, *, causal: bool,
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 1, T or 1, T) fp32 additive bias, 0 where a query may attend a
+    key, -1e9 elsewhere (the JAX `_mask_bias`'s global bias): padding keys
+    always, later keys when causal, other segments' keys with
+    `segment_ids`."""
+    dev = attention_mask.device
+    ok = (attention_mask > 0)[:, None, None, :]                # (B, 1, 1, T)
+    if causal:
+        i = torch.arange(T, device=dev)
+        ok = ok & (i[None, :] <= i[:, None])[None, None]
+    if segment_ids is not None:
+        ok = ok & (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]
+    zero = torch.zeros((), device=dev)
+    return torch.where(ok, zero, torch.full((), NEG_INF, device=dev))
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                    H: int, scale_attn: bool) -> torch.Tensor:
+    """The JAX XLA `attention` on (B, T, H·Dh) projections: fp32 scores,
+    ÷ sqrt(Dh) when `scale_attn` (T5 is unscaled), + `bias` (the mask's,
+    T5's relative bias folded in), fp32 softmax, probabilities cast to the
+    activations' dtype before P·V."""
+    B, T, HD = q.shape
+    Dh = HD // H
+    qh, kh, vh = (t.view(B, T, H, Dh).transpose(1, 2) for t in (q, k, v))
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    if scale_attn:
+        scores = scores / math.sqrt(Dh)
+    probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, HD)
 
 
 def _empty(shape, factory: dict) -> nn.Parameter:
@@ -136,6 +248,21 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias, self.eps)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, D: int, eps: float, factory: dict):
+        super().__init__()
+        self.scale = _empty(D, factory)
+        self.eps = eps
+
+    def forward(self, x):
+        return rms_norm(x, self.scale, self.eps)
+
+
+def _norm(cfg: DecoderConfig, factory: dict) -> nn.Module:
+    cls = RMSNorm if cfg.norm_style == "rms" else LayerNorm
+    return cls(cfg.hidden_size, cfg.layer_norm_eps, factory)
 
 
 def project(x: torch.Tensor, w, b: Optional[torch.Tensor]) -> torch.Tensor:
@@ -156,10 +283,12 @@ def _params(module: nn.Module, names, shapes: dict, prefix: str, factory: dict):
 
 
 class Attention(nn.Module):
-    """Causal multi-head attention: projections in (B, T, H·Dh), rotary
-    (GPT-J) on q and k, then the flash attention (`use_flash`, T % 128 == 0,
-    rows not packed) or the fused short-T attention, with BLOOM's ALiBi
-    slopes where the config has them, then the output projection."""
+    """Multi-head attention: projections in (B, T, H·Dh), rotary (GPT-J) on
+    q and k, then by config `plain_attention` (bidirectional or
+    relative-bias configs: `plain` set), or the flash attention
+    (`use_flash`, T % 128 == 0, rows not packed), or the fused short-T
+    attention, with BLOOM's ALiBi slopes where the config has them, then
+    the output projection."""
 
     def __init__(self, cfg: DecoderConfig, shapes: dict, prefix: str, factory: dict):
         super().__init__()
@@ -167,10 +296,13 @@ class Attention(nn.Module):
                 prefix + "attn.", factory)
         self.H = cfg.num_heads
         self.rotary_dim = cfg.rotary_dim
+        self.scale_attn = cfg.scale_attn
         self.scale = 1.0 / math.sqrt(cfg.head_size) if cfg.scale_attn else 1.0
         self.use_flash = cfg.use_flash
+        self.causal = not cfg.bidirectional
+        self.plain = cfg.bidirectional or cfg.relative_attention
 
-    def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos):
+    def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos, bias=None):
         q = project(x, self.wq, self.bq)
         k = project(x, self.wk, self.bk)
         v = project(x, self.wv, self.bv)
@@ -178,49 +310,75 @@ class Attention(nn.Module):
         if rope is not None:
             q, k = (apply_rotary(t.view(B, T, self.H, HD // self.H), *rope,
                                  self.rotary_dim).reshape(B, T, HD) for t in (q, k))
-        alibi = slopes is not None
-        if self.use_flash and T % 128 == 0 and segment_ids is None:
+        if self.plain:
+            out = plain_attention(q, k, v, bias, self.H, self.scale_attn)
+        elif self.use_flash and T % 128 == 0 and segment_ids is None:
             # (B, H, T, Dh) views of the projections: the kernel reads them
             # through their strides and writes the output in the same
             # (B, T, H·Dh) layout, so neither side copies on the card
             qh, kh, vh = (t.view(B, T, self.H, HD // self.H).transpose(1, 2)
                           for t in (q, k, v))
             out = flash_attention(qh, kh, vh, key_mask, slopes, scale=self.scale,
-                                  window=window, block_kv=256 if T % 256 == 0 else 128)
+                                  window=window, block_kv=256 if T % 256 == 0 else 128,
+                                  causal=self.causal)
             out = out.transpose(1, 2).reshape(B, T, HD)
         else:
             out = short_attention(q, k, v, key_mask, slopes, self.scale, window, self.H,
-                                  alibi, segments=segment_ids, positions=kpos)
+                                  slopes is not None, segments=segment_ids, positions=kpos,
+                                  causal=self.causal)
         return project(out, self.wo, self.bo)
 
 
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "quick_gelu": lambda h: h * torch.sigmoid(1.702 * h),
+}
+
+
 class MLP(nn.Module):
-    def __init__(self, shapes: dict, prefix: str, factory: dict):
+    """wo(act(wi·x + bi)) + bo: tanh-GELU (the GPT families), erf GELU
+    (`gelu_exact`: BERT), ReLU (T5 v1.0), quick-GELU (CLIP), or for
+    `gated_gelu` (T5 v1.1) tanh-GELU(wi·x)·(wg·x)."""
+
+    def __init__(self, cfg: DecoderConfig, shapes: dict, prefix: str, factory: dict):
         super().__init__()
-        _params(self, ("wi", "bi", "wo", "bo"), shapes, prefix + "mlp.", factory)
+        _params(self, ("wi", "wg", "bi", "wo", "bo"), shapes, prefix + "mlp.", factory)
+        self.act = cfg.mlp_activation
+        self.approximate = "none" if cfg.gelu_exact else "tanh"
 
     def forward(self, x):
-        h = F.gelu(project(x, self.wi, self.bi), approximate="tanh")
+        h = project(x, self.wi, self.bi)
+        if self.act == "gated_gelu":
+            h = F.gelu(h, approximate="tanh") * project(x, self.wg, None)
+        elif self.act is None:
+            h = F.gelu(h, approximate=self.approximate)
+        else:
+            h = _ACTIVATIONS[self.act](h)
         return project(h, self.wo, self.bo)
 
 
 class Block(nn.Module):
     """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(·)); under the parallel
-    residual (GPT-J) x + attn(ln1(x)) + mlp(ln1(x))."""
+    residual (GPT-J) x + attn(ln1(x)) + mlp(ln1(x)); under `post_layernorm`
+    (BERT) ln1(x + attn(x)), then ln2(· + mlp(·))."""
 
     def __init__(self, cfg: DecoderConfig, shapes: dict, i: int, local: bool, factory: dict):
         super().__init__()
         prefix = f"layers.{i}."
-        self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
+        self.ln1 = _norm(cfg, factory)
         self.attn = Attention(cfg, shapes, prefix, factory)
-        self.ln2 = (None if cfg.parallel_residual
-                    else LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory))
-        self.mlp = MLP(shapes, prefix, factory)
+        self.ln2 = None if cfg.parallel_residual else _norm(cfg, factory)
+        self.mlp = MLP(cfg, shapes, prefix, factory)
         self.window = cfg.local_window if local else 0
+        self.post_ln = cfg.post_layernorm
 
-    def forward(self, x, key_mask, segment_ids, rope, slopes, kpos, cond=None):
+    def forward(self, x, key_mask, segment_ids, rope, slopes, kpos, cond=None, bias=None):
+        if self.post_ln:
+            x = self.ln1(x + self.attn(x, key_mask, self.window, segment_ids, rope, slopes,
+                                       kpos, bias))
+            return self.ln2(x + self.mlp(x))
         h1 = self.ln1(x)
-        a = self.attn(h1, key_mask, self.window, segment_ids, rope, slopes, kpos)
+        a = self.attn(h1, key_mask, self.window, segment_ids, rope, slopes, kpos, bias)
         if cond is not None:  # TSDAE: the sentence embedding's projection, (B, 1, D)
             a = a + cond
         if self.ln2 is None:
@@ -239,7 +397,8 @@ class Head(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Causal decoder of the GPT families, with parameters in `cfg.dtype` on
+    """The transformer stack of every family (GPT-Neo, GPT-J, BLOOM, BERT,
+    T5's encoder, CLIP's towers), with parameters in `cfg.dtype` on
     `device` (the card by default; "cuda" without one raises, and CPU use
     passes device="cpu"). Where the weights come from:
 
@@ -269,10 +428,7 @@ class Decoder(nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Decoder: device 'cuda' requested but "
                                "torch.cuda.is_available() is False; pass device=\"cpu\"")
-        later = _unsupported(cfg)
-        if later:
-            raise NotImplementedError(
-                "not ported yet: " + "; ".join(f"{f} — ROADMAP {r}" for f, r in later))
+        check_config(cfg)
         if weights is not None:
             lm_head = tuple(leaf for leaf in ("w", "b") if f"lm_head.{leaf}" in weights)
         self.cfg = cfg
@@ -280,11 +436,13 @@ class Decoder(nn.Module):
         shapes = param_shapes(cfg, lm_head)
         self.wte = _empty(shapes["wte"], factory)
         self.wpe = _empty(shapes["wpe"], factory) if "wpe" in shapes else None
+        self.wtt = _empty(shapes["wtt"], factory) if "wtt" in shapes else None
+        self.rel_bias = _empty(shapes["rel_bias"], factory) if "rel_bias" in shapes else None
         self.emb_ln = (LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
                        if cfg.embedding_layernorm else None)
         self.layers = nn.ModuleList(
             Block(cfg, shapes, i, local, factory) for i, local in enumerate(cfg.local_flags()))
-        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, factory)
+        self.ln_f = None if cfg.post_layernorm else _norm(cfg, factory)
         self.lm_head = Head(shapes, factory) if lm_head else None
         if weights is not None:
             for name in [n[:-2] for n in weights if n.endswith(".q")]:
@@ -303,17 +461,22 @@ class Decoder(nn.Module):
         else:
             self.load_state_dict(init_params(cfg, generator, lm_head))
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, *,
+    def forward(self, input_ids: Optional[torch.Tensor], attention_mask: torch.Tensor, *,
                 output_hidden_states: bool = False,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 sp_mesh=None, tp_mesh=None, token_type_ids=None,
                 inputs_embeds=None, cond=None, cond_params=None) -> torch.Tensor:
-        """Final hidden states (B, T, D) after ln_f, or with
-        output_hidden_states a stacked (L+1, B, T, D) tensor: entry 0 the
-        embedding output, entries 1..L-1 the block outputs, entry L
-        ln_f(last block output).
+        """Final hidden states (B, T, D) after ln_f (a post-LN stack: the
+        last block's output), or with output_hidden_states a stacked (L+1,
+        B, T, D) tensor: entry 0 the embedding output, entries 1..L-1 the
+        block outputs, entry L the final states.
 
+        input_ids (B, T), or None with inputs_embeds (B, T, D): embeddings
+        computed by the caller (CLIP's patches), to which the learned
+        positions, token types and embedding LayerNorm still apply.
+        token_type_ids: optional (B, T), zeros by default; read only when
+        the config has token types (BERT).
         position_ids: optional (T,) or (B, T); segment_ids: optional (B, T)
         for packed rows (block-diagonal attention), which needs position_ids
         that restart at each segment. The whole forward runs under
@@ -324,14 +487,10 @@ class Decoder(nn.Module):
         query-independent projection of the sentence embedding (the softmax
         of a single logit is 1), so each layer l adds cond @ w[l] + b[l], in
         the activations' dtype, to its attention output before the residual
-        add (pre-LN and parallel-residual blocks alike), as the JAX forward
-        does."""
+        add (pre-LN and parallel-residual blocks alike; a post-LN block
+        takes none, as in the JAX forward)."""
         if sp_mesh is not None or tp_mesh is not None:
             raise NotImplementedError("sp_mesh / tp_mesh — ROADMAP Queue 1 items 11, 12")
-        if token_type_ids is not None:
-            raise NotImplementedError("token_type_ids (BERT) — ROADMAP Queue 1 item 14")
-        if inputs_embeds is not None:
-            raise NotImplementedError("inputs_embeds (CLIP vision) — ROADMAP Queue 1 item 14")
         if cond is not None and cond_params is None:
             raise ValueError("cond without cond_params: TSDAE conditioning needs the "
                              "per-layer projections {'w': (L, D, D), 'b': (L, D)}")
@@ -339,20 +498,35 @@ class Decoder(nn.Module):
             raise ValueError(
                 "segment_ids without position_ids: packed rows must carry (B, T) "
                 "positions that restart at each segment boundary")
+        if input_ids is None and inputs_embeds is None:
+            raise ValueError("Decoder: pass input_ids or inputs_embeds")
         cfg = self.cfg
-        B, T = input_ids.shape
-        dev = input_ids.device
+        if inputs_embeds is not None:
+            B, T = inputs_embeds.shape[:2]
+            dev = inputs_embeds.device
+        else:
+            B, T = input_ids.shape
+            dev = input_ids.device
         positions = torch.arange(T, device=dev) if position_ids is None else position_ids
         with matmul_precision(cfg.matmul_precision):
-            x = self.wte[input_ids].to(cfg.dtype)
+            if inputs_embeds is not None:
+                x = inputs_embeds.to(cfg.dtype)
+            else:
+                x = self.wte[input_ids].to(cfg.dtype)
             if self.wpe is not None:
                 x = x + self.wpe[positions].to(cfg.dtype)
+            if self.wtt is not None:
+                if token_type_ids is None:
+                    x = x + self.wtt[0].to(cfg.dtype)
+                else:
+                    x = x + self.wtt[token_type_ids].to(cfg.dtype)
             if self.emb_ln is not None:
                 x = self.emb_ln(x)
             key_mask = attention_mask.to(torch.int32).contiguous()
             rope = slopes = kpos = None
             if cfg.position_embedding == "rotary":
                 rope = tuple(t.to(cfg.dtype) for t in rope_sincos(positions, cfg.rotary_dim))
+            bias = self._plain_bias(attention_mask, T, segment_ids)
             if cfg.position_embedding == "alibi":
                 slopes = alibi_slopes(cfg.num_heads, dev)
                 if segment_ids is not None:  # key positions restart in each segment
@@ -366,12 +540,27 @@ class Decoder(nn.Module):
                 if cond is not None:
                     proj = (cond.to(x.dtype) @ cond_params["w"][i].to(x.dtype)
                             + cond_params["b"][i].to(x.dtype))[:, None, :]
-                x = layer(x, key_mask, segment_ids, rope, slopes, kpos, proj)
+                x = layer(x, key_mask, segment_ids, rope, slopes, kpos, proj, bias)
                 hidden.append(x)
-            final = self.ln_f(x)
+            final = x if self.ln_f is None else self.ln_f(x)
             if output_hidden_states:
                 return torch.stack(hidden[:-1] + [final])
             return final
+
+    def _plain_bias(self, attention_mask, T: int, segment_ids) -> Optional[torch.Tensor]:
+        """For configs that take `plain_attention` (bidirectional or
+        relative-bias): the additive fp32 mask bias, with T5's relative
+        bias folded in as the JAX forward folds it; None for the others."""
+        cfg = self.cfg
+        if not (cfg.bidirectional or cfg.relative_attention):
+            return None
+        bias = mask_bias(attention_mask, T, causal=not cfg.bidirectional,
+                         segment_ids=segment_ids)
+        if cfg.relative_attention:
+            bias = bias + t5_relative_bias(
+                self.rel_bias, T, cfg.relative_attention_buckets,
+                cfg.relative_attention_max_distance, cfg.bidirectional)
+        return bias
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """LM head (the JAX `logits`): (..., D) → (..., V) in hidden's dtype,

@@ -5,8 +5,9 @@ The exact inverse of `hf_loader.convert_hf_state_dict`, through the loader's
 own name table (`hf_loader.hf_state_dict`: BLOOM's q/k/v joined head-major
 into `query_key_value` again), so that a model trained here (BitFit biases,
 TSDAE) loads into the torch / sentence-transformers ecosystem, and back into
-the port with `hf_loader.load_pretrained`. Families: `neo`, `gptj`, `bloom`;
-the encoder families raise (ROADMAP Queue 1 item 14).
+the port with `hf_loader.load_pretrained`. Families: `neo`, `gptj`, `bloom`,
+as in the JAX module, which has no BERT or T5 branch: any other family
+raises its `ValueError("unknown family ...")`.
 """
 from __future__ import annotations
 
@@ -19,6 +20,13 @@ from torch import nn
 
 from .config import DecoderConfig
 from .hf_loader import hf_state_dict
+
+FAMILIES = ("neo", "gptj", "bloom")
+
+
+def _check_family(family: str) -> None:
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family {family!r}")
 
 
 def _state_dict(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Mapping[str, torch.Tensor]:
@@ -35,6 +43,7 @@ def to_hf_state_dict(params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: 
     expects; required for an untied head such as GPT-J's), or 'auto'
     (causal_lm when the weights hold an `lm_head`). A separate head is
     written as `lm_head.weight` (and `lm_head.bias`) in every style."""
+    _check_family(family)
     sd = _state_dict(params)
     out = {k: v.detach().float().cpu().contiguous()
            for k, v in hf_state_dict(sd, cfg, family).items()}
@@ -53,6 +62,7 @@ def hf_config(cfg: DecoderConfig, family: str, tied: bool = True) -> dict:
     """The config.json of an HF checkpoint of `family` with `cfg`'s shapes,
     in the keys `hf_loader.config_from_hf` reads. tied: whether the LM head
     is `wte` (False for a separate head: GPT-J's)."""
+    _check_family(family)
     D, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
     eps = cfg.layer_norm_eps
     if family == "neo":
@@ -71,14 +81,9 @@ def hf_config(cfg: DecoderConfig, family: str, tied: bool = True) -> dict:
                 "n_layer": L, "n_head": H, "n_positions": cfg.max_position_embeddings,
                 "rotary_dim": cfg.rotary_dim, "n_inner": cfg.intermediate_size,
                 "layer_norm_epsilon": eps, "tie_word_embeddings": tied}
-    if family == "bloom":
-        return {"model_type": "bloom", "vocab_size": cfg.vocab_size, "n_embed": D,
-                "n_layer": L, "n_head": H, "layer_norm_epsilon": eps,
-                "tie_word_embeddings": tied}
-    if family in ("bert", "t5"):
-        raise NotImplementedError(f"family {family!r}: the encoder families are not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
-    raise ValueError(f"unknown family {family!r}")
+    return {"model_type": "bloom", "vocab_size": cfg.vocab_size, "n_embed": D,
+            "n_layer": L, "n_head": H, "layer_norm_epsilon": eps,
+            "tie_word_embeddings": tied}
 
 
 def save_hf_checkpoint(path: str, params: Union[nn.Module, Mapping[str, torch.Tensor]],

@@ -2,10 +2,13 @@
 `sgpt_tpu/models/hf_loader.py`).
 
 `convert_hf_state_dict` maps an HF state dict of the three GPT families
-(GPT-Neo, GPT-J, BLOOM) to the names of `params.param_shapes`: one entry
+(GPT-Neo, GPT-J, BLOOM) and of the encoder families (BERT's `BertModel`,
+T5's `T5EncoderModel`) to the names of `params.param_shapes`: one entry
 per layer and linear weights in torch's [out, in] order, which is HF's
 own, so only BLOOM's fused head-major `query_key_value` is split (as the
-JAX converter splits it). `load_pretrained` reads a local checkpoint
+JAX converter splits it). T5's relative position bias comes from block 0,
+the one table every layer shares; its embedding is `shared.weight` or
+`encoder.embed_tokens.weight`. `load_pretrained` reads a local checkpoint
 directory with `json` and torch alone: `config.json`, then
 `model.safetensors`, `pytorch_model.bin` or their sharded
 `*.index.json` layout. Safetensors files are read and written by hand
@@ -77,16 +80,19 @@ def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
 
 def _strip_prefix(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Drop 'transformer.' / 'model.' style prefixes; lm_head keeps its name."""
-    return {re.sub(r"^(transformer\.|model\.)", "", k): v for k, v in sd.items()}
+    return {re.sub(r"^(transformer\.|model\.|bert\.)", "", k): v for k, v in sd.items()}
 
 
-def _layer_names(pairs: Dict[str, str]) -> Dict[str, str]:
-    return {f"layers.{{i}}.{ours}": f"h.{{i}}.{theirs}" for ours, theirs in pairs.items()}
+def _layer_names(pairs: Dict[str, str], prefix: str = "h.{i}.") -> Dict[str, str]:
+    return {f"layers.{{i}}.{ours}": prefix + theirs for ours, theirs in pairs.items()}
+
+
+_FINAL = {"ln_f.scale": "ln_f.weight", "ln_f.bias": "ln_f.bias"}
 
 
 # port name → HF name ({i}: the layer index), per family. BLOOM's q/k/v (and
 # their biases) live fused in h.{i}.self_attention.query_key_value: split and
-# joined in code.
+# joined in code. T5's MLP names depend on its activation (`_T5_MLP`).
 _NAMES = {
     "neo": {"wte": "wte.weight", "wpe": "wpe.weight", **_layer_names({
         "ln1.scale": "ln_1.weight", "ln1.bias": "ln_1.bias",
@@ -95,13 +101,13 @@ _NAMES = {
         "attn.wv": "attn.attention.v_proj.weight", "attn.wo": "attn.attention.out_proj.weight",
         "attn.bo": "attn.attention.out_proj.bias",
         "mlp.wi": "mlp.c_fc.weight", "mlp.bi": "mlp.c_fc.bias",
-        "mlp.wo": "mlp.c_proj.weight", "mlp.bo": "mlp.c_proj.bias"})},
+        "mlp.wo": "mlp.c_proj.weight", "mlp.bo": "mlp.c_proj.bias"}), **_FINAL},
     "gptj": {"wte": "wte.weight", **_layer_names({
         "ln1.scale": "ln_1.weight", "ln1.bias": "ln_1.bias",
         "attn.wq": "attn.q_proj.weight", "attn.wk": "attn.k_proj.weight",
         "attn.wv": "attn.v_proj.weight", "attn.wo": "attn.out_proj.weight",
         "mlp.wi": "mlp.fc_in.weight", "mlp.bi": "mlp.fc_in.bias",
-        "mlp.wo": "mlp.fc_out.weight", "mlp.bo": "mlp.fc_out.bias"})},
+        "mlp.wo": "mlp.fc_out.weight", "mlp.bo": "mlp.fc_out.bias"}), **_FINAL},
     "bloom": {"wte": "word_embeddings.weight",
               "emb_ln.scale": "word_embeddings_layernorm.weight",
               "emb_ln.bias": "word_embeddings_layernorm.bias", **_layer_names({
@@ -111,21 +117,56 @@ _NAMES = {
                   "attn.wo": "self_attention.dense.weight",
                   "attn.bo": "self_attention.dense.bias",
                   "mlp.wi": "mlp.dense_h_to_4h.weight", "mlp.bi": "mlp.dense_h_to_4h.bias",
-                  "mlp.wo": "mlp.dense_4h_to_h.weight", "mlp.bo": "mlp.dense_4h_to_h.bias"})},
+                  "mlp.wo": "mlp.dense_4h_to_h.weight", "mlp.bo": "mlp.dense_4h_to_h.bias"}),
+              **_FINAL},
+    # HF BertModel (the pooler is not read: the engine pools the states)
+    "bert": {"wte": "embeddings.word_embeddings.weight",
+             "wpe": "embeddings.position_embeddings.weight",
+             "wtt": "embeddings.token_type_embeddings.weight",
+             "emb_ln.scale": "embeddings.LayerNorm.weight",
+             "emb_ln.bias": "embeddings.LayerNorm.bias", **_layer_names({
+                 "attn.wq": "attention.self.query.weight", "attn.bq": "attention.self.query.bias",
+                 "attn.wk": "attention.self.key.weight", "attn.bk": "attention.self.key.bias",
+                 "attn.wv": "attention.self.value.weight", "attn.bv": "attention.self.value.bias",
+                 "attn.wo": "attention.output.dense.weight",
+                 "attn.bo": "attention.output.dense.bias",
+                 "ln1.scale": "attention.output.LayerNorm.weight",
+                 "ln1.bias": "attention.output.LayerNorm.bias",
+                 "mlp.wi": "intermediate.dense.weight", "mlp.bi": "intermediate.dense.bias",
+                 "mlp.wo": "output.dense.weight", "mlp.bo": "output.dense.bias",
+                 "ln2.scale": "output.LayerNorm.weight", "ln2.bias": "output.LayerNorm.bias"},
+                 "encoder.layer.{i}.")},
+    # HF T5EncoderModel (`wte` is added in `_names`: shared.weight or
+    # encoder.embed_tokens.weight)
+    "t5": {"rel_bias": "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+           "ln_f.scale": "encoder.final_layer_norm.weight", **_layer_names({
+               "ln1.scale": "layer.0.layer_norm.weight",
+               "attn.wq": "layer.0.SelfAttention.q.weight",
+               "attn.wk": "layer.0.SelfAttention.k.weight",
+               "attn.wv": "layer.0.SelfAttention.v.weight",
+               "attn.wo": "layer.0.SelfAttention.o.weight",
+               "ln2.scale": "layer.1.layer_norm.weight",
+               "mlp.wo": "layer.1.DenseReluDense.wo.weight"}, "encoder.block.{i}.")},
 }
-_FINAL = {"ln_f.scale": "ln_f.weight", "ln_f.bias": "ln_f.bias"}
+_T5_MLP = {False: {"mlp.wi": "layer.1.DenseReluDense.wi.weight"},
+           True: {"mlp.wi": "layer.1.DenseReluDense.wi_0.weight",
+                  "mlp.wg": "layer.1.DenseReluDense.wi_1.weight"}}
 _HEAD = {"lm_head.w": "lm_head.weight", "lm_head.b": "lm_head.bias"}
 _QKV = "h.{i}.self_attention.query_key_value."
+ENCODER_FAMILIES = ("bert", "t5")
 
 
-def _names(cfg: DecoderConfig, family: str):
-    """(port name, HF name) of every tensor but BLOOM's fused q/k/v and the head."""
-    if family in ("bert", "t5"):
-        raise NotImplementedError(f"family {family!r}: the encoder families are not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
+def _names(cfg: DecoderConfig, family: str, wte: str = "shared.weight"):
+    """(port name, HF name) of every tensor but BLOOM's fused q/k/v and the
+    head. wte: T5's embedding name."""
     if family not in _NAMES:
         raise ValueError(f"unknown family {family!r}")
-    for ours, theirs in {**_NAMES[family], **_FINAL}.items():
+    table = dict(_NAMES[family])
+    if family == "t5":
+        table["wte"] = wte
+        table.update(_layer_names(_T5_MLP[cfg.mlp_activation == "gated_gelu"],
+                                  "encoder.block.{i}."))
+    for ours, theirs in table.items():
         for i in range(cfg.num_layers) if "{i}" in ours else (0,):
             yield ours.format(i=i), theirs.format(i=i)
 
@@ -133,10 +174,12 @@ def _names(cfg: DecoderConfig, family: str):
 def convert_hf_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: DecoderConfig,
                           family: str, dtype: torch.dtype = torch.float32
                           ) -> Dict[str, torch.Tensor]:
-    """family: 'neo' | 'gptj' | 'bloom'. Returns the port's state dict in
-    `dtype` (an `lm_head.w`, and `lm_head.b`, when the HF dict has a head)."""
+    """family: 'neo' | 'gptj' | 'bloom' | 'bert' | 't5'. Returns the port's
+    state dict in `dtype` (an `lm_head.w`, and `lm_head.b`, when the HF
+    dict of a GPT family has a head)."""
     sd = _strip_prefix(state_dict)
-    out = {ours: sd[theirs] for ours, theirs in _names(cfg, family)}
+    wte = "shared.weight" if "shared.weight" in sd else "encoder.embed_tokens.weight"
+    out = {ours: sd[theirs] for ours, theirs in _names(cfg, family, wte)}
     if family == "bloom":
         H, Dh, D = cfg.num_heads, cfg.head_size, cfg.hidden_size
         for i in range(cfg.num_layers):
@@ -146,7 +189,7 @@ def convert_hf_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: DecoderCo
             for j, name in enumerate("qkv"):
                 out[f"layers.{i}.attn.w{name}"] = w[:, j].reshape(H * Dh, D)
                 out[f"layers.{i}.attn.b{name}"] = b[:, j].reshape(H * Dh)
-    if "lm_head.weight" in sd:
+    if "lm_head.weight" in sd and family not in ENCODER_FAMILIES:
         out.update({ours: sd[theirs] for ours, theirs in _HEAD.items() if theirs in sd})
     return {k: v.to(dtype).contiguous() for k, v in out.items()}
 
@@ -221,9 +264,31 @@ def config_from_hf(hf_config, family: str) -> DecoderConfig:
             num_heads=_get(hf_config, "n_head", "num_attention_heads"),
             position_embedding="alibi", embedding_layernorm=True,
             scale_attn=True, qkv_bias=True, out_bias=True, layer_norm_eps=eps)
-    if family in ("bert", "t5"):
-        raise NotImplementedError(f"family {family!r}: the encoder families are not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
+    if family == "t5":
+        act = _get(hf_config, "feed_forward_proj", default="relu")
+        return DecoderConfig(
+            vocab_size=_get(hf_config, "vocab_size"), hidden_size=_get(hf_config, "d_model"),
+            num_layers=_get(hf_config, "num_layers"), num_heads=_get(hf_config, "num_heads"),
+            head_dim=_get(hf_config, "d_kv"), intermediate_size=_get(hf_config, "d_ff"),
+            position_embedding="none", scale_attn=False, qkv_bias=False, out_bias=False,
+            layer_norm_eps=_get(hf_config, "layer_norm_epsilon", default=1e-6),
+            bidirectional=True, norm_style="rms", relative_attention=True,
+            relative_attention_buckets=_get(hf_config, "relative_attention_num_buckets"),
+            relative_attention_max_distance=_get(hf_config, "relative_attention_max_distance",
+                                                 default=128),
+            mlp_activation="gated_gelu" if "gated" in act else "relu", mlp_bias=False)
+    if family == "bert":
+        return DecoderConfig(
+            vocab_size=_get(hf_config, "vocab_size"),
+            hidden_size=_get(hf_config, "hidden_size"),
+            num_layers=_get(hf_config, "num_hidden_layers"),
+            num_heads=_get(hf_config, "num_attention_heads"),
+            max_position_embeddings=_get(hf_config, "max_position_embeddings"),
+            intermediate_size=_get(hf_config, "intermediate_size"),
+            position_embedding="learned", scale_attn=True, qkv_bias=True, out_bias=True,
+            layer_norm_eps=_get(hf_config, "layer_norm_eps", default=1e-12),
+            bidirectional=True, post_layernorm=True, embedding_layernorm=True,
+            token_type_vocab=_get(hf_config, "type_vocab_size"), gelu_exact=True)
     raise ValueError(f"unknown family {family!r}")
 
 
@@ -277,7 +342,9 @@ def load_pretrained(path: str, dtype: torch.dtype = torch.float32
     The family comes from config.json's model_type, else from the path's
     name. A tied head (`tie_word_embeddings`, HF's default except for
     GPT-J) drops `lm_head.*`, as the JAX loader does, so `Decoder.logits`
-    uses `wte`; an untied one (GPT-J) is kept."""
+    uses `wte`; an untied one (GPT-J) is kept. BERT and T5 load their
+    encoder alone (the JAX loader's `AutoModel` and `T5EncoderModel`): a
+    head, a pooler and T5's decoder half are not read."""
     cfg_file = os.path.join(path, "config.json")
     if not os.path.isfile(cfg_file):
         raise FileNotFoundError(

@@ -22,24 +22,34 @@ from .config import DecoderConfig
 def param_shapes(cfg: DecoderConfig, lm_head: Tuple[str, ...] = ()) -> Dict[str, Tuple[int, ...]]:
     """Name → shape of every parameter of the decoder, as the JAX
     `param_shapes` lays the tree out: `wpe` only for learned positions,
-    `emb_ln` with `embedding_layernorm`, no `ln2` under `parallel_residual`,
-    q/k/v biases with `qkv_bias`. lm_head: the leaves of a separate LM head
-    ("w", and "b" for a biased one: GPT-J's); () ties the head to `wte`."""
+    `wtt` with `token_type_vocab`, `rel_bias` (buckets, H) with
+    `relative_attention`, `emb_ln` with `embedding_layernorm`, no `ln2`
+    under `parallel_residual`, no `ln_f` under `post_layernorm`, a `scale`
+    and no `bias` for each RMSNorm (`norm_style="rms"`), q/k/v biases with
+    `qkv_bias`, `mlp.wg` for `gated_gelu`, no MLP biases without
+    `mlp_bias`. lm_head: the leaves of a separate LM head ("w", and "b" for
+    a biased one: GPT-J's); () ties the head to `wte`."""
     D, F, L = cfg.hidden_size, cfg.mlp_size, cfg.num_layers
     P = cfg.num_heads * cfg.head_size
+    norm = ("scale",) if cfg.norm_style == "rms" else ("scale", "bias")
     shapes = {"wte": (cfg.vocab_size, D)}
     if cfg.position_embedding == "learned":
         shapes["wpe"] = (cfg.max_position_embeddings, D)
+    if cfg.token_type_vocab:
+        shapes["wtt"] = (cfg.token_type_vocab, D)
+    if cfg.relative_attention:
+        shapes["rel_bias"] = (cfg.relative_attention_buckets, cfg.num_heads)
     if cfg.embedding_layernorm:
         shapes["emb_ln.scale"] = (D,)
         shapes["emb_ln.bias"] = (D,)
-    shapes["ln_f.scale"] = (D,)
-    shapes["ln_f.bias"] = (D,)
+    if not cfg.post_layernorm:
+        for leaf in norm:
+            shapes["ln_f." + leaf] = (D,)
     for i in range(L):
         p = f"layers.{i}."
         for ln in ("ln1",) if cfg.parallel_residual else ("ln1", "ln2"):
-            shapes[p + ln + ".scale"] = (D,)
-            shapes[p + ln + ".bias"] = (D,)
+            for leaf in norm:
+                shapes[p + ln + "." + leaf] = (D,)
         for w in ("wq", "wk", "wv"):
             shapes[p + "attn." + w] = (P, D)
         shapes[p + "attn.wo"] = (D, P)
@@ -49,6 +59,8 @@ def param_shapes(cfg: DecoderConfig, lm_head: Tuple[str, ...] = ()) -> Dict[str,
         if cfg.out_bias:
             shapes[p + "attn.bo"] = (D,)
         shapes[p + "mlp.wi"] = (F, D)
+        if cfg.mlp_activation == "gated_gelu":
+            shapes[p + "mlp.wg"] = (F, D)
         shapes[p + "mlp.wo"] = (D, F)
         if cfg.mlp_bias:
             shapes[p + "mlp.bi"] = (F,)
@@ -60,6 +72,10 @@ def param_shapes(cfg: DecoderConfig, lm_head: Tuple[str, ...] = ()) -> Dict[str,
     if "b" in lm_head:
         shapes["lm_head.b"] = (cfg.vocab_size,)
     return shapes
+
+
+# 2-D leaves that are tables, not linear weights: the same layout on both sides
+TABLES = ("wte", "wpe", "wtt", "rel_bias")
 
 
 def _kind(name: str) -> str:
@@ -127,7 +143,7 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
 
     Unstacks the leading layer axis of `layers.*` and transposes every linear
     weight from [in, out] to [out, in] (`lm_head.w` included: (D, V) → (V,
-    D)). A separate LM head (`lm_head.w`, optionally `lm_head.b`) is kept.
+    D)); the tables (`wte`, `wpe`, `wtt`, `rel_bias`) keep their layout. A separate LM head (`lm_head.w`, optionally `lm_head.b`) is kept.
     A projection quantized by the JAX `quantize_decoder_params` ({"q": (L,
     D, F) int8, "s": (L, 1, F)}) gives `<name>.q` (F, D) and `<name>.s` (F,
     1) for each layer, which `Decoder(weights=...)` takes as int8. Raises on
@@ -155,7 +171,7 @@ def params_from_jax(tree: dict, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
             if name not in flat:
                 raise KeyError(f"JAX tree has no leaf {name!r}")
             arr = _to_torch(flat[name])
-        if len(shape) == 2 and name not in ("wte", "wpe"):
+        if len(shape) == 2 and name not in TABLES:
             arr = arr.T.contiguous()
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, expected {shape}")

@@ -350,8 +350,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, key_mask, alibi_slopes: Optional[torch.Tensor] = None, *,
                     scale: float = 1.0, window: int = 0, block_q: int = 128,
-                    block_kv: int = 128, return_residuals: bool = False):
-    """Causal attention.
+                    block_kv: int = 128, return_residuals: bool = False,
+                    causal: bool = True):
+    """Causal attention (causal=False raises ValueError: the kernel and its
+    plain version mask every key after the query).
 
     q, k, v: (B, H, T, Dh); T must divide by the block sizes (clamped to T).
     key_mask: (B, T) 1 = attend, 0 = padding. alibi_slopes: optional (H,)
@@ -359,6 +361,9 @@ def flash_attention(q, k, v, key_mask, alibi_slopes: Optional[torch.Tensor] = No
     GPT-Neo, unscaled). window: 0 = global causal; > 0 = sliding window
     (key > query − window). Returns (B, H, T, Dh) in q's dtype, and with
     return_residuals also the (B, H, T) fp32 logsumexp."""
+    if not causal:
+        raise ValueError("flash_attention (K3) computes causal attention only; "
+                         "bidirectional attention takes the decoder's plain path")
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

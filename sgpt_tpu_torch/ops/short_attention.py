@@ -236,13 +236,19 @@ class ShortAttention(torch.autograd.Function):
 
 
 def short_attention(q2, k2, v2, key_mask, slopes, scale: float, window: int,
-                    H: int, use_alibi: bool, segments=None, positions=None):
+                    H: int, use_alibi: bool, segments=None, positions=None, *,
+                    causal: bool = True):
     """q2/k2/v2: (B, T, H·Dh) projection outputs. key_mask: (B, T).
     slopes: (H,) fp32 (read only with use_alibi). segments: optional (B, T)
     ids for packed rows — queries attend only to keys of the same id.
     positions: optional (B, T) ALiBi key positions (default: the key index).
+    causal: the caller's attention is causal; False raises ValueError,
+    since the kernel and its plain version mask every key after the query.
     Returns (B, T, H·Dh) in q2's dtype, with a `grad_fn` when q2, k2 or v2
     requires grad and grad mode is on."""
+    if not causal:
+        raise ValueError("short_attention (K1) computes causal attention only; "
+                         "bidirectional attention takes the decoder's plain path")
     if q2.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"short_attention: no kernel for device {q2.device}")
     if torch.is_grad_enabled() and (q2.requires_grad or k2.requires_grad

@@ -109,8 +109,11 @@ def test_train_msmarco_cli_trains_the_families_biases(tmp_path, monkeypatch, mod
 
 def test_build_model_refuses_what_is_not_ported():
     """A checkpoint loads from a local directory only (nothing is
-    downloaded), and the encoder families are not ported."""
+    downloaded), for the GPT families and, now that they are ported (their
+    random-init presets: tests/test_torch_encoder_families.py), for the
+    encoder families too."""
     with pytest.raises(FileNotFoundError, match="local checkpoint"):
         train_msmarco.build_model("EleutherAI/gpt-neo-125M")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_msmarco.build_model("bert-base-uncased", random_init=True)
+    for name in ("bert-base-uncased", "google/t5-v1_1-base"):
+        with pytest.raises(FileNotFoundError, match="local checkpoint"):
+            train_msmarco.build_model(name, device="cpu")

@@ -1570,3 +1570,83 @@ def test_search_utils_on_the_card_equal_the_cpu(cuda):
         [[h["corpus_id"] for h in r] for r in want]
     assert (su.community_detection(emb, device=cuda, min_community_size=5)
             == su.community_detection(emb, device="cpu", min_community_size=5))
+
+
+@pytest.mark.parametrize("family", ["bert", "t5", "t5_gated"])
+def test_encoder_families_on_the_card_equal_the_cpu(cuda, family):
+    """BERT and T5 (2 layers, width 256), fp32: engine embeddings on the card
+    == on the CPU within 1e-4, with no launch of K1 or K3 (bidirectional
+    attention takes the plain path, `use_flash` and T % 128 == 0
+    notwithstanding); BERT's token types reach the card's forward."""
+    import copy
+
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, tiny
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = tiny(family.split("_")[0], num_layers=2, hidden_size=256, num_heads=4,
+               vocab_size=512, max_position_embeddings=256, use_flash=True)
+    if family == "t5_gated":
+        cfg = cfg.replace(mlp_activation="gated_gelu")
+    rng = np.random.default_rng(7)
+    texts = [" ".join(f"w{int(w)}" for w in rng.integers(0, 400, int(n)))
+             for n in rng.integers(2, 300, 12)]
+    tok = SimpleTokenizer(cfg.vocab_size)
+    on_cpu = Decoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    kw = dict(method="mean", max_seq_len=256, batch_size=4, normalize_embeddings=True)
+    want = EmbeddingEngine(on_cpu, cfg, tok, device="cpu", **kw).encode(texts)
+    before = (sa.launches, fa.launches)
+    got = EmbeddingEngine(on_card, cfg, tok, device=cuda, **kw).encode(texts)
+    assert (sa.launches, fa.launches) == before
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    if cfg.token_type_vocab:
+        ids = torch.from_numpy(rng.integers(0, 512, (2, 128))).to(cuda)
+        tt = torch.ones_like(ids)
+        with torch.no_grad():
+            card = on_card(ids, torch.ones_like(ids), token_type_ids=tt).cpu()
+            host = on_cpu(ids.cpu(), torch.ones_like(ids).cpu(), token_type_ids=tt.cpu())
+        torch.testing.assert_close(card, host, atol=1e-4, rtol=0)
+
+
+def test_clip_on_the_card_equals_the_cpu(cuda):
+    """`clip_tiny()` in fp32: a mixed list of texts and uint8 images embeds on
+    the card as on the CPU within 1e-4; the causal text tower launches K1 in
+    each of its layers for each text batch, the vision tower never."""
+    from sgpt_tpu_torch.models.clip import CLIP, CLIPEncoder, clip_tiny
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = clip_tiny()
+    tok = SimpleTokenizer(99)
+    cpu = CLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = CLIP(cfg, device=cuda, weights=cpu.state_dict())
+    rng = np.random.default_rng(2)
+    items = [x for i in range(6) for x in (" ".join(["word"] * (i + 1)),
+                                           rng.integers(0, 255, (20, 30, 3)).astype(np.uint8))]
+    want = CLIPEncoder(cpu, cfg, tok, normalize_embeddings=True, batch_size=4).encode(items)
+    before = sa.launches
+    got = CLIPEncoder(card, cfg, tok, normalize_embeddings=True, batch_size=4).encode(items)
+    assert sa.launches - before == cfg.text.num_layers * 2   # 6 texts: 2 batches of 4
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_word_modules_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """`modules.py`'s CNN and packed-sequence biLSTM, fp32, card == CPU, with
+    cuDNN's TF32 convolutions off (PyTorch's default leaves them on; the
+    smoke turns them off too)."""
+    from sgpt_tpu_torch import modules
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(4, 16, 32)).astype(np.float32))
+    lengths = torch.tensor([16, 3, 9, 1], dtype=torch.int32)
+    cnn = modules.init_cnn(torch.Generator().manual_seed(0), 32, out_channels=8)
+    lstm = modules.init_lstm(torch.Generator().manual_seed(1), 32, 8, num_layers=2)
+    for fn, params, extra in ((modules.cnn_forward, cnn, ()),
+                              (modules.lstm_forward, lstm, (lengths,))):
+        want = fn(params, x, *extra)
+        got = fn(modules.params_to(params, cuda), x.to(cuda),
+                 *[t.to(cuda) for t in extra]).cpu()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)

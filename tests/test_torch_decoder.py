@@ -91,18 +91,23 @@ def test_packed_segments_and_positions_match_jax():
 
 @pytest.mark.parametrize("family", ["gptj", "bloom", "bert", "t5"])
 def test_other_families_raise(family):
-    """BERT and T5 raise; GPT-J and BLOOM build, and still raise with a flag
-    of the encoder families (bidirectional attention)."""
+    """Every family builds from the JAX config (the encoder families since
+    they were ported: tests/test_torch_encoder_families.py holds their
+    forwards to JAX's), and raises on a flag value the forward has no
+    meaning for, where the JAX forward would quietly take a default branch,
+    or on local layers (or ALiBi) under bidirectional attention, which no
+    family has and the plain attention does not implement."""
     cfg = from_jax_config(jax_tiny(family))
-    if family in ("gptj", "bloom"):
-        Decoder(cfg, device="cpu")
-        cfg = cfg.replace(bidirectional=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Decoder(cfg, device="cpu")
+    Decoder(cfg, device="cpu")
+    for bad in (dict(norm_style="batch"), dict(mlp_activation="swish"),
+                dict(position_embedding="sinusoidal"),
+                dict(bidirectional=True, attention_layout="alternating")):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            Decoder(cfg.replace(**bad), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(inputs_embeds=torch.zeros(1)),
-                                dict(token_type_ids=torch.zeros(1, 4))])
+@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(tp_mesh=object()),
+                                dict(sp_mesh=object(), tp_mesh=object())])
 def test_unported_forward_arguments_raise(kw):
     model = Decoder(tiny("neo", num_layers=1), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.int32)

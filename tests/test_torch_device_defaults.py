@@ -1,8 +1,9 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: `Decoder`, `EmbeddingEngine`, `CrossEncoderRanker`, `DenseIndex` (and
-`DenseIndex.load`) and the CLIs' `build_model` (every preset family, and a
-local checkpoint) default to device "cuda", and without a card they raise
-rather than fall back to the CPU."""
+`DenseIndex.load`), `CLIP` and the CLIs' `build_model` (every preset
+family, the encoder families included, and a local checkpoint) default to
+device "cuda", and without a card they raise rather than fall back to the
+CPU."""
 import numpy as np
 import pytest
 
@@ -13,6 +14,7 @@ from sgpt_tpu_torch.crossencoder import CrossEncoderRanker  # noqa: E402
 from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
 from sgpt_tpu_torch.index import DenseIndex  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, tiny  # noqa: E402
+from sgpt_tpu_torch.models.clip import CLIP, clip_tiny  # noqa: E402
 from sgpt_tpu_torch.tokenization import SimpleTokenizer  # noqa: E402
 
 CFG = tiny("neo", num_layers=1, hidden_size=32, num_heads=2)
@@ -51,6 +53,9 @@ ENTRY_POINTS = {
     "build_model gpt-j": lambda tmp: build_model("EleutherAI/gpt-j-6b", random_init=True),
     "build_model bloom": lambda tmp: build_model("bigscience/bloom-1b7", random_init=True),
     "build_model checkpoint": lambda tmp: build_model(_tiny_checkpoint(tmp)),
+    "build_model bert": lambda tmp: build_model("bert-base-uncased", random_init=True),
+    "build_model t5": lambda tmp: build_model("google/t5-v1_1-base", random_init=True),
+    "CLIP": lambda tmp: CLIP(clip_tiny()),
 }
 
 

@@ -109,6 +109,30 @@ def test_unported_options_raise(pair, kw):
         EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu", **kw)
 
 
+JAX_DEFAULTS = dict(mesh=None, sp_mesh=None, fused_attention=None, dispatch_chain=1)
+
+
+def test_jax_engine_defaults_are_accepted(pair):
+    """The JAX engine's own values for what the port does not run (no mesh,
+    no sequence parallelism, the fused kernel left to the backend, no
+    dispatch chain) and `encode(show_progress=...)` pass, through the engine
+    and `SGPTModel.engine`, with the JAX engine's embeddings."""
+    from sgpt_tpu_torch.model import SGPTModel
+
+    jcfg, jparams, cfg, model = pair
+    tok = SimpleTokenizer(cfg.vocab_size)
+    texts = _texts(9, seed=4)
+    kw = dict(method="mean", batch_size=4, max_seq_len=64)
+    want = JaxEngine(jparams, jcfg, tok, **kw, **JAX_DEFAULTS).encode(texts, show_progress=False)
+    engine = EmbeddingEngine(model, cfg, tok, device="cpu", **kw, **JAX_DEFAULTS)
+    np.testing.assert_allclose(engine.encode(texts, show_progress=False), want, atol=1e-5)
+    np.testing.assert_array_equal(engine.encode(texts, show_progress=True),
+                                  engine.encode(texts))
+    sgpt = SGPTModel(model, cfg, tok, method="mean", max_seq_len=64, batch_size=4, device="cpu")
+    np.testing.assert_allclose(sgpt.engine(**JAX_DEFAULTS).encode(texts), want, atol=1e-5)
+    np.testing.assert_allclose(sgpt.encode(texts, show_progress=False), want, atol=1e-5)
+
+
 def test_unknown_argument_and_config_mismatch(pair):
     _, _, cfg, model = pair
     tok = SimpleTokenizer(cfg.vocab_size)

@@ -80,9 +80,14 @@ def test_checkpoint_round_trips_through_the_loader(tmp_path, case):
 
 
 def test_encoder_families_name_their_roadmap_item():
-    _, _, _, cfg, sd = _weights("neo")
+    """The JAX export has no BERT or T5 branch and raises ValueError("unknown
+    family"); now that the encoder families are ported (loading them is
+    tests/test_torch_encoder_families.py's), the port raises the same."""
+    _, jcfg, jparams, cfg, sd = _weights("neo")
     for family in ("bert", "t5"):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(ValueError, match="unknown family"):
+            jax_export(jparams, jcfg, family)
+        with pytest.raises(ValueError, match="unknown family"):
             to_hf_state_dict(sd, cfg, family)
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(ValueError, match="unknown family"):
             hf_config(cfg, family)

@@ -2,7 +2,8 @@
 where neither `jax` nor `sgpt_tpu` can be imported, the whole package
 imports (serving and the CLIs included), and a tiny CPU encode, a
 stack-pooled (`meanmean`) encode at a layer index with a dense head, an
-`SGPTModel` save/load round trip, a flash (`use_flash`) encode, two index
+`SGPTModel` save/load round trip, a flash (`use_flash`) encode, BERT, T5
+and CLIP encodes, two index
 searches, a DenseRetriever search, a SearchService search and a
 cross-encoder score (bucketed and packed rows) run. A scan of the sources finds no import of either."""
 import re
@@ -56,6 +57,19 @@ femb = EmbeddingEngine(fmodel, fcfg, SimpleTokenizer(cfg.vocab_size), device="cp
                        max_seq_len=128, batch_size=2, normalize_embeddings=True
                        ).encode(["a text long enough " * 10, "short"])
 assert femb.shape == (2, 32) and abs(float((femb ** 2).sum(1).max()) - 1) < 1e-5
+
+# the encoder families and the CLIP dual tower
+import numpy as np
+from sgpt_tpu_torch.models.clip import CLIP, CLIPEncoder, clip_tiny
+for family in ("bert", "t5"):
+    ecfg = tiny(family, num_layers=1, hidden_size=32, num_heads=2)
+    eemb = EmbeddingEngine(Decoder(ecfg, device="cpu"), ecfg, SimpleTokenizer(ecfg.vocab_size),
+                           device="cpu", method="mean", max_seq_len=64).encode(["a b", "c"])
+    assert eemb.shape == (2, 32) and np.isfinite(eemb).all()
+ccfg = clip_tiny()
+cemb = CLIPEncoder(CLIP(ccfg, device="cpu"), ccfg, SimpleTokenizer(99)).encode(
+    ["a cat", np.zeros((12, 12, 3), np.uint8)])
+assert cemb.shape == (2, 24) and np.isfinite(cemb).all()
 
 # search: a "pallas" (K5's plain version on the CPU) and a blockmax index
 from sgpt_tpu_torch.index import DenseIndex

@@ -24,6 +24,20 @@ from sgpt_tpu_torch.ops import short_attention as sa  # noqa: E402
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations below run thousands of small tensor operations. With
+    a pool of intra-op threads in each of several test processes sharing
+    the host's cores, every operation's thread barrier waits on threads
+    that are not running, and a run of seconds takes many minutes. One
+    thread gives the same values: no emulation's product or sum depends on
+    the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B, T, H, Dh, pad_at=None, segments=False, alibi=False):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=(B, T, H * Dh)).astype(np.float32) for _ in range(3))
@@ -207,7 +221,13 @@ def _mma_tf32(a, b, order, three, swapped=False, halves=False):
     product exact and added in turn, the step's 8 terms in `order`, to a
     zeroed fp32 accumulator whose sum is then added to the running one.
     `halves` (the scores at Dh 256, whose two halves two warps sum): the
-    steps of each half of K run from zero, then the halves are added."""
+    steps of each half of K run from zero, then the halves are added.
+
+    Every k-step's accumulator is formed at once (a leading axis of K / 8
+    steps), each of its terms added in the same sequence as one step alone
+    would add them, then the steps are added to the running sum in K's
+    order: the same products and the same additions as a loop over the
+    steps, in a few dozen tensor operations instead of 24 per step."""
     (ab, asm), (bb, bsm) = _split(a), _split(b)
     if not three:
         terms = ((ab, bb),)
@@ -215,15 +235,19 @@ def _mma_tf32(a, b, order, three, swapped=False, halves=False):
         terms = ((ab, bsm), (asm, bb), (ab, bb))
     else:
         terms = ((asm, bb), (ab, bsm), (ab, bb))
-    K = a.shape[-1]
-    acc = [torch.zeros(*a.shape[:-1], b.shape[-1]) for _ in range(2)]
-    for k0 in range(0, K, 8):
-        step = torch.zeros_like(acc[0])
-        for x, y in terms:
-            for kk in order:
-                step = step + x[..., :, k0 + kk, None] * y[..., None, k0 + kk, :]
-        h = int(halves and k0 >= K // 2)
-        acc[h] = acc[h] + step
+    K, N = a.shape[-1], b.shape[-1]
+    n = K // 8
+    steps = (lambda x: x.unflatten(-1, (n, 8)).movedim(-2, 0),       # (n, ..., M, 8)
+             lambda y: y.unflatten(-2, (n, 8)).movedim(-3, 0))       # (n, ..., 8, N)
+    step = torch.zeros(n, *a.shape[:-1], N)
+    for x, y in terms:
+        xs, ys = steps[0](x), steps[1](y)
+        for kk in order:
+            step = step + xs[..., :, kk, None] * ys[..., None, kk, :]
+    acc = [torch.zeros(*a.shape[:-1], N) for _ in range(2)]
+    for s in range(n):
+        h = int(halves and 8 * s >= K // 2)
+        acc[h] = acc[h] + step[s]
     return acc[0] + acc[1] if halves else acc[0]
 
 

@@ -30,6 +30,20 @@ from test_torch_short_attention import (CASES, PV_ORDER, _inputs,  # noqa: E402
 ATOL, RTOL = 1e-5, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations below run thousands of small tensor operations. With
+    a pool of intra-op threads in each of several test processes sharing
+    the host's cores, every operation's thread barrier waits on threads
+    that are not running, and a run of seconds takes many minutes. One
+    thread gives the same values: no emulation's product or sum depends on
+    the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _torch(*arrays):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
