@@ -249,6 +249,21 @@ Phases, each of which asserts; any failure exits non-zero:
                version, timed beside SDPA and its bound; `cli.beir_retriever
                --modelname bert-base-uncased --randominit` on 1,000 synthetic
                documents; `modules.py`'s CNN and LSTM, card == CPU (fp32)
+ 29. mesh    — the serving meshes (`sgpt_tpu_torch.parallel`) on a mesh of
+               `cuda:0` named twice (each shard's kernels launch; it checks
+               a mesh's results and per-shard overhead, not scaling across
+               cards): GPT-Neo-125M's encode of the slice's 1,280 texts at
+               (dp, tp) = (2, 1), (1, 2), (2, 2) held to the meshless
+               embeddings (cosine ≥ 0.999 a row; K1 = 12 × dp × tp ×
+               batches); K1 at the tp shard's heads (B=64, T=300, H=6, bf16)
+               against its plain version, timed beside H=12; GPT-J-6B at
+               tp=2 (H/tp 8, Dh 256) on 256 texts against its meshless
+               encode; a DenseIndex and an IVFIndex (K 32) on dp=2 over the
+               4,096 search documents against the meshless indexes (IVF at
+               nprobe = K); the CE on 512 short pairs at dp=2 and tp=2
+               (Spearman ≥ 0.99 against the meshless ranker); `cli.serve
+               --device cuda:0,cuda:0 --dp 2 --rerank` answering /search
+               and /rerank over HTTP
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -4457,6 +4472,275 @@ def phase_ivf_serve(torch, corpus, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The serving meshes: a (dp, tp) mesh of one card named twice, so that every
+# shard's kernels launch; it checks a mesh's results and measures its
+# per-shard overhead, not its scaling across cards.
+
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+MESH_SHAPES = [(2, 1), (1, 2), (2, 2)]
+MESH_COS_MIN = 0.999      # a mesh's bf16 embeddings against the meshless engine's, per row
+MESH_SPEARMAN_MIN = 0.99  # a mesh's bf16 CE scores against the meshless ranker's
+MESH_GPTJ_TEXTS = 256     # GPT-J-6B's tp=2 encode (cut from the slice's 1,280 for time)
+MESH_CE_PAIRS = 512       # the short mix's pairs reranked on each mesh (cut from 3,200)
+
+
+def counted(obj, name: str) -> list:
+    """Count the calls of obj.name (an instance's method) in a list's
+    length: the dispatches a mesh path makes."""
+    calls, fn = [], getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+    setattr(obj, name, wrapper)
+    return calls
+
+
+def phase_mesh(torch, sa, model, cfg, tok, texts, docs, doc_s, corpus, kernel_times,
+               card) -> dict:
+    """The serving paths on meshes of the one card named twice (dp 2, tp 2,
+    dp 2 × tp 2): GPT-Neo-125M's encode of the slice's texts held to the
+    meshless engine's (cosine per row), K1 = L × dp × tp × batches; K1 at
+    the tp shard's shape (H 6) against its plain version, timed beside the
+    H 12 launch; GPT-J-6B at tp 2 (H/tp 8, Dh 256) against its meshless
+    encode; a DenseIndex and an IVFIndex on dp 2 over the search documents
+    (exact: the meshless scan's top-10; IVF at nprobe = K: the same); the
+    CE on dp 2 and tp 2 (Spearman against the meshless ranker, K1 = L × dp
+    × tp × dispatches); `cli.serve --device cuda:0,cuda:0 --dp 2` answering
+    /search and /rerank as its service does directly."""
+    import http.client
+    import os
+    import tempfile
+    import threading
+
+    from sgpt_tpu_torch.cli import serve as serve_cli
+    from sgpt_tpu_torch.crossencoder import CrossEncoderRanker
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.evaluation import spearman
+    from sgpt_tpu_torch.index import DenseIndex
+    from sgpt_tpu_torch.index_ivf import IVFIndex
+    from sgpt_tpu_torch.models import Decoder, gpt_j_6b
+    from sgpt_tpu_torch.parallel import RowShards, ShardedDecoder, make_mesh
+
+    L = cfg.num_layers
+    out = {"launches": {}}
+    kw = dict(specb=True, max_seq_len=300, batch_size=64, normalize_embeddings=True)
+
+    # GPT-Neo-125M: the slice's encode on each mesh shape
+    for dp, tp in MESH_SHAPES:
+        mesh = make_mesh(dp=dp, tp=tp, devices=MESH_DEVICES[:1] * (dp * tp))
+        engine = EmbeddingEngine(model, cfg, tok, mesh=mesh, **kw)
+        engine.encode(texts[:64])   # warm the shapes' matmul plans
+        batches = counted(engine, "_embed")
+        torch.cuda.synchronize()
+        sa.launches = 0
+        t0 = time.perf_counter()
+        got = engine.encode(texts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = sa.launches
+        cos = cosine(got, docs)
+        key = f"neo_dp{dp}_tp{tp}"
+        out[key] = {"emb_per_s": len(texts) / wall, "vs_meshless": doc_s / wall,
+                    "cos_min": float(cos.min()), "batches": len(batches)}
+        out["launches"][key] = k1
+        log(f"mesh GPT-Neo-125M dp={dp} tp={tp} ({' '.join(MESH_DEVICES[:1] * dp * tp)}): "
+            f"{len(texts)} texts in {wall:.3f} s, {len(texts) / wall:.1f} emb/s "
+            f"({doc_s / wall:.3f} x meshless); {len(batches)} batches, K1 launches {k1} = "
+            f"{L} x {dp} x {tp} x {len(batches)}; cosine to the meshless rows min "
+            f"{cos.min():.6f} ({card})")
+        assert isinstance(engine.model, ShardedDecoder) and len(engine.model.groups) == dp
+        assert k1 == L * dp * tp * len(batches) > 0, (key, k1, len(batches))
+        assert np.isfinite(got).all() and cos.min() >= MESH_COS_MIN, (key, cos.min())
+        del engine
+
+    # K1 at a tp shard's heads (H 6 of 12) against its plain version
+    args, _ = attention_inputs(torch, np.random.default_rng(SEED + 40), 64, 300, 6, 64,
+                               torch.bfloat16)
+    g = sa.short_attention(*args, 1.0, 0, 6, False).float()
+    w = sa.short_attention_reference(*args, scale=1.0, window=0, H=6, use_alibi=False).float()
+    err = (g - w).abs()
+    assert (err - BF16_RTOL * w.abs()).max().item() <= BF16_ATOL, "K1 at the tp shard's shape"
+    out["k1_tp_shard"] = {"max_abs_err": err.max().item(),
+                          **time_k1(torch, sa, "tp shard ", args, 6, 1.0, 0)}
+    h12 = kernel_times[0][0]
+    log(f"mesh K1 tp shard B=64 T=300 H=6 Dh=64 bf16: max_abs_err {err.max().item():.3e}; "
+        f"{out['k1_tp_shard']['ms']:.4f} ms beside {h12:.4f} ms at H=12 "
+        f"({out['k1_tp_shard']['ms'] / h12:.3f} x) ({card})")
+    del args, g, w, err
+
+    # GPT-J-6B at tp 2: the width the JAX decoder shards K1 for
+    gcfg = gpt_j_6b().replace(dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    gptj = Decoder(gcfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED),
+                   lm_head=("w", "b"))
+    gtok = type(tok)(gcfg.vocab_size)
+    sub = texts[:: len(texts) // MESH_GPTJ_TEXTS][:MESH_GPTJ_TEXTS]
+    rates = {}
+    for name, mesh in (("meshless", None), ("tp2", make_mesh(dp=1, tp=2,
+                                                                devices=MESH_DEVICES))):
+        engine = EmbeddingEngine(gptj, gcfg, gtok, mesh=mesh,
+                                 device=None if mesh is not None else "cuda", **kw)
+        engine.encode(sub[:64])
+        batches = counted(engine, "_embed")
+        torch.cuda.synchronize()
+        sa.launches = 0
+        t0 = time.perf_counter()
+        rates[name] = (engine.encode(sub), time.perf_counter() - t0, sa.launches, len(batches))
+        del engine
+        torch.cuda.empty_cache()
+    (ref, ref_s, _, _), (got, got_s, k1, nb) = rates["meshless"], rates["tp2"]
+    cos = cosine(got, ref)
+    out["gptj_tp2"] = {"emb_per_s": len(sub) / got_s, "meshless_emb_per_s": len(sub) / ref_s,
+                       "vs_meshless": ref_s / got_s, "cos_min": float(cos.min()),
+                       "batches": nb, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["launches"]["gptj_tp2"] = k1
+    log(f"mesh GPT-J-6B tp=2 (H/tp 8, Dh 256): {len(sub)} texts at {len(sub) / got_s:.1f} "
+        f"emb/s against {len(sub) / ref_s:.1f} meshless ({ref_s / got_s:.3f} x); K1 "
+        f"launches {k1} = {gcfg.num_layers} x 2 x {nb}; cosine min {cos.min():.6f} ({card})")
+    assert k1 == gcfg.num_layers * 2 * nb > 0 and cos.min() >= MESH_COS_MIN, (k1, cos.min())
+    del gptj, rates, ref, got
+    torch.cuda.empty_cache()
+
+    # search on dp 2: the exact scan and the IVF index over the search documents
+    ids = list(corpus)
+    flat_engine = EmbeddingEngine(model, cfg, tok, device="cuda", **kw)
+    demb = flat_engine.encode_corpus([corpus[i] for i in ids])
+    qemb = flat_engine.encode([(corpus[i]["title"] + " " + corpus[i]["text"]).strip()
+                               for i in ids[:256]], is_query=True)
+    mesh = make_mesh(dp=2, tp=1, devices=MESH_DEVICES)
+    flat = DenseIndex(cfg.hidden_size, device="cuda")
+    sharded = DenseIndex(cfg.hidden_size, mesh=mesh)
+    for idx in (flat, sharded):
+        idx.add(demb, ids=ids)
+        idx.build()
+    assert isinstance(sharded._corpus, RowShards) and len(sharded._corpus.pieces) == 2
+    (fv, fi), (sv, si) = flat.search_embeddings(qemb, k=10), sharded.search_embeddings(qemb, k=10)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(fv, sv))
+    differ = sum(a != b for a, b in zip(fi, si))
+    for n in range(len(fi)):   # a differing id sits on a near-tie: its own score is the same
+        if fi[n] != si[n]:
+            np.testing.assert_allclose(rescore(torch, flat, qemb[n], si[n]), fv[n], atol=1e-5,
+                                       rtol=0, err_msg=f"query {n}")
+    assert err <= 1e-5, err
+    # IVF: at nprobe = K the sharded probe is exact, the meshless index's
+    # answer; below K it probes each row block's own best clusters
+    ivfs = [IVFIndex(cfg.hidden_size, n_clusters=32, device="cuda"),
+            IVFIndex(cfg.hidden_size, n_clusters=32, mesh=mesh)]
+    for idx in ivfs:
+        idx.add(demb, ids=ids)
+        idx.build()
+    (wv, wi), (iv, ii) = (idx.search_embeddings(qemb, k=10, nprobe=32) for idx in ivfs)
+    ivf_err = max(float(np.abs(a - b).max()) for a, b in zip(wv, iv))
+    ivf_differ = sum(a != b for a, b in zip(wi, ii))
+    recall8 = [np.mean([len(set(a) & set(b)) / 10 for a, b in
+                        zip(wi, idx.search_embeddings(qemb, k=10, nprobe=8)[1])])
+               for idx in ivfs]
+    out["search"] = {"dense_max_abs_err": err, "dense_lists_differ": differ,
+                     "ivf_nprobe_k_max_abs_err": ivf_err, "ivf_nprobe_k_lists_differ": ivf_differ,
+                     "ivf_recall10_nprobe8": float(recall8[1]),
+                     "ivf_recall10_nprobe8_meshless": float(recall8[0])}
+    log(f"mesh search dp=2 over {len(ids)} documents, {len(qemb)} queries: DenseIndex max "
+        f"|score diff| {err:.3e} to the meshless scan ({differ} lists differ on a near-tie); "
+        f"IVFIndex (K 32, overflow {ivfs[1]._overflow_count}) at nprobe 32 max |diff| "
+        f"{ivf_err:.3e} to the meshless IVF ({ivf_differ} lists differ); recall@10 at nprobe 8 "
+        f"{recall8[1]:.4f} (4 clusters a row block), meshless {recall8[0]:.4f} ({card})")
+    assert ivf_err <= 1e-5, ivf_err
+    del flat, sharded, ivfs, flat_engine
+
+    # the CE on dp 2 and on tp 2, the short mix
+    short = ce_mix(np.random.default_rng(SEED + 8))[2][:MESH_CE_PAIRS]
+    rkw = dict(batch_size=16, max_length=2048)
+    flat_ranker = CrossEncoderRanker(model, cfg, tok, device="cuda", **rkw)
+    flat_ranker.predict(short[:32])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = np.asarray(flat_ranker.predict(short))
+    flat_wall = time.perf_counter() - t0
+    out["ce_meshless_pairs_per_s"] = len(short) / flat_wall
+    for dp, tp in ((2, 1), (1, 2)):
+        ranker = CrossEncoderRanker(model, cfg, tok,
+                                    mesh=make_mesh(dp=dp, tp=tp, devices=MESH_DEVICES), **rkw)
+        ranker.predict(short[:32])
+        dispatches = counted(ranker, "_dispatch")
+        torch.cuda.synchronize()
+        sa.launches = 0
+        t0 = time.perf_counter()
+        got = np.asarray(ranker.predict(short))
+        wall = time.perf_counter() - t0
+        k1 = sa.launches
+        rho = spearman(got, want)
+        key = f"ce_dp{dp}_tp{tp}"
+        out[key] = {"pairs_per_s": len(short) / wall, "vs_meshless": flat_wall / wall,
+                    "spearman": float(rho),
+                    "max_abs_diff": float(np.abs(got - want).max()),
+                    "dispatches": len(dispatches)}
+        out["launches"][key] = k1
+        log(f"mesh ce dp={dp} tp={tp}: {len(short)} short pairs, {len(short) / wall:.1f} "
+            f"pairs/s ({flat_wall / wall:.3f} x meshless); Spearman to the meshless scores {rho:.6f}, max |diff| "
+            f"{out[key]['max_abs_diff']:.4f}; K1 launches {k1} = {L} x {dp} x {tp} x "
+            f"{len(dispatches)} ({card})")
+        assert np.isfinite(got).all() and rho >= MESH_SPEARMAN_MIN, (key, rho)
+        assert k1 == L * dp * tp * len(dispatches) > 0, (key, k1)
+        del ranker
+
+    # cli.serve on the mesh: /search and /rerank over HTTP
+    def post(addr, path, payload):
+        conn = http.client.HTTPConnection(*addr, timeout=120)
+        try:
+            conn.request("POST", path, json.dumps(payload), {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read().decode())
+        finally:
+            conn.close()
+
+    serve_ids = ids[:1024]
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        path = os.path.join(tmp, "corpus.jsonl")
+        with open(path, "w") as f:
+            for i in serve_ids:
+                f.write(json.dumps({"_id": i, **corpus[i]}) + "\n")
+        t0 = time.perf_counter()
+        server, service = serve_cli.build_server(serve_cli.parse_args([
+            "--modelname", "125m", "--randominit", "--device", ",".join(MESH_DEVICES),
+            "--dp", "2", "--port", "0", "--rerank", "--corpus", path]))
+        start_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        assert isinstance(service.engine.model, ShardedDecoder)
+        assert isinstance(service.index._corpus, RowShards) and service.ranker.mesh is not None
+        addr = server.server_address[:2]
+        queries = [" ".join(corpus[i]["text"].split()[:8]) for i in serve_ids[::128]]
+        sa.launches = 0
+        status, body = post(addr, "/search", {"queries": queries, "k": 5})
+        assert status == 200, body
+        status2, body2 = post(addr, "/rerank", {"queries": queries[:2], "k": 3, "first_k": 10})
+        assert status2 == 200, body2
+        k1 = sa.launches
+        want_s = service.search(queries, k=5)
+        assert [[h["id"] for h in r] for r in body["results"]] == \
+            [[h["id"] for h in r] for r in want_s]
+        want_r = service.rerank(queries[:2], k=3, first_k=10)
+        assert [[h["id"] for h in r] for r in body2["results"]] == \
+            [[h["id"] for h in r] for r in want_r]
+        out["serve"] = {"start_s": start_s, "docs": len(serve_ids)}
+        out["launches"]["serve"] = k1
+        log(f"mesh serve --device {','.join(MESH_DEVICES)} --dp 2 --rerank: {len(serve_ids)} "
+            f"documents indexed at start ({start_s:.1f} s, warm-up included); POST /search "
+            f"({len(queries)} queries) and POST /rerank (2 queries, first_k 10) answer what the "
+            f"service answers directly; K1 launches {k1} ({card})")
+        assert k1 > 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=10)
+    out["k1_launches"] = sum(out["launches"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The training-objectives slice: TSDAE pretraining and the trainable
 # cross-encoder (K1 and K2 fp32 at their shapes), and the search utilities.
 
@@ -5408,6 +5692,10 @@ def main() -> int:
     phase("serve")
     serve = phase_serve(torch, mips, engine, corpus)
 
+    # the serving meshes: dp and tp on the one card named twice
+    phase("mesh")
+    mesh = phase_mesh(torch, sa, model, cfg, tok, texts, docs, doc_s, corpus, times, card)
+
     # int8 inference, and the IVF index
     phase("int8")
     int8 = phase_int8(torch, model, cfg, tok, texts, docs, doc_s, gen, card)
@@ -5508,6 +5796,13 @@ def main() -> int:
             f"{ivf['k5_exact_ms_q1']:.3f} / {ivf['k5_exact_ms_q64']:.3f} ms ({card})")
     log(f"ivf serve: /search p50 {ivf['serve']['p50_ms']:.2f} ms, p99 "
         f"{ivf['serve']['p99_ms']:.2f} ms ({card})")
+    log("mesh (one card named twice): GPT-Neo-125M encode "
+        + ", ".join(f"dp={k[6]} tp={k[10]} {mesh[k]['emb_per_s']:.1f} emb/s "
+                    f"({mesh[k]['vs_meshless']:.3f} x)" for k in mesh if k.startswith("neo_"))
+        + f"; GPT-J-6B tp=2 {mesh['gptj_tp2']['emb_per_s']:.1f} emb/s "
+        f"({mesh['gptj_tp2']['vs_meshless']:.3f} x meshless); K1 at H=6 "
+        f"{mesh['k1_tp_shard']['ms']:.4f} ms; CE dp=2 {mesh['ce_dp2_tp1']['pairs_per_s']:.1f}, "
+        f"tp=2 {mesh['ce_dp1_tp2']['pairs_per_s']:.1f} pairs/s ({card})")
     int8_k1 = (int8["neo"]["k1_launches"] + fam_int8["k1_launches"]
                + fam_int8["ce_k1_launches"] + ivf["serve"]["k1_launches"])
 
@@ -5571,7 +5866,11 @@ def main() -> int:
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:74",
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
                      + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1
-                     + tsdae["k1"] + ce_train["k1"] + encoders["clip"]["k1_launches"]),
+                     + tsdae["k1"] + ce_train["k1"] + encoders["clip"]["k1_launches"]
+                     + mesh["k1_launches"]),
+        "launches_mesh": mesh["launches"],
+        "mesh": {k: v for k, v in mesh.items() if k not in ("launches", "k1_tp_shard")},
+        **{f"{k}_tp_shard": v for k, v in mesh["k1_tp_shard"].items()},
         "launches_clip_text": encoders["clip"]["k1_launches"],
         "max_abs_err_clip_text": encoders["clip"]["k1_max_abs_err"],
         **{f"{k}_clip_text": v for k, v in encoders["clip"]["k1_times"].items()},

@@ -4,8 +4,13 @@
         --dataset scifact --method weightedmean --specb --maxseqlen 300 \\
         --randominit --device cuda
 
-The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item
-12), plus `--device`. Writes the same `./results_<model>_<method>_<dataset>.json`
+The JAX CLI's flags, plus `--device` (one device, or a comma-separated
+list that `--dp`/`--tp` arrange into a mesh, `cli/common.py`):
+
+    python -m sgpt_tpu_torch.cli.beir_retriever --dataset scifact --randominit \
+        --device cuda:0,cuda:1 --dp 2
+
+Writes the same `./results_<model>_<method>_<dataset>.json`
 and `./beir_embeddings_ndcgs.json` entries. `--layeridx` pools the states
 of one layer (0: the embeddings, -1: the final states), for the layer
 sweeps of the reference:
@@ -15,9 +20,9 @@ sweeps of the reference:
 
 `--quantize int8` quantizes the decoder's projections in place after
 loading (`quantize_decoder_params(free_source=True)`: a 6B model never
-holds both copies). `--modelname` is a preset with `--randominit`
-(GPT-Neo; "6b"/"5.8b"/"6.1b": GPT-J-6B; "bloom": BLOOM-1b7) or a local HF
-checkpoint directory.
+holds both copies), before the model is sharded over the mesh.
+`--modelname` is a preset with `--randominit` (GPT-Neo; "6b"/"5.8b"/"6.1b":
+GPT-J-6B; "bloom": BLOOM-1b7) or a local HF checkpoint directory.
 `--download` fetches the dataset only when passed.
 """
 from __future__ import annotations
@@ -28,7 +33,8 @@ import logging
 import os
 
 from ..ops.quant import quantize_decoder_params
-from .common import build_model, setup_logging
+from .common import (add_mesh_args, build_mesh, build_model, first_device, maybe_shard,
+                     setup_logging)
 
 logger = logging.getLogger(__name__)
 
@@ -62,8 +68,10 @@ def parse_args(argv=None):
                    help="assert nDCG@10 >= this value minus --ndcg-tol (exit 1 otherwise)")
     p.add_argument("--ndcg-tol", type=float, default=0.005, dest="ndcg_tol")
     p.add_argument("--device", default="cuda",
-                   help="torch device to encode and search on: cuda (the kernels) "
-                   "or cpu (their plain versions)")
+                   help="torch device to encode and search on: cuda (the kernels; alone, "
+                   "every visible card) or cpu (their plain versions), or a "
+                   "comma-separated list for --dp/--tp")
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
@@ -87,6 +95,8 @@ def main(args=None):
     from ..evaluation import EvaluateRetrieval, load_beir_dataset
     from ..retrieval import DenseRetriever
 
+    mesh = build_mesh(args)   # a bad --dp/--tp exits before anything is loaded
+    device = first_device(args, mesh)
     data_path = os.path.join(args.datapath, args.dataset)
     if args.download and not os.path.isdir(data_path):
         # egress-gated: nothing fetches unless this flag is passed explicitly
@@ -97,7 +107,7 @@ def main(args=None):
 
     try:
         model, cfg, tokenizer = build_model(args.modelname, random_init=args.randominit,
-                                            dtype_str=args.dtype, device=args.device)
+                                            dtype_str=args.dtype, device=device)
     except Exception as e:
         if args.expect_ndcg is not None:
             # exit 3: weights unavailable (rerun when they land), not a score mismatch
@@ -106,8 +116,9 @@ def main(args=None):
         raise
     if args.quantize:
         model = quantize_decoder_params(model, free_source=True)
+    model = maybe_shard(model, mesh)
     engine = EmbeddingEngine(
-        model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
+        model, cfg, tokenizer, device=device, mesh=mesh, method=args.method, specb=args.specb,
         layeridx=args.layeridx, max_seq_len=args.maxseqlen, batch_size=args.batchsize,
         cache_dir=(f"embeddings/{args.modelname.split('/')[-1]}/"
                    f"{args.method}/{args.dataset}" if args.saveemb else None))

@@ -1,6 +1,12 @@
-"""Shared CLI plumbing of the port: logging setup and model construction
-(counterpart of `sgpt_tpu/cli/common.py`, less the mesh flags: meshes are not
-ported, ROADMAP Queue 1 item 12)."""
+"""Shared CLI plumbing of the port: logging setup, the mesh flags and model
+construction (counterpart of `sgpt_tpu/cli/common.py`).
+
+`--device` names the devices a CLI may use: one device (`cuda`, `cuda:1`,
+`cpu`), or a comma-separated list (`cuda:0,cuda:1`, `cpu,cpu`, repeats
+allowed), the port's stand-in for the device list JAX sees; `cuda` alone
+means every visible card. `--dp`/`--tp` arrange them into a mesh as the JAX
+flags do (`build_mesh`).
+"""
 from __future__ import annotations
 
 import logging
@@ -9,6 +15,61 @@ import logging
 def setup_logging():
     logging.basicConfig(format="%(asctime)s - %(message)s", datefmt="%Y-%m-%d %H:%M:%S",
                         level=logging.INFO)
+
+
+def add_mesh_args(parser):
+    parser.add_argument("--dp", type=int, default=-1,
+                        help="data-parallel mesh axis (-1 = all devices / tp)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel mesh axis (Megatron sharding; replaces the "
+                        "reference's device_map='auto', sgptce.py:54)")
+    return parser
+
+
+def _device_list(device: str):
+    """--device as a device list; None for `cuda` alone (every visible card)."""
+    return None if device == "cuda" else [d.strip() for d in device.split(",") if d.strip()]
+
+
+def build_mesh(args):
+    """Mesh from --dp/--tp over the --device list; None for the trivial
+    one-device case, as in JAX: dp=1, tp=1 is an explicit single-device
+    request, and dp=-1 with tp=1 on one device is too. A mesh the devices
+    cannot make exits with the reason; without a card, `--device cuda`
+    with a mesh raises (no CPU mesh in its place)."""
+    import torch
+
+    from ..parallel import make_mesh
+
+    devices = _device_list(args.device)
+    if args.tp == 1 and args.dp == 1:
+        return None
+    if args.tp == 1 and args.dp == -1:
+        n = torch.cuda.device_count() if devices is None else len(devices)
+        if n <= 1:
+            return None
+    try:
+        return make_mesh(dp=args.dp, tp=args.tp, devices=devices)
+    except ValueError as e:
+        raise SystemExit(f"--dp {args.dp} --tp {args.tp} over --device {args.device}: {e}")
+
+
+def first_device(args, mesh) -> str:
+    """The device a CLI builds its model on: the mesh's first device, or
+    the first device of --device."""
+    if mesh is not None:
+        return str(mesh.devices[0, 0])
+    devices = _device_list(args.device)
+    return "cuda" if devices is None else devices[0]
+
+
+def maybe_shard(model, mesh):
+    """`model` sharded over `mesh` (`parallel.shard_params`), or as it is
+    without one. Quantize before sharding."""
+    if mesh is None:
+        return model
+    from ..parallel import shard_params
+    return shard_params(model, mesh)
 
 
 def build_model(model_name: str, *, random_init: bool = False, dtype_str: str = "bfloat16",

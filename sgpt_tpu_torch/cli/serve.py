@@ -1,12 +1,16 @@
-"""Serve embeddings and semantic search over HTTP from one process and one
-card (counterpart of `sgpt_tpu/cli/serve.py`).
+"""Serve embeddings and semantic search over HTTP from one process
+(counterpart of `sgpt_tpu/cli/serve.py`).
 
     python -m sgpt_tpu_torch.cli.serve --modelname gpt-neo-125m --randominit \\
         --device cuda --port 8080 --corpus corpus.jsonl --quantize-index int8 \\
         [--index ivf --clusters auto --nprobe 32] [--quantize int8]
+    python -m sgpt_tpu_torch.cli.serve --modelname gpt-neo-125m --randominit \\
+        --device cuda:0,cuda:1 --dp 2 --corpus corpus.jsonl --rerank
 
-The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
-plus `--device`. `--modelname` is a preset with `--randominit` (GPT-Neo,
+The JAX CLI's flags, plus `--device`: one device, or a comma-separated list
+that `--dp`/`--tp` arrange into a mesh (`cli/common.py`), which the engine,
+the index (its corpus sharded over dp), the ranker and `--index-path`'s
+load all run on. `--modelname` is a preset with `--randominit` (GPT-Neo,
 GPT-J-6B, BLOOM-1b7) or a local HF checkpoint directory. `--index exact`
 searches with the block-max scan, `--index ivf` with the balanced IVF index
 (`index_ivf.IVFIndex`: `--clusters`, `--nprobe`); `--quantize-index int8`
@@ -25,7 +29,7 @@ import json
 import logging
 import os
 
-from .common import build_model, setup_logging
+from .common import add_mesh_args, build_mesh, build_model, first_device, setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -108,27 +112,33 @@ def parse_args(argv=None):
     ap.add_argument("--rerank-pack-t", type=int, default=None,
                     help="CE sequence packing length")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to encode and search on: cuda (the kernels) "
-                    "or cpu (their plain versions)")
+                    help="torch device to encode and search on: cuda (the kernels; alone, "
+                    "every visible card) or cpu (their plain versions), or a "
+                    "comma-separated list for --dp/--tp")
+    add_mesh_args(ap)
     return ap.parse_args(argv)
 
 
 def build_server(args):
     """(server, service) from parsed flags: the model and engine on
-    --device, the ranker with --rerank or --rerank-model, the index (loaded
-    from --index-path, or an empty --index one filled from --corpus), encode
-    and search warmed unless --no-warmup; the caller runs serve_forever()."""
+    --device (or the --dp/--tp mesh), the ranker with --rerank or
+    --rerank-model, the index (loaded from --index-path, or an empty --index
+    one filled from --corpus), encode and search warmed unless --no-warmup;
+    the caller runs serve_forever()."""
     from ..encoder import EmbeddingEngine
     from ..index import DenseIndex
     from ..index_ivf import IVFIndex
     from ..serving import SearchService, make_server
 
+    mesh = build_mesh(args)
+    device = first_device(args, mesh)
     model, cfg, tokenizer = build_model(args.modelname, random_init=args.randominit,
-                                        dtype_str="bfloat16", device=args.device)
+                                        dtype_str="bfloat16", device=device)
+    # the engine makes the int8 copy (--quantize) and shards it over the mesh
     engine = EmbeddingEngine(
-        model, cfg, tokenizer, device=args.device, method=args.method, specb=args.specb,
-        max_seq_len=args.maxseqlen, batch_size=args.batchsize, normalize_embeddings=True,
-        quantize=args.quantize)
+        model, cfg, tokenizer, device=device, mesh=mesh, method=args.method,
+        specb=args.specb, max_seq_len=args.maxseqlen, batch_size=args.batchsize,
+        normalize_embeddings=True, quantize=args.quantize)
     ranker = None
     if args.rerank or args.rerank_model:
         from ..ce_prompts import build_ranker
@@ -136,18 +146,20 @@ def build_server(args):
         if args.rerank_model:
             ce_model, ce_cfg, ce_tok = build_model(args.rerank_model,
                                                    random_init=args.randominit,
-                                                   dtype_str="bfloat16", device=args.device)
+                                                   dtype_str="bfloat16", device=device)
             ce_quantize = args.quantize
-        else:  # the encoder's (int8 with --quantize) model: no second copy of the weights
+        else:  # the encoder's (int8 with --quantize, sharded on a mesh) model: no
+            # second copy of the weights
             ce_model, ce_cfg, ce_tok = engine.model, cfg, tokenizer
         ranker = build_ranker(args.rerank_prompt, ce_model, ce_cfg, ce_tok,
-                              device=args.device, batch_size=args.batchsize,
+                              device=device, mesh=mesh, batch_size=args.batchsize,
                               max_length=args.rerank_maxlen, pack_t=args.rerank_pack_t,
                               quantize=ce_quantize)
 
     loaded = False
     if args.index_path and os.path.exists(os.path.join(args.index_path, "index.npz")):
-        index, documents = SearchService.load_index(args.index_path, device=engine.device)
+        index, documents = SearchService.load_index(args.index_path, mesh=mesh,
+                                                    device=engine.device)
         if index.dim != engine.out_dim:
             raise SystemExit(f"--index-path holds dim={index.dim} embeddings "
                              f"but the model produces {engine.out_dim}")
@@ -159,10 +171,10 @@ def build_server(args):
         if args.index == "ivf":
             index = IVFIndex(engine.out_dim, n_clusters=args.clusters, nprobe=args.nprobe,
                              normalize_embeddings=True, quantize=args.quantize_index,
-                             device=engine.device)
+                             device=engine.device, mesh=mesh)
         else:
             index = DenseIndex(engine.out_dim, normalize_embeddings=True,
-                               quantize=args.quantize_index, device=engine.device)
+                               quantize=args.quantize_index, device=engine.device, mesh=mesh)
         service = SearchService(engine, index, max_wait_ms=args.max_wait_ms, ranker=ranker)
 
     if args.corpus and not loaded:

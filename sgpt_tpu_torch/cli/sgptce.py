@@ -7,11 +7,14 @@ log-prob scoring, and evaluates both:
     python -m sgpt_tpu_torch.cli.sgptce --dataset scifact --randominit \\
         --bm25results results_scifact.json --device cuda
 
-The JAX CLI's flags less `--dp`/`--tp` (meshes: ROADMAP Queue 1 item 12),
-plus `--device`. Writes the same per-prompt result json
+The JAX CLI's flags, plus `--device` (one device, or a comma-separated
+list that `--dp`/`--tp` arrange into a mesh, `cli/common.py`; `--tp`
+shards GPT-J/BLOOM over the cards, the reference's device_map="auto").
+Writes the same per-prompt result json
 (`./sgptce_<dataset>_prompt<id>.json` unless `--output`) and the
 cross-dataset `--scores-out` entries. `--quantize int8` quantizes the
-decoder's projections in place after loading (`free_source=True`).
+decoder's projections in place after loading (`free_source=True`), then
+the model is sharded (the JAX order).
 `--modelpath` is a preset with `--randominit`
 (GPT-Neo, GPT-J-6B, BLOOM-1b7) or a local HF checkpoint directory.
 """
@@ -23,7 +26,8 @@ import logging
 import os
 
 from ..ops.quant import quantize_decoder_params
-from .common import build_model, setup_logging
+from .common import (add_mesh_args, build_mesh, build_model, first_device, maybe_shard,
+                     setup_logging)
 
 logger = logging.getLogger(__name__)
 
@@ -65,8 +69,10 @@ def parse_args(argv=None):
     p.add_argument("--scores-out", default="./sgptce_ndcgs.json", dest="scores_out",
                    help="cross-dataset accumulation file ('' disables)")
     p.add_argument("--device", default="cuda",
-                   help="torch device to score on: cuda (the kernels) or cpu "
-                   "(their plain versions)")
+                   help="torch device to score on: cuda (the kernels; alone, every visible "
+                   "card) or cpu (their plain versions), or a comma-separated list for "
+                   "--dp/--tp")
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
@@ -88,6 +94,8 @@ def main(args=None):
         if pid in FEW_SHOT and not args.fewshot:
             raise SystemExit(f"prompt {pid!r} is few-shot — pass --fewshot")
 
+    mesh = build_mesh(args)   # a bad --dp/--tp exits before anything is loaded
+    device = first_device(args, mesh)
     data_path = os.path.join(args.datadir, args.dataset)
     split = "dev" if args.dataset == "msmarco" else "test"
     corpus, queries, qrels = load_beir_dataset(data_path, split)
@@ -97,9 +105,10 @@ def main(args=None):
         first_stage = json.load(f)
 
     model, cfg, tokenizer = build_model(args.modelpath, random_init=args.randominit,
-                                        dtype_str=args.dtype, device=args.device)
+                                        dtype_str=args.dtype, device=device)
     if args.quantize:
         model = quantize_decoder_params(model, free_source=True)
+    model = maybe_shard(model, mesh)
     fewshots = None
     if args.fewshot:
         fewshots = select_fewshot(corpus, queries, qrels, tokenizer,
@@ -114,7 +123,7 @@ def main(args=None):
     for prompt_id in prompt_ids:
         shots = fewshots if (args.fewshot or prompt_id in FEW_SHOT) else None
         ranker = build_ranker(prompt_id, model, cfg, tokenizer, fewshots=shots,
-                              device=args.device, batch_size=args.batchsize,
+                              device=device, mesh=mesh, batch_size=args.batchsize,
                               max_length=args.maxseqlen, pack_t=args.packt)
         reranked = rerank(ranker, corpus, queries, first_stage, top_k=args.topk)
         ndcg_ce, _map, recall, precision = EvaluateRetrieval.evaluate(

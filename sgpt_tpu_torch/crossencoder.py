@@ -22,8 +22,12 @@ row is built on the host and copied from pinned memory without a
 synchronise; each batch's scores are fetched one batch late (a depth-2
 pipeline), so the host packs batch i+1 while the card runs batch i.
 `quantize="int8"` scores with int8 decoder projections (`ops/quant.py`) on a
-quantized copy of the model. Not ported yet, and raising: `mesh=` (ROADMAP
-Queue 1 item 12).
+quantized copy of the model. `mesh=` scores over a `parallel.Mesh`, as the
+JAX ranker does: each batch's row count is a multiple of dp, dp row i
+scores the batch's i-th block of rows (bucketed or packed) on its replica
+(tp=1) or its tensor-parallel group (`models.decoder.TPGroup`: K1 per head
+shard, the vocab shards of the LM head gathered), and the blocks' scores
+come back in row order.
 """
 from __future__ import annotations
 
@@ -33,10 +37,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .encoder import place_model
 from .models.config import DecoderConfig
 from .models.decoder import Decoder, check_token_ids
 from .ops.logprobs import continuation_scores_gathered, continuation_scores_packed
-from .ops.quant import quantized_copy
+from .parallel.collectives import gather_rows
+from .parallel.mesh import placement
 from .tokenization.base import Tokenizer
 from .tokenization.specb import DEFAULT_BUCKETS, pick_bucket, row_bucket
 
@@ -60,30 +66,27 @@ class CrossEncoderRanker:
     PACK_FFD_WINDOW = 2048
 
     def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
-                 device="cuda", prompt_doc: str = PROMPT_G, use_prompt: bool = True,
+                 device=None, prompt_doc: str = PROMPT_G, use_prompt: bool = True,
                  fewshots: Optional[Tuple[str, str]] = None,
                  prompt_doc_start: str = "{}\n{}\n",
                  batch_size: int = 16, max_length: Optional[int] = None,
                  vocab_subset: Optional[Sequence[int]] = None,
                  quantize: Optional[str] = None, mesh=None,
                  pack_t: Optional[int] = None):
-        """device: where the model runs, the card by default; "cuda" without
-        a card raises, and CPU use passes device="cpu". quantize: "int8"
-        scores with int8 decoder projections on a quantized copy (the
-        caller's model stays float; for a model whose two copies do not fit,
-        pass one quantized with `free_source=True` and quantize=None). Every
-        other argument has the JAX ranker's meaning."""
-        if mesh is not None:
-            raise NotImplementedError("CrossEncoderRanker(mesh=): meshes are not ported "
-                                      "yet (ROADMAP Queue 1 item 12)")
+        """device: where the model runs, the card ("cuda") by default; "cuda"
+        without a card raises, and CPU use passes device="cpu"; with a mesh,
+        the mesh's first device. quantize: "int8" scores with int8 decoder
+        projections on a quantized copy (the caller's model stays float; for
+        a model whose two copies do not fit, pass one quantized with
+        `free_source=True` and quantize=None). mesh: a `parallel.Mesh` (see
+        the module docstring); `model` a `Decoder` (sharded here, after the
+        int8 copy) or a `ShardedDecoder` on it. Every other argument has the
+        JAX ranker's meaning."""
         if model.cfg != cfg:
             raise ValueError("CrossEncoderRanker: cfg differs from the model's config")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CrossEncoderRanker: device 'cuda' requested but "
-                               "torch.cuda.is_available() is False; pass device=\"cpu\"")
-        self.device = device
-        self.model = quantized_copy(model.to(device), quantize).eval()
+        self.mesh = mesh
+        self.device = device = placement(device, mesh, "CrossEncoderRanker")
+        self.model = place_model(model, quantize, device, mesh)
         self.quantize = quantize
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -122,6 +125,7 @@ class CrossEncoderRanker:
             vm = np.zeros((cfg.vocab_size,), bool)
             vm[np.asarray(list(vocab_subset))] = True
             self.vocab_mask = torch.from_numpy(vm).to(device)
+        self._vocab_masks = {device: self.vocab_mask}   # its copy on each dp row's device
 
     # ------------------------------------------------------------------
     def _pack(self, context_enc: List[int], continuation_enc: List[int]):
@@ -147,14 +151,43 @@ class CrossEncoderRanker:
         for name, a in (("input", ids), ("continuation", targets)):
             check_token_ids(a, self.cfg.vocab_size, name)
 
-    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """Host rows → the device. Copies to the card go from pinned memory
+    @staticmethod
+    def _to_device(device, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host rows → `device`. Copies to a card go from pinned memory
         without a synchronise (PyTorch does not reuse a pinned block before
         its copy completes), so the host goes on to the next batch."""
         out = [torch.from_numpy(a) for a in arrays]
-        if self.device.type == "cuda":
-            out = [t.pin_memory().to(self.device, non_blocking=True) for t in out]
+        if device.type == "cuda":
+            out = [t.pin_memory().to(device, non_blocking=True) for t in out]
         return out
+
+    def _dispatch(self, scorer, arrays, *static) -> List[torch.Tensor]:
+        """scorer(model, *rows on its device, *static, vocab_mask) for one
+        batch: on the model's device, or on a mesh for each dp row's block
+        of rows (all launched before any result is read). Returns the
+        device results in row order."""
+        if self.mesh is None:
+            return [scorer(self.model, *self._to_device(self.device, *arrays), *static,
+                           self.vocab_mask)]
+        groups = self.model.groups
+        n = arrays[0].shape[0] // len(groups)
+        outs = []
+        for i, g in enumerate(groups):
+            if g.device not in self._vocab_masks:
+                self._vocab_masks[g.device] = (None if self.vocab_mask is None
+                                               else self.vocab_mask.to(g.device))
+            rows = [a[i * n:(i + 1) * n] for a in arrays]
+            outs.append(scorer(g, *self._to_device(g.device, *rows), *static,
+                               self._vocab_masks[g.device]))
+        return outs
+
+    def _rows(self, B: int) -> int:
+        """Rows per dispatch: B, on a mesh rounded up to a multiple of dp
+        (the pad rows' scores are dropped)."""
+        if self.mesh is None:
+            return B
+        dp = self.mesh.shape["dp"]
+        return ((max(B, dp) + dp - 1) // dp) * dp
 
     def _score_packed(self, keys, rows, uniq, scores):
         """Bin-pack short requests several to a row and score per segment.
@@ -180,12 +213,12 @@ class CrossEncoderRanker:
             bins.extend(window_bins)
 
         budget = self.batch_size * self.max_length
-        B = row_bucket(max(1, budget // T))
-        pending: List[Tuple[List, torch.Tensor]] = []
+        B = self._rows(row_bucket(max(1, budget // T)))
+        pending: List[Tuple[List, List[torch.Tensor]]] = []
 
         def drain():
             pbins, pout = pending.pop(0)
-            vals = pout.cpu().numpy().astype(np.float64)
+            vals = gather_rows(pout).astype(np.float64)
             for bi, segs in enumerate(pbins):
                 for s, (key, _inp, _il, _cl) in enumerate(segs):
                     for orig in uniq[key]:
@@ -227,8 +260,8 @@ class CrossEncoderRanker:
                     off += inplen
 
             self._check_ids(ids, ctgt)
-            arrays = self._to_device(ids, amask, posids, segids, cpos, ctgt, cmask, cseg)
-            out = continuation_scores_packed(self.model, *arrays, S, self.vocab_mask)
+            out = self._dispatch(continuation_scores_packed,
+                                 (ids, amask, posids, segids, cpos, ctgt, cmask, cseg), S)
             pending.append(([b[1] for b in batch], out))
             if len(pending) >= FETCH_PIPELINE_DEPTH:
                 drain()
@@ -279,11 +312,11 @@ class CrossEncoderRanker:
                                    [packed[j] for j in short], uniq, scores)
                 keys = [keys[j] for j in long_idx]
                 packed = [packed[j] for j in long_idx]
-        pending: List[Tuple[List, torch.Tensor]] = []
+        pending: List[Tuple[List, List[torch.Tensor]]] = []
 
         def drain():
             pbatch, pout = pending.pop(0)
-            vals = pout.cpu().numpy().astype(np.float64)
+            vals = gather_rows(pout).astype(np.float64)
             for bi, key in enumerate(pbatch):
                 for orig in uniq[key]:
                     scores[orig] = vals[bi]
@@ -293,7 +326,7 @@ class CrossEncoderRanker:
             # keys are length-descending: the first row's bucket fits all
             T = pick_bucket(packed[i][1], DEFAULT_BUCKETS, self.max_length)
             T = max(T, packed[i][1])
-            B = row_bucket(max(1, budget // T), allow_overshoot=T < self.max_length)
+            B = self._rows(row_bucket(max(1, budget // T), allow_overshoot=T < self.max_length))
             batch = keys[i : i + min(B, len(keys) - i)]
             rows = packed[i : i + len(batch)]
             i += len(batch)
@@ -318,8 +351,7 @@ class CrossEncoderRanker:
             # so a full-ones mask is safe
             amask = np.ones((B, T), np.int32)
             self._check_ids(ids, ctgt)
-            out = continuation_scores_gathered(
-                self.model, *self._to_device(ids, amask, cpos, ctgt, cmask), self.vocab_mask)
+            out = self._dispatch(continuation_scores_gathered, (ids, amask, cpos, ctgt, cmask))
             pending.append((batch, out))
             if len(pending) >= FETCH_PIPELINE_DEPTH:
                 drain()

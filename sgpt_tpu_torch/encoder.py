@@ -12,10 +12,18 @@ trained position weights. Embeddings can be cached on disk under a key that
 fingerprints the weights, the heads and the encode settings.
 
 `quantize="int8"` runs the decoder's projections in int8 (`ops/quant.py`)
-on a quantized copy of the model. Not ported yet (ROADMAP Queue 1 items 5,
-11 and 12): dispatch chaining, the depth-2 fetch pipeline and meshes. The
-JAX engine's keywords for them are accepted at the values that ask for
-none of these (`mesh=None`, `sp_mesh=None`, `fused_attention=None`,
+on a quantized copy of the model.
+
+`mesh=` (a `parallel.Mesh`) encodes data-parallel over its dp axis, and
+tensor-parallel over its tp axis (Megatron sharding, `parallel.shard_params`):
+each batch's row count is a multiple of dp, dp row i encodes the batch's
+i-th contiguous block of rows (a replica for tp=1, the tp forward of
+`models.decoder.TPGroup` otherwise: K1 per batch shard, or per head shard),
+pools and applies the heads on its own device, and the blocks come back
+to the host in row order. Not ported yet (ROADMAP Queue 1 items 5 and 11):
+dispatch chaining, the depth-2 fetch pipeline and sequence-parallel
+encode. The JAX engine's keywords for them are accepted at the values that
+ask for none of these (`sp_mesh=None`, `fused_attention=None`,
 `dispatch_chain=1`); any other value raises `NotImplementedError`.
 """
 from __future__ import annotations
@@ -34,6 +42,9 @@ from .models.decoder import Decoder, check_token_ids
 from .models.precision import matmul_precision
 from .ops.pooling import POOLERS, STACK_POOLERS, normalize, pool
 from .ops.quant import quantized_copy
+from .parallel.collectives import gather_rows
+from .parallel.mesh import placement
+from .parallel.sharding import ShardedDecoder, shard_params
 from .tokenization.base import Tokenizer
 from .tokenization.specb import SpecbCodec, pick_bucket, row_bucket
 
@@ -41,7 +52,7 @@ logger = logging.getLogger(__name__)
 
 # the JAX engine's keywords for what is not ported, each with the one value
 # that asks for nothing the port lacks
-_LATER = {"mesh": None, "sp_mesh": None, "fused_attention": None, "dispatch_chain": 1}
+_LATER = {"sp_mesh": None, "fused_attention": None, "dispatch_chain": 1}
 
 # the dense heads' activations (the JAX engine's `_ACTIVATIONS`: GELU is
 # jax.nn.gelu's tanh approximation)
@@ -74,20 +85,42 @@ def pool_single(hidden: torch.Tensor, mask: torch.Tensor, method: str,
     return pool(method, hidden, mask)
 
 
+def place_model(model, quantize: Optional[str], device, mesh):
+    """The model the engine (the ranker) runs: on `device`, int8 with
+    quantize="int8" (a copy: the caller's stays float), sharded over a mesh
+    (after quantizing: the JAX CLIs' order)."""
+    if isinstance(model, ShardedDecoder):
+        if quantize is not None:
+            raise ValueError("quantize an unsharded model: pass the Decoder with mesh=, or "
+                             "quantize_decoder_params before shard_params")
+        if mesh is None:
+            raise ValueError("a ShardedDecoder needs its mesh= too")
+        return shard_params(model, mesh)
+    if mesh is not None:
+        return shard_params(quantized_copy(model, quantize).eval(), mesh)
+    return quantized_copy(model.to(device), quantize).eval()
+
+
 class EmbeddingEngine:
     """Batched sentence embedding over the port's decoder (GPT-Neo, GPT-J,
     BLOOM, BERT, T5's encoder)."""
 
     def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
-                 device="cuda", method: str = "weightedmean", specb: bool = False,
+                 device=None, method: str = "weightedmean", specb: bool = False,
                  layeridx: int = -1, max_seq_len: Optional[int] = None,
                  batch_size: int = 32, normalize_embeddings: bool = False,
                  learned_weights=None, dense_heads: Optional[list] = None,
                  cache_dir: Optional[str] = None, text_prefix: str = "",
-                 quantize: Optional[str] = None, **later):
-        """device: where the model runs, the card by default; "cuda"
-        without a card raises, and CPU use passes device="cpu".
+                 quantize: Optional[str] = None, mesh=None, **later):
+        """device: where the model runs, the card ("cuda") by default;
+        "cuda" without a card raises, and CPU use passes device="cpu". With
+        a mesh, the mesh's first device (a device given must be it).
         Every other argument has the JAX engine's meaning:
+
+        mesh: a `parallel.Mesh`: encode over its dp × tp devices (see the
+        module docstring). `model` is a `Decoder` (sharded here, after the
+        int8 copy with quantize="int8") or a `ShardedDecoder` on this mesh
+        (then quantize must be None: quantize before sharding).
 
         quantize: "int8" runs the decoder's projections as int8 weights ×
         per-token int8 activations (`ops/quant.py`) on a quantized copy:
@@ -106,18 +139,20 @@ class EmbeddingEngine:
         each location: pre-pool heads to every token's state, post-pool
         heads to the sentence embedding.
         text_prefix: prepended to every text before tokenization.
-        mesh, sp_mesh, fused_attention, dispatch_chain: the JAX engine's
-        keywords, accepted at None, None, None and 1 (see the module
-        docstring)."""
+        sp_mesh, fused_attention, dispatch_chain: the JAX engine's
+        keywords, accepted at None, None and 1 (see the module docstring)."""
         unknown = set(later) - set(_LATER)
         if unknown:
             raise TypeError(f"EmbeddingEngine: unexpected arguments {sorted(unknown)}")
+        if mesh is not None and later.get("sp_mesh") is not None:
+            raise ValueError("pass either mesh (dp encode) or sp_mesh "
+                             "(sequence-parallel long-context encode), not both")
         asked = sorted(k for k, v in later.items()
                        if not (v is None if _LATER[k] is None else v == _LATER[k]))
         if asked:
             raise NotImplementedError(
                 f"EmbeddingEngine: {asked} not ported yet (ROADMAP Queue 1 "
-                "items 5, 11, 12)")
+                "items 5, 11)")
         if method not in POOLERS and method not in STACK_POOLERS \
                 and method != "learned_weightedmean":
             raise ValueError(f"unknown pooling method {method!r}")
@@ -125,13 +160,13 @@ class EmbeddingEngine:
             raise ValueError("learned_weightedmean needs learned_weights")
         if model.cfg != cfg:
             raise ValueError("EmbeddingEngine: cfg differs from the model's config")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("EmbeddingEngine: device 'cuda' requested but "
-                               "torch.cuda.is_available() is False")
-        self.device = device
-        self.model = quantized_copy(model.to(device), quantize).eval()
+        self.mesh = mesh
+        self.device = device = placement(device, mesh, "EmbeddingEngine")
+        self.model = place_model(model, quantize, device, mesh)
         self.quantize = quantize
+        if mesh is not None and batch_size % mesh.shape["dp"]:
+            dp = mesh.shape["dp"]   # the JAX engine's rounding: rows split over dp
+            batch_size = ((batch_size + dp - 1) // dp) * dp
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.method = method
@@ -142,6 +177,7 @@ class EmbeddingEngine:
         self.text_prefix = text_prefix
         self.learned_weights = (None if learned_weights is None else
                                 torch.as_tensor(learned_weights).to(device))
+        self._aux_on: dict = {}
         self.heads = {"pre_pool": [], "post_pool": []}
         for h in dense_heads or []:
             loc = h.get("location", "post_pool")
@@ -167,31 +203,58 @@ class EmbeddingEngine:
 
     # ------------------------------------------------------------------
     def _embed(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """One batch: forward + pool + normalise on the device → (B, D) fp32 host array."""
+        """One batch: forward + pool + normalise on the device → (B, D) fp32
+        host array. On a mesh, dp row i takes the batch's i-th block of
+        rows; every block is launched before any comes back to the host."""
         check_token_ids(ids, self.cfg.vocab_size)
-        ids_t = torch.from_numpy(ids).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
+        if self.mesh is None:
+            return self._embed_on(self.model, self.device, ids, mask).float().cpu().numpy()
+        n = ids.shape[0] // len(self.model.groups)
+        return gather_rows([self._embed_on(g, g.device, ids[i * n:(i + 1) * n],
+                                           mask[i * n:(i + 1) * n])
+                            for i, g in enumerate(self.model.groups)])
+
+    def _aux(self, device: torch.device):
+        """The dense heads and learnt position weights on `device` (copied
+        there once)."""
+        if device not in self._aux_on:
+            self._aux_on[device] = (
+                {loc: [{k: v.to(device) if torch.is_tensor(v) else v for k, v in h.items()}
+                       for h in heads] for loc, heads in self.heads.items()},
+                None if self.learned_weights is None else self.learned_weights.to(device))
+        return self._aux_on[device]
+
+    def _embed_on(self, model, device, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """Forward + pool + heads + normalise of rows on `device`, `model`'s."""
+        heads, learned_weights = self._aux(device)
+        ids_t = torch.from_numpy(ids).to(device)
+        mask_t = torch.from_numpy(mask).to(device)
         L = self.cfg.num_layers
         stacked = self.method in STACK_POOLERS or self.layeridx not in (-1, L)
         with torch.inference_mode(), matmul_precision(self.cfg.matmul_precision):
             if stacked:
-                stack = self.model(ids_t, mask_t, output_hidden_states=True)
+                stack = model(ids_t, mask_t, output_hidden_states=True)
             if self.method in STACK_POOLERS:
                 emb = pool(self.method, stack, mask_t)
             else:
-                hidden = stack[self.layeridx] if stacked else self.model(ids_t, mask_t)
-                hidden = apply_heads(hidden, self.heads["pre_pool"])
-                emb = pool_single(hidden, mask_t, self.method, self.learned_weights)
-            emb = apply_heads(emb, self.heads["post_pool"])
+                hidden = stack[self.layeridx] if stacked else model(ids_t, mask_t)
+                hidden = apply_heads(hidden, heads["pre_pool"])
+                emb = pool_single(hidden, mask_t, self.method, learned_weights)
+            emb = apply_heads(emb, heads["post_pool"])
             if self.normalize:
                 emb = normalize(emb)
-            return emb.float().cpu().numpy()
+            return emb
 
     def _rows_for_bucket(self, T: int) -> int:
         """Rows per batch for length bucket T (token-budget batching):
-        budget = batch_size × max_seq_len tokens."""
-        return row_bucket(max(1, (self.batch_size * self.codec.max_seq_len) // T),
-                          allow_overshoot=T < self.codec.max_seq_len)
+        budget = batch_size × max_seq_len tokens; on a mesh, rounded up to a
+        multiple of dp."""
+        B = row_bucket(max(1, (self.batch_size * self.codec.max_seq_len) // T),
+                       allow_overshoot=T < self.codec.max_seq_len)
+        if self.mesh is not None:
+            dp = self.mesh.shape["dp"]
+            B = ((max(B, dp) + dp - 1) // dp) * dp
+        return B
 
     def warmup(self, lengths: Optional[Sequence[int]] = None):
         """Run each (rows, bucket) shape once before traffic: builds the
@@ -259,7 +322,11 @@ class EmbeddingEngine:
         (activations, locations)."""
         if not hasattr(self, "_fp"):
             h = hashlib.sha1()
-            leaves = sorted(self.model.state_dict().items())
+            # on a mesh: the first shard's leaves and the mesh's shape
+            first = self.model if self.mesh is None else self.model.groups[0].shards[0]
+            if self.mesh is not None:
+                h.update(repr(self.mesh.shape).encode())
+            leaves = sorted(first.state_dict().items())
             for loc, heads in self.heads.items():
                 h.update(f"{loc}{[hd['activation'] for hd in heads]}".encode())
                 for i, hd in enumerate(heads):

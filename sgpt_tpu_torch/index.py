@@ -1,14 +1,24 @@
 """DenseIndex — the embed → index → query engine (counterpart of `sgpt_tpu/index.py`).
 
-Single device. The corpus lives on one torch device, padded to a static
-shape; `kernel="blockmax"` (the default) searches it with the plain-torch
+The corpus lives on one torch device, padded to a static shape;
+`kernel="blockmax"` (the default) searches it with the plain-torch
 block-max scan of `ops/topk.py`, and `kernel="pallas"` (the JAX name, kept
 so that code written against the JAX API runs unchanged) with the streaming
 MIPS kernel of `ops/mips.py` (K5 on a CUDA device). Adds after `build()`
 join a pending slab that search scans alongside the built corpus; deletes
 are tombstones until the next `build()` or `save()`; `save`/`load` use the
 JAX package's `.npz` format, so an index saved by either package loads in
-the other. Not ported: meshes (ROADMAP Queue 1 item 12).
+the other.
+
+With `mesh=` (a `parallel.Mesh`; block-max only, as in JAX) the padded
+corpus is cut into dp contiguous row blocks, block i on the mesh's
+`devices[i, 0]` (`parallel.RowShards`; int8 scales and tombstone masks cut
+with it). A query batch goes to every block; each scans its rows with its
+base offset and `clip(count − base, 0, rows)` valid rows, and the blocks'
+candidates merge into the top-k on the first device (ties to the lower
+block, as JAX's all_gather + top_k order them). The pending slab stays on
+the first device. Saves do not depend on the mesh: a file loads onto any
+mesh shape, or none.
 """
 from __future__ import annotations
 
@@ -19,7 +29,9 @@ import numpy as np
 import torch
 
 from .ops.pooling import normalize
-from .ops.topk import blockmax_topk
+from .ops.topk import _top_k, blockmax_topk
+from .parallel.mesh import placement
+from .parallel.sharding import RowShards
 
 # dtype names of the saved format (`meta["dtype"]`); mapped by name, since
 # numpy has no bfloat16 without ml_dtypes
@@ -37,25 +49,23 @@ def _torch_dtype(dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("DenseIndex: device 'cuda' requested but "
-                           "torch.cuda.is_available() is False")
-    return device
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A device tensor on the host: float rows as float32 (exact for bf16),
-    int8 rows as int8."""
-    t = t.detach().cpu()
+def _host(t, n: Optional[int] = None) -> np.ndarray:
+    """A device tensor (or `RowShards`), its first n rows, on the host:
+    float rows as float32 (exact for bf16), int8 rows as int8."""
+    if isinstance(t, RowShards):
+        return t.host()[:n]
+    t = t[:n].detach().cpu()
     return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("DenseIndex: meshes are not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+def merge_candidates(results, k: int, device) -> tuple:
+    """Each row block's (values (Q, c), positions (Q, c)) → the top-k of
+    their union on `device`, ties to the lower block (JAX's all_gather +
+    top_k order)."""
+    all_v = torch.cat([v.to(device) for v, _ in results], dim=1)
+    all_i = torch.cat([i.long().to(device) for _, i in results], dim=1)
+    top_v, pos = _top_k(all_v, min(k, all_v.shape[1]))
+    return top_v, torch.gather(all_i, 1, pos)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -97,23 +107,27 @@ class DenseIndex:
     def __init__(self, dim: int, *, normalize_embeddings: bool = True,
                  mesh=None, block_size: int = 128, dtype=torch.bfloat16,
                  kernel: str = "blockmax", slab_size: int = 1 << 20,
-                 quantize: Optional[str] = None, device="cuda"):
+                 quantize: Optional[str] = None, device=None):
         """kernel: 'blockmax' (block-max scan, any k) or 'pallas' (the
-        streaming MIPS kernel K5, k <= 16). slab_size: max docs scored per
-        matmul. quantize: 'int8' stores per-row symmetric int8 rows and fp32
-        scales (blockmax only). dtype: of the stored corpus and the queries
-        (a torch dtype, its name, or a numpy/JAX dtype). device: where the
-        corpus lives, the card by default; 'cuda' without a card raises, and
-        CPU use passes device='cpu'."""
-        _no_mesh(mesh)
+        streaming MIPS kernel K5, k <= 16; single device). slab_size: max
+        docs scored per matmul (per row block on a mesh). quantize: 'int8'
+        stores per-row symmetric int8 rows and fp32 scales (blockmax only).
+        dtype: of the stored corpus and the queries (a torch dtype, its
+        name, or a numpy/JAX dtype). device: where the corpus lives, the card
+        ('cuda') by default; 'cuda' without a card raises, and CPU use passes
+        device='cpu'. mesh: a `parallel.Mesh` whose dp axis shards the corpus
+        (see the module docstring); device is then its first device."""
         if kernel not in ("blockmax", "pallas"):
             raise ValueError(f"unknown kernel {kernel!r}; supported: 'blockmax', 'pallas'")
+        if kernel == "pallas" and mesh is not None:
+            raise ValueError("pallas kernel is single-device; use blockmax with a mesh")
         self.dim = dim
         self.normalize = normalize_embeddings
+        self.mesh = mesh
         self.block_size = block_size
         self.slab_size = _round_up(max(slab_size, block_size), block_size)
         self.dtype = _torch_dtype(dtype)
-        self.device = _device(device)
+        self.device = placement(device, mesh, "DenseIndex")
         self.kernel = kernel
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}; "
@@ -196,7 +210,7 @@ class DenseIndex:
             if self._mask_host is None:
                 self._mask_host = np.ones(self._corpus.shape[0], bool)
             self._mask_host[built_pos] = False
-            self._row_mask = torch.from_numpy(self._mask_host).to(self.device)
+            self._row_mask = self._place(self._mask_host, torch.bool)
         if touched_pending:
             self._pending_mask = None  # rebuilt lazily in _search_pending
         return len(ids)
@@ -211,40 +225,55 @@ class DenseIndex:
                                ids: Optional[Sequence[str]] = None, *,
                                mesh=None, normalize_embeddings: bool = False,
                                block_size: int = 128) -> "DenseIndex":
-        """Wrap an (N, D) embedding tensor already on its device (no host copy)."""
-        _no_mesh(mesh)
+        """Wrap an (N, D) embedding tensor already on its device (no host
+        copy; with a mesh, its row blocks are copied to the mesh's devices)."""
         n, dim = corpus.shape
         if normalize_embeddings:
             corpus = normalize(corpus)  # on the device; queries normalise at search
-        idx = cls(dim, normalize_embeddings=normalize_embeddings,
-                  block_size=block_size, dtype=corpus.dtype, device=corpus.device)
+        idx = cls(dim, normalize_embeddings=normalize_embeddings, mesh=mesh,
+                  block_size=block_size, dtype=corpus.dtype,
+                  device=None if mesh is not None else corpus.device)
         idx._count = n
         idx._built_count = n
         idx._ids = list(ids) if ids is not None else [str(i) for i in range(n)]
         n_pad = idx._padded_size(n)
         if n_pad != n:
             corpus = torch.cat([corpus, corpus.new_zeros((n_pad - n, dim))])
-        idx._corpus = corpus.contiguous()
+        idx._corpus = (corpus.contiguous() if mesh is None
+                       else RowShards.put(corpus, mesh))
         return idx
 
+    @property
+    def _n_dev(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["dp"]
+
     def _padded_size(self, n: int) -> int:
-        """Corpus rows after padding: a multiple of block_size. A corpus
-        larger than the slab budget splits into equal block-aligned slabs of
-        at most slab_size rows (sets self._slab_eff). The JAX arithmetic at
-        one device."""
-        granularity = self.block_size
+        """Corpus rows after padding: a multiple of block_size × dp. A row
+        block larger than the slab budget splits into equal block-aligned
+        slabs of at most slab_size rows (sets self._slab_eff). The JAX
+        arithmetic."""
+        n_dev = self._n_dev
+        granularity = self.block_size * n_dev
         n_pad = max(_round_up(n, granularity), granularity)
+        shard = n_pad // n_dev
         self._slab_eff = self.slab_size
-        if n_pad > self.slab_size:
-            shard_blocks = n_pad // self.block_size
+        if shard > self.slab_size:
+            shard_blocks = shard // self.block_size
             slab_blocks = self.slab_size // self.block_size
             k = -(-shard_blocks // slab_blocks)
             self._slab_eff = -(-shard_blocks // k) * self.block_size
-            n_pad = k * self._slab_eff
+            n_pad = k * self._slab_eff * n_dev
         return n_pad
 
     def _to_device(self, host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(host).to(dtype).to(self.device)
+
+    def _place(self, host: np.ndarray, dtype: torch.dtype):
+        """Built-corpus state (rows, scales, masks) on the device, or cut
+        into the mesh's row blocks."""
+        if self.mesh is None:
+            return self._to_device(host, dtype)
+        return RowShards.put(host, self.mesh, dtype)
 
     def build(self):
         """Pad to a static shape and place on the device. If a corpus is
@@ -256,9 +285,9 @@ class DenseIndex:
         if self._corpus is not None:
             if not chunks and not self._deleted:
                 return self  # nothing pending, nothing to compact
-            chunks.insert(0, _host(self._corpus[: self._built_count]).astype(host_dtype))
+            chunks.insert(0, _host(self._corpus, self._built_count).astype(host_dtype))
             if self.quantize == "int8":
-                scale_chunks.insert(0, _host(self._scales[: self._built_count]))
+                scale_chunks.insert(0, _host(self._scales, self._built_count))
         emb = (np.concatenate(chunks, axis=0) if chunks
                else np.zeros((0, self.dim), host_dtype))
         all_scales = (np.concatenate(scale_chunks) if scale_chunks
@@ -278,12 +307,12 @@ class DenseIndex:
         padded = np.zeros((n_pad, self.dim), host_dtype)
         padded[: self._count] = emb
         if self.quantize == "int8":
-            self._corpus = self._to_device(padded, torch.int8)
+            self._corpus = self._place(padded, torch.int8)
             scales = np.ones((n_pad,), np.float32)  # pad rows: harmless scale
             scales[: self._count] = all_scales
-            self._scales = self._to_device(scales, torch.float32)
+            self._scales = self._place(scales, torch.float32)
         else:
-            self._corpus = self._to_device(padded, self.dtype)
+            self._corpus = self._place(padded, self.dtype)
         self._chunks = []
         self._scale_chunks = []
         self._pending_arr = None
@@ -295,9 +324,23 @@ class DenseIndex:
         if self.kernel == "pallas":
             from .ops.mips import mips_topk
             return mips_topk(queries, self._corpus, self._built_count, k=k)
-        return blockmax_topk(queries, self._corpus, self._built_count, k=k,
-                             block_size=self.block_size, slab_size=self._slab_eff,
-                             corpus_scale=self._scales, row_mask=self._row_mask)
+        if self.mesh is None:
+            return blockmax_topk(queries, self._corpus, self._built_count, k=k,
+                                 block_size=self.block_size, slab_size=self._slab_eff,
+                                 corpus_scale=self._scales, row_mask=self._row_mask)
+        # each row block: its rows from `base`, clip(count − base, 0, rows) valid
+        rows = self._corpus.pieces[0].shape[0]
+        slab = self._slab_eff if rows % self._slab_eff == 0 else rows
+        results = []
+        for i, piece in enumerate(self._corpus.pieces):
+            base = i * rows
+            vals, idx = blockmax_topk(
+                queries.to(piece.device), piece, min(max(self._built_count - base, 0), rows),
+                k=k, block_size=self.block_size, slab_size=slab,
+                corpus_scale=None if self._scales is None else self._scales.pieces[i],
+                row_mask=None if self._row_mask is None else self._row_mask.pieces[i])
+            results.append((vals, idx.long() + base))
+        return merge_candidates(results, k, queries.device)
 
     def _search_pending(self, qd: torch.Tensor, k: int):
         """Exact top-k over the pending docs with blockmax_topk (for either
@@ -393,9 +436,9 @@ class DenseIndex:
         host_dtype = np.int8 if self.quantize == "int8" else np.float32
         rows, scales = [], []
         if self._corpus is not None:
-            rows.append(_host(self._corpus[: self._built_count]).astype(host_dtype))
+            rows.append(_host(self._corpus, self._built_count).astype(host_dtype))
             if self.quantize == "int8":
-                scales.append(_host(self._scales[: self._built_count]))
+                scales.append(_host(self._scales, self._built_count))
         rows.extend(self._chunks)
         scales.extend(self._scale_chunks)
         all_rows = (np.concatenate(rows) if rows
@@ -423,8 +466,9 @@ class DenseIndex:
 
     @classmethod
     def load(cls, path: str, *, mesh=None, **kw) -> "DenseIndex":
-        """Restore a save()d index (either package's); re-runs build() if it
-        was built when saved. kw: kernel, device, slab_size."""
+        """Restore a save()d index (either package's), onto `mesh` or none
+        whatever the mesh it was saved from; re-runs build() if it was built
+        when saved. kw: kernel, device, slab_size."""
         z = np.load(path)
         meta = json.loads(bytes(z["meta"]))
         if meta.get("kind") != "dense":
@@ -448,16 +492,16 @@ class DenseIndex:
 def index_corpus(engine, corpus, *, mesh=None, batch_docs: int = 50_000,
                  normalize_embeddings: bool = True, **index_kw) -> DenseIndex:
     """Embed a BEIR-shaped corpus ({docid: {title, text}}, or a list) into a
-    DenseIndex on the engine's device (unless index_kw names another),
-    longest documents first, batch_docs at a time."""
-    _no_mesh(mesh)
+    DenseIndex on the engine's device (unless index_kw names another) or
+    sharded over `mesh`, longest documents first, batch_docs at a time."""
     doc_ids = sorted(
         corpus, key=lambda d: len(corpus[d].get("title", "") + corpus[d].get("text", "")),
         reverse=True) if isinstance(corpus, dict) else list(range(len(corpus)))
     get = corpus.__getitem__  # works for dict (by id) and list (by position)
 
-    index_kw.setdefault("device", engine.device)
-    index = DenseIndex(engine.out_dim, normalize_embeddings=normalize_embeddings,
+    if mesh is None:
+        index_kw.setdefault("device", engine.device)
+    index = DenseIndex(engine.out_dim, normalize_embeddings=normalize_embeddings, mesh=mesh,
                        **index_kw)
     for s in range(0, len(doc_ids), batch_docs):
         chunk = doc_ids[s: s + batch_docs]

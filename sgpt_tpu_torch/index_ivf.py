@@ -34,8 +34,18 @@ a pending slab scanned exactly until the next `build()`; deletes are
 tombstones (id -1 in the layout, masked in the pending slab) until then.
 `save`/`load` use the JAX `.npz` format, so either package loads the
 other's file. Masked slots score -inf; the result filter keeps scores
-above -1e29, as the JAX index does. Not ported: meshes (ROADMAP Queue 1
-item 12).
+above -1e29, as the JAX index does.
+
+With `mesh=` (a `parallel.Mesh`) the cluster blocks are cut contiguously
+over dp (K padded to a multiple of dp with empty clusters; cluster c on
+row block c // (K/dp), on the mesh's `devices[c // (K/dp), 0]`), and so
+are the centroids and the overflow slab (padded to block_size × dp rows).
+k-means and assignment stay on the first device. Each block probes its
+own centroid slice with ceil(nprobe / dp) probes, scans its overflow rows,
+and the blocks' candidates merge into the top-k on the first device, as
+the JAX sharded probe does: at nprobe < K the union of the blocks' probes
+is not the meshless index's global top-nprobe set (nprobe = K is exact).
+Saves do not depend on the mesh: a file loads onto any mesh shape, or none.
 """
 from __future__ import annotations
 
@@ -46,10 +56,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .index import (_DTYPE_NAMES, _compact_deleted, _decode_ids, _device, _encode_ids,
-                    _host, _round_up, _torch_dtype)
+from .index import (_DTYPE_NAMES, _compact_deleted, _decode_ids, _encode_ids, _host,
+                    _round_up, _torch_dtype, merge_candidates)
 from .ops.pooling import normalize
 from .ops.topk import NEG, _top_k, blockmax_topk
+from .parallel.mesh import placement
+from .parallel.sharding import RowShards
 
 logger = logging.getLogger(__name__)
 
@@ -78,6 +90,34 @@ def _assign_corpus(rows: torch.Tensor, cent: torch.Tensor, slab: int) -> torch.T
                       for s in range(0, rows.shape[0], slab)])
 
 
+def _score_probed(q: torch.Tensor, probe: torch.Tensor, blocks: torch.Tensor,
+                  block_ids: torch.Tensor, scales: Optional[torch.Tensor], k: int):
+    """Score the probed blocks (Q, P) → (scores (Q, k), positions (Q, k)):
+    only the probed clusters are read (`index_select`), int8 rows against
+    the query in bf16 times the row scales, float rows against the query in
+    the stored dtype, all in fp32; pad and tombstoned slots (id -1) at
+    -inf. Shared by the meshless probe and each row block of a mesh's."""
+    Q, nprobe = probe.shape
+    flat = probe.reshape(-1)                                           # (Q·P,)
+    quantized = scales is not None
+    qc = q.to(torch.bfloat16 if quantized else blocks.dtype).float()
+    blk = blocks.index_select(0, flat).float()                         # (Q·P, C, D)
+    ids = block_ids.index_select(0, flat)                              # (Q·P, C)
+    s = torch.bmm(blk, qc.repeat_interleave(nprobe, dim=0)[:, :, None])[:, :, 0]
+    if quantized:
+        s = s * scales.index_select(0, flat)
+    s = torch.where(ids < 0, NEG, s)
+    vals, pos = _top_k(s.reshape(Q, -1), k)
+    return vals, torch.gather(ids.reshape(Q, -1), 1, pos)
+
+
+def _np(t) -> np.ndarray:
+    """A device tensor or `RowShards` on the host, in its own dtype."""
+    if isinstance(t, RowShards):
+        return torch.cat([p.cpu() for p in t.pieces]).numpy()
+    return t.cpu().numpy()
+
+
 def _quantize_rows(emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Per-row symmetric int8 (the scheme of `DenseIndex(quantize="int8")`)."""
     scale = np.clip(np.abs(emb).max(axis=-1), 1e-12, None) / 127.0
@@ -98,16 +138,16 @@ class IVFIndex:
                  dtype=torch.bfloat16, quantize: Optional[str] = None,
                  block_size: int = 128, gather_budget: int = 1 << 28,
                  auto_overflow_target: float = 0.10,
-                 auto_sweep_iters: int = 4, mesh=None, device="cuda"):
+                 auto_sweep_iters: int = 4, mesh=None, device=None):
         """The JAX index's arguments, plus device: where the layout lives, the
-        card by default ("cuda" without a card raises; CPU use passes
-        device="cpu"). dtype: of the stored float rows (a torch dtype, its
-        name, or a numpy/JAX dtype). gather_budget: bytes of probed blocks
-        (in their stored dtype) a query chunk may gather; the probe's fp32
-        copy of them is 4 / itemsize times that. mesh: not ported."""
-        if mesh is not None:
-            raise NotImplementedError("IVFIndex(mesh=): meshes are not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
+        card ("cuda") by default ("cuda" without a card raises; CPU use
+        passes device="cpu"), or with a mesh its first device. dtype: of the
+        stored float rows (a torch dtype, its name, or a numpy/JAX dtype).
+        gather_budget: bytes of probed blocks (in their stored dtype) a
+        query chunk may gather on one device; the probe's fp32 copy of them
+        is 4 / itemsize times that. mesh: a `parallel.Mesh` whose dp axis
+        shards the layout (see the module docstring); `nprobe` keeps meaning
+        the total of probed clusters."""
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if n_clusters != "auto" and (not isinstance(n_clusters, (int, np.integer))
@@ -125,7 +165,8 @@ class IVFIndex:
         self.nprobe = nprobe
         self.seed = seed
         self.dtype = _torch_dtype(dtype)
-        self.device = _device(device)
+        self.mesh = mesh
+        self.device = placement(device, mesh, "IVFIndex")
         self.quantize = quantize
         self.block_size = block_size
         self.gather_budget = gather_budget
@@ -160,37 +201,62 @@ class IVFIndex:
         t = torch.from_numpy(np.ascontiguousarray(host))
         return (t if dtype is None else t.to(dtype)).to(self.device)
 
-    def _stored(self, host: np.ndarray) -> torch.Tensor:
-        """Rows as the index stores them: int8 verbatim, or float in self.dtype."""
-        return self._to_device(host, None if self.quantize == "int8" else self.dtype)
+    @property
+    def _row_dtype(self) -> Optional[torch.dtype]:
+        """Stored rows: int8 verbatim (None: the host dtype), or float in self.dtype."""
+        return None if self.quantize == "int8" else self.dtype
+
+    @property
+    def _n_dev(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["dp"]
+
+    def _place(self, host: np.ndarray, dtype: Optional[torch.dtype] = None):
+        """Layout state on the device, or cut into the mesh's row blocks."""
+        if self.mesh is None:
+            return self._to_device(host, dtype)
+        return RowShards.put(host, self.mesh, dtype)
 
     # ------------------------------------------------------------------
     def _install_layout(self, cent, blocks, block_ids, block_scales,
                         ov_rows, ov_scale_vals, ov_id_vals, k_real: int):
-        """Place a host block layout on the device (build() and load()).
+        """Place a host block layout on the device or the mesh (build() and
+        load(), so a saved index loads onto any mesh shape): K pads to a
+        multiple of dp (zero centroids, -1 ids, masked out of the probe by
+        k_real), the overflow slab to block_size × dp rows.
         cent (K, D) fp32; blocks (K, C_pad, D); block_ids (K, C_pad);
         ov_rows (m, D) unpadded; ov_id_vals (m,) doc positions."""
-        d = blocks.shape[2]
+        c_pad, d = blocks.shape[1], blocks.shape[2]
         self._k_real = k_real
-        self._centroids = self._to_device(np.asarray(cent, np.float32))
-        self._block_ids = self._to_device(np.asarray(block_ids, np.int32))
-        self._blocks = self._stored(blocks)
-        self._scales = (self._to_device(np.asarray(block_scales, np.float32))
+        n_dev = self._n_dev
+        k_pad = _round_up(k_real, n_dev)
+        if k_pad != blocks.shape[0]:
+            blocks = np.concatenate([blocks[:k_real],
+                                     np.zeros((k_pad - k_real, c_pad, d), self._host_dtype)])
+            block_ids = np.concatenate([block_ids[:k_real],
+                                        np.full((k_pad - k_real, c_pad), -1, np.int32)])
+            if block_scales is not None:
+                block_scales = np.concatenate([block_scales[:k_real],
+                                               np.ones((k_pad - k_real, c_pad), np.float32)])
+            cent = np.concatenate([cent[:k_real], np.zeros((k_pad - k_real, d), np.float32)])
+        self._centroids = self._place(np.asarray(cent, np.float32))
+        self._block_ids = self._place(np.asarray(block_ids, np.int32))
+        self._blocks = self._place(blocks, self._row_dtype)
+        self._scales = (self._place(np.asarray(block_scales, np.float32))
                         if block_scales is not None else None)
         m = ov_rows.shape[0]
-        m_pad = _round_up(max(m, 1), self.block_size)
+        m_pad = _round_up(max(m, 1), self.block_size * n_dev)
         ov = np.zeros((m_pad, d), self._host_dtype)
         ov_ids = np.full((m_pad,), -1, np.int32)
         ov[:m] = ov_rows
         ov_ids[:m] = ov_id_vals
-        self._overflow = self._stored(ov)
+        self._overflow = self._place(ov, self._row_dtype)
         self._overflow_scales = None
         if self.quantize == "int8":
             ov_scales = np.ones((m_pad,), np.float32)   # pad rows: a harmless scale
             ov_scales[:m] = ov_scale_vals
-            self._overflow_scales = self._to_device(ov_scales)
+            self._overflow_scales = self._place(ov_scales)
         self._overflow_ids = ov_ids
-        self._overflow_ids_dev = self._to_device(ov_ids)
+        self._overflow_ids_dev = self._place(ov_ids)
         self._overflow_count = m
 
     def add(self, embeddings, ids: Optional[Sequence[str]] = None):
@@ -242,7 +308,7 @@ class IVFIndex:
         """Position -> (cluster, slot), or (-1, overflow slot); valid until
         the next build()."""
         if self._pos_loc is None:
-            bi = self._block_ids.cpu().numpy()
+            bi = _np(self._block_ids)
             loc_c = np.full(self._built_count, -1, np.int32)
             loc_s = np.full(self._built_count, -1, np.int32)
             ks, ss = np.nonzero(bi >= 0)
@@ -279,11 +345,16 @@ class IVFIndex:
             else:
                 ov_slots.append(int(loc_s[p]))
         if blk_c:
-            self._block_ids[torch.tensor(blk_c, device=self.device),
-                            torch.tensor(blk_s, device=self.device)] = -1
+            if self.mesh is None:
+                self._block_ids[torch.tensor(blk_c, device=self.device),
+                                torch.tensor(blk_s, device=self.device)] = -1
+            else:   # cluster c is row c % (K/dp) of block c // (K/dp)
+                per = self._block_ids.pieces[0].shape[0]
+                for c, slot in zip(blk_c, blk_s):
+                    self._block_ids.pieces[c // per][c % per, slot] = -1
         if ov_slots:
             self._overflow_ids[ov_slots] = -1
-            self._overflow_ids_dev = self._to_device(self._overflow_ids)
+            self._overflow_ids_dev = self._place(self._overflow_ids)
         if touched_pending:
             self._pending_mask = None
         return len(ids)
@@ -443,7 +514,7 @@ class IVFIndex:
         """The built corpus back on the host in position order, in its stored
         dtype (int8 rows and scales when quantized: a rebuild never
         re-quantizes)."""
-        flat_ids = self._block_ids.cpu().numpy().reshape(-1)
+        flat_ids = _np(self._block_ids).reshape(-1)
         flat = _host(self._blocks).reshape(-1, self.dim)
         ov = _host(self._overflow)
         out = np.zeros((self._built_count, self.dim), self._host_dtype)
@@ -454,8 +525,8 @@ class IVFIndex:
         if self.quantize != "int8":
             return out, None
         scales = np.ones((self._built_count,), np.float32)
-        scales[flat_ids[live]] = self._scales.cpu().numpy().reshape(-1)[live]
-        scales[self._overflow_ids[keep]] = self._overflow_scales.cpu().numpy()[keep]
+        scales[flat_ids[live]] = _np(self._scales).reshape(-1)[live]
+        scales[self._overflow_ids[keep]] = _np(self._overflow_scales)[keep]
         return out, scales
 
     # -- persistence --------------------------------------------------------
@@ -477,15 +548,15 @@ class IVFIndex:
             }).encode()),
         }
         if self._blocks is not None:
-            m = self._overflow_count
+            m, kr = self._overflow_count, self._k_real
             payload.update(
-                centroids=self._centroids.cpu().numpy(),
-                blocks=_host(self._blocks),
-                block_ids=self._block_ids.cpu().numpy(),
+                centroids=_np(self._centroids)[:kr],
+                blocks=_host(self._blocks)[:kr],
+                block_ids=_np(self._block_ids)[:kr],
                 overflow=_host(self._overflow)[:m], overflow_ids=self._overflow_ids[:m])
             if self.quantize == "int8":
-                payload["scales"] = self._scales.cpu().numpy()
-                payload["overflow_scales"] = self._overflow_scales.cpu().numpy()[:m]
+                payload["scales"] = _np(self._scales)[:kr]
+                payload["overflow_scales"] = _np(self._overflow_scales)[:m]
         if self._chunks:
             payload["pending"] = np.concatenate(self._chunks)
             if self.quantize == "int8":
@@ -532,23 +603,43 @@ class IVFIndex:
 
     # ------------------------------------------------------------------
     def _probe(self, q: torch.Tensor, k: int, nprobe: int):
-        """The top-nprobe clusters of each query, their blocks scored in fp32
-        (int8 rows against the query in bf16, times the row scales; float
-        rows against the query in the stored dtype), pad and tombstoned slots
-        at -inf → (scores (Q, k), positions (Q, k))."""
-        Q = q.shape[0]
-        probe = _top_k(q @ self._centroids.T, nprobe)[1].reshape(-1)    # (Q·P,)
-        quantized = self.quantize == "int8"
-        qc = q.to(torch.bfloat16 if quantized else self._blocks.dtype).float()
-        blk = self._blocks.index_select(0, probe).float()                # (Q·P, C, D)
-        ids = self._block_ids.index_select(0, probe)                     # (Q·P, C)
-        q_for = qc.repeat_interleave(nprobe, dim=0)                      # (Q·P, D)
-        s = torch.bmm(blk, q_for[:, :, None])[:, :, 0]
-        if quantized:
-            s = s * self._scales.index_select(0, probe)
-        s = torch.where(ids < 0, NEG, s)
-        vals, pos = _top_k(s.reshape(Q, -1), k)
-        return vals, torch.gather(ids.reshape(Q, -1), 1, pos)
+        """The top-nprobe clusters of each query, their blocks scored
+        (`_score_probed`) → (scores (Q, k), positions (Q, k))."""
+        probe = _top_k(q @ self._centroids.T, nprobe)[1]                 # (Q, P)
+        return _score_probed(q, probe, self._blocks, self._block_ids, self._scales, k)
+
+    def _probe_sharded(self, q: torch.Tensor, k_eff: int, nprobe_local: int):
+        """The JAX sharded probe: each row block probes its own centroid
+        slice (padded clusters masked) with nprobe_local probes and scans its
+        overflow rows; the blocks' candidates merge into the top k_final."""
+        n_dev = self._n_dev
+        k_local = self._centroids.shape[0] // n_dev
+        c_pad = self._blocks.shape[1]
+        kc_l = min(k_eff, nprobe_local * c_pad)
+        ov_rows = self._overflow.shape[0] // n_dev
+        k_ov = min(k_eff, ov_rows)
+        k_final = min(k_eff, n_dev * (kc_l + k_ov))
+
+        results = []
+        for i in range(n_dev):
+            def piece(t):
+                return None if t is None else t.pieces[i]
+            qd = q.to(piece(self._centroids).device)
+            cs = qd @ piece(self._centroids).T                          # (Q, K/dp)
+            gc = i * k_local + torch.arange(k_local, device=qd.device)
+            cs = torch.where(gc[None, :] < self._k_real, cs, NEG)      # pad clusters out
+            probe = _top_k(cs, nprobe_local)[1]
+            tv, ti = _score_probed(qd, probe, piece(self._blocks), piece(self._block_ids),
+                                   piece(self._scales), kc_l)
+            # the overflow rows: pad slots and tombstones masked by their ids
+            ov_ids = piece(self._overflow_ids_dev)
+            ov_v, ov_i = blockmax_topk(qd, piece(self._overflow), ov_rows, k=k_ov,
+                                       block_size=self.block_size,
+                                       corpus_scale=piece(self._overflow_scales),
+                                       row_mask=ov_ids >= 0)
+            results.append((torch.cat([tv, ov_v], dim=1),
+                            torch.cat([ti, ov_ids[ov_i.long()]], dim=1)))
+        return merge_candidates(results, k_final, q.device)
 
     def _probe_overflow(self, q: torch.Tensor, k: int, k_ov: int, nprobe: int):
         """The probe, the exact overflow scan (pad and tombstoned rows masked)
@@ -574,7 +665,7 @@ class IVFIndex:
             n_pad = self.block_size * (1 << max(0, (blocks - 1).bit_length()))
             padded = np.zeros((n_pad, self.dim), self._host_dtype)
             padded[:n] = pend
-            self._pending_arr = self._stored(padded)
+            self._pending_arr = self._to_device(padded, self._row_dtype)  # first device
             self._pending_scales = None
             if self.quantize == "int8":
                 s = np.ones((n_pad,), np.float32)
@@ -616,8 +707,10 @@ class IVFIndex:
             q = q / np.clip(np.linalg.norm(q, axis=1, keepdims=True), 1e-12, None)
         nprobe = min(nprobe or self.nprobe, self._k_real)
         c_pad = int(self._blocks.shape[1])
-        if qchunk is None:   # the JAX budget: the gathered blocks in their stored dtype
-            row_bytes = nprobe * c_pad * self.dim * self._blocks.element_size()
+        n_dev = self._n_dev
+        nprobe_local = min(-(-nprobe // n_dev), int(self._centroids.shape[0]) // n_dev)
+        if qchunk is None:   # the JAX budget: one device's gathered blocks, stored dtype
+            row_bytes = nprobe_local * c_pad * self.dim * self._blocks.element_size()
             qchunk = max(1, min(16, self.gather_budget // max(row_bytes, 1)))
         k_eff = min(k, self.live_count)
         kc = min(k_eff, nprobe * c_pad)
@@ -625,7 +718,9 @@ class IVFIndex:
         vals_l, ids_l = [], []
         for s in range(0, q.shape[0], qchunk):
             qs = self._to_device(q[s:s + qchunk])
-            if self._overflow_count:
+            if self.mesh is not None:
+                tv, ti = self._probe_sharded(qs, k_eff, nprobe_local)
+            elif self._overflow_count:
                 tv, ti = self._probe_overflow(qs, kc, min(k_eff, self._overflow_count), nprobe)
             else:
                 tv, ti = self._probe(qs, kc, nprobe)

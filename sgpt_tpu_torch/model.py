@@ -59,10 +59,15 @@ class SGPTModel:
     device: Any = "cuda"
 
     def engine(self, **overrides) -> EmbeddingEngine:
+        """An `EmbeddingEngine` with this model's settings; `overrides` (any
+        engine keyword, `mesh=` included: the engine then runs on the mesh's
+        devices, not on `device`) replace them."""
         kw = dict(device=self.device, method=self.method, specb=self.specb,
                   layeridx=self.layeridx, normalize_embeddings=self.normalize,
                   max_seq_len=self.max_seq_len, dense_heads=self.dense_heads,
                   learned_weights=self.learned_weights, batch_size=self.batch_size)
+        if overrides.get("mesh") is not None:
+            del kw["device"]
         kw.update(overrides)
         return EmbeddingEngine(self.model, self.cfg, self.tokenizer, **kw)
 

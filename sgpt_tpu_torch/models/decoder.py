@@ -56,7 +56,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
-from ..ops.quant import QuantizedWeight, int8_project, is_quantized
+from ..ops.quant import QuantizedWeight, int8_project, int8_project_row_parallel, is_quantized
+from ..parallel.collectives import all_gather, all_reduce_sum, gather_to, reduce_sum_to
 from ..ops.short_attention import short_attention
 from .config import DecoderConfig
 from .params import init_params, init_params_, param_shapes
@@ -288,13 +289,15 @@ class Attention(nn.Module):
     relative-bias configs: `plain` set), or the flash attention
     (`use_flash`, T % 128 == 0, rows not packed), or the fused short-T
     attention, with BLOOM's ALiBi slopes where the config has them, then
-    the output projection."""
+    the output projection. The head count is the projections' width over
+    Dh, so a tensor-parallel shard holding H/tp heads' columns runs its
+    heads with the same code (`attend`)."""
 
     def __init__(self, cfg: DecoderConfig, shapes: dict, prefix: str, factory: dict):
         super().__init__()
         _params(self, ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"), shapes,
                 prefix + "attn.", factory)
-        self.H = cfg.num_heads
+        self.Dh = cfg.head_size
         self.rotary_dim = cfg.rotary_dim
         self.scale_attn = cfg.scale_attn
         self.scale = 1.0 / math.sqrt(cfg.head_size) if cfg.scale_attn else 1.0
@@ -302,30 +305,38 @@ class Attention(nn.Module):
         self.causal = not cfg.bidirectional
         self.plain = cfg.bidirectional or cfg.relative_attention
 
-    def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos, bias=None):
-        q = project(x, self.wq, self.bq)
-        k = project(x, self.wk, self.bk)
-        v = project(x, self.wv, self.bv)
+    def qkv(self, x):
+        """The q, k and v projections (with their biases), (B, T, H·Dh) each."""
+        return (project(x, self.wq, self.bq), project(x, self.wk, self.bk),
+                project(x, self.wv, self.bv))
+
+    def attend(self, q, k, v, key_mask, window: int, segment_ids, rope, slopes, kpos,
+               bias=None):
+        """Rotary, then attention over the q.shape[-1] // Dh heads of q, k
+        and v (slopes and bias: those heads' own) → (B, T, H·Dh), before
+        the output projection."""
         B, T, HD = q.shape
+        H = HD // self.Dh
         if rope is not None:
-            q, k = (apply_rotary(t.view(B, T, self.H, HD // self.H), *rope,
+            q, k = (apply_rotary(t.view(B, T, H, self.Dh), *rope,
                                  self.rotary_dim).reshape(B, T, HD) for t in (q, k))
         if self.plain:
-            out = plain_attention(q, k, v, bias, self.H, self.scale_attn)
-        elif self.use_flash and T % 128 == 0 and segment_ids is None:
+            return plain_attention(q, k, v, bias, H, self.scale_attn)
+        if self.use_flash and T % 128 == 0 and segment_ids is None:
             # (B, H, T, Dh) views of the projections: the kernel reads them
             # through their strides and writes the output in the same
             # (B, T, H·Dh) layout, so neither side copies on the card
-            qh, kh, vh = (t.view(B, T, self.H, HD // self.H).transpose(1, 2)
-                          for t in (q, k, v))
+            qh, kh, vh = (t.view(B, T, H, self.Dh).transpose(1, 2) for t in (q, k, v))
             out = flash_attention(qh, kh, vh, key_mask, slopes, scale=self.scale,
                                   window=window, block_kv=256 if T % 256 == 0 else 128,
                                   causal=self.causal)
-            out = out.transpose(1, 2).reshape(B, T, HD)
-        else:
-            out = short_attention(q, k, v, key_mask, slopes, self.scale, window, self.H,
-                                  slopes is not None, segments=segment_ids, positions=kpos,
-                                  causal=self.causal)
+            return out.transpose(1, 2).reshape(B, T, HD)
+        return short_attention(q, k, v, key_mask, slopes, self.scale, window, H,
+                               slopes is not None, segments=segment_ids, positions=kpos,
+                               causal=self.causal)
+
+    def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos, bias=None):
+        out = self.attend(*self.qkv(x), key_mask, window, segment_ids, rope, slopes, kpos, bias)
         return project(out, self.wo, self.bo)
 
 
@@ -346,15 +357,20 @@ class MLP(nn.Module):
         self.act = cfg.mlp_activation
         self.approximate = "none" if cfg.gelu_exact else "tanh"
 
-    def forward(self, x):
+    def hidden(self, x, wg=None):
+        """act(wi·x + bi) (gated: · (wg·x)), before the output projection;
+        wg: the gate's weight when it is not the module's (a tp shard's
+        columns of the replicated gate)."""
         h = project(x, self.wi, self.bi)
         if self.act == "gated_gelu":
-            h = F.gelu(h, approximate="tanh") * project(x, self.wg, None)
-        elif self.act is None:
-            h = F.gelu(h, approximate=self.approximate)
-        else:
-            h = _ACTIVATIONS[self.act](h)
-        return project(h, self.wo, self.bo)
+            return F.gelu(h, approximate="tanh") * project(x, self.wg if wg is None else wg,
+                                                           None)
+        if self.act is None:
+            return F.gelu(h, approximate=self.approximate)
+        return _ACTIVATIONS[self.act](h)
+
+    def forward(self, x):
+        return project(self.hidden(x), self.wo, self.bo)
 
 
 class Block(nn.Module):
@@ -488,18 +504,26 @@ class Decoder(nn.Module):
         of a single logit is 1), so each layer l adds cond @ w[l] + b[l], in
         the activations' dtype, to its attention output before the residual
         add (pre-LN and parallel-residual blocks alike; a post-LN block
-        takes none, as in the JAX forward)."""
-        if sp_mesh is not None or tp_mesh is not None:
-            raise NotImplementedError("sp_mesh / tp_mesh — ROADMAP Queue 1 items 11, 12")
-        if cond is not None and cond_params is None:
-            raise ValueError("cond without cond_params: TSDAE conditioning needs the "
-                             "per-layer projections {'w': (L, D, D), 'b': (L, D)}")
-        if segment_ids is not None and position_ids is None:
-            raise ValueError(
-                "segment_ids without position_ids: packed rows must carry (B, T) "
-                "positions that restart at each segment boundary")
-        if input_ids is None and inputs_embeds is None:
-            raise ValueError("Decoder: pass input_ids or inputs_embeds")
+        takes none, as in the JAX forward).
+
+        tp_mesh: a `parallel.Mesh`: the forward runs over it, rows split over
+        dp and the weights Megatron-sharded over tp (`TPGroup`), sharded by
+        `parallel.shard_params` for this call (for repeated calls, shard once
+        and call the `ShardedDecoder`); results on the inputs' device.
+        sp_mesh (ring attention) is not ported (ROADMAP Queue 1 item 11)."""
+        if sp_mesh is not None:
+            raise NotImplementedError("sp_mesh (ring attention) — ROADMAP Queue 1 item 11")
+        self._check_inputs(input_ids, position_ids, segment_ids, inputs_embeds, cond,
+                           cond_params)
+        if tp_mesh is not None:
+            if cond is not None:
+                raise NotImplementedError("TSDAE conditioning under tp_mesh: training under a "
+                                          "mesh is not ported yet (ROADMAP Queue 1)")
+            from ..parallel.sharding import shard_params
+            return shard_params(self, tp_mesh)(
+                input_ids, attention_mask, output_hidden_states=output_hidden_states,
+                position_ids=position_ids, segment_ids=segment_ids,
+                token_type_ids=token_type_ids, inputs_embeds=inputs_embeds)
         cfg = self.cfg
         if inputs_embeds is not None:
             B, T = inputs_embeds.shape[:2]
@@ -515,24 +539,9 @@ class Decoder(nn.Module):
                 x = self.wte[input_ids].to(cfg.dtype)
             if self.wpe is not None:
                 x = x + self.wpe[positions].to(cfg.dtype)
-            if self.wtt is not None:
-                if token_type_ids is None:
-                    x = x + self.wtt[0].to(cfg.dtype)
-                else:
-                    x = x + self.wtt[token_type_ids].to(cfg.dtype)
-            if self.emb_ln is not None:
-                x = self.emb_ln(x)
-            key_mask = attention_mask.to(torch.int32).contiguous()
-            rope = slopes = kpos = None
-            if cfg.position_embedding == "rotary":
-                rope = tuple(t.to(cfg.dtype) for t in rope_sincos(positions, cfg.rotary_dim))
-            bias = self._plain_bias(attention_mask, T, segment_ids)
-            if cfg.position_embedding == "alibi":
-                slopes = alibi_slopes(cfg.num_heads, dev)
-                if segment_ids is not None:  # key positions restart in each segment
-                    kpos = positions.to(torch.int32).expand(B, T).contiguous()
-            if segment_ids is not None:
-                segment_ids = segment_ids.to(torch.int32).contiguous()
+            x = self._embed_rest(x, token_type_ids)
+            key_mask, rope, slopes, kpos, segment_ids, bias = self._side_inputs(
+                attention_mask, positions, segment_ids, B, T)
 
             hidden = [x]
             for i, layer in enumerate(self.layers):
@@ -546,6 +555,51 @@ class Decoder(nn.Module):
             if output_hidden_states:
                 return torch.stack(hidden[:-1] + [final])
             return final
+
+    @staticmethod
+    def _check_inputs(input_ids, position_ids, segment_ids, inputs_embeds, cond=None,
+                      cond_params=None):
+        if cond is not None and cond_params is None:
+            raise ValueError("cond without cond_params: TSDAE conditioning needs the "
+                             "per-layer projections {'w': (L, D, D), 'b': (L, D)}")
+        if segment_ids is not None and position_ids is None:
+            raise ValueError(
+                "segment_ids without position_ids: packed rows must carry (B, T) "
+                "positions that restart at each segment boundary")
+        if input_ids is None and inputs_embeds is None:
+            raise ValueError("Decoder: pass input_ids or inputs_embeds")
+
+    def _embed_rest(self, x, token_type_ids):
+        """The token types (BERT; zeros by default) and the embedding
+        LayerNorm (BLOOM, BERT) on the token and position embeddings x."""
+        dtype = self.cfg.dtype
+        if self.wtt is not None:
+            if token_type_ids is None:
+                x = x + self.wtt[0].to(dtype)
+            else:
+                x = x + self.wtt[token_type_ids].to(dtype)
+        if self.emb_ln is not None:
+            x = self.emb_ln(x)
+        return x
+
+    def _side_inputs(self, attention_mask, positions, segment_ids, B: int, T: int):
+        """What every layer reads besides the hidden states, on the mask's
+        device: the int32 key mask, GPT-J's rotary tables in the config's
+        dtype, BLOOM's slopes (all H heads) and, for packed rows, its key
+        positions, the int32 segment ids, and the plain attention's bias."""
+        cfg = self.cfg
+        key_mask = attention_mask.to(torch.int32).contiguous()
+        rope = slopes = kpos = None
+        if cfg.position_embedding == "rotary":
+            rope = tuple(t.to(cfg.dtype) for t in rope_sincos(positions, cfg.rotary_dim))
+        bias = self._plain_bias(attention_mask, T, segment_ids)
+        if cfg.position_embedding == "alibi":
+            slopes = alibi_slopes(cfg.num_heads, attention_mask.device)
+            if segment_ids is not None:  # key positions restart in each segment
+                kpos = positions.to(torch.int32).expand(B, T).contiguous()
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(torch.int32).contiguous()
+        return key_mask, rope, slopes, kpos, segment_ids, bias
 
     def _plain_bias(self, attention_mask, T: int, segment_ids) -> Optional[torch.Tensor]:
         """For configs that take `plain_attention` (bidirectional or
@@ -573,3 +627,182 @@ class Decoder(nn.Module):
                 return F.linear(hidden, self.lm_head.w.to(hidden.dtype),
                                 None if b is None else b.to(hidden.dtype))
             return F.linear(hidden, self.wte.to(hidden.dtype))
+
+
+class TPGroup:
+    """The tp shards of one dp row of a sharded decoder
+    (`parallel.shard_params`), run in lockstep from this process: the
+    counterpart of the JAX forward under a dp×tp mesh with Megatron-sharded
+    parameters (`forward(..., tp_mesh=)`, whose collectives XLA inserts).
+
+    Shard j is a `Decoder` on its device holding shard j's slices: q/k/v
+    and the MLP's wi column-parallel with their biases, the attention's and
+    the MLP's wo row-parallel, wte and wpe on the hidden axis, the LM head
+    on the vocab axis, everything else whole. Each layer runs, on every
+    shard, its q/k/v columns, then attention on its H/tp heads (K1, or K3
+    where the config routes to flash, with the shard's own ALiBi slopes),
+    then its rows of wo; the partial products are summed over the shards
+    (`all_reduce_sum`, shard 0 first) and the bias added once, after the
+    sum; the MLP the same. The residual stream, the LayerNorms and the
+    embeddings after their gather are replicated: computed once on each
+    distinct device. Where H % tp != 0, q, k and v are gathered and the
+    attention runs unsharded on the first shard's device, as the JAX
+    decoder falls back (the projections stay sharded). An int8 row-parallel
+    projection takes each token's scale from its whole row (the maximum of
+    the shards' maxima) and sums the shards' int32 products exactly
+    (`int8_project_row_parallel`), so it gives the unsharded product.
+
+    Called like a `Decoder`: inputs and results on `device` (the first
+    shard's), `logits` the LM head (the vocab shards gathered there), so
+    the engine, the ranker and `ops/logprobs.py` take either."""
+
+    def __init__(self, shards):
+        self.shards = list(shards)
+        self.cfg = self.shards[0].cfg
+        self.devices = [s.wte.device for s in self.shards]
+        # replicated work runs once on each distinct device, with the first
+        # shard there (its replicated leaves equal every other shard's)
+        self._first = {}
+        for s, d in zip(self.shards, self.devices):
+            self._first.setdefault(d, s)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def __call__(self, input_ids, attention_mask, **kw):
+        return self.forward(input_ids, attention_mask, **kw)
+
+    def _on(self, t) -> dict:
+        return {d: None if t is None else t.to(d, non_blocking=True) for d in self._first}
+
+    def _by_device(self, parts) -> dict:
+        """One entry per distinct device from a per-shard list (entries on
+        one device are equal)."""
+        out = {}
+        for p, d in zip(parts, self.devices):
+            out.setdefault(d, p)
+        return out
+
+    def forward(self, input_ids, attention_mask, *, output_hidden_states: bool = False,
+                position_ids=None, segment_ids=None, token_type_ids=None,
+                inputs_embeds=None) -> torch.Tensor:
+        """`Decoder.forward` over the tp shards (see the class docstring)."""
+        if len(self.shards) == 1:
+            return self.shards[0](input_ids, attention_mask,
+                                  output_hidden_states=output_hidden_states,
+                                  position_ids=position_ids, segment_ids=segment_ids,
+                                  token_type_ids=token_type_ids, inputs_embeds=inputs_embeds)
+        Decoder._check_inputs(input_ids, position_ids, segment_ids, inputs_embeds)
+        cfg = self.cfg
+        s0, dev0 = self.shards[0], self.device
+        B, T = (inputs_embeds if inputs_embeds is not None else input_ids).shape[:2]
+        positions = torch.arange(T, device=dev0) if position_ids is None else position_ids
+        ids, pos, mask, seg, tt = (self._on(t) for t in (
+            input_ids, positions, attention_mask, segment_ids, token_type_ids))
+        with matmul_precision(cfg.matmul_precision):
+            # embeddings: each shard looks up its hidden columns, then the gather
+            if inputs_embeds is None:
+                x = self._by_device(all_gather(
+                    [s.wte[ids[d]].to(cfg.dtype) for s, d in zip(self.shards, self.devices)]))
+            else:
+                x = self._on(inputs_embeds.to(cfg.dtype))
+            if s0.wpe is not None:
+                wpe = self._by_device(all_gather(
+                    [s.wpe[pos[d]].to(cfg.dtype) for s, d in zip(self.shards, self.devices)]))
+                x = {d: x[d] + wpe[d] for d in x}
+            x = {d: s._embed_rest(x[d], tt[d]) for d, s in self._first.items()}
+            side = {d: s._side_inputs(mask[d], pos[d], seg[d], B, T)
+                    for d, s in self._first.items()}
+
+            hidden = [x[dev0]]
+            for li in range(cfg.num_layers):
+                blocks = [s.layers[li] for s in self.shards]
+                rep = {d: s.layers[li] for d, s in self._first.items()}
+                if blocks[0].post_ln:
+                    a = self._attention(blocks, x, side)
+                    x = {d: rep[d].ln1(x[d] + a[d]) for d in x}
+                    m = self._mlp(blocks, x)
+                    x = {d: rep[d].ln2(x[d] + m[d]) for d in x}
+                else:
+                    h1 = {d: rep[d].ln1(x[d]) for d in x}
+                    a = self._attention(blocks, h1, side)
+                    if blocks[0].ln2 is None:
+                        m = self._mlp(blocks, h1)
+                        x = {d: x[d] + a[d] + m[d] for d in x}
+                    else:
+                        x = {d: x[d] + a[d] for d in x}
+                        m = self._mlp(blocks, {d: rep[d].ln2(x[d]) for d in x})
+                        x = {d: x[d] + m[d] for d in x}
+                hidden.append(x[dev0])
+            final = hidden[-1] if s0.ln_f is None else s0.ln_f(hidden[-1])
+            if output_hidden_states:
+                return torch.stack(hidden[:-1] + [final])
+            return final
+
+    def _attention(self, blocks, h: dict, side: dict) -> dict:
+        tp = len(blocks)
+        qkv = [b.attn.qkv(h[d]) for b, d in zip(blocks, self.devices)]
+        H = self.cfg.num_heads
+        if H % tp == 0:
+            Hs = H // tp
+            outs = []
+            for j, (b, d, (q, k, v)) in enumerate(zip(blocks, self.devices, qkv)):
+                key_mask, rope, slopes, kpos, seg, bias = side[d]
+                if slopes is not None:   # this shard's heads' slopes
+                    slopes = slopes[j * Hs:(j + 1) * Hs]
+                if bias is not None and bias.shape[1] == H:   # T5's per-head bias
+                    bias = bias[:, j * Hs:(j + 1) * Hs]
+                outs.append(b.attn.attend(q, k, v, key_mask, b.window, seg, rope, slopes,
+                                          kpos, bias))
+        else:
+            # the JAX decoder's fallback: attention over all H heads, unsharded
+            dev0 = self.device
+            q, k, v = (torch.cat([t[i].to(dev0) for t in qkv], dim=-1) for i in range(3))
+            key_mask, rope, slopes, kpos, seg, bias = side[dev0]
+            out = blocks[0].attn.attend(q, k, v, key_mask, blocks[0].window, seg, rope, slopes,
+                                        kpos, bias)
+            w = out.shape[-1] // tp
+            outs = [out[..., j * w:(j + 1) * w].to(d, non_blocking=True)
+                    for j, d in enumerate(self.devices)]
+        return self._row_parallel(outs, [b.attn.wo for b in blocks],
+                                  [b.attn.bo for b in blocks])
+
+    def _mlp(self, blocks, h: dict) -> dict:
+        tp = len(blocks)
+        outs = []
+        for j, (b, d) in enumerate(zip(blocks, self.devices)):
+            wg = b.mlp.wg
+            if wg is not None:   # the gate is whole on every shard: its columns of it
+                step = wg.shape[0] // tp
+                wg = wg[j * step:(j + 1) * step]
+            outs.append(b.mlp.hidden(h[d], wg))
+        return self._row_parallel(outs, [b.mlp.wo for b in blocks], [b.mlp.bo for b in blocks])
+
+    def _row_parallel(self, xs, ws, bs) -> dict:
+        """Σ_j xs[j] @ ws[j]ᵀ over the shards, then the bias once: on each device."""
+        if is_quantized(ws[0]):
+            ys = int8_project_row_parallel(xs, ws)
+        else:
+            ys = all_reduce_sum([F.linear(x, w) for x, w in zip(xs, ws)])
+        ys, bs = self._by_device(ys), self._by_device(bs)
+        return {d: y if bs[d] is None else y + bs[d].to(y.dtype) for d, y in ys.items()}
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The LM head on `device`: a separate head's vocab shards gathered
+        (then its bias, whole), or for a head tied to the hidden-sharded
+        `wte` the shards' partial products summed."""
+        if len(self.shards) == 1:
+            return self.shards[0].logits(hidden)
+        s0, dev0, tp = self.shards[0], self.device, len(self.shards)
+        with matmul_precision(self.cfg.matmul_precision):
+            if s0.lm_head is not None:
+                out = gather_to([F.linear(hidden.to(d), s.lm_head.w.to(hidden.dtype))
+                                 for s, d in zip(self.shards, self.devices)], dev0, dim=-1)
+                b = s0.lm_head.b
+                return out if b is None else out + b.to(hidden.dtype)
+            w = hidden.shape[-1] // tp
+            return reduce_sum_to([F.linear(hidden[..., j * w:(j + 1) * w].to(d),
+                                           s.wte.to(hidden.dtype))
+                                  for j, (s, d) in enumerate(zip(self.shards, self.devices))],
+                                 dev0)

@@ -98,14 +98,22 @@ def quantize_weight(w: torch.Tensor, contract_axis: int = -1) -> dict:
             "s": st.movedim(-1, contract_axis).contiguous()}
 
 
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| of each row, in x's dtype (exact), (M, 1)."""
+    return torch.linalg.vector_norm(x, ord=float("inf"), dim=-1, keepdim=True)
+
+
+def _quantize_rows(x: torch.Tensor, absmax: torch.Tensor):
+    sx = torch.clamp_min(absmax.float() * _INV127, _EPS)
+    return torch.div(x, sx).round_().to(torch.int8), sx
+
+
 def quantize_activations(x: torch.Tensor):
     """Per-row dynamic quantization of (M, D) activations: (int8 rows,
     fp32 (M, 1) scales), the JAX arithmetic. max|x| is taken in x's dtype
     (exact) and x / s_x promotes x to fp32 exactly, so no fp32 copy of x is
     made before the division."""
-    absmax = torch.linalg.vector_norm(x, ord=float("inf"), dim=-1, keepdim=True)
-    sx = torch.clamp_min(absmax.float() * _INV127, _EPS)
-    return torch.div(x, sx).round_().to(torch.int8), sx
+    return _quantize_rows(x, _absmax(x))
 
 
 def int8_matmul_reference(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -142,6 +150,28 @@ def int8_project(x: torch.Tensor, qw) -> torch.Tensor:
     acc = int8_matmul(qx, qw["q"])
     y = torch.mul(acc, sx).mul_(qw["s"].reshape(1, -1))   # (y · s_x) · s_w in fp32
     return y.to(x.dtype).reshape(*lead, -1)
+
+
+def int8_project_row_parallel(xs, qws) -> list:
+    """`int8_project` of a row-parallel (contraction-sharded) weight over tp
+    shards: xs[j] (..., D/tp) and qws[j] shard j's columns of q (F, D/tp)
+    with the whole scales s (F, 1), one pair a shard, each on its device.
+
+    The JAX product of a sharded quantized leaf, as XLA partitions it: each
+    token's scale comes from its whole row (the maximum over the shards of
+    their maxima, exact), each shard quantizes its columns with it, the
+    shards' int32 products are summed (exactly), then rescaled by s_x · s.
+    So the result equals the unsharded `int8_project`. Returns one
+    (..., F) tensor in x's dtype a shard, on its device."""
+    from ..parallel.collectives import all_reduce_max, all_reduce_sum
+
+    lead = xs[0].shape[:-1]
+    flat = [x.reshape(-1, x.shape[-1]) for x in xs]
+    amax = all_reduce_max([_absmax(x) for x in flat])
+    quant = [_quantize_rows(x, a) for x, a in zip(flat, amax)]
+    acc = all_reduce_sum([int8_matmul(qx, qw["q"]) for (qx, _), qw in zip(quant, qws)])
+    return [torch.mul(a, sx).mul_(qw["s"].reshape(1, -1)).to(x.dtype).reshape(*lead, -1)
+            for a, (_, sx), qw, x in zip(acc, quant, qws, xs)]
 
 
 def quantize_decoder_params(model: nn.Module, *, free_source: bool = False) -> nn.Module:

@@ -1,0 +1,74 @@
+"""Collectives of a single-controller mesh: plain functions on lists of
+per-device tensors (the port's counterpart of the psum / all_gather that
+XLA inserts for the JAX package's shardings).
+
+Each takes one tensor per shard, in shard order, and returns one result per
+shard, on that shard's device. Between distinct cards a shard's tensor
+reaches another card as a peer copy (`.to(device, non_blocking=True)`,
+ordered after the work that wrote it by PyTorch's cross-device copy); on a
+repeated device it is the tensor itself. The sums add the shards in shard
+order (shard 0 first) on every device, so a device's result, and a run's,
+repeats bit for bit; a device that holds several shards computes its
+result once, and its shards share it.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+
+def _per_device(parts: Sequence[torch.Tensor],
+                combine: Callable[[List[torch.Tensor]], torch.Tensor]) -> List[torch.Tensor]:
+    """combine(every part moved to d) once for each distinct device d of
+    parts, each part's entry the result on its own device."""
+    done: dict = {}
+    out = []
+    for p in parts:
+        d = p.device
+        if d not in done:
+            done[d] = combine([q.to(d, non_blocking=True) for q in parts])
+        out.append(done[d])
+    return out
+
+
+def _fold(fn, ts: List[torch.Tensor]) -> torch.Tensor:
+    acc = ts[0]
+    for t in ts[1:]:
+        acc = fn(acc, t)
+    return acc
+
+
+def all_reduce_sum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Σ parts on each part's device, added in shard order (shard 0 first)."""
+    return _per_device(parts, lambda ts: _fold(torch.add, ts))
+
+
+def all_reduce_max(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The elementwise maximum of parts on each part's device (exact in any
+    order)."""
+    return _per_device(parts, lambda ts: _fold(torch.maximum, ts))
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int = -1) -> List[torch.Tensor]:
+    """The parts concatenated along `dim` in shard order, on each part's device."""
+    return _per_device(parts, lambda ts: torch.cat(ts, dim=dim))
+
+
+def reduce_sum_to(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """Σ parts on one device, added in shard order."""
+    return _fold(torch.add, [p.to(device, non_blocking=True) for p in parts])
+
+
+def gather_to(parts: Sequence[torch.Tensor], device, dim: int = -1) -> torch.Tensor:
+    """The parts concatenated along `dim` in shard order, on one device."""
+    return torch.cat([p.to(device, non_blocking=True) for p in parts], dim=dim)
+
+
+def gather_rows(parts: Sequence[torch.Tensor]) -> np.ndarray:
+    """Row shards (dim 0) → one host array in shard order: float rows as
+    float32 (exact for bf16), integer and bool rows in their own dtype."""
+    host = [p.detach().cpu() for p in parts]
+    host = [h.float() if h.is_floating_point() else h for h in host]
+    return torch.cat(host).numpy()

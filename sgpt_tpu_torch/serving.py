@@ -378,8 +378,9 @@ class SearchService:
     def load_index(directory: str, *, mesh=None, **index_kw):
         """(index, documents dict) from a save()d directory. The index class
         comes from the file's own metadata: `IVFIndex.load` for an IVF file,
-        else `DenseIndex.load`; index_kw (device; kernel for a dense index)
-        go to it."""
+        else `DenseIndex.load`; `mesh` re-shards the loaded corpus over its
+        dp axis (saves do not depend on the mesh); index_kw (device; kernel
+        for a dense index) go to it."""
         path = os.path.join(directory, "index.npz")
         meta = json.loads(bytes(np.load(path)["meta"]))
         if meta.get("kind") == "ivf":

@@ -7,10 +7,12 @@ order, scores within 1e-5, and equal nDCG/MAP/recall/precision entries in
 `beir_embeddings_ndcgs.json`, also with `--layeridx`. `bm25_retriever` writes the JAX CLI's
 first-stage json, and `sgptce` reranks it into the JAX CLI's result json
 (metrics within 1e-6; the CE scores agree to ~1e-6); `--quantize int8`
-in both. `serve`: the flags that are not ported raise before anything is
-built; a server built from flags (int8 corpus, a jsonl corpus, a persisted
-index, `--rerank` and `--rerank-model`, `--index ivf` with `--quantize
-int8`) answers over HTTP.
+in both; `--dp 2` and `--tp 2` on a `--device cpu,cpu` list against the
+JAX CLIs on their virtual mesh. `serve`: a mesh the devices cannot make
+exits before anything is built; a server built from flags (int8 corpus, a
+jsonl corpus, a persisted index, `--rerank` and `--rerank-model`, `--index
+ivf` with `--quantize int8`, `--dp 2` / `--tp 2` against the meshless
+server) answers over HTTP.
 """
 import http.client
 import json
@@ -38,6 +40,17 @@ from sgpt_tpu_torch.models import Decoder, from_jax_config, params_from_jax  # n
 
 JCFG = jax_tiny("neo", num_layers=2)
 JPARAMS = jax_init_params(JCFG, jax.random.key(0))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: beside the other test processes on the host's
+    cores, a pool of threads makes the tiny models' many small operations
+    wait (tests/test_torch_short_attention.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_build(model_name, random_init=False, dtype_str="bfloat16"):
@@ -71,23 +84,28 @@ def _write_beir(root, n_docs=40, n_queries=8, seed=0):
             f.write(f"q{i}\td{i * 3 + 1}\t1\n")
 
 
-def _beir_parity(tmp_path, monkeypatch, extra=()):
-    """Both CLIs on one synthetic BEIR folder with `extra` flags: the same
-    documents per query, scores within 1e-5, equal metric entries."""
+def _beir_parity(tmp_path, monkeypatch, extra=(), mesh=("1", "1")):
+    """Both CLIs on one synthetic BEIR folder with `extra` flags, on a
+    (dp, tp) `mesh` (JAX: its virtual CPU devices; the port: a `--device`
+    list of as many "cpu"): the same documents per query, scores within
+    1e-5, equal metric entries."""
     _write_beir(tmp_path / "data" / "synth")
     common = ["--modelname", "tiny/neo", "--dataset", "synth",
               "--datapath", str(tmp_path / "data"), "--specb", "--maxseqlen", "64",
               "--batchsize", "4", "--randominit", "--dtype", "float32", *extra]
+    dp, tp = mesh
     (tmp_path / "jax").mkdir()
     monkeypatch.chdir(tmp_path / "jax")
     monkeypatch.setattr(jax_beir, "build_model", _jax_build)
-    monkeypatch.setattr(sys, "argv", ["x", *common, "--dp", "1", "--tp", "1"])
+    monkeypatch.setattr(sys, "argv", ["x", *common, "--dp", dp, "--tp", tp])
     jax_beir.main()
 
     (tmp_path / "port").mkdir()
     monkeypatch.chdir(tmp_path / "port")
     monkeypatch.setattr(beir_retriever, "build_model", _port_build)
-    ndcg = beir_retriever.main(beir_retriever.parse_args([*common, "--device", "cpu"]))
+    devices = ",".join(["cpu"] * (int(dp) * int(tp)))
+    ndcg = beir_retriever.main(beir_retriever.parse_args(
+        [*common, "--device", devices, "--dp", dp, "--tp", tp]))
     assert ndcg["NDCG@10"] > 0
 
     name = "results_tiny_neo_weightedmean_synth.json"
@@ -122,12 +140,18 @@ def test_beir_retriever_layeridx_matches_jax_cli(tmp_path, monkeypatch):
     _beir_parity(tmp_path, monkeypatch, ["--layeridx", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flags", [["--dp", "3"], ["--tp", "3"]])
 def test_beir_retriever_refuses_what_is_not_ported(flags):
-    """Meshes (ROADMAP Queue 1 item 12): the JAX CLI's mesh flags are not
-    flags of the port's."""
+    """A mesh that two devices cannot make exits before anything is loaded."""
     with pytest.raises(SystemExit):
-        beir_retriever.main(beir_retriever.parse_args(["--randominit", *flags]))
+        beir_retriever.main(beir_retriever.parse_args(
+            ["--randominit", "--device", "cpu,cpu", *flags]))
+
+
+@pytest.mark.parametrize("mesh", [("2", "1"), ("1", "2")], ids=["dp2", "tp2"])
+def test_beir_retriever_mesh_matches_jax_cli(tmp_path, monkeypatch, mesh):
+    """`--dp 2` and `--tp 2` on both sides (the port's `--device cpu,cpu`)."""
+    _beir_parity(tmp_path, monkeypatch, mesh=mesh)
 
 
 def test_beir_retriever_quantize_matches_jax_cli(tmp_path, monkeypatch):
@@ -163,6 +187,19 @@ def test_bm25_retriever_matches_jax_cli(tmp_path, monkeypatch):
                                    ["--prompt", "G", "--quantize", "int8"]])
 def test_sgptce_matches_jax_cli(tmp_path, monkeypatch, flags):
     """BM25 first stage, then the rerank on the same first-stage json."""
+    _sgptce_parity(tmp_path, monkeypatch, flags)
+
+
+@pytest.mark.parametrize("mesh", [["--dp", "2", "--tp", "1"], ["--dp", "1", "--tp", "2"]],
+                         ids=["dp2", "tp2"])
+def test_sgptce_mesh_matches_jax_cli(tmp_path, monkeypatch, mesh):
+    """`--dp 2` and `--tp 2` on both sides (the port's `--device cpu,cpu`),
+    prompts G and L, packed rows."""
+    _sgptce_parity(tmp_path, monkeypatch, ["--prompt", "G,L", "--packt", "64", *mesh],
+                   port_flags=["--device", "cpu,cpu"])
+
+
+def _sgptce_parity(tmp_path, monkeypatch, flags, port_flags=("--device", "cpu")):
     _write_beir(tmp_path / "data" / "synth")
     first = tmp_path / "bm25.json"
     bm25_retriever.main(bm25_retriever.parse_args([
@@ -176,7 +213,7 @@ def test_sgptce_matches_jax_cli(tmp_path, monkeypatch, flags):
     (tmp_path / "port").mkdir()
     monkeypatch.chdir(tmp_path / "port")
     monkeypatch.setattr(sgptce, "build_model", _port_build)
-    outs = sgptce.main(sgptce.parse_args([*common, "--device", "cpu"]))
+    outs = sgptce.main(sgptce.parse_args([*common, *port_flags]))
     assert list(outs) == flags[1].split(",")
     for pid, path in outs.items():
         got = json.loads((tmp_path / "port" / path).read_text())
@@ -195,17 +232,59 @@ def test_sgptce_matches_jax_cli(tmp_path, monkeypatch, flags):
 
 @pytest.mark.parametrize("flags,exc", [(["--prompt", "G,nope"], SystemExit),
                                        (["--prompt", "J"], SystemExit),
-                                       (["--dp", "2"], SystemExit)])
+                                       (["--device", "cpu,cpu", "--dp", "3"], SystemExit)])
 def test_sgptce_refuses_before_loading(flags, exc, tmp_path):
     with pytest.raises(exc):
         sgptce.main(sgptce.parse_args(["--datadir", str(tmp_path), "--randominit", *flags]))
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flags", [["--dp", "3"], ["--tp", "3"]])
 def test_serve_refuses_what_is_not_ported(flags):
-    """Meshes (ROADMAP Queue 1 item 12): refused before anything is built."""
+    """A mesh that two devices cannot make: refused before anything is built."""
     with pytest.raises(SystemExit):
-        serve.main(["--modelname", "gpt-neo-125m", "--randominit", *flags])
+        serve.main(["--modelname", "gpt-neo-125m", "--randominit", "--device", "cpu,cpu",
+                    *flags])
+
+
+@pytest.mark.parametrize("mesh", [["--dp", "2"], ["--tp", "2"]], ids=["dp2", "tp2"])
+def test_serve_mesh_from_flags(tmp_path, monkeypatch, mesh):
+    """`--device cpu,cpu` with `--dp 2` or `--tp 2`: the engine, the ranker
+    (on the engine's shards) and the index (its corpus in dp row blocks)
+    run on the mesh, and /search and /rerank answer what the meshless
+    server answers (scores within 1e-5)."""
+    from sgpt_tpu_torch.parallel import RowShards, ShardedDecoder
+
+    monkeypatch.setattr(serve, "build_model", _port_build)
+    corpus = tmp_path / "corpus.jsonl"
+    corpus.write_text("".join(json.dumps({"_id": f"d{i}", "text": t}) + "\n" for i, t in
+                              enumerate(["rivers run to the sea", "mountains are tall",
+                                         "the sea is salty", "deserts are dry",
+                                         "tall trees by the river", "dry sand in the sun"])))
+    base = ["--modelname", "tiny", "--randominit", "--port", "0", "--maxseqlen", "64",
+            "--batchsize", "4", "--corpus", str(corpus), "--rerank", "--rerank-maxlen", "64"]
+    queries = {"queries": ["the salty sea", "tall mountains"], "k": 3}
+    answers = []
+    for flags in (["--device", "cpu"], ["--device", "cpu,cpu", *mesh]):
+        server, service = serve.build_server(serve.parse_args(base + flags))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            if "--dp" in flags or "--tp" in flags:
+                assert isinstance(service.engine.model, ShardedDecoder)
+                assert service.ranker.model is service.engine.model
+                assert isinstance(service.index._corpus, RowShards)
+                assert len(service.index._corpus.pieces) == (2 if "--dp" in flags else 1)
+            answers.append([_post(server, path, {**queries, "first_k": 4})[1]["results"]
+                            for path in ("/search", "/rerank")])
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+    for want, got in zip(*answers):
+        assert [[h["id"] for h in r] for r in got] == [[h["id"] for h in r] for r in want]
+        for g, w in zip(got, want):
+            for key in ("score", "ce_score"):
+                np.testing.assert_allclose([h.get(key, 0) for h in g],
+                                           [h.get(key, 0) for h in w], atol=1e-5)
 
 
 def test_serve_parses_the_jax_flags():
@@ -216,8 +295,9 @@ def test_serve_parses_the_jax_flags():
         ("int8", 64, 8, 2.0)
     assert args.no_warmup and args.allow_save_path and args.device == "cpu"
     assert serve.parse_args(["--modelname", "m"]).clusters == "auto"
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--modelname", "m", "--dp", "2"])
+    mesh_args = serve.parse_args(["--modelname", "m", "--dp", "2", "--tp", "2"])
+    assert (mesh_args.dp, mesh_args.tp) == (2, 2)
+    assert (args.dp, args.tp) == (-1, 1)   # the JAX defaults
 
 
 def _post(server, path, payload):

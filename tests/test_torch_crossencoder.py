@@ -34,6 +34,7 @@ from sgpt_tpu.models.decoder import forward as jax_forward  # noqa: E402
 from sgpt_tpu.models.decoder import logits as jax_logits  # noqa: E402
 from sgpt_tpu.tokenization import SimpleTokenizer  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, from_jax_config, params_from_jax  # noqa: E402
+from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 
 RTOL, ATOL = 2e-5, 1e-4
 VOCAB = 512
@@ -302,14 +303,29 @@ def test_errors_match_jax(pair, name):
             build().predict(pairs or [])
 
 
+MESH = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+
+
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(quantize="int4"), ValueError, "quantize"),
-    (dict(mesh=object()), NotImplementedError, "item 12"),
+    (dict(mesh=MESH, device="cuda:1"), ValueError, "first device"),
     (dict(max_length=129), ValueError, "positions")])
 def test_ranker_refuses_what_it_cannot_run(pair, kw, exc, match):
     _, _, cfg, model = pair
+    kw = {"device": "cpu", **kw}
     with pytest.raises(exc, match=match):
-        pce.CrossEncoderRanker(model, cfg, TOK, device="cpu", **kw)
+        pce.CrossEncoderRanker(model, cfg, TOK, **kw)
+
+
+@pytest.mark.parametrize("pack_t", [None, 64])
+def test_ranker_on_a_mesh_matches_the_meshless_ranker(pair, pack_t):
+    """`mesh=` (dp 2; tests/test_torch_mesh_serving.py holds meshes to the
+    JAX ranker's): each dp row scores its block of rows, the same scores."""
+    _, _, cfg, model = pair
+    pairs = _ragged_pairs()
+    kw = dict(batch_size=4, max_length=128, pack_t=pack_t)
+    got = pce.CrossEncoderRanker(model, cfg, TOK, mesh=MESH, **kw).predict(pairs)
+    _close(got, pce.CrossEncoderRanker(model, cfg, TOK, device="cpu", **kw).predict(pairs))
 
 
 def test_ranker_refuses_token_ids_outside_the_vocab(pair):

@@ -25,6 +25,7 @@ from sgpt_tpu.models import tiny as jax_tiny  # noqa: E402
 from sgpt_tpu.models.decoder import forward as jax_forward  # noqa: E402
 from sgpt_tpu_torch.models import (Decoder, from_jax_config, gpt_neo,  # noqa: E402
                                    params_from_jax, tiny)
+from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 
 
 def _pair(dtype=jnp.float32, **kw):
@@ -106,13 +107,33 @@ def test_other_families_raise(family):
             Decoder(cfg.replace(**bad), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(tp_mesh=object()),
-                                dict(sp_mesh=object(), tp_mesh=object())])
+TP_MESH = make_mesh(dp=1, tp=2, devices=["cpu", "cpu"])
+TSDAE_COND = dict(cond=torch.zeros(1, 64), cond_params={"w": torch.zeros(1, 64, 64),
+                                                        "b": torch.zeros(1, 64)})
+
+
+@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(tp_mesh=TP_MESH, **TSDAE_COND),
+                                dict(sp_mesh=object(), tp_mesh=TP_MESH)])
 def test_unported_forward_arguments_raise(kw):
+    """Sequence parallelism (ring attention, ROADMAP Queue 1 item 11) and
+    TSDAE's conditioning under a tp mesh (training under a mesh) raise."""
     model = Decoder(tiny("neo", num_layers=1), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(ids, torch.ones_like(ids), **kw)
+
+
+def test_tp_mesh_forward_matches_the_meshless_forward():
+    """`tp_mesh=` runs the forward tensor-parallel (tests/test_torch_parallel.py
+    holds it to the JAX sharded forward): the meshless states within 1e-5."""
+    model = Decoder(tiny("neo", num_layers=2), device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 257, (2, 12)))
+    mask = torch.ones_like(ids)
+    mask[1, 7:] = 0
+    with torch.no_grad():
+        got, want = model(ids, mask, tp_mesh=TP_MESH), model(ids, mask)
+    np.testing.assert_allclose(got[mask.bool()].numpy(), want[mask.bool()].numpy(), atol=1e-5)
 
 
 def test_params_from_jax_refuses_leftover_and_missing_leaves():

@@ -3,18 +3,22 @@ CPU: `Decoder`, `EmbeddingEngine`, `CrossEncoderRanker`, `DenseIndex` (and
 `DenseIndex.load`), `CLIP` and the CLIs' `build_model` (every preset
 family, the encoder families included, and a local checkpoint) default to
 device "cuda", and without a card they raise rather than fall back to the
-CPU."""
+CPU; so do `make_mesh()` (every visible card) and a mesh of CUDA devices,
+and the mesh path of `beir_retriever`, `sgptce` and `serve` (`--dp`/`--tp`
+over the default `--device cuda`): no silent CPU mesh."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from sgpt_tpu_torch.cli import beir_retriever, serve, sgptce  # noqa: E402
 from sgpt_tpu_torch.cli.common import build_model  # noqa: E402
 from sgpt_tpu_torch.crossencoder import CrossEncoderRanker  # noqa: E402
 from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
 from sgpt_tpu_torch.index import DenseIndex  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, tiny  # noqa: E402
 from sgpt_tpu_torch.models.clip import CLIP, clip_tiny  # noqa: E402
+from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 from sgpt_tpu_torch.tokenization import SimpleTokenizer  # noqa: E402
 
 CFG = tiny("neo", num_layers=1, hidden_size=32, num_heads=2)
@@ -56,6 +60,14 @@ ENTRY_POINTS = {
     "build_model bert": lambda tmp: build_model("bert-base-uncased", random_init=True),
     "build_model t5": lambda tmp: build_model("google/t5-v1_1-base", random_init=True),
     "CLIP": lambda tmp: CLIP(clip_tiny()),
+    "make_mesh": lambda tmp: make_mesh(),
+    "make_mesh cuda devices": lambda tmp: make_mesh(dp=2, devices=["cuda:0", "cuda:0"]),
+    "beir_retriever --dp 2": lambda tmp: beir_retriever.main(beir_retriever.parse_args(
+        ["--randominit", "--datapath", str(tmp), "--dp", "2"])),
+    "sgptce --tp 2": lambda tmp: sgptce.main(sgptce.parse_args(
+        ["--randominit", "--datadir", str(tmp), "--tp", "2"])),
+    "serve --dp 2": lambda tmp: serve.main(["--modelname", "gpt-neo-125m", "--randominit",
+                                            "--dp", "2", "--no-warmup"]),
 }
 
 

@@ -24,6 +24,7 @@ from sgpt_tpu.models import tiny as jax_tiny  # noqa: E402
 from sgpt_tpu.tokenization import SimpleTokenizer  # noqa: E402
 from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
 from sgpt_tpu_torch.models import Decoder, from_jax_config, params_from_jax, tiny  # noqa: E402
+from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -100,13 +101,34 @@ def test_out_of_range_ids_raise_on_the_host(pair):
         engine.encode(["many different words so that some id lands high"] * 3)
 
 
-@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(mesh=object()),
+MESH = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+
+
+@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(dispatch_chain=2),
                                 dict(dispatch_chain=8),
-                                dict(fused_attention=True), dict(mesh=object(), quantize="int8")])
+                                dict(fused_attention=True), dict(mesh=MESH, dispatch_chain=8)])
 def test_unported_options_raise(pair, kw):
+    """Sequence-parallel encode (ROADMAP Queue 1 item 11), dispatch chains and
+    a forced fused kernel (item 5) raise, also on a mesh."""
     _, _, cfg, model = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu", **kw)
+        EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size),
+                        device=None if "mesh" in kw else "cpu", **kw)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_mesh_options_run(pair, quantize):
+    """`mesh=` (dp 2 here; tests/test_torch_mesh_serving.py holds meshes to
+    the JAX engine's) with and without int8: the meshless embeddings, bit
+    for bit (each dp row runs the same forward on its block of rows)."""
+    _, _, cfg, model = pair
+    tok = SimpleTokenizer(cfg.vocab_size)
+    kw = dict(batch_size=2, max_seq_len=64, quantize=quantize)
+    texts = _texts()
+    engine = EmbeddingEngine(model, cfg, tok, mesh=MESH, **kw)
+    assert engine.mesh is MESH and engine.device == torch.device("cpu")
+    np.testing.assert_array_equal(engine.encode(texts),
+                                  EmbeddingEngine(model, cfg, tok, device="cpu", **kw).encode(texts))
 
 
 JAX_DEFAULTS = dict(mesh=None, sp_mesh=None, fused_attention=None, dispatch_chain=1)

@@ -4,7 +4,8 @@ imports (serving and the CLIs included), and a tiny CPU encode, a
 stack-pooled (`meanmean`) encode at a layer index with a dense head, an
 `SGPTModel` save/load round trip, a flash (`use_flash`) encode, BERT, T5
 and CLIP encodes, two index
-searches, a DenseRetriever search, a SearchService search and a
+searches, a DenseRetriever search, a SearchService search, meshed encodes
+(tp 2, dp 2) and a sharded index search, and a
 cross-encoder score (bucketed and packed rows) run. A scan of the sources finds no import of either."""
 import re
 import subprocess
@@ -91,6 +92,19 @@ svc = SearchService(engine, index_kw={"kernel": "pallas"})
 svc.add_documents(["a short text", "x"], ids=["a", "c"])
 assert svc.search(["x"], k=1)[0][0]["id"] == "c"
 svc.close()
+
+# meshes: a tensor-parallel and a data-parallel encode, a sharded index
+from sgpt_tpu_torch.parallel import make_mesh
+
+texts = ["a short text", "a longer text " * 20, "x"]
+for dp, tp in ((1, 2), (2, 1)):
+    mesh = make_mesh(dp=dp, tp=tp, devices=["cpu"] * (dp * tp))
+    memb = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), mesh=mesh, specb=True,
+                           max_seq_len=64, batch_size=4, normalize_embeddings=True).encode(texts)
+    assert abs(memb - emb).max() < 1e-5, (dp, tp, abs(memb - emb).max())
+sharded = DenseIndex(32, dtype=torch.float32, mesh=make_mesh(dp=2, devices=["cpu", "cpu"]))
+sharded.add(emb, ids=["a", "b", "c"])
+assert sharded.build().search_embeddings(emb[1:2], k=2)[1][0][0] == "b"
 
 # the cross-encoder: bucketed rows, and packed rows (K1's segment masks)
 from sgpt_tpu_torch.crossencoder import CrossEncoderRanker

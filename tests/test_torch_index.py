@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from sgpt_tpu.index import DenseIndex as JaxIndex  # noqa: E402
 from sgpt_tpu_torch.index import DenseIndex  # noqa: E402
 from sgpt_tpu_torch.ops import mips  # noqa: E402
+from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -203,8 +204,12 @@ def test_refusals():
     idx.add(np.ones((4, 16), np.float32), ids=list("abcd"))
     with pytest.raises(ValueError, match="blockmax"):
         idx.delete(["a"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        DenseIndex(16, mesh=object(), device="cpu")
+    mesh = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+    assert DenseIndex(16, mesh=mesh).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        DenseIndex(16, kernel="pallas", mesh=mesh)
+    with pytest.raises(ValueError, match="first device"):
+        DenseIndex(16, mesh=mesh, device="cuda:1")
     with pytest.raises(ValueError, match="quantize"):
         DenseIndex(16, quantize="int4", device="cpu")
     with pytest.raises(ValueError, match="kernel"):

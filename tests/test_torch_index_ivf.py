@@ -21,6 +21,7 @@ pytest.importorskip("jax").config.update("jax_platforms", "cpu")
 from sgpt_tpu.index_ivf import IVFIndex as JaxIVF  # noqa: E402
 from sgpt_tpu_torch.index import DenseIndex  # noqa: E402
 from sgpt_tpu_torch.index_ivf import IVFIndex  # noqa: E402
+from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 
 D = 32
 
@@ -164,7 +165,8 @@ def test_save_load_across_packages(tmp_path, quantize):
 
 
 def test_contracts_and_refusals():
-    """Empty and pre-build searches, argument checks, and meshes (not ported)."""
+    """Empty and pre-build searches, argument checks, and a mesh's device
+    (tests/test_torch_mesh_serving.py holds sharded searches to JAX's)."""
     idx = IVFIndex(D, device="cpu")
     assert idx.search_embeddings(np.zeros((0, D), np.float32)) == ([], [])
     assert idx.search_embeddings(QUERIES[:1])[1] == [[]]
@@ -177,8 +179,10 @@ def test_contracts_and_refusals():
         IVFIndex(D, n_clusters=0, device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         IVFIndex(D, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        IVFIndex(D, mesh=object(), device="cpu")
+    mesh = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+    assert IVFIndex(D, mesh=mesh).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="first device"):
+        IVFIndex(D, mesh=mesh, device="cuda:1")
     idx.build()
     v, ids = idx.search_embeddings(QUERIES[:3], k=500)
     assert [len(r) for r in ids] == [len(r) for r in v] == [100] * 3

@@ -356,8 +356,8 @@ def test_warm_search_and_empty_service(engines):
 def test_load_index_refuses_ivf(tmp_path, engines):
     """An IVF directory saved by the JAX service loads as the port's
     `IVFIndex` (the class comes from the file's metadata), with its
-    documents, and serves what the JAX service serves; asked for a mesh
-    (not ported: ROADMAP Queue 1 item 12), load_index refuses it."""
+    documents, and serves what the JAX service serves; loaded onto a dp=2
+    mesh, it searches as JAX's index loaded onto its dp=2 mesh."""
     from sgpt_tpu.index_ivf import IVFIndex as JaxIVF
     from sgpt_tpu_torch.index_ivf import IVFIndex
 
@@ -382,6 +382,15 @@ def test_load_index_refuses_ivf(tmp_path, engines):
     for g, w in zip(got, want):
         np.testing.assert_allclose([h["score"] for h in g], [h["score"] for h in w], atol=1e-5)
         assert [h["document"] for h in g] == [h["document"] for h in w]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SearchService.load_index(str(d), mesh=object(), device="cpu")
+    from sgpt_tpu.parallel import make_mesh as jax_make_mesh
+    from sgpt_tpu_torch.parallel import make_mesh
+
+    sharded, _ = SearchService.load_index(str(d), mesh=make_mesh(2, 1, ["cpu", "cpu"]))
+    jsharded, _ = JaxService.load_index(str(d), mesh=jax_make_mesh(2, 1, jax.devices()[:2]))
+    q = engines[0].encode(QUERIES)
+    (got_v, got_i), (want_v, want_i) = (sharded.search_embeddings(q, k=3),
+                                        jsharded.search_embeddings(q, k=3))
+    assert sharded.mesh is not None and got_i == want_i
+    for g, w in zip(got_v, want_v):
+        np.testing.assert_allclose(g, w, atol=1e-5)
 
