@@ -264,6 +264,24 @@ Phases, each of which asserts; any failure exits non-zero:
                (Spearman ≥ 0.99 against the meshless ranker); `cli.serve
                --device cuda:0,cuda:0 --dp 2 --rerank` answering /search
                and /rerank over HTTP
+ 30. mesh train — training under a (dp, tp) mesh of `cuda:0` named 2 or 4
+               times: full-width GPT-Neo-125M, the MS MARCO CLI's configuration
+               (32 triplets, T=300, BitFit, fp32), 3 steps at "highest" on
+               (dp, tp) = (2, 1), (1, 2), (2, 2) and GradCache (chunks of 8)
+               at (2, 2), each held to the meshless run (losses rtol 2e-4,
+               parameters rtol 3e-3 atol 2e-5, every copy of a leaf bit-equal
+               across shards; K1 = K2 = L × dp × tp × 3 × steps, GradCache K1
+               twice that × chunks); ms/step at "default" beside meshless;
+               long context (T=2048, use_flash, GradCache chunks of 8, 16
+               triplets) at dp=2 for one step against meshless (K3, K4a, K4b
+               per dp row)
+ 31. sp      — sequence parallelism (ring attention) over `cuda:0` named
+               twice, T=2048 in two shards of 1,024, GPT-Neo-125M with
+               use_flash in fp32 against the meshless flash paths: the
+               engine's encode of 64 long documents (cosine ≥ 0.9999), one
+               contrastive step on 4 pairs at a constant lr (loss 1e-4,
+               parameters atol 2e-4, moved > 4e-4) and one TSDAE step
+               (loss 1e-4); each path's time and peak
  18. report  — kernel, plain-version and library times beside each
                kernel's bound, encode, long-context, train, CE and serve rates,
                the card's name and power limit, one `{"kernels": [...]}`
@@ -2622,7 +2640,7 @@ def phase_ltrain(torch, fa, sa, tok, card):
     trainer = ContrastiveTrainer(model, cfg, tok, tc)
     _, n_trunc, _ = trainer.codec.encode_rows([d for t in batch for d in t[1:]])
     assert n_trunc > 0, "no document reached truncation"
-    towers = trainer._prep_batch(batch)
+    towers = trainer._prep_batch(batch)[0]   # dp row 0's towers: no mesh, the only row
     valid = int(sum(t["mask"].sum().item() for t in towers))
     padded = 3 * B * tc.max_seq_len
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -3429,7 +3447,7 @@ def train_cell(torch, fa, sa, model, cfg, tok, tc, batch, steps: int, label: str
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [h["loss"] for h in out["history"]]
     ms = 1e3 * float(np.median(np.diff(stamps)))
-    towers = trainer._prep_batch(batch)
+    towers = trainer._prep_batch(batch)[0]   # dp row 0's towers: no mesh, the only row
     valid = int(sum(t["mask"].sum().item() for t in towers))
     res = {"losses": losses, "wall_s": wall, "peak_gib": peak_gib, "ms_per_step": ms,
            "seq_per_s": 3 * len(batch) / (ms / 1e3), "tokens_per_s": valid / (ms / 1e3),
@@ -4741,6 +4759,271 @@ def phase_mesh(torch, sa, model, cfg, tok, texts, docs, doc_s, corpus, kernel_ti
 
 
 # ---------------------------------------------------------------------------
+# Training under a mesh (dp x tp) and sequence parallelism (ring attention),
+# on the one card named 2 and 4 times.
+
+MTRAIN_B, MTRAIN_STEPS = 32, 3      # the MS MARCO CLI's batch; parity steps at "highest"
+MTRAIN_RATE_STEPS = 4               # steps at "default" for the rate (the first is set-up)
+MTRAIN_LOSS_RTOL = 2e-4             # tests/test_trainer_mesh.py
+MTRAIN_PARAM_RTOL, MTRAIN_PARAM_ATOL = 3e-3, 2e-5
+SP_N, SP_T = 2, 2048                # the sp mesh (cuda:0 twice) and the long documents' T
+SP_DOCS, SP_PAIRS, SP_TSDAE = 64, 4, 4
+SP_COS_MIN, SP_LOSS_ATOL, SP_PARAM_ATOL = 0.9999, 1e-4, 2e-4  # tests/test_sequence_parallel.py
+
+
+def mesh_fit(torch, sa, fa, model, cfg, tok, tc, batches, mesh) -> dict:
+    """`ContrastiveTrainer(mesh=mesh).fit` (meshless with mesh=None) from
+    `model`'s weights (a mesh trainer shards a copy; the meshless one trains
+    a copy): losses, the unsharded parameters, the launches, the wall time
+    of each step, and whether every copy of a leaf is bit-equal after."""
+    import copy
+
+    from sgpt_tpu_torch.training import ContrastiveTrainer
+
+    stamps = []
+    tc = copy.copy(tc)
+    tc.log_fn = lambda rec: stamps.append(time.perf_counter())  # float(loss) synchronises
+    trainer = ContrastiveTrainer(copy.deepcopy(model) if mesh is None else model, cfg, tok, tc,
+                                 mesh=mesh)
+    torch.cuda.synchronize()
+    sa.launches = sa.bwd_launches = fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    t0 = time.perf_counter()
+    out = trainer.fit(lambda: iter(batches), steps_per_epoch=len(batches))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g[0], c) for g in trainer._groups for c in g[1:])
+    return {"losses": [h["loss"] for h in out["history"]], "params": out["params"],
+            "k1": sa.launches, "k2": sa.bwd_launches, "k3": fa.launches,
+            "k4a": fa.bwd_dq_launches, "k4b": fa.bwd_dkv_launches,
+            "steps_s": list(np.diff([t0] + stamps)), "copies_equal": equal,
+            "copies": sum(len(g) for g in trainer._groups), "leaves": len(trainer._groups)}
+
+
+def hold_fit(label: str, got: dict, want: dict, card: str) -> dict:
+    """A mesh fit against the meshless one: losses within rtol 2e-4,
+    parameters within rtol 3e-3, atol 2e-5 (JAX's tolerances), every copy
+    of a leaf bit-equal."""
+    loss_err = float(np.max(np.abs(np.subtract(got["losses"], want["losses"]))
+                            / np.abs(want["losses"])))
+    worst = 0.0
+    for name, w in want["params"].items():
+        g = got["params"][name].float().cpu()
+        w = w.float().cpu()
+        excess = (g - w).abs() - MTRAIN_PARAM_RTOL * w.abs()
+        worst = max(worst, float(excess.max()))
+    log(f"{label}: losses {[round(x, 6) for x in got['losses']]} against meshless "
+        f"{[round(x, 6) for x in want['losses']]} (max rel {loss_err:.3e}, gate "
+        f"{MTRAIN_LOSS_RTOL}); parameters: max |diff| - rtol·|ref| {worst:.3e} (gate atol "
+        f"{MTRAIN_PARAM_ATOL}); {got['leaves']} trainable leaves in {got['copies']} copies, "
+        f"bit-equal {got['copies_equal']}; launches K1 {got['k1']} K2 {got['k2']} K3 "
+        f"{got['k3']} K4a {got['k4a']} K4b {got['k4b']} ({card})")
+    assert loss_err <= MTRAIN_LOSS_RTOL, (label, loss_err)
+    assert worst <= MTRAIN_PARAM_ATOL, (label, worst)
+    assert got["copies_equal"], f"{label}: copies of a leaf differ after the fit"
+    return {"loss_max_rel_err": loss_err, "param_max_excess": worst}
+
+
+def phase_mesh_train(torch, sa, fa, tok, card) -> dict:
+    """Training under a (dp, tp) mesh of the one card named 2 or 4 times
+    (every shard's K1/K2/K3/K4 launches; correctness and per-shard overhead,
+    not scaling): full-width GPT-Neo-125M, the MS MARCO CLI's configuration
+    (32 triplets, T=300, SPECB, BitFit, weightedmean, warmuplinear, fp32).
+    At "highest", 3 steps on each mesh (dp, tp) = (2, 1), (1, 2), (2, 2)
+    and GradCache (chunks of 8) at (2, 2), each held to the meshless run
+    from the same weights; K1 = L × dp × tp × 3 towers × steps (GradCache: ×
+    chunks and × 2 passes), K2 the same in the backward. At "default" (the
+    CLI's TF32) ms/step of each mesh beside the meshless one. Then the long
+    context configuration (T=2048, use_flash, GradCache chunks of 8, 16
+    triplets) at dp=2 for one step against meshless: K3, K4a and K4b per dp
+    row."""
+    import dataclasses
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.parallel import make_mesh
+    from sgpt_tpu_torch.training import TrainConfig
+
+    rng = np.random.default_rng(SEED + 50)
+    cfg = gpt_neo("125m")   # "highest": the parity runs
+    model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    L = cfg.num_layers
+    tc = TrainConfig(lr=2e-4, batch_size=MTRAIN_B, max_seq_len=300, specb=True,
+                     freeze_nonbias=True, pooling="weightedmean", scheduler="warmuplinear")
+    triplets = synthetic_triplets(rng, MTRAIN_B * MTRAIN_STEPS)
+    batches = [triplets[i * MTRAIN_B:(i + 1) * MTRAIN_B] for i in range(MTRAIN_STEPS)]
+    out = {"launches": {}}
+
+    def mesh_of(dp, tp):
+        return make_mesh(dp=dp, tp=tp, devices=MESH_DEVICES[:1] * (dp * tp))
+
+    want = mesh_fit(torch, sa, fa, model, cfg, tok, tc, batches, None)
+    for dp, tp in MESH_SHAPES:
+        got = mesh_fit(torch, sa, fa, model, cfg, tok, tc, batches, mesh_of(dp, tp))
+        key = f"dp{dp}_tp{tp}"
+        out[key] = hold_fit(f"mesh train {key} parity ({MTRAIN_STEPS} steps, \"highest\")",
+                            got, want, card)
+        n = L * dp * tp * 3 * MTRAIN_STEPS
+        assert got["k1"] == got["k2"] == n, (key, got["k1"], got["k2"], n)
+        out["launches"][key] = {"k1": got["k1"], "k2": got["k2"]}
+    gc = dataclasses.replace(tc, use_gradcache=True, chunk_size=8)
+    chunks = MTRAIN_B // 8
+    want = mesh_fit(torch, sa, fa, model, cfg, tok, gc, batches, None)
+    got = mesh_fit(torch, sa, fa, model, cfg, tok, gc, batches, mesh_of(2, 2))
+    out["gradcache_dp2_tp2"] = hold_fit("mesh train dp2_tp2 GradCache chunk 8 parity", got,
+                                        want, card)
+    n = L * 2 * 2 * 3 * chunks * MTRAIN_STEPS
+    assert (got["k1"], got["k2"]) == (2 * n, n), (got["k1"], got["k2"], n)
+    out["launches"]["gradcache_dp2_tp2"] = {"k1": got["k1"], "k2": got["k2"]}
+
+    # the rate at the CLI's "default" (TF32 products): ms/step beside meshless
+    fast = cfg.replace(matmul_precision="default")
+    model.cfg = fast
+    rate_batches = (batches * 2)[:MTRAIN_RATE_STEPS]
+    rates = {}
+    for key, mesh in [("meshless", None)] + [(f"dp{dp}_tp{tp}", mesh_of(dp, tp))
+                                             for dp, tp in MESH_SHAPES]:
+        r = mesh_fit(torch, sa, fa, model, fast, tok, tc, rate_batches, mesh)
+        rates[key] = 1e3 * float(np.median(r["steps_s"][1:]))
+        if mesh is not None:
+            out["launches"][key]["k1"] += r["k1"]
+            out["launches"][key]["k2"] += r["k2"]
+    for key, ms in rates.items():
+        out.setdefault(key, {})["ms_per_step"] = ms
+        out[key]["vs_meshless"] = rates["meshless"] / ms
+    log("mesh train rate (\"default\", TF32; batch 32, T=300, BitFit): " + ", ".join(
+        f"{k} {ms:.1f} ms/step ({rates['meshless'] / ms:.3f} x meshless)"
+        for k, ms in rates.items()) + f" ({card})")
+    model.cfg = cfg
+    del model
+    torch.cuda.empty_cache()
+
+    # long context at dp=2: K3, K4a, K4b per dp row
+    lcfg = gpt_neo("125m", use_flash=True)
+    lmodel = Decoder(lcfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    ltc = TrainConfig(lr=2e-4, batch_size=16, max_seq_len=SP_T, specb=True,
+                      freeze_nonbias=True, pooling="weightedmean", scheduler="constantlr",
+                      use_gradcache=True, chunk_size=8)
+    lbatch = [long_triplets(rng, 16)]
+    want = mesh_fit(torch, sa, fa, lmodel, lcfg, tok, ltc, lbatch, None)
+    torch.cuda.reset_peak_memory_stats()
+    got = mesh_fit(torch, sa, fa, lmodel, lcfg, tok, ltc, lbatch, mesh_of(2, 1))
+    out["long_dp2"] = hold_fit("mesh train long context dp=2 (T=2048, use_flash, GradCache "
+                               "chunk 8, 1 step)", got, want, card)
+    n = L * 2 * 3 * 2   # layers × dp rows × towers × chunks
+    assert (got["k3"], got["k4a"], got["k4b"], got["k1"], got["k2"]) == (2 * n, n, n, 0, 0), got
+    out["long_dp2"].update(ms=1e3 * got["steps_s"][0], meshless_ms=1e3 * want["steps_s"][0],
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["launches"]["long_dp2"] = {k: got[k] for k in ("k3", "k4a", "k4b")}
+    del lmodel
+    torch.cuda.empty_cache()
+    for k in ("k1", "k2", "k3", "k4a", "k4b"):
+        out[k] = sum(v.get(k, 0) for v in out["launches"].values())
+    return out
+
+
+def phase_sp(torch, tok, card) -> dict:
+    """Sequence parallelism over a mesh of `cuda:0` named twice (ring
+    attention: T=2048 as two shards of 1,024; no attention kernel runs),
+    full-width GPT-Neo-125M with use_flash, fp32 at "highest", against the
+    meshless flash paths (K3, K4a/K4b): the engine's encode of 64 long
+    documents (cosine per row ≥ 0.9999), one contrastive step on 4 pairs at
+    a constant lr (loss within 1e-4, parameters within atol 2e-4, and moved
+    by more than twice that) and one TSDAE step on 4
+    sentences (loss within 1e-4), each path's time and peak memory."""
+    import copy
+
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.ops import short_attention as sa
+    from sgpt_tpu_torch.parallel import make_mesh
+    from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig, TSDAETrainer
+
+    rng = np.random.default_rng(SEED + 51)
+    cfg = gpt_neo("125m", use_flash=True)
+    model = Decoder(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    sp = make_mesh(dp=SP_N, tp=1, devices=MESH_DEVICES[:1] * SP_N)
+    docs = [d for t in long_triplets(rng, SP_DOCS // 2) for d in t[1:]]
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sa.launches = sa.bwd_launches = fa.launches = fa.bwd_dq_launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30, (
+            sa.launches + sa.bwd_launches, fa.launches + fa.bwd_dq_launches)
+
+    kw = dict(max_seq_len=SP_T, batch_size=8, normalize_embeddings=True)
+    (flat, flat_s, flat_gib, flat_k), (ring, ring_s, ring_gib, ring_k) = (
+        timed(lambda: EmbeddingEngine(model, cfg, tok, device=MESH_DEVICES[0], **kw).encode(docs)),
+        timed(lambda: EmbeddingEngine(model, cfg, tok, sp_mesh=sp, **kw).encode(docs)))
+    cos = cosine(ring, flat)
+    out["encode"] = {"cos_min": float(cos.min()), "s": ring_s, "meshless_s": flat_s,
+                     "peak_gib": ring_gib, "meshless_peak_gib": flat_gib}
+    log(f"sp encode {len(docs)} documents (T up to {SP_T}, sp={SP_N}): cosine to the meshless "
+        f"flash rows min {cos.min():.7f} (gate {SP_COS_MIN}); {ring_s:.2f} s, peak "
+        f"{ring_gib:.2f} GiB against meshless {flat_s:.2f} s, {flat_gib:.2f} GiB; kernel "
+        f"launches sp {ring_k}, meshless (K1+K2, K3+K4a) {flat_k} ({card})")
+    assert np.isfinite(ring).all() and cos.min() >= SP_COS_MIN, cos.min()
+    assert ring_k == (0, 0) and flat_k[1] > 0, (ring_k, flat_k)
+
+    batch = [(t[0], t[1]) for t in long_triplets(rng, SP_PAIRS)]
+    # a constant lr: the default warmup's first step has lr 0 and would move
+    # no parameter, leaving the ring's backward unchecked
+    tc = TrainConfig(batch_size=SP_PAIRS, max_seq_len=SP_T, lr=1e-3, epochs=1,
+                     scheduler="constantlr")
+    fits = {}
+    for key, mesh in (("meshless", None), ("sp", sp)):
+        trainer = ContrastiveTrainer(copy.deepcopy(model), cfg, tok, tc, sp_mesh=mesh)
+        res, s, gib, k = timed(lambda: trainer.fit(lambda: iter([batch]), steps_per_epoch=1))
+        fits[key] = (res["history"][0]["loss"], res["params"], s, gib, k)
+        del trainer
+    (wl, wp, ws, wg, wk), (gl, gp, gs, gg, gk) = fits["meshless"], fits["sp"]
+    diffs = {n: float((gp[n] - w).abs().max()) for n, w in wp.items()}
+    worst_leaf = max(diffs, key=diffs.get)
+    worst = diffs[worst_leaf]
+    near = sum(int(((gp[n] - w).abs() > SP_PARAM_ATOL / 2).sum()) for n, w in wp.items())
+    start = model.state_dict()
+    moved = max(float((w - start[n]).abs().max()) for n, w in wp.items())
+    out["train"] = {"loss_abs_err": abs(gl - wl), "param_max_abs_err": worst,
+                    "param_worst_leaf": worst_leaf, "params_over_half_gate": near,
+                    "param_max_move": moved, "s": gs, "meshless_s": ws, "peak_gib": gg,
+                    "meshless_peak_gib": wg}
+    log(f"sp train step ({SP_PAIRS} pairs, T={SP_T}, full fine-tuning, constant lr 1e-3): "
+        f"loss {gl:.7f} against meshless flash {wl:.7f} (|diff| {abs(gl - wl):.3e}, gate "
+        f"{SP_LOSS_ATOL}); parameters max |diff| {worst:.3e} (gate {SP_PARAM_ATOL}) in "
+        f"{worst_leaf}, {near} elements over half the gate; the step moved them up to "
+        f"{moved:.3e} (gate > {2 * SP_PARAM_ATOL}); {gs:.2f} s, peak "
+        f"{gg:.2f} GiB against {ws:.2f} s, {wg:.2f} GiB; launches sp {gk}, meshless {wk} "
+        f"({card})")
+    assert abs(gl - wl) <= SP_LOSS_ATOL and worst <= SP_PARAM_ATOL, (gl, wl, worst)
+    assert moved > 2 * SP_PARAM_ATOL, moved   # the gate above held a step that moved
+    assert gk == (0, 0), gk
+    del fits, wp, gp
+
+    pairs = [(" ".join(d.split()[::2]), d) for d in docs[:SP_TSDAE]]
+    losses = {}
+    for key, mesh in (("meshless", None), ("sp", sp)):
+        trainer = TSDAETrainer(copy.deepcopy(model), cfg, tok, max_seq_len=SP_T, lr=1e-3,
+                               sp_mesh=mesh)
+        batch = trainer.prep_batch(pairs)
+        losses[key] = timed(lambda: float(trainer.step(batch)))
+        del trainer, batch
+    (wl, ws, wg, wk), (gl, gs, gg, gk) = losses["meshless"], losses["sp"]
+    out["tsdae"] = {"loss_abs_err": abs(gl - wl), "s": gs, "meshless_s": ws, "peak_gib": gg,
+                    "meshless_peak_gib": wg}
+    log(f"sp tsdae step ({SP_TSDAE} sentences, T={SP_T}; the decoder pads to "
+        f"{(SP_T - 1 + SP_N - 1) // SP_N * SP_N + 1}): loss {gl:.7f} against meshless {wl:.7f} "
+        f"(|diff| {abs(gl - wl):.3e}, gate {SP_LOSS_ATOL}); {gs:.2f} s, peak {gg:.2f} GiB "
+        f"against {ws:.2f} s, {wg:.2f} GiB; launches sp {gk}, meshless {wk} ({card})")
+    assert abs(gl - wl) <= SP_LOSS_ATOL and gk == (0, 0), (gl, wl, gk)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The training-objectives slice: TSDAE pretraining and the trainable
 # cross-encoder (K1 and K2 fp32 at their shapes), and the search utilities.
 
@@ -5738,6 +6021,12 @@ def main() -> int:
     phase("ltrain")
     ltrain = phase_ltrain(torch, fa, sa, tok, card)
 
+    # 30. training under a mesh, 31. sequence parallelism (ring attention)
+    phase("mesh train")
+    mesh_train = phase_mesh_train(torch, sa, fa, tok, card)
+    phase("sp")
+    seqpar = phase_sp(torch, tok, card)
+
     # 11. the BEIR CLI
     phase("beir")
     ndcg10 = phase_beir(rng, card)
@@ -5803,6 +6092,15 @@ def main() -> int:
         f"({mesh['gptj_tp2']['vs_meshless']:.3f} x meshless); K1 at H=6 "
         f"{mesh['k1_tp_shard']['ms']:.4f} ms; CE dp=2 {mesh['ce_dp2_tp1']['pairs_per_s']:.1f}, "
         f"tp=2 {mesh['ce_dp1_tp2']['pairs_per_s']:.1f} pairs/s ({card})")
+    log("mesh train (one card named 2 or 4 times, \"default\"): " + ", ".join(
+        f"{k} {v['ms_per_step']:.1f} ms/step ({v['vs_meshless']:.3f} x meshless)"
+        for k, v in mesh_train.items() if isinstance(v, dict) and "ms_per_step" in v)
+        + f"; long context dp=2 one step {mesh_train['long_dp2']['ms']:.1f} ms (meshless "
+        f"{mesh_train['long_dp2']['meshless_ms']:.1f}) ({card})")
+    log(f"sp (ring attention, T={SP_T} over {SP_N} shards, fp32): encode "
+        f"{seqpar['encode']['s']:.2f} s / {seqpar['encode']['peak_gib']:.2f} GiB, train step "
+        f"{seqpar['train']['s']:.2f} s / {seqpar['train']['peak_gib']:.2f} GiB, TSDAE step "
+        f"{seqpar['tsdae']['s']:.2f} s / {seqpar['tsdae']['peak_gib']:.2f} GiB ({card})")
     int8_k1 = (int8["neo"]["k1_launches"] + fam_int8["k1_launches"]
                + fam_int8["ce_k1_launches"] + ivf["serve"]["k1_launches"])
 
@@ -5867,8 +6165,10 @@ def main() -> int:
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
                      + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1
                      + tsdae["k1"] + ce_train["k1"] + encoders["clip"]["k1_launches"]
-                     + mesh["k1_launches"]),
-        "launches_mesh": mesh["launches"],
+                     + mesh["k1_launches"] + mesh_train["k1"]),
+        "launches_mesh": mesh["launches"], "launches_mesh_train": mesh_train["k1"],
+        "mesh_train": {k: v for k, v in mesh_train.items() if k not in ("k1", "k2", "k3",
+                                                                        "k4a", "k4b")},
         "mesh": {k: v for k, v in mesh.items() if k not in ("launches", "k1_tp_shard")},
         **{f"{k}_tp_shard": v for k, v in mesh["k1_tp_shard"].items()},
         "launches_clip_text": encoders["clip"]["k1_launches"],
@@ -5933,7 +6233,8 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/short_attention_bwd.cu",
         "replaces": "sgpt_tpu/ops/pallas/short_attention.py:106",
         "launches": (train["bwd_launches"] + train_launches["k2"] + nli["k2"] + tsdae["k2"]
-                     + ce_train["k2"]),
+                     + ce_train["k2"] + mesh_train["k2"]),
+        "launches_mesh_train": mesh_train["k2"],
         "launches_tsdae": tsdae["k2"], "launches_ce_train": ce_train["k2"],
         "max_abs_err_tsdae": tsdae_err["k2"],
         **{f"{k}_{cell}": v for cell, t in tsdae_times.items() for k, v in t["k2"].items()},
@@ -5987,7 +6288,9 @@ def main() -> int:
         "source": "sgpt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sgpt_tpu/ops/pallas/flash_attention.py:32",
         "launches": (long["k3_launches"] + ltrain["k3"]
-                     + sum(f["long_k3"] for f in families.values()) + train_launches["k3"]),
+                     + sum(f["long_k3"] for f in families.values()) + train_launches["k3"]
+                     + mesh_train["k3"]),
+        "launches_mesh_train": mesh_train["k3"], "sp": seqpar,
         "launches_long_encode": long["k3_launches"], "launches_long_train": ltrain["k3"],
         "launches_families_train": train_launches["k3"],
         "launches_families": {k: f["long_k3"] for k, f in families.items()},
@@ -6018,7 +6321,8 @@ def main() -> int:
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
         "source": "sgpt_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": f"sgpt_tpu/ops/pallas/flash_attention.py:{line}",
-        "launches": ltrain[key] + train_launches[key], "launches_long_train": ltrain[key],
+        "launches": ltrain[key] + train_launches[key] + mesh_train[key],
+        "launches_long_train": ltrain[key], "launches_mesh_train": mesh_train[key],
         "launches_families_train": train_launches[key], "max_abs_err": fbwd_err[part],
         "max_abs_err_cases": fbwd_worst, "bf16_gate_readings": fbwd_readings,
         "template_fp32_dh256": templates.get(f"flash_bwd_{part}_wideIfLi256"),

@@ -39,10 +39,15 @@ package so each counterpart is easy to find:
     cross_encoder_trainable  the trainable cross-encoder and its evaluators
     modules              word-level ST modules: tokenizers, word embeddings,
                          BoW, CNN, LSTM, embedding dropout
-    losses               MNRL and the other sentence-transformers losses
+    losses               MNRL (also over a mesh's dp rows) and the other
+                         sentence-transformers losses
     training             ContrastiveTrainer (learnt mean, dense heads,
-                         export_model), TSDAETrainer, BitFit, schedules,
+                         export_model; dp × tp meshes, sequence
+                         parallelism), TSDAETrainer, BitFit, schedules,
                          GradCache, checkpoints
+    parallel             single-controller (dp, tp) meshes, Megatron
+                         sharding and unsharding, collectives
+    ops.ring_attention   ring attention over a mesh's dp devices (sp_mesh)
     cli.train_msmarco    the MS MARCO training command line
     cli.train_nli        the NLI (symmetric search) training command line
     cli.train_tsdae      TSDAE pretraining command line

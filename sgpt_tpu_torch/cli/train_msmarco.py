@@ -1,8 +1,9 @@
 """MS MARCO contrastive training on the PyTorch port (counterpart of
 `sgpt_tpu/cli/train_msmarco.py`).
 
-Same flags as the JAX CLI, less `--dp`/`--tp` (meshes are not ported,
-ROADMAP Queue 1 item 12), plus `--device`. Hard negatives with CE-score
+Same flags as the JAX CLI, `--dp`/`--tp` included (a mesh over the
+`--device` list, e.g. `--device cuda:0,cuda:1 --dp 2`; multi-device training
+is opt-in: `--dp` defaults to 1), plus `--device`. Hard negatives with CE-score
 margin filtering, SPECB brackets (`--specb`), BitFit (`--freezenonbias`),
 per-epoch checkpoints, optional MS MARCO dev IR eval. Expects the
 reference's data files in `--data_folder`: collection.tsv (pid\\ttext),
@@ -35,7 +36,7 @@ import json
 import logging
 import os
 
-from .common import build_model, setup_logging
+from .common import add_mesh_args, build_mesh, build_model, first_device, setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +64,10 @@ def parse_args(argv=None):
     p.add_argument("--randominit", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on: cuda (the kernels) or cpu "
-                   "(their plain versions)")
+                   help="torch device(s) to train on: cuda (the kernels) or cpu "
+                   "(their plain versions); a comma-separated list for a mesh")
+    add_mesh_args(p)  # --dp/--tp: multi-device fit (replaces accelerate launch)
+    p.set_defaults(dp=1)  # multi-device training is opt-in (--dp -1 = all)
     # final dev-set IR eval (train_bi-encoder_mnrl.py:520-527): expects
     # dev-queries.tsv + dev-qrels.tsv (qid\tpid) in data_folder
     p.add_argument("--eval_dev", action="store_true")
@@ -124,14 +127,15 @@ def main(args=None):
 
     from ..training import ContrastiveTrainer, TrainConfig
 
+    mesh = build_mesh(args)  # before the data: a mesh the devices cannot make exits
     corpus, queries, qrels = load_msmarco(args.data_folder, args.ce_score_margin,
                                           args.num_negs_per_system)
     logger.info("%d train queries with hard negatives", len(qrels))
     dataset = MSMARCOTriplets(queries, corpus, qrels, seed=args.seed)
 
+    device = first_device(args, mesh)
     model, cfg, tokenizer = build_model(args.model_name, random_init=args.randominit,
-                                        dtype_str="float32", device=args.device,
-                                        seed=args.seed)
+                                        dtype_str="float32", device=device, seed=args.seed)
     tc = TrainConfig(
         lr=args.lr, epochs=args.epochs, batch_size=args.train_batch_size,
         max_seq_len=args.max_seq_length, scheduler=args.scheduler,
@@ -141,7 +145,8 @@ def main(args=None):
         output_dir=args.model_save_path, seed=args.seed,
         checkpoint_steps=max(1, len(dataset) // args.train_batch_size),  # per epoch
     )
-    trainer = ContrastiveTrainer(model, cfg, tokenizer, tc)
+    trainer = ContrastiveTrainer(model, cfg, tokenizer, tc, mesh=mesh)
+    del model  # under a mesh the trainer holds its shards
 
     B = args.train_batch_size
 
@@ -178,8 +183,8 @@ def main(args=None):
         pool_ids += rng.sample(extra, min(args.dev_corpus_sample, len(extra)))
         dev_corpus = {p: corpus[p] for p in pool_ids if p in corpus}
 
-        engine = EmbeddingEngine(model, cfg, tokenizer, device=args.device,
-                                 method=args.pooling, specb=args.specb,
+        engine = EmbeddingEngine(trainer.model, cfg, tokenizer, device=device,
+                                 mesh=trainer.mesh, method=args.pooling, specb=args.specb,
                                  max_seq_len=args.max_seq_length)
         ev = InformationRetrievalEvaluator(dev_queries, dev_corpus, dev_rel,
                                            main_metric="mrr@10", name="ms-dev")

@@ -6,8 +6,9 @@ entailment, contradiction as the hard negative), NoDuplicates batches, MNRL,
 BitFit (`--freezenonbias`), GradCache (`--gradcache --chunksize`), learnt
 mean pooling (`--learntmean`), trainable dense heads (`--addxlinear N`,
 `--linearthenpool`, `--useact`, `--outfeats`), and the STS-B dev evaluator
-every 10 % of the epoch. The JAX CLI's flags less `--dp`/`--tp` (meshes
-are not ported, ROADMAP Queue 1 item 12), plus `--device`:
+every 10 % of the epoch. The JAX CLI's flags, `--dp`/`--tp` included (a
+mesh over the `--device` list; multi-device training is opt-in: `--dp`
+defaults to 1), plus `--device`:
 
     python -m sgpt_tpu_torch.cli.train_nli --nli_path AllNLI.tsv.gz \\
         --stsb_path stsbenchmark.tsv.gz --model_name 125m --randominit \\
@@ -29,7 +30,7 @@ import argparse
 import logging
 import os
 
-from .common import build_model, setup_logging
+from .common import add_mesh_args, build_mesh, build_model, first_device, setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -65,8 +66,10 @@ def parse_args(argv=None):
     p.add_argument("--randominit", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on: cuda (the kernels) or cpu "
-                   "(their plain versions)")
+                   help="torch device(s) to train on: cuda (the kernels) or cpu "
+                   "(their plain versions); a comma-separated list for a mesh")
+    add_mesh_args(p)  # --dp/--tp: multi-device fit (replaces accelerate launch)
+    p.set_defaults(dp=1)  # multi-device training is opt-in (--dp -1 = all)
     return p.parse_args(argv)
 
 
@@ -88,25 +91,24 @@ def dense_head_specs(args, hidden_size: int):
 
 def main(args=None):
     """Returns the trainer's `fit` result with the exported best model under
-    "model" (an `SGPTModel` on the live decoder)."""
+    "model" (an `SGPTModel` on the live decoder; under a mesh on an
+    unsharded copy)."""
     setup_logging()
     args = args or parse_args()
-
-    import torch
 
     from ..data import NoDuplicatesBatcher, STSDataReader, build_nli_triplets, load_nli_tsv
     from ..evaluation.sts import EmbeddingSimilarityEvaluator
     from ..training import ContrastiveTrainer, TrainConfig
-    from ..training.trainer import aux_leaves
 
     if args.outfeats and args.addxlinear != 1:
         raise ValueError("--outfeats needs exactly one linear layer (ref :96)")
+    mesh = build_mesh(args)  # before the data: a mesh the devices cannot make exits
     triplets = build_nli_triplets(load_nli_tsv(args.nli_path), seed=args.seed)
     logger.info("Built %d NLI triplets", len(triplets))
     batcher = NoDuplicatesBatcher(triplets, args.train_batch_size, seed=args.seed)
 
     model, cfg, tokenizer = build_model(args.model_name, random_init=args.randominit,
-                                        dtype_str="float32", device=args.device,
+                                        dtype_str="float32", device=first_device(args, mesh),
                                         seed=args.seed)
     tc = TrainConfig(
         lr=args.lr, epochs=args.num_epochs, batch_size=args.train_batch_size,
@@ -118,7 +120,8 @@ def main(args=None):
         dense_heads=dense_head_specs(args, cfg.hidden_size),
         eval_steps=max(1, len(batcher) // 10),  # eval every 10% (ref :188-202)
     )
-    trainer = ContrastiveTrainer(model, cfg, tokenizer, tc)
+    trainer = ContrastiveTrainer(model, cfg, tokenizer, tc, mesh=mesh)
+    del model  # under a mesh the trainer holds its shards
     # the checkpoint's own tokenizer, which SGPTModel.load reads back (random
     # weights use the hash tokenizer, which the manifest records as such)
     tokenizer_name = None if args.randominit else args.model_name
@@ -144,11 +147,7 @@ def main(args=None):
     out = trainer.fit(batches, steps_per_epoch=len(batcher), evaluator=evaluator)
     trainer.save_model(args.model_save_path)
     if trainer.best_params is not None:  # the best evaluation's weights
-        trainer.model.load_state_dict(out["best_params"])
-        best = aux_leaves(out["best_aux"])
-        with torch.no_grad():
-            for name, live in aux_leaves(trainer.aux).items():
-                live.copy_(best[name])
+        trainer.load_weights(out["best_params"], out["best_aux"])
     out["model"] = trainer.export_model(tokenizer_name=tokenizer_name)
     out["model"].save(os.path.join(args.model_save_path, "best_model"))
     logger.info("done; best score %.4f", out["best_score"])

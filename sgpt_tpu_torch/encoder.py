@@ -20,10 +20,15 @@ each batch's row count is a multiple of dp, dp row i encodes the batch's
 i-th contiguous block of rows (a replica for tp=1, the tp forward of
 `models.decoder.TPGroup` otherwise: K1 per batch shard, or per head shard),
 pools and applies the heads on its own device, and the blocks come back
-to the host in row order. Not ported yet (ROADMAP Queue 1 items 5 and 11):
-dispatch chaining, the depth-2 fetch pipeline and sequence-parallel
-encode. The JAX engine's keywords for them are accepted at the values that
-ask for none of these (`sp_mesh=None`, `fused_attention=None`,
+to the host in row order.
+
+`sp_mesh=` (a `parallel.Mesh`) encodes long documents sequence-parallel:
+every bucket's T pads up to a multiple of the mesh's size (pads are
+causally invisible) and the decoder shards T over the mesh's dp devices
+with ring attention (`models/decoder.py`); the model runs on the mesh's
+first device. Not ported yet (ROADMAP Queue 1 item 5): dispatch chaining
+and the depth-2 fetch pipeline. The JAX engine's keywords for them are
+accepted at the values that ask for neither (`fused_attention=None`,
 `dispatch_chain=1`); any other value raises `NotImplementedError`.
 """
 from __future__ import annotations
@@ -52,7 +57,7 @@ logger = logging.getLogger(__name__)
 
 # the JAX engine's keywords for what is not ported, each with the one value
 # that asks for nothing the port lacks
-_LATER = {"sp_mesh": None, "fused_attention": None, "dispatch_chain": 1}
+_LATER = {"fused_attention": None, "dispatch_chain": 1}
 
 # the dense heads' activations (the JAX engine's `_ACTIVATIONS`: GELU is
 # jax.nn.gelu's tanh approximation)
@@ -111,7 +116,7 @@ class EmbeddingEngine:
                  batch_size: int = 32, normalize_embeddings: bool = False,
                  learned_weights=None, dense_heads: Optional[list] = None,
                  cache_dir: Optional[str] = None, text_prefix: str = "",
-                 quantize: Optional[str] = None, mesh=None, **later):
+                 quantize: Optional[str] = None, mesh=None, sp_mesh=None, **later):
         """device: where the model runs, the card ("cuda") by default;
         "cuda" without a card raises, and CPU use passes device="cpu". With
         a mesh, the mesh's first device (a device given must be it).
@@ -121,6 +126,9 @@ class EmbeddingEngine:
         module docstring). `model` is a `Decoder` (sharded here, after the
         int8 copy with quantize="int8") or a `ShardedDecoder` on this mesh
         (then quantize must be None: quantize before sharding).
+        sp_mesh: a `parallel.Mesh`: sequence-parallel encode (ring attention
+        over its dp devices; T pads to a multiple of the mesh's size); the
+        model runs on its first device. Exclusive with `mesh`.
 
         quantize: "int8" runs the decoder's projections as int8 weights ×
         per-token int8 activations (`ops/quant.py`) on a quantized copy:
@@ -139,20 +147,19 @@ class EmbeddingEngine:
         each location: pre-pool heads to every token's state, post-pool
         heads to the sentence embedding.
         text_prefix: prepended to every text before tokenization.
-        sp_mesh, fused_attention, dispatch_chain: the JAX engine's
-        keywords, accepted at None, None and 1 (see the module docstring)."""
+        fused_attention, dispatch_chain: the JAX engine's keywords,
+        accepted at None and 1 (see the module docstring)."""
         unknown = set(later) - set(_LATER)
         if unknown:
             raise TypeError(f"EmbeddingEngine: unexpected arguments {sorted(unknown)}")
-        if mesh is not None and later.get("sp_mesh") is not None:
+        if mesh is not None and sp_mesh is not None:
             raise ValueError("pass either mesh (dp encode) or sp_mesh "
                              "(sequence-parallel long-context encode), not both")
         asked = sorted(k for k, v in later.items()
                        if not (v is None if _LATER[k] is None else v == _LATER[k]))
         if asked:
             raise NotImplementedError(
-                f"EmbeddingEngine: {asked} not ported yet (ROADMAP Queue 1 "
-                "items 5, 11)")
+                f"EmbeddingEngine: {asked} not ported yet (ROADMAP Queue 1 item 5)")
         if method not in POOLERS and method not in STACK_POOLERS \
                 and method != "learned_weightedmean":
             raise ValueError(f"unknown pooling method {method!r}")
@@ -161,7 +168,8 @@ class EmbeddingEngine:
         if model.cfg != cfg:
             raise ValueError("EmbeddingEngine: cfg differs from the model's config")
         self.mesh = mesh
-        self.device = device = placement(device, mesh, "EmbeddingEngine")
+        self.sp_mesh = sp_mesh
+        self.device = device = placement(device, mesh or sp_mesh, "EmbeddingEngine")
         self.model = place_model(model, quantize, device, mesh)
         self.quantize = quantize
         if mesh is not None and batch_size % mesh.shape["dp"]:
@@ -231,13 +239,14 @@ class EmbeddingEngine:
         mask_t = torch.from_numpy(mask).to(device)
         L = self.cfg.num_layers
         stacked = self.method in STACK_POOLERS or self.layeridx not in (-1, L)
+        sp = {} if self.sp_mesh is None else {"sp_mesh": self.sp_mesh}
         with torch.inference_mode(), matmul_precision(self.cfg.matmul_precision):
             if stacked:
-                stack = model(ids_t, mask_t, output_hidden_states=True)
+                stack = model(ids_t, mask_t, output_hidden_states=True, **sp)
             if self.method in STACK_POOLERS:
                 emb = pool(self.method, stack, mask_t)
             else:
-                hidden = stack[self.layeridx] if stacked else model(ids_t, mask_t)
+                hidden = stack[self.layeridx] if stacked else model(ids_t, mask_t, **sp)
                 hidden = apply_heads(hidden, heads["pre_pool"])
                 emb = pool_single(hidden, mask_t, self.method, learned_weights)
             emb = apply_heads(emb, heads["post_pool"])
@@ -263,8 +272,16 @@ class EmbeddingEngine:
                               if b <= self.codec.max_seq_len]
         for T in lengths:
             B = self._rows_for_bucket(T)
+            T = self._sp_length(T)
             self._embed(np.zeros((B, T), np.int32), np.ones((B, T), np.int32))
         return self
+
+    def _sp_length(self, T: int) -> int:
+        """T rounded up to a multiple of the sp_mesh's size (the JAX rule)."""
+        if self.sp_mesh is None:
+            return T
+        n = int(np.prod(list(self.sp_mesh.shape.values())))
+        return (T + n - 1) // n * n
 
     def encode(self, texts: Sequence[str], *, is_query: bool = False,
                show_progress: bool = False) -> np.ndarray:
@@ -294,6 +311,10 @@ class EmbeddingEngine:
             s += len(sel)
             enc = self.codec.pad_rows([rows[i] for i in sel], pad_to=T)
             ids, mask = enc.input_ids, enc.attention_mask
+            t_pad = self._sp_length(T) - T
+            if t_pad:  # ring attention shards T: right pads, causally invisible
+                ids = np.pad(ids, ((0, 0), (0, t_pad)), constant_values=self.tokenizer.pad_id)
+                mask = np.pad(mask, ((0, 0), (0, t_pad)))
             if len(sel) < B:  # pad to the bucket's row count by tiling the last row
                 pad = B - len(sel)
                 ids = np.concatenate([ids, np.tile(ids[-1:], (pad, 1))])

@@ -10,15 +10,18 @@ in-batch), the batch-triplet family over a label-driven distance matrix and
 MegaBatchMargin. Each follows the JAX function's arithmetic, masks included
 (static-shape `where`s, not the upstream code's boolean indexing), so that
 value and gradient match it. Every loss is a plain function of tensors.
-The sharded `mnrl_loss_dp` waits for the meshes (ROADMAP Queue 1 item 12).
+`mnrl_loss_dp` is MNRL over a mesh's dp rows (per-row lists of tensors, the
+single-controller form of the JAX shard_map loss), which the trainer's mesh
+step runs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
 from .ops.similarity import _norm, cos_sim, dot_score, pairwise_cos_sim
+from .parallel.collectives import all_gather, all_reduce_sum
 
 
 def _cross_entropy(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -37,10 +40,27 @@ def mnrl_loss(anchors: torch.Tensor, positives: torch.Tensor,
     return _cross_entropy(scores, labels)
 
 
-def mnrl_loss_dp(*args, **kwargs):
-    """MNRL over a data-parallel axis (the JAX shard_map form)."""
-    raise NotImplementedError("mnrl_loss_dp (data-parallel MNRL over a mesh) — "
-                              "ROADMAP Queue 1 item 12")
+def mnrl_loss_dp(anchors: Sequence[torch.Tensor], positives: Sequence[torch.Tensor],
+                 negatives: Optional[Sequence[torch.Tensor]] = None, *,
+                 scale: float = 20.0, similarity: str = "cos_sim") -> List[torch.Tensor]:
+    """MNRL over a mesh's dp axis (the JAX shard_map form): each argument is
+    a list with one (n_local, D) block per dp row, on that row's device.
+    Row r's anchors are scored against the positives (and hard negatives)
+    of every row, gathered in row order on its device, with labels offset
+    by r·n_local; the loss is the mean of the rows' losses, one copy per
+    row on its device (the JAX `pmean`). Value and gradients equal
+    `mnrl_loss` on the rows concatenated."""
+    sim = cos_sim if similarity == "cos_sim" else dot_score
+    candidates = all_gather(positives, dim=0)
+    if negatives is not None:
+        candidates = [torch.cat([p, n], 0)
+                      for p, n in zip(candidates, all_gather(negatives, dim=0))]
+    losses = []
+    for r, (a, c) in enumerate(zip(anchors, candidates)):
+        n_local = a.shape[0]
+        labels = torch.arange(n_local, device=a.device) + r * n_local
+        losses.append(_cross_entropy(sim(a, c) * scale, labels))
+    return [t / len(losses) for t in all_reduce_sum(losses)]
 
 
 def _euclidean(a, b):

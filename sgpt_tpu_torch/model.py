@@ -38,7 +38,8 @@ ASYM_FORMAT = "sgpt_tpu_torch.asym.v1"
 class SGPTModel:
     """A decoder and how it embeds. `model` is the port's `Decoder` (not a
     copy: an `SGPTModel` from `ContrastiveTrainer.export_model` shares the
-    trainer's live module); `dense_heads` is a list of {"w": (in, out),
+    trainer's live module), or a `ShardedDecoder` with its `mesh`, which
+    the engines then run on; `dense_heads` is a list of {"w": (in, out),
     ["b"], "activation", "location"} in application order; `device` is
     where the engine runs, the card by default. `tokenizer_name` is the HF
     tokenizer that `load` reads back: `save` needs it unless `tokenizer` is
@@ -57,18 +58,19 @@ class SGPTModel:
     tokenizer_name: Optional[str] = None
     batch_size: int = 32
     device: Any = "cuda"
+    mesh: Any = None
 
     def engine(self, **overrides) -> EmbeddingEngine:
         """An `EmbeddingEngine` with this model's settings; `overrides` (any
-        engine keyword, `mesh=` included: the engine then runs on the mesh's
-        devices, not on `device`) replace them."""
-        kw = dict(device=self.device, method=self.method, specb=self.specb,
+        engine keyword, `mesh=` included: with a mesh the engine runs on the
+        mesh's devices, not on `device`) replace them."""
+        kw = dict(device=self.device, mesh=self.mesh, method=self.method, specb=self.specb,
                   layeridx=self.layeridx, normalize_embeddings=self.normalize,
                   max_seq_len=self.max_seq_len, dense_heads=self.dense_heads,
                   learned_weights=self.learned_weights, batch_size=self.batch_size)
-        if overrides.get("mesh") is not None:
-            del kw["device"]
         kw.update(overrides)
+        if kw["mesh"] is not None:
+            del kw["device"]
         return EmbeddingEngine(self.model, self.cfg, self.tokenizer, **kw)
 
     def encode(self, texts: Sequence[str], is_query: bool = False, **kw) -> np.ndarray:

@@ -44,11 +44,19 @@ key index, which equals the JAX XLA path's cumsum(mask) − 1 on every valid
 key of a right-padded row. TSDAE's decoder conditioning (`cond`,
 `cond_params`) adds a per-layer projection of the sentence embedding to
 each attention output, as the JAX forward does.
+
+Under an `sp_mesh` (sequence parallelism, the JAX forward's `sp_mesh=`) T
+is sharded over the mesh's dp devices: each holds its T/n positions through
+every layer (LayerNorms, projections, MLP, with the weights copied there,
+differentiably, where they do not live), and attention crosses the shards
+as ring attention (`ops/ring_attention.py`); positions (learned, rotary,
+ALiBi) stay global. No flash and no K1 run under sp, as in JAX.
 """
 from __future__ import annotations
 
 import functools
 import math
+import operator
 from typing import Mapping, Optional, Tuple
 
 import torch
@@ -57,6 +65,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import QuantizedWeight, int8_project, int8_project_row_parallel, is_quantized
+from ..ops.ring_attention import ring_attention_shards
 from ..parallel.collectives import all_gather, all_reduce_sum, gather_to, reduce_sum_to
 from ..ops.short_attention import short_attention
 from .config import DecoderConfig
@@ -310,6 +319,19 @@ class Attention(nn.Module):
         return (project(x, self.wq, self.bq), project(x, self.wk, self.bk),
                 project(x, self.wv, self.bv))
 
+    def rotate(self, q, k, rope):
+        """GPT-J's rotary on q and k, (B, T, H·Dh) each; without `rope`
+        they come back as they are."""
+        if rope is None:
+            return q, k
+        B, T, HD = q.shape
+        return tuple(apply_rotary(t.view(B, T, HD // self.Dh, self.Dh), *rope,
+                                  self.rotary_dim).reshape(B, T, HD) for t in (q, k))
+
+    def out(self, o):
+        """The output projection of the heads' output o, (B, T, H·Dh)."""
+        return project(o, self.wo, self.bo)
+
     def attend(self, q, k, v, key_mask, window: int, segment_ids, rope, slopes, kpos,
                bias=None):
         """Rotary, then attention over the q.shape[-1] // Dh heads of q, k
@@ -317,9 +339,7 @@ class Attention(nn.Module):
         the output projection."""
         B, T, HD = q.shape
         H = HD // self.Dh
-        if rope is not None:
-            q, k = (apply_rotary(t.view(B, T, H, self.Dh), *rope,
-                                 self.rotary_dim).reshape(B, T, HD) for t in (q, k))
+        q, k = self.rotate(q, k, rope)
         if self.plain:
             return plain_attention(q, k, v, bias, H, self.scale_attn)
         if self.use_flash and T % 128 == 0 and segment_ids is None:
@@ -336,8 +356,8 @@ class Attention(nn.Module):
                                causal=self.causal)
 
     def forward(self, x, key_mask, window: int, segment_ids, rope, slopes, kpos, bias=None):
-        out = self.attend(*self.qkv(x), key_mask, window, segment_ids, rope, slopes, kpos, bias)
-        return project(out, self.wo, self.bo)
+        return self.out(self.attend(*self.qkv(x), key_mask, window, segment_ids, rope,
+                                    slopes, kpos, bias))
 
 
 _ACTIVATIONS = {
@@ -389,13 +409,23 @@ class Block(nn.Module):
         self.post_ln = cfg.post_layernorm
 
     def forward(self, x, key_mask, segment_ids, rope, slopes, kpos, cond=None, bias=None):
+        h1 = self.pre(x)
+        return self.finish(x, h1, self.attn(h1, key_mask, self.window, segment_ids, rope,
+                                            slopes, kpos, bias), cond)
+
+    def pre(self, x):
+        """The attention's input: ln1(x), or x itself in a post-LN block."""
+        return x if self.post_ln else self.ln1(x)
+
+    def finish(self, x, h1, a, cond=None):
+        """The block's output from its input x, `pre(x)` and the attention
+        output a (after its output projection): the residuals and the MLP,
+        with TSDAE's `cond` (B, 1, D), the sentence embedding's projection,
+        added to a (not in a post-LN block)."""
         if self.post_ln:
-            x = self.ln1(x + self.attn(x, key_mask, self.window, segment_ids, rope, slopes,
-                                       kpos, bias))
+            x = self.ln1(x + a)
             return self.ln2(x + self.mlp(x))
-        h1 = self.ln1(x)
-        a = self.attn(h1, key_mask, self.window, segment_ids, rope, slopes, kpos, bias)
-        if cond is not None:  # TSDAE: the sentence embedding's projection, (B, 1, D)
+        if cond is not None:
             a = a + cond
         if self.ln2 is None:
             return x + a + self.mlp(h1)
@@ -510,15 +540,23 @@ class Decoder(nn.Module):
         dp and the weights Megatron-sharded over tp (`TPGroup`), sharded by
         `parallel.shard_params` for this call (for repeated calls, shard once
         and call the `ShardedDecoder`); results on the inputs' device.
-        sp_mesh (ring attention) is not ported (ROADMAP Queue 1 item 11)."""
+        sp_mesh: a `parallel.Mesh` whose dp axis (`devices[:, 0]`) shards T,
+        which must divide by its size: ring attention (see the module
+        docstring); results gathered on the inputs' device. Causal configs
+        only: bidirectional models, packed rows and T5's relative bias raise
+        `NotImplementedError`, as in JAX."""
         if sp_mesh is not None:
-            raise NotImplementedError("sp_mesh (ring attention) — ROADMAP Queue 1 item 11")
+            self._check_sp(segment_ids, tp_mesh)
         self._check_inputs(input_ids, position_ids, segment_ids, inputs_embeds, cond,
                            cond_params)
+        if sp_mesh is not None:
+            return self._sp_forward(input_ids, attention_mask, sp_mesh, output_hidden_states,
+                                    position_ids, token_type_ids, inputs_embeds, cond,
+                                    cond_params)
         if tp_mesh is not None:
             if cond is not None:
-                raise NotImplementedError("TSDAE conditioning under tp_mesh: training under a "
-                                          "mesh is not ported yet (ROADMAP Queue 1)")
+                raise NotImplementedError("TSDAE conditioning under tp_mesh: JAX's TSDAE "
+                                          "takes sp_mesh only, never a tensor-parallel mesh")
             from ..parallel.sharding import shard_params
             return shard_params(self, tp_mesh)(
                 input_ids, attention_mask, output_hidden_states=output_hidden_states,
@@ -533,28 +571,79 @@ class Decoder(nn.Module):
             dev = input_ids.device
         positions = torch.arange(T, device=dev) if position_ids is None else position_ids
         with matmul_precision(cfg.matmul_precision):
-            if inputs_embeds is not None:
-                x = inputs_embeds.to(cfg.dtype)
-            else:
-                x = self.wte[input_ids].to(cfg.dtype)
-            if self.wpe is not None:
-                x = x + self.wpe[positions].to(cfg.dtype)
-            x = self._embed_rest(x, token_type_ids)
+            x = self._embed(input_ids, inputs_embeds, positions, token_type_ids)
             key_mask, rope, slopes, kpos, segment_ids, bias = self._side_inputs(
                 attention_mask, positions, segment_ids, B, T)
 
             hidden = [x]
             for i, layer in enumerate(self.layers):
-                proj = None
-                if cond is not None:
-                    proj = (cond.to(x.dtype) @ cond_params["w"][i].to(x.dtype)
-                            + cond_params["b"][i].to(x.dtype))[:, None, :]
-                x = layer(x, key_mask, segment_ids, rope, slopes, kpos, proj, bias)
+                x = layer(x, key_mask, segment_ids, rope, slopes, kpos,
+                          _cond_proj(cond, cond_params, i, cfg.dtype), bias)
                 hidden.append(x)
             final = x if self.ln_f is None else self.ln_f(x)
             if output_hidden_states:
                 return torch.stack(hidden[:-1] + [final])
             return final
+
+    def _check_sp(self, segment_ids, tp_mesh) -> None:
+        """The JAX forward's refusals under sp_mesh."""
+        cfg = self.cfg
+        if tp_mesh is not None:
+            raise ValueError("pass either tp_mesh or sp_mesh, not both")
+        if cfg.bidirectional:
+            raise NotImplementedError(
+                "ring attention is causal-only; BERT sp encode is unsupported")
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "sequence packing (segment_ids) is unsupported under sp_mesh: "
+                "ring attention encodes only the causal+padding structure")
+        if cfg.relative_attention:
+            raise NotImplementedError(
+                "relative position bias (T5) is unsupported under sp_mesh")
+
+    def _sp_forward(self, input_ids, attention_mask, sp_mesh, output_hidden_states,
+                    position_ids, token_type_ids, inputs_embeds, cond, cond_params):
+        """`forward` with T sharded over sp_mesh's dp devices (ring attention)."""
+        cfg = self.cfg
+        devices = list(sp_mesh.devices[:, 0])
+        lead = inputs_embeds if inputs_embeds is not None else input_ids
+        B, T = lead.shape[:2]
+        dev, n = lead.device, len(devices)
+        if T % n:
+            raise ValueError(f"sp_mesh: T={T} must divide by the sp axis size {n} "
+                             "(ring attention shards T); pad the rows")
+        t = T // n
+        positions = torch.arange(T, device=dev) if position_ids is None else position_ids
+
+        def cut(x, dim=1):  # shard r's positions of x, on its device
+            return [x.narrow(dim, r * t, t).to(d, non_blocking=True)
+                    for r, d in enumerate(devices)]
+
+        with matmul_precision(cfg.matmul_precision):
+            xs = cut(self._embed(input_ids, inputs_embeds, positions, token_type_ids))
+            masks = cut(attention_mask.to(torch.int32))
+            ropes = [None] * n
+            if cfg.position_embedding == "rotary":
+                sin, cos = (r.to(cfg.dtype) for r in rope_sincos(positions, cfg.rotary_dim))
+                ropes = list(zip(cut(sin, sin.dim() - 2), cut(cos, cos.dim() - 2)))
+            slopes = (alibi_slopes(cfg.num_heads, dev)
+                      if cfg.position_embedding == "alibi" else None)
+            hidden = [xs]
+            for i, layer in enumerate(self.layers):
+                xs = _sp_block(layer, xs, masks, ropes, slopes, devices,
+                               _cond_proj(cond, cond_params, i, cfg.dtype))
+                hidden.append(xs)
+            final = xs if self.ln_f is None else [_run(self.ln_f, _on_device(self.ln_f, d),
+                                                       "forward", x)
+                                                  for x, d in zip(xs, devices)]
+            hidden[-1] = final
+
+            def gather(parts):
+                return torch.cat([p.to(dev) for p in parts], dim=1)
+
+            if output_hidden_states:
+                return torch.stack([gather(h) for h in hidden])
+            return gather(final)
 
     @staticmethod
     def _check_inputs(input_ids, position_ids, segment_ids, inputs_embeds, cond=None,
@@ -568,6 +657,16 @@ class Decoder(nn.Module):
                 "positions that restart at each segment boundary")
         if input_ids is None and inputs_embeds is None:
             raise ValueError("Decoder: pass input_ids or inputs_embeds")
+
+    def _embed(self, input_ids, inputs_embeds, positions, token_type_ids):
+        """The embedding output: the token embeddings (or the caller's
+        `inputs_embeds`), the learned positions, then `_embed_rest`."""
+        dtype = self.cfg.dtype
+        x = (inputs_embeds.to(dtype) if inputs_embeds is not None
+             else self.wte[input_ids].to(dtype))
+        if self.wpe is not None:
+            x = x + self.wpe[positions].to(dtype)
+        return self._embed_rest(x, token_type_ids)
 
     def _embed_rest(self, x, token_type_ids):
         """The token types (BERT; zeros by default) and the embedding
@@ -627,6 +726,75 @@ class Decoder(nn.Module):
                 return F.linear(hidden, self.lm_head.w.to(hidden.dtype),
                                 None if b is None else b.to(hidden.dtype))
             return F.linear(hidden, self.wte.to(hidden.dtype))
+
+
+def _cond_proj(cond, cond_params, i: int, dtype):
+    """TSDAE's conditioning of layer i, (cond @ w[i] + b[i]) as (B, 1, D)
+    in `dtype`; None without `cond`."""
+    if cond is None:
+        return None
+    return (cond.to(dtype) @ cond_params["w"][i].to(dtype)
+            + cond_params["b"][i].to(dtype))[:, None, :]
+
+
+class _Method(nn.Module):
+    """`module.<path>(*args)` as a forward, so that
+    `torch.func.functional_call` can run a method other than `forward`."""
+
+    def __init__(self, module: nn.Module, path: str):
+        super().__init__()
+        self.m = module
+        self.path = path
+
+    def forward(self, *args):
+        return operator.attrgetter(self.path)(self.m)(*args)
+
+
+def _on_device(module: nn.Module, device) -> Optional[dict]:
+    """`module`'s parameters and buffers on `device`, by name: None where
+    they all live there, else differentiable copies (the gradients reach
+    the module's own)."""
+    state = dict(module.named_parameters())
+    state.update(module.named_buffers())
+    if all(t.device == device for t in state.values()):
+        return None
+    return {k: t.to(device) for k, t in state.items()}
+
+
+def _run(module: nn.Module, state: Optional[dict], path: str, *args):
+    """module.<path>(*args): the module's own code, on `state` (from
+    `_on_device`) where that is not None."""
+    if state is None:
+        return operator.attrgetter(path)(module)(*args)
+    return torch.func.functional_call(_Method(module, path),
+                                      {"m." + k: t for k, t in state.items()}, args)
+
+
+def _sp_block(layer: Block, xs, masks, ropes, slopes, devices, cond):
+    """One causal block over sequence shards, through the block's own
+    methods: per shard `pre`, q/k/v and rotary, then ring attention across
+    the shards, then per shard the output projection and `finish` (TSDAE's
+    `cond`, the residuals, the MLP); on a shard's device through copies of
+    the block's weights where they live elsewhere."""
+    states = [_on_device(layer, d) for d in devices]
+    h1s, qs, ks, vs = [], [], [], []
+    for x, rope, state in zip(xs, ropes, states):
+        h1 = _run(layer, state, "pre", x)
+        q, k, v = _run(layer, state, "attn.qkv", h1)
+        q, k = layer.attn.rotate(q, k, rope)
+        B, t, _ = q.shape
+        for acc, u in zip((qs, ks, vs), (q, k, v)):   # (B, H, t, Dh)
+            acc.append(u.view(B, t, -1, layer.attn.Dh).transpose(1, 2))
+        h1s.append(h1)
+    outs = ring_attention_shards(qs, ks, vs, masks, slopes, scale=layer.attn.scale,
+                                 window=layer.window)
+    new = []
+    for x, h1, o, state, d in zip(xs, h1s, outs, states, devices):
+        B, H, t, Dh = o.shape
+        a = _run(layer, state, "attn.out", o.transpose(1, 2).reshape(B, t, H * Dh))
+        new.append(_run(layer, state, "finish", x, h1, a,
+                        None if cond is None else cond.to(d)))
+    return new
 
 
 class TPGroup:

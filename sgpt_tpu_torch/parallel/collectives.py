@@ -10,6 +10,13 @@ repeated device it is the tensor itself. The sums add the shards in shard
 order (shard 0 first) on every device, so a device's result, and a run's,
 repeats bit for bit; a device that holds several shards computes its
 result once, and its shards share it.
+
+Every function is built from `.to()`, `torch.add`, `torch.maximum` and
+`torch.cat`, so autograd transposes it: the backward of an all-reduce sums
+the gradients of every result into each part (on a repeated device the one
+shared result has gathered its shards' gradients first, and passes their sum
+on once), and the backward of a gather hands each part its slice. Training
+under a mesh adds `sum_grads`: one gradient for all the copies of a leaf.
 """
 from __future__ import annotations
 
@@ -64,6 +71,24 @@ def reduce_sum_to(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
 def gather_to(parts: Sequence[torch.Tensor], device, dim: int = -1) -> torch.Tensor:
     """The parts concatenated along `dim` in shard order, on one device."""
     return torch.cat([p.to(device, non_blocking=True) for p in parts], dim=dim)
+
+
+def sum_grads(copies: Sequence[torch.Tensor]) -> None:
+    """Give every copy of a leaf (its pieces on the shards that hold it) the
+    sum of all the copies' `.grad`, added in shard order (shard 0 first) on
+    each copy's device; a copy with no gradient counts as zero. Each copy
+    gets its own tensor, and every copy the same bits. No gradient at all
+    leaves every `.grad` None."""
+    grads = [c.grad for c in copies if c.grad is not None]
+    if not grads:
+        return
+    totals = {d: _fold(torch.add, [g.to(d, non_blocking=True) for g in grads])
+              for d in dict.fromkeys(c.device for c in copies)}
+    given = set()
+    for c in copies:
+        t = totals[c.device]
+        c.grad = t if c.device not in given else t.clone()
+        given.add(c.device)
 
 
 def gather_rows(parts: Sequence[torch.Tensor]) -> np.ndarray:

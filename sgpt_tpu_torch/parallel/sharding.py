@@ -17,13 +17,17 @@ is the port's row axis.
 A spec is a tuple with one entry per axis of the port's tensor: "tp" on the
 sharded axis, None elsewhere. `shard_params` cuts a `Decoder` by these
 specs over a `Mesh`: dp row i holds a `TPGroup` (`models/decoder.py`) whose
-shard j lives on `mesh.devices[i, j]`.
+shard j lives on `mesh.devices[i, j]`. For training (`trainable=True`) every
+piece is a fresh trainable copy; `unshard_params` (and the sharded model's
+`state_dict`) concatenates dp row 0's pieces back into the meshless tree,
+bit for bit, and `load_state_dict` cuts a meshless tree into every shard in
+place.
 """
 from __future__ import annotations
 
 import copy
 import itertools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,11 +89,12 @@ def _piece(t: torch.Tensor, spec: Spec, j: int, tp: int, name: str) -> torch.Ten
 
 
 def _shard_module(model: nn.Module, specs: Dict[str, Spec], j: int, tp: int,
-                  device: torch.device) -> nn.Module:
+                  device: torch.device, trainable: bool = False) -> nn.Module:
     """A copy of `model` whose every parameter and buffer is its shard j of
-    tp, on `device`, for inference. A piece already on `device` and
+    tp, on `device`. For inference a piece already on `device` and
     contiguous is not copied (a replica on the model's own device shares
-    its storage); any other piece is copied there."""
+    its storage) and any other piece is copied there; with `trainable`
+    every piece is a fresh copy whose parameters require grad."""
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
     shard = copy.deepcopy(model, shared)
     for mod_name, mod in shard.named_modules():
@@ -99,11 +104,12 @@ def _shard_module(model: nn.Module, specs: Dict[str, Spec], j: int, tp: int,
                 if t is None:
                     continue
                 name = prefix + leaf
-                piece = _piece(t.detach(), specs[name], j, tp, name)
-                piece = piece.to(device).contiguous()
-                store[leaf] = (nn.Parameter(piece, requires_grad=False)
+                piece = _piece(t.detach(), specs[name], j, tp, name).to(device)
+                piece = (piece.clone(memory_format=torch.contiguous_format) if trainable
+                         else piece.contiguous())
+                store[leaf] = (nn.Parameter(piece, requires_grad=trainable)
                                if store is mod._parameters else piece)
-    return shard.eval()
+    return shard.train(trainable)
 
 
 class ShardedDecoder:
@@ -112,16 +118,20 @@ class ShardedDecoder:
     replica of the model). The engine and the ranker split a batch's rows
     over the groups themselves; calling this object does the same for one
     batch (rows split contiguously over dp, results gathered on the inputs'
-    device in row order)."""
+    device in row order). With `trainable` every shard owns fresh trainable
+    copies of its pieces (`parallel.shard_params(..., trainable=True)`, the
+    trainer's): then the copies of one piece in the dp rows, and of a whole
+    leaf in every shard, are separate tensors that training keeps equal."""
 
-    def __init__(self, model: nn.Module, mesh: Mesh):
+    def __init__(self, model: nn.Module, mesh: Mesh, trainable: bool = False):
         from ..models.decoder import TPGroup
 
         self.cfg = model.cfg
         self.mesh = mesh
-        specs = param_specs(model)
+        self.specs = param_specs(model)
         dp, tp = mesh.shape["dp"], mesh.shape["tp"]
-        self.groups = [TPGroup([_shard_module(model, specs, j, tp, mesh.devices[i, j])
+        self.groups = [TPGroup([_shard_module(model, self.specs, j, tp, mesh.devices[i, j],
+                                              trainable)
                                 for j in range(tp)]) for i in range(dp)]
 
     @property
@@ -155,18 +165,68 @@ class ShardedDecoder:
         """The LM head of dp row 0's group (on its devices)."""
         return self.groups[0].logits(hidden.to(self.device))
 
+    def train(self, mode: bool = True) -> "ShardedDecoder":
+        for g in self.groups:
+            for s in g.shards:
+                s.train(mode)
+        return self
 
-def shard_params(model, mesh: Mesh) -> ShardedDecoder:
+    def state_dict(self, names: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+        """The meshless state dict on `device`: each leaf's tp pieces of dp
+        row 0 concatenated along its sharded axis (a whole leaf copied), in
+        fresh tensors: bit for bit the tree that was sharded. `names`: only
+        these leaves (a trainer's best-model snapshot of its trainable
+        leaves)."""
+        sds = [s.state_dict() for s in self.groups[0].shards]
+        keep = None if names is None else set(names)
+        out = {}
+        for name, t in sds[0].items():
+            if keep is not None and name not in keep:
+                continue
+            spec = self.specs[name]
+            axis = spec.index("tp") if "tp" in spec else None
+            out[name] = (t.detach().to(self.device, copy=True) if axis is None else
+                         torch.cat([sd[name].detach().to(self.device) for sd in sds], axis))
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Cut a meshless state dict by the specs into every shard, in place
+        (the tensors, and an optimizer's hold on them, stay)."""
+        tp = self.mesh.shape["tp"]
+        for g in self.groups:
+            for j, s in enumerate(g.shards):
+                live = s.state_dict(keep_vars=True)
+                if set(live) != set(state):
+                    raise ValueError(f"load_state_dict: keys differ from the model's: "
+                                     f"{sorted(set(live) ^ set(state))[:8]}")
+                for name, t in live.items():
+                    t.copy_(_piece(state[name], self.specs[name], j, tp, name))
+
+
+def shard_params(model, mesh: Mesh, trainable: bool = False) -> ShardedDecoder:
     """`model` (a `Decoder`, float or int8) sharded over `mesh` by
     `param_specs`; a `ShardedDecoder` already on `mesh` comes back as it is.
     Quantize before sharding (the JAX CLIs' order): the int8 scales of a
-    row-parallel weight span its whole contraction axis."""
+    row-parallel weight span its whole contraction axis. `trainable`: every
+    piece a fresh copy that requires grad (see `ShardedDecoder`)."""
     if isinstance(model, ShardedDecoder):
         if model.mesh != mesh:
             raise ValueError(f"shard_params: the model is sharded over {model.mesh}, "
                              f"not {mesh}")
         return model
-    return ShardedDecoder(model, mesh)
+    return ShardedDecoder(model, mesh, trainable)
+
+
+def unshard_params(model: ShardedDecoder, device=None):
+    """The inverse of `shard_params`: a meshless `Decoder` on `device` (the
+    mesh's first by default) holding dp row 0's pieces concatenated leaf by
+    leaf along `param_specs`' axes: a round trip gives the weights bit for
+    bit (int8 buffers included)."""
+    from ..models.decoder import Decoder
+
+    return Decoder(model.cfg, device=model.device if device is None else device,
+                   weights=model.state_dict())
 
 
 class RowShards:

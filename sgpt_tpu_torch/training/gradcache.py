@@ -10,6 +10,11 @@
 Peak memory is one chunk's activations plus the representations. The
 decoder has no dropout, so the second forward replays the first exactly and
 needs no RNG capture (the torch original's `RandContext`).
+
+Under a mesh (`gradcache_backward_rows`) each chunk's rows are split over
+the dp rows, as the JAX trainer shards chunks P(None, "dp", None): dp row r
+encodes its block of every chunk with its own encoder, keeps its
+representations on its device, and the loss takes one list per tower.
 """
 from __future__ import annotations
 
@@ -45,16 +50,34 @@ def gradcache_backward(encode_fn: Callable[[Dict[str, Any]], torch.Tensor],
     encode_fn(chunk) -> (chunk, D) representations; loss_fn(*tower_reps) ->
     scalar (e.g. `losses.mnrl_loss`); each tower is {name: (n_chunks, chunk,
     ...)} (see `chunk_tree`). Returns the loss, detached."""
+    return gradcache_backward_rows([encode_fn], lambda *lists: loss_fn(*[r[0] for r in lists]),
+                                   [towers])
+
+
+def gradcache_backward_rows(encode_fns: Sequence[Callable[[Dict[str, Any]], torch.Tensor]],
+                            loss_fn: Callable[..., torch.Tensor],
+                            rows: Sequence[Sequence[Dict[str, Any]]]) -> torch.Tensor:
+    """`gradcache_backward` over dp rows: rows[r] holds dp row r's towers
+    (its block of each chunk, on its device), encode_fns[r] its encoder;
+    loss_fn(*per_tower_lists) -> scalar takes, for each tower, the list of
+    the rows' (n_local, D) representations (e.g. `losses.mnrl_loss_dp`).
+    Pass 2 re-encodes row by row within each chunk, so `.grad` accumulates
+    on each row's parameters. Returns the loss, detached."""
     # Pass 1: chunked encode, no autograd graph kept.
     with torch.no_grad():
-        reps = [torch.cat([encode_fn(c) for c in _chunks(t)]) for t in towers]
+        reps = [[torch.cat([enc(c) for c in _chunks(t)]) for t in towers]
+                for enc, towers in zip(encode_fns, rows)]
     # Loss and its gradient with respect to the representations only.
-    reps = [r.detach().requires_grad_() for r in reps]
-    loss = loss_fn(*reps)
-    rep_grads = torch.autograd.grad(loss, reps)
+    reps = [[r.detach().requires_grad_() for r in row] for row in reps]
+    loss = loss_fn(*[list(tower) for tower in zip(*reps)])
+    grads = torch.autograd.grad(loss, [r for row in reps for r in row])
+    n_towers = len(rows[0])
+    rep_grads = [grads[i * n_towers:(i + 1) * n_towers] for i in range(len(rows))]
     # Pass 2: chunked re-encode with the surrogate; .grad accumulates.
-    for tower, rg in zip(towers, rep_grads):
-        chunks = _chunks(tower)
-        for chunk, cache in zip(chunks, rg.split(rg.shape[0] // len(chunks))):
-            (encode_fn(chunk) * cache).sum().backward()
+    for t in range(n_towers):
+        per_row = [_chunks(towers[t]) for towers in rows]
+        for c in range(len(per_row[0])):
+            for enc, chunks, rg in zip(encode_fns, per_row, rep_grads):
+                n = rg[t].shape[0] // len(chunks)
+                (enc(chunks[c]) * rg[t][c * n:(c + 1) * n]).sum().backward()
     return loss.detach()

@@ -17,8 +17,11 @@ decoder, the configuration the TSDAE paper recommends:
 Encoder and decoder are one module, so the gradients of both paths meet in
 the same parameters. Every sentence pads to `max_seq_len` (75): on the card
 each step runs K1 forward and K2 backward at T=75 for the encoder and at
-T=74, with an all-ones key mask, for the decoder. The JAX trainer's
-sequence-parallel `sp_mesh` is not ported (ROADMAP Queue 1 item 11).
+T=74, with an all-ones key mask, for the decoder. With an `sp_mesh`
+(long-document TSDAE) both sides ring-attend with T sharded over the mesh's
+dp devices; the encoder pads to a multiple of the sp size and the decoder,
+which reads one token fewer, to one more than a multiple. JAX's TSDAE takes
+no tensor-parallel mesh, and neither does this one.
 """
 from __future__ import annotations
 
@@ -51,18 +54,21 @@ def init_tsdae_params(cfg: DecoderConfig, generator: Optional[torch.Generator] =
 
 def tsdae_loss(model: Decoder, tsdae_params: dict, src_ids: torch.Tensor,
                src_mask: torch.Tensor, tgt_ids: torch.Tensor, tgt_mask: torch.Tensor,
-               pooling: str = "weightedmean") -> torch.Tensor:
+               pooling: str = "weightedmean", sp_mesh=None) -> torch.Tensor:
     """Encoder(noisy) → rep; the tied decoder reconstructs the original.
 
     src_*: the noisy sentence (encoder input); tgt_*: the original. The
     decoder reads tgt[:, :-1] with an all-ones mask (the reference passes
     no mask: right pads are causally invisible to real tokens) and is
-    scored against tgt[:, 1:]; padded label positions leave the mean."""
-    rep = POOLERS[pooling](model(src_ids, src_mask), src_mask)
+    scored against tgt[:, 1:]; padded label positions leave the mean.
+    sp_mesh: both forwards ring-attend over it (the encoder's T and the
+    decoder's T - 1 must divide by its size)."""
+    sp = {} if sp_mesh is None else {"sp_mesh": sp_mesh}
+    rep = POOLERS[pooling](model(src_ids, src_mask, **sp), src_mask)
     dec_ids = tgt_ids[:, :-1]
     labels = tgt_ids[:, 1:]
     label_mask = tgt_mask[:, 1:].float()
-    h = model(dec_ids, torch.ones_like(dec_ids), cond=rep, cond_params=tsdae_params)
+    h = model(dec_ids, torch.ones_like(dec_ids), cond=rep, cond_params=tsdae_params, **sp)
     logp = torch.log_softmax(model.logits(h).float(), dim=-1)
     tok = logp.gather(-1, labels[..., None].long())[..., 0]
     return -(tok * label_mask).sum() / label_mask.sum().clamp_min(1.0)
@@ -80,10 +86,9 @@ class TSDAETrainer:
                  lr: float = 3e-5, weight_decay: float = 0.0,
                  freeze_nonbias: bool = False, seed: int = 0, sp_mesh=None):
         """model: the port's `Decoder`, on the device to train on; the other
-        arguments have the JAX trainer's meaning."""
-        if sp_mesh is not None:
-            raise NotImplementedError("sp_mesh (sequence-parallel TSDAE) — "
-                                      "ROADMAP Queue 1 item 11")
+        arguments have the JAX trainer's meaning. sp_mesh: sequence-parallel
+        long-document TSDAE (a `parallel.Mesh`; ring attention over its dp
+        axis in the encoder and the tied decoder, which pad separately)."""
         if pooling not in POOLERS:
             raise ValueError(f"unknown pooling {pooling!r}; choose from {sorted(POOLERS)}")
         if model.cfg != cfg:
@@ -95,6 +100,16 @@ class TSDAETrainer:
         self.cfg = cfg
         self.pooling = pooling
         self.max_seq_len = max_seq_len
+        self.sp_mesh = sp_mesh
+        self._src_pad = self._tgt_pad = max_seq_len
+        if sp_mesh is not None:
+            if "dp" not in sp_mesh.shape:
+                raise ValueError("sp_mesh needs a 'dp' axis — ring attention shards the "
+                                 "sequence over it")
+            n_sp = sp_mesh.shape["dp"]
+            up = lambda n: (n + n_sp - 1) // n_sp * n_sp  # noqa: E731
+            self._src_pad = up(max_seq_len)            # the encoder reads T
+            self._tgt_pad = up(max_seq_len - 1) + 1    # the decoder reads T - 1
         self.codec = SpecbCodec(tokenizer, max_seq_len=max_seq_len, specb=False,
                                 clean_newlines=False)  # raw text, as ST trains
         self.device = next(model.parameters()).device
@@ -127,8 +142,8 @@ class TSDAETrainer:
         return {"model": self.model.state_dict(),
                 "tsdae": {k: t.detach() for k, t in self.tsdae.items()}}
 
-    def _tokenize(self, texts) -> tuple:
-        enc = self.codec.encode(list(texts), is_query=False, pad_to=self.max_seq_len)
+    def _tokenize(self, texts, pad_to: int) -> tuple:
+        enc = self.codec.encode(list(texts), is_query=False, pad_to=pad_to)
         ids = np.asarray(enc.input_ids)
         check_token_ids(ids, self.cfg.vocab_size)
         return (torch.from_numpy(ids.astype(np.int64)).to(self.device),
@@ -139,7 +154,7 @@ class TSDAETrainer:
         (src_ids, src_mask, tgt_ids, tgt_mask) on the model's device."""
         noisy = [p.texts[0] if hasattr(p, "texts") else p[0] for p in pairs]
         orig = [p.texts[1] if hasattr(p, "texts") else p[1] for p in pairs]
-        return (*self._tokenize(noisy), *self._tokenize(orig))
+        return (*self._tokenize(noisy, self._src_pad), *self._tokenize(orig, self._tgt_pad))
 
     def step(self, batch: tuple) -> torch.Tensor:
         """One update on a prepared batch; the loss as a device scalar. The
@@ -147,7 +162,8 @@ class TSDAETrainer:
         takes the model's `matmul_precision`."""
         self._opt.zero_grad(set_to_none=True)
         with matmul_precision(self.cfg.matmul_precision):
-            loss = tsdae_loss(self.model, self.tsdae, *batch, pooling=self.pooling)
+            loss = tsdae_loss(self.model, self.tsdae, *batch, pooling=self.pooling,
+                              sp_mesh=self.sp_mesh)
             loss.backward()
         self._opt.step()
         return loss.detach()

@@ -1650,3 +1650,108 @@ def test_word_modules_on_the_card_equal_the_cpu(cuda, monkeypatch):
         got = fn(modules.params_to(params, cuda), x.to(cuda),
                  *[t.to(cuda) for t in extra]).cpu()
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# -- training under a mesh and sequence parallelism: cards named as many times
+# as the machine lacks (one card: `cuda:0` repeated; four cards: one shard each)
+
+def _mesh_devices(n):
+    """n mesh devices over the visible cards, round robin: distinct cards
+    where there are enough, `cuda:0` repeated on one card."""
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
+
+
+def test_collective_gradients_on_distinct_cards(cuda):
+    """On two cards each card computes its own sum; the backward hands every
+    part the sum of both results' gradients; `sum_grads` gives both copies
+    the same bits."""
+    from sgpt_tpu_torch.parallel import all_reduce_sum, sum_grads
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (distinct devices)")
+    devs = ["cuda:0", "cuda:1"]
+    g = torch.Generator().manual_seed(0)
+    parts = [torch.randn(2, 4, generator=g).to(d).requires_grad_() for d in devs]
+    ws = [torch.randn(2, 4, generator=g).to(d) for d in devs]
+    outs = all_reduce_sum(parts)
+    assert [o.device for o in outs] == [torch.device(d) for d in devs]
+    ((outs[0] * ws[0]).sum() + (outs[1] * ws[1]).sum().to(devs[0])).backward()
+    want = (ws[0] + ws[1].to(devs[0])).cpu()
+    for p in parts:
+        torch.testing.assert_close(p.grad.cpu(), want, rtol=0, atol=1e-6)
+    sum_grads(parts)
+    assert torch.equal(parts[0].grad.cpu(), parts[1].grad.cpu())
+
+
+def _tiny_triplets(n):
+    return [(f"anchor {i} text", f"positive {i} body words", f"negative {i} other words")
+            for i in range(n)]
+
+
+def test_mesh_training_on_the_card_equals_meshless(cuda):
+    """A 2 × 2 mesh (four cards, or `cuda:0` four times) of a 2-layer model
+    at GPT-Neo-125M's width, fp32 at "highest", 3 BitFit steps with GradCache
+    (chunks of 4): losses within rtol 2e-4 and parameters within rtol 3e-3,
+    atol 2e-5 of the meshless run on the card (JAX's tolerances), every copy
+    of a leaf bit-equal, K1 = 2 × K2 = 2 × L × dp × tp × 3 × chunks × steps."""
+    import copy
+
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.parallel import make_mesh
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+    from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig
+
+    cfg = gpt_neo("125m").replace(num_layers=2)
+    model = Decoder(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    tc = TrainConfig(batch_size=8, max_seq_len=32, lr=1e-3, freeze_nonbias=True,
+                     use_gradcache=True, chunk_size=4)
+    batches = [_tiny_triplets(8)] * 3
+    runs = []
+    for mesh in (None, make_mesh(dp=2, tp=2, devices=_mesh_devices(4))):
+        trainer = ContrastiveTrainer(copy.deepcopy(model) if mesh is None else model, cfg,
+                                     SimpleTokenizer(cfg.vocab_size), tc, mesh=mesh)
+        before = (sa.launches, sa.bwd_launches)
+        out = trainer.fit(lambda: iter(batches), steps_per_epoch=3)
+        runs.append((out, (sa.launches - before[0], sa.bwd_launches - before[1])))
+        assert all(torch.equal(gr[0].cpu(), c.cpu()) for gr in trainer._groups for c in gr[1:])
+    (want, _), (got, launched) = runs
+    n = 2 * 2 * 2 * 3 * 2 * 3   # layers × dp × tp × towers × chunks × steps
+    assert launched == (2 * n, n)
+    np.testing.assert_allclose([h["loss"] for h in got["history"]],
+                               [h["loss"] for h in want["history"]], rtol=2e-4)
+    for name, w in want["params"].items():
+        np.testing.assert_allclose(got["params"][name].cpu().numpy(), w.cpu().numpy(),
+                                   rtol=3e-3, atol=2e-5, err_msg=name)
+
+
+def test_sequence_parallel_forward_and_gradients_on_the_card(cuda):
+    """Ring attention over two devices (two cards, or `cuda:0` twice) at
+    T=256 with use_flash, fp32 at "highest": the hidden states within
+    2e-5 + 2e-5·|ref| of the meshless flash forward (K3; each of the two is
+    within K3's fp32 gate, 1e-5 + 1e-5·|ref|, of exact fp32), and the
+    gradients of a projection of them within 1e-4 of each leaf's norm
+    (K4a/K4b beside the ring's autograd); no attention kernel runs under
+    sp."""
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.ops import flash_attention as fa
+    from sgpt_tpu_torch.parallel import make_mesh
+
+    cfg = gpt_neo("125m", use_flash=True).replace(num_layers=2)
+    model = Decoder(cfg, device=cuda, generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=g).to(cuda)
+    mask = torch.ones_like(ids)
+    mask[1, 200:] = 0
+    proj = torch.randn(2, 256, cfg.hidden_size, generator=g).to(cuda) * mask[..., None]
+    res = []
+    for kw in ({}, {"sp_mesh": make_mesh(dp=2, devices=_mesh_devices(2))}):
+        before = (sa.launches, fa.launches)
+        h = model(ids, mask, **kw)
+        grads = torch.autograd.grad((h * proj).sum(), list(model.parameters()))
+        res.append((h.detach(), grads, (sa.launches - before[0], fa.launches - before[1])))
+    (want, wg, wl), (got, gg, gl) = res
+    assert wl == (0, 2) and gl == (0, 0)
+    torch.testing.assert_close((got * mask[..., None]), (want * mask[..., None]),
+                               rtol=2e-5, atol=2e-5)
+    for (name, _), a, b in zip(model.named_parameters(), gg, wg):
+        assert (a - b).abs().max() <= 1e-4 * max(b.norm().item(), 1e-12), name

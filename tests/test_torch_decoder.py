@@ -112,14 +112,22 @@ TSDAE_COND = dict(cond=torch.zeros(1, 64), cond_params={"w": torch.zeros(1, 64, 
                                                         "b": torch.zeros(1, 64)})
 
 
-@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(tp_mesh=TP_MESH, **TSDAE_COND),
-                                dict(sp_mesh=object(), tp_mesh=TP_MESH)])
-def test_unported_forward_arguments_raise(kw):
-    """Sequence parallelism (ring attention, ROADMAP Queue 1 item 11) and
-    TSDAE's conditioning under a tp mesh (training under a mesh) raise."""
+SP_MESH = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+
+
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(sp_mesh=SP_MESH, segment_ids=torch.zeros(1, 4, dtype=torch.int32),
+          position_ids=torch.zeros(1, 4, dtype=torch.int32)), NotImplementedError, "packing"),
+    (dict(tp_mesh=TP_MESH, **TSDAE_COND), NotImplementedError, "sp_mesh only"),
+    (dict(sp_mesh=SP_MESH, tp_mesh=TP_MESH), ValueError, "not both")])
+def test_unported_forward_arguments_raise(kw, error, match):
+    """What the JAX forward refuses raises: packed rows under sequence
+    parallelism (ring attention), TSDAE's conditioning under a tp mesh
+    (JAX's TSDAE takes sp_mesh only), and an sp and a tp mesh together
+    (tests/test_torch_ring_attention.py: the other sp refusals)."""
     model = Decoder(tiny("neo", num_layers=1), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         model(ids, torch.ones_like(ids), **kw)
 
 

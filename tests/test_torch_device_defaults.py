@@ -5,13 +5,17 @@ family, the encoder families included, and a local checkpoint) default to
 device "cuda", and without a card they raise rather than fall back to the
 CPU; so do `make_mesh()` (every visible card) and a mesh of CUDA devices,
 and the mesh path of `beir_retriever`, `sgptce` and `serve` (`--dp`/`--tp`
-over the default `--device cuda`): no silent CPU mesh."""
+over the default `--device cuda`): no silent CPU mesh. So do training under a
+mesh and sequence parallelism: `ContrastiveTrainer(mesh=make_mesh())`,
+`sp_mesh=` on the trainer, the engine and TSDAE, and `train_msmarco` /
+`train_nli --dp 2 --tp 2` over the default `--device cuda`."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from sgpt_tpu_torch.cli import beir_retriever, serve, sgptce  # noqa: E402
+from sgpt_tpu_torch.cli import (beir_retriever, serve, sgptce, train_msmarco,  # noqa: E402
+                                 train_nli)
 from sgpt_tpu_torch.cli.common import build_model  # noqa: E402
 from sgpt_tpu_torch.crossencoder import CrossEncoderRanker  # noqa: E402
 from sgpt_tpu_torch.encoder import EmbeddingEngine  # noqa: E402
@@ -20,6 +24,7 @@ from sgpt_tpu_torch.models import Decoder, tiny  # noqa: E402
 from sgpt_tpu_torch.models.clip import CLIP, clip_tiny  # noqa: E402
 from sgpt_tpu_torch.parallel import make_mesh  # noqa: E402
 from sgpt_tpu_torch.tokenization import SimpleTokenizer  # noqa: E402
+from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig, TSDAETrainer  # noqa: E402
 
 CFG = tiny("neo", num_layers=1, hidden_size=32, num_heads=2)
 
@@ -68,6 +73,21 @@ ENTRY_POINTS = {
         ["--randominit", "--datadir", str(tmp), "--tp", "2"])),
     "serve --dp 2": lambda tmp: serve.main(["--modelname", "gpt-neo-125m", "--randominit",
                                             "--dp", "2", "--no-warmup"]),
+    "ContrastiveTrainer mesh": lambda tmp: ContrastiveTrainer(
+        Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size), TrainConfig(),
+        mesh=make_mesh(dp=2, tp=2)),
+    "ContrastiveTrainer sp_mesh": lambda tmp: ContrastiveTrainer(
+        Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size),
+        TrainConfig(max_seq_len=64), sp_mesh=make_mesh(dp=2)),
+    "EmbeddingEngine sp_mesh": lambda tmp: EmbeddingEngine(
+        Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size), sp_mesh=make_mesh()),
+    "TSDAETrainer sp_mesh": lambda tmp: TSDAETrainer(
+        Decoder(CFG, device="cpu"), CFG, SimpleTokenizer(CFG.vocab_size),
+        sp_mesh=make_mesh(dp=2)),
+    "train_msmarco --dp 2 --tp 2": lambda tmp: train_msmarco.main(train_msmarco.parse_args(
+        ["--randominit", "--data_folder", str(tmp), "--dp", "2", "--tp", "2"])),
+    "train_nli --dp 2": lambda tmp: train_nli.main(train_nli.parse_args(
+        ["--randominit", "--nli_path", str(tmp / "nli.tsv"), "--dp", "2"])),
 }
 
 

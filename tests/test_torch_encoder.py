@@ -104,12 +104,12 @@ def test_out_of_range_ids_raise_on_the_host(pair):
 MESH = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
 
 
-@pytest.mark.parametrize("kw", [dict(sp_mesh=object()), dict(dispatch_chain=2),
+@pytest.mark.parametrize("kw", [dict(sp_mesh=MESH, dispatch_chain=2), dict(dispatch_chain=2),
                                 dict(dispatch_chain=8),
                                 dict(fused_attention=True), dict(mesh=MESH, dispatch_chain=8)])
 def test_unported_options_raise(pair, kw):
-    """Sequence-parallel encode (ROADMAP Queue 1 item 11), dispatch chains and
-    a forced fused kernel (item 5) raise, also on a mesh."""
+    """Dispatch chains and a forced fused kernel (ROADMAP Queue 1 item 5)
+    raise, also on a mesh and with sequence-parallel encode."""
     _, _, cfg, model = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size),

@@ -5,8 +5,11 @@ stack-pooled (`meanmean`) encode at a layer index with a dense head, an
 `SGPTModel` save/load round trip, a flash (`use_flash`) encode, BERT, T5
 and CLIP encodes, two index
 searches, a DenseRetriever search, a SearchService search, meshed encodes
-(tp 2, dp 2) and a sharded index search, and a
-cross-encoder score (bucketed and packed rows) run. A scan of the sources finds no import of either."""
+(tp 2, dp 2) and a sharded index search, a
+cross-encoder score (bucketed and packed rows), a training step on a dp × tp
+mesh, a sequence-parallel (ring attention) training step, encode and TSDAE
+step, and `mnrl_loss_dp` run. A scan of the sources finds no import of
+either."""
 import re
 import subprocess
 import sys
@@ -113,6 +116,26 @@ pairs = [("a short text", "a document about a short text"), ("x", "y " * 30), ("
 ce = [CrossEncoderRanker(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu",
                          max_length=64, pack_t=pack_t).predict(pairs) for pack_t in (None, 64)]
 assert all(abs(a - b) < 1e-4 and a < 0 for a, b in zip(*ce)), ce
+
+# training under a dp x tp mesh and sequence parallelism (ring attention)
+from sgpt_tpu_torch.losses import mnrl_loss_dp
+from sgpt_tpu_torch.ops.ring_attention import ring_attention
+from sgpt_tpu_torch.training import ContrastiveTrainer, TrainConfig, TSDAETrainer
+
+sp = make_mesh(dp=2, devices=["cpu", "cpu"])
+batch = [("a b", "a c", "x y"), ("d e", "d f", "z w")]
+for kw in (dict(mesh=make_mesh(dp=2, tp=2, devices=["cpu"] * 4)), dict(sp_mesh=sp)):
+    trainer = ContrastiveTrainer(Decoder(cfg, device="cpu"), cfg, SimpleTokenizer(cfg.vocab_size),
+                                 TrainConfig(batch_size=2, max_seq_len=16), **kw)
+    assert np.isfinite(trainer.fit(lambda: iter([batch]), 1)["history"][0]["loss"])
+sp_emb = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), sp_mesh=sp, specb=True,
+                         max_seq_len=64, batch_size=4, normalize_embeddings=True).encode(texts)
+assert abs(sp_emb - emb).max() < 1e-5, abs(sp_emb - emb).max()
+assert np.isfinite(TSDAETrainer(Decoder(cfg, device="cpu"), cfg, SimpleTokenizer(cfg.vocab_size),
+                                max_seq_len=16, sp_mesh=sp).train_batch([("a b", "a b c")]))
+x = torch.randn(1, 2, 8, 4)
+assert ring_attention(x, x, x, torch.ones(1, 8), mesh=sp).shape == x.shape
+assert len(mnrl_loss_dp([x[0, 0], x[0, 1]], [x[0, 1], x[0, 0]])) == 2
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "sgpt_tpu") and sys.modules[m] is not None]
 print("OK")

@@ -135,5 +135,11 @@ def test_pairwise_distances_match_jax(metric, squared):
 
 
 def test_mnrl_loss_dp_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pl.mnrl_loss_dp(torch.zeros(2, 4), torch.zeros(2, 4))
+    """`mnrl_loss_dp` is ported (ROADMAP Queue 1 item 12;
+    tests/test_torch_mesh_training.py holds it to JAX's shard_map): on two
+    rows it is `mnrl_loss` of the whole batch, one copy a row."""
+    g = torch.Generator().manual_seed(0)
+    a, p, n = (torch.randn(4, 8, generator=g) for _ in range(3))
+    rows = pl.mnrl_loss_dp([a[:2], a[2:]], [p[:2], p[2:]], [n[:2], n[2:]])
+    assert len(rows) == 2 and torch.equal(rows[0], rows[1])
+    assert abs(float(rows[0]) - float(pl.mnrl_loss(a, p, n))) <= 1e-6

@@ -17,6 +17,7 @@ at matmul precision "highest". Checked:
     the tiny model: its checkpoint holds the trained tree.
 """
 import os
+import types
 
 import numpy as np
 import pytest
@@ -118,8 +119,9 @@ def test_fit_materialises_a_one_shot_iterator_for_several_epochs():
     _, _, cfg, model = _models()
     pt = TSDAETrainer(model, cfg, SimpleTokenizer(vocab_size=VOCAB), max_seq_len=16)
     assert len(pt.fit(iter(_batches(2)), epochs=2)) == 4
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TSDAETrainer(model, cfg, SimpleTokenizer(vocab_size=VOCAB), sp_mesh=object())
+    with pytest.raises(ValueError, match="'dp' axis"):  # sp TSDAE: test_torch_ring_attention.py
+        TSDAETrainer(model, cfg, SimpleTokenizer(vocab_size=VOCAB),
+                     sp_mesh=types.SimpleNamespace(shape={"tp": 2}))
 
 
 def test_train_tsdae_cli(tmp_path, monkeypatch):
