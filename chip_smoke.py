@@ -32,6 +32,18 @@ Phases, each of which asserts; any failure exits non-zero:
                seed, bf16) through `EmbeddingEngine`, documents and queries;
                the kernel's launch count must be 12 × the number of batches;
                one batch of 64 at T=300 under torch.profiler
+ 4b. pipeline — the encode pipeline on phase 4's weights and 1,280 texts:
+               the default engine (FETCH_PIPELINE_DEPTH 2, dispatch_chain
+               8) against depth 1 with dispatch_chain 1 (and, with
+               --parent, that checkout's `encoder.py` on this tree's
+               modules): embeddings equal bit for bit, K1 = 12 × batches on
+               each side, emb/s (the median of 3 encodes, the sides in
+               turns) and the busy share of one encode under
+               torch.profiler; depth 2 against depth 1 on a dp=2 mesh of
+               `cuda:0` named twice, bit for bit, K1 = 12 × 2 × batches;
+               one encode inside `utils.profiling.Timer` and
+               `profile_trace(build/pipeline_trace)`, whose Chrome trace
+               must name K1's kernel
   5. parity  — the same weights in fp32 on the card (kernel) against fp32 on
                the CPU (plain path), and bf16-card against fp32-CPU cosines
   6. mips    — the streaming MIPS top-k kernel (K5) against its plain
@@ -301,6 +313,7 @@ within K4's fp32 gate, at window 0 and 256, each build's error against an
 fp64 evaluation of dQ logged. K4's inputs come from this tree's K3. K5 (Q =
 1, 8, 16, 64 and 1024 over NQ's corpus) runs each side through its own
 wrapper, the parent's loaded from that checkout, and is held by K5's rule.
+Phase `pipeline` then also times the parent's engine beside this tree's.
 
 Without a CUDA card it exits non-zero and prints no result. Imports no JAX.
 """
@@ -1801,6 +1814,179 @@ def profile_batch(torch, engine, texts, label: str, families: dict) -> dict:
 
 # K1's kernels; "::scalar_kernel", as PyTorch's `compare_scalar_kernel` holds "scalar_kernel"
 K1_KEYS = ("mma_kernel", "tf32_kernel", "::scalar_kernel")
+
+
+PIPELINE_REPS = 3   # timed encodes of each side (the median is reported)
+
+
+def encode_busy(torch, engine, texts) -> dict:
+    """One encode under torch.profiler (device activity only: host op
+    events would slow a host-bound encode): the kernels' device time and
+    the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.encode(texts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    total = sum(device_ms(prof, {"K1 short": K1_KEYS, "GEMM": GEMM_KEYS}).values())
+    return {"wall_ms": wall_ms, "kernel_ms": total or None,
+            "busy_share": total / wall_ms if total else None}
+
+
+def phase_pipeline(torch, sa, model, cfg, tok, texts, docs, card, parent=None) -> dict:
+    """The encode pipeline on the slice's weights and texts: the default
+    engine (FETCH_PIPELINE_DEPTH 2, dispatch_chain 8) against depth 1 with
+    dispatch_chain 1, and against depth 2 with a blocking fetch (each
+    entry's rows fetched by `.cpu()` when drained, which queues behind the
+    batches dispatched since: the design the asynchronous host copy
+    replaces). The embeddings equal bit for bit, K1 = 12 × batches on every
+    side; each side's emb/s (the median of PIPELINE_REPS encodes, the sides
+    in turns) and its busy share under torch.profiler. With `parent`
+    (another checkout), that checkout's `encoder.py` runs as one more side
+    on this tree's modules (the engine's change alone), held to the same
+    bits. Then depth 2 against depth 1 on a dp=2 mesh of `cuda:0` named
+    twice (the chain is 1 on a mesh), and one encode wrapped in
+    `utils.profiling.Timer` and `profile_trace`, whose Chrome trace must
+    name K1's kernel."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    import sgpt_tpu_torch.encoder as enc_mod
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.parallel import make_mesh
+    from sgpt_tpu_torch.utils import ThroughputMeter, Timer, profile_trace
+
+    kw = dict(specb=True, max_seq_len=300, batch_size=64, normalize_embeddings=True)
+    L = cfg.num_layers
+    # name: (FETCH_PIPELINE_DEPTH, engine keywords, blocking fetch)
+    sides = {"depth2_chain8": (2, dict(device="cuda"), False),
+             "depth1_chain1": (1, dict(device="cuda", dispatch_chain=1), False),
+             "depth2_chain8_blocking_fetch": (2, dict(device="cuda"), True)}
+
+    @contextlib.contextmanager
+    def side(name):
+        d, _, blocking = sides[name]
+        saved = enc_mod.FETCH_PIPELINE_DEPTH, enc_mod.copy_rows_to_host
+        enc_mod.FETCH_PIPELINE_DEPTH = d
+        if blocking:   # wait_rows then fetches the device tensors by `.cpu()`
+            enc_mod.copy_rows_to_host = lambda parts: [(p.detach(), None) for p in parts]
+        try:
+            yield
+        finally:
+            enc_mod.FETCH_PIPELINE_DEPTH, enc_mod.copy_rows_to_host = saved
+
+    def counted_encode(engine, name):
+        """One encode of side `name` with K1's launches and the batches
+        dispatched (`_embed` calls: one a batch, chained or not) counted."""
+        batches = counted(engine, "_embed")
+        torch.cuda.synchronize()
+        sa.launches = 0
+        with side(name):
+            got = engine.encode(texts)
+        torch.cuda.synchronize()
+        return got, sa.launches, len(batches)
+
+    out = {}
+    engines = {name: EmbeddingEngine(model, cfg, tok, **kw, **extra)
+               for name, (_, extra, _) in sides.items()}
+    if parent:
+        spec = importlib.util.spec_from_file_location(
+            "sgpt_tpu_torch.parent_encoder",
+            Path(parent).resolve() / "sgpt_tpu_torch" / "encoder.py")
+        parent_encoder = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(parent_encoder)
+        engines["parent"] = parent_encoder.EmbeddingEngine(model, cfg, tok, device="cuda", **kw)
+        sides["parent"] = (1, {}, False)   # no pipeline, no chain: nothing is read
+    got = {}
+    for name in sides:
+        engines[name].warmup()
+        got[name], k1, n_batches = counted_encode(engines[name], name)
+        assert k1 == L * n_batches > 0, (name, k1, n_batches)
+        out[name] = {"k1_launches": k1, "batches": n_batches}
+    chained = engines["depth2_chain8"]
+    same = all(np.array_equal(got["depth2_chain8"], g) for g in got.values())
+    log(f"pipeline: depth 2 chain {chained.dispatch_chain} == depth 1 chain 1 == blocking "
+        f"fetch{' == the parent' if parent else ''} bit for bit: {same}; equal to phase slice's "
+        f"documents: "
+        f"{np.array_equal(got['depth2_chain8'], docs)}; K1 launches "
+        f"{out['depth2_chain8']['k1_launches']} / {out['depth1_chain1']['k1_launches']} = "
+        f"{L} x {out['depth2_chain8']['batches']} batches")
+    assert same, {k: np.abs(got["depth2_chain8"] - g).max() for k, g in got.items()}
+    assert np.isfinite(got["depth2_chain8"]).all()
+    walls = {name: [] for name in sides}
+    for rep in range(PIPELINE_REPS):   # the sides in turns, the order reversed each round
+        for name in list(sides)[::1 if rep % 2 == 0 else -1]:
+            with side(name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engines[name].encode(texts)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+    for name in sides:
+        with side(name):
+            busy = encode_busy(torch, engines[name], texts)
+        wall = float(np.median(walls[name]))
+        out[name].update({"emb_per_s": len(texts) / wall, "walls_s": walls[name], **busy})
+        log(f"pipeline {name}: {len(texts) / wall:.1f} emb/s (median of {PIPELINE_REPS}: "
+            + ", ".join(f"{w * 1e3:.2f}" for w in walls[name]) + " ms), busy share "
+            + (f"{busy['busy_share']:.3f} ({busy['kernel_ms']:.2f} ms of kernels in "
+               f"{busy['wall_ms']:.2f} ms)" if busy["kernel_ms"] else "not measured (the "
+               "profiler saw no device time)") + f"; GPT-Neo-125M bf16, {len(texts)} texts "
+            f"({card})")
+    out["speedup"] = out["depth2_chain8"]["emb_per_s"] / out["depth1_chain1"]["emb_per_s"]
+    out["vs_blocking_fetch"] = (out["depth2_chain8"]["emb_per_s"]
+                                / out["depth2_chain8_blocking_fetch"]["emb_per_s"])
+    log(f"pipeline: depth 2 chain 8 at {out['speedup']:.3f} x depth 1 chain 1, "
+        f"{out['vs_blocking_fetch']:.3f} x depth 2 with the blocking fetch" + (
+        f", {out['depth2_chain8']['emb_per_s'] / out['parent']['emb_per_s']:.3f} x the "
+        f"parent's engine" if parent else "") + f" ({card})")
+
+    # the dp=2 mesh of the one card named twice: depth 2 == depth 1
+    mesh = make_mesh(dp=2, tp=1, devices=MESH_DEVICES[:1] * 2)
+    mgot = {}
+    for name in ("depth2_chain8", "depth1_chain1"):
+        engine = EmbeddingEngine(model, cfg, tok, mesh=mesh, **kw,
+                                 **{k: v for k, v in sides[name][1].items() if k != "device"})
+        engine.encode(texts[:64])
+        mgot[name], k1, n = counted_encode(engine, name)
+        assert k1 == L * 2 * n > 0, (name, k1, n)   # K1 per dp row
+        out[f"mesh_dp2_{name}"] = {"k1_launches": k1, "batches": n}
+        del engine
+    msame = np.array_equal(mgot["depth2_chain8"], mgot["depth1_chain1"])
+    mcos = cosine(mgot["depth2_chain8"], docs)
+    log(f"pipeline mesh dp=2 ({' '.join(MESH_DEVICES[:1] * 2)}): depth 2 == depth 1 bit for "
+        f"bit: {msame}; K1 launches {out['mesh_dp2_depth2_chain8']['k1_launches']} / "
+        f"{out['mesh_dp2_depth1_chain1']['k1_launches']} = {L} x 2 x "
+        f"{out['mesh_dp2_depth2_chain8']['batches']}; cosine to the meshless rows min "
+        f"{mcos.min():.6f}")
+    assert msame and mcos.min() >= MESH_COS_MIN, (msame, mcos.min())
+
+    # the profiling utilities around one encode
+    trace_dir = Path(__file__).resolve().parent / "build" / "pipeline_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    meter = ThroughputMeter()
+    with profile_trace(str(trace_dir)), Timer() as timer, meter.lap(len(texts)):
+        chained.encode(texts)
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    k1_names = sorted(n for n in kernels if any(k in n.lower() for k in K1_KEYS))
+    log(f"pipeline profile_trace: {traces[0].name} ({traces[0].stat().st_size} bytes, "
+        f"{len(kernels)} kernel names, K1's: {[n[:60] for n in k1_names]}); Timer "
+        f"{timer.elapsed * 1e3:.2f} ms, ThroughputMeter {meter.per_second:.1f} emb/s under "
+        f"the profiler ({card})")
+    assert k1_names, sorted(kernels)[:20]
+    out["trace"] = {"file": traces[0].name, "bytes": traces[0].stat().st_size,
+                    "kernel_names": len(kernels), "k1_names": k1_names,
+                    "timer_ms": timer.elapsed * 1e3, "meter_emb_per_s": meter.per_second}
+    out["k1_launches"] = sum(v["k1_launches"] for v in out.values()
+                             if isinstance(v, dict) and "k1_launches" in v)
+    return out
 
 
 def long_texts(rng):
@@ -4642,29 +4828,47 @@ def phase_mesh(torch, sa, model, cfg, tok, texts, docs, doc_s, corpus, kernel_ti
                                        rtol=0, err_msg=f"query {n}")
     assert err <= 1e-5, err
     # IVF: at nprobe = K the sharded probe is exact, the meshless index's
-    # answer; below K it probes each row block's own best clusters
+    # answer on the same layout; below K it probes each row block's own best
+    # clusters. The same layout: the meshless index's, loaded onto the mesh.
+    # Two builds may lay the rows out differently (k-means sums with atomics
+    # on the card), and a row's score depends on where it lies, as in JAX:
+    # the probe scores it against the query rounded to the stored dtype, the
+    # overflow scan against the fp32 query. The mesh's own build is logged
+    # beside.
     ivfs = [IVFIndex(cfg.hidden_size, n_clusters=32, device="cuda"),
             IVFIndex(cfg.hidden_size, n_clusters=32, mesh=mesh)]
     for idx in ivfs:
         idx.add(demb, ids=ids)
         idx.build()
-    (wv, wi), (iv, ii) = (idx.search_embeddings(qemb, k=10, nprobe=32) for idx in ivfs)
+    with tempfile.TemporaryDirectory() as d:
+        ivfs[0].save(os.path.join(d, "ivf.npz"))
+        loaded = IVFIndex.load(os.path.join(d, "ivf.npz"), mesh=mesh)
+    (wv, wi), (iv, ii), (bv, bi) = (idx.search_embeddings(qemb, k=10, nprobe=32)
+                                    for idx in (ivfs[0], loaded, ivfs[1]))
     ivf_err = max(float(np.abs(a - b).max()) for a, b in zip(wv, iv))
     ivf_differ = sum(a != b for a, b in zip(wi, ii))
+    build_err = max(float(np.abs(a - b).max()) for a, b in zip(wv, bv))
+    build_differ = sum(a != b for a, b in zip(wi, bi))
     recall8 = [np.mean([len(set(a) & set(b)) / 10 for a, b in
                         zip(wi, idx.search_embeddings(qemb, k=10, nprobe=8)[1])])
                for idx in ivfs]
     out["search"] = {"dense_max_abs_err": err, "dense_lists_differ": differ,
                      "ivf_nprobe_k_max_abs_err": ivf_err, "ivf_nprobe_k_lists_differ": ivf_differ,
+                     "ivf_own_build_nprobe_k_max_abs_err": build_err,
+                     "ivf_own_build_nprobe_k_lists_differ": build_differ,
+                     "ivf_own_build_overflow": [i._overflow_count for i in ivfs],
                      "ivf_recall10_nprobe8": float(recall8[1]),
                      "ivf_recall10_nprobe8_meshless": float(recall8[0])}
     log(f"mesh search dp=2 over {len(ids)} documents, {len(qemb)} queries: DenseIndex max "
         f"|score diff| {err:.3e} to the meshless scan ({differ} lists differ on a near-tie); "
-        f"IVFIndex (K 32, overflow {ivfs[1]._overflow_count}) at nprobe 32 max |diff| "
-        f"{ivf_err:.3e} to the meshless IVF ({ivf_differ} lists differ); recall@10 at nprobe 8 "
-        f"{recall8[1]:.4f} (4 clusters a row block), meshless {recall8[0]:.4f} ({card})")
-    assert ivf_err <= 1e-5, ivf_err
-    del flat, sharded, ivfs, flat_engine
+        f"IVFIndex (K 32, overflow {loaded._overflow_count}) on the meshless layout at nprobe "
+        f"32 max |diff| {ivf_err:.3e} to the meshless IVF ({ivf_differ} lists differ); the "
+        f"mesh's own build (overflow {ivfs[1]._overflow_count}) max |diff| {build_err:.3e} "
+        f"({build_differ} lists differ); recall@10 at nprobe 8 {recall8[1]:.4f} (4 clusters a "
+        f"row block), meshless {recall8[0]:.4f} ({card})")
+    assert isinstance(loaded._centroids, RowShards)
+    assert ivf_err <= 1e-5 and ivf_differ == 0, (ivf_err, ivf_differ)
+    del flat, sharded, ivfs, loaded, flat_engine
 
     # the CE on dp 2 and on tp 2, the short mix
     short = ce_mix(np.random.default_rng(SEED + 8))[2][:MESH_CE_PAIRS]
@@ -5488,7 +5692,7 @@ def encoder_docs(rng, n: int) -> list:
 
 def plain_attention_share(torch, engine, texts) -> dict:
     """One encode batch of `texts` (one bucket), timed with CUDA events
-    around the forward, pooling and copy to the host (`_embed`) and around
+    around the forward and pooling (`_embed`) and around
     each call of the decoder's plain attention: the attention's share of
     the batch's device time (its events enclose the scores, the bias and
     mask add, the softmax and P·V)."""
@@ -5942,6 +6146,10 @@ def main() -> int:
                                    "encode profile, one batch of 64 at T=300",
                                    {"K1 short": K1_KEYS, "GEMM": GEMM_KEYS})
 
+    # 4b. the encode pipeline: depth 2 and dispatch chains against depth 1
+    phase("pipeline")
+    pipeline = phase_pipeline(torch, sa, model, cfg, tok, texts, docs, card, args.parent)
+
     # 5. card (kernel) against CPU (plain path) on the same weights
     phase("parity")
     idx = np.argsort([len(t) for t in texts])[:: len(texts) // 32][:32]
@@ -6059,6 +6267,11 @@ def main() -> int:
         f"{ce['short_packed']['pairs_per_s']:.1f} at pack_t=256; /rerank p50 "
         f"{ce_serve['p50_ms']:.2f} ms, p99 {ce_serve['p99_ms']:.2f} ms; bf16, max_length 2048, "
         f"batch_size 16 ({card})")
+    log(f"pipeline: depth 2 chain 8 {pipeline['depth2_chain8']['emb_per_s']:.1f} emb/s, "
+        f"depth 1 chain 1 {pipeline['depth1_chain1']['emb_per_s']:.1f} emb/s "
+        f"({pipeline['speedup']:.3f} x); busy share "
+        f"{pipeline['depth2_chain8']['busy_share']} / {pipeline['depth1_chain1']['busy_share']}; "
+        f"bf16, batch_size 64, max_seq_len 300 ({card})")
     log(f"ltrain: {ltrain['ms_per_step']:.1f} ms/step, {ltrain['seq_per_s']:.2f} seq/s, "
         f"{ltrain['tokens_per_s']:.0f} tokens/s, peak {ltrain['peak_gib']:.2f} GiB, fp32 at "
         f"TF32 products (\"default\"); strict fp32 (\"highest\") "
@@ -6165,7 +6378,8 @@ def main() -> int:
         "launches": (main_launches + train["fwd_launches"] + long["k1_launches"] + ce_launches
                      + fam_k1 + train_launches["k1"] + nli["k1"] + useb_res["k1"] + int8_k1
                      + tsdae["k1"] + ce_train["k1"] + encoders["clip"]["k1_launches"]
-                     + mesh["k1_launches"] + mesh_train["k1"]),
+                     + mesh["k1_launches"] + mesh_train["k1"] + pipeline["k1_launches"]),
+        "launches_pipeline": pipeline["k1_launches"], "pipeline": pipeline,
         "launches_mesh": mesh["launches"], "launches_mesh_train": mesh_train["k1"],
         "mesh_train": {k: v for k, v in mesh_train.items() if k not in ("k1", "k2", "k3",
                                                                         "k4a", "k4b")},

@@ -26,7 +26,8 @@ package so each counterpart is easy to find:
     ops.quant            int8 inference: per-channel int8 weights, per-token
                          int8 activations, torch._int_mm on the card
     encoder              EmbeddingEngine: tokenize, bucket, forward, [layer
-                         selection], [dense heads], pool
+                         selection], [dense heads], pool; pinned copies,
+                         dispatch chains and a depth-2 fetch pipeline
     model                SGPTModel / AsymModel: the embedding pipeline, save/load
     index                DenseIndex (exact; pending adds, tombstones, int8,
                          save/load in the JAX format), index_corpus
@@ -65,9 +66,15 @@ package so each counterpart is easy to find:
     evaluation           readers and batchers, the native jsonl reader,
                          retrieval metrics, BEIR, STS, USEB and the other
                          evaluators
-    baselines            IO, the BEIR dataset download; and the
+    baselines            the remote-API baselines: the OpenAI embeddings
+                         client and retriever, the search-endpoint scoring,
+                         the BEIR and USEB dataset downloads; and the
     ce_prompts           CE prompt registry and the BM25 index
     retrieval_bm25
+    utils                host utilities: the thread-pool DataFrame map and
+                         text helpers of the baselines, Timer and
+                         ThroughputMeter, profile_trace (torch.profiler's
+                         Chrome trace), the optional wandb logger
 
 The package imports torch, and never jax nor anything of the JAX package:
 the host code it shares with `sgpt_tpu` is copied, not imported.

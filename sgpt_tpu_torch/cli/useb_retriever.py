@@ -13,14 +13,16 @@ the all-layer `meanmean` and `lasttokenmean` included) and the layer
 The JAX CLI's flags plus `--device`. Writes the same JSON to `--output`:
 {"detailed", "main", "model", "method", "layeridx"}. `--quantize int8`
 quantizes the decoder's projections in place after loading
-(`free_source=True`). `--download` raises: the port copies no download
-helper for USEB and fetches nothing.
+(`free_source=True`). `--download` reads `--datapath` where it is a
+directory, and otherwise fetches the USEB eval archive into the working
+directory (`baselines.fetch_useb_data("eval")`) and reads `data/eval`.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import os
 
 from ..ops.quant import quantize_decoder_params
 from .common import build_model, setup_logging
@@ -40,8 +42,10 @@ def parse_args(argv=None):
     p.add_argument("--specb", action="store_true")
     p.add_argument("--datapath", default="./data-eval")
     p.add_argument("--download", action="store_true",
-                   help="fetch the USEB archive (not ported: raises; point --datapath at a "
-                        "local copy)")
+                   help="fetch the USEB eval archive if --datapath is "
+                        "missing (egress-gated: off by default; "
+                        "baselines.fetch_useb_data extracts data/eval and "
+                        "--datapath should point there, e.g. ./data/eval)")
     p.add_argument("--evaltype", default="test", choices=["valid", "test"])
     p.add_argument("--tasks", nargs="+",
                    default=["askubuntu", "cqadupstack", "twitterpara", "scidocs"])
@@ -60,9 +64,9 @@ def main(args=None):
     """Returns (detailed results, main scores)."""
     setup_logging()
     args = args or parse_args()
-    if args.download:
-        raise NotImplementedError("--download: the port fetches no USEB data; point "
-                                  "--datapath at a local copy of data-eval")
+    if args.download and not os.path.isdir(args.datapath):
+        from ..baselines import fetch_useb_data
+        args.datapath = fetch_useb_data("eval")[0]
 
     from ..encoder import EmbeddingEngine
     from ..evaluation.useb import run

@@ -19,7 +19,8 @@ Same behaviour as the JAX rankers:
 
 The model is the port's `Decoder` on `device` (the card by default). Every
 row is built on the host and copied from pinned memory without a
-synchronise; each batch's scores are fetched one batch late (a depth-2
+synchronise; each batch's scores start their copy to pinned host memory
+right behind its forward and are waited for one batch late (a depth-2
 pipeline), so the host packs batch i+1 while the card runs batch i.
 `quantize="int8"` scores with int8 decoder projections (`ops/quant.py`) on a
 quantized copy of the model. `mesh=` scores over a `parallel.Mesh`, as the
@@ -41,7 +42,7 @@ from .encoder import place_model
 from .models.config import DecoderConfig
 from .models.decoder import Decoder, check_token_ids
 from .ops.logprobs import continuation_scores_gathered, continuation_scores_packed
-from .parallel.collectives import gather_rows
+from .parallel.collectives import copy_rows_to_host, rows_to_device, wait_rows
 from .parallel.mesh import placement
 from .tokenization.base import Tokenizer
 from .tokenization.specb import DEFAULT_BUCKETS, pick_bucket, row_bucket
@@ -151,23 +152,13 @@ class CrossEncoderRanker:
         for name, a in (("input", ids), ("continuation", targets)):
             check_token_ids(a, self.cfg.vocab_size, name)
 
-    @staticmethod
-    def _to_device(device, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """Host rows → `device`. Copies to a card go from pinned memory
-        without a synchronise (PyTorch does not reuse a pinned block before
-        its copy completes), so the host goes on to the next batch."""
-        out = [torch.from_numpy(a) for a in arrays]
-        if device.type == "cuda":
-            out = [t.pin_memory().to(device, non_blocking=True) for t in out]
-        return out
-
     def _dispatch(self, scorer, arrays, *static) -> List[torch.Tensor]:
         """scorer(model, *rows on its device, *static, vocab_mask) for one
         batch: on the model's device, or on a mesh for each dp row's block
         of rows (all launched before any result is read). Returns the
         device results in row order."""
         if self.mesh is None:
-            return [scorer(self.model, *self._to_device(self.device, *arrays), *static,
+            return [scorer(self.model, *rows_to_device(self.device, *arrays), *static,
                            self.vocab_mask)]
         groups = self.model.groups
         n = arrays[0].shape[0] // len(groups)
@@ -177,7 +168,7 @@ class CrossEncoderRanker:
                 self._vocab_masks[g.device] = (None if self.vocab_mask is None
                                                else self.vocab_mask.to(g.device))
             rows = [a[i * n:(i + 1) * n] for a in arrays]
-            outs.append(scorer(g, *self._to_device(g.device, *rows), *static,
+            outs.append(scorer(g, *rows_to_device(g.device, *rows), *static,
                                self._vocab_masks[g.device]))
         return outs
 
@@ -214,11 +205,11 @@ class CrossEncoderRanker:
 
         budget = self.batch_size * self.max_length
         B = self._rows(row_bucket(max(1, budget // T)))
-        pending: List[Tuple[List, List[torch.Tensor]]] = []
+        pending: List[Tuple[List, list]] = []   # (rows, copies of the scores to the host)
 
         def drain():
             pbins, pout = pending.pop(0)
-            vals = gather_rows(pout).astype(np.float64)
+            vals = wait_rows(pout).astype(np.float64)
             for bi, segs in enumerate(pbins):
                 for s, (key, _inp, _il, _cl) in enumerate(segs):
                     for orig in uniq[key]:
@@ -262,7 +253,7 @@ class CrossEncoderRanker:
             self._check_ids(ids, ctgt)
             out = self._dispatch(continuation_scores_packed,
                                  (ids, amask, posids, segids, cpos, ctgt, cmask, cseg), S)
-            pending.append(([b[1] for b in batch], out))
+            pending.append(([b[1] for b in batch], copy_rows_to_host(out)))
             if len(pending) >= FETCH_PIPELINE_DEPTH:
                 drain()
         while pending:
@@ -312,11 +303,11 @@ class CrossEncoderRanker:
                                    [packed[j] for j in short], uniq, scores)
                 keys = [keys[j] for j in long_idx]
                 packed = [packed[j] for j in long_idx]
-        pending: List[Tuple[List, List[torch.Tensor]]] = []
+        pending: List[Tuple[List, list]] = []   # (rows, copies of the scores to the host)
 
         def drain():
             pbatch, pout = pending.pop(0)
-            vals = gather_rows(pout).astype(np.float64)
+            vals = wait_rows(pout).astype(np.float64)
             for bi, key in enumerate(pbatch):
                 for orig in uniq[key]:
                     scores[orig] = vals[bi]
@@ -352,7 +343,7 @@ class CrossEncoderRanker:
             amask = np.ones((B, T), np.int32)
             self._check_ids(ids, ctgt)
             out = self._dispatch(continuation_scores_gathered, (ids, amask, cpos, ctgt, cmask))
-            pending.append((batch, out))
+            pending.append((batch, copy_rows_to_host(out)))
             if len(pending) >= FETCH_PIPELINE_DEPTH:
                 drain()
         while pending:

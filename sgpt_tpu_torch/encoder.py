@@ -26,17 +26,28 @@ to the host in row order.
 every bucket's T pads up to a multiple of the mesh's size (pads are
 causally invisible) and the decoder shards T over the mesh's dp devices
 with ring attention (`models/decoder.py`); the model runs on the mesh's
-first device. Not ported yet (ROADMAP Queue 1 item 5): dispatch chaining
-and the depth-2 fetch pipeline. The JAX engine's keywords for them are
-accepted at the values that ask for neither (`fused_attention=None`,
-`dispatch_chain=1`); any other value raises `NotImplementedError`.
+first device.
+
+The batches are planned from the sorted lengths before any dispatch, and
+dispatched without waiting for the device: inputs are copied from pinned
+memory without a synchronise, each batch's embeddings start their copy to
+pinned host memory right behind its forward (so later batches queued on
+the stream do not delay it), and the host waits for that copy only once
+`FETCH_PIPELINE_DEPTH` dispatches are pending (2: the host pads and
+launches batch i + 1 while the device runs batch i). On a single device,
+`dispatch_chain` groups runs of same-shape batches (descending powers of
+two, at most the largest power of two ≤ dispatch_chain): a group's
+forwards are launched back to back, their (B, D) embeddings stacked on the
+device and fetched as one (k, B, D) tensor. Each batch runs the same
+forward at the same shape either way, so the embeddings do not depend on
+the depth or the chain, bit for bit.
 """
 from __future__ import annotations
 
 import hashlib
 import logging
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,7 +58,7 @@ from .models.decoder import Decoder, check_token_ids
 from .models.precision import matmul_precision
 from .ops.pooling import POOLERS, STACK_POOLERS, normalize, pool
 from .ops.quant import quantized_copy
-from .parallel.collectives import gather_rows
+from .parallel.collectives import copy_rows_to_host, gather_rows, rows_to_device, wait_rows
 from .parallel.mesh import placement
 from .parallel.sharding import ShardedDecoder, shard_params
 from .tokenization.base import Tokenizer
@@ -55,9 +66,10 @@ from .tokenization.specb import SpecbCodec, pick_bucket, row_bucket
 
 logger = logging.getLogger(__name__)
 
-# the JAX engine's keywords for what is not ported, each with the one value
-# that asks for nothing the port lacks
-_LATER = {"fused_attention": None, "dispatch_chain": 1}
+# dispatched batches (or chain groups) in flight before their device-to-host
+# fetch: 2 = the host prepares batch i + 1 while the device runs batch i;
+# 1 = fetch each batch before the next is dispatched
+FETCH_PIPELINE_DEPTH = 2
 
 # the dense heads' activations (the JAX engine's `_ACTIVATIONS`: GELU is
 # jax.nn.gelu's tanh approximation)
@@ -90,6 +102,32 @@ def pool_single(hidden: torch.Tensor, mask: torch.Tensor, method: str,
     return pool(method, hidden, mask)
 
 
+def _chain_group_sizes(shapes: Sequence[tuple], chain: int) -> list:
+    """The dispatch-chain plan of a batch stream of known shapes: sizes[i]
+    is the size of the group that starts at batch i (0 for its other
+    members). Each maximal run of same-shape batches splits greedily into
+    descending powers of two, at most the largest power of two ≤ chain
+    (13 batches at chain 8: 8 + 4 + 1)."""
+    cap = 1
+    while cap * 2 <= max(1, chain):
+        cap *= 2
+    sizes = [0] * len(shapes)
+    i = 0
+    while i < len(shapes):
+        j = i
+        while j < len(shapes) and shapes[j] == shapes[i]:
+            j += 1
+        n, p, g = j - i, i, cap
+        while n:
+            while g > n:
+                g //= 2
+            sizes[p] = g
+            p += g
+            n -= g
+        i = j
+    return sizes
+
+
 def place_model(model, quantize: Optional[str], device, mesh):
     """The model the engine (the ranker) runs: on `device`, int8 with
     quantize="int8" (a copy: the caller's stays float), sharded over a mesh
@@ -116,7 +154,8 @@ class EmbeddingEngine:
                  batch_size: int = 32, normalize_embeddings: bool = False,
                  learned_weights=None, dense_heads: Optional[list] = None,
                  cache_dir: Optional[str] = None, text_prefix: str = "",
-                 quantize: Optional[str] = None, mesh=None, sp_mesh=None, **later):
+                 quantize: Optional[str] = None, mesh=None, sp_mesh=None,
+                 fused_attention: Optional[bool] = None, dispatch_chain: int = 8):
         """device: where the model runs, the card ("cuda") by default;
         "cuda" without a card raises, and CPU use passes device="cpu". With
         a mesh, the mesh's first device (a device given must be it).
@@ -147,19 +186,21 @@ class EmbeddingEngine:
         each location: pre-pool heads to every token's state, post-pool
         heads to the sentence embedding.
         text_prefix: prepended to every text before tokenization.
-        fused_attention, dispatch_chain: the JAX engine's keywords,
-        accepted at None and 1 (see the module docstring)."""
-        unknown = set(later) - set(_LATER)
-        if unknown:
-            raise TypeError(f"EmbeddingEngine: unexpected arguments {sorted(unknown)}")
+        fused_attention: None (the JAX default) or True: K1 on the card,
+        its plain version on the CPU, as always. False raises: in JAX it
+        selects XLA's attention, and the port has no such path on the card.
+        dispatch_chain: the largest group of same-shape batches launched
+        back to back and fetched as one (see the module docstring; a
+        single device only, a mesh or sp_mesh dispatches per batch); 1
+        fetches each batch on its own."""
         if mesh is not None and sp_mesh is not None:
             raise ValueError("pass either mesh (dp encode) or sp_mesh "
                              "(sequence-parallel long-context encode), not both")
-        asked = sorted(k for k, v in later.items()
-                       if not (v is None if _LATER[k] is None else v == _LATER[k]))
-        if asked:
-            raise NotImplementedError(
-                f"EmbeddingEngine: {asked} not ported yet (ROADMAP Queue 1 item 5)")
+        if fused_attention is False:
+            raise ValueError(
+                "fused_attention=False selects XLA's attention in the JAX engine; the port "
+                "has no such path on the card: K1 runs there, and its plain version is the "
+                "CPU path and the card's reference, never the card's main path")
         if method not in POOLERS and method not in STACK_POOLERS \
                 and method != "learned_weightedmean":
             raise ValueError(f"unknown pooling method {method!r}")
@@ -180,6 +221,7 @@ class EmbeddingEngine:
         self.method = method
         self.layeridx = layeridx
         self.batch_size = batch_size
+        self.dispatch_chain = max(1, int(dispatch_chain))
         self.normalize = normalize_embeddings
         self.cache_dir = cache_dir
         self.text_prefix = text_prefix
@@ -210,17 +252,29 @@ class EmbeddingEngine:
         self.codec = SpecbCodec(tokenizer, max_seq_len=max_seq_len, specb=specb)
 
     # ------------------------------------------------------------------
-    def _embed(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """One batch: forward + pool + normalise on the device → (B, D) fp32
-        host array. On a mesh, dp row i takes the batch's i-th block of
-        rows; every block is launched before any comes back to the host."""
+    def _embed(self, ids: np.ndarray, mask: np.ndarray) -> List[torch.Tensor]:
+        """Dispatch one batch: forward + pool + normalise on the device,
+        with no fetch and no synchronise. Returns the batch's (B, D)
+        embeddings as device tensors in row order: one on a single device;
+        on a mesh one per dp row, dp row i taking the batch's i-th block of
+        rows."""
         check_token_ids(ids, self.cfg.vocab_size)
         if self.mesh is None:
-            return self._embed_on(self.model, self.device, ids, mask).float().cpu().numpy()
+            return [self._embed_on(self.model, self.device, ids, mask)]
         n = ids.shape[0] // len(self.model.groups)
-        return gather_rows([self._embed_on(g, g.device, ids[i * n:(i + 1) * n],
-                                           mask[i * n:(i + 1) * n])
-                            for i, g in enumerate(self.model.groups)])
+        return [self._embed_on(g, g.device, ids[i * n:(i + 1) * n], mask[i * n:(i + 1) * n])
+                for i, g in enumerate(self.model.groups)]
+
+    @staticmethod
+    def _drain(pending: list, out: np.ndarray) -> None:
+        """Fetch the oldest pending entry (its sels, the copies of its
+        embeddings to the host) and write each batch's rows: out[sel] =
+        emb[:len(sel)]."""
+        sels, copies = pending.pop(0)
+        emb = wait_rows(copies)
+        emb = emb.reshape(len(sels), -1, emb.shape[-1])
+        for sel, e in zip(sels, emb):
+            out[sel] = e[:len(sel)]
 
     def _aux(self, device: torch.device):
         """The dense heads and learnt position weights on `device` (copied
@@ -235,8 +289,7 @@ class EmbeddingEngine:
     def _embed_on(self, model, device, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """Forward + pool + heads + normalise of rows on `device`, `model`'s."""
         heads, learned_weights = self._aux(device)
-        ids_t = torch.from_numpy(ids).to(device)
-        mask_t = torch.from_numpy(mask).to(device)
+        ids_t, mask_t = rows_to_device(device, ids, mask)
         L = self.cfg.num_layers
         stacked = self.method in STACK_POOLERS or self.layeridx not in (-1, L)
         sp = {} if self.sp_mesh is None else {"sp_mesh": self.sp_mesh}
@@ -273,7 +326,7 @@ class EmbeddingEngine:
         for T in lengths:
             B = self._rows_for_bucket(T)
             T = self._sp_length(T)
-            self._embed(np.zeros((B, T), np.int32), np.ones((B, T), np.int32))
+            gather_rows(self._embed(np.zeros((B, T), np.int32), np.ones((B, T), np.int32)))
         return self
 
     def _sp_length(self, T: int) -> int:
@@ -301,27 +354,55 @@ class EmbeddingEngine:
                            n_trunc, len(texts), toks_trunc)
         order = np.argsort([-len(r) for r in rows], kind="stable")
         out = np.zeros((len(texts), self.out_dim), np.float32)
+        batches = []   # (sel, T, B) in stream order: planned before any dispatch
         s = 0
         while s < len(order):
             T = pick_bucket(max(1, len(rows[order[s]])), self.codec.buckets,
                             self.codec.max_seq_len)
             T = max(T, len(rows[order[s]]))
             B = self._rows_for_bucket(T)
-            sel = order[s: s + B]
-            s += len(sel)
-            enc = self.codec.pad_rows([rows[i] for i in sel], pad_to=T)
-            ids, mask = enc.input_ids, enc.attention_mask
-            t_pad = self._sp_length(T) - T
-            if t_pad:  # ring attention shards T: right pads, causally invisible
-                ids = np.pad(ids, ((0, 0), (0, t_pad)), constant_values=self.tokenizer.pad_id)
-                mask = np.pad(mask, ((0, 0), (0, t_pad)))
-            if len(sel) < B:  # pad to the bucket's row count by tiling the last row
-                pad = B - len(sel)
-                ids = np.concatenate([ids, np.tile(ids[-1:], (pad, 1))])
-                mask = np.concatenate([mask, np.tile(mask[-1:], (pad, 1))])
-            out[sel] = self._embed(ids, mask)[: len(sel)]
+            batches.append((order[s: s + B], T, B))
+            s += len(batches[-1][0])
+        chain = self.dispatch_chain if self.mesh is None and self.sp_mesh is None else 1
+        sizes = _chain_group_sizes([(B, T) for _, T, B in batches], chain)
+        pending: list = []   # (sels, copies to the host) of dispatches not yet fetched
+        group: list = []     # (sel, (B, D) device tensor) of the chain group being filled
+        size = 1
+        for (sel, T, B), start in zip(batches, sizes):
+            size = start or size
+            emb = self._embed(*self._pad_batch(rows, sel, T, B))
+            if size == 1:
+                pending.append(([sel], copy_rows_to_host(emb)))
+            else:
+                group.append((sel, emb[0]))
+                if len(group) < size:
+                    continue
+                with torch.inference_mode():   # the group's (k, B, D), fetched as one
+                    stacked = torch.stack([g[1] for g in group])
+                pending.append(([g[0] for g in group], copy_rows_to_host([stacked])))
+                group = []
+            while len(pending) >= FETCH_PIPELINE_DEPTH:
+                self._drain(pending, out)
+        while pending:
+            self._drain(pending, out)
         self._cache_store(texts, is_query, out)
         return out
+
+    def _pad_batch(self, rows, sel, T: int, B: int) -> tuple:
+        """The rows `sel` padded to the (B, T) batch: tokens to T (and on
+        an sp_mesh to a multiple of its size: right pads, causally
+        invisible), rows to B by tiling the last row."""
+        enc = self.codec.pad_rows([rows[i] for i in sel], pad_to=T)
+        ids, mask = enc.input_ids, enc.attention_mask
+        t_pad = self._sp_length(T) - T
+        if t_pad:
+            ids = np.pad(ids, ((0, 0), (0, t_pad)), constant_values=self.tokenizer.pad_id)
+            mask = np.pad(mask, ((0, 0), (0, t_pad)))
+        if len(sel) < B:
+            pad = B - len(sel)
+            ids = np.concatenate([ids, np.tile(ids[-1:], (pad, 1))])
+            mask = np.concatenate([mask, np.tile(mask[-1:], (pad, 1))])
+        return ids, mask
 
     # ST-compat aliases (SentenceTransformer.encode / encode_queries / encode_corpus);
     # BEIR's retriever passes batch_size and other keywords, which are ignored

@@ -91,9 +91,55 @@ def sum_grads(copies: Sequence[torch.Tensor]) -> None:
         given.add(c.device)
 
 
+def rows_to_device(device, *arrays: np.ndarray) -> List[torch.Tensor]:
+    """Host rows → `device` without a synchronise: copies to a card go from
+    pinned memory with non_blocking=True (PyTorch does not reuse a pinned
+    block before its copy completes), so the host goes on to the next batch
+    while the card runs this one. On the CPU the tensors share the arrays'
+    memory (a build without CUDA cannot pin)."""
+    out = [torch.from_numpy(a) for a in arrays]
+    if torch.device(device).type == "cuda":
+        out = [t.pin_memory().to(device, non_blocking=True) for t in out]
+    return out
+
+
+def copy_rows_to_host(parts: Sequence[torch.Tensor]) -> list:
+    """Start the device-to-host copy of row shards without waiting for it:
+    each card part is copied into pinned host memory with non_blocking=True
+    on its device's current stream, and an event is recorded after the
+    copy. Work queued on the stream later does not delay it, as a `.cpu()`
+    made later would be (a copy waits for everything queued before it on
+    its stream). `wait_rows` returns the rows. CPU parts are kept as they
+    are."""
+    out = []
+    for p in parts:
+        p = p.detach()
+        if p.device.type != "cuda":
+            out.append((p, None))
+            continue
+        host = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+        host.copy_(p, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(p.device))
+        out.append((host, done))
+    return out
+
+
+def wait_rows(copies: list) -> np.ndarray:
+    """The rows of `copy_rows_to_host(parts)` as one host array in shard
+    order (`gather_rows`'s dtypes), once each copy's event has completed:
+    it waits for the copies, not for what was queued on the streams after
+    them."""
+    for _, done in copies:
+        if done is not None:
+            done.synchronize()
+    return gather_rows([host for host, _ in copies])
+
+
 def gather_rows(parts: Sequence[torch.Tensor]) -> np.ndarray:
     """Row shards (dim 0) → one host array in shard order: float rows as
-    float32 (exact for bf16), integer and bool rows in their own dtype."""
+    float32 (exact for bf16), integer and bool rows in their own dtype.
+    Blocks until every part is computed."""
     host = [p.detach().cpu() for p in parts]
     host = [h.float() if h.is_floating_point() else h for h in host]
     return torch.cat(host).numpy()

@@ -1755,3 +1755,80 @@ def test_sequence_parallel_forward_and_gradients_on_the_card(cuda):
                                rtol=2e-5, atol=2e-5)
     for (name, _), a, b in zip(model.named_parameters(), gg, wg):
         assert (a - b).abs().max() <= 1e-4 * max(b.norm().item(), 1e-12), name
+
+
+@pytest.mark.parametrize("where", ["single", "mesh"])
+def test_encode_pipeline_on_the_card_is_the_synchronous_encode(cuda, monkeypatch, where):
+    """A 2-layer model at GPT-Neo-125M's width, bf16: the default engine
+    (FETCH_PIPELINE_DEPTH 2, dispatch_chain 8; the chain is 1 on a mesh)
+    gives the embeddings of depth 1 with dispatch_chain 1 bit for bit, on
+    one device and on a dp=2 mesh (two cards, or `cuda:0` twice), with K1
+    launched L × dp × batches times on both sides."""
+    import sgpt_tpu_torch.encoder as enc_mod
+    from sgpt_tpu_torch.encoder import EmbeddingEngine
+    from sgpt_tpu_torch.models import Decoder, gpt_neo
+    from sgpt_tpu_torch.parallel import make_mesh
+    from sgpt_tpu_torch.tokenization import SimpleTokenizer
+
+    cfg = gpt_neo("125m", dtype=torch.bfloat16).replace(num_layers=2)
+    model = Decoder(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    texts = [" ".join(f"w{rng.integers(0, 9000)}" for _ in range(int(n)))
+             for n in np.clip(rng.lognormal(3, 0.8, 300), 2, 200)]
+    place = (dict(device=cuda) if where == "single"
+             else dict(mesh=make_mesh(dp=2, tp=1, devices=_mesh_devices(2))))
+    dp = 1 if where == "single" else 2
+    # batch_size 2: 26 batches, same-shape runs of 2 to 9 (chain groups of 1 to 8)
+    kw = dict(specb=True, max_seq_len=256, batch_size=2, normalize_embeddings=True, **place)
+    runs = []
+    for depth, chain in ((2, 8), (1, 1)):
+        monkeypatch.setattr(enc_mod, "FETCH_PIPELINE_DEPTH", depth)
+        engine = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size),
+                                 dispatch_chain=chain, **kw)
+        calls, embed = [], engine._embed
+        monkeypatch.setattr(engine, "_embed", lambda *a: calls.append(1) or embed(*a))
+        before = sa.launches
+        got = engine.encode(texts)
+        runs.append((got, sa.launches - before, len(calls)))
+    (piped, k1, n), (sync, k1_sync, n_sync) = runs
+    assert n == n_sync > 20 and k1 == k1_sync == cfg.num_layers * dp * n
+    assert np.isfinite(piped).all()
+    np.testing.assert_array_equal(piped, sync)
+
+
+def test_rows_to_device_copies_pinned_rows_to_the_card(cuda):
+    """Host rows reach the card by a non-blocking copy from pinned memory,
+    with their values; the host arrays may change right after (the copy
+    took a pinned snapshot)."""
+    from sgpt_tpu_torch.parallel import rows_to_device
+
+    ids = np.arange(4096 * 64, dtype=np.int32).reshape(4096, 64)
+    mask = np.ones_like(ids)
+    want = ids.copy()
+    got_ids, got_mask = rows_to_device(cuda, ids, mask)
+    ids[:] = -1
+    torch.cuda.synchronize()
+    assert got_ids.device.type == "cuda" and got_ids.dtype == torch.int32
+    np.testing.assert_array_equal(got_ids.cpu().numpy(), want)
+    assert bool((got_mask == 1).all())
+
+
+def test_host_copy_of_a_batch_does_not_wait_for_later_work(cuda):
+    """copy_rows_to_host starts the copy right behind the work that wrote
+    the rows; wait_rows returns once that copy is done, while work queued
+    after it (a chain of large products here) still runs on the stream. A
+    `.cpu()` made at that point would wait for all of it."""
+    from sgpt_tpu_torch.parallel import copy_rows_to_host, wait_rows
+
+    rows = torch.arange(64 * 768, device=cuda, dtype=torch.float32).reshape(64, 768)
+    rows = rows.to(torch.bfloat16)
+    copies = copy_rows_to_host([rows[:32], rows[32:]])
+    a = torch.ones(8192, 8192, device=cuda, dtype=torch.bfloat16)
+    for _ in range(40):
+        a = a @ a / 8192
+    got = wait_rows(copies)
+    still_running = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert still_running
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, rows.float().cpu().numpy())

@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's host modules == the originals.
 
 `sgpt_tpu_torch.tokenization`, `.data` (`bioasq` included), `.evaluation`, `.baselines`,
-`.ce_prompts` and `.retrieval_bm25` are copies, so that the port imports
-nothing of the JAX package. Each case runs
+`.utils` (`io_utils`, `parallelizer`), `.ce_prompts` and `.retrieval_bm25` are
+copies, so that the port imports nothing of the JAX package. Each case runs
 the same inputs through the copy and the original and asserts equal
 results (exactly: these modules do no floating-point work that could
 differ, and the native engines are the same C++ sources).
@@ -534,3 +534,87 @@ def test_bioasq_convert_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch
     for line in ('{"pmid": 7, "title": "t"},', '"abstractText":"x","pmid":"9","title":"y"}',
                  "{", "garbage"):
         assert pbioasq._parse_allmesh_line(line) == jbioasq._parse_allmesh_line(line), line
+
+
+# ---------------------------------------------------------------------------
+# the remote-API baselines' host code: utils/io_utils.py, utils/parallelizer.py,
+# baselines/openai_search.py
+
+def _strings(rng, n):
+    pool = ["", "a", "b", "a b", "x" * 150, "ünï", "line\nbreak", "a_2"]
+    return [pool[i] for i in rng.integers(0, len(pool), n)]
+
+
+def test_io_utils_match():
+    from sgpt_tpu.utils import io_utils as j
+    from sgpt_tpu_torch.utils import io_utils as p
+
+    rng = np.random.default_rng(21)
+    for _ in range(20):
+        seq = _strings(rng, int(rng.integers(0, 30)))
+        assert p.unique_list(seq) == j.unique_list(seq)
+        for n in (0, 3, 140):
+            assert p.truncate_text_list(seq, n) == j.truncate_text_list(seq, n)
+        for v in (seq, [], None, "s", 0):
+            assert p.clean_empty_list(v) == j.clean_empty_list(v)
+        names = p.unique_list(seq)
+        for name in ("a", "b", "z"):
+            for prefix in ("", "p"):
+                assert p.generate_unique(name, names, prefix) == \
+                    j.generate_unique(name, names, prefix)
+
+
+@pytest.mark.parametrize("batch_support", [False, True])
+def test_parallelizer_matches(batch_support):
+    """Rows or batches through the thread pool, with failing batches logged
+    as error columns and a custom batch parser: the same rows."""
+    from sgpt_tpu.utils import parallelizer as j
+    from sgpt_tpu_torch.utils import parallelizer as p
+
+    rows = [{"i": i, "t": f"text {i}"} for i in range(37)]
+
+    def fn(x):
+        first = x[0] if batch_support else x
+        if first["i"] % 5 == 3:
+            raise KeyError(f"bad {first['i']}")
+        return [r["i"] ** 2 for r in x] if batch_support else x["i"] ** 2
+
+    def parser(batch, response):
+        return [{**r, "sq": v, "sq_error_message": "", "sq_error_type": ""}
+                for r, v in zip(batch, response)]
+
+    outs = []
+    for mod in (p, j):
+        kw = dict(batch_support=batch_support, batch_size=4, parallel_workers=3,
+                  output_column_prefix="sq",
+                  batch_response_parser=parser if batch_support else None)
+        outs.append(mod.DataFrameParallelizer(fn, **kw).run(rows))
+    assert outs[0] == outs[1]
+    assert any(r["sq_error_type"] == "KeyError" for r in outs[0])
+
+
+def test_openai_search_matches():
+    import importlib
+
+    # the packages export the function `openai_search` under the module's name
+    j = importlib.import_module("sgpt_tpu.baselines.openai_search")
+    p = importlib.import_module("sgpt_tpu_torch.baselines.openai_search")
+    rng = np.random.default_rng(22)
+
+    def complete_fn(prompts):
+        out = []
+        for prompt in prompts:
+            cuts = sorted(set(rng.integers(0, len(prompt), 12).tolist()) | {0})
+            out.append({"token_logprobs": rng.normal(-2, 1, len(cuts)).tolist(),
+                        "text_offset": cuts})
+        return out
+
+    for query, docs in (("what is x", ["x is y", "", "a much longer document"]),
+                        ("q", ["d"])):
+        assert p.construct_context(query, docs[0]) == j.construct_context(query, docs[0])
+        choices = complete_fn([p.construct_context(query, d) for d in ["", *docs]])
+        for prompt, c in zip([p.construct_context(query, d) for d in ["", *docs]], choices):
+            assert p.get_score(prompt, query, c["token_logprobs"], c["text_offset"]) == \
+                j.get_score(prompt, query, c["token_logprobs"], c["text_offset"])
+        assert p.openai_search(query, docs, lambda _: choices) == \
+            j.openai_search(query, docs, lambda _: choices)

@@ -8,8 +8,9 @@ searches, a DenseRetriever search, a SearchService search, meshed encodes
 (tp 2, dp 2) and a sharded index search, a
 cross-encoder score (bucketed and packed rows), a training step on a dp × tp
 mesh, a sequence-parallel (ring attention) training step, encode and TSDAE
-step, and `mnrl_loss_dp` run. A scan of the sources finds no import of
-either."""
+step, `mnrl_loss_dp`, the profiling utilities around an encode (a trace
+written) and the OpenAI retriever with a fake client run. A scan of the
+sources finds no import of either."""
 import re
 import subprocess
 import sys
@@ -42,6 +43,18 @@ engine = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cp
 emb = engine.encode(["a short text", "a longer text " * 20, "x"])
 assert emb.shape == (3, 32), emb.shape
 assert abs(float((emb ** 2).sum(1).max()) - 1) < 1e-5
+import os
+import tempfile
+from sgpt_tpu_torch.baselines import OpenAIRetriever
+from sgpt_tpu_torch.utils import ThroughputMeter, Timer, profile_trace
+meter = ThroughputMeter()
+with tempfile.TemporaryDirectory() as d:
+    with profile_trace(d), Timer() as timer, meter.lap(3):
+        engine.encode(["a", "b c", "d"])
+    assert [f for f in os.listdir(d) if f.endswith(".pt.trace.json")], os.listdir(d)
+assert timer.elapsed > 0 and meter.per_second > 0
+fake = OpenAIRetriever(lambda texts, is_query: [[len(t), 1.0] for t in texts])
+assert fake.encode_queries(["ab", "c"]).tolist() == [[2.0, 1.0], [1.0, 1.0]]
 head = [{"w": torch.full((32, 8), 0.1), "activation": "gelu", "location": "post_pool"}]
 stack = EmbeddingEngine(model, cfg, SimpleTokenizer(cfg.vocab_size), device="cpu",
                         method="meanmean", layeridx=1, max_seq_len=64, dense_heads=head

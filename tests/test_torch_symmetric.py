@@ -522,7 +522,16 @@ def test_useb_retriever_matches_jax_cli(tmp_path, monkeypatch, flags):
         assert list(got["detailed"][task]) == list(res), task
 
 
-@pytest.mark.parametrize("flags,match", [(["--download"], "local copy")])
-def test_useb_retriever_refuses_what_is_not_ported(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        useb_retriever.main(useb_retriever.parse_args(["--randominit", *flags]))
+@pytest.mark.parametrize("flags,match", [(["--download"], "zero-egress")])
+def test_useb_retriever_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, match):
+    """`--download` with no `--datapath` folder and no reachable archive
+    (a closed local port) raises the download helper's error, as the JAX
+    CLI does, and leaves no partial file behind."""
+    from sgpt_tpu_torch.baselines import openai_client
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(openai_client, "USEB_DATA_URL", "http://127.0.0.1:9")
+    with pytest.raises(RuntimeError, match=match):
+        useb_retriever.main(useb_retriever.parse_args(
+            ["--randominit", "--datapath", str(tmp_path / "missing"), *flags]))
+    assert os.listdir(tmp_path) == []
