@@ -43,7 +43,7 @@ Phases, each of which asserts; any failure exits non-zero:
                `cuda:0` named twice, bit for bit, K1 = 12 × 2 × batches;
                one encode inside `utils.profiling.Timer` and
                `profile_trace(build/pipeline_trace)`, whose Chrome trace
-               must name K1's kernel
+               must name K1's kernel and the engine's spans
   5. parity  — the same weights in fp32 on the card (kernel) against fp32 on
                the CPU (plain path), and bf16-card against fp32-CPU cosines
   6. mips    — the streaming MIPS top-k kernel (K5) against its plain
@@ -1850,7 +1850,7 @@ def phase_pipeline(torch, sa, model, cfg, tok, texts, docs, card, parent=None) -
     bits. Then depth 2 against depth 1 on a dp=2 mesh of `cuda:0` named
     twice (the chain is 1 on a mesh), and one encode wrapped in
     `utils.profiling.Timer` and `profile_trace`, whose Chrome trace must
-    name K1's kernel."""
+    name K1's kernel and the engine's spans."""
     import importlib.util
     import shutil
     from pathlib import Path
@@ -1858,7 +1858,7 @@ def phase_pipeline(torch, sa, model, cfg, tok, texts, docs, card, parent=None) -
     import sgpt_tpu_torch.encoder as enc_mod
     from sgpt_tpu_torch.encoder import EmbeddingEngine
     from sgpt_tpu_torch.parallel import make_mesh
-    from sgpt_tpu_torch.utils import ThroughputMeter, Timer, profile_trace
+    from sgpt_tpu_torch.utils import Timer, profile_trace
 
     kw = dict(specb=True, max_seq_len=300, batch_size=64, normalize_embeddings=True)
     L = cfg.num_layers
@@ -1968,22 +1968,25 @@ def phase_pipeline(torch, sa, model, cfg, tok, texts, docs, card, parent=None) -
     # the profiling utilities around one encode
     trace_dir = Path(__file__).resolve().parent / "build" / "pipeline_trace"
     shutil.rmtree(trace_dir, ignore_errors=True)
-    meter = ThroughputMeter()
-    with profile_trace(str(trace_dir)), Timer() as timer, meter.lap(len(texts)):
+    with profile_trace(str(trace_dir)), Timer() as timer:
         chained.encode(texts)
+    emb_per_s = len(texts) / timer.elapsed
     traces = sorted(trace_dir.glob("*.pt.trace.json"))
     assert len(traces) == 1, traces
     events = json.loads(traces[0].read_text())["traceEvents"]
     kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     k1_names = sorted(n for n in kernels if any(k in n.lower() for k in K1_KEYS))
+    spans = sorted({e.get("name", "") for e in events
+                    if e.get("cat") == "cpu_op" and e.get("name", "").startswith("engine.")})
     log(f"pipeline profile_trace: {traces[0].name} ({traces[0].stat().st_size} bytes, "
-        f"{len(kernels)} kernel names, K1's: {[n[:60] for n in k1_names]}); Timer "
-        f"{timer.elapsed * 1e3:.2f} ms, ThroughputMeter {meter.per_second:.1f} emb/s under "
-        f"the profiler ({card})")
+        f"{len(kernels)} kernel names, K1's: {[n[:60] for n in k1_names]}, spans {spans}); "
+        f"Timer {timer.elapsed * 1e3:.2f} ms, {emb_per_s:.1f} emb/s under the profiler ({card})")
     assert k1_names, sorted(kernels)[:20]
+    assert spans == ["engine.dispatch", "engine.drain", "engine.pad", "engine.plan",
+                     "engine.tokenize"], spans
     out["trace"] = {"file": traces[0].name, "bytes": traces[0].stat().st_size,
-                    "kernel_names": len(kernels), "k1_names": k1_names,
-                    "timer_ms": timer.elapsed * 1e3, "meter_emb_per_s": meter.per_second}
+                    "kernel_names": len(kernels), "k1_names": k1_names, "spans": spans,
+                    "timer_ms": timer.elapsed * 1e3, "emb_per_s": emb_per_s}
     out["k1_launches"] = sum(v["k1_launches"] for v in out.values()
                              if isinstance(v, dict) and "k1_launches" in v)
     return out

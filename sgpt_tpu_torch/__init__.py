@@ -72,9 +72,10 @@ package so each counterpart is easy to find:
     ce_prompts           CE prompt registry and the BM25 index
     retrieval_bm25
     utils                host utilities: the thread-pool DataFrame map and
-                         text helpers of the baselines, Timer and
-                         ThroughputMeter, profile_trace (torch.profiler's
-                         Chrome trace), the optional wandb logger
+                         text helpers of the baselines, Timer, span (the
+                         program's profiler ranges), profile_trace
+                         (torch.profiler's Chrome trace of every thread),
+                         the optional wandb logger
 
 The package imports torch, and never jax nor anything of the JAX package:
 the host code it shares with `sgpt_tpu` is copied, not imported.

@@ -46,6 +46,7 @@ from .parallel.collectives import copy_rows_to_host, rows_to_device, wait_rows
 from .parallel.mesh import placement
 from .tokenization.base import Tokenizer
 from .tokenization.specb import DEFAULT_BUCKETS, pick_bucket, row_bucket
+from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -189,71 +190,75 @@ class CrossEncoderRanker:
         bucket path."""
         T = self.pack_t
         bins: List[List] = []                      # [used, [(key, inp, inplen, contlen)]]
-        for w0 in range(0, len(keys), self.PACK_FFD_WINDOW):
-            window_bins: List[List] = []
-            for key, (inp, inplen, contlen) in zip(
-                    keys[w0 : w0 + self.PACK_FFD_WINDOW],
-                    rows[w0 : w0 + self.PACK_FFD_WINDOW]):
-                for b in window_bins:
-                    if b[0] + inplen <= T and len(b[1]) < self.PACK_SEG_CAP:
-                        b[0] += inplen
-                        b[1].append((key, inp, inplen, contlen))
-                        break
-                else:
-                    window_bins.append([inplen, [(key, inp, inplen, contlen)]])
-            bins.extend(window_bins)
+        with span("ce.plan"):
+            for w0 in range(0, len(keys), self.PACK_FFD_WINDOW):
+                window_bins: List[List] = []
+                for key, (inp, inplen, contlen) in zip(
+                        keys[w0 : w0 + self.PACK_FFD_WINDOW],
+                        rows[w0 : w0 + self.PACK_FFD_WINDOW]):
+                    for b in window_bins:
+                        if b[0] + inplen <= T and len(b[1]) < self.PACK_SEG_CAP:
+                            b[0] += inplen
+                            b[1].append((key, inp, inplen, contlen))
+                            break
+                    else:
+                        window_bins.append([inplen, [(key, inp, inplen, contlen)]])
+                bins.extend(window_bins)
 
         budget = self.batch_size * self.max_length
         B = self._rows(row_bucket(max(1, budget // T)))
         pending: List[Tuple[List, list]] = []   # (rows, copies of the scores to the host)
 
         def drain():
-            pbins, pout = pending.pop(0)
-            vals = wait_rows(pout).astype(np.float64)
-            for bi, segs in enumerate(pbins):
-                for s, (key, _inp, _il, _cl) in enumerate(segs):
-                    for orig in uniq[key]:
-                        scores[orig] = vals[bi, s]
+            with span("ce.drain"):
+                pbins, pout = pending.pop(0)
+                vals = wait_rows(pout).astype(np.float64)
+                for bi, segs in enumerate(pbins):
+                    for s, (key, _inp, _il, _cl) in enumerate(segs):
+                        for orig in uniq[key]:
+                            scores[orig] = vals[bi, s]
 
         i = 0
         while i < len(bins):
             batch = bins[i : i + min(B, len(bins) - i)]
             i += len(batch)
-            S = pick_bucket(max(len(b[1]) for b in batch),
-                            (2, 4, 8, 16), self.PACK_SEG_CAP)
-            maxcont = max(sum(seg[3] for seg in b[1]) for b in batch)
-            C = pick_bucket(maxcont, (8, 16, 32, 64, 128, 256), T)
-            C = max(C, maxcont)
+            with span("ce.pad"):
+                S = pick_bucket(max(len(b[1]) for b in batch),
+                                (2, 4, 8, 16), self.PACK_SEG_CAP)
+                maxcont = max(sum(seg[3] for seg in b[1]) for b in batch)
+                C = pick_bucket(maxcont, (8, 16, 32, 64, 128, 256), T)
+                C = max(C, maxcont)
 
-            ids = np.zeros((B, T), np.int32)
-            amask = np.zeros((B, T), np.int32)
-            posids = np.zeros((B, T), np.int32)
-            segids = np.full((B, T), -1, np.int32)
-            cpos = np.zeros((B, C), np.int32)
-            ctgt = np.zeros((B, C), np.int32)
-            cmask = np.zeros((B, C), np.float32)
-            cseg = np.zeros((B, C), np.int32)
-            for bi, (_used, segs) in enumerate(batch):
-                off = 0
-                cslot = 0
-                for s, (key, inp, inplen, contlen) in enumerate(segs):
-                    ids[bi, off : off + inplen] = inp
-                    amask[bi, off : off + inplen] = 1
-                    posids[bi, off : off + inplen] = np.arange(inplen)
-                    segids[bi, off : off + inplen] = s
-                    cont_ids = list(key[1])[-contlen:]
-                    cpos[bi, cslot : cslot + contlen] = np.arange(
-                        off + inplen - contlen, off + inplen)
-                    ctgt[bi, cslot : cslot + contlen] = cont_ids
-                    cmask[bi, cslot : cslot + contlen] = 1.0
-                    cseg[bi, cslot : cslot + contlen] = s
-                    cslot += contlen
-                    off += inplen
+                ids = np.zeros((B, T), np.int32)
+                amask = np.zeros((B, T), np.int32)
+                posids = np.zeros((B, T), np.int32)
+                segids = np.full((B, T), -1, np.int32)
+                cpos = np.zeros((B, C), np.int32)
+                ctgt = np.zeros((B, C), np.int32)
+                cmask = np.zeros((B, C), np.float32)
+                cseg = np.zeros((B, C), np.int32)
+                for bi, (_used, segs) in enumerate(batch):
+                    off = 0
+                    cslot = 0
+                    for s, (key, inp, inplen, contlen) in enumerate(segs):
+                        ids[bi, off : off + inplen] = inp
+                        amask[bi, off : off + inplen] = 1
+                        posids[bi, off : off + inplen] = np.arange(inplen)
+                        segids[bi, off : off + inplen] = s
+                        cont_ids = list(key[1])[-contlen:]
+                        cpos[bi, cslot : cslot + contlen] = np.arange(
+                            off + inplen - contlen, off + inplen)
+                        ctgt[bi, cslot : cslot + contlen] = cont_ids
+                        cmask[bi, cslot : cslot + contlen] = 1.0
+                        cseg[bi, cslot : cslot + contlen] = s
+                        cslot += contlen
+                        off += inplen
 
-            self._check_ids(ids, ctgt)
-            out = self._dispatch(continuation_scores_packed,
-                                 (ids, amask, posids, segids, cpos, ctgt, cmask, cseg), S)
-            pending.append(([b[1] for b in batch], copy_rows_to_host(out)))
+            with span("ce.dispatch"):
+                self._check_ids(ids, ctgt)
+                out = self._dispatch(continuation_scores_packed,
+                                     (ids, amask, posids, segids, cpos, ctgt, cmask, cseg), S)
+                pending.append(([b[1] for b in batch], copy_rows_to_host(out)))
             if len(pending) >= FETCH_PIPELINE_DEPTH:
                 drain()
         while pending:
@@ -261,89 +266,98 @@ class CrossEncoderRanker:
 
     def score_pairs(self, pairs: Sequence[Tuple[str, str]]) -> List[float]:
         """pairs: (continuation, context) token-level requests, already prompted."""
-        enc_batch = getattr(self.tokenizer, "encode_batch", None)
-        if enc_batch is not None and pairs:
-            cont_rows = enc_batch([c for c, _ in pairs])
-            ctx_rows = enc_batch([x for _, x in pairs])
-        else:
-            cont_rows = [self.tokenizer.encode(c) for c, _ in pairs]
-            ctx_rows = [self.tokenizer.encode(x) for _, x in pairs]
-        enc = []
-        for (continuation, context), cont, ctx in zip(pairs, cont_rows, ctx_rows):
-            if context == "":
-                ctx = [self.tokenizer.eos_id]
-            if not cont:
-                cont = [self.tokenizer.eos_id]
-            if len(cont) > self.max_length:
-                raise ValueError(
-                    f"continuation has {len(cont)} tokens but max_length is "
-                    f"{self.max_length}")
-            enc.append((ctx, cont))
-
-        # dedupe + length-descending order
-        uniq: Dict[Tuple, List[int]] = {}
-        for i, (ctx, cont) in enumerate(enc):
-            uniq.setdefault((tuple(ctx), tuple(cont)), []).append(i)
-        keys = sorted(uniq, key=lambda kc: -len(kc[0] + kc[1]))
+        with span("ce.tokenize"):
+            enc_batch = getattr(self.tokenizer, "encode_batch", None)
+            if enc_batch is not None and pairs:
+                cont_rows = enc_batch([c for c, _ in pairs])
+                ctx_rows = enc_batch([x for _, x in pairs])
+            else:
+                cont_rows = [self.tokenizer.encode(c) for c, _ in pairs]
+                ctx_rows = [self.tokenizer.encode(x) for _, x in pairs]
+            enc = []
+            for (continuation, context), cont, ctx in zip(pairs, cont_rows, ctx_rows):
+                if context == "":
+                    ctx = [self.tokenizer.eos_id]
+                if not cont:
+                    cont = [self.tokenizer.eos_id]
+                if len(cont) > self.max_length:
+                    raise ValueError(
+                        f"continuation has {len(cont)} tokens but max_length is "
+                        f"{self.max_length}")
+                enc.append((ctx, cont))
 
         scores = np.zeros(len(enc), np.float64)
+        short_keys = []
+        with span("ce.plan"):
+            # dedupe + length-descending order
+            uniq: Dict[Tuple, List[int]] = {}
+            for i, (ctx, cont) in enumerate(enc):
+                uniq.setdefault((tuple(ctx), tuple(cont)), []).append(i)
+            keys = sorted(uniq, key=lambda kc: -len(kc[0] + kc[1]))
+            packed = [self._pack(list(c), list(t)) for c, t in keys]
+            if self.pack_t is not None:
+                # short rows leave the bucket path for the bin-packed path; the
+                # length-descending order survives the partition in both halves
+                half = self.pack_t // 2
+                short = [j for j in range(len(keys)) if packed[j][1] <= half]
+                if short:
+                    short_set = set(short)
+                    long_idx = [j for j in range(len(keys)) if j not in short_set]
+                    short_keys = [keys[j] for j in short]
+                    short_rows = [packed[j] for j in short]
+                    keys = [keys[j] for j in long_idx]
+                    packed = [packed[j] for j in long_idx]
+        if short_keys:
+            self._score_packed(short_keys, short_rows, uniq, scores)
         # token-budget batching: rows per dispatch scale inversely with the
         # length bucket; batch_size is the rows per dispatch at full max_length
         budget = self.batch_size * self.max_length
-        packed = [self._pack(list(c), list(t)) for c, t in keys]
-        if self.pack_t is not None:
-            # short rows leave the bucket path for the bin-packed path; the
-            # length-descending order survives the partition in both halves
-            half = self.pack_t // 2
-            short = [j for j in range(len(keys)) if packed[j][1] <= half]
-            if short:
-                short_set = set(short)
-                long_idx = [j for j in range(len(keys)) if j not in short_set]
-                self._score_packed([keys[j] for j in short],
-                                   [packed[j] for j in short], uniq, scores)
-                keys = [keys[j] for j in long_idx]
-                packed = [packed[j] for j in long_idx]
         pending: List[Tuple[List, list]] = []   # (rows, copies of the scores to the host)
 
         def drain():
-            pbatch, pout = pending.pop(0)
-            vals = wait_rows(pout).astype(np.float64)
-            for bi, key in enumerate(pbatch):
-                for orig in uniq[key]:
-                    scores[orig] = vals[bi]
+            with span("ce.drain"):
+                pbatch, pout = pending.pop(0)
+                vals = wait_rows(pout).astype(np.float64)
+                for bi, key in enumerate(pbatch):
+                    for orig in uniq[key]:
+                        scores[orig] = vals[bi]
 
         i = 0
         while i < len(keys):
             # keys are length-descending: the first row's bucket fits all
-            T = pick_bucket(packed[i][1], DEFAULT_BUCKETS, self.max_length)
-            T = max(T, packed[i][1])
-            B = self._rows(row_bucket(max(1, budget // T), allow_overshoot=T < self.max_length))
-            batch = keys[i : i + min(B, len(keys) - i)]
-            rows = packed[i : i + len(batch)]
-            i += len(batch)
-            # the LM head runs only on these C positions: the (B, T, V)
-            # logits never exist
-            maxcont = max(r[2] for r in rows)
-            C = pick_bucket(maxcont, (8, 16, 32, 64, 128, 256), T)
-            C = max(C, maxcont)
+            with span("ce.pad"):
+                T = pick_bucket(packed[i][1], DEFAULT_BUCKETS, self.max_length)
+                T = max(T, packed[i][1])
+                B = self._rows(row_bucket(max(1, budget // T),
+                                          allow_overshoot=T < self.max_length))
+                batch = keys[i : i + min(B, len(keys) - i)]
+                rows = packed[i : i + len(batch)]
+                i += len(batch)
+                # the LM head runs only on these C positions: the (B, T, V)
+                # logits never exist
+                maxcont = max(r[2] for r in rows)
+                C = pick_bucket(maxcont, (8, 16, 32, 64, 128, 256), T)
+                C = max(C, maxcont)
 
-            ids = np.zeros((B, T), np.int32)
-            cpos = np.zeros((B, C), np.int32)
-            ctgt = np.zeros((B, C), np.int32)
-            cmask = np.zeros((B, C), np.float32)
-            for bi, (inp, inplen, contlen) in enumerate(rows):
-                ids[bi, :inplen] = inp
-                # logits at position t predict token t+1: the continuation
-                # occupies input positions [inplen-contlen, inplen)
-                cpos[bi, :contlen] = np.arange(inplen - contlen, inplen)
-                ctgt[bi, :contlen] = list(batch[bi][1])[-contlen:]
-                cmask[bi, :contlen] = 1.0
-            # causal attention: right padding cannot reach a scored position,
-            # so a full-ones mask is safe
-            amask = np.ones((B, T), np.int32)
-            self._check_ids(ids, ctgt)
-            out = self._dispatch(continuation_scores_gathered, (ids, amask, cpos, ctgt, cmask))
-            pending.append((batch, copy_rows_to_host(out)))
+                ids = np.zeros((B, T), np.int32)
+                cpos = np.zeros((B, C), np.int32)
+                ctgt = np.zeros((B, C), np.int32)
+                cmask = np.zeros((B, C), np.float32)
+                for bi, (inp, inplen, contlen) in enumerate(rows):
+                    ids[bi, :inplen] = inp
+                    # logits at position t predict token t+1: the continuation
+                    # occupies input positions [inplen-contlen, inplen)
+                    cpos[bi, :contlen] = np.arange(inplen - contlen, inplen)
+                    ctgt[bi, :contlen] = list(batch[bi][1])[-contlen:]
+                    cmask[bi, :contlen] = 1.0
+                # causal attention: right padding cannot reach a scored position,
+                # so a full-ones mask is safe
+                amask = np.ones((B, T), np.int32)
+            with span("ce.dispatch"):
+                self._check_ids(ids, ctgt)
+                out = self._dispatch(continuation_scores_gathered,
+                                     (ids, amask, cpos, ctgt, cmask))
+                pending.append((batch, copy_rows_to_host(out)))
             if len(pending) >= FETCH_PIPELINE_DEPTH:
                 drain()
         while pending:

@@ -63,6 +63,7 @@ from .parallel.mesh import placement
 from .parallel.sharding import ShardedDecoder, shard_params
 from .tokenization.base import Tokenizer
 from .tokenization.specb import SpecbCodec, pick_bucket, row_bucket
+from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -270,11 +271,12 @@ class EmbeddingEngine:
         """Fetch the oldest pending entry (its sels, the copies of its
         embeddings to the host) and write each batch's rows: out[sel] =
         emb[:len(sel)]."""
-        sels, copies = pending.pop(0)
-        emb = wait_rows(copies)
-        emb = emb.reshape(len(sels), -1, emb.shape[-1])
-        for sel, e in zip(sels, emb):
-            out[sel] = e[:len(sel)]
+        with span("engine.drain"):
+            sels, copies = pending.pop(0)
+            emb = wait_rows(copies)
+            emb = emb.reshape(len(sels), -1, emb.shape[-1])
+            for sel, e in zip(sels, emb):
+                out[sel] = e[:len(sel)]
 
     def _aux(self, device: torch.device):
         """The dense heads and learnt position weights on `device` (copied
@@ -348,39 +350,44 @@ class EmbeddingEngine:
         if self.text_prefix:
             texts = [self.text_prefix + t for t in texts]
 
-        rows, n_trunc, toks_trunc = self.codec.encode_rows(texts, is_query=is_query)
+        with span("engine.tokenize"):
+            rows, n_trunc, toks_trunc = self.codec.encode_rows(texts, is_query=is_query)
         if n_trunc:
             logger.warning("Truncated %d/%d docs by %d tokens",
                            n_trunc, len(texts), toks_trunc)
-        order = np.argsort([-len(r) for r in rows], kind="stable")
-        out = np.zeros((len(texts), self.out_dim), np.float32)
-        batches = []   # (sel, T, B) in stream order: planned before any dispatch
-        s = 0
-        while s < len(order):
-            T = pick_bucket(max(1, len(rows[order[s]])), self.codec.buckets,
-                            self.codec.max_seq_len)
-            T = max(T, len(rows[order[s]]))
-            B = self._rows_for_bucket(T)
-            batches.append((order[s: s + B], T, B))
-            s += len(batches[-1][0])
-        chain = self.dispatch_chain if self.mesh is None and self.sp_mesh is None else 1
-        sizes = _chain_group_sizes([(B, T) for _, T, B in batches], chain)
+        with span("engine.plan"):
+            order = np.argsort([-len(r) for r in rows], kind="stable")
+            out = np.zeros((len(texts), self.out_dim), np.float32)
+            batches = []   # (sel, T, B) in stream order: planned before any dispatch
+            s = 0
+            while s < len(order):
+                T = pick_bucket(max(1, len(rows[order[s]])), self.codec.buckets,
+                                self.codec.max_seq_len)
+                T = max(T, len(rows[order[s]]))
+                B = self._rows_for_bucket(T)
+                batches.append((order[s: s + B], T, B))
+                s += len(batches[-1][0])
+            chain = self.dispatch_chain if self.mesh is None and self.sp_mesh is None else 1
+            sizes = _chain_group_sizes([(B, T) for _, T, B in batches], chain)
         pending: list = []   # (sels, copies to the host) of dispatches not yet fetched
         group: list = []     # (sel, (B, D) device tensor) of the chain group being filled
         size = 1
         for (sel, T, B), start in zip(batches, sizes):
             size = start or size
-            emb = self._embed(*self._pad_batch(rows, sel, T, B))
-            if size == 1:
-                pending.append(([sel], copy_rows_to_host(emb)))
-            else:
-                group.append((sel, emb[0]))
-                if len(group) < size:
-                    continue
-                with torch.inference_mode():   # the group's (k, B, D), fetched as one
-                    stacked = torch.stack([g[1] for g in group])
-                pending.append(([g[0] for g in group], copy_rows_to_host([stacked])))
-                group = []
+            with span("engine.pad"):
+                ids, mask = self._pad_batch(rows, sel, T, B)
+            with span("engine.dispatch"):
+                emb = self._embed(ids, mask)
+                if size == 1:
+                    pending.append(([sel], copy_rows_to_host(emb)))
+                else:
+                    group.append((sel, emb[0]))
+                    if len(group) < size:
+                        continue
+                    with torch.inference_mode():   # the group's (k, B, D), fetched as one
+                        stacked = torch.stack([g[1] for g in group])
+                    pending.append(([g[0] for g in group], copy_rows_to_host([stacked])))
+                    group = []
             while len(pending) >= FETCH_PIPELINE_DEPTH:
                 self._drain(pending, out)
         while pending:

@@ -32,6 +32,7 @@ from .ops.pooling import normalize
 from .ops.topk import _top_k, blockmax_topk
 from .parallel.mesh import placement
 from .parallel.sharding import RowShards
+from .utils.profiling import span
 
 # dtype names of the saved format (`meta["dtype"]`); mapped by name, since
 # numpy has no bfloat16 without ml_dtypes
@@ -392,22 +393,23 @@ class DenseIndex:
                 "zero hits)")
         if self.live_count == 0:
             return ([np.zeros((0,), np.float32) for _ in q], [[] for _ in q])
-        qd = self._to_device(q, self.dtype)  # queries round to the index dtype
-        if self.normalize:
-            qd = normalize(qd)
-        k = min(k, self.live_count)
-        vals, idx = self._search_built(qd, k)
-        vals = vals.cpu().numpy().astype(np.float32)
-        idx = idx.cpu().numpy()
-        if self._chunks:
-            # docs added after build(): scan the pending slab too and merge
-            # the candidates on the host (stable: built rows first on ties)
-            p_vals, p_idx = self._search_pending(qd, k)
-            vals = np.concatenate([vals, p_vals], axis=1)
-            idx = np.concatenate([idx, p_idx + self._built_count], axis=1)
-            order = np.argsort(-vals, axis=1, kind="stable")[:, :k]
-            vals = np.take_along_axis(vals, order, axis=1)
-            idx = np.take_along_axis(idx, order, axis=1)
+        with span("index.search"):
+            qd = self._to_device(q, self.dtype)  # queries round to the index dtype
+            if self.normalize:
+                qd = normalize(qd)
+            k = min(k, self.live_count)
+            vals, idx = self._search_built(qd, k)
+            vals = vals.cpu().numpy().astype(np.float32)
+            idx = idx.cpu().numpy()
+            if self._chunks:
+                # docs added after build(): scan the pending slab too and merge
+                # the candidates on the host (stable: built rows first on ties)
+                p_vals, p_idx = self._search_pending(qd, k)
+                vals = np.concatenate([vals, p_vals], axis=1)
+                idx = np.concatenate([idx, p_idx + self._built_count], axis=1)
+                order = np.argsort(-vals, axis=1, kind="stable")[:, :k]
+                vals = np.take_along_axis(vals, order, axis=1)
+                idx = np.take_along_axis(idx, order, axis=1)
         # filler slots (masked padding) carry index 0: trim scores and ids together
         finite = vals > -1e29
         ids = [[self._ids[int(i)] for i, ok in zip(row_i, row_f) if ok]

@@ -38,16 +38,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .index import DenseIndex
+from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
 
 class _Request:
-    __slots__ = ("items", "future")
+    __slots__ = ("items", "future", "submitted")
 
     def __init__(self, items):
         self.items = list(items)
         self.future = Future()
+        self.submitted = time.monotonic()
 
 
 class MicroBatcher:
@@ -62,16 +64,29 @@ class MicroBatcher:
     max_wait_ms bounds the added latency for a lone request; max_items bounds
     the coalesced batch (one oversized submission still processes whole — the
     engine token-budget-batches internally).
+
+    Counters (`stats()`), over the dispatches that returned: `dispatches`,
+    `items`, `wait_s` (for each item, the dispatch's start minus the item's
+    submit time: its queue wait, the coalescing window included) and
+    `busy_s` (the time inside `fn`). Under a torch profiler the dispatcher
+    thread records the spans `batcher.<name>.collect` (first request taken
+    to the end of coalescing), `.dispatch` (the `fn` call; args: the
+    dispatch's sequence number and item count, which the spans nested under
+    it share) and `.resolve` (setting the futures).
     """
 
     def __init__(self, fn, *, max_items: int = 1024, max_wait_ms: float = 3.0,
                  name: str = "batcher"):
         self._fn = fn
+        self.name = name
         self.max_items = max_items
         self.max_wait = max_wait_ms / 1000.0
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self.dispatches = 0
         self.items_processed = 0
+        self.wait_s = 0.0
+        self.busy_s = 0.0
+        self._stats_lock = threading.Lock()   # one snapshot of the four counters
         self._closed = False
         self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
         self._thread.start()
@@ -107,38 +122,54 @@ class MicroBatcher:
                     if late is not None:
                         late.future.set_exception(
                             RuntimeError("batcher closed"))
-            batch = [req]
-            n = len(req.items)
-            deadline = time.monotonic() + self.max_wait
-            while n < self.max_items:
-                remaining = deadline - time.monotonic()
-                try:
-                    # budget spent → take only what is already queued
-                    nxt = (self._q.get(timeout=remaining) if remaining > 0
-                           else self._q.get_nowait())
-                except queue.Empty:
-                    break
-                if nxt is None:  # close() while coalescing: flush, then exit
-                    self._q.put(None)
-                    break
-                batch.append(nxt)
-                n += len(nxt.items)
-            all_items: List = []
-            for r in batch:
-                all_items.extend(r.items)
+            with span(f"batcher.{self.name}.collect"):
+                batch = [req]
+                n = len(req.items)
+                deadline = time.monotonic() + self.max_wait
+                while n < self.max_items:
+                    remaining = deadline - time.monotonic()
+                    try:
+                        # budget spent → take only what is already queued
+                        nxt = (self._q.get(timeout=remaining) if remaining > 0
+                               else self._q.get_nowait())
+                    except queue.Empty:
+                        break
+                    if nxt is None:  # close() while coalescing: flush, then exit
+                        self._q.put(None)
+                        break
+                    batch.append(nxt)
+                    n += len(nxt.items)
+                all_items: List = []
+                for r in batch:
+                    all_items.extend(r.items)
+            start = time.monotonic()
             try:
-                results = self._fn(all_items)
+                with span(f"batcher.{self.name}.dispatch", seq=self.dispatches, items=n):
+                    results = self._fn(all_items)
             except Exception as e:  # propagate to every waiter, keep serving
                 logger.exception("micro-batch dispatch failed (%d items)", n)
                 for r in batch:
                     r.future.set_exception(e)
                 continue
-            self.dispatches += 1
-            self.items_processed += n
-            off = 0
-            for r in batch:
-                r.future.set_result(results[off:off + len(r.items)])
-                off += len(r.items)
+            busy = time.monotonic() - start
+            wait = sum((start - r.submitted) * len(r.items) for r in batch)
+            with self._stats_lock:
+                self.dispatches += 1
+                self.items_processed += n
+                self.wait_s += wait
+                self.busy_s += busy
+            with span(f"batcher.{self.name}.resolve"):
+                off = 0
+                for r in batch:
+                    r.future.set_result(results[off:off + len(r.items)])
+                    off += len(r.items)
+
+    def stats(self) -> dict:
+        """{dispatches, items, wait_s, busy_s} over the dispatches that
+        returned, read together."""
+        with self._stats_lock:
+            return {"dispatches": self.dispatches, "items": self.items_processed,
+                    "wait_s": self.wait_s, "busy_s": self.busy_s}
 
     def close(self):
         self._closed = True
@@ -259,14 +290,15 @@ class SearchService:
         before return), as in the JAX service: the index sees few distinct
         query shapes."""
         kmax = max(k for _, k in items)
-        rows = np.stack([np.asarray(e, np.float32) for e, _ in items])
-        n = len(rows)
-        bucket = 1
-        while bucket < n:
-            bucket *= 2
-        if bucket > n:
-            rows = np.concatenate(
-                [rows, np.broadcast_to(rows[:1], (bucket - n, rows.shape[1]))])
+        with span("search.stack"):
+            rows = np.stack([np.asarray(e, np.float32) for e, _ in items])
+            n = len(rows)
+            bucket = 1
+            while bucket < n:
+                bucket *= 2
+            if bucket > n:
+                rows = np.concatenate(
+                    [rows, np.broadcast_to(rows[:1], (bucket - n, rows.shape[1]))])
         with self._lock:
             scores, ids = self.index.search_embeddings(rows, k=kmax)
             self._queries_served += n
@@ -296,7 +328,7 @@ class SearchService:
         q_emb = self.embed(queries, is_query=True)
         rows = self._s_batcher([(e, int(k)) for e in np.asarray(q_emb)])
         out = []
-        with self._lock:
+        with self._lock, span("search.assemble"):
             for row_s, row_i in rows:
                 hits = []
                 for s, i in zip(row_s, row_i):
@@ -344,6 +376,12 @@ class SearchService:
 
     # -- misc ---------------------------------------------------------------
     def stats(self) -> dict:
+        """The index's and the service's counts; `batchers` maps each
+        micro-batcher's name to its `MicroBatcher.stats()`, and
+        `search_dispatches` is the search batcher's dispatch count."""
+        batchers = {b.name: b.stats() for b in (
+            self._q_batcher, self._d_batcher, self._s_batcher, self._r_batcher)
+            if b is not None}
         with self._lock:
             pending = self.index.pending_docs
             return {
@@ -356,6 +394,8 @@ class SearchService:
                 "embed_items": (self._q_batcher.items_processed
                                 + self._d_batcher.items_processed),
                 "out_dim": self.engine.out_dim,
+                "search_dispatches": batchers["search"]["dispatches"],
+                "batchers": batchers,
             }
 
     # -- persistence --------------------------------------------------------

@@ -132,7 +132,10 @@ def _tree(root) -> dict:
 
 
 def test_both_packages_export_the_same_names():
-    assert set(putils.__all__) == set(jutils.__all__)
+    """The port's utils are the JAX package's less `ThroughputMeter` (a rate
+    is items over `Timer.elapsed`) plus `span`, the program's profiler
+    ranges."""
+    assert set(putils.__all__) == set(jutils.__all__) - {"ThroughputMeter"} | {"span"}
     assert set(pbase.__all__) == set(jbase.__all__)
     assert pclient.DEFAULT_BASE_URL == jclient.DEFAULT_BASE_URL
     assert pclient.USEB_DATA_URL == jclient.USEB_DATA_URL
@@ -213,11 +216,6 @@ def test_profiling_utils():
     with putils.Timer(sync=False) as t:
         time.sleep(0.01)
     assert t.elapsed >= 0.01
-    meter = putils.ThroughputMeter()
-    with meter.lap(100):
-        time.sleep(0.01)
-    assert meter.per_second > 0 and meter.items == 100
-    assert putils.ThroughputMeter().per_second == 0.0
 
 
 def test_openai_retriever_fake_client(tmp_path):
