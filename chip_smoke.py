@@ -11,8 +11,10 @@ Phases, each of which asserts; any failure exits non-zero:
                GPT-J's head size 256 (bf16 `mma_kernel<256, …>`, fp32
                `tf32_kernel_wide`) and with BLOOM's real slopes (H 16 and 32,
                Dh 128), unpacked and packed, with key padding and fully
-               masked rows, and at every shape the families' CE dispatches
-               give it (T 128, 512, 1024 and 2048), and GPT-J's packed rows
+               masked rows, and at the CE's unpacked dispatches (the
+               length ladder's T 128, 512, 1024 and 2048, and T 1440, 464
+               and 80 as the ranker's plan cuts the rerank benchmark's
+               rows), and GPT-J's packed rows
                at T=2048 with ALiBi, bf16 and fp32 (fp32 with BLOOM's slopes held to
                an fp64 evaluation where it misses the fp32 gate); times of
                GPT-J's and BLOOM-1b7's encode and packed-CE cells, and of
@@ -2926,8 +2928,9 @@ def phase_ltrain(torch, fa, sa, tok, card):
 
 FAMILY_K1_CASES = [  # name, B, T, H, Dh, window, alibi, rows: GPT-J (Dh 256) and BLOOM
     # rows: "pad" right-padded as the encode pads, "packed" CE segments, "ce"
-    # the CE's unpacked dispatches (the ranker's full-ones key mask) at the
-    # families slice's shapes
+    # the CE's unpacked dispatches (the ranker's full-ones key mask): the
+    # length ladder's shapes, and the (rows, T) of three of the dispatches
+    # `crossencoder.plan_dispatches` makes of the rerank benchmark's rows
     ("gptj-encode", 64, 300, 16, 256, 0, False, "pad"),
     ("gptj-ce-packed", 32, 256, 16, 256, 0, False, "packed"),
     ("gptj-w256", 4, 700, 16, 256, 256, False, "pad"),  # fully masked padded rows
@@ -2935,6 +2938,9 @@ FAMILY_K1_CASES = [  # name, B, T, H, Dh, window, alibi, rows: GPT-J (Dh 256) an
     ("gptj-ce-t1024", 32, 1024, 16, 256, 0, False, "ce"),
     ("gptj-ce-t512", 64, 512, 16, 256, 0, False, "ce"),
     ("gptj-ce-t128", 256, 128, 16, 256, 0, False, "ce"),
+    ("gptj-ce-t1440", 10, 1440, 16, 256, 0, False, "ce"),
+    ("gptj-ce-t464", 21, 464, 16, 256, 0, False, "ce"),
+    ("gptj-ce-t80", 57, 80, 16, 256, 0, False, "ce"),
     ("gptj-packed-t2048-alibi", 4, 2048, 16, 256, 0, True, "packed"),  # every K1 option at 256
     ("bloom1b7-encode", 64, 300, 16, 128, 0, True, "pad"),
     ("bloom1b7-ce-packed", 32, 256, 16, 128, 0, True, "packed"),
@@ -2942,6 +2948,7 @@ FAMILY_K1_CASES = [  # name, B, T, H, Dh, window, alibi, rows: GPT-J (Dh 256) an
     ("bloom1b7-ce-t1024", 32, 1024, 16, 128, 0, True, "ce"),
     ("bloom1b7-ce-t512", 64, 512, 16, 128, 0, True, "ce"),
     ("bloom1b7-ce-t128", 256, 128, 16, 128, 0, True, "ce"),
+    ("bloom1b7-ce-t1440", 10, 1440, 16, 128, 0, True, "ce"),
     ("bloom7b1-encode", 16, 300, 32, 128, 0, True, "pad"),
     ("bloom7b1-w256", 4, 700, 32, 128, 256, True, "packed"),
 ]

@@ -8,14 +8,22 @@ Same behaviour as the JAX rankers:
   * left truncation of (context + continuation) that keeps the instruction
     prefix, raising where the continuation would be cut,
   * request dedup and length-descending order,
-  * token-budget rows (`row_bucket(budget // T)`) over the length buckets,
-    and continuation windows C from `pick_bucket`,
+  * continuation windows C from `pick_bucket`,
   * score = sum of the continuation tokens' log-probs
     (`ops/logprobs.py`), optional vocab subset and few-shot prefix,
   * `pack_t`: requests no longer than pack_t/2 tokens bin-pack several to a
     row (windowed first-fit-decreasing, at most 16 segments a row) with
     per-segment positions and block-diagonal attention, so each segment
     scores as its own row would.
+
+Unlike the JAX rankers, whose dispatches take the length and row ladders
+that bound XLA's compile count, the rows outside the packed path go to the
+card in dispatches planned around them (`plan_dispatches`): the
+length-sorted rows are cut where the padded token slots plus a fixed cost a
+dispatch (`DISPATCH_COST` slots) are least, each dispatch at T = its
+longest row rounded up to a multiple of 16, holding at most batch_size ×
+max_length slots and no pad rows but a mesh's. The scores are the same up to
+the rounding of other GEMM shapes.
 
 The model is the port's `Decoder` on `device` (the card by default). Every
 row is built on the host and copied from pinned memory without a
@@ -45,7 +53,7 @@ from .ops.logprobs import continuation_scores_gathered, continuation_scores_pack
 from .parallel.collectives import copy_rows_to_host, rows_to_device, wait_rows
 from .parallel.mesh import placement
 from .tokenization.base import Tokenizer
-from .tokenization.specb import DEFAULT_BUCKETS, pick_bucket, row_bucket
+from .tokenization.specb import ROW_BUCKETS, pick_bucket, row_bucket
 from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
@@ -57,6 +65,50 @@ PROMPT_G = ('Documents are searched to find matches with the same content.\n'
             'The document "{}" is a good search result for "')
 
 
+def plan_dispatches(lengths: Sequence[int], budget: int, cost: int, cap: int,
+                    row_multiple: int = 1) -> List[Tuple[int, int, int]]:
+    """Cut rows of non-increasing `lengths` (each at most `cap`) into
+    consecutive dispatches [(start, n, T)]: rows start .. start + n - 1 at T
+    = the first (longest) row's length rounded up to a multiple of 16, or
+    `cap`. A dispatch's slots are its rows, rounded up to `row_multiple` (a
+    mesh's dp; the pad rows' scores are dropped), times T; they stay within
+    `budget`, except where even `row_multiple` rows at T exceed it, and its
+    rows within `ROW_BUCKETS[-1]` (512), which bounds the (rows, C, vocab)
+    logits as the row ladder did. The cuts minimise the plan's slots plus
+    `cost` slots a dispatch.
+
+    An exact dynamic programme over the sorted rows: each row relaxes the
+    dispatches it can start, at most budget // T of them, with one numpy
+    update, so the plan costs time linear in the rows."""
+    lens = np.asarray(lengths, np.int64)
+    n = len(lens)
+    if n and (lens[1:] > lens[:-1]).any():
+        raise ValueError("plan_dispatches: lengths must be non-increasing")
+    T = np.minimum(-(-lens // 16) * 16, cap)
+    max_rows = ROW_BUCKETS[-1]
+    rows = np.arange(1, max(max_rows, row_multiple) + 1)
+    padded = -(-rows // row_multiple) * row_multiple
+    best = np.full(n + 1, np.inf)
+    best[0] = 0.0
+    start = np.zeros(n + 1, np.int64)
+    for i in range(n):
+        t = int(T[i])
+        m = min(max_rows, budget // t) // row_multiple * row_multiple or row_multiple
+        m = min(m, n - i)
+        cand = best[i] + padded[:m] * t + cost
+        seg = best[i + 1 : i + 1 + m]
+        better = cand < seg
+        seg[better] = cand[better]
+        start[i + 1 : i + 1 + m][better] = i
+    plan = []
+    j = n
+    while j > 0:
+        i = int(start[j])
+        plan.append((i, j - i, int(T[i])))
+        j = i
+    return plan[::-1]
+
+
 class CrossEncoderRanker:
     """predict([(query, doc), ...]) -> list of log-prob scores."""
 
@@ -66,6 +118,12 @@ class CrossEncoderRanker:
     # over a whole BEIR rerank would be quadratic, and neighbours in the
     # length-sorted order are the natural bin partners anyway
     PACK_FFD_WINDOW = 2048
+    # a dispatch's fixed cost in token slots (its launches, the LM head's
+    # and log-softmax's work, the host's packing of its rows): the bucket
+    # path's plan takes one more dispatch where that saves more padded slots
+    # (1,024 read 2.0 % more pairs a second than 2,048 on an H100 in the
+    # rerank benchmark; PERF.md)
+    DISPATCH_COST = 1024
 
     def __init__(self, model: Decoder, cfg: DecoderConfig, tokenizer: Tokenizer, *,
                  device=None, prompt_doc: str = PROMPT_G, use_prompt: bool = True,
@@ -222,7 +280,7 @@ class CrossEncoderRanker:
         while i < len(bins):
             batch = bins[i : i + min(B, len(bins) - i)]
             i += len(batch)
-            with span("ce.pad"):
+            with span("ce.pad", rows=B, T=T, tokens=sum(b[0] for b in batch)):
                 S = pick_bucket(max(len(b[1]) for b in batch),
                                 (2, 4, 8, 16), self.PACK_SEG_CAP)
                 maxcont = max(sum(seg[3] for seg in b[1]) for b in batch)
@@ -307,11 +365,13 @@ class CrossEncoderRanker:
                     short_rows = [packed[j] for j in short]
                     keys = [keys[j] for j in long_idx]
                     packed = [packed[j] for j in long_idx]
+            # batch_size is the rows per dispatch at full max_length
+            plan = plan_dispatches([r[1] for r in packed],
+                                   self.batch_size * self.max_length, self.DISPATCH_COST,
+                                   self.max_length,
+                                   row_multiple=1 if self.mesh is None else self.mesh.shape["dp"])
         if short_keys:
             self._score_packed(short_keys, short_rows, uniq, scores)
-        # token-budget batching: rows per dispatch scale inversely with the
-        # length bucket; batch_size is the rows per dispatch at full max_length
-        budget = self.batch_size * self.max_length
         pending: List[Tuple[List, list]] = []   # (rows, copies of the scores to the host)
 
         def drain():
@@ -322,17 +382,11 @@ class CrossEncoderRanker:
                     for orig in uniq[key]:
                         scores[orig] = vals[bi]
 
-        i = 0
-        while i < len(keys):
-            # keys are length-descending: the first row's bucket fits all
-            with span("ce.pad"):
-                T = pick_bucket(packed[i][1], DEFAULT_BUCKETS, self.max_length)
-                T = max(T, packed[i][1])
-                B = self._rows(row_bucket(max(1, budget // T),
-                                          allow_overshoot=T < self.max_length))
-                batch = keys[i : i + min(B, len(keys) - i)]
-                rows = packed[i : i + len(batch)]
-                i += len(batch)
+        for i, n, T in plan:
+            batch = keys[i : i + n]
+            rows = packed[i : i + n]
+            B = self._rows(n)
+            with span("ce.pad", rows=B, T=T, tokens=sum(r[1] for r in rows)):
                 # the LM head runs only on these C positions: the (B, T, V)
                 # logits never exist
                 maxcont = max(r[2] for r in rows)

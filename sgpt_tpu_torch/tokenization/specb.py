@@ -58,7 +58,12 @@ def row_bucket(nmax: int, allow_overshoot: bool = True) -> int:
     otherwise down. Callers pass allow_overshoot=False at the CAP length
     bucket: there a round-up would dispatch more activation memory than any
     batch the configured (batch_size, max_seq_len) ever implied — an OOM
-    hazard for configs tuned near the HBM ceiling."""
+    hazard for configs tuned near the HBM ceiling.
+
+    In this package the encoder engine and the cross-encoder's packed path
+    (`pack_t`) take it; the cross-encoder's unpacked rows no longer do: they
+    run eagerly, with no compile count to bound, and their dispatches are
+    planned around the rows (`crossencoder.plan_dispatches`)."""
     lo = None
     for b in ROW_BUCKETS:
         if b >= nmax:

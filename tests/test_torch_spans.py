@@ -120,6 +120,39 @@ def test_engine_and_ce_spans_on_the_calling_thread(model, engine):
         assert names.count("ce.drain") == names.count("ce.dispatch")
 
 
+@pytest.mark.parametrize("pack_t", [None, 64], ids=["buckets", "packed"])
+def test_ce_pad_spans_count_each_dispatch_and_the_real_tokens(model, pack_t, monkeypatch):
+    """Each `ce.pad` names its dispatch's rows, T and real tokens: the rows
+    and T of the forward it feeds, and tokens that sum to the call's input
+    tokens (each distinct pair's row, once)."""
+    made = []
+    real = torch._C._profiler._RecordFunctionFast
+
+    def recording(name, a, kw):
+        made.append((name, kw))
+        return real(name, a, kw)
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", recording)
+    m, cfg = model
+    tok = SimpleTokenizer(cfg.vocab_size)
+    pairs = [("query text", "a document " * n) for n in (1, 3, 20, 40, 3)]
+    ranker = CrossEncoderRanker(m, cfg, tok, device="cpu", max_length=128, batch_size=2,
+                                pack_t=pack_t)
+    shapes = []
+    hook = m.register_forward_pre_hook(lambda mod, a: shapes.append(tuple(a[0].shape)))
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            ranker.predict(pairs)
+    finally:
+        hook.remove()
+    pads = [kw for name, kw in made if name == "ce.pad"]
+    assert [(kw["rows"], kw["T"]) for kw in pads] == shapes
+    want = sum(ranker._pack(tok.encode(ranker.prompt_doc.format(d)), tok.encode(q))[1]
+               for q, d in set(pairs))
+    assert sum(kw["tokens"] for kw in pads) == want
+    assert all(0 < kw["tokens"] <= kw["rows"] * kw["T"] for kw in pads)
+
+
 def test_dispatcher_thread_spans_nest_under_a_profiler_of_every_thread(engine):
     """A service whose dispatcher threads start before the profiler: each
     batcher's collect, dispatch and resolve follow each other on its own
